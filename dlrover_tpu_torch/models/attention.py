@@ -1,8 +1,9 @@
 """Multi-head attention (port of ``dlrover_tpu/models/attention.py``).
 
 ``attention_impl`` picks the math: ``"xla"`` is the plain einsum softmax
-(:func:`xla_attention`), ``"flash"`` the flash-attention forward
-(``ops/flash_attention.mha``: the CUDA kernel on the card).
+(:func:`xla_attention`), ``"flash"`` flash attention
+(``ops/flash_attention.mha``: the CUDA kernels on the card, forward and
+backward, with ``flash_block_q/kv`` passed through as the JAX module does).
 
 Decode mode (``caches`` given) keeps K/V in explicit per-layer tensors
 ``[B, max_seq_len, H_kv, hd]`` that the caller owns; each row's chunk is
@@ -122,8 +123,11 @@ class Attention(nn.Module):
         rope_theta: float = 10000.0,
         use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype = torch.float32,
         attention_impl: str = "xla",
         fused_qkv: bool = True,
+        flash_block_q: int = 1024,
+        flash_block_kv: int = 1024,
         device: DeviceLike = None,
     ):
         super().__init__()
@@ -136,8 +140,11 @@ class Attention(nn.Module):
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.flash_blocks = dict(block_q=flash_block_q,
+                                 block_kv=flash_block_kv)
         self.fused = fused_qkv and num_kv_heads == num_heads
-        dense = dict(use_bias=use_bias, dtype=dtype, device=device)
+        dense = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
+                     device=device)
         if self.fused:
             self.qkv = layers.DenseGeneral(
                 d_model, (num_heads, 3 * head_dim), **dense
@@ -181,12 +188,14 @@ class Attention(nn.Module):
             write_cache(cached_v, v, q_positions[:, 0])
             if self.attention_impl == "flash" and t >= FLASH_PREFILL_MIN:
                 out = fa.mha(
-                    q, k.to(self.dtype), v.to(self.dtype), causal=True
+                    q, k.to(self.dtype), v.to(self.dtype), causal=True,
+                    **self.flash_blocks,
                 )
             else:
                 out = cached_attention(q, cached_k, cached_v, q_positions)
         elif self.attention_impl == "flash":
-            out = fa.mha(q, k, v, causal=True, segment_ids=segment_ids)
+            out = fa.mha(q, k, v, causal=True, segment_ids=segment_ids,
+                         **self.flash_blocks)
         else:
             out = xla_attention(
                 q, k, v, causal=True, segment_ids=segment_ids

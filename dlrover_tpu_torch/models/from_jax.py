@@ -6,7 +6,9 @@ module needs neither JAX nor flax.  Kernel layouts are the same on both
 sides, so the mapping is renaming plus un-stacking the scan-stacked
 leading ``layers`` axis of ``blocks/...`` (``transformer.py:379-391``)
 into ``blocks.<i>....``.  An unknown or missing key, or a shape that does
-not match the config, raises: nothing is numbered by guesswork.
+not match the config, raises: nothing is numbered by guesswork.  Floating
+leaves are cast to the config's ``param_dtype``, the dtype the port's model
+holds them in.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def _flatten(tree: Mapping[str, Any],
 def state_dict_from_jax(
     params_np: Mapping[str, Any], config: TransformerConfig
 ) -> Dict[str, torch.Tensor]:
-    """``{name: fp32 or source-dtype CPU tensor}`` for
+    """``{name: CPU tensor in config.param_dtype}`` for
     ``TransformerLM(config).load_state_dict``."""
     expected = param_shapes(config)
     out: Dict[str, torch.Tensor] = {}
@@ -65,7 +67,10 @@ def state_dict_from_jax(
                     f"{name}: shape {tuple(value.shape)} != expected "
                     f"{expected[name]}"
                 )
-            out[name] = torch.from_numpy(np.array(value, copy=True))
+            tensor = torch.from_numpy(np.array(value, copy=True))
+            if tensor.is_floating_point():
+                tensor = tensor.to(config.param_dtype)
+            out[name] = tensor
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"JAX tree lacks parameters: {missing}")

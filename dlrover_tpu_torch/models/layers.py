@@ -5,12 +5,12 @@ parameter tree maps onto these modules by renaming alone
 (``models/from_jax.py``): a ``DenseGeneral`` kernel is stored
 ``(in..., features...)`` and contracts the trailing input axes.
 
-Weight dtypes: the JAX modules keep fp32 parameters and cast each kernel,
-bias and embedding table to the compute dtype at every use
-(``layers.py:84, 104, 153``).  Holding those tensors in the compute dtype
-from load time gives the same numbers without re-casting the whole model
-on every decode step.  Norm scale and bias stay fp32, as the JAX norms use
-them (``layers.py:184, 230-232``).
+Weight dtypes follow the JAX modules: every parameter is held in
+``param_dtype`` (fp32 by default) and cast to the compute ``dtype`` at
+use (``layers.py:84, 104, 153``); norms take their statistics in fp32
+(``layers.py:184, 230-232``).  The cast is a no-op when the two dtypes are
+equal, which is how serving holds bf16 weights (``param_dtype=bfloat16``)
+without an fp32 copy or a per-step cast.  Parameters are trainable.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ class DenseGeneral(nn.Module):
     """Linear map over the trailing ``len(in_shape)`` axes of ``x``.
 
     ``kernel`` is ``[*in_shape, *features]`` and ``bias`` ``[*features]``,
-    as in the JAX module; the product is one 2-D matmul over the flattened
-    contraction and feature axes.
+    as in the JAX module, both in ``param_dtype``; the product is one 2-D
+    matmul in ``dtype`` over the flattened contraction and feature axes.
     """
 
     def __init__(
@@ -45,6 +45,7 @@ class DenseGeneral(nn.Module):
         *,
         use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
     ):
         super().__init__()
@@ -52,14 +53,12 @@ class DenseGeneral(nn.Module):
         self.features = _tuple(features)
         self.dtype = dtype
         self.kernel = nn.Parameter(
-            torch.empty(self.in_shape + self.features, dtype=dtype,
-                        device=device),
-            requires_grad=False,
+            torch.empty(self.in_shape + self.features, dtype=param_dtype,
+                        device=device)
         )
         self.bias = (
             nn.Parameter(
-                torch.empty(self.features, dtype=dtype, device=device),
-                requires_grad=False,
+                torch.empty(self.features, dtype=param_dtype, device=device)
             )
             if use_bias else None
         )
@@ -72,10 +71,10 @@ class DenseGeneral(nn.Module):
         n_in = len(self.in_shape)
         batch = x.shape[: x.dim() - n_in]
         x2 = x.to(self.dtype).reshape(-1, self.fan_in)
-        out = x2 @ self.kernel.reshape(self.fan_in, -1)
+        out = x2 @ self.kernel.to(self.dtype).reshape(self.fan_in, -1)
         out = out.reshape(*batch, *self.features)
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.bias.to(self.dtype)
         return out
 
 
@@ -89,39 +88,41 @@ class Embed(nn.Module):
         features: int,
         *,
         dtype: torch.dtype = torch.bfloat16,
+        param_dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
     ):
         super().__init__()
         self.dtype = dtype
         self.embedding = nn.Parameter(
-            torch.empty((num_embeddings, features), dtype=dtype,
-                        device=device),
-            requires_grad=False,
+            torch.empty((num_embeddings, features), dtype=param_dtype,
+                        device=device)
         )
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        # Gather, then cast: the rows of the cast table, without casting it.
+        return self.embedding[ids].to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.embedding.t()
+        return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
 
 
 class RMSNorm(nn.Module):
     """Root-mean-square norm: fp32 statistics, result in the input dtype."""
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
+                 param_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None):
         super().__init__()
         self.epsilon = epsilon
         self.scale = nn.Parameter(
-            torch.ones(features, dtype=torch.float32, device=device),
-            requires_grad=False,
+            torch.ones(features, dtype=param_dtype, device=device)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.epsilon)
+        # fp32 y times a param_dtype scale promotes to fp32 in one kernel.
         return (y * self.scale).to(x.dtype)
 
 
@@ -129,17 +130,17 @@ class LayerNorm(nn.Module):
     """GPT-2 layernorm: fp32 statistics, result in the input dtype."""
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
-                 use_bias: bool = True, device: DeviceLike = None):
+                 use_bias: bool = True,
+                 param_dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None):
         super().__init__()
         self.epsilon = epsilon
         self.scale = nn.Parameter(
-            torch.ones(features, dtype=torch.float32, device=device),
-            requires_grad=False,
+            torch.ones(features, dtype=param_dtype, device=device)
         )
         self.bias = (
             nn.Parameter(
-                torch.zeros(features, dtype=torch.float32, device=device),
-                requires_grad=False,
+                torch.zeros(features, dtype=param_dtype, device=device)
             )
             if use_bias else None
         )
@@ -149,18 +150,18 @@ class LayerNorm(nn.Module):
         mean = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mean).square().mean(dim=-1, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
-        y = y * self.scale
+        y = y * self.scale  # promotes to fp32 in the kernel, no cast launch
         if self.bias is not None:
             y = y + self.bias
         return y.to(x.dtype)
 
 
-def make_norm(kind: str, features: int,
-              device: DeviceLike = None) -> nn.Module:
+def make_norm(kind: str, features: int, device: DeviceLike = None,
+              param_dtype: torch.dtype = torch.float32) -> nn.Module:
     if kind == "rmsnorm":
-        return RMSNorm(features, device=device)
+        return RMSNorm(features, param_dtype=param_dtype, device=device)
     if kind == "layernorm":
-        return LayerNorm(features, device=device)
+        return LayerNorm(features, param_dtype=param_dtype, device=device)
     raise ValueError(f"unknown norm kind {kind!r}")
 
 

@@ -6,9 +6,15 @@ stacks its layers under ``nn.scan``; here they are a plain Python loop
 over ``blocks``, and parameter names follow the JAX tree with the stacked
 ``layers`` axis unrolled into ``blocks.<i>`` (``models/from_jax.py``).
 
-Not in this slice: MoE (``num_experts > 0``), pipeline stages, ring
-attention and remat, which are training features; their config values
-raise ``NotImplementedError``.
+Training: parameters are trainable and held in ``param_dtype`` (cast to
+``dtype`` at use), each block runs under its ``remat`` policy
+(``ops/remat_policy.py``: ``none``, ``full`` or ``flash_only``), and
+:meth:`TransformerLM.forward_aux` returns what the JAX model's
+``__call__`` returns, ``(logits or hidden, aux_loss)``.
+
+Not ported yet: MoE (``num_experts > 0``), pipeline stages, ring
+attention and the remat policies other than those three; their config
+values raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.models.attention import Attention, KVCache
+from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 
@@ -43,9 +50,14 @@ class TransformerConfig:
     tie_embeddings: bool = True
     num_experts: int = 0           # MoE: training-side slice, not ported
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
     attention_impl: str = "xla"    # "xla" | "flash"
     fused_qkv: bool = True         # one [d, H, 3*hd] kernel when no GQA
-    remat: str = "none"
+    # JAX's Pallas blocks; here they choose the flash backward kernel
+    # (fused when the kv sequence fits one clamped block_kv, else split).
+    flash_block_q: int = 1024
+    flash_block_kv: int = 1024
+    remat: str = "none"            # ops/remat_policy.py name
     logits_dtype: torch.dtype = torch.float32
     logit_scale: float = 1.0
     pipeline_stages: int = 1
@@ -88,22 +100,19 @@ class TransformerConfig:
             raise NotImplementedError(
                 "pipeline_stages > 1 is a later slice of the port (pipeline)"
             )
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r} is a later slice of the port "
-                "(training)"
-            )
+        remat_policy.validate(self.remat, self.attention_impl)
 
 
 class Mlp(nn.Module):
     def __init__(self, d_model: int, d_ff: int, activation: str,
                  use_bias: bool, dtype: torch.dtype,
-                 device: DeviceLike = None):
+                 param_dtype: torch.dtype, device: DeviceLike = None):
         super().__init__()
         if activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
-        dense = dict(use_bias=use_bias, dtype=dtype, device=device)
+        dense = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
+                     device=device)
         self.wi = layers.DenseGeneral(d_model, d_ff, **dense)
         if activation == "swiglu":
             self.wg = layers.DenseGeneral(d_model, d_ff, **dense)
@@ -122,7 +131,8 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None):
         super().__init__()
-        self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device)
+        self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device,
+                                        cfg.param_dtype)
         self.attn = Attention(
             cfg.d_model,
             cfg.num_heads,
@@ -132,14 +142,18 @@ class Block(nn.Module):
             rope_theta=cfg.rope_theta,
             use_bias=cfg.use_bias,
             dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype,
             attention_impl=cfg.attention_impl,
             fused_qkv=cfg.fused_qkv,
+            flash_block_q=cfg.flash_block_q,
+            flash_block_kv=cfg.flash_block_kv,
             device=device,
         )
-        self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device)
+        self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device,
+                                       cfg.param_dtype)
         self.mlp = Mlp(
             cfg.d_model, cfg.resolved_d_ff, cfg.activation, cfg.use_bias,
-            cfg.dtype, device,
+            cfg.dtype, cfg.param_dtype, device,
         )
 
     def forward(self, x, positions, segment_ids=None, cache=None):
@@ -149,9 +163,10 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """Decoder-only LM: ``forward(tokens) -> logits [B, S, V]`` in
-    ``logits_dtype``.  Parameters are allocated uninitialised on
-    ``device``; load a state dict (:func:`init_params`,
-    ``models.from_jax.state_dict_from_jax``) before use."""
+    ``logits_dtype``; :meth:`forward_aux` for training.  Parameters are
+    allocated uninitialised on ``device``; load a state dict
+    (:func:`init_params`, ``models.from_jax.state_dict_from_jax``) before
+    use."""
 
     def __init__(self, config: TransformerConfig,
                  device: DeviceLike = None):
@@ -160,23 +175,25 @@ class TransformerLM(nn.Module):
         cfg = config
         self.config = cfg
         self.embed = layers.Embed(
-            cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, device=device
+            cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, device=device,
         )
         if cfg.position == "learned":
             self.pos_embedding = nn.Parameter(
-                torch.empty((cfg.max_seq_len, cfg.d_model), dtype=cfg.dtype,
-                            device=device),
-                requires_grad=False,
+                torch.empty((cfg.max_seq_len, cfg.d_model),
+                            dtype=cfg.param_dtype, device=device)
             )
         elif cfg.position != "rope":
             raise ValueError(f"unknown position {cfg.position!r}")
         self.blocks = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers)
         )
-        self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, device)
+        self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, device,
+                                         cfg.param_dtype)
         if not cfg.tie_embeddings:
             self.lm_head = layers.DenseGeneral(
-                cfg.d_model, cfg.vocab_size, dtype=cfg.dtype, device=device
+                cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, device=device,
             )
 
     def hidden(
@@ -188,7 +205,8 @@ class TransformerLM(nn.Module):
     ) -> torch.Tensor:
         """Final-norm hidden states ``[B, S, d]`` (before the head).
         ``caches`` (one ``(k, v)`` pair per layer) is required in decode
-        mode and rejected otherwise."""
+        mode and rejected otherwise.  Under autograd each block runs under
+        the config's remat policy."""
         cfg = self.config
         if (caches is not None) != cfg.decode:
             raise ValueError(
@@ -210,12 +228,13 @@ class TransformerLM(nn.Module):
             )[None, :]
         x = self.embed(tokens)
         if cfg.position == "learned":
-            x = x + self.pos_embedding[positions]
+            x = x + self.pos_embedding[positions].to(cfg.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(
-                x, positions, segment_ids,
-                caches[i] if caches is not None else None,
-            )
+            if caches is not None:
+                x = block(x, positions, segment_ids, caches[i])
+            else:
+                x = remat_policy.run(cfg.remat, block, x, positions,
+                                     segment_ids)
         return self.ln_final(x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -233,6 +252,24 @@ class TransformerLM(nn.Module):
         return self.logits(
             self.hidden(tokens, positions, segment_ids, caches)
         )
+
+    def forward_aux(
+        self,
+        tokens: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        segment_ids: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The JAX model's ``__call__``: ``(logits, aux_loss)``, or with
+        ``return_hidden`` ``(hidden * logit_scale, aux_loss)`` for a caller
+        that computes the head itself (chunked cross entropy).  ``aux_loss``
+        is the fp32 scalar 0 of a dense model."""
+        x = self.hidden(tokens, positions, segment_ids)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_hidden:
+            scale = self.config.logit_scale
+            return (x * scale if scale != 1.0 else x), aux
+        return self.logits(x), aux
 
 
 @torch.no_grad()

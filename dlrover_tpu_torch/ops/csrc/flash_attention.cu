@@ -26,22 +26,11 @@
 // per-row rescale of the online softmax is plain elementwise work.
 // wgmma, TMA and warp specialisation are left for a performance pass.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace flash;
 
 namespace {
-
-constexpr int BLOCK_M = 64;
-constexpr int BLOCK_N = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BLOCK_M / WARPS;  // 16: one wmma row tile
-constexpr float NEG_INF = -1e30f;
 
 // Shared-memory plan.  Leading dimensions are padded (wmma needs a multiple
 // of 8 bf16 / 4 fp32 elements, and every fragment pointer 32-byte aligned,
@@ -62,41 +51,6 @@ struct Smem {
   static constexpr size_t SEG_OFF = ROW_OFF + sizeof(float) * 3 * BLOCK_M;
   static constexpr size_t BYTES = SEG_OFF + sizeof(int) * (BLOCK_M + BLOCK_N);
 };
-
-// Copy rows [row0, row0 + ROWS) of a [rows, D] strided view into a padded
-// shared tile, 16 bytes per thread per step; rows past n_rows are zeroed
-// (a masked score times a garbage value could still give NaN in P V).
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int n_rows, int tid) {
-  constexpr int VEC = D / 8;
-  constexpr int LD = Smem<D>::LD_T;
-  for (int i = tid; i < ROWS * VEC; i += THREADS) {
-    const int r = i / VEC;
-    const int c = (i % VEC) * 8;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + gr * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -134,7 +88,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * k_sb + hk * k_sh;
   const bf16* vb = v + b * v_sb + hk * v_sh;
 
-  load_tile<D, BLOCK_M>(Qs, qb, q_ss, q0, Sq, tid);
+  load_tile<D, BLOCK_M, L::LD_T>(Qs, qb, q_ss, q0, Sq, tid);
   for (int i = tid; i < BLOCK_M * L::LD_O; i += THREADS) Os[i] = 0.f;
   if (tid < BLOCK_M) {
     m_s[tid] = NEG_INF;
@@ -149,8 +103,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(Skv, q0 + BLOCK_M) : Skv;
   for (int n0 = 0; n0 < kv_end; n0 += BLOCK_N) {
     __syncthreads();  // the previous tile's K/V reads are finished
-    load_tile<D, BLOCK_N>(Ks, kb, k_ss, n0, Skv, tid);
-    load_tile<D, BLOCK_N>(Vs, vb, v_ss, n0, Skv, tid);
+    load_tile<D, BLOCK_N, L::LD_T>(Ks, kb, k_ss, n0, Skv, tid);
+    load_tile<D, BLOCK_N, L::LD_T>(Vs, vb, v_ss, n0, Skv, tid);
     if (tid < BLOCK_N) {
       const int gj = n0 + tid;
       segkv_s[tid] = seg_kv ? (gj < Skv ? seg_kv[b * segkv_sb + gj] : -2) : 0;
@@ -265,19 +219,9 @@ int launch(const void* q, const void* k, const void* v, const void* seg_q,
            long long v_ss, long long v_sh, long long segq_sb,
            long long segkv_sb, float scale, int causal, cudaStream_t stream) {
   using L = Smem<D>;
-  // Above 48 KB of dynamic shared memory needs an opt-in, once per device
-  // (kept out of the per-launch path, and so out of CUDA graph capture).
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = opt_in_smem(flash_fwd_kernel<D>, L::BYTES, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(L::BYTES));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) opted_in[dev] = true;
-  }
   dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, Hq, B);
   flash_fwd_kernel<D><<<grid, THREADS, L::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),

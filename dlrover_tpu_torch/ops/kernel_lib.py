@@ -5,8 +5,9 @@ shared library with a plain C interface, loaded through ``ctypes``.  No
 PyTorch headers are involved, so a build takes seconds, not minutes.
 
 Libraries land in ``build/kernels/`` beside the package, named by the
-source and a hash of its bytes and the flags: a changed source builds
-anew, an unchanged one loads.  A build happens at first use (or through
+source and a hash of its bytes, the bytes of every shared header
+(``csrc/*.cuh``) and the flags: a changed source or header builds anew,
+an unchanged one loads.  A build happens at first use (or through
 :func:`build_all`, which starts one ``nvcc`` per source at once).  A
 missing ``nvcc`` or a failed compile raises with the compiler's output.
 """
@@ -61,11 +62,13 @@ def find_nvcc() -> str:
 
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    sha = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{sha.hexdigest()[:16]}.so")
 
 
 def build_all(names: List[str] = None) -> float:

@@ -47,10 +47,10 @@ Pool = Tuple[torch.Tensor, torch.Tensor]
 
 
 def decode_config(config: TransformerConfig) -> TransformerConfig:
-    """The decode-mode twin of a config: same parameters, KV cache on.
-    (The port's configs cannot hold ring attention, remat or pipeline
-    stages, which the JAX twin switches off here.)"""
-    return dataclasses.replace(config, decode=True)
+    """The decode-mode twin of a training config: same parameters, KV
+    cache on, remat off (the port's configs cannot hold ring attention or
+    pipeline stages, which the JAX twin also switches off here)."""
+    return dataclasses.replace(config, decode=True, remat="none")
 
 
 def sample_tokens(

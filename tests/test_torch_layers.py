@@ -51,7 +51,7 @@ def test_dense_general_matches_jax(rng, in_shape, features, axis,
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = _load(tl.DenseGeneral(in_shape, features, use_bias=True,
                                  dtype=torch.float32, device="cpu"), params)
-    got = tmod(torch.as_tensor(x)).numpy()
+    got = tmod(torch.as_tensor(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
@@ -63,13 +63,13 @@ def test_embed_lookup_and_attend_match_jax(rng):
     tmod = _load(tl.Embed(50, 16, dtype=torch.float32, device="cpu"), params)
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(ids)))
     np.testing.assert_allclose(
-        tmod(torch.as_tensor(ids)).numpy(), want, atol=ATOL, rtol=0
+        tmod(torch.as_tensor(ids)).detach().numpy(), want, atol=ATOL, rtol=0
     )
     want_logits = np.asarray(jmod.apply(
         {"params": params}, jnp.asarray(h), method=jl.Embed.attend
     ))
     np.testing.assert_allclose(
-        tmod.attend(torch.as_tensor(h)).numpy(), want_logits,
+        tmod.attend(torch.as_tensor(h)).detach().numpy(), want_logits,
         atol=ATOL, rtol=0,
     )
 
@@ -83,7 +83,7 @@ def test_norms_match_jax(rng, kind):
               for k, v in params.items()}
     want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = _load(tl.make_norm(kind, 32, "cpu"), params)
-    got = tmod(torch.as_tensor(x)).numpy()
+    got = tmod(torch.as_tensor(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 

@@ -72,7 +72,7 @@ def _logits(kw, tokens, dtype="fp32", segment_ids=None, **extra):
         segment_ids=None if segment_ids is None else torch.as_tensor(
             segment_ids),
     )
-    return got.float().numpy(), np.asarray(want, np.float32)
+    return got.detach().float().numpy(), np.asarray(want, np.float32)
 
 
 @pytest.mark.parametrize(
@@ -152,9 +152,13 @@ def test_init_params_is_seeded_and_scaled():
     for k in a:
         torch.testing.assert_close(a[k], b[k], atol=0, rtol=0)
     assert not torch.equal(a["embed.embedding"], c["embed.embedding"])
-    # bf16 matmul weights, fp32 norms.
-    assert a["blocks.0.attn.qkv.kernel"].dtype == torch.bfloat16
+    # Every parameter in param_dtype: fp32 by default, as in JAX.
+    assert a["blocks.0.attn.qkv.kernel"].dtype == torch.float32
     assert a["blocks.0.ln_attn.scale"].dtype == torch.float32
+    bf16 = init_params(dataclasses.replace(cfg, param_dtype=torch.bfloat16),
+                       seed=3, device="cpu")
+    assert bf16["blocks.0.attn.qkv.kernel"].dtype == torch.bfloat16
+    assert bf16["blocks.0.ln_attn.scale"].dtype == torch.bfloat16
     std = a["blocks.0.mlp.wi.kernel"].float().std().item()
     assert abs(std - 64 ** -0.5) < 0.1 * 64 ** -0.5
     assert abs(a["embed.embedding"].float().std().item() - 0.02) < 2e-3
@@ -171,7 +175,7 @@ def test_learned_positions_reject_overlong_input():
 @pytest.mark.parametrize(
     "field,value",
     [("num_experts", 4), ("pipeline_stages", 2),
-     ("attention_impl", "ring"), ("remat", "full")],
+     ("attention_impl", "ring"), ("remat", "offload")],
 )
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="later slice"):
