@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, serving and training, at the full width
-and depth of GPT-2 1.5B with random weights from a seed, and holds every
-CUDA kernel of those paths against its plain PyTorch version.  Imports
-nothing of JAX or of the JAX package.  Phases, each one JSON line on
-stdout:
+Drives the port's main paths, serving, training and mixture-of-experts
+training, at the full width and depth of GPT-2 1.5B (and of its MoE
+variant) with random weights from a seed, and holds every CUDA kernel of
+those paths against its plain PyTorch version.  Imports nothing of JAX or
+of the JAX package.  Phases, each one JSON line on stdout:
 
 1. ``device``  the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   nvcc builds every kernel under ``dlrover_tpu_torch/ops/csrc``
@@ -43,6 +43,23 @@ stdout:
                its own plain version; the yardstick is the backward of
                ``F.scaled_dot_product_attention`` through
                ``torch.autograd.grad`` (eager, back-to-back).
+4b. ``gmm_kernel_checks``  the grouped-matmul kernels K8 (forward, and
+               dx with w read transposed) and K9 (dw) on every grouped
+               product of one MoE layer routed by a real gate (uneven
+               groups, one expert empty, padding rows at the tail): the
+               MoE step's shape (16 x 1024 tokens, top-2 of 8 experts,
+               d_model 1600, d_ff 3200: 33,792 rows), a small ragged one
+               with the last expert empty, and a swiglu one; against
+               ``grouped_matmul_reference`` / ``grouped_matmul_dw_reference``
+               in fp32 from the same bf16 inputs, each output row within
+               ``GMM_ROW_TOL`` of its largest |ref| and the tensor within
+               ``GMM_NORM_TOL``, padding rows and empty experts exactly 0;
+               three planted faults (a row block times the wrong expert,
+               the last K tile skipped, one expert's dw zeroed) must each
+               fail the check.  Kernel, plain and ``torch._grouped_mm``
+               (yardstick only) times at the MoE step's shape.  Then ``moe_sync_check``:
+               one ``MoEMlp`` forward and backward at full width under
+               ``torch.cuda.set_sync_debug_mode("error")``.
 5. ``dispatch``  host microseconds per flash forward under ``no_grad``
                at the S=16 and S=512 prefill shapes, through the custom
                op against the bare kernel call, and the op's first call.
@@ -83,10 +100,28 @@ stdout:
                the same check must fail on the planted backward faults of
                ``PARITY_FAULTS``.
 
+12. ``train_moe``  ``build_train`` on ``bench.py``'s MoE entry with the
+               dropless grouped dispatch (``moe_config``: 48 layers, 8
+               experts, top-2, expert d_ff 3200, about 4.5B parameters),
+               batch 16 x 1024, Adafactor, 2 warm-up then 3 measured
+               steps: finite, falling loss, finite aux loss > 0, and per
+               step 48 flash forwards, 48 fused backwards, 288 K8 and 96
+               K9 launches and no split kernel.  Step time, tokens/s,
+               MFU/HFU by ``bench.py``'s activated-FLOP rule, peak memory
+               (also split before and inside the optimizer update), and
+               one profiled step.
+13. ``train_moe_parity``  4 layers, batch 4: one step through K8/K9
+               against the plain grouped matmuls swapped in, within the
+               ``MOE_PARITY_*`` limits, with the kernel leg's own rerun
+               as the noise floor; two planted faults (one expert's dw
+               dropped, one expert's dx halved) must fail the same check.
+               Every leg replays the kernel leg's top-k choices, so a
+               rounding difference cannot reroute a token between legs.
+
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, train and train_split paths, each driven with the
-counts set to 0 just before it and read just after), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.  Any failed check
+runs of the serve, train, train_split and train_moe paths, each driven
+with the counts set to 0 just before it and read just after), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result.  Without a GPU,
 or without the package beside it, it exits non-zero before any phase.
 """
@@ -123,8 +158,20 @@ LOGIT_ATOL = 0.1
 # the limits are about 2.5x that.  Planted faults (``planted_faults``)
 # read 0.49 and more by row.
 BWD_ROW_TOL, BWD_NORM_TOL, BWD_ROW_FLOOR = 0.02, 0.006, 1e-3
+# Grouped-matmul kernels (K8, K9; see ``gmm_errors``): the worst row's
+# error over that row's scale and the tensor's norm-relative error.
+# Sound kernels read at most 0.0039 (row) and 0.0017 (norm) over every
+# product of the three cases on an H100: the bf16 rounding of the output
+# (half an ulp, 2^-9 of the row's largest value); the limits are about 3x
+# that.  The planted faults (``_gmm_planted_faults``) read 0.27 and more
+# by row, 0.088 and more by norm.
+GMM_ROW_TOL, GMM_NORM_TOL, GMM_ROW_FLOOR = 0.012, 0.005, 1e-3
 SLOTS = 8
 TRAIN_BATCH, TRAIN_SEQ = 16, 1024     # bench.py:35-36
+# bench.py's MoE entry (MOE_* constants, bench.py:367-376): 8 experts,
+# top-2, capacity 1.25, expert d_ff = the dense 6400 // top_k.
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY, MOE_D_FF = 8, 2, 1.25, 3200
+GMM_BLOCK = 128                       # MoEMlp.gmm_block_rows
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 TRAIN_LR = 1e-4                       # bench.py:383
 SPLIT_LAYERS, SPLIT_BLOCK_KV = 4, 512
@@ -140,6 +187,18 @@ PARITY_MIN_COSINE, PARITY_PARAM_RTOL = 0.99985, 0.03
 # share of the diagonal tiles' contribution lost).
 PARITY_FAULTS = [("late_diagonal_dropped", TRAIN_SEQ // 128, 1.0),
                  ("every_diagonal_halved", 0, 0.5)]
+MOE_TRAIN_STEPS = 3
+# K8/K9 against their plain versions over one 4-layer MoE step (the flash
+# kernels in both legs, every leg routed as the kernel leg was).  Sound
+# kernels read (H100): loss gap 4.3e-5, grad-norm gap 7.7e-5, lowest
+# cosine 0.999979 and worst per-parameter error 0.0065, both in the last
+# layer's ``moe.wi``; the kernel leg's rerun reads 0.9999968 and 0.0026.
+# The limits are about 3x the readings.  The planted faults read cosines
+# of 0.437 and 0.949 and errors of 0.90 and 0.45.
+MOE_PARITY_LOSS_ATOL, MOE_PARITY_NORM_RTOL = 1.5e-4, 2.5e-4
+MOE_PARITY_MIN_COSINE, MOE_PARITY_PARAM_RTOL = 0.99993, 0.02
+MOE_PARITY_FAULTS = ("expert_dw_dropped", "expert_dx_halved")
+MOE_PARITY_FAULT_EXPERT = 0
 # (prompt length, max_new_tokens): every bucket 16..512, one prompt > 256.
 SERVE_REQUESTS = [
     (5, 16), (16, 24), (12, 64), (20, 32), (32, 40), (40, 16), (64, 48),
@@ -527,6 +586,293 @@ def check_bwd_case(c, gen):
     return out
 
 
+# -- grouped matmul kernel checks (K8, K9) ------------------------------------
+
+GMM_CASES = [
+    # The MoE step's shape: 16 x 1024 tokens, top-2 of 8 experts, d_model
+    # 1600, expert d_ff 3200 (33,792 rows); expert 5 gets no token, the
+    # last expert owns the padding rows at the tail.
+    dict(case="slice", tokens=TRAIN_BATCH * TRAIN_SEQ, d=1600, f=3200,
+         activation="gelu", empty=5, timed=True, plant=True),
+    # Ragged widths (not multiples of the 32-wide reduction step or the
+    # 128-wide tiles) and an empty last expert, whose dw must stay 0 though
+    # the padding rows are its.
+    dict(case="ragged_small", tokens=200, d=40, f=72, activation="gelu",
+         empty=MOE_EXPERTS - 1),
+    # swiglu: three grouped products in each direction.
+    dict(case="swiglu", tokens=2048, d=1600, f=3200, activation="swiglu",
+         empty=2),
+]
+GMM_SLICE_CASE = "slice"
+GMM_PRODUCTS = tuple(f"{kind}_{w}" for kind in ("fwd", "dx", "dw")
+                     for w in ("wi", "wg", "wo"))
+
+
+def moe_layer(d, f, activation, gen, param_dtype=torch.bfloat16):
+    """A grouped-dispatch ``MoEMlp`` on the card with weights drawn as
+    ``init_params`` draws them (router N(0, 1/d), experts N(0, 1/(E in)))."""
+    from dlrover_tpu_torch.models import layers
+    from dlrover_tpu_torch.models.moe import MoEMlp
+
+    layer = MoEMlp(d, MOE_EXPERTS, f, top_k=MOE_TOP_K,
+                   capacity_factor=MOE_CAPACITY, activation=activation,
+                   dtype=torch.bfloat16, param_dtype=param_dtype,
+                   dispatch="grouped", device="cuda")
+    layers.normal_(layer.router.kernel, d ** -0.5, gen)
+    for p in layer.expert_params():
+        layers.normal_(p, (p.shape[0] * p.shape[1]) ** -0.5, gen)
+    return layer
+
+
+def gmm_errors(g, r):
+    """Errors of a grouped-matmul output ``g`` against its fp32 reference
+    ``r``, a row being one vector along the last axis: ``row`` the worst
+    row's largest error over that row's scale (its max |ref| plus
+    ``GMM_ROW_FLOOR`` of the tensor's), ``norm`` ``||g - r|| / ||r||``."""
+    r2 = r.reshape(-1, r.shape[-1])
+    diff = g.float().reshape(r2.shape) - r2
+    err = diff.abs().amax(-1)
+    row_max = r2.abs().amax(-1)
+    scale = row_max + GMM_ROW_FLOOR * row_max.max()
+    return dict(
+        row=float((err / scale.clamp_min(1e-30)).max()),
+        norm=float(torch.linalg.vector_norm(diff)
+                   / torch.linalg.vector_norm(r2).clamp_min(1e-30)),
+        max_abs=float(err.max()), finite=bool(torch.isfinite(g).all()))
+
+
+def gmm_ok(e) -> bool:
+    return (e["row"] <= GMM_ROW_TOL and e["norm"] <= GMM_NORM_TOL
+            and e["finite"] and e.get("exact_zeros", True))
+
+
+def _gmm_products(activation, rows, h, g, dh, dg, dout, layer):
+    """The grouped products of one MoE layer's forward and backward, as
+    ``name -> (kind, a, b)``: kind ``fwd`` (K8, b = w), ``dx`` (K8 against
+    w transposed) or ``dw`` (K9, b = dy)."""
+    wi, wo = layer.wi.detach(), layer.wo.detach()
+    act = (torch.nn.functional.silu(g) * h if g is not None
+           else torch.nn.functional.gelu(h, approximate="tanh"))
+    out = {"fwd_wi": ("fwd", rows, wi), "fwd_wo": ("fwd", act, wo),
+           "dx_wi": ("dx", dh, wi), "dx_wo": ("dx", dout, wo),
+           "dw_wi": ("dw", rows, dh), "dw_wo": ("dw", act, dout)}
+    if activation == "swiglu":
+        wg = layer.wg.detach()
+        out.update({"fwd_wg": ("fwd", rows, wg), "dx_wg": ("dx", dg, wg),
+                    "dw_wg": ("dw", rows, dg)})
+    return out
+
+
+def _gmm_bound(kind, a, b, rows_used):
+    """Least time for one product: each operand read once and the output
+    written once; FLOPs over every row the function multiplies (K8: all
+    N rows, the tail padding rows included, as it defines out for them;
+    K9: the rows of the experts that own rows)."""
+    n, red = a.shape
+    if kind == "dw":
+        m = b.shape[1]
+        nbytes = 2.0 * (rows_used * (red + m) + MOE_EXPERTS * red * m)
+        flops = 2.0 * rows_used * red * m
+    else:
+        cols = b.shape[1] if kind == "dx" else b.shape[2]
+        nbytes = 2.0 * (n * red + b.numel() + n * cols) + 4 * MOE_EXPERTS
+        flops = 2.0 * n * red * cols
+    return bound(nbytes, flops) + (nbytes, flops)
+
+
+def _library_gmm(kind, a, b, gs):
+    """The yardstick for one product, timed and never called by the port:
+    ``torch._grouped_mm`` over the groups' end offsets (it leaves the
+    tail padding rows out)."""
+    ends = torch.cumsum(gs, 0).to(torch.int32)
+    if kind == "dw":
+        return lambda: torch._grouped_mm(a.t(), b, offs=ends)
+    bb = b.transpose(1, 2) if kind == "dx" else b
+    return lambda: torch._grouped_mm(a, bb, offs=ends)
+
+
+def check_gmm_case(c, gen):
+    """K8 and K9 on every grouped product of one MoE layer, routed by a
+    real gate, against the plain versions in fp32 from the same bf16
+    inputs."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    d, f = c["d"], c["f"]
+    layer = moe_layer(d, f, c["activation"], gen)
+    x = torch.randn((c["tokens"], d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    # Uneven loads from a bias on the router logits; one expert shut out.
+    bias = torch.linspace(-1.0, 1.0, MOE_EXPERTS, device="cuda")
+    bias[c["empty"]] = -1e4
+    with torch.no_grad():
+        logits = layer.router(x.float()) + bias
+        routing = layer.route(x, logits)
+        rows, gs = routing.rows, routing.group_sizes
+        h = gm.gmm_fwd(rows, layer.wi.detach(), gs)
+        g = (gm.gmm_fwd(rows, layer.wg.detach(), gs)
+             if layer.wg is not None else None)
+    sizes = [int(v) for v in gs.tolist()]
+    n = rows.shape[0]
+    ranges = gm._row_ranges(gs, n)
+    zero_rows = rows.abs().amax(-1) == 0   # padding: output exactly 0
+    rows_used = sum(t - s for (s, t), size in zip(ranges, sizes) if size)
+
+    def rand(cols):
+        return torch.randn((n, cols), generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    products = _gmm_products(c["activation"], rows, h, g, rand(f),
+                             rand(f) if g is not None else None, rand(d),
+                             layer)
+    out = dict(case=c["case"], tokens=c["tokens"], d=d, f=f, rows=n,
+               activation=c["activation"], group_sizes=sizes,
+               padding_rows=int(zero_rows.sum()), rows_used_by_k9=rows_used)
+    ok = True
+    results = {}
+    for name, (kind, a, b) in products.items():
+        if kind == "dw":
+            got = gm.gmm_dw(a, b, gs)
+            ref = gm.grouped_matmul_dw_reference(a.float(), b.float(), gs)
+        else:
+            got = gm.gmm_fwd(a, b, gs, transpose_w=kind == "dx")
+            ref = gm.grouped_matmul_reference(a.float(), b.float(), gs,
+                                              transpose_w=kind == "dx")
+        torch.cuda.synchronize()
+        e = gmm_errors(got, ref)
+        if kind == "dw":
+            e["exact_zeros"] = all(bool((got[i] == 0).all())
+                                   for i, size in enumerate(sizes)
+                                   if size == 0)
+        elif kind == "fwd":
+            e["exact_zeros"] = bool((got[zero_rows] == 0).all())
+        out[name] = e
+        ok = ok and gmm_ok(e)
+        results[name] = (got, ref)
+    out["max_abs_err"] = max(out[p]["max_abs"] for p in products)
+
+    if c.get("plant"):
+        out["planted_faults"] = _gmm_planted_faults(products, results, gs,
+                                                    sizes, ranges)
+        ok = ok and all(v["caught"] for v in out["planted_faults"].values())
+    del results
+    out["ok"] = ok
+
+    if c.get("timed"):
+        timed = {}
+        for name, (kind, a, b) in products.items():
+            if kind == "dw":
+                def kernel(a=a, b=b):
+                    gm.gmm_dw(a, b, gs)
+
+                def plain(a=a, b=b):
+                    gm.grouped_matmul_dw_reference(a, b, gs)
+            else:
+                def kernel(a=a, b=b, kind=kind):
+                    gm.gmm_fwd(a, b, gs, transpose_w=kind == "dx")
+
+                def plain(a=a, b=b, kind=kind):
+                    gm.grouped_matmul_reference(a, b, gs,
+                                                transpose_w=kind == "dx")
+            library = _library_gmm(kind, a, b, gs)
+            b_ms, b_by, nbytes, flops = _gmm_bound(kind, a, b, rows_used)
+            ms = device_ms(kernel)
+            timed[name] = dict(
+                ms=ms, eager_ms=eager_ms(kernel),
+                # The plain versions read the group sizes back to the host
+                # (no graph capture): eager, back to back.
+                plain_ms=eager_ms(plain, iters=3, warmup=1),
+                library_ms=device_ms(library),
+                library_eager_ms=eager_ms(library),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                tflops=flops / ms / 1e9)
+        out["timed"] = timed
+    del layer, products
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gmm_planted_faults(products, results, gs, sizes, ranges):
+    """The check applied to planted faults, each of which must fail it: one
+    row block of the largest expert multiplied by another expert's
+    weights, the last 32-wide reduction step (the kernel's K tile)
+    skipped, and the largest expert's dw zeroed."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    big = max(range(len(sizes)), key=lambda i: sizes[i])
+    other = next(i for i in range(len(sizes)) if i != big and sizes[i])
+    faults = {}
+    _, a, w = products["fwd_wi"]
+    got, ref = results["fwd_wi"]
+    s = ranges[big][0]
+    blk = slice(s, s + GMM_BLOCK)
+    wrong = got.clone()
+    wrong[blk] = (a[blk].float() @ w[other].float()).to(got.dtype)
+    a_last = torch.zeros_like(a)
+    a_last[:, -32:] = a[:, -32:]
+    skipped = (got.float() - gm.grouped_matmul_reference(
+        a_last.float(), w.float(), gs)).to(got.dtype)
+    dw, dw_ref = results["dw_wi"]
+    zeroed = dw.clone()
+    zeroed[big] = 0
+    for name, g, r in (("wrong_expert_block", wrong, ref),
+                       ("last_k_tile_skipped", skipped, ref),
+                       ("expert_dw_zeroed", zeroed, dw_ref)):
+        e = gmm_errors(g, r)
+        faults[name] = dict(row=e["row"], norm=e["norm"],
+                            caught=not gmm_ok(e))
+    return faults
+
+
+def moe_sync_check(gen):
+    """One ``MoEMlp`` forward and backward at full width (d 1600, 8
+    experts of d_ff 3200, 4 x 1024 tokens) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the grouped dispatch and
+    the kernels' wrappers must not make the host wait for the card."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    layer = moe_layer(1600, MOE_D_FF, "gelu", gen)
+    x = torch.randn((4, 1024, 1600), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+
+    def run():
+        out, aux = layer(x)
+        (out.float().square().mean() + aux).backward()
+
+    run()  # first call: the op's registration and the library load
+    torch.cuda.synchronize()
+    before = dict(gm.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {k: gm.LAUNCHES[k] - before[k] for k in before}
+    want = {"gmm_fwd": 4, "gmm_dw": 2}
+    res = {"phase": "moe_sync_check", "sync_debug_mode": "error",
+           "tokens": 4 * 1024, "launches": got, "launches_wanted": want,
+           "router_grad_nonzero": bool(layer.router.kernel.grad.abs().max()
+                                       > 0)}
+    emit(res)
+    if got != want or not res["router_grad_nonzero"]:
+        raise AssertionError(f"MoE sync check: {res}")
+    del layer, x
+    torch.cuda.empty_cache()
+
+
+def gmm_kernel_checks(gen):
+    cases = [check_gmm_case(c, gen) for c in GMM_CASES]
+    emit({"phase": "gmm_kernel_checks",
+          "tolerance": {"row": GMM_ROW_TOL, "norm": GMM_NORM_TOL,
+                        "row_floor": GMM_ROW_FLOOR},
+          "cases": cases})
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"grouped matmul kernels disagree on {bad}")
+    moe_sync_check(gen)
+    return cases
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Host microseconds per call of ``iters`` back-to-back calls, not
     waiting for the card: what a launch costs the host."""
@@ -616,18 +962,18 @@ def recompute_flops_per_token(cfg, remat: str, seq: int) -> float:
 
 def _counts():
     from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
 
-    return {"flash_fwd": fa.mha.launches,
-            "flash_bwd_fused": fa.flash_bwd_fused.launches,
-            "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    return {**fa.LAUNCHES, **gm.LAUNCHES}
 
 
 def _zero_counts():
     from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
 
-    for fn in (fa.mha, fa.flash_bwd_fused, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        fn.launches = 0
+    for launches in (fa.LAUNCHES, gm.LAUNCHES):
+        for name in launches:
+            launches[name] = 0
 
 
 def _train_batch(vocab: int, batch: int):
@@ -638,9 +984,10 @@ def _train_batch(vocab: int, batch: int):
             "targets": torch.as_tensor(tokens[:, 1:], device="cuda")}
 
 
-def _train_steps(train, state, batch, steps, want_per_step):
+def _train_steps(train, state, batch, steps, want_per_step, aux_out=None):
     """Run ``steps`` steps, each asserted to launch ``want_per_step``;
-    returns the state, per-step losses and synchronised seconds."""
+    returns the state, per-step losses and synchronised seconds (and
+    appends each step's ``aux_loss`` to ``aux_out`` when given)."""
     losses, seconds = [], []
     for i in range(steps):
         before = _counts()
@@ -658,6 +1005,8 @@ def _train_steps(train, state, batch, steps, want_per_step):
         if not np.isfinite(loss):
             raise AssertionError(f"step {i}: non-finite loss {loss}")
         losses.append(loss)
+        if aux_out is not None:
+            aux_out.append(float(metrics["aux_loss"]))
     return state, losses, seconds
 
 
@@ -681,7 +1030,8 @@ def train_and_check():
     setup_s = time.perf_counter() - t0
     per_step = {"flash_fwd": cfg.num_layers,
                 "flash_bwd_fused": cfg.num_layers,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "gmm_fwd": 0, "gmm_dw": 0}
 
     # -- the main path, counted ----------------------------------------------
     _zero_counts()
@@ -740,7 +1090,8 @@ def train_split_and_check():
     state = train.init(seed=0)
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
     per_step = {"flash_fwd": SPLIT_LAYERS, "flash_bwd_fused": 0,
-                "flash_bwd_dq": SPLIT_LAYERS, "flash_bwd_dkv": SPLIT_LAYERS}
+                "flash_bwd_dq": SPLIT_LAYERS, "flash_bwd_dkv": SPLIT_LAYERS,
+                "gmm_fwd": 0, "gmm_dw": 0}
     _zero_counts()
     state, losses, seconds = _train_steps(train, state, batch, 2, per_step)
     counts = _counts()
@@ -898,6 +1249,352 @@ def train_parity():
         raise AssertionError(f"train parity failed: {out}")
     del model
     torch.cuda.empty_cache()
+
+
+# -- MoE training ---------------------------------------------------------------
+
+
+def moe_config(**overrides):
+    """``bench.py``'s MoE entry on the port (bench.py:367-376) with the
+    dropless grouped dispatch in place of its einsum."""
+    from dlrover_tpu_torch.models import gpt2_config
+
+    return gpt2_config(
+        "1.5b", attention_impl="flash", remat="flash_only",
+        param_dtype=torch.bfloat16, num_experts=MOE_EXPERTS,
+        top_k=MOE_TOP_K, capacity_factor=MOE_CAPACITY, d_ff=MOE_D_FF,
+        moe_dispatch="grouped", **overrides)
+
+
+def _moe_per_step(cfg):
+    """Launches per MoE step under ``flash_only``: per layer the flash
+    forward once (saved) and the fused backward once; K8 for each of the
+    two expert products (gelu: wi, wo) in the forward, again in the
+    recompute and once for dx; K9 once per product."""
+    n_layers, products = cfg.num_layers, 3 if cfg.activation == "swiglu" else 2
+    return {"flash_fwd": n_layers, "flash_bwd_fused": n_layers,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "gmm_fwd": 3 * products * n_layers,
+            "gmm_dw": products * n_layers}
+
+
+def _memory_split(train, state, batch):
+    """One step with the peak read twice: up to the optimizer update
+    (forward, backward, the stacked gradients) and inside it."""
+    update = train.optimizer.update
+    marks = {}
+
+    def spy(grads, opt_state, params):
+        marks["forward_backward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = update(grads, opt_state, params)
+        marks["update_peak_bytes"] = torch.cuda.max_memory_allocated()
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train.optimizer = train.optimizer._replace(update=spy)
+    try:
+        state, _ = train.step(state, batch)
+    finally:
+        train.optimizer = train.optimizer._replace(update=update)
+    torch.cuda.synchronize()
+    return state, marks
+
+
+def train_moe_and_check():
+    """The MoE training path at full width and depth; returns its counts."""
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = moe_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, ce_chunks=0,
+        device="cuda",
+    )
+    state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    per_step = _moe_per_step(cfg)
+
+    # -- the main path, counted ----------------------------------------------
+    _zero_counts()
+    aux = []
+    state, warm_losses, warm_s = _train_steps(train, state, batch,
+                                              TRAIN_WARMUP, per_step, aux)
+    state, losses, seconds = _train_steps(train, state, batch,
+                                          MOE_TRAIN_STEPS, per_step, aux)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    allocator = {k: torch.cuda.memory_stats()[k] for k in (
+        "num_alloc_retries", "num_device_alloc", "num_device_free")}
+    allocator["max_memory_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    all_losses = warm_losses + losses
+    if not all_losses[-1] < all_losses[0]:
+        raise AssertionError(f"MoE loss did not fall: {all_losses}")
+    if not all(np.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"MoE aux loss not finite and > 0: {aux}")
+
+    step_s = statistics.median(seconds)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens_per_s = tokens / step_s
+    # bench.py:418-426: MoE FLOPs counted at the activated dense shape
+    # (top_k experts of d_ff each per token; the router and the padding
+    # rows of the grouped products are not counted).
+    flops_cfg = dataclasses.replace(cfg, num_experts=0,
+                                    d_ff=cfg.resolved_d_ff * cfg.top_k)
+    ftok = flops_per_token(flops_cfg, TRAIN_SEQ)
+    ftok_hw = ftok + recompute_flops_per_token(flops_cfg, "flash_only",
+                                               TRAIN_SEQ)
+    choices = tokens * cfg.top_k
+    n_pad = ((choices + GMM_BLOCK - 1) // GMM_BLOCK + cfg.num_experts) * \
+        GMM_BLOCK
+    state, memory = _memory_split(train, state, batch)
+    prof = _profile(lambda: train.step(state, batch), top=16)
+    busy = prof.get("device_busy_ms")
+    emit({
+        "phase": "train_moe",
+        "model": "gpt2-1.5b MoE (48 layers, d_model 1600, 25 heads x 64, "
+                 "vocab 50304, 8 experts top-2 of d_ff 3200, grouped "
+                 "dispatch, bf16 params and compute, random weights seed 0)",
+        "params": n_params, "remat": cfg.remat,
+        "optimizer": "adafactor lr 1e-4, clip 1.0",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "ce_chunks": 0,
+        "losses": all_losses, "aux_losses": aux, "warmup_step_s": warm_s,
+        "step_s": seconds, "step_s_median": step_s,
+        "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * ftok / PEAK_BF16_FLOPS,
+        "hfu": tokens_per_s * ftok_hw / PEAK_BF16_FLOPS,
+        "model_flops_per_token": ftok, "hardware_flops_per_token": ftok_hw,
+        "grouped_rows": n_pad, "token_choices": choices,
+        "padding_row_share_not_counted": (n_pad - choices) / n_pad,
+        "launches": counts, "launches_per_step": per_step,
+        "peak_memory_allocated_bytes": peak,
+        "resident_after_setup_bytes": resident, **memory,
+        "allocator": allocator,
+        "setup_s": setup_s, "profiled_step": prof,
+        "device_busy_share_of_median_step": (
+            busy / (step_s * 1e3) if isinstance(busy, float) else
+            "not measured"),
+    })
+    del state, train, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def _gmm_swapped(fwd=None, dw=None):
+    """Swap the grouped-matmul wrappers that the MoE op calls (module
+    globals) while the block runs."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    kernel_fwd, kernel_dw = gm.gmm_fwd, gm.gmm_dw
+    gm.gmm_fwd, gm.gmm_dw = fwd or kernel_fwd, dw or kernel_dw
+    try:
+        yield kernel_fwd, kernel_dw
+    finally:
+        gm.gmm_fwd, gm.gmm_dw = kernel_fwd, kernel_dw
+
+
+def _gmm_reference_fns():
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    def fwd(x, w, group_sizes, block_rows=GMM_BLOCK, transpose_w=False):
+        return gm.grouped_matmul_reference(x, w, group_sizes, transpose_w)
+
+    def dw(x, dy, group_sizes, block_rows=GMM_BLOCK):
+        return gm.grouped_matmul_dw_reference(x, dy, group_sizes)
+
+    return fwd, dw
+
+
+def _gmm_fault_fns(name, kernel_fwd, kernel_dw):
+    """A planted fault in the kernels' results: expert
+    ``MOE_PARITY_FAULT_EXPERT``'s dw dropped, or its rows of every dx
+    halved."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    e = MOE_PARITY_FAULT_EXPERT
+    if name == "expert_dw_dropped":
+        def dw(x, dy, group_sizes, block_rows=GMM_BLOCK):
+            out = kernel_dw(x, dy, group_sizes, block_rows)
+            out[e] = 0
+            return out
+
+        return None, dw
+
+    def fwd(x, w, group_sizes, block_rows=GMM_BLOCK, transpose_w=False):
+        out = kernel_fwd(x, w, group_sizes, block_rows, transpose_w)
+        if transpose_w:
+            s, t = gm._row_ranges(group_sizes, out.shape[0])[e]
+            out[s:t] *= 0.5
+        return out
+
+    return fwd, None
+
+
+@contextlib.contextmanager
+def _routing_recorded(record):
+    """Append every top-k index tensor the MoE gate computes to
+    ``record`` while the block runs."""
+    from dlrover_tpu_torch.models import moe
+
+    kernel_gate = moe.gate
+
+    def recording_gate(logits, k):
+        out = kernel_gate(logits, k)
+        record.append(out[1].detach())
+        return out
+
+    moe.gate = recording_gate
+    try:
+        yield
+    finally:
+        moe.gate = kernel_gate
+
+
+@contextlib.contextmanager
+def _routing_replayed(record):
+    """Make the MoE gate choose, call by call, the experts of ``record``
+    (filled by ``_routing_recorded`` on a run of the same step) while the
+    block runs; the gate values and the aux loss are computed as
+    ``moe.gate`` computes them, from this call's logits at those choices.
+    A rounding difference upstream then cannot move a choice to another
+    expert, so two legs differ only by their products."""
+    from dlrover_tpu_torch.models import moe
+
+    kernel_gate = moe.gate
+    calls = iter(record)
+
+    def replaying_gate(logits, k):
+        gate_idx = next(calls)
+        e = logits.shape[-1]
+        probs = torch.softmax(logits.float(), dim=-1)
+        gate_vals = probs.gather(-1, gate_idx)
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                            min=1e-9)
+        density = moe._one_hot(gate_idx[..., 0], e).mean(dim=(0, 1))
+        aux_loss = (density * probs.mean(dim=(0, 1))).sum() * (e ** 2) / k
+        return gate_vals, gate_idx, aux_loss
+
+    moe.gate = replaying_gate
+    try:
+        yield
+    finally:
+        moe.gate = kernel_gate
+    if next(calls, None) is not None:
+        raise AssertionError("the replayed step made fewer gate calls than "
+                             "the recorded one")
+
+
+def train_moe_parity():
+    """One MoE step's loss and gradients through K8/K9 against the same
+    model with the plain grouped matmuls swapped in (the flash kernels
+    run in both legs), and the same check on two planted faults.  Every
+    leg after the first routes as the first did (``_routing_replayed``),
+    so the gaps measure the grouped products alone."""
+    from dlrover_tpu_torch.models import init_params
+    from dlrover_tpu_torch.models.transformer import TransformerLM
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = moe_config(num_layers=PARITY_LAYERS)
+    model = TransformerLM(cfg, device="cuda")
+    model.load_state_dict(init_params(cfg, seed=0, device="cuda"))
+    batch = _train_batch(cfg.vocab_size, PARITY_BATCH)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        logits, aux = model.forward_aux(batch["inputs"])
+        loss, _ = train_lib.cross_entropy_loss(logits, batch["targets"])
+        (loss + aux).backward()
+        return loss.item(), {n: p.grad.float().clone()
+                             for n, p in model.named_parameters()}
+
+    before = _counts()
+    route = []
+    with _routing_recorded(route):
+        k_loss, k_grads = loss_and_grads()
+    after = _counts()
+    want = _moe_per_step(cfg)
+    got = {k: after[k] - before[k] for k in after}
+    if got != want:
+        raise AssertionError(f"MoE parity kernel leg launched {got}, want "
+                             f"{want}")
+    # The gate runs in each layer's forward, then in its recompute (last
+    # layer first): choices the recompute routed elsewhere, per layer.
+    layers = cfg.num_layers
+    recompute_moved = [int((f != r).sum()) for f, r in
+                       zip(route[:layers], route[layers:][::-1])]
+    ref_fwd, ref_dw = _gmm_reference_fns()
+    with _gmm_swapped(ref_fwd, ref_dw), _routing_replayed(route):
+        r_loss, r_grads = loss_and_grads()
+    end = _counts()
+    if (end["gmm_fwd"], end["gmm_dw"]) != (after["gmm_fwd"],
+                                           after["gmm_dw"]):
+        raise AssertionError("the reference leg launched a grouped kernel")
+    moe_names = [n for n in r_grads if ".moe." in n]
+    dead = [n for n in moe_names if float(r_grads[n].abs().max()) == 0]
+    if dead or not moe_names:
+        raise AssertionError(f"MoE parameters without gradient: {dead}")
+    gap = _grad_gap(k_grads, r_grads)
+    # The noise floor: the kernel leg again (the atomic order of the
+    # combine's index_add and of the fused flash dq differs run to run).
+    with _routing_replayed(route):
+        k2_loss, k2_grads = loss_and_grads()
+    rerun = _grad_gap(k2_grads, k_grads)
+    del k2_grads
+    out = {
+        "phase": "train_moe_parity", "layers": PARITY_LAYERS,
+        "batch": PARITY_BATCH, "seq": TRAIN_SEQ,
+        "loss_kernel": k_loss, "loss_reference": r_loss,
+        "loss_abs_diff": abs(k_loss - r_loss), **gap,
+        "moe_params_compared": len(moe_names),
+        "token_choices_per_layer": PARITY_BATCH * TRAIN_SEQ * cfg.top_k,
+        "routing": "every leg replays the kernel leg's top-k choices",
+        "kernel_leg_recompute_choices_moved_by_layer": recompute_moved,
+        "kernel_rerun": {"loss_abs_diff": abs(k2_loss - k_loss),
+                         **{k_: rerun[k_] for k_ in (
+                             "grad_norm_rel_diff", "min_grad_cosine",
+                             "min_grad_cosine_param", "max_grad_rel_err",
+                             "max_grad_rel_err_param")}},
+        "limits": {"loss_atol": MOE_PARITY_LOSS_ATOL,
+                   "grad_norm_rtol": MOE_PARITY_NORM_RTOL,
+                   "min_grad_cosine": MOE_PARITY_MIN_COSINE,
+                   "max_grad_rel_err": MOE_PARITY_PARAM_RTOL},
+    }
+    out["ok"] = _moe_parity_ok(out["loss_abs_diff"], gap)
+    faults = {}
+    for name in MOE_PARITY_FAULTS:
+        with _gmm_swapped() as (kernel_fwd, kernel_dw):
+            fwd, dw = _gmm_fault_fns(name, kernel_fwd, kernel_dw)
+            with _gmm_swapped(fwd, dw), _routing_replayed(route):
+                f_loss, f_grads = loss_and_grads()
+        f_gap = _grad_gap(f_grads, r_grads)
+        faults[name] = {k_: f_gap[k_] for k_ in (
+            "grad_norm_rel_diff", "min_grad_cosine", "min_grad_cosine_param",
+            "max_grad_rel_err", "max_grad_rel_err_param")}
+        faults[name]["caught"] = not _moe_parity_ok(abs(f_loss - r_loss),
+                                                    f_gap)
+        del f_grads
+    out["planted_faults"] = faults
+    emit(out)
+    if not out["ok"] or not all(f["caught"] for f in faults.values()):
+        raise AssertionError(f"MoE train parity failed: {out}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _moe_parity_ok(loss_diff, gap) -> bool:
+    return (loss_diff <= MOE_PARITY_LOSS_ATOL
+            and gap["grad_norm_rel_diff"] <= MOE_PARITY_NORM_RTOL
+            and gap["min_grad_cosine"] >= MOE_PARITY_MIN_COSINE
+            and gap["max_grad_rel_err"] <= MOE_PARITY_PARAM_RTOL)
 
 
 # -- serving --------------------------------------------------------------------
@@ -1082,9 +1779,9 @@ def serve_and_check():
     prompt = requests[8].prompt  # greedy, 100 tokens -> bucket 128
     padded, n = pad_to_bucket(prompt, programs.buckets)
     padded = torch.as_tensor(padded[None], device="cuda")
-    before = fa.mha.launches
+    before = fa.LAUNCHES["flash_fwd"]
     row, kernel_logits = programs.prefill_logits(model, padded, n)
-    if fa.mha.launches != before + cfg.num_layers:
+    if fa.LAUNCHES["flash_fwd"] != before + cfg.num_layers:
         raise AssertionError("parity prefill did not run the kernel")
     with _attention_through_reference():
         _, ref_logits = programs.prefill_logits(model, padded, n)
@@ -1177,10 +1874,14 @@ def main() -> int:
     if bad:
         raise AssertionError(f"flash backward kernels disagree on {bad}")
 
+    gmm_cases = gmm_kernel_checks(gen)
+
     mha_dispatch()
     paths = {"serve": serve_and_check(), "train": train_and_check(),
              "train_split": train_split_and_check()}
     train_parity()
+    paths["train_moe"] = train_moe_and_check()
+    train_moe_parity()
 
     def launches(name):
         return sum(p[name] for p in paths.values())
@@ -1189,7 +1890,7 @@ def main() -> int:
         return {path: p[name] for path, p in paths.items()}
 
     for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
-                 "flash_bwd_dkv"):
+                 "flash_bwd_dkv", "gmm_fwd", "gmm_dw"):
         if launches(name) == 0:
             raise AssertionError(f"{name} was never launched on a path")
 
@@ -1229,6 +1930,28 @@ def main() -> int:
             # library call computes dq or (dk, dv) alone.
             library_ms=case["library_ms"] if key == "fused" else None,
             sdpa_whole_backward_ms=case["library_ms"], shape=shape(case),
+        ))
+    gmm = next(c for c in gmm_cases if c["case"] == GMM_SLICE_CASE)
+    for name, replaces, product, kinds in (
+            ("gmm_fwd", 31, "fwd_wi", ("fwd", "dx")),
+            ("gmm_dw", 90, "dw_wi", ("dw",))):
+        t = gmm["timed"][product]
+        entries.append(dict(
+            name=name, route="cuda", source=src + "grouped_matmul.cu",
+            replaces=f"dlrover_tpu/ops/grouped_matmul.py:{replaces}",
+            launches=launches(name), launches_by_path=by_path(name),
+            max_abs_err=max(c[p]["max_abs"] for c in gmm_cases
+                            for p in GMM_PRODUCTS
+                            if p in c and p.split("_")[0] in kinds),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library="torch._grouped_mm (CUDA-graph replay)",
+            shape={"product": product, "rows": gmm["rows"], "d": gmm["d"],
+                   "f": gmm["f"], "experts": MOE_EXPERTS,
+                   "group_sizes": gmm["group_sizes"]},
+            products={p: {k: v[k] for k in ("ms", "bound_ms", "library_ms",
+                                            "library_eager_ms")}
+                      for p, v in gmm["timed"].items()},
         ))
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -5,7 +5,9 @@ unbox`` of ``init(...)["params"]``) as nested dicts of numpy arrays; this
 module needs neither JAX nor flax.  Kernel layouts are the same on both
 sides, so the mapping is renaming plus un-stacking the scan-stacked
 leading ``layers`` axis of ``blocks/...`` (``transformer.py:379-391``)
-into ``blocks.<i>....``.  An unknown or missing key, or a shape that does
+into ``blocks.<i>....`` (an MoE block's ``moe/router/kernel`` ``[L, d,
+E]`` and ``moe/wi``, ``moe/wo``, ``moe/wg`` ``[L, E, ., .]`` included).
+An unknown or missing key, or a shape that does
 not match the config, raises: nothing is numbered by guesswork.  Floating
 leaves are cast to the config's ``param_dtype``, the dtype the port's model
 holds them in.

@@ -1,5 +1,5 @@
-"""Llama-2 family presets (port of ``dlrover_tpu/models/llama.py``; the
-MoE variant belongs to the MoE slice)."""
+"""Llama-2 family presets, plus a Mixtral-style MoE variant (port of
+``dlrover_tpu/models/llama.py``)."""
 
 from __future__ import annotations
 
@@ -34,3 +34,9 @@ def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
     )
     defaults.update(overrides)
     return TransformerConfig(**defaults)
+
+
+def moe_llama_config(size: str = "tiny", num_experts: int = 8,
+                     **overrides) -> TransformerConfig:
+    """Mixtral-style sparse variant of a llama config (swiglu experts)."""
+    return llama_config(size, num_experts=num_experts, **overrides)

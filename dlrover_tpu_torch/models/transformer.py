@@ -10,11 +10,15 @@ Training: parameters are trainable and held in ``param_dtype`` (cast to
 ``dtype`` at use), each block runs under its ``remat`` policy
 (``ops/remat_policy.py``: ``none``, ``full`` or ``flash_only``), and
 :meth:`TransformerLM.forward_aux` returns what the JAX model's
-``__call__`` returns, ``(logits or hidden, aux_loss)``.
+``__call__`` returns, ``(logits or hidden, aux_loss)``: the blocks' MoE
+aux losses summed and scaled by ``moe_aux_weight`` (0 for a dense model).
 
-Not ported yet: MoE (``num_experts > 0``), pipeline stages, ring
-attention and the remat policies other than those three; their config
-values raise ``NotImplementedError``.
+With ``num_experts > 0`` each block's MLP is a :class:`~dlrover_tpu_torch.
+models.moe.MoEMlp` named ``moe``, as in the JAX ``Block``.
+
+Not ported yet: pipeline stages, ring attention and the remat policies
+other than those three; their config values raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.models.attention import Attention, KVCache
+from dlrover_tpu_torch.models.moe import MoEMlp
 from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
@@ -48,7 +53,13 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     use_bias: bool = True          # GPT-2 uses biases, Llama does not
     tie_embeddings: bool = True
-    num_experts: int = 0           # MoE: training-side slice, not ported
+    # MoE
+    num_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_dispatch: str = "einsum"   # "einsum" | "a2a" | "a2a_int8" (run as
+                                   # einsum: no expert axis) | "grouped"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "xla"    # "xla" | "flash"
@@ -91,10 +102,6 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_impl must be 'xla' or 'flash', got "
                 f"{self.attention_impl!r}"
-            )
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "num_experts > 0 (MoE) is a later slice of the port"
             )
         if self.pipeline_stages > 1:
             raise NotImplementedError(
@@ -151,14 +158,29 @@ class Block(nn.Module):
         )
         self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device,
                                        cfg.param_dtype)
-        self.mlp = Mlp(
-            cfg.d_model, cfg.resolved_d_ff, cfg.activation, cfg.use_bias,
-            cfg.dtype, cfg.param_dtype, device,
-        )
+        if cfg.num_experts:
+            self.moe = MoEMlp(
+                cfg.d_model, cfg.num_experts, cfg.resolved_d_ff,
+                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                activation=cfg.activation, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, dispatch=cfg.moe_dispatch,
+                device=device,
+            )
+        else:
+            self.mlp = Mlp(
+                cfg.d_model, cfg.resolved_d_ff, cfg.activation, cfg.use_bias,
+                cfg.dtype, cfg.param_dtype, device,
+            )
 
     def forward(self, x, positions, segment_ids=None, cache=None):
+        """``(x, aux)``: the block's output and its MoE aux loss (None for
+        a dense block)."""
         x = x + self.attn(self.ln_attn(x), positions, segment_ids, cache)
-        return x + self.mlp(self.ln_mlp(x))
+        y = self.ln_mlp(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(y)
+            return x + y, aux
+        return x + self.mlp(y), None
 
 
 class TransformerLM(nn.Module):
@@ -207,6 +229,12 @@ class TransformerLM(nn.Module):
         ``caches`` (one ``(k, v)`` pair per layer) is required in decode
         mode and rejected otherwise.  Under autograd each block runs under
         the config's remat policy."""
+        return self._hidden_aux(tokens, positions, segment_ids, caches)[0]
+
+    def _hidden_aux(self, tokens, positions=None, segment_ids=None,
+                    caches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`hidden` and the blocks' summed aux loss (fp32, unscaled;
+        0 for a dense model)."""
         cfg = self.config
         if (caches is not None) != cfg.decode:
             raise ValueError(
@@ -229,13 +257,19 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens)
         if cfg.position == "learned":
             x = x + self.pos_embedding[positions].to(cfg.dtype)
+        aux = None
         for i, block in enumerate(self.blocks):
             if caches is not None:
-                x = block(x, positions, segment_ids, caches[i])
+                x, layer_aux = block(x, positions, segment_ids, caches[i])
             else:
-                x = remat_policy.run(cfg.remat, block, x, positions,
-                                     segment_ids)
-        return self.ln_final(x)
+                # The (x, aux) pair goes through the checkpoint together.
+                x, layer_aux = remat_policy.run(cfg.remat, block, x,
+                                                positions, segment_ids)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.ln_final(x), aux
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Head over hidden states, in ``logits_dtype``."""
@@ -263,9 +297,10 @@ class TransformerLM(nn.Module):
         """The JAX model's ``__call__``: ``(logits, aux_loss)``, or with
         ``return_hidden`` ``(hidden * logit_scale, aux_loss)`` for a caller
         that computes the head itself (chunked cross entropy).  ``aux_loss``
-        is the fp32 scalar 0 of a dense model."""
-        x = self.hidden(tokens, positions, segment_ids)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        is the fp32 sum of the MoE blocks' aux losses times
+        ``moe_aux_weight``, 0 for a dense model."""
+        x, aux = self._hidden_aux(tokens, positions, segment_ids)
+        aux = aux * self.config.moe_aux_weight
         if return_hidden:
             scale = self.config.logit_scale
             return (x * scale if scale != 1.0 else x), aux
@@ -279,7 +314,9 @@ def init_params(
     """A random state dict for ``TransformerLM(config)`` drawn from a
     ``torch.Generator`` seeded with ``seed``: dense kernels N(0, 1/fan_in),
     embeddings N(0, 0.02^2), biases 0, norm scales 1.  Same shapes and
-    scales as the JAX init, not its bits."""
+    scales as the JAX init, not its bits.  An MoE expert kernel ``[E, in,
+    out]`` has fan-in ``E * in``: flax's ``lecun_normal`` counts the
+    leading expert axis as a receptive field."""
     device = resolve_device(device)
     model = TransformerLM(config, device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -290,6 +327,9 @@ def init_params(
                 module.bias.zero_()
         elif isinstance(module, layers.Embed):
             layers.normal_(module.embedding, 0.02, gen)
+        elif isinstance(module, MoEMlp):
+            for p in module.expert_params():
+                layers.normal_(p, (p.shape[0] * p.shape[1]) ** -0.5, gen)
     if config.position == "learned":
         layers.normal_(model.pos_embedding, 0.02, gen)
     return model.state_dict()

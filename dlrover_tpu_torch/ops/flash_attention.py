@@ -37,6 +37,14 @@ from dlrover_tpu_torch.ops import kernel_lib
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
+#: Kernel launches of the forward (K1, :func:`flash_fwd`) and of each
+#: backward wrapper (K3, K2a, K2b); a run sets them to 0 and reads them back
+#: to show its path went through the kernels.  A dict, not attributes of
+#: the wrappers, so a check that swaps a wrapper out still counts the
+#: kernel it calls (``ops/grouped_matmul.LAUNCHES`` likewise).
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+
 
 def mha_reference(
     q: torch.Tensor,
@@ -262,7 +270,7 @@ def flash_fwd(
     differentiable: :func:`mha` is.
 
     CPU tensors take :func:`mha_reference`; CUDA tensors launch the
-    kernel (counted in ``mha.launches``) or raise.
+    kernel (counted in ``LAUNCHES["flash_fwd"]``) or raise.
     """
     if (seg_q is None) != (seg_kv is None):
         raise ValueError("seg_q and seg_kv must be given together")
@@ -294,7 +302,7 @@ def flash_fwd(
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
-    mha.launches += 1
+    LAUNCHES["flash_fwd"] += 1
     return o, lse
 
 
@@ -343,7 +351,7 @@ def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     bf16 (the order of those atomic adds varies from run to run, so dq is
     not bitwise reproducible; dk and dv are).  ``delta = rowsum(o * do)``
     is computed in the kernel from ``o`` and the ``do`` tile, as the JAX
-    kernel does.  Launch counted in ``flash_bwd_fused.launches``."""
+    kernel does.  Launch counted in ``LAUNCHES["flash_bwd_fused"]``."""
     b, sq, hq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
     dq_acc = torch.zeros((b, sq, hq, d), dtype=torch.float32,
@@ -352,7 +360,7 @@ def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_fused", q, k, v, o, lse, do, seg_q, seg_kv,
                 dq_acc, dk, dv, causal, scale)
-    flash_bwd_fused.launches += 1
+    LAUNCHES["flash_bwd_fused"] += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -361,14 +369,14 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     """K2a counterpart: one block per (b, q head, 64-row q tile) loops over
     the kv tiles it can see and accumulates ``dq += ds k`` in fp32
     registers; ``delta`` is computed once per block from ``o`` and ``do``.
-    Launch counted in ``flash_bwd_dq.launches``; its plain version is
+    Launch counted in ``LAUNCHES["flash_bwd_dq"]``; its plain version is
     :func:`mha_backward_dq_reference`."""
     d = q.shape[3]
     scale = d ** -0.5 if scale is None else float(scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("flash_bwd_dq", q, k, v, o, lse, do, seg_q, seg_kv,
                 dq, None, None, causal, scale)
-    flash_bwd_dq.launches += 1
+    LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
@@ -379,7 +387,7 @@ def flash_bwd_dkv(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     causal, from the diagonal on), accumulating ``dv += p^T do`` and
     ``dk += ds^T q`` in fp32 registers; ``delta`` is computed per q tile
     from ``o`` and ``do``.  GQA sums over the group inside the block.
-    Launch counted in ``flash_bwd_dkv.launches``; its plain version is
+    Launch counted in ``LAUNCHES["flash_bwd_dkv"]``; its plain version is
     :func:`mha_backward_dkv_reference`."""
     d = q.shape[3]
     scale = d ** -0.5 if scale is None else float(scale)
@@ -387,7 +395,7 @@ def flash_bwd_dkv(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_dkv", q, k, v, o, lse, do, seg_q, seg_kv,
                 None, dk, dv, causal, scale)
-    flash_bwd_dkv.launches += 1
+    LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
 
@@ -529,12 +537,3 @@ def mha(
         uses_fused_backward(k.shape[1], block_kv),
     )
     return o
-
-
-#: Kernel launches made through :func:`mha` / :func:`flash_fwd` and each
-#: backward wrapper; a run sets them to 0 and reads them back to show its
-#: path went through the kernels.
-mha.launches = 0
-flash_bwd_fused.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0

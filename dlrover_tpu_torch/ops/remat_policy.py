@@ -13,7 +13,8 @@ raise ``ValueError``).  Ported so far:
   are saved (``MUST_SAVE`` for the ``dlrover_tpu_torch::flash_fwd`` op
   under selective checkpointing), so the backward re-runs everything in
   the block except the attention forward.  The flash forward then runs
-  once per layer per step, against twice under ``full``.
+  once per layer per step, against twice under ``full``; everything else
+  in the block, an MoE layer's grouped-matmul op included, runs twice.
 
 Every other registered name (``dots``, ``dots_no_batch``, ``attn_out``,
 ``branch_out``, ``flash_res``, ``offload``, ``offload:<names>``) raises

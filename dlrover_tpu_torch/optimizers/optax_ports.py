@@ -16,7 +16,8 @@ dimensions are chosen on the stacked shape and whose ``clip_by_block_rms``
 and ``scale_by_param_block_rms`` take one RMS over all layers together:
 per-layer tensors would make it a different optimizer.  (Not
 ``torch.optim.Adafactor`` either, which has other epsilons, clipping and
-decay.)
+decay.)  An MoE expert kernel stacks to a 4-D ``[layers, E, in, out]``
+leaf, factored over its two largest axes as optax factors it.
 
 A transformation is ``GradientTransformation(init, update)`` with
 ``update(updates, state, params) -> (updates, state)``; counts are host

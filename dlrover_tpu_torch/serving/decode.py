@@ -21,7 +21,8 @@ of per-request cache *slots* and three operations —
 
 Not in this slice: the process-wide program memo and AOT (PyTorch runs
 eagerly; ``warmup`` builds and loads the kernel library instead), tensor
-parallelism and speculative decoding.
+parallelism, speculative decoding and MoE configs (``ServePrograms``
+refuses ``num_experts > 0``).
 """
 
 from __future__ import annotations
@@ -104,6 +105,11 @@ class ServePrograms:
         buckets = tuple(sorted(int(b) for b in buckets))
         if buckets[0] < 1:
             raise ValueError(f"bucket widths must be >= 1, got {buckets}")
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "serving an MoE config (num_experts > 0) is a later slice "
+                "of the port (MoE serving); this port trains MoE models only"
+            )
         self.device = resolve_device(device)
         self.config = decode_config(config)
         if buckets[-1] >= self.config.max_seq_len:

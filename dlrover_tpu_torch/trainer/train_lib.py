@@ -11,7 +11,10 @@ global norm is reported before clipping; the optimizer is a hand port of
 the optax chain ``make_optimizer`` builds (``optimizers/optax_ports.py``)
 applied to the JAX-shaped, layer-stacked parameter tree.  Metrics carry
 the JAX names: ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``,
-``step``.
+``step``.  MoE configs (``num_experts > 0``) train through the same step:
+``aux_loss`` is the blocks' load-balancing loss times ``moe_aux_weight``,
+and the expert kernels ``[E, ., .]`` stack to ``[layers, E, ., .]``
+leaves.
 
 Not ported yet, and refused when asked for: a device mesh and logical
 sharding rules, ZeRO-1, the overlap engine and the int8 gradient reduce

@@ -1,7 +1,9 @@
 """Port parity: ``dlrover_tpu_torch.models.layers`` against the JAX modules.
 
 Same numpy inputs and the same (JAX-initialised) parameters through both
-packages, in fp32; atol 1e-6 (one fp32 rounding order apart).
+packages, in fp32; atol 1e-6 (one fp32 rounding order apart).  Each test
+draws from its own seeded generator, so its inputs do not depend on which
+tests ran before it in the same process.
 """
 
 import flax.linen as nn
@@ -37,8 +39,8 @@ def _load(module, params):
         ((4, 8), (16,), (-2, -1), ("heads", "kv", "embed")),
     ],
 )
-def test_dense_general_matches_jax(rng, in_shape, features, axis,
-                                   kernel_axes):
+def test_dense_general_matches_jax(in_shape, features, axis, kernel_axes):
+    rng = np.random.default_rng(101)
     x = rng.normal(size=(2, 5) + in_shape).astype(np.float32)
     jmod = jl.DenseGeneral(
         features, axis=axis, kernel_axes=kernel_axes, use_bias=True,
@@ -55,7 +57,8 @@ def test_dense_general_matches_jax(rng, in_shape, features, axis,
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_embed_lookup_and_attend_match_jax(rng):
+def test_embed_lookup_and_attend_match_jax():
+    rng = np.random.default_rng(102)
     ids = rng.integers(0, 50, size=(3, 7))
     h = rng.normal(size=(3, 7, 16)).astype(np.float32)
     jmod = jl.Embed(num_embeddings=50, features=16, dtype=jnp.float32)
@@ -75,7 +78,8 @@ def test_embed_lookup_and_attend_match_jax(rng):
 
 
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
-def test_norms_match_jax(rng, kind):
+def test_norms_match_jax(kind):
+    rng = np.random.default_rng(103)
     x = (3.0 + 2.0 * rng.normal(size=(4, 6, 32))).astype(np.float32)
     jmod = jl.make_norm(kind, jnp.float32, jnp.float32, "norm")
     params = _init(jmod, jnp.asarray(x))
@@ -95,7 +99,8 @@ def test_norm_keeps_input_dtype_with_fp32_stats():
         assert norm(x.to(torch.bfloat16)).dtype == torch.bfloat16
 
 
-def test_rotary_embedding_matches_jax(rng):
+def test_rotary_embedding_matches_jax():
+    rng = np.random.default_rng(104)
     q = rng.normal(size=(2, 9, 4, 16)).astype(np.float32)
     k = rng.normal(size=(2, 9, 2, 16)).astype(np.float32)
     pos = rng.integers(0, 500, size=(2, 9))
@@ -112,7 +117,8 @@ def test_rotary_embedding_matches_jax(rng):
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=2e-5, rtol=0)
 
 
-def test_rotary_embedding_small_positions_tight(rng):
+def test_rotary_embedding_small_positions_tight():
+    rng = np.random.default_rng(105)
     q = rng.normal(size=(1, 6, 2, 8)).astype(np.float32)
     pos = np.arange(6)[None]
     jq, _ = jl.rotary_embedding(

@@ -174,7 +174,7 @@ def test_learned_positions_reject_overlong_input():
 
 @pytest.mark.parametrize(
     "field,value",
-    [("num_experts", 4), ("pipeline_stages", 2),
+    [("remat", "dots"), ("pipeline_stages", 2),
      ("attention_impl", "ring"), ("remat", "offload")],
 )
 def test_later_slice_features_raise(field, value):
