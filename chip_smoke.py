@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch/CUDA port on one GPU (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flags-ab    # a measurement, see ``flags_ab``
 
-Drives the port's main paths, serving, training and mixture-of-experts
-training, at the full width and depth of GPT-2 1.5B (and of its MoE
-variant) with random weights from a seed, and holds every CUDA kernel of
-those paths against its plain PyTorch version.  Imports nothing of JAX or
+Drives the port's main paths, serving, training (with Adafactor, and
+with the fused norm backward, the layout pin and the low-bit Adam
+optimizers) and mixture-of-experts training, at the full width of GPT-2
+1.5B and of its MoE variant (full depth but for the MoE run) with random
+weights from a seed, and holds every CUDA kernel of those paths against
+its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
 
 1. ``device``  the card (``nvidia-smi`` name and power limit), torch, CUDA.
@@ -40,9 +43,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                also shown to fail on planted faults: the diagonal tiles of
                the second half of the sequence dropped or halved in one
                tensor at a time.  Times as in phase 3, each kernel beside
-               its own plain version; the yardstick is the backward of
-               ``F.scaled_dot_product_attention`` through
-               ``torch.autograd.grad`` (eager, back-to-back).
+               its own plain version; the yardstick, at the training shape,
+               is the backward of ``F.scaled_dot_product_attention``
+               through ``torch.autograd.grad`` (eager, back-to-back).
 4b. ``gmm_kernel_checks``  the grouped-matmul kernels K8 (forward, and
                dx with w read transposed) and K9 (dw) on every grouped
                product of one MoE layer routed by a real gate (uneven
@@ -60,6 +63,28 @@ of the JAX package.  Phases, each one JSON line on stdout:
                (yardstick only) times at the MoE step's shape.  Then ``moe_sync_check``:
                one ``MoEMlp`` forward and backward at full width under
                ``torch.cuda.set_sync_debug_mode("error")``.
+4c. ``norm_kernel_checks``  the fused norm backward K4 at the training
+               step's [16384, 1600] bf16 (LayerNorm with bias, RMSNorm), a
+               ragged shape whose width is no multiple of 8, an fp32 one
+               and a wide one, against ``layernorm_backward_reference`` in
+               fp32 from the same inputs and saved statistics: dx by row
+               and by norm (``NORM_ROW_TOL``, ``NORM_NORM_TOL``), dscale
+               and dbias by norm (``NORM_PARAM_TOL``); two planted faults
+               (the mean(g) term dropped, one block's partial row lost)
+               must fail.  Yardstick ``aten.native_layer_norm_backward``.
+4d. ``quant_kernel_checks``  K5a and K5b (round trip, and codes and values
+               equal to the plain versions'), K6 and K7 on the largest
+               leaf's shape [48, 1600, 6400] bf16, one layer of it and two
+               ragged shapes, from a state K5a made of a random m and a
+               plain-made v, against the plain updates: codes equal but
+               for ``QUANT_CODE_SHARE`` of them one level off, scales
+               within ``QUANT_SCALE_RTOL``, updates within
+               ``QUANT_UPD_NORM_TOL``; two planted faults (v decoded
+               linearly, the high nibble dropped) must fail.  No one
+               PyTorch call computes these functions: no yardstick.
+4e. ``pin_kernel_check``  K11 on [16, 1024, 1600] bf16 contiguous and
+               transposed, and on sliced, expanded and byte-sized views:
+               contiguous and bit-equal.  Yardstick ``clone()``.
 5. ``dispatch``  host microseconds per flash forward under ``no_grad``
                at the S=16 and S=512 prefill shapes, through the custom
                op against the bare kernel call, and the op's first call.
@@ -81,7 +106,7 @@ of the JAX package.  Phases, each one JSON line on stdout:
                attention_impl="flash", remat="flash_only",
                param_dtype=bfloat16)`` as ``bench.py`` builds it: batch 16
                x seq 1024, Adafactor lr 1e-4 behind a global-norm clip of
-               1.0, full logits (no chunked CE); 2 warm-up then 5 measured
+               1.0, full logits (no chunked CE); 1 warm-up then 3 measured
                steps re-fed with one batch (tokens from numpy seed 0).  The
                loss is finite at every step and lower at the end; every
                step launches the flash forward 48 times, the fused backward
@@ -101,12 +126,13 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``PARITY_FAULTS``.
 
 12. ``train_moe``  ``build_train`` on ``bench.py``'s MoE entry with the
-               dropless grouped dispatch (``moe_config``: 48 layers, 8
-               experts, top-2, expert d_ff 3200, about 4.5B parameters),
-               batch 16 x 1024, Adafactor, 2 warm-up then 3 measured
-               steps: finite, falling loss, finite aux loss > 0, and per
-               step 48 flash forwards, 48 fused backwards, 288 K8 and 96
-               K9 launches and no split kernel.  Step time, tokens/s,
+               dropless grouped dispatch (``moe_config``: 8 experts,
+               top-2, expert d_ff 3200) at 24 of its 48 layers (cut for
+               the script's time; about 2.3B parameters), batch 16 x 1024,
+               Adafactor, 1 warm-up then 3 measured steps: finite, falling
+               loss, finite aux loss > 0, and per step and layer 1 flash
+               forward, 1 fused backward, 6 K8 and 2 K9 launches and no
+               split kernel.  Step time, tokens/s,
                MFU/HFU by ``bench.py``'s activated-FLOP rule, peak memory
                (also split before and inside the optimizer update), and
                one profiled step.
@@ -118,9 +144,29 @@ of the JAX package.  Phases, each one JSON line on stdout:
                Every leg replays the kernel leg's top-k choices, so a
                rounding difference cannot reroute a token between legs.
 
+14. ``train_lowbit``  ``build_train`` on ``lowbit_config()``: the train
+               phase's model with ``fused_ln=True`` and
+               ``pin_attn_layouts=True``, at full width and depth, with
+               ``make_optimizer("q8_adam", learning_rate=1e-4,
+               grad_clip=1.0)``, 1 warm-up then 3 measured steps, then
+               again from seed 0 with ``"q4_adam"`` (1 + 2 steps):
+               finite, falling loss; per step the launches derived in
+               ``_lowbit_per_step`` (48 + 48 flash, 96 K4, 288 K11, one K6
+               or K7 per quantized leaf); step time, tokens/s, MFU/HFU,
+               peak memory, optimizer-state bytes beside Adafactor's, one
+               profiled step; then a q8 first moment is read back through
+               K5b (finite, non-zero) and requantized through K5a.
+15. ``train_lowbit_parity``  4 layers, batch 4: one step's loss and
+               gradients through K4 and K11 against their plain versions
+               swapped in (``LOWBIT_PARITY_*``), and the same step's
+               update through K6 against the plain update from the same
+               gradients and one-step-old state (codes, scales, updates);
+               one planted fault per kernel must fail.
+
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, train, train_split and train_moe paths, each driven
-with the counts set to 0 just before it and read just after), the
+runs of the serve, train, train_split, train_moe and train_lowbit paths,
+each driven with the counts set to 0 just before it and read just after),
+the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises: the script exits non-zero and prints no result.  Without a GPU,
 or without the package beside it, it exits non-zero before any phase.
@@ -144,6 +190,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 O_ATOL = O_RTOL = 1e-2
 LSE_ATOL = 1e-3
@@ -172,7 +219,7 @@ TRAIN_BATCH, TRAIN_SEQ = 16, 1024     # bench.py:35-36
 # top-2, capacity 1.25, expert d_ff = the dense 6400 // top_k.
 MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY, MOE_D_FF = 8, 2, 1.25, 3200
 GMM_BLOCK = 128                       # MoEMlp.gmm_block_rows
-TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_WARMUP, TRAIN_STEPS = 1, 3
 TRAIN_LR = 1e-4                       # bench.py:383
 SPLIT_LAYERS, SPLIT_BLOCK_KV = 4, 512
 PARITY_LAYERS, PARITY_BATCH = 4, 4
@@ -187,7 +234,8 @@ PARITY_MIN_COSINE, PARITY_PARAM_RTOL = 0.99985, 0.03
 # share of the diagonal tiles' contribution lost).
 PARITY_FAULTS = [("late_diagonal_dropped", TRAIN_SEQ // 128, 1.0),
                  ("every_diagonal_halved", 0, 0.5)]
-MOE_TRAIN_STEPS = 3
+# Half of the 48 layers, cut for the script's time; the widths are whole.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 24, 3
 # K8/K9 against their plain versions over one 4-layer MoE step (the flash
 # kernels in both legs, every leg routed as the kernel leg was).  Sound
 # kernels read (H100): loss gap 4.3e-5, grad-norm gap 7.7e-5, lowest
@@ -199,6 +247,34 @@ MOE_PARITY_LOSS_ATOL, MOE_PARITY_NORM_RTOL = 1.5e-4, 2.5e-4
 MOE_PARITY_MIN_COSINE, MOE_PARITY_PARAM_RTOL = 0.99993, 0.02
 MOE_PARITY_FAULTS = ("expert_dw_dropped", "expert_dx_halved")
 MOE_PARITY_FAULT_EXPERT = 0
+# Fused norm backward (K4; see ``check_norm_case``): dx by row and by norm
+# as the grouped products are held, dscale and dbias by norm-relative
+# error against the fp32 plain version from the same inputs and saved
+# statistics.  Sound kernels read at most 0.0039 (row) and 0.00166 (norm)
+# in bf16 on an H100, the rounding of dx to bf16, and 2.3e-7 on dscale and
+# dbias (fp32 sums in another order); the limits are about 3x that.  The
+# planted faults read 0.098 by row and 0.24 by norm (mean(g) dropped) and
+# 0.045 on dscale (a partial row lost).
+NORM_ROW_TOL, NORM_NORM_TOL, NORM_ROW_FLOOR = 0.012, 0.005, 1e-3
+NORM_PARAM_TOL = 1e-6
+# Low-bit Adam (K6, K7; see ``_adam_errors``) and block quantization (K5a,
+# K5b).  The kernels do the plain versions' fp32 operations one IEEE
+# rounding at a time and in their order, so codes, scales and updates are
+# expected equal, and read equal at every shape on an H100 (no code, scale
+# or update off); the limits leave room for a value an ulp from a .5
+# boundary.  K5a's codes and K5b's values must be equal.  The planted
+# faults read 0.56 and 0.71 on the update's norm.
+QUANT_CODE_SHARE, QUANT_SCALE_RTOL, QUANT_UPD_NORM_TOL = 1e-4, 1e-6, 1e-3
+LOWBIT_STEPS, LOWBIT_Q4_STEPS = 3, 2
+# K4 and K11 against their plain versions over one 4-layer step (the flash
+# kernels in both legs).  Sound kernels read (H100): loss gap 0 (neither
+# kernel changes a forward value), grad-norm gap 5.9e-6, lowest cosine
+# 0.9999877 and worst per-parameter error 0.0049 (``pos_embedding``); the
+# kernel leg's rerun reads 0.9999937 and 0.0036 (the fused flash dq's atomic
+# order).  The limits are about 3x the readings.  The planted faults read
+# cosines of 0.9934 and 0.8555 and errors of 0.18 and 0.53.
+LOWBIT_PARITY_LOSS_ATOL, LOWBIT_PARITY_NORM_RTOL = 1e-5, 2e-5
+LOWBIT_PARITY_MIN_COSINE, LOWBIT_PARITY_PARAM_RTOL = 0.99996, 0.015
 # (prompt length, max_new_tokens): every bucket 16..512, one prompt > 256.
 SERVE_REQUESTS = [
     (5, 16), (16, 24), (12, 64), (20, 32), (32, 40), (40, 16), (64, 48),
@@ -207,7 +283,13 @@ SERVE_REQUESTS = [
 ]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        # Seconds since the script started: where its time goes.
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -259,9 +341,9 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return ms / (iters * replays)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -571,18 +653,22 @@ def check_bwd_case(c, gen):
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                          flops=flops)
 
-    # Yardstick: SDPA's backward (dq, dk and dv together) at the same
-    # shape, eager and back to back.
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa_mask = None if seg_q is None else live[:, None]
-    sdpa_out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=sdpa_mask,
-        is_causal=causal and sdpa_mask is None, enable_gqa=c["hq"] != c["hkv"],
-    )
-    dot = do.transpose(1, 2)
-    out["library_ms"] = eager_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), dot, retain_graph=True), warmup=10)
+    # Yardstick: SDPA's backward (dq, dk and dv together), eager and back
+    # to back, at the training shape only: its first call at a new shape
+    # takes 1 to 7 s of set-up.
+    out["library_ms"] = None
+    if c.get("plant"):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_mask = None if seg_q is None else live[:, None]
+        sdpa_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask,
+            is_causal=causal and sdpa_mask is None,
+            enable_gqa=c["hq"] != c["hkv"],
+        )
+        dot = do.transpose(1, 2)
+        out["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), warmup=10)
     return out
 
 
@@ -624,21 +710,26 @@ def moe_layer(d, f, activation, gen, param_dtype=torch.bfloat16):
     return layer
 
 
-def gmm_errors(g, r):
-    """Errors of a grouped-matmul output ``g`` against its fp32 reference
-    ``r``, a row being one vector along the last axis: ``row`` the worst
-    row's largest error over that row's scale (its max |ref| plus
-    ``GMM_ROW_FLOOR`` of the tensor's), ``norm`` ``||g - r|| / ||r||``."""
+def row_errors(g, r, row_floor):
+    """Errors of ``g`` against its fp32 reference ``r``, a row being one
+    vector along the last axis: ``row`` the worst row's largest error over
+    that row's scale (its max |ref| plus ``row_floor`` of the tensor's),
+    ``norm`` ``||g - r|| / ||r||``."""
     r2 = r.reshape(-1, r.shape[-1])
     diff = g.float().reshape(r2.shape) - r2
     err = diff.abs().amax(-1)
     row_max = r2.abs().amax(-1)
-    scale = row_max + GMM_ROW_FLOOR * row_max.max()
+    scale = row_max + row_floor * row_max.max()
     return dict(
         row=float((err / scale.clamp_min(1e-30)).max()),
         norm=float(torch.linalg.vector_norm(diff)
                    / torch.linalg.vector_norm(r2).clamp_min(1e-30)),
         max_abs=float(err.max()), finite=bool(torch.isfinite(g).all()))
+
+
+def gmm_errors(g, r):
+    """``row_errors`` of a grouped-matmul output with ``GMM_ROW_FLOOR``."""
+    return row_errors(g, r, GMM_ROW_FLOOR)
 
 
 def gmm_ok(e) -> bool:
@@ -960,20 +1051,35 @@ def recompute_flops_per_token(cfg, remat: str, seq: int) -> float:
     return per_layer * cfg.num_layers
 
 
-def _counts():
+def _launch_dicts():
     from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import fused_norm as fn
     from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.ops import layout_pin as lp
+    from dlrover_tpu_torch.ops import quantization as tq
 
-    return {**fa.LAUNCHES, **gm.LAUNCHES}
+    return (fa.LAUNCHES, gm.LAUNCHES, fn.LAUNCHES, lp.LAUNCHES, tq.LAUNCHES)
+
+
+def _counts():
+    return {k: v for launches in _launch_dicts() for k, v in launches.items()}
 
 
 def _zero_counts():
-    from dlrover_tpu_torch.ops import flash_attention as fa
-    from dlrover_tpu_torch.ops import grouped_matmul as gm
-
-    for launches in (fa.LAUNCHES, gm.LAUNCHES):
+    for launches in _launch_dicts():
         for name in launches:
             launches[name] = 0
+
+
+def _per_step(**launched):
+    """A step's wanted launches: ``launched`` and 0 for every other
+    kernel."""
+    want = dict.fromkeys(_counts(), 0)
+    unknown = set(launched) - set(want)
+    if unknown:
+        raise KeyError(f"no such launch counter: {sorted(unknown)}")
+    want.update(launched)
+    return want
 
 
 def _train_batch(vocab: int, batch: int):
@@ -1011,7 +1117,8 @@ def _train_steps(train, state, batch, steps, want_per_step, aux_out=None):
 
 
 def train_and_check():
-    """The training path at full width and depth; returns its counts."""
+    """The training path at full width and depth; returns its counts and
+    the bytes of its (Adafactor) optimizer state."""
     from dlrover_tpu_torch.models import gpt2_config
     from dlrover_tpu_torch.trainer import train_lib
 
@@ -1028,10 +1135,8 @@ def train_and_check():
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    per_step = {"flash_fwd": cfg.num_layers,
-                "flash_bwd_fused": cfg.num_layers,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "gmm_fwd": 0, "gmm_dw": 0}
+    per_step = _per_step(flash_fwd=cfg.num_layers,
+                         flash_bwd_fused=cfg.num_layers)
 
     # -- the main path, counted ----------------------------------------------
     _zero_counts()
@@ -1041,6 +1146,7 @@ def train_and_check():
                                           per_step)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
+    state_bytes = _state_bytes(state.opt_state)
     all_losses = warm_losses + losses
     if not all_losses[-1] < all_losses[0]:
         raise AssertionError(f"loss did not fall: {all_losses}")
@@ -1065,6 +1171,7 @@ def train_and_check():
         "model_flops_per_token": ftok, "hardware_flops_per_token": ftok_hw,
         "launches": counts, "launches_per_step": per_step,
         "peak_memory_allocated_bytes": peak, "setup_s": setup_s,
+        "optimizer_state_bytes": state_bytes,
         "profiled_step": prof,
         "device_busy_share_of_median_step": (
             busy / (step_s * 1e3) if isinstance(busy, float) else
@@ -1072,7 +1179,7 @@ def train_and_check():
     })
     del state, train, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, state_bytes
 
 
 def train_split_and_check():
@@ -1089,9 +1196,8 @@ def train_split_and_check():
     )
     state = train.init(seed=0)
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
-    per_step = {"flash_fwd": SPLIT_LAYERS, "flash_bwd_fused": 0,
-                "flash_bwd_dq": SPLIT_LAYERS, "flash_bwd_dkv": SPLIT_LAYERS,
-                "gmm_fwd": 0, "gmm_dw": 0}
+    per_step = _per_step(flash_fwd=SPLIT_LAYERS, flash_bwd_dq=SPLIT_LAYERS,
+                         flash_bwd_dkv=SPLIT_LAYERS)
     _zero_counts()
     state, losses, seconds = _train_steps(train, state, batch, 2, per_step)
     counts = _counts()
@@ -1183,11 +1289,16 @@ def _grad_gap(grads, ref):
     }
 
 
-def _parity_ok(loss_diff, gap) -> bool:
-    return (loss_diff <= PARITY_LOSS_ATOL
-            and gap["grad_norm_rel_diff"] <= PARITY_NORM_RTOL
-            and gap["min_grad_cosine"] >= PARITY_MIN_COSINE
-            and gap["max_grad_rel_err"] <= PARITY_PARAM_RTOL)
+def _parity_ok(loss_diff, gap, limits=None) -> bool:
+    """``limits``: (loss atol, grad-norm rtol, lowest cosine, per-parameter
+    rtol); the dense parity's by default."""
+    loss_atol, norm_rtol, min_cosine, param_rtol = limits or (
+        PARITY_LOSS_ATOL, PARITY_NORM_RTOL, PARITY_MIN_COSINE,
+        PARITY_PARAM_RTOL)
+    return (loss_diff <= loss_atol
+            and gap["grad_norm_rel_diff"] <= norm_rtol
+            and gap["min_grad_cosine"] >= min_cosine
+            and gap["max_grad_rel_err"] <= param_rtol)
 
 
 def train_parity():
@@ -1272,10 +1383,9 @@ def _moe_per_step(cfg):
     two expert products (gelu: wi, wo) in the forward, again in the
     recompute and once for dx; K9 once per product."""
     n_layers, products = cfg.num_layers, 3 if cfg.activation == "swiglu" else 2
-    return {"flash_fwd": n_layers, "flash_bwd_fused": n_layers,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "gmm_fwd": 3 * products * n_layers,
-            "gmm_dw": products * n_layers}
+    return _per_step(flash_fwd=n_layers, flash_bwd_fused=n_layers,
+                     gmm_fwd=3 * products * n_layers,
+                     gmm_dw=products * n_layers)
 
 
 def _memory_split(train, state, batch):
@@ -1303,10 +1413,11 @@ def _memory_split(train, state, batch):
 
 
 def train_moe_and_check():
-    """The MoE training path at full width and depth; returns its counts."""
+    """The MoE training path at full width and ``MOE_TRAIN_LAYERS``
+    layers; returns its counts."""
     from dlrover_tpu_torch.trainer import train_lib
 
-    cfg = moe_config()
+    cfg = moe_config(num_layers=MOE_TRAIN_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1360,7 +1471,8 @@ def train_moe_and_check():
     busy = prof.get("device_busy_ms")
     emit({
         "phase": "train_moe",
-        "model": "gpt2-1.5b MoE (48 layers, d_model 1600, 25 heads x 64, "
+        "model": f"gpt2-1.5b MoE ({cfg.num_layers} of 48 layers, d_model "
+                 "1600, 25 heads x 64, "
                  "vocab 50304, 8 experts top-2 of d_ff 3200, grouped "
                  "dispatch, bf16 params and compute, random weights seed 0)",
         "params": n_params, "remat": cfg.remat,
@@ -1591,10 +1703,819 @@ def train_moe_parity():
 
 
 def _moe_parity_ok(loss_diff, gap) -> bool:
-    return (loss_diff <= MOE_PARITY_LOSS_ATOL
-            and gap["grad_norm_rel_diff"] <= MOE_PARITY_NORM_RTOL
-            and gap["min_grad_cosine"] >= MOE_PARITY_MIN_COSINE
-            and gap["max_grad_rel_err"] <= MOE_PARITY_PARAM_RTOL)
+    return _parity_ok(loss_diff, gap, (
+        MOE_PARITY_LOSS_ATOL, MOE_PARITY_NORM_RTOL, MOE_PARITY_MIN_COSINE,
+        MOE_PARITY_PARAM_RTOL))
+
+
+# -- the dense step's opt-in kernels (K4, K5a, K5b, K6, K7, K11) --------------
+
+
+def _norm_rel(g, r) -> float:
+    return float(torch.linalg.vector_norm(g.float() - r.float())
+                 / torch.linalg.vector_norm(r.float()).clamp_min(1e-30))
+
+
+NORM_CASES = [
+    # The block norms of the training step: 16 x 1024 rows of d_model 1600.
+    dict(case="train_layernorm", n=TRAIN_BATCH * TRAIN_SEQ, d=1600,
+         dtype="bf16", center=True, bias=True, timed=True, plant=True),
+    dict(case="train_rmsnorm", n=TRAIN_BATCH * TRAIN_SEQ, d=1600,
+         dtype="bf16", center=False, bias=False, timed=True),
+    # Rows no multiple of a block's run, a width no multiple of 8 (loads
+    # element by element behind a mask).
+    dict(case="ragged_bf16", n=1237, d=1001, dtype="bf16", center=True,
+         bias=False),
+    dict(case="fp32", n=4099, d=1600, dtype="fp32", center=True, bias=True),
+    # More than one chunk per thread (5120 / 8 = 640 chunks on 256 threads).
+    dict(case="wide_bf16", n=515, d=5120, dtype="bf16", center=False,
+         bias=False),
+]
+NORM_TRAIN_CASE = "train_layernorm"
+NORM_EPS = 1e-5
+
+
+def norm_ok(e) -> bool:
+    return (e["dx"]["row"] <= NORM_ROW_TOL and e["dx"]["norm"] <= NORM_NORM_TOL
+            and e["dx"]["finite"] and e["dscale"] <= NORM_PARAM_TOL
+            and e["dbias"] <= NORM_PARAM_TOL)
+
+
+def check_norm_case(c, gen):
+    """K4 against ``layernorm_backward_reference`` in fp32 from the same
+    inputs and the same saved statistics."""
+    from dlrover_tpu_torch.ops import fused_norm as fn
+
+    n, d, center = c["n"], c["d"], c["center"]
+    dtype = torch.bfloat16 if c["dtype"] == "bf16" else torch.float32
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = (rand(n, d) * 2.0 + 0.5).to(dtype)
+    # A cotangent with a mean, as a loss gives it: the mean(g) term counts.
+    dy = (rand(n, d) + 0.25).to(dtype)
+    scale = (rand(d) * 0.3 + 1.0).to(dtype)
+    bias = (rand(d) * 0.1).to(dtype) if c["bias"] else None
+    with torch.no_grad():
+        _, mean, rstd = fn.norm_forward(x, scale, bias, NORM_EPS, center)
+        got = fn.layernorm_backward(x, dy, scale, mean, rstd, center)
+        torch.cuda.synchronize()
+        ref = fn.layernorm_backward_reference(
+            x.float(), dy.float(), scale.float(), mean, rstd, center)
+
+    def errors(dx, dscale, dbias):
+        return {"dx": row_errors(dx, ref[0], NORM_ROW_FLOOR),
+                "dscale": _norm_rel(dscale, ref[1]),
+                "dbias": _norm_rel(dbias, ref[2])}
+
+    e = errors(*got)
+    out = dict(case=c["case"], n=n, d=d, dtype=c["dtype"], center=center,
+               dx_dtype=str(got[0].dtype), max_abs_err=e["dx"]["max_abs"],
+               **e)
+    ok = norm_ok(e) and got[0].dtype == dtype and got[0].shape == x.shape
+
+    if c.get("plant"):
+        # The check on planted faults, each of which must fail it: the
+        # mean(g) term left out of dx; the first block's partial row of
+        # dscale lost.
+        g32 = dy.float() * scale.float()
+        no_mean = (got[0].float()
+                   + rstd[:, None] * g32.mean(-1, keepdim=True)).to(dtype)
+        run = fn._rows_per_block(n, x.device)
+        xhat = (x[:run].float() - mean[:run, None]) * rstd[:run, None]
+        lost = got[1] - (dy[:run].float() * xhat).sum(0)
+        faults = {}
+        for name, f in (("mean_g_term_dropped", (no_mean, got[1], got[2])),
+                        ("first_partial_row_lost", (got[0], lost, got[2]))):
+            fe = errors(*f)
+            faults[name] = dict(dx_row=fe["dx"]["row"],
+                                dx_norm=fe["dx"]["norm"],
+                                dscale=fe["dscale"], caught=not norm_ok(fe))
+        out["planted_faults"] = faults
+        ok = ok and all(f["caught"] for f in faults.values())
+    out["ok"] = ok
+
+    if c.get("timed"):
+        item = x.element_size()
+        nbytes = 3.0 * n * d * item + 8.0 * n + item * d + 8.0 * d
+        flops = 14.0 * n * d
+        b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+
+        def kernel():
+            fn.layernorm_backward(x, dy, scale, mean, rstd, center)
+
+        def plain():
+            fn.layernorm_backward_reference(x, dy, scale, mean, rstd, center)
+
+        timed = dict(ms=device_ms(kernel), eager_ms=eager_ms(kernel),
+                     plain_ms=device_ms(plain, iters=5, replays=3),
+                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                     library_ms=None)
+        if center:
+            # The yardstick, never called by the port: ATen's layer-norm
+            # backward on its own forward's statistics.
+            w = scale
+            b = bias if bias is not None else torch.zeros_like(scale)
+            _, l_mean, l_rstd = torch.ops.aten.native_layer_norm(
+                x, [d], w, b, NORM_EPS)
+
+            def library():
+                torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [d], l_mean, l_rstd, w, b, [True, True, True])
+
+            timed["library_ms"] = device_ms(library)
+            timed["library"] = "torch.ops.aten.native_layer_norm_backward"
+        out["timed"] = timed
+    return out
+
+
+def norm_kernel_checks(gen):
+    cases = [check_norm_case(c, gen) for c in NORM_CASES]
+    emit({"phase": "norm_kernel_checks",
+          "tolerance": {"dx_row": NORM_ROW_TOL, "dx_norm": NORM_NORM_TOL,
+                        "dscale_dbias_norm": NORM_PARAM_TOL,
+                        "row_floor": NORM_ROW_FLOOR},
+          "cases": cases})
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"fused norm backward kernel disagrees on {bad}")
+    return cases
+
+
+QUANT_CASES = [
+    # The largest leaf of GPT-2 1.5B's layer-stacked tree (mlp.wi / mlp.wo).
+    dict(case="largest_leaf", shape=(48, 1600, 6400), dtype="bf16",
+         timed=True),
+    # One layer's share of it: the planted faults.
+    dict(case="one_layer", shape=(1600, 6400), dtype="bf16", plant=True),
+    # Tails: 5005 = 19 x 256 + 141 and 4099 = 16 x 256 + 3.
+    dict(case="ragged_bf16", shape=(5, 1001), dtype="bf16"),
+    dict(case="ragged_fp32", shape=(4099,), dtype="fp32"),
+]
+QUANT_LEAF_CASE = "largest_leaf"
+
+
+def _code_diff(bits, which, got, want):
+    """Share of codes that differ and the largest difference in levels."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    if bits == 8:
+        diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        return float((diff > 0).float().mean()), int(diff.max())
+    unpack = (tq.unpack_nibbles_signed if which == "m"
+              else tq.unpack_nibbles_unsigned)
+    share, worst = 0.0, 0
+    rows = 1 << 16   # unpacked in slabs: the codes widen 8x to fp32
+    for r0 in range(0, got.shape[0], rows):
+        diff = (unpack(got[r0:r0 + rows]) - unpack(want[r0:r0 + rows])).abs()
+        share += float((diff > 0).sum())
+        worst = max(worst, int(diff.max()))
+    return share / (got.shape[0] * 256), worst
+
+
+def _adam_errors(bits, got, ref):
+    """A low-bit Adam result ``(upd, m, v)`` against the plain version's:
+    the update by norm and by the share of values that differ at all, the
+    codes by the share off and the largest difference in levels, the
+    scales by their largest relative difference."""
+    out = {"upd_norm": _norm_rel(got[0], ref[0]),
+           "upd_differ_share": float((got[0] != ref[0]).float().mean()),
+           "finite": bool(torch.isfinite(got[0].float()).all())}
+    for which, g, r in (("m", got[1], ref[1]), ("v", got[2], ref[2])):
+        share, worst = _code_diff(bits, which, g.q, r.q)
+        out[f"{which}_codes_off_share"] = share
+        out[f"{which}_codes_max_levels_off"] = worst
+        out[f"{which}_scales_rel"] = float(
+            ((g.scales - r.scales).abs() / r.scales.abs()).max())
+    return out
+
+
+def adam_ok(e) -> bool:
+    return (e["finite"] and e["upd_norm"] <= QUANT_UPD_NORM_TOL
+            and all(e[f"{w}_codes_off_share"] <= QUANT_CODE_SHARE
+                    and e[f"{w}_codes_max_levels_off"] <= 1
+                    and e[f"{w}_scales_rel"] <= QUANT_SCALE_RTOL
+                    for w in ("m", "v")))
+
+
+def _clone_moment(mom):
+    return type(mom)(mom.q.clone(), mom.scales.clone())
+
+
+def check_quant_case(c, gen):
+    """K5a and K5b against their plain versions and as a round trip, then
+    K6 and K7 against theirs from a state K5a made of a random first
+    moment and a plain-made second moment (random codes and scales)."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    shape = c["shape"]
+    dtype = torch.bfloat16 if c["dtype"] == "bf16" else torch.float32
+    n = int(np.prod(shape))
+    rows = tq.num_blocks(n)
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+
+    def randint(lo, hi, *s):
+        return torch.randint(lo, hi, s, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    p = (rand(*shape) * 0.02).to(dtype)
+    g = (rand(*shape) * 1e-3).to(dtype)
+    m_true = rand(*shape) * 1e-3
+    # The first 64th of the blocks all zero: scale 1, codes 0.
+    m_true.reshape(-1)[: (n // (64 * 256)) * 256] = 0.0
+    h = tq.adam_hyper(3, TRAIN_LR, 0.9, 0.95, 1e-8, 0.1)
+    out = dict(case=c["case"], shape=list(shape), dtype=c["dtype"], n=n,
+               blocks=rows, hyper=h._asdict())
+
+    # -- K5a, K5b ---------------------------------------------------------------
+    q, scales = tq.quantize(m_true)
+    back = tq.dequantize(q, scales, shape)
+    torch.cuda.synchronize()
+    q_ref, s_ref = tq.quantize_reference(m_true)
+    share, worst = _code_diff(8, "m", q, q_ref)
+    half_level = scales.repeat_interleave(256)[:n].reshape(shape) * 0.5
+    out["quantize"] = dict(
+        codes_off_share=share, codes_max_levels_off=worst,
+        scales_rel=float(((scales - s_ref).abs() / s_ref).max()),
+        zero_blocks=int((scales == 1.0).sum()))
+    out["dequantize"] = dict(
+        max_abs_err=float((back - tq.dequantize_reference(
+            q, scales, shape)).abs().max()),
+        round_trip_within_half_a_level=bool(
+            # x / scale is off by up to an ulp of 127: 1.5e-5 of a level.
+            ((back - m_true).abs() <= half_level * (1 + 1e-4)).all()))
+    ok = (share == 0.0 and out["quantize"]["scales_rel"] <= QUANT_SCALE_RTOL
+          and out["dequantize"]["max_abs_err"] == 0.0
+          and out["dequantize"]["round_trip_within_half_a_level"]
+          and q.shape == (rows, 256) and back.shape == tuple(shape))
+    del back, q_ref, s_ref, half_level
+
+    # -- K6, K7 -------------------------------------------------------------------
+    states = {
+        8: (tq.QMoment(q, scales),
+            tq.QMoment(randint(0, 128, rows, 256),
+                       torch.rand((rows,), generator=gen, device="cuda")
+                       * 1e-6 + 1e-9)),
+        4: (tq.QMoment(tq.pack_nibbles(randint(-7, 8, rows, 256)),
+                       torch.rand((rows,), generator=gen, device="cuda")
+                       * 1e-3 + 1e-6),
+            tq.QMoment(tq.pack_nibbles(randint(0, 16, rows, 256)),
+                       torch.rand((rows,), generator=gen, device="cuda")
+                       * 1e-6 + 1e-9)),
+    }
+    del m_true
+    updates = {8: (tq.q8_adam_update, tq.q8_adam_update_reference),
+               4: (tq.q4_adam_update, tq.q4_adam_update_reference)}
+    max_err = 0.0
+    for bits, (kernel, plain) in updates.items():
+        m0, v0 = states[bits]
+        ref = plain(g, p, m0, v0, h)
+        got = kernel(g, p, _clone_moment(m0), _clone_moment(v0), h)
+        torch.cuda.synchronize()
+        e = _adam_errors(bits, got, ref)
+        e["upd_max_abs_err"] = float(
+            (got[0].float() - ref[0].float()).abs().max())
+        max_err = max(max_err, e["upd_max_abs_err"])
+        out[f"q{bits}_adam"] = e
+        ok = ok and adam_ok(e) and got[0].dtype == dtype
+        if c.get("plant"):
+            out[f"q{bits}_planted_fault"] = _quant_planted_fault(
+                bits, g, p, m0, v0, h, ref)
+            ok = ok and out[f"q{bits}_planted_fault"]["caught"]
+        del got, ref
+    out["max_abs_err"] = max_err
+    out["ok"] = ok
+
+    if c.get("timed"):
+        item = p.element_size()
+        timed = {}
+
+        def add(name, kernel, plain, nbytes, flops):
+            b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+            ms = device_ms(kernel, iters=5, replays=3)
+            timed[name] = dict(
+                ms=ms, eager_ms=eager_ms(kernel, iters=5),
+                # Eager, back to back: passes over gigabytes, where launch
+                # gaps count for nothing and a graph's private pool would
+                # double the temporaries.
+                plain_ms=eager_ms(plain, iters=2, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                gbytes_per_s=nbytes / ms / 1e6,
+                # No one PyTorch call computes a block quantization or a
+                # quantized Adam step.
+                library_ms=None)
+            torch.cuda.empty_cache()
+
+        m32 = tq.dequantize(q, scales, shape)
+        add("quantize", lambda: tq.quantize(m32),
+            lambda: tq.quantize_reference(m32), 5.0 * n + 4.0 * rows, 4.0 * n)
+        add("dequantize", lambda: tq.dequantize(q, scales, shape),
+            lambda: tq.dequantize_reference(q, scales, shape),
+            5.0 * n + 4.0 * rows, 1.0 * n)
+        del m32
+        for bits, (kernel, plain) in updates.items():
+            m0, v0 = states[bits]
+            mk, vk = _clone_moment(m0), _clone_moment(v0)
+            # g and p read and the update written; both moments' codes
+            # and scales read and written.
+            nbytes = 3.0 * item * n + 4.0 * n * bits / 8 + 16.0 * rows
+            add(f"q{bits}_adam",
+                lambda kernel=kernel, mk=mk, vk=vk: kernel(g, p, mk, vk, h),
+                lambda plain=plain, m0=m0, v0=v0: plain(g, p, m0, v0, h),
+                nbytes, 40.0 * n)
+        out["timed"] = timed
+    del states, p, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _quant_planted_fault(bits, g, p, m, v, h, ref):
+    """The check on a planted fault, which must fail it.  q8: the second
+    moment decoded linearly (code / 127 times the scale) where the map is
+    the 4th root.  q4: the high nibble of every byte of m and v dropped
+    (the odd elements' moments read as 0)."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    if bits == 8:
+        m32 = m.q.float() * m.scales[:, None]
+        v32 = v.q.float() * (1.0 / 127.0) * v.scales[:, None]
+        upd, m32, v32 = tq._adam(h, tq._to_blocks(g), tq._to_blocks(p), m32,
+                                 v32)
+        v_codes, v_scale = tq._root4_codes(v32, 127.0)
+        got = (tq._from_blocks(upd, p), tq.QMoment(*tq._absmax_int8(m32)),
+               tq.QMoment(v_codes.to(torch.int8), v_scale))
+        name = "v_decoded_linearly"
+    else:
+        def low(mom):
+            return tq.QMoment((mom.q.view(torch.uint8) & 0xF).view(
+                torch.int8), mom.scales)
+
+        got = tq.q4_adam_update_reference(g, p, low(m), low(v), h)
+        name = "high_nibble_dropped"
+    e = _adam_errors(bits, got, ref)
+    return dict(fault=name, upd_norm=e["upd_norm"],
+                m_codes_off_share=e["m_codes_off_share"],
+                v_codes_off_share=e["v_codes_off_share"],
+                caught=not adam_ok(e))
+
+
+def quant_kernel_checks(gen):
+    cases = [check_quant_case(c, gen) for c in QUANT_CASES]
+    emit({"phase": "quant_kernel_checks",
+          "tolerance": {"codes_off_share": QUANT_CODE_SHARE,
+                        "codes_max_levels_off": 1,
+                        "scales_rtol": QUANT_SCALE_RTOL,
+                        "upd_norm": QUANT_UPD_NORM_TOL,
+                        "quantize_codes": "equal"},
+          "library": None, "cases": cases})
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"quantization kernels disagree on {bad}")
+    return cases
+
+
+def pin_kernel_check(gen):
+    """K11 on the attention's input at the training shape, contiguous and
+    as a transposed view, and on a sliced, expanded odd-sized view: the
+    result is contiguous and bit-equal to its input."""
+    from dlrover_tpu_torch.ops import layout_pin as lp
+
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, 1600), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    odd = torch.randn((7, 1, 33), generator=gen, device="cuda")
+    views = {
+        "contiguous": x,
+        "transposed": x.transpose(1, 2),
+        "sliced_expanded_fp32": odd.expand(7, 5, 33)[1:, :, 2::3],
+        "bytes": (x[0, :77, :13].contiguous().view(torch.uint8))[:, 3:],
+    }
+    results, ok = {}, True
+    for name, view in views.items():
+        out = lp.pin_copy(view)
+        torch.cuda.synchronize()
+        res = dict(shape=list(view.shape), strides=list(view.stride()),
+                   merged_dims=lp.merged_dims(view),
+                   contiguous_in=view.is_contiguous(),
+                   contiguous_out=out.is_contiguous(),
+                   bit_equal=bool(torch.equal(out, view)),
+                   new_storage=out.data_ptr() != view.data_ptr())
+        results[name] = res
+        ok = (ok and res["contiguous_out"] and res["bit_equal"]
+              and res["new_storage"] and out.dtype == view.dtype)
+    nbytes = 2.0 * x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, 0.0)
+    xt = views["transposed"]
+    timed = dict(
+        ms=device_ms(lambda: lp.pin_copy(x)),
+        eager_ms=eager_ms(lambda: lp.pin_copy(x)),
+        transposed_ms=device_ms(lambda: lp.pin_copy(xt)),
+        plain_ms=device_ms(lambda: lp.pin_layout_reference(x)),
+        plain_transposed_ms=device_ms(lambda: lp.pin_layout_reference(xt)),
+        library_ms=device_ms(lambda: x.clone()), library="Tensor.clone()",
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    res = {"phase": "pin_kernel_check", "views": results, "timed": timed,
+           "max_abs_err": 0.0 if ok else float("nan"), "ok": ok}
+    emit(res)
+    if not ok:
+        raise AssertionError(f"pin_layout kernel disagrees: {results}")
+    return res
+
+
+def _state_bytes(obj) -> int:
+    """Bytes of every tensor in a nested optimizer state."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_state_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_state_bytes(v) for v in obj)
+    return 0
+
+
+def lowbit_config(**overrides):
+    """The dense step with its opt-in kernels on."""
+    from dlrover_tpu_torch.models import gpt2_config
+
+    return gpt2_config("1.5b", attention_impl="flash", remat="flash_only",
+                       param_dtype=torch.bfloat16, fused_ln=True,
+                       pin_attn_layouts=True, **overrides)
+
+
+def _lowbit_per_step(cfg, opt_state, bits):
+    """Launches per step, from the config and the optimizer state: per
+    layer the flash forward once (saved) and the fused backward once; K4
+    once per block norm (two) in the backward, ``ln_final`` staying
+    unfused; K11 twice in the forward, twice in the ``flash_only``
+    recompute and twice on the cotangents; K6 (or K7) once per quantized
+    leaf of the layer-stacked tree."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    quantized = sum(isinstance(m, tq.QMoment) for m in opt_state[-1].m.values())
+    n_layers = cfg.num_layers
+    return _per_step(flash_fwd=n_layers, flash_bwd_fused=n_layers,
+                     norm_bwd=2 * n_layers, pin_copy=6 * n_layers,
+                     **{f"q{bits}_adam": quantized}), quantized
+
+
+def train_lowbit_and_check(adafactor_state_bytes):
+    """The dense step with ``fused_ln``, ``pin_attn_layouts`` and
+    ``q8_adam``, then ``q4_adam``, at full width and depth; returns each
+    run's counts."""
+    from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = lowbit_config()
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ftok = flops_per_token(cfg, TRAIN_SEQ)
+    ftok_hw = ftok + recompute_flops_per_token(cfg, "flash_only", TRAIN_SEQ)
+    counts = {}
+    for bits, warmup, steps in ((8, TRAIN_WARMUP, LOWBIT_STEPS),
+                                (4, 1, LOWBIT_Q4_STEPS)):
+        name = f"q{bits}_adam"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer(name, learning_rate=TRAIN_LR,
+                                          grad_clip=1.0),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, ce_chunks=0,
+            device="cuda",
+        )
+        state = train.init(seed=0)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in state.model.parameters())
+        per_step, quantized = _lowbit_per_step(cfg, state.opt_state, bits)
+        state_bytes = _state_bytes(state.opt_state)
+
+        # -- the main path, counted --------------------------------------------
+        _zero_counts()
+        state, warm_losses, warm_s = _train_steps(train, state, batch,
+                                                  warmup, per_step)
+        state, losses, seconds = _train_steps(train, state, batch, steps,
+                                              per_step)
+        # Read a first moment back in fp32 (K5b) and requantize it (K5a),
+        # as a caller that inspects or re-blocks the state does.
+        leaf = "blocks.mlp.wi.kernel"
+        mom = state.opt_state[-1].m[leaf]
+        shape = (cfg.num_layers, cfg.d_model, cfg.resolved_d_ff)
+        readback = {"leaf": leaf, "shape": list(shape)}
+        if bits == 8:
+            m32 = tq.dequantize(mom.q, mom.scales, shape)
+            q2, s2 = tq.quantize(m32)
+            readback.update(
+                finite=bool(torch.isfinite(m32).all()),
+                abs_max=float(m32.abs().max()),
+                requantized_codes_off_share=float(
+                    (q2 != mom.q).float().mean()),
+                requantized_scales_rel=float(
+                    ((s2 - mom.scales).abs() / mom.scales).max()))
+            del m32, q2, s2
+            if not (readback["finite"] and readback["abs_max"] > 0
+                    and readback["requantized_codes_off_share"] <= 1e-3
+                    and readback["requantized_scales_rel"] <= 1e-6):
+                raise AssertionError(f"q8 state read-back: {readback}")
+        run_counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        all_losses = warm_losses + losses
+        if not all_losses[-1] < all_losses[0]:
+            raise AssertionError(f"{name}: loss did not fall: {all_losses}")
+        step_s = statistics.median(seconds)
+        tokens_per_s = tokens / step_s
+        res = {
+            "phase": "train_lowbit", "optimizer": f"{name} lr 1e-4, clip "
+            "1.0 (b1 0.9, b2 0.95, weight decay 0.1)",
+            "model": "gpt2-1.5b (48 layers, d_model 1600, 25 heads x 64, "
+                     "vocab 50304, bf16 params and compute), fused_ln, "
+                     "pin_attn_layouts, random weights seed 0",
+            "params": n_params, "remat": cfg.remat,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "ce_chunks": 0,
+            "losses": all_losses, "warmup_step_s": warm_s,
+            "step_s": seconds, "step_s_median": step_s,
+            "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * ftok / PEAK_BF16_FLOPS,
+            "hfu": tokens_per_s * ftok_hw / PEAK_BF16_FLOPS,
+            "launches": run_counts, "launches_per_step": per_step,
+            "quantized_leaves": quantized,
+            "optimizer_state_bytes": state_bytes,
+            "optimizer_state_bytes_per_param": state_bytes / n_params,
+            "adafactor_state_bytes": adafactor_state_bytes,
+            "peak_memory_allocated_bytes": peak, "setup_s": setup_s,
+            "state_read_back": readback,
+        }
+        if bits == 8:
+            prof = _profile(lambda: train.step(state, batch), top=28)
+            busy = prof.get("device_busy_ms")
+            res["profiled_step"] = prof
+            res["device_busy_share_of_median_step"] = (
+                busy / (step_s * 1e3) if isinstance(busy, float) else
+                "not measured")
+        emit(res)
+        counts[f"train_lowbit_q{bits}"] = run_counts
+        del state, train
+        torch.cuda.empty_cache()
+    return counts
+
+
+def flags_ab():
+    """``python3 chip_smoke.py --flags-ab``: what each opt-in flag costs or
+    saves per step with the optimizer held fixed.  The train phase's step
+    (Adafactor) under flags off, ``fused_ln``, ``pin_attn_layouts`` and
+    both, each setting run twice in mirrored order (off, ln, pin, both,
+    both, pin, ln, off), 1 warm-up and 3 measured steps a run."""
+    from dlrover_tpu_torch.models import gpt2_config
+    from dlrover_tpu_torch.trainer import train_lib
+
+    settings = {"off": {}, "fused_ln": {"fused_ln": True},
+                "pin_attn_layouts": {"pin_attn_layouts": True},
+                "both": {"fused_ln": True, "pin_attn_layouts": True}}
+    order = list(settings) + list(settings)[::-1]
+    runs = {name: [] for name in settings}
+    for name in order:
+        flags = settings[name]
+        cfg = gpt2_config("1.5b", attention_impl="flash", remat="flash_only",
+                          param_dtype=torch.bfloat16, **flags)
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+        state = train.init(seed=0)
+        batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+        n = cfg.num_layers
+        per_step = _per_step(
+            flash_fwd=n, flash_bwd_fused=n,
+            norm_bwd=2 * n if flags.get("fused_ln") else 0,
+            pin_copy=6 * n if flags.get("pin_attn_layouts") else 0)
+        state, _, _ = _train_steps(train, state, batch, 1, per_step)
+        state, losses, seconds = _train_steps(train, state, batch, 3,
+                                              per_step)
+        runs[name].append({"step_s": seconds,
+                           "step_s_median": statistics.median(seconds),
+                           "last_loss": losses[-1]})
+        del state, train, batch
+        torch.cuda.empty_cache()
+    medians = {name: [r["step_s_median"] for r in rs]
+               for name, rs in runs.items()}
+    base = statistics.mean(medians["off"])
+    emit({"phase": "flags_ab", "optimizer": "adafactor lr 1e-4, clip 1.0",
+          "order": order, "runs": runs,
+          "mean_of_medians_s": {k: statistics.mean(v)
+                                for k, v in medians.items()},
+          "ms_per_step_against_off": {
+              k: (statistics.mean(v) - base) * 1e3
+              for k, v in medians.items()},
+          "off_spread_ms": (max(medians["off"]) - min(medians["off"])) * 1e3})
+
+
+@contextlib.contextmanager
+def _lowbit_swapped(norm_bwd=None, pin=None, adam=None):
+    """Swap the wrappers the dense step's opt-in ops call (module globals
+    read at call time) while the block runs; yields the kernels'."""
+    from dlrover_tpu_torch.ops import fused_norm as fn
+    from dlrover_tpu_torch.ops import layout_pin as lp
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    kernels = (fn.layernorm_backward, lp.pin_copy, tq._low_bit_update)
+    fn.layernorm_backward = norm_bwd or kernels[0]
+    lp.pin_copy = pin or kernels[1]
+    tq._low_bit_update = adam or kernels[2]
+    try:
+        yield kernels
+    finally:
+        fn.layernorm_backward, lp.pin_copy, tq._low_bit_update = kernels
+
+
+def _lowbit_reference_fns():
+    from dlrover_tpu_torch.ops import fused_norm as fn
+    from dlrover_tpu_torch.ops import layout_pin as lp
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    def adam(bits, g, p, m, v, h):
+        plain = (tq.q8_adam_update_reference if bits == 8
+                 else tq.q4_adam_update_reference)
+        return plain(g, p, m, v, h)
+
+    return fn.layernorm_backward_reference, lp.pin_layout_reference, adam
+
+
+def _lowbit_grad_ok(loss_diff, gap) -> bool:
+    return _parity_ok(loss_diff, gap, (
+        LOWBIT_PARITY_LOSS_ATOL, LOWBIT_PARITY_NORM_RTOL,
+        LOWBIT_PARITY_MIN_COSINE, LOWBIT_PARITY_PARAM_RTOL))
+
+
+def _tree_adam_errors(got, ref):
+    """The worst of ``_adam_errors`` over the quantized leaves of two
+    optimizer results ``(updates, state)``, and the small leaves' update
+    error."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    (g_upd, g_state), (r_upd, r_state) = got, ref
+    worst, small = {}, 0.0
+    for name, r_m in r_state.m.items():
+        if not isinstance(r_m, tq.QMoment):
+            small = max(small, _norm_rel(g_upd[name], r_upd[name]))
+            continue
+        e = _adam_errors(8, (g_upd[name], g_state.m[name], g_state.v[name]),
+                         (r_upd[name], r_m, r_state.v[name]))
+        for k, val in e.items():
+            worst[k] = (min if k == "finite" else max)(worst.get(k, val),
+                                                       val)
+    worst["small_leaves_upd_norm"] = small
+    return worst
+
+
+def train_lowbit_parity():
+    """4 layers, batch 4.  One step's loss and gradients through K4 and
+    K11 against the same model with their plain versions swapped in (the
+    flash kernels run in both legs), and the same step's optimizer update
+    through K6 against the plain update from the same gradients and the
+    same non-trivial state (one step old).  One planted fault per kernel
+    must fail its check."""
+    from dlrover_tpu_torch.models.transformer import TransformerLM
+    from dlrover_tpu_torch.optimizers import optax_ports as ox
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = lowbit_config(num_layers=PARITY_LAYERS)
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("q8_adam", learning_rate=TRAIN_LR,
+                                      grad_clip=1.0),
+        global_batch_size=PARITY_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+    state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, PARITY_BATCH)
+    state, _ = train.step(state, batch)   # the state the step starts from
+
+    # -- K4, K11: loss and gradients ----------------------------------------------
+    model = TransformerLM(cfg, device="cuda")
+    model.load_state_dict(state.model.state_dict())
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        logits, aux = model.forward_aux(batch["inputs"])
+        loss, _ = train_lib.cross_entropy_loss(logits, batch["targets"])
+        (loss + aux).backward()
+        return loss.item(), {n: p.grad.float().clone()
+                             for n, p in model.named_parameters()}
+
+    before = _counts()
+    k_loss, k_grads = loss_and_grads()
+    after = _counts()
+    got = {k: after[k] - before[k] for k in after}
+    want = _per_step(flash_fwd=PARITY_LAYERS, flash_bwd_fused=PARITY_LAYERS,
+                     norm_bwd=2 * PARITY_LAYERS, pin_copy=6 * PARITY_LAYERS)
+    if got != want:
+        raise AssertionError(f"lowbit parity kernel leg launched {got}, "
+                             f"want {want}")
+    ref_norm, ref_pin, ref_adam = _lowbit_reference_fns()
+    with _lowbit_swapped(ref_norm, ref_pin):
+        r_loss, r_grads = loss_and_grads()
+    end = _counts()
+    if (end["norm_bwd"], end["pin_copy"]) != (after["norm_bwd"],
+                                              after["pin_copy"]):
+        raise AssertionError("the reference leg launched K4 or K11")
+    gap = _grad_gap(k_grads, r_grads)
+    k2_loss, k2_grads = loss_and_grads()
+    rerun = _grad_gap(k2_grads, k_grads)
+    del k2_grads
+    out = {
+        "phase": "train_lowbit_parity", "layers": PARITY_LAYERS,
+        "batch": PARITY_BATCH, "seq": TRAIN_SEQ,
+        "loss_kernel": k_loss, "loss_reference": r_loss,
+        "loss_abs_diff": abs(k_loss - r_loss), **gap,
+        "kernel_rerun": {"loss_abs_diff": abs(k2_loss - k_loss),
+                         **{k_: rerun[k_] for k_ in (
+                             "grad_norm_rel_diff", "min_grad_cosine",
+                             "max_grad_rel_err")}},
+        "limits": {"loss_atol": LOWBIT_PARITY_LOSS_ATOL,
+                   "grad_norm_rtol": LOWBIT_PARITY_NORM_RTOL,
+                   "min_grad_cosine": LOWBIT_PARITY_MIN_COSINE,
+                   "max_grad_rel_err": LOWBIT_PARITY_PARAM_RTOL,
+                   "adam": {"codes_off_share": QUANT_CODE_SHARE,
+                            "scales_rtol": QUANT_SCALE_RTOL,
+                            "upd_norm": QUANT_UPD_NORM_TOL}},
+    }
+    grads_ok = _lowbit_grad_ok(out["loss_abs_diff"], gap)
+
+    faults = {}
+    with _lowbit_swapped() as (kernel_norm, kernel_pin, _):
+        def faulty_norm(x, dy, scale, mean, rstd, center=True):
+            # The second half of the rows' dx a tenth short.
+            dx, dscale, dbias = kernel_norm(x, dy, scale, mean, rstd, center)
+            half = dx.reshape(-1, dx.shape[-1])
+            half[half.shape[0] // 2:] *= 0.9
+            return dx, dscale, dbias
+
+        def faulty_pin(x):
+            # The last 64 features never copied.
+            out_ = kernel_pin(x)
+            out_[..., -64:] = 0
+            return out_
+
+        for name, fns in (("norm_dx_late_rows_short", (faulty_norm, None)),
+                          ("pin_tail_not_copied", (None, faulty_pin))):
+            with _lowbit_swapped(*fns):
+                f_loss, f_grads = loss_and_grads()
+            f_gap = _grad_gap(f_grads, r_grads)
+            faults[name] = {k_: f_gap[k_] for k_ in (
+                "grad_norm_rel_diff", "min_grad_cosine", "max_grad_rel_err",
+                "max_grad_rel_err_param")}
+            faults[name]["loss_abs_diff"] = abs(f_loss - r_loss)
+            faults[name]["caught"] = not _lowbit_grad_ok(abs(f_loss - r_loss),
+                                                         f_gap)
+            del f_grads
+    del r_grads, model
+
+    # -- K6: the update, from the kernel leg's gradients ---------------------------
+    grad_tree = ox.stack_layers(
+        {n: g.to(torch.bfloat16) for n, g in k_grads.items()})
+    del k_grads
+    params = train_lib._param_tree(state.model)
+
+    def clone_state(s):
+        clip, adam = s
+        def moments(tree):
+            return {k: (_clone_moment(v) if hasattr(v, "q") else v.clone())
+                    for k, v in tree.items()}
+        return clip, type(adam)(adam.count, moments(adam.m), moments(adam.v))
+
+    def update(adam_fn=None):
+        with _lowbit_swapped(adam=adam_fn):
+            upd, (_, new) = train.optimizer.update(
+                grad_tree, clone_state(state.opt_state), params)
+        return upd, new
+
+    before = _counts()["q8_adam"]
+    k_out = update()
+    launched = _counts()["q8_adam"] - before
+    r_out = update(ref_adam)
+    if _counts()["q8_adam"] != before + launched or launched == 0:
+        raise AssertionError("the update legs launched K6 "
+                             f"{_counts()['q8_adam'] - before} times")
+    adam_e = _tree_adam_errors(k_out, r_out)
+    out["adam"] = {"k6_launches": launched, **adam_e}
+    adam_fine = adam_ok(adam_e) and adam_e["small_leaves_upd_norm"] <= 1e-6
+
+    with _lowbit_swapped() as (_, _, kernel_adam):
+        def faulty_adam(bits, g, p, m, v, h):
+            # The first moment's scales written at half their value.
+            upd, m, v = kernel_adam(bits, g, p, m, v, h)
+            m.scales.mul_(0.5)
+            return upd, m, v
+
+        f_e = _tree_adam_errors(update(faulty_adam), r_out)
+    faults["adam_m_scales_halved"] = {
+        "m_scales_rel": f_e["m_scales_rel"], "upd_norm": f_e["upd_norm"],
+        "caught": not adam_ok(f_e)}
+    out["planted_faults"] = faults
+    out["ok"] = grads_ok and adam_fine
+    emit(out)
+    if not out["ok"] or not all(f["caught"] for f in faults.values()):
+        raise AssertionError(f"lowbit train parity failed: {out}")
+    del state, train, grad_tree, params, k_out, r_out
+    torch.cuda.empty_cache()
 
 
 # -- serving --------------------------------------------------------------------
@@ -1854,6 +2775,15 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "build_dir": os.path.relpath(kernel_lib.BUILD_DIR, REPO)})
 
+    if sys.argv[1:] == ["--flags-ab"]:
+        flags_ab()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [check_kernel_case(c, gen) for c in KERNEL_CASES]
     emit({"phase": "kernel_checks",
@@ -1875,13 +2805,19 @@ def main() -> int:
         raise AssertionError(f"flash backward kernels disagree on {bad}")
 
     gmm_cases = gmm_kernel_checks(gen)
+    norm_cases = norm_kernel_checks(gen)
+    quant_cases = quant_kernel_checks(gen)
+    pin_check = pin_kernel_check(gen)
 
     mha_dispatch()
-    paths = {"serve": serve_and_check(), "train": train_and_check(),
-             "train_split": train_split_and_check()}
+    paths = {"serve": serve_and_check()}
+    paths["train"], adafactor_state_bytes = train_and_check()
+    paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()
     train_moe_parity()
+    paths.update(train_lowbit_and_check(adafactor_state_bytes))
+    train_lowbit_parity()
 
     def launches(name):
         return sum(p[name] for p in paths.values())
@@ -1889,8 +2825,7 @@ def main() -> int:
     def by_path(name):
         return {path: p[name] for path, p in paths.items()}
 
-    for name in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
-                 "flash_bwd_dkv", "gmm_fwd", "gmm_dw"):
+    for name in _counts():
         if launches(name) == 0:
             raise AssertionError(f"{name} was never launched on a path")
 
@@ -1953,6 +2888,50 @@ def main() -> int:
                                             "library_eager_ms")}
                       for p, v in gmm["timed"].items()},
         ))
+    norm = next(c for c in norm_cases if c["case"] == NORM_TRAIN_CASE)
+    t = norm["timed"]
+    entries.append(dict(
+        name="norm_bwd", route="cuda", source=src + "fused_norm.cu",
+        replaces="dlrover_tpu/ops/fused_norm.py:43",
+        launches=launches("norm_bwd"), launches_by_path=by_path("norm_bwd"),
+        max_abs_err=max(c["max_abs_err"] for c in norm_cases),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        library=t.get("library"),
+        shape={k: norm[k] for k in ("n", "d", "dtype", "center")},
+        rmsnorm_ms=next(c for c in norm_cases
+                        if c["case"] == "train_rmsnorm")["timed"]["ms"],
+    ))
+    quant = next(c for c in quant_cases if c["case"] == QUANT_LEAF_CASE)
+    for name, replaces, err in (
+            ("quantize", 53, lambda c: c["quantize"]["codes_max_levels_off"]),
+            ("dequantize", 61, lambda c: c["dequantize"]["max_abs_err"]),
+            ("q8_adam", 120, lambda c: c["q8_adam"]["upd_max_abs_err"]),
+            ("q4_adam", 309, lambda c: c["q4_adam"]["upd_max_abs_err"])):
+        t = quant["timed"][name]
+        entries.append(dict(
+            name=name, route="cuda", source=src + "quantization.cu",
+            replaces=f"dlrover_tpu/ops/quantization.py:{replaces}",
+            launches=launches(name), launches_by_path=by_path(name),
+            max_abs_err=float(max(err(c) for c in quant_cases)),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"],
+            # No one PyTorch call computes this function.
+            library_ms=None, gbytes_per_s=t["gbytes_per_s"],
+            shape={"leaf": quant["shape"], "dtype": quant["dtype"],
+                   "blocks": quant["blocks"]},
+        ))
+    t = pin_check["timed"]
+    entries.append(dict(
+        name="pin_copy", route="cuda", source=src + "layout_pin.cu",
+        replaces="dlrover_tpu/ops/layout_pin.py:30",
+        launches=launches("pin_copy"), launches_by_path=by_path("pin_copy"),
+        max_abs_err=pin_check["max_abs_err"],
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        library=t["library"], transposed_ms=t["transposed_ms"],
+        shape={"x": [TRAIN_BATCH, TRAIN_SEQ, 1600], "dtype": "bf16"},
+    ))
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {

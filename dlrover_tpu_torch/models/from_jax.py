@@ -11,6 +11,9 @@ An unknown or missing key, or a shape that does
 not match the config, raises: nothing is numbered by guesswork.  Floating
 leaves are cast to the config's ``param_dtype``, the dtype the port's model
 holds them in.
+
+:func:`low_bit_state_from_jax` carries a ``q8_adam``/``q4_adam`` optimizer
+state across the same way, dropping the TPU layout padding of its arrays.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from dlrover_tpu_torch.models.transformer import (
     TransformerConfig,
     param_shapes,
 )
+from dlrover_tpu_torch.ops import quantization
 
 
 def _flatten(tree: Mapping[str, Any],
@@ -77,3 +81,60 @@ def state_dict_from_jax(
     if missing:
         raise KeyError(f"JAX tree lacks parameters: {missing}")
     return out
+
+
+def low_bit_state_from_jax(state: Any, params: Mapping[str, torch.Tensor]):
+    """A JAX ``Q8AdamState``/``Q4AdamState`` as numpy (``count``, and ``m``
+    and ``v`` as the parameter tree's nested dicts, each leaf an fp32 array
+    or a ``(q, scales)`` pair) -> the port's state for ``params``, the
+    layer-stacked parameter tree the port's optimizer sees (``{"blocks.
+    <rest>": [layers, ...], ...}``), on the parameters' device.
+
+    The JAX arrays carry TPU layout padding: ``q`` is ``[R_pad, 256]``
+    (q4: ``[R_pad, 128]``) with rows padded to a multiple of 8 or 512, and
+    ``scales`` is one value broadcast over 128 (q4: 8) lanes.  The rows
+    past ``ceil(n / 256)`` and every lane but the first are dropped."""
+    def moments(tree):
+        out = {}
+        for path, leaf in _flatten(tree):
+            name = ".".join(path)
+            if name not in params:
+                raise KeyError(
+                    f"JAX optimizer state {'/'.join(path)} has no "
+                    f"counterpart {name!r} in the port's parameter tree")
+            p = params[name]
+            if hasattr(leaf, "q") and hasattr(leaf, "scales"):
+                rows = quantization.num_blocks(p.numel())
+                q, scales = np.asarray(leaf.q), np.asarray(leaf.scales)
+                if q.shape[0] < rows or scales.shape[0] < rows:
+                    raise ValueError(
+                        f"{name}: {q.shape[0]} quantized rows for "
+                        f"{p.numel()} values ({rows} blocks)")
+                out[name] = quantization.QMoment(
+                    torch.from_numpy(np.array(q[:rows], copy=True)).to(
+                        p.device),
+                    torch.from_numpy(np.array(scales[:rows, 0], copy=True)
+                                     ).to(p.device))
+            else:
+                arr = np.asarray(leaf)
+                if tuple(arr.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"{name}: moment shape {tuple(arr.shape)} != "
+                        f"parameter shape {tuple(p.shape)}")
+                out[name] = torch.from_numpy(np.array(arr, copy=True)).to(
+                    p.device)
+        missing = sorted(set(params) - set(out))
+        if missing:
+            raise KeyError(f"JAX optimizer state lacks leaves: {missing}")
+        return out
+
+    m, v = moments(state.m), moments(state.v)
+    packed = {mom.q.shape[1] for mom in m.values()
+              if isinstance(mom, quantization.QMoment)}
+    if packed - {quantization.BLOCK, quantization.BLOCK // 2} or len(
+            packed) > 1:
+        raise ValueError(f"quantized moments of widths {sorted(packed)}")
+    cls = (quantization.Q4AdamState
+           if packed == {quantization.BLOCK // 2}
+           else quantization.Q8AdamState)
+    return cls(int(state.count), m, v)

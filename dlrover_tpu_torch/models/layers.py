@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from dlrover_tpu_torch.ops import fused_norm
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
 Features = Union[int, Sequence[int]]
@@ -107,18 +108,24 @@ class Embed(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm: fp32 statistics, result in the input dtype."""
+    """Root-mean-square norm: fp32 statistics, result in the input dtype.
+    ``fused_backward``: the one-pass backward kernel
+    (``ops/fused_norm.fused_rmsnorm``), as on :class:`LayerNorm`."""
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
                  param_dtype: torch.dtype = torch.float32,
+                 fused_backward: bool = False,
                  device: DeviceLike = None):
         super().__init__()
         self.epsilon = epsilon
+        self.fused_backward = fused_backward
         self.scale = nn.Parameter(
             torch.ones(features, dtype=param_dtype, device=device)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_backward:
+            return fused_norm.fused_rmsnorm(x, self.scale, self.epsilon)
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
         y = x32 * torch.rsqrt(var + self.epsilon)
@@ -127,14 +134,20 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """GPT-2 layernorm: fp32 statistics, result in the input dtype."""
+    """GPT-2 layernorm: fp32 statistics, result in the input dtype.
+    ``fused_backward`` routes through ``ops/fused_norm.fused_layernorm``,
+    whose backward is one kernel pass over ``(x, dy)`` where autograd runs
+    a chain of elementwise and reduction kernels; off by default, as in
+    the JAX module."""
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
                  use_bias: bool = True,
                  param_dtype: torch.dtype = torch.float32,
+                 fused_backward: bool = False,
                  device: DeviceLike = None):
         super().__init__()
         self.epsilon = epsilon
+        self.fused_backward = fused_backward
         self.scale = nn.Parameter(
             torch.ones(features, dtype=param_dtype, device=device)
         )
@@ -146,6 +159,9 @@ class LayerNorm(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_backward:
+            return fused_norm.fused_layernorm(x, self.scale, self.bias,
+                                              self.epsilon)
         x32 = x.float()
         mean = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -157,11 +173,14 @@ class LayerNorm(nn.Module):
 
 
 def make_norm(kind: str, features: int, device: DeviceLike = None,
-              param_dtype: torch.dtype = torch.float32) -> nn.Module:
+              param_dtype: torch.dtype = torch.float32,
+              fused_backward: bool = False) -> nn.Module:
     if kind == "rmsnorm":
-        return RMSNorm(features, param_dtype=param_dtype, device=device)
+        return RMSNorm(features, param_dtype=param_dtype,
+                       fused_backward=fused_backward, device=device)
     if kind == "layernorm":
-        return LayerNorm(features, param_dtype=param_dtype, device=device)
+        return LayerNorm(features, param_dtype=param_dtype,
+                         fused_backward=fused_backward, device=device)
     raise ValueError(f"unknown norm kind {kind!r}")
 
 

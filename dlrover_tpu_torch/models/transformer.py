@@ -16,9 +16,14 @@ aux losses summed and scaled by ``moe_aux_weight`` (0 for a dense model).
 With ``num_experts > 0`` each block's MLP is a :class:`~dlrover_tpu_torch.
 models.moe.MoEMlp` named ``moe``, as in the JAX ``Block``.
 
-Not ported yet: pipeline stages, ring attention and the remat policies
-other than those three; their config values raise
-``NotImplementedError``.
+Two opt-in flags of the dense step, both off by default as in JAX:
+``fused_ln`` gives the blocks' norms (not ``ln_final``) the one-pass
+backward kernel of ``ops/fused_norm.py``, and ``pin_attn_layouts`` puts
+``ops/layout_pin.pin_layout`` before and after each block's attention.
+
+Not ported yet (ROADMAP Queue 1 items 2 and 7): pipeline stages, ring
+attention and the remat policies other than those three; their config
+values raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.models.attention import Attention, KVCache
 from dlrover_tpu_torch.models.moe import MoEMlp
 from dlrover_tpu_torch.ops import remat_policy
+from dlrover_tpu_torch.ops.layout_pin import pin_layout
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 
@@ -68,6 +74,12 @@ class TransformerConfig:
     # (fused when the kv sequence fits one clamped block_kv, else split).
     flash_block_q: int = 1024
     flash_block_kv: int = 1024
+    # Dense row-major copies of the attention's input and output, forward
+    # and on the cotangent (ops/layout_pin.py).
+    pin_attn_layouts: bool = False
+    # One-pass LayerNorm/RMSNorm backward kernel for the blocks' norms
+    # (ops/fused_norm.py).
+    fused_ln: bool = False
     remat: str = "none"            # ops/remat_policy.py name
     logits_dtype: torch.dtype = torch.float32
     logit_scale: float = 1.0
@@ -138,8 +150,10 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None):
         super().__init__()
+        self.pin_attn_layouts = cfg.pin_attn_layouts
         self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device,
-                                        cfg.param_dtype)
+                                        cfg.param_dtype,
+                                        fused_backward=cfg.fused_ln)
         self.attn = Attention(
             cfg.d_model,
             cfg.num_heads,
@@ -157,7 +171,8 @@ class Block(nn.Module):
             device=device,
         )
         self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device,
-                                       cfg.param_dtype)
+                                       cfg.param_dtype,
+                                       fused_backward=cfg.fused_ln)
         if cfg.num_experts:
             self.moe = MoEMlp(
                 cfg.d_model, cfg.num_experts, cfg.resolved_d_ff,
@@ -175,7 +190,12 @@ class Block(nn.Module):
     def forward(self, x, positions, segment_ids=None, cache=None):
         """``(x, aux)``: the block's output and its MoE aux loss (None for
         a dense block)."""
-        x = x + self.attn(self.ln_attn(x), positions, segment_ids, cache)
+        if self.pin_attn_layouts:
+            x = pin_layout(x)
+        y = self.attn(self.ln_attn(x), positions, segment_ids, cache)
+        if self.pin_attn_layouts:
+            y = pin_layout(y)
+        x = x + y
         y = self.ln_mlp(x)
         if hasattr(self, "moe"):
             y, aux = self.moe(y)

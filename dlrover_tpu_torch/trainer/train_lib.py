@@ -16,9 +16,14 @@ the JAX names: ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``,
 and the expert kernels ``[E, ., .]`` stack to ``[layers, E, ., .]``
 leaves.
 
+``make_optimizer`` builds ``adamw``, ``adafactor`` and the low-bit
+``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf update is
+one CUDA kernel on the card).
+
 Not ported yet, and refused when asked for: a device mesh and logical
 sharding rules, ZeRO-1, the overlap engine and the int8 gradient reduce
-(ROADMAP Queue 3/4), and the q8/q4 Adam optimizers (Queue 4).
+(ROADMAP Queue 1 items 3 and 4), and the ``sgd``, ``lion`` and ``agd``
+optimizers (Queue 1 item 2).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -38,6 +43,7 @@ from dlrover_tpu_torch.models.transformer import (
     TransformerLM,
     init_params,
 )
+from dlrover_tpu_torch.ops import quantization
 from dlrover_tpu_torch.optimizers import optax_ports as ox
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
@@ -78,8 +84,9 @@ def make_optimizer(
     decay_steps: int = 0,
     **kwargs,
 ) -> ox.GradientTransformation:
-    """``adamw`` or ``adafactor`` behind an optional global-norm clip, as
-    the JAX ``make_optimizer`` composes them."""
+    """``adamw``, ``adafactor``, ``q8_adam`` or ``q4_adam`` behind an
+    optional global-norm clip, as the JAX ``make_optimizer`` composes
+    them."""
     schedule = make_schedule(learning_rate, warmup_steps, decay_steps)
     if name == "adamw":
         opt = ox.adamw(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
@@ -87,14 +94,15 @@ def make_optimizer(
     elif name == "adafactor":
         opt = ox.adafactor(schedule)
     elif name in ("q8_adam", "q4_adam"):
-        raise NotImplementedError(
-            f"optimizer {name!r} (low-bit Adam, kernels K6/K7) is a later "
-            "slice of the port (ROADMAP Queue 1 item 4)"
-        )
+        low_bit = (quantization.q8_adam if name == "q8_adam"
+                   else quantization.q4_adam)
+        opt = low_bit(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
+                      **kwargs)
     elif name in ("sgd", "lion", "agd"):
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; the training slice has "
-            "adamw and adafactor"
+            f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item "
+            "2); the training slice has adamw, adafactor, q8_adam and "
+            "q4_adam"
         )
     else:
         raise ValueError(f"unknown optimizer {name!r}")

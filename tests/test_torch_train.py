@@ -25,6 +25,7 @@ from dlrover_tpu.trainer import train_lib as jtl
 from dlrover_tpu_torch.models import gpt2_config
 from dlrover_tpu_torch.models.from_jax import state_dict_from_jax
 from dlrover_tpu_torch.ops import flash_attention as tfa
+from dlrover_tpu_torch.ops import quantization as tq
 from dlrover_tpu_torch.optimizers import optax_ports as ox
 from dlrover_tpu_torch.trainer import train_lib as ttl
 
@@ -158,10 +159,32 @@ def test_make_schedule_matches_jax(warmup, decay):
 
 
 def test_make_optimizer_refuses_unported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ttl.make_optimizer("q8_adam")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        ttl.make_optimizer("lion")
     with pytest.raises(ValueError, match="unknown optimizer"):
         ttl.make_optimizer("nope")
+
+
+@pytest.mark.parametrize("name,state_cls", [("q8_adam", tq.Q8AdamState),
+                                            ("q4_adam", tq.Q4AdamState)])
+def test_make_optimizer_builds_low_bit_adam(name, state_cls):
+    """Behind the clip, with the JAX arguments (b1, b2, weight decay, the
+    schedule; ``min_quant_size`` through ``**kwargs``)."""
+    tx = ttl.make_optimizer(name, learning_rate=1e-3, warmup_steps=2,
+                            min_quant_size=512)
+    params = {"w": torch.ones((4, 256)), "b": torch.ones((8,))}
+    clip_state, state = tx.init(params)
+    assert clip_state == () and isinstance(state, state_cls)
+    assert isinstance(state.m["w"], tq.QMoment)
+    assert state.m["b"].shape == (8,)
+    grads = {"w": torch.full((4, 256), 100.0), "b": torch.ones((8,))}
+    updates, (_, state) = tx.update(grads, (clip_state, state), params)
+    assert state.count == 1
+    # Warm-up: the schedule is called with count 1 of 2, half the peak; the
+    # first Adam step is lr * (sign(g) + weight_decay * p).
+    torch.testing.assert_close(updates["w"],
+                               torch.full((4, 256), -5e-4 * 1.1),
+                               rtol=1e-3, atol=0)
 
 
 def _ce_inputs(rng, b=2, s=12, d=16, v=40):
@@ -227,12 +250,12 @@ def _batch():
     return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
 
 
-def _jax_run(opt_name, impl, remat, lr):
+def _jax_run(opt_name, impl, remat, lr, devices=None, **flags):
     cfg = jgpt2_config("124m", **TINY, dtype=jnp.float32,
-                       attention_impl=impl, remat=remat)
+                       attention_impl=impl, remat=remat, **flags)
     train = jtl.build_sharded_train(
         JModel(cfg), jtl.make_optimizer(opt_name, learning_rate=lr),
-        build_mesh(ParallelConfig()), jrules.DEFAULT_RULES,
+        build_mesh(ParallelConfig(), devices=devices), jrules.DEFAULT_RULES,
         global_batch_size=BATCH, seq_len=SEQ,
     )
     state = train.init(jax.random.PRNGKey(0))
@@ -246,12 +269,12 @@ def _jax_run(opt_name, impl, remat, lr):
     return init, metrics, jax.tree.map(np.asarray, state.params)
 
 
-def _port_run(opt_name, init, impl, remat, lr, **build):
+def _port_run(opt_name, init, impl, remat, lr, **flags):
     cfg = gpt2_config("124m", **TINY, dtype=torch.float32,
-                      attention_impl=impl, remat=remat)
+                      attention_impl=impl, remat=remat, **flags)
     train = ttl.build_train(
         cfg, ttl.make_optimizer(opt_name, learning_rate=lr),
-        global_batch_size=BATCH, seq_len=SEQ, device="cpu", **build,
+        global_batch_size=BATCH, seq_len=SEQ, device="cpu",
     )
     state = train.init(params=state_dict_from_jax(init, cfg))
     metrics = []
@@ -286,6 +309,50 @@ def test_train_steps_match_jax_build_sharded_train(opt_name, impl, remat,
             got, w = got[keep], w[keep]
         torch.testing.assert_close(got, w, rtol=0, atol=PARAM_ATOL,
                                    msg=name)
+
+
+# Low-bit Adam: the first step starts from equal (zero) codes and is held
+# as the other optimizers are.  From step 2 on a moment an ulp from a .5
+# boundary may take the next code in one package (tests/
+# test_torch_quantization.py), and a second-moment code near the bottom of
+# its 4th-root map that moves by one level moves that element's update by
+# a sizeable share of lr: metrics 2e-5 from step 2 on, nearly every
+# parameter within PARAM_ATOL, none beyond 3e-4 (lr 1e-3, 3 steps).
+# Measured: grad norm 5.0e-6 at step 3, worst parameter 7.3e-5.
+LOW_BIT_METRIC_RTOL = 2e-5
+LOW_BIT_PARAM_ATOL, LOW_BIT_PARAM_SHARE = 3e-4, 1e-3
+
+
+@pytest.mark.parametrize("opt_name,flags", [
+    ("q8_adam", dict(fused_ln=True)),
+    ("q4_adam", dict(fused_ln=True, pin_attn_layouts=True)),
+], ids=["q8_adam-fused_ln", "q4_adam-fused_ln-pin"])
+def test_low_bit_train_steps_match_jax_build_sharded_train(opt_name, flags):
+    """3 steps of the dense step's opt-in path (fused LN backward, layout
+    pin, low-bit Adam on layer-stacked leaves) against the JAX step on a
+    1-device mesh."""
+    init, jmetrics, jparams = _jax_run(
+        opt_name, "flash", "flash_only", 1e-3, devices=jax.devices()[:1],
+        **flags)
+    cfg, tmetrics, tparams = _port_run(opt_name, init, "flash",
+                                       "flash_only", 1e-3, **flags)
+    np.testing.assert_allclose(tmetrics[0], jmetrics[0], rtol=METRIC_RTOL)
+    np.testing.assert_allclose(tmetrics[1:], jmetrics[1:],
+                               rtol=LOW_BIT_METRIC_RTOL)
+    want = state_dict_from_jax(jparams, cfg)
+    hd = cfg.resolved_head_dim
+    off = total = 0
+    for name, w in want.items():
+        got = tparams[name]
+        if name.endswith("attn.qkv.bias"):  # see PARAM_ATOL
+            keep = torch.ones(w.shape, dtype=torch.bool)
+            keep[..., hd:2 * hd] = False
+            got, w = got[keep], w[keep]
+        err = (got - w).abs()
+        assert err.max() <= LOW_BIT_PARAM_ATOL, name
+        off += int((err > PARAM_ATOL).sum())
+        total += err.numel()
+    assert off <= LOW_BIT_PARAM_SHARE * total, (off, total)
 
 
 def _grads(remat, impl="flash", grad_accum=1, dtype=torch.float32,
