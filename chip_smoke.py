@@ -8,8 +8,9 @@ Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
 optimizers) and mixture-of-experts training, at the full width of GPT-2
 1.5B and of its MoE variant (full depth but for the MoE run) with random
-weights from a seed, and holds every CUDA kernel of those paths against
-its plain PyTorch version.  Imports nothing of JAX or
+weights from a seed, and the CTR loop on the embedding plane at MLPerf
+DLRM width, and holds every CUDA kernel of those paths against its plain
+PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
 
 1. ``device``  the card (``nvidia-smi`` name and power limit), torch, CUDA.
@@ -85,6 +86,15 @@ of the JAX package.  Phases, each one JSON line on stdout:
 4e. ``pin_kernel_check``  K11 on [16, 1024, 1600] bf16 contiguous and
                transposed, and on sliced, expanded and byte-sized views:
                contiguous and bit-equal.  Yardstick ``clone()``.
+4f. ``embed_kernel_checks``  the hot-row cache's gather K10a and scatter
+               K10b (``EMBED_CASES``): the CTR loop's shape (cache
+               [4,194,304, 128] fp32, 32,768 slots with a padded tail at
+               slot 0), dim 16, the unaligned dim 129, one slot, and a
+               scatter whose only duplicates are slot 0 with zero rows, each
+               bit-equal to the plain versions; a gather that reads
+               ``slots[i] + 1`` and a scatter that drops the last real row
+               must fail.  Times over ``EMBED_TIMED_SETS`` slot sets (L2
+               cold); yardsticks ``index_select`` and ``index_copy_``.
 5. ``dispatch``  host microseconds per flash forward under ``no_grad``
                at the S=16 and S=512 prefill shapes, through the custom
                op against the bare kernel call, and the op's first call.
@@ -162,9 +172,22 @@ of the JAX package.  Phases, each one JSON line on stdout:
                update through K6 against the plain update from the same
                gradients and one-step-old state (codes, scales, updates);
                one planted fault per kernel must fail.
+16. ``train_rec``  ``dlrover_tpu_torch.examples.train_rec.run`` at MLPerf
+               DLRM width (``REC_ARGV``: batch 8,192, 26 fields, dim 128,
+               40M ids, hidden 1024, world 4 folding to 3 after step 16,
+               4,194,304 cached rows), 1 + 30 steps: after every step the
+               cache's rows of the batch's keys, gathered through K10a,
+               equal the plane's bit for bit; finite loss, lower at the end;
+               per step one K10a and 1 + (fetches) K10b launches, equal to
+               the cache's own counts; hit rate above 0; the reshard moved
+               rows and lost none.  Step time, examples/s, rows/s, one
+               profiled step's device-busy share, one step's host profile
+               (cProfile).  Then 3 steps with a K10b that drops the last
+               real row must fail the invariant.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, train, train_split, train_moe and train_lowbit paths,
+runs of the serve, train, train_split, train_moe, train_lowbit and
+train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -176,6 +199,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -268,12 +292,14 @@ QUANT_CODE_SHARE, QUANT_SCALE_RTOL, QUANT_UPD_NORM_TOL = 1e-4, 1e-6, 1e-3
 LOWBIT_STEPS, LOWBIT_Q4_STEPS = 3, 2
 # K4 and K11 against their plain versions over one 4-layer step (the flash
 # kernels in both legs).  Sound kernels read (H100): loss gap 0 (neither
-# kernel changes a forward value), grad-norm gap 5.9e-6, lowest cosine
-# 0.9999877 and worst per-parameter error 0.0049 (``pos_embedding``); the
-# kernel leg's rerun reads 0.9999937 and 0.0036 (the fused flash dq's atomic
-# order).  The limits are about 3x the readings.  The planted faults read
-# cosines of 0.9934 and 0.8555 and errors of 0.18 and 0.53.
-LOWBIT_PARITY_LOSS_ATOL, LOWBIT_PARITY_NORM_RTOL = 1e-5, 2e-5
+# kernel changes a forward value), lowest cosine 0.9999877 and worst
+# per-parameter error 0.0049 (``pos_embedding``); the kernel leg's rerun
+# reads 0.9999937 and 0.0036 (the fused flash dq's atomic order).  The
+# grad-norm gap varies more from run to run: 5.9e-6, 4.0e-6, 1.49e-5,
+# 1.72e-5 and 2.60e-5 over five runs.  The limits are about 3x the largest
+# readings.  The planted faults read cosines of 0.9934 and 0.8555, errors
+# of 0.18 and 0.53 and grad-norm gaps of 0.063 and 0.034.
+LOWBIT_PARITY_LOSS_ATOL, LOWBIT_PARITY_NORM_RTOL = 1e-5, 8e-5
 LOWBIT_PARITY_MIN_COSINE, LOWBIT_PARITY_PARAM_RTOL = 0.99996, 0.015
 # (prompt length, max_new_tokens): every bucket 16..512, one prompt > 256.
 SERVE_REQUESTS = [
@@ -1057,8 +1083,10 @@ def _launch_dicts():
     from dlrover_tpu_torch.ops import grouped_matmul as gm
     from dlrover_tpu_torch.ops import layout_pin as lp
     from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.embedding import kernels as ek
 
-    return (fa.LAUNCHES, gm.LAUNCHES, fn.LAUNCHES, lp.LAUNCHES, tq.LAUNCHES)
+    return (fa.LAUNCHES, gm.LAUNCHES, fn.LAUNCHES, lp.LAUNCHES, tq.LAUNCHES,
+            ek.LAUNCHES)
 
 
 def _counts():
@@ -2518,6 +2546,354 @@ def train_lowbit_parity():
     torch.cuda.empty_cache()
 
 
+# -- embedding plane -----------------------------------------------------------
+
+# The hot-row cache's kernels K10a/K10b (``embedding/kernels.py``).  Cases:
+# (name, capacity, dim, slots, real slots).  Real slots are distinct and
+# nonzero; the rest of the padded array points at the scratch slot 0, whose
+# scattered rows are zero, as the cache pads them.  The slice case is the
+# CTR loop's: a 4,194,304-row cache of dim 128 (2.15 GB), 32,768 padded
+# slots, about as many real ones as a batch there has unique keys.
+EMBED_CASES = [
+    ("slice", 4_194_304, 128, 32_768, 17_300),
+    ("dim16", 8_192, 16, 4_096, 2_500),
+    ("dim129_unaligned", 8_192, 129, 4_096, 2_500),
+    ("single_slot", 64, 128, 1, 1),
+    ("scratch_duplicates", 1_024, 128, 8, 3),
+]
+EMBED_SLICE_CASE = "slice"
+# ``train_rec`` at MLPerf DLRM width (Criteo 1TB: 26 categorical features,
+# embedding dim 128, max_ind_range 40M, top MLP opening at 1024, 8,192
+# examples per chip of the 65,536 global batch): 1 warm-up + 30 measured
+# steps, a 4 -> 3 fold after step 16, 4,194,304 cached rows on the card.
+REC_ARGV = [
+    "--steps", "31", "--batch-size", "8192", "--fields", "26", "--dim",
+    "128", "--id-space", "40000000", "--hidden", "1024", "--lr", "0.01",
+    "--world", "4", "--num-buckets", "64", "--cache-rows", "4194304",
+    "--max-unique", "32768", "--prefetch-depth", "2", "--sparse-optimizer",
+    "adam", "--reshard-at", "16:3",
+]
+REC_WARMUP, REC_PROFILED_STEP, REC_HOST_PROFILED_STEP = 1, 21, 23
+REC_FAULT_STEPS = 3
+REC_CHECK_GATHERS = 1  # K10a launches a step made by the invariant check
+EMBED_TIMED_SETS = 8
+
+
+def _embed_case(name, capacity, dim, n, real, rng, gen):
+    slots = np.zeros(n, np.int32)
+    chosen = rng.choice(capacity - 1, size=real, replace=False) + 1
+    if name == "scratch_duplicates":
+        slots[0::2][:real] = chosen  # [a, 0, b, 0, c, 0, 0, 0]
+    else:
+        slots[:real] = chosen
+    rows = rng.standard_normal((n, dim)).astype(np.float32)
+    rows[slots == 0] = 0.0
+    cache = torch.randn((capacity, dim), generator=gen, device="cuda")
+    return cache, slots, rows
+
+
+def _gather_fault(gather):
+    """A gather that reads ``slots[i] + 1``."""
+    def faulty(cache, slots):
+        return gather(cache, (np.asarray(slots, np.int64) + 1)
+                      % cache.shape[0])
+    return faulty
+
+
+def _scatter_fault(scatter):
+    """A scatter that drops the last real (nonzero) slot's row."""
+    def faulty(cache, slots, rows):
+        slots = np.asarray(slots)
+        keep = np.ones(slots.shape, bool)
+        real = np.nonzero(slots)[0]
+        if real.size:
+            keep[real[-1]] = False
+        return scatter(cache, slots[keep], np.asarray(rows)[keep])
+    return faulty
+
+
+def _embed_check(gather, scatter, cache, slots, rows):
+    """Bit-equality of a gather and a scatter with the plain versions."""
+    from dlrover_tpu_torch.embedding import kernels as ek
+
+    s_dev = torch.from_numpy(slots).cuda()
+    got = gather(cache, slots)
+    want = ek.gather_rows_reference(cache, s_dev)
+    kc, rc = cache.clone(), cache.clone()
+    scatter(kc, slots, rows)
+    ek.scatter_rows_reference_(rc, s_dev, torch.from_numpy(rows).cuda())
+    torch.cuda.synchronize()
+    return {
+        "gather_bit_equal": bool(torch.equal(got, want)),
+        "gather_max_abs_err": float((got - want).abs().max()),
+        "scatter_bit_equal": bool(torch.equal(kc, rc)),
+        "scatter_max_abs_err": float((kc - rc).abs().max()),
+        "new_storage": got.data_ptr() != cache.data_ptr(),
+    }
+
+
+def embed_kernel_checks(gen):
+    """K10a and K10b against their plain versions, bit for bit, at the CTR
+    loop's shape, at dim 16, at the unaligned dim 129, for one slot and
+    for a scatter whose only duplicates are slot 0 with zero rows; two
+    planted faults must fail.  Times at the slice case."""
+    from dlrover_tpu_torch.embedding import kernels as ek
+
+    rng = np.random.default_rng(0)
+    results, ok, timed = {}, True, {}
+    for name, capacity, dim, n, real in EMBED_CASES:
+        cache, slots, rows = _embed_case(name, capacity, dim, n, real, rng,
+                                         gen)
+        res = dict(capacity=capacity, dim=dim, slots=n, real=real,
+                   **_embed_check(ek.gather_rows, ek.scatter_rows, cache,
+                                  slots, rows))
+        ok = ok and res["gather_bit_equal"] and res["scatter_bit_equal"] \
+            and res["new_storage"]
+        if name == EMBED_SLICE_CASE:
+            faults = _embed_check(_gather_fault(ek.gather_rows),
+                                  _scatter_fault(ek.scatter_rows), cache,
+                                  slots, rows)
+            res["faults"] = {
+                "gather_reads_next_slot_caught":
+                    not faults["gather_bit_equal"],
+                "scatter_drops_last_row_caught":
+                    not faults["scatter_bit_equal"],
+            }
+            ok = ok and all(res["faults"].values())
+            timed = _embed_times(cache, slots, rows, rng)
+        results[name] = res
+        del cache
+    torch.cuda.empty_cache()
+    res = {"phase": "embed_kernel_checks", "cases": results, "timed": timed,
+           "max_abs_err": max(max(r["gather_max_abs_err"],
+                                  r["scatter_max_abs_err"])
+                              for r in results.values()),
+           "ok": ok}
+    emit(res)
+    if not ok:
+        raise AssertionError(f"embedding row kernels disagree: {results}")
+    return res
+
+
+def _embed_times(cache, slots, rows, rng):
+    """Kernel, plain and library device times at one case, and the bound
+    from the bytes this case's slots need, 4 bytes a slot besides: the
+    gather reads each distinct cache row once and writes every slot's row;
+    the scatter writes each distinct slot once, from the one row of
+    ``rows`` that lands there (the last of a run of equal slots), so it
+    reads and writes ``distinct`` rows.
+    The timed calls cycle through ``EMBED_TIMED_SETS`` slot and row sets,
+    as many bytes as twice the 50 MB L2, so each call finds its rows in
+    device memory as a training step does."""
+    from dlrover_tpu_torch.embedding import kernels as ek
+
+    n, dim = rows.shape
+    capacity = cache.shape[0]
+    real = int(np.count_nonzero(slots))
+    sets = []
+    for _ in range(EMBED_TIMED_SETS):
+        s = np.zeros_like(slots)
+        s[:real] = rng.choice(capacity - 1, size=real, replace=False) + 1
+        r = rng.standard_normal(rows.shape).astype(np.float32)
+        r[s == 0] = 0.0
+        s_dev = torch.from_numpy(s).cuda()
+        sets.append((s, s_dev, s_dev.long(), torch.from_numpy(r).cuda(), r))
+    distinct = len(np.unique(slots))
+    row_bytes = dim * 4
+    kc, rc = cache.clone(), cache.clone()
+
+    def cycled(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    out = {}
+    for kind, nbytes, kernel, plain, library, wrapper in (
+            ("gather", (distinct + n) * row_bytes + 4 * n,
+             lambda s, sd, s64, rd, r: ek.gather_kernel(cache, sd),
+             lambda s, sd, s64, rd, r: ek.gather_rows_reference(cache, sd),
+             lambda s, sd, s64, rd, r: cache.index_select(0, s64),
+             lambda s, sd, s64, rd, r: ek.gather_rows(cache, s)),
+            ("scatter", 2 * distinct * row_bytes + 4 * n,
+             lambda s, sd, s64, rd, r: ek.scatter_kernel(kc, sd, rd),
+             lambda s, sd, s64, rd, r: ek.scatter_rows_reference_(rc, sd,
+                                                                  rd),
+             lambda s, sd, s64, rd, r: rc.index_copy_(0, s64, rd),
+             lambda s, sd, s64, rd, r: ek.scatter_rows(kc, s, r))):
+        b_ms, b_by = bound(nbytes, 0.0)
+        out[kind] = dict(
+            ms=device_ms(cycled(kernel)), plain_ms=device_ms(cycled(plain)),
+            library_ms=device_ms(cycled(library)),
+            library="Tensor.index_select" if kind == "gather"
+            else "Tensor.index_copy_",
+            # The wrapper from host slots (and host rows): range check,
+            # uploads and the launch, as the cache calls it.
+            wrapper_eager_ms=eager_ms(cycled(wrapper)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            distinct_rows=distinct)
+    del kc, rc, sets
+    return out
+
+
+def _rec_invariant_holds(cache, uniq) -> bool:
+    """The cache's invariant: the rows of ``uniq`` gathered through K10a
+    equal ``plane.peek(uniq)`` bit for bit.  The gather is one counted
+    K10a launch (``REC_CHECK_GATHERS`` a step)."""
+    from dlrover_tpu_torch.embedding import kernels as ek
+
+    got = ek.gather_rows(cache.memory_buffers()[0], cache.slots_of(uniq))
+    got = got[: len(uniq)].cpu().numpy()
+    return bool(np.array_equal(got, cache.plane.peek(uniq)))
+
+
+def _host_profile(prof, top: int = 14):
+    """The functions a cProfile window spent most time in, by own time."""
+    import pstats
+
+    stats = pstats.Stats(prof)
+    rows = []
+    for (path, line, func), (_, ncalls, tottime, cumtime, _) in \
+            stats.stats.items():
+        rows.append((tottime, cumtime, ncalls,
+                     f"{os.path.basename(path)}:{line}({func})"))
+    rows.sort(reverse=True)
+    return [{"own_ms": t * 1e3, "cum_ms": c * 1e3, "calls": n, "name": f}
+            for t, c, n, f in rows[:top]]
+
+
+def train_rec_and_check():
+    """``train_rec.run`` at MLPerf DLRM width on the card: after every step
+    the cache's rows (through K10a) equal the plane's bit for bit, across
+    the 4 -> 3 reshard; the loss is finite and falls; the launches equal
+    the counts the cache's code gives (one K10a per lookup, one K10b per
+    ensure that fetched misses and one per refresh); the hit rate is above
+    0; the reshard moved rows and lost none.  Then 3 steps with a K10b that
+    drops the last real row must fail the invariant."""
+    import cProfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.embedding import kernels as ek
+    from dlrover_tpu_torch.examples import train_rec
+
+    args = train_rec.parse_args(REC_ARGV)
+    state = {"bad": [], "per_step": [], "prev": None}
+    window = {}
+
+    def on_step(step, cache, uniq):
+        if step == REC_PROFILED_STEP:
+            torch.cuda.synchronize()
+            window["prof"].__exit__(None, None, None)
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+        if step == REC_HOST_PROFILED_STEP:
+            window["host"].disable()
+        if not _rec_invariant_holds(cache, uniq):
+            state["bad"].append(step)
+        now = dict(cache.stats(), **ek.LAUNCHES)
+        prev = state["prev"] or dict.fromkeys(now, 0)
+        d = {k: now[k] - prev[k] for k in now}
+        state["prev"] = now
+        want = {"embed_gather": 1, "embed_scatter": 1 + d["fetches"]}
+        got = {"embed_gather": d["embed_gather"] - REC_CHECK_GATHERS,
+               "embed_scatter": d["embed_scatter"]}
+        calls = {"embed_gather": d["gathers"],
+                 "embed_scatter": d["scatters"]}
+        state["per_step"].append(dict(step=step, unique=len(uniq),
+                                      fetches=d["fetches"], **got))
+        if got != want or calls != want:
+            raise AssertionError(
+                f"step {step}: launches {got}, cache calls {calls}, "
+                f"derived {want}")
+        if step == REC_PROFILED_STEP - 1:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.perf_counter()
+        if step == REC_HOST_PROFILED_STEP - 1:
+            window["host"] = cProfile.Profile()
+            window["host"].enable()
+
+    # -- the main path, counted ----------------------------------------------
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_rec.run(args, device="cuda", on_step=on_step)
+    total_s = time.perf_counter() - t0
+    counts = _counts()
+    # The path's own launches: take out the invariant check's gathers.
+    counts["embed_gather"] -= REC_CHECK_GATHERS * args.steps
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    losses = result["losses"]
+    cache, plane = result["cache"], result["plane"]
+    (reshard,) = result["reshards"]
+    measured = result["step_s"][REC_WARMUP:]
+    step_s = statistics.median(measured)
+    prof = _profile_summary(window["prof"], window["wall_ms"], top=10)
+    busy = prof.get("device_busy_ms")
+    checks = {
+        "invariant_every_step": not state["bad"],
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "loss_falls": float(np.mean(losses[-5:])) < min(
+            float(np.mean(losses[:5])), losses[0]),
+        "launches_derived": (
+            counts["embed_gather"] == cache["gathers"] == args.steps
+            and counts["embed_scatter"] == cache["scatters"]
+            == args.steps + cache["fetches"]),
+        "hit_rate_above_0": cache["hit_rate"] > 0,
+        "reshard_moved_rows_lost_none": (
+            reshard["moved_rows"] > 0
+            and reshard["rows_before"] == reshard["rows_after"]),
+        "no_eviction": cache["evictions"] == 0,
+    }
+
+    # -- the invariant check must catch a faulty scatter ---------------------
+    fault_args = train_rec.parse_args(
+        REC_ARGV[:1] + [str(REC_FAULT_STEPS)] + REC_ARGV[2:-2])
+    caught = []
+    kernel_scatter = ek.scatter_rows
+    ek.scatter_rows = _scatter_fault(kernel_scatter)
+    try:
+        train_rec.run(fault_args, device="cuda", on_step=lambda s, c, u: (
+            caught.append(s) if not _rec_invariant_holds(c, u) else None))
+    finally:
+        ek.scatter_rows = kernel_scatter
+    torch.cuda.empty_cache()
+    checks["scatter_fault_caught"] = bool(caught)
+
+    emit({
+        "phase": "train_rec",
+        "config": "MLPerf Training DLRM, Criteo 1TB: 26 categorical "
+                  "features, dim 128, max_ind_range 40M, top MLP 1024, "
+                  "8192 examples per chip; zipf(1.3) ids, numpy seed 0",
+        "argv": REC_ARGV,
+        "losses": losses, "step_s": result["step_s"],
+        "step_s_median": step_s,
+        "examples_per_s": args.batch_size / step_s,
+        "rows_per_s": args.batch_size * args.fields / step_s,
+        "examples_per_s_whole_run": result["examples_per_s"],
+        "run_s": total_s,
+        "reshard": reshard,
+        "reshard_step_s": result["step_s"][reshard["step"] - 1],
+        "cache": cache, "plane": plane,
+        "launches": {k: counts[k] for k in ek.LAUNCHES},
+        "per_step": state["per_step"],
+        "peak_memory_allocated_bytes": peak,
+        "profiled_step": prof,
+        "device_busy_share_of_profiled_step": (
+            busy / prof["wall_ms_under_profiler"]
+            if isinstance(busy, float) else "not measured"),
+        "host_profile_step": _host_profile(window["host"]),
+        "fault_run": {"steps": REC_FAULT_STEPS, "failed_at_steps": caught},
+        "checks": checks,
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"train_rec failed its checks: {checks} "
+                             f"(invariant broken at steps {state['bad']})")
+    return counts
+
+
 # -- serving --------------------------------------------------------------------
 
 
@@ -2539,7 +2915,6 @@ def _requests(vocab: int):
 
 def _profile(fn, top: int = 8):
     """Device time by kernel for one call of ``fn``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2549,6 +2924,13 @@ def _profile(fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, top)
+
+
+def _profile_summary(prof, wall_ms: float, top: int = 8):
+    """Device busy time and the top kernels of a finished profile."""
+    from torch.autograd import DeviceType
+
     rows = []
     for evt in prof.key_averages():
         # Kernels and copies only: a CPU op's row repeats its kernels'
@@ -2808,6 +3190,7 @@ def main() -> int:
     norm_cases = norm_kernel_checks(gen)
     quant_cases = quant_kernel_checks(gen)
     pin_check = pin_kernel_check(gen)
+    embed_check = embed_kernel_checks(gen)
 
     mha_dispatch()
     paths = {"serve": serve_and_check()}
@@ -2818,6 +3201,7 @@ def main() -> int:
     train_moe_parity()
     paths.update(train_lowbit_and_check(adafactor_state_bytes))
     train_lowbit_parity()
+    paths["train_rec"] = train_rec_and_check()
 
     def launches(name):
         return sum(p[name] for p in paths.values())
@@ -2932,6 +3316,22 @@ def main() -> int:
         library=t["library"], transposed_ms=t["transposed_ms"],
         shape={"x": [TRAIN_BATCH, TRAIN_SEQ, 1600], "dtype": "bf16"},
     ))
+    for name, replaces, kind in (("embed_gather", 67, "gather"),
+                                 ("embed_scatter", 72, "scatter")):
+        t = embed_check["timed"][kind]
+        _, capacity, dim, n, real = next(
+            c for c in EMBED_CASES if c[0] == EMBED_SLICE_CASE)
+        entries.append(dict(
+            name=name, route="cuda", source=src + "embedding_rows.cu",
+            replaces=f"dlrover_tpu/embedding/kernels.py:{replaces}",
+            launches=launches(name), launches_by_path=by_path(name),
+            max_abs_err=embed_check["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library=t["library"], wrapper_eager_ms=t["wrapper_eager_ms"],
+            shape={"cache": [capacity, dim], "slots": n, "real": real,
+                   "dtype": "fp32"},
+        ))
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,0 +1,520 @@
+"""KVStore: dynamic-capacity sparse embedding store (ctypes over C++).
+
+Port of ``dlrover_tpu/embedding/store.py``.  The C++ table
+(``native/kv_store.cc``, the JAX package's source but for a path in one
+header comment) is compiled with ``g++ -O2 -shared -fPIC`` at first use
+into ``build/kvstore/`` beside the package, named by a hash of the source
+as ``ops/kernel_lib.py`` names the CUDA kernels, never next to the source.
+
+The NumPy store is an explicit choice (``native=False``), the plain version
+of the same contract.  ``native=None`` and ``native=True`` both mean the
+C++ table: a failed build raises with the compiler's output.  Unlike the
+JAX package there is no silent demotion to the NumPy loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                    "kv_store.cc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))),
+    "build", "kvstore",
+)
+CXX = "g++"
+CXX_FLAGS = ("-O2", "-shared", "-fPIC")
+_build_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _target() -> str:
+    sha = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        sha.update(f.read())
+    sha.update(" ".join((CXX,) + CXX_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libkvstore-{sha.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Several processes may build at once: each writes its own file and
+    # renames it into place.
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(
+            [CXX, *CXX_FLAGS, "-o", tmp, _SRC],
+            capture_output=True, text=True,
+        )
+    except OSError as e:
+        raise RuntimeError(
+            f"native kv_store build failed: cannot run {CXX!r}: {e}"
+        ) from e
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"native kv_store build failed (rc {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+
+
+def _load_native() -> ctypes.CDLL:
+    """The loaded C++ table, built on first use; raises if it cannot be
+    built or loaded."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        out = _target()
+        if not os.path.exists(out):
+            _build(out)
+        lib = ctypes.CDLL(out)
+        c = ctypes
+        i64, u32, u64, f32p = c.c_int64, c.c_uint32, c.c_uint64, c.POINTER(c.c_float)
+        i64p, u32p = c.POINTER(c.c_int64), c.POINTER(c.c_uint32)
+        lib.kv_create.restype = c.c_void_p
+        lib.kv_create.argtypes = [i64, i64]
+        lib.kv_free.argtypes = [c.c_void_p]
+        for name in ("kv_size", "kv_capacity", "kv_dim"):
+            getattr(lib, name).restype = i64
+            getattr(lib, name).argtypes = [c.c_void_p]
+        lib.kv_lookup.argtypes = [c.c_void_p, i64p, i64, f32p, c.c_float, u64, u32]
+        lib.kv_peek.argtypes = [c.c_void_p, i64p, i64, f32p]
+        lib.kv_insert.argtypes = [c.c_void_p, i64p, i64, f32p, f32p, f32p, u32p, u32p]
+        lib.kv_apply_group_adam.argtypes = [
+            c.c_void_p, i64p, i64, f32p, c.c_float, c.c_float, c.c_float,
+            c.c_float, c.c_float, i64,
+        ]
+        lib.kv_apply_group_adagrad.argtypes = [
+            c.c_void_p, i64p, i64, f32p, c.c_float, c.c_float,
+        ]
+        lib.kv_apply_group_ftrl.argtypes = [
+            c.c_void_p, i64p, i64, f32p, c.c_float, c.c_float, c.c_float,
+            c.c_float,
+        ]
+        lib.kv_apply_group_lamb.argtypes = [
+            c.c_void_p, i64p, i64, f32p, c.c_float, c.c_float, c.c_float,
+            c.c_float, c.c_float, i64,
+        ]
+        lib.kv_apply_group_radam.argtypes = [
+            c.c_void_p, i64p, i64, f32p, c.c_float, c.c_float, c.c_float,
+            c.c_float, c.c_float, i64,
+        ]
+        lib.kv_apply_group_adahessian.argtypes = [
+            c.c_void_p, i64p, i64, f32p, f32p, c.c_float, c.c_float,
+            c.c_float, c.c_float, c.c_float, i64,
+        ]
+        lib.kv_export.restype = i64
+        lib.kv_export.argtypes = [
+            c.c_void_p, u32, i64p, f32p, f32p, f32p, u32p, u32p, i64,
+        ]
+        lib.kv_count_since.restype = i64
+        lib.kv_count_since.argtypes = [c.c_void_p, u32]
+        lib.kv_evict.restype = i64
+        lib.kv_evict.argtypes = [c.c_void_p, u32, u32]
+        lib.kv_remove.restype = i64
+        lib.kv_remove.argtypes = [c.c_void_p, i64p, i64]
+        _lib = lib
+    return _lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+class KVStore:
+    """Dynamic sparse table: int64 key -> (value, optimizer s0/s1, count, step).
+
+    The two optimizer-state rows mean (m, v) under adam/lamb, (accumulator,
+    unused) under adagrad and (accumulator, linear) under ftrl.
+
+    Thread safety: the C table is not internally synchronized and ctypes
+    calls release the GIL, so every native call (and the NumPy version,
+    for contract parity) is serialized behind a per-store lock.
+    """
+
+    def __init__(self, dim: int, initial_capacity: int = 1024,
+                 native: Optional[bool] = None):
+        self.dim = int(dim)
+        lib = _load_native() if native in (None, True) else None
+        self._lib = lib
+        self._mu = threading.Lock()
+        if lib is not None:
+            self._handle = lib.kv_create(self.dim, initial_capacity)
+        else:
+            self._py: Dict[int, np.ndarray] = {}
+            self._py_meta: Dict[int, Tuple[int, int]] = {}  # count, step
+
+    def _h(self):
+        """Native handle, or a Python error (not a nullptr segfault) when a
+        thread calls in after close()."""
+        if self._handle is None:
+            raise RuntimeError("KVStore is closed")
+        return self._handle
+
+    @property
+    def native(self) -> bool:
+        return self._lib is not None
+
+    def __len__(self) -> int:
+        with self._mu:
+            if self._lib:
+                return int(self._lib.kv_size(self._h()))
+            return len(self._py)
+
+    def close(self):
+        with self._mu:
+            if self._lib is not None and self._handle:
+                self._lib.kv_free(self._handle)
+                self._handle = None
+
+    # -- core ops -------------------------------------------------------------
+
+    def lookup(self, keys: np.ndarray, init_scale: float = 0.01,
+               seed: int = 0, step: int = 0) -> np.ndarray:
+        """Gather rows, inserting missing keys (deterministic init)."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        out = np.empty((keys.size, self.dim), np.float32)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_lookup(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(out, ctypes.c_float), init_scale, seed, step,
+                )
+                return out
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    rng = np.random.default_rng(
+                        # two's-complement view: negative keys (incl.
+                        # INT64_MIN) must seed without overflow
+                        np.uint64(key & 0xFFFFFFFFFFFFFFFF)
+                        ^ np.uint64(seed)
+                    )
+                    row = np.zeros((3, self.dim), np.float32)
+                    row[0] = rng.uniform(
+                        -init_scale, init_scale, self.dim
+                    ).astype(np.float32)
+                    self._py[key] = row
+                    self._py_meta[key] = (0, 0)
+                out[i] = row[0]
+                count, _ = self._py_meta[key]
+                self._py_meta[key] = (count + 1, step)
+            return out
+
+    def peek(self, keys: np.ndarray) -> np.ndarray:
+        """Read-only gather; missing keys yield zeros (eval path)."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        out = np.zeros((keys.size, self.dim), np.float32)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_peek(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(out, ctypes.c_float),
+                )
+                return out
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is not None:
+                    out[i] = row[0]
+            return out
+
+    def _check_grads(self, keys, grads):
+        keys = np.ascontiguousarray(keys, np.int64)
+        grads = np.ascontiguousarray(grads, np.float32)
+        assert grads.shape == (keys.size, self.dim)
+        return keys, grads
+
+    def apply_group_adam(self, keys: np.ndarray, grads: np.ndarray,
+                         lr: float, b1: float = 0.9, b2: float = 0.999,
+                         eps: float = 1e-8, weight_decay: float = 0.0,
+                         t: int = 1):
+        """Sparse Adam on the touched rows (moments live in the store)."""
+        keys, grads = self._check_grads(keys, grads)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_adam(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float), lr, b1, b2, eps,
+                    weight_decay, t,
+                )
+                return
+            scale = np.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                g = grads[i] + weight_decay * row[0]
+                row[1] = b1 * row[1] + (1 - b1) * g
+                row[2] = b2 * row[2] + (1 - b2) * g * g
+                row[0] -= lr * scale * row[1] / (np.sqrt(row[2]) + eps)
+
+    def apply_group_adagrad(self, keys: np.ndarray, grads: np.ndarray,
+                            lr: float, eps: float = 1e-10):
+        """Sparse Adagrad (s0 = accumulator)."""
+        keys, grads = self._check_grads(keys, grads)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_adagrad(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float), lr, eps,
+                )
+                return
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                row[1] += grads[i] * grads[i]
+                row[0] -= lr * grads[i] / (np.sqrt(row[1]) + eps)
+
+    def apply_group_ftrl(self, keys: np.ndarray, grads: np.ndarray,
+                         lr: float, l1: float = 0.0, l2: float = 0.0,
+                         beta: float = 0.0):
+        """Sparse FTRL-proximal, TF FtrlV2 semantics (s0 = accumulator,
+        s1 = linear)."""
+        keys, grads = self._check_grads(keys, grads)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_ftrl(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float), lr, l1, l2, beta,
+                )
+                return
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                g = grads[i]
+                acc_new = row[1] + g * g
+                sigma = (np.sqrt(acc_new) - np.sqrt(row[1])) / lr
+                row[2] += g - sigma * row[0]
+                row[1] = acc_new
+                quad = (beta + np.sqrt(acc_new)) / lr + 2.0 * l2
+                lin = row[2]
+                row[0] = np.where(
+                    np.abs(lin) > l1, (np.sign(lin) * l1 - lin) / quad, 0.0
+                ).astype(np.float32)
+
+    def apply_group_lamb(self, keys: np.ndarray, grads: np.ndarray,
+                         lr: float, b1: float = 0.9, b2: float = 0.999,
+                         eps: float = 1e-6, weight_decay: float = 0.0,
+                         t: int = 1):
+        """Sparse LAMB with a per-row trust ratio (s0 = m, s1 = v)."""
+        keys, grads = self._check_grads(keys, grads)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_lamb(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float), lr, b1, b2, eps,
+                    weight_decay, t,
+                )
+                return
+            bias1 = 1.0 - b1 ** t
+            bias2 = 1.0 - b2 ** t
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                g = grads[i]
+                row[1] = b1 * row[1] + (1 - b1) * g
+                row[2] = b2 * row[2] + (1 - b2) * g * g
+                u = (row[1] / bias1) / (np.sqrt(row[2] / bias2) + eps)
+                u = u + weight_decay * row[0]
+                w_norm = float(np.linalg.norm(row[0]))
+                u_norm = float(np.linalg.norm(u))
+                ratio = w_norm / u_norm if w_norm > 0 and u_norm > 0 else 1.0
+                row[0] -= lr * ratio * u
+
+    def apply_group_radam(self, keys: np.ndarray, grads: np.ndarray,
+                          lr: float, b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8, weight_decay: float = 0.0,
+                          t: int = 1):
+        """Sparse Rectified Adam (s0 = m, s1 = v): un-adapted momentum
+        until the variance rectifier is defined (rho_t > 4)."""
+        keys, grads = self._check_grads(keys, grads)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_radam(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float), lr, b1, b2, eps,
+                    weight_decay, t,
+                )
+                return
+            bias1 = 1.0 - b1 ** t
+            bias2 = 1.0 - b2 ** t
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            b2t = b2 ** t
+            rho_t = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+            rect = None
+            if rho_t > 4.0:
+                rect = float(np.sqrt(
+                    ((rho_t - 4.0) * (rho_t - 2.0) * rho_inf)
+                    / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho_t)
+                ))
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                g = grads[i]
+                row[1] = b1 * row[1] + (1 - b1) * g
+                row[2] = b2 * row[2] + (1 - b2) * g * g
+                m_hat = row[1] / bias1
+                if rect is not None:
+                    update = rect * m_hat / (np.sqrt(row[2] / bias2) + eps)
+                else:
+                    update = m_hat
+                row[0] -= lr * (update + weight_decay * row[0])
+
+    def apply_group_adahessian(self, keys: np.ndarray, grads: np.ndarray,
+                               hessian: np.ndarray, lr: float,
+                               b1: float = 0.9, b2: float = 0.999,
+                               eps: float = 1e-8,
+                               weight_decay: float = 0.0, t: int = 1):
+        """Sparse AdaHessian (s0 = m, s1 = v over the squared Hessian
+        diagonal): ``hessian`` rows come from the caller's Hutchinson
+        probe."""
+        keys, grads = self._check_grads(keys, grads)
+        hessian = np.ascontiguousarray(hessian, np.float32)
+        if hessian.shape != grads.shape:
+            # Not an assert: the native path would read past the buffer.
+            raise ValueError(
+                f"hessian shape {hessian.shape} != grads {grads.shape}"
+            )
+        with self._mu:
+            if self._lib:
+                self._lib.kv_apply_group_adahessian(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(grads, ctypes.c_float),
+                    _ptr(hessian, ctypes.c_float), lr, b1, b2, eps,
+                    weight_decay, t,
+                )
+                return
+            bias1 = 1.0 - b1 ** t
+            bias2 = 1.0 - b2 ** t
+            for i, key in enumerate(keys.tolist()):
+                row = self._py.get(key)
+                if row is None:
+                    continue
+                g, h = grads[i], hessian[i]
+                row[1] = b1 * row[1] + (1 - b1) * g
+                row[2] = b2 * row[2] + (1 - b2) * h * h
+                update = (row[1] / bias1) / (np.sqrt(row[2] / bias2) + eps)
+                row[0] -= lr * (update + weight_decay * row[0])
+
+    # -- export / import / eviction -------------------------------------------
+
+    def export(self, min_step: int = 0):
+        """(keys, values, m, v, counts, steps); ``min_step`` selects the
+        delta touched at/after that step (0 = full export)."""
+        with self._mu:
+            return self._export_locked(min_step)
+
+    def _export_locked(self, min_step: int):
+        if self._lib:
+            cap = int(self._lib.kv_count_since(self._h(), min_step))
+            keys = np.empty(cap, np.int64)
+            rows = np.empty((cap, self.dim), np.float32)
+            m = np.empty((cap, self.dim), np.float32)
+            v = np.empty((cap, self.dim), np.float32)
+            counts = np.empty(cap, np.uint32)
+            steps = np.empty(cap, np.uint32)
+            n = int(self._lib.kv_export(
+                self._h(), min_step, _ptr(keys, ctypes.c_int64),
+                _ptr(rows, ctypes.c_float), _ptr(m, ctypes.c_float),
+                _ptr(v, ctypes.c_float), _ptr(counts, ctypes.c_uint32),
+                _ptr(steps, ctypes.c_uint32), cap,
+            ))
+            return (keys[:n], rows[:n], m[:n], v[:n], counts[:n], steps[:n])
+        items = [
+            (k, *self._py[k], *self._py_meta[k]) for k in sorted(self._py)
+            if not min_step or self._py_meta[k][1] >= min_step
+        ]
+        if not items:
+            empty = np.empty((0, self.dim), np.float32)
+            return (np.empty(0, np.int64), empty, empty.copy(),
+                    empty.copy(), np.empty(0, np.uint32),
+                    np.empty(0, np.uint32))
+        keys = np.asarray([it[0] for it in items], np.int64)
+        rows = np.stack([it[1] for it in items])
+        m = np.stack([it[2] for it in items])
+        v = np.stack([it[3] for it in items])
+        counts = np.asarray([it[4] for it in items], np.uint32)
+        steps = np.asarray([it[5] for it in items], np.uint32)
+        return keys, rows, m, v, counts, steps
+
+    def insert(self, keys, rows, m=None, v=None, counts=None, steps=None):
+        keys = np.ascontiguousarray(keys, np.int64)
+        rows = np.ascontiguousarray(rows, np.float32)
+        with self._mu:
+            if self._lib:
+                self._lib.kv_insert(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                    _ptr(rows, ctypes.c_float),
+                    _ptr(np.ascontiguousarray(m, np.float32), ctypes.c_float)
+                    if m is not None else None,
+                    _ptr(np.ascontiguousarray(v, np.float32), ctypes.c_float)
+                    if v is not None else None,
+                    _ptr(np.ascontiguousarray(counts, np.uint32),
+                         ctypes.c_uint32)
+                    if counts is not None else None,
+                    _ptr(np.ascontiguousarray(steps, np.uint32),
+                         ctypes.c_uint32)
+                    if steps is not None else None,
+                )
+                return
+            for i, key in enumerate(keys.tolist()):
+                row = np.zeros((3, self.dim), np.float32)
+                row[0] = rows[i]
+                if m is not None:
+                    row[1] = m[i]
+                if v is not None:
+                    row[2] = v[i]
+                self._py[key] = row
+                self._py_meta[key] = (
+                    int(counts[i]) if counts is not None else 0,
+                    int(steps[i]) if steps is not None else 0,
+                )
+
+    def remove(self, keys: np.ndarray) -> int:
+        """Delete specific keys (the reshard row-move path drops rows at
+        their old owner once the new owner holds them).  Returns how many
+        were present and removed; absent keys are ignored."""
+        keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+        with self._mu:
+            if self._lib:
+                return int(self._lib.kv_remove(
+                    self._h(), _ptr(keys, ctypes.c_int64), keys.size,
+                ))
+            removed = 0
+            for key in keys.tolist():
+                if key in self._py:
+                    del self._py[key]
+                    del self._py_meta[key]
+                    removed += 1
+            return removed
+
+    def evict(self, min_step: int, min_count: int = 0) -> int:
+        """Drop stale, cold features; returns evicted count."""
+        with self._mu:
+            if self._lib:
+                return int(
+                    self._lib.kv_evict(self._h(), min_step, min_count)
+                )
+            stale = [
+                k for k, (count, step) in self._py_meta.items()
+                if step < min_step and count < min_count
+            ]
+            for k in stale:
+                del self._py[k]
+                del self._py_meta[k]
+            return len(stale)

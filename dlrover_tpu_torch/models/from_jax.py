@@ -14,6 +14,9 @@ holds them in.
 
 :func:`low_bit_state_from_jax` carries a ``q8_adam``/``q4_adam`` optimizer
 state across the same way, dropping the TPU layout padding of its arrays.
+:func:`rec_dense_from_jax` carries the CTR example's dense parameters
+across (the embedding plane's state needs no conversion: the port's
+``ShardedEmbeddingTable.restore`` reads the JAX plane's exports).
 """
 
 from __future__ import annotations
@@ -138,3 +141,24 @@ def low_bit_state_from_jax(state: Any, params: Mapping[str, torch.Tensor]):
            if packed == {quantization.BLOCK // 2}
            else quantization.Q8AdamState)
     return cls(int(state.count), m, v)
+
+
+def rec_dense_from_jax(dense_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The CTR example's dense dict (``examples/train_rec.py``: ``w1``
+    ``[dim * fields, hidden]``, ``b1`` ``[hidden]``, ``w2`` ``[hidden, 1]``,
+    ``b2`` ``[1]``, numpy) -> fp32 CPU tensors for
+    ``dlrover_tpu_torch.examples.train_rec.run(dense=...)``."""
+    want = ("w1", "b1", "w2", "b2")
+    if set(dense_np) != set(want):
+        raise KeyError(
+            f"dense params {sorted(dense_np)} are not {sorted(want)}")
+    out = {k: torch.from_numpy(np.array(dense_np[k], np.float32, copy=True))
+           for k in want}
+    width, hidden = tuple(out["w1"].shape) + (0,) * (2 - out["w1"].dim())
+    shapes = {"w1": (width, hidden), "b1": (hidden,), "w2": (hidden, 1),
+              "b2": (1,)}
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            raise ValueError(
+                f"{k}: shape {tuple(out[k].shape)} != expected {shape}")
+    return out

@@ -47,6 +47,9 @@ def test_port_has_the_expected_files():
         "dlrover_tpu_torch/ops/flash_attention.py",
         "dlrover_tpu_torch/models/transformer.py",
         "dlrover_tpu_torch/serving/engine.py",
+        "dlrover_tpu_torch/embedding/device_cache.py",
+        "dlrover_tpu_torch/embedding/kernels.py",
+        "dlrover_tpu_torch/examples/train_rec.py",
     ):
         assert need in rel
 
