@@ -126,8 +126,8 @@ class Attention(nn.Module):
         param_dtype: torch.dtype = torch.float32,
         attention_impl: str = "xla",
         fused_qkv: bool = True,
-        flash_block_q: int = 1024,
-        flash_block_kv: int = 1024,
+        flash_block_q: int = 512,
+        flash_block_kv: int = 512,
         device: DeviceLike = None,
     ):
         super().__init__()

@@ -2,17 +2,16 @@
 // products and statistics.  Three kernels behind one C entry point:
 //
 //   kind 0  dq     replaces dlrover_tpu/ops/flash_attention.py:246
-//                  _bwd_dq_kernel (K2a)
+//                  _bwd_dq_kernel (K2a, pl.pallas_call at :459)
 //   kind 1  dkv    replaces dlrover_tpu/ops/flash_attention.py:278
-//                  _bwd_dkv_kernel (K2b)
+//                  _bwd_dkv_kernel (K2b, pl.pallas_call at :496)
 //   kind 2  fused  replaces dlrover_tpu/ops/flash_attention.py:318
-//                  _bwd_fused_kernel (K3)
+//                  _bwd_fused_kernel (K3, pl.pallas_call at :386)
 //
 // Same function as the TPU kernels (_recompute_p_ds, :206): from the
 // forward's lse, p = mask ? exp(q k^T * scale - lse) : 0 (the mask gates
 // p, never the value of the score: a fully masked row has lse = -1e30 and
-// gives exactly zero); delta = rowsum(o * do), computed here from the o
-// rows and the do tile as the TPU kernel does; ds = p (do v^T - delta)
+// gives exactly zero); delta = rowsum(o * do); ds = p (do v^T - delta)
 // scale, rounded to bf16 like p before their products, as the TPU kernels
 // round at :242 and :304; dq = ds k, dk = ds^T q, dv = p^T do, with GQA
 // dk/dv summed over each kv head's group of q heads.
@@ -22,32 +21,64 @@
 // per (b, h), halved by causality: 1.34e11 FLOP, 0.136 ms at 989 TFLOP/s;
 // its bytes (q, k, v, o, do read once, dq, dk, dv written once) are about
 // 0.42 GB, 0.125 ms at 3.35 TB/s.  So the bound is the tensor cores, and
-// what counts is keeping the S x S matrices out of device memory and
-// running every product on tensor cores: each (q tile, kv tile) pair's
-// scores, probabilities and score gradients live in shared memory only,
-// all five products are wmma bf16 16x16x16 with fp32 accumulation, and
-// causal tiles above the diagonal are skipped by bounding the loops.  The
-// design is the simple one (wmma from shared memory, no overlap of loads
-// with products); wgmma, TMA and warp specialisation are later work.
+// what counts is keeping the S x S matrices out of device memory and the
+// five products on the tensor cores at a good rate.
 //
-// Layout.  Nothing carries across blocks on this card, so the TPU's
-// sequential grid axis becomes a loop inside the block:
-// * dkv / fused: one block of 4 warps per (b, kv head, 64-row kv tile)
-//   loops over its group's q heads and the q tiles that can see the tile.
-//   Warp w owns kv columns 16w..16w+15 of every (64 x 64) score tile, so
-//   s, dp, p, ds and the dv += p^T do, dk += ds^T q updates are all
-//   warp-local; dk and dv accumulate in registers.  The fused kernel then
-//   syncs and adds dq += ds k for the tile (warp w: q rows 16w..) into an
-//   fp32 [B, Sq, Hq, D] scratch by atomics.  That replaces the TPU
-//   kernel's nk == 1 restriction (which came from output pipelining) and
-//   makes dq's summation order vary from run to run.
+// K3 (kind 2) is built for Hopper (flash_hopper.cuh holds the pieces):
+// * A pre-pass (flash_bwd_prep_kernel) computes delta = rowsum(o * do) in
+//   fp32 once per row with 16-byte loads, writes it and lse * log2(e) into
+//   [B, Hq, Sq rounded up to 64] buffers (0 past Sq), and zeroes the fp32
+//   dq accumulator.  (The TPU kernel computes delta inside, for a TPU
+//   reason: an extra XLA fusion cost about 1 ms a layer there, :215-220.)
+// * The main kernel runs one block per (batch, kv head, kv tile): 128 kv
+//   rows at D 64 (two warpgroups of 64 rows), 64 at D 128 (one: its dk and
+//   dv accumulators take 128 registers a thread).  The kv tiles are
+//   launched first to last, the heaviest first under causal masking.  K
+//   and V stay in shared memory; (Q, dO) tiles of 64 rows with their lse
+//   and delta rows stream through a 3-stage ring (TMA over the strided
+//   views, bulk copies for the rows, full / empty mbarriers), for every q
+//   head of the group and every q tile from the diagonal on.  Thread 0
+//   issues the loads, two pairs ahead of the products, so no producer warp
+//   takes registers from the consumers.
+// * Per (q tile, warpgroup): S^T = K Q^T and dP^T = V dO^T are wgmmas
+//   from shared memory with fp32 results in registers; P^T and dS^T are
+//   built there and are the register A operands of dV += P^T dO and
+//   dK += dS^T Q (dO and Q through the transpose bit), so dK and dV
+//   accumulate in registers over the whole loop.  Only dS^T (bf16) goes to
+//   shared memory, for dQ = dS K (both operands through the transpose
+//   bit); each warpgroup adds its 64 x D partial of dQ into the fp32
+//   accumulator with 16-byte vector reductions (sm_90's float4
+//   atomicAdd, one per thread and 8 columns), never a scalar atomic.
+//   Masks are evaluated only on the causal diagonal, the ragged edges and
+//   when segment ids are given; a warpgroup skips q tiles wholly above
+//   its diagonal.
+// dq's reductions land in varying order, so dq is reproducible only to
+// fp32 rounding; dk and dv are summed in a fixed order, bit for bit.  What
+// holds K3 back still: each warpgroup runs its five products and the
+// elementwise work in sequence (no ping-pong between the warpgroups, no
+// overlap of the next tile's S^T with this tile's dS work), the two
+// warpgroups' dQ partials go to device memory separately, and one block
+// fits on an SM (its registers).
+//
+// K2a / K2b (kinds 0 and 1, the split path) keep the first, simple design:
+// wmma 16x16x16 from shared memory, scores and probabilities staged in
+// shared memory, no overlap of loads with products.  Nothing carries
+// across blocks on this card, so the TPU's sequential grid axis becomes a
+// loop inside the block:
+// * dkv: one block of 4 warps per (b, kv head, 64-row kv tile) loops over
+//   its group's q heads and the q tiles that can see the tile.  Warp w owns
+//   kv columns 16w..16w+15 of every (64 x 64) score tile, so s, dp, p, ds
+//   and the dv += p^T do, dk += ds^T q updates are all warp-local; dk and
+//   dv accumulate in registers.  delta is computed per q tile from o.
 // * dq: one block per (b, q head, 64-row q tile) loops over the kv tiles
 //   it can see; warp w owns q rows 16w.., so everything is warp-local and
 //   dq accumulates in registers.
 
 #include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 using namespace flash;
+using namespace hopper;
 
 namespace {
 
@@ -60,7 +91,7 @@ struct BwdParams {
   const float* lse;    // [B, Hq, Sq]
   const int* seg_q;    // [B, Sq] or null
   const int* seg_kv;   // [B, Skv] or null
-  void* dq;            // bf16 [B, Sq, Hq, D] (dq), fp32 zeroed (fused)
+  bf16* dq;            // [B, Sq, Hq, D]
   bf16* dk;            // [B, Skv, Hkv, D]
   bf16* dv;
   int B, Sq, Skv, Hq, Hkv, group;
@@ -186,9 +217,8 @@ __device__ __forceinline__ void write_rows(bf16* out, const float* stage,
   }
 }
 
-// dkv (FUSED = false) and fused (FUSED = true): one block per (kv tile,
-// kv head, batch).
-template <int D, bool FUSED>
+// dkv: one block per (kv tile, kv head, batch).
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_kv_kernel(const BwdParams p) {
   using L = BwdSmem<D>;
@@ -295,41 +325,6 @@ flash_bwd_kv_kernel(const BwdParams p) {
           wmma::load_matrix_sync(bm, Qs + kk * 16 * L::LD_T + nt * 16,
                                  L::LD_T);
           wmma::mma_sync(dk_acc[nt], at, bm, dk_acc[nt]);
-        }
-      }
-
-      if (FUSED) {
-        __syncthreads();  // every warp's ds columns are written
-        // dq rows [r0, r0 + 16) of this q tile += ds k, into the fp32
-        // scratch by atomics (other kv-tile blocks add to the same rows).
-        const int r0 = warp * ROWS_PER_WARP;
-#pragma unroll
-        for (int nt = 0; nt < D / 16; ++nt) {
-          Acc acc;
-          wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-          for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-            ARow a;
-            BRow bm;
-            wmma::load_matrix_sync(a, DSs + r0 * L::LD_P + kk * 16, L::LD_P);
-            wmma::load_matrix_sync(bm, Ks + kk * 16 * L::LD_T + nt * 16,
-                                   L::LD_T);
-            wmma::mma_sync(acc, a, bm, acc);
-          }
-          wmma::store_matrix_sync(stage + r0 * L::LD_ACC + nt * 16, acc,
-                                  L::LD_ACC, wmma::mem_row_major);
-        }
-        __syncwarp();
-        float* dq = static_cast<float*>(p.dq);
-        for (int i = lane; i < ROWS_PER_WARP * D; i += 32) {
-          const int r = r0 + i / D;
-          const int c = i % D;
-          const int qi = q0 + r;
-          if (qi < p.Sq) {
-            atomicAdd(dq + ((static_cast<long long>(b) * p.Sq + qi) * p.Hq +
-                            h) * D + c,
-                      stage[r * L::LD_ACC + c]);
-          }
         }
       }
     }
@@ -464,19 +459,467 @@ flash_bwd_dq_kernel(const BwdParams p) {
                             L::LD_ACC, wmma::mem_row_major);
   }
   __syncwarp();
-  write_rows<D>(static_cast<bf16*>(p.dq), stage, r0, b, q0, h, p.Sq, p.Hq,
-                lane);
+  write_rows<D>(p.dq, stage, r0, b, q0, h, p.Sq, p.Hq, lane);
 }
 
-template <int D, bool FUSED>
+// -- K3: the fused backward ----------------------------------------------------
+
+struct FusedParams {
+  const bf16* o;       // prep: [B, Sq, Hq, D] views
+  const bf16* dout;
+  const float* lse;    // prep: [B, Hq, Sq]
+  const int* seg_q;    // [B, Sq] or null
+  const int* seg_kv;   // [B, Skv] or null
+  float* lse2;         // [B, Hq, Sq_pad]: lse * log2(e), 0 past Sq
+  float* delta;        // [B, Hq, Sq_pad]: rowsum(o * do), 0 past Sq
+  float* dq;           // [B, Sq, Hq, D] fp32 accumulator
+  bf16* dk;            // [B, Skv, Hkv, D]
+  bf16* dv;
+  int B, Sq, Skv, Sq_pad, Hq, Hkv, group;
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
+  long long segq_sb, segkv_sb;
+  float scale, scale_log2;
+  int causal;
+};
+
+constexpr int PREP_THREADS = 256;
+
+// delta, lse * log2(e) and a zeroed dq accumulator, one (b, s, h) row per
+// D / 8 threads (16 bytes each), rows with h fastest; rows s in [Sq, Sq_pad)
+// get delta = lse2 = 0.
+template <int D>
+__global__ void __launch_bounds__(PREP_THREADS)
+flash_bwd_prep_kernel(const FusedParams p) {
+  constexpr int TPR = D / 8;
+  constexpr int ROWS = PREP_THREADS / TPR;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * ROWS + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  const bool in = row < static_cast<long long>(p.B) * p.Sq_pad * p.Hq;
+  const int h = static_cast<int>(row % p.Hq);
+  const int s = static_cast<int>((row / p.Hq) % p.Sq_pad);
+  const int b = static_cast<int>(row / (static_cast<long long>(p.Hq) *
+                                        p.Sq_pad));
+  const bool live = in && s < p.Sq;
+  float acc = 0.f;
+  if (live) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        p.o + b * p.o_sb + s * p.o_ss + h * p.o_sh + part * 8);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        p.dout + b * p.do_sb + s * p.do_ss + h * p.do_sh + part * 8);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      acc += __bfloat162float(oe[e]) * __bfloat162float(de[e]);
+    }
+    float4* dq = reinterpret_cast<float4*>(
+        p.dq + ((static_cast<long long>(b) * p.Sq + s) * p.Hq + h) * D +
+        part * 8);
+    dq[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    dq[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (in && part == 0) {
+    const long long bh = static_cast<long long>(b) * p.Hq + h;
+    p.delta[bh * p.Sq_pad + s] = live ? acc : 0.f;
+    p.lse2[bh * p.Sq_pad + s] = live ? p.lse[bh * p.Sq + s] * LOG2E : 0.f;
+  }
+}
+
+constexpr int BWD_STAGES = 3;  // the (Q, dO, lse2, delta) ring
+
+template <int D, int KVW>
+struct FusedSmem {
+  static constexpr int BLOCK_KV = TILE * KVW;
+  static constexpr uint32_t KV_BYTES = BLOCK_KV * D * 2;  // K or V, resident
+  static constexpr uint32_t Q_BYTES = TILE * D * 2;       // a Q or dO tile
+  static constexpr uint32_t DS_BYTES = TILE * TILE * 2;   // a dS^T tile
+  static constexpr uint32_t K_OFF = 0;
+  static constexpr uint32_t V_OFF = KV_BYTES;
+  static constexpr uint32_t Q_OFF = 2 * KV_BYTES;
+  static constexpr uint32_t DO_OFF = Q_OFF + BWD_STAGES * Q_BYTES;
+  static constexpr uint32_t DS_OFF = DO_OFF + BWD_STAGES * Q_BYTES;
+  static constexpr uint32_t ROW_OFF = DS_OFF + KVW * 2 * DS_BYTES;  // 2 a wg
+  // lse2 [stage][64], delta [stage][64]
+  static constexpr uint32_t BAR_OFF = ROW_OFF + 2 * BWD_STAGES * TILE * 4;
+  // kv_full, full[stage], empty[stage]; 1024 bytes of alignment slack.
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * BWD_STAGES) + 1024;
+};
+
+// One block per (batch, kv head, BLOCK_KV kv rows); warpgroup wg owns kv
+// rows [n0 + 64 wg, n0 + 64 wg + 64).
+template <int D, int KVW>
+__global__ void __launch_bounds__(KVW * WG_THREADS, 1)
+flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const FusedParams p) {
+  using L = FusedSmem<D, KVW>;
+  constexpr int BLOCK_KV = L::BLOCK_KV;
+  constexpr int SUBS = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
+  float* delta_s = lse_s + BWD_STAGES * TILE;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + BWD_STAGES;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x / p.Hkv;
+  const int hk = blockIdx.x % p.Hkv;
+  const int n0 = blockIdx.y * BLOCK_KV;
+  // Under causal masking q rows above n0 see nothing of this tile.
+  const int q_begin = p.causal ? n0 : 0;
+  const int n_qt = q_begin < p.Sq ? (p.Sq - q_begin + TILE - 1) / TILE : 0;
+  const int n_iter = p.group * n_qt;  // (q head, q tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], KVW * 4);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every load: K and V once, the first BWD_STAGES pairs'
+  // (Q, dO, lse2, delta) now, each later pair's when its stage comes free
+  // (`release`).
+  auto load_pair = [&](int i) {
+    const int h = hk * p.group + i / n_qt;
+    const int q0 = q_begin + (i % n_qt) * TILE;
+    const int s = i % BWD_STAGES;
+    mbar_expect_tx(&full[s], 2 * L::Q_BYTES + 2 * TILE * 4);
+    for (int c = 0; c < SUBS; ++c) {
+      tma_load_4d(smem + L::Q_OFF + s * L::Q_BYTES + c * TILE * ROW_BYTES,
+                  &q_map, &full[s], c * BOX_COLS, h, q0, b);
+      tma_load_4d(smem + L::DO_OFF + s * L::Q_BYTES + c * TILE * ROW_BYTES,
+                  &do_map, &full[s], c * BOX_COLS, h, q0, b);
+    }
+    const long long rows =
+        (static_cast<long long>(b) * p.Hq + h) * p.Sq_pad + q0;
+    bulk_load(lse_s + s * TILE, p.lse2 + rows, TILE * 4, &full[s]);
+    bulk_load(delta_s + s * TILE, p.delta + rows, TILE * 4, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+    for (int c = 0; c < SUBS; ++c) {
+      tma_load_4d(smem + L::K_OFF + c * BLOCK_KV * ROW_BYTES, &k_map,
+                  kv_full, c * BOX_COLS, hk, n0, b);
+      tma_load_4d(smem + L::V_OFF + c * BLOCK_KV * ROW_BYTES, &v_map,
+                  kv_full, c * BOX_COLS, hk, n0, b);
+    }
+    for (int i = 0; i < min(BWD_STAGES, n_iter); ++i) load_pair(i);
+  }
+  // Every warp frees pair i's stage after its last read; thread 0 then
+  // refills the stage of pair i - 1, once every warp has freed it, with
+  // pair i - 1 + BWD_STAGES: one pair of slack, so it seldom waits.
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % BWD_STAGES]);
+    const int r = i - 1;
+    if (threadIdx.x == 0 && r >= 0 && r + BWD_STAGES < n_iter) {
+      mbar_wait(&empty[r % BWD_STAGES], (r / BWD_STAGES) & 1);
+      load_pair(r + BWD_STAGES);
+    }
+    __syncwarp();  // the warp's next wgmma is issued by all its lanes at once
+  };
+
+  // This thread holds kv rows krow0 and krow0 + 8 of the
+  // transposed products (S^T, dP^T, dK, dV) and q rows qrow0, qrow0 + 8 of
+  // dQ, at the columns of the accumulator layout (flash_hopper.cuh).
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int n0w = n0 + wg * TILE;
+  const int wrow = (warp % 4) * 16 + g;  // row within the warpgroup's tile
+  const int krow0 = n0w + wrow;
+  const bool has_seg = p.seg_q != nullptr;
+  int seg_row[2] = {0, 0};
+  if (has_seg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = krow0 + 8 * r;
+      seg_row[r] = kj < p.Skv ? p.seg_kv[b * p.segkv_sb + kj] : -2;
+    }
+  }
+  float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+  const uint32_t k_addr = smem_u32(smem + L::K_OFF) + wg * TILE * ROW_BYTES;
+  const uint32_t v_addr = smem_u32(smem + L::V_OFF) + wg * TILE * ROW_BYTES;
+  unsigned char* ds_tiles = smem + L::DS_OFF + wg * 2 * L::DS_BYTES;
+  const bool wg_live = n0w < p.Skv;
+
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_iter; ++i) {
+    const int h = hk * p.group + i / n_qt;
+    const int q0 = q_begin + (i % n_qt) * TILE;
+    const int s = i % BWD_STAGES;
+    mbar_wait(&full[s], (i / BWD_STAGES) & 1);
+    // A q tile wholly above this warpgroup's diagonal sees none of its rows.
+    if (wg_live && (!p.causal || q0 + TILE - 1 >= n0w)) {
+      const uint32_t q_addr = smem_u32(smem + L::Q_OFF + s * L::Q_BYTES);
+      const uint32_t do_addr = smem_u32(smem + L::DO_OFF + s * L::Q_BYTES);
+      float st[32], dpt[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<0, 0>(
+            st, desc_kmajor(k_addr + (kk / 4) * BLOCK_KV * ROW_BYTES + off),
+            desc_kmajor(q_addr + (kk / 4) * TILE * ROW_BYTES + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<0, 0>(
+            dpt, desc_kmajor(v_addr + (kk / 4) * BLOCK_KV * ROW_BYTES + off),
+            desc_kmajor(do_addr + (kk / 4) * TILE * ROW_BYTES + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p and ds in place of s and dp (the q index is the column here).
+      const bool need_mask = has_seg || q0 + TILE > p.Sq ||
+                             n0w + TILE > p.Skv ||
+                             (p.causal && q0 < n0w + TILE - 1);
+      const float* lse_row = lse_s + s * TILE;
+      const float* delta_row = delta_s + s * TILE;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float2 lv = *reinterpret_cast<const float2*>(lse_row + 8 * c +
+                                                           2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_row +
+                                                           8 * c + 2 * t);
+        int seg_col[2] = {0, 0};
+        if (need_mask && has_seg) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = min(q0 + 8 * c + 2 * t + e, p.Sq - 1);
+            seg_col[e] = p.seg_q[b * p.segq_sb + qi];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * c + 2 * r + e;
+            float pv = fast_exp2(st[j] * p.scale_log2 - (e ? lv.y : lv.x));
+            if (need_mask) {
+              const int qi = q0 + 8 * c + 2 * t + e;
+              const int kj = krow0 + 8 * r;
+              const bool keep = qi < p.Sq && kj < p.Skv &&
+                                (!p.causal || kj <= qi) &&
+                                seg_row[r] == seg_col[e];
+              pv = keep ? pv : 0.f;
+            }
+            st[j] = pv;
+            dpt[j] = pv * (dpt[j] - (e ? dl.y : dl.x)) * p.scale;
+          }
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      to_a_frags(st, pa);
+      to_a_frags(dpt, da);
+
+      // dS^T (bf16) into this warpgroup's tile, swizzled as TMA would
+      // write it, for dQ = dS K; two tiles alternate between pairs.
+      unsigned char* ds = ds_tiles + (i & 1) * L::DS_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int row = wrow + 8 * (ii % 2);
+          const int chunk = 2 * kk + ii / 2;
+          *reinterpret_cast<uint32_t*>(ds + row * ROW_BYTES +
+                                       ((chunk ^ (row & 7)) << 4) + 4 * t) =
+              da[kk][ii];
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, A from registers.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<1>(acc_dv, pa[kk],
+                    desc_mnmajor(do_addr + kk * 16 * ROW_BYTES,
+                                 TILE * ROW_BYTES),
+                    1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<1>(acc_dk, da[kk],
+                    desc_mnmajor(q_addr + kk * 16 * ROW_BYTES,
+                                 TILE * ROW_BYTES),
+                    1);
+      }
+      wgmma_commit();
+      fence_async_shared();
+      named_barrier(1 + wg, WG_THREADS);  // the whole dS^T tile is written
+
+      // dQ = dS K, 64 columns at a time, added into the accumulator by
+      // 16-byte vector reductions: lanes t and t ^ 1 swap halves so each
+      // holds 4 adjacent columns of one row.
+      const uint32_t ds_addr = smem_u32(ds);
+      float* dq_head = p.dq + static_cast<long long>(b) * p.Sq * p.Hq * D +
+                       static_cast<long long>(h) * D;
+      const bool odd = t & 1;
+      const int qi = q0 + wrow + (odd ? 8 : 0);
+#pragma unroll
+      for (int c = 0; c < SUBS; ++c) {
+        float acc_dq[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc_dq[j] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<1, 1>(
+              acc_dq,
+              desc_mnmajor(ds_addr + kk * 16 * ROW_BYTES, TILE * ROW_BYTES),
+              desc_mnmajor(k_addr + c * BLOCK_KV * ROW_BYTES +
+                               kk * 16 * ROW_BYTES,
+                           BLOCK_KV * ROW_BYTES),
+              kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_dq);
+        if (c == 0) {
+          fence_regs(acc_dv);
+          fence_regs(acc_dk);
+          fence_regs(pa);
+          fence_regs(da);
+        }
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) {
+          const float s0 = odd ? acc_dq[4 * cc] : acc_dq[4 * cc + 2];
+          const float s1 = odd ? acc_dq[4 * cc + 1] : acc_dq[4 * cc + 3];
+          const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          const float4 v =
+              odd ? make_float4(r0, r1, acc_dq[4 * cc + 2], acc_dq[4 * cc + 3])
+                  : make_float4(acc_dq[4 * cc], acc_dq[4 * cc + 1], r0, r1);
+          if (qi < p.Sq) {
+            atomicAdd(reinterpret_cast<float4*>(
+                          dq_head + static_cast<long long>(qi) * p.Hq * D +
+                          c * BOX_COLS + 8 * cc + 2 * (t & ~1)),
+                      v);
+          }
+        }
+      }
+    }
+    release(i);
+  }
+
+  // dk and dv rows of this warpgroup, bf16.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = krow0 + 8 * r;
+    if (kj >= p.Skv) continue;
+    const long long off =
+        ((static_cast<long long>(b) * p.Skv + kj) * p.Hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(p.dk + off + 8 * c + 2 * t) =
+          pack_bf16(acc_dk[4 * c + 2 * r], acc_dk[4 * c + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(p.dv + off + 8 * c + 2 * t) =
+          pack_bf16(acc_dv[4 * c + 2 * r], acc_dv[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D, int KVW>
+int launch_fused(const BwdParams& bp, float* ws, int sq_pad,
+                 cudaStream_t stream) {
+  constexpr int BLOCK_KV = TILE * KVW;
+  using L = FusedSmem<D, KVW>;
+  FusedParams p;
+  p.o = bp.o;
+  p.dout = bp.dout;
+  p.lse = bp.lse;
+  p.seg_q = bp.seg_q;
+  p.seg_kv = bp.seg_kv;
+  p.lse2 = ws;
+  p.delta = ws + static_cast<long long>(bp.B) * bp.Hq * sq_pad;
+  p.dq = reinterpret_cast<float*>(bp.dq);
+  p.dk = bp.dk;
+  p.dv = bp.dv;
+  p.B = bp.B;
+  p.Sq = bp.Sq;
+  p.Skv = bp.Skv;
+  p.Sq_pad = sq_pad;
+  p.Hq = bp.Hq;
+  p.Hkv = bp.Hkv;
+  p.group = bp.group;
+  p.o_sb = bp.o_sb;
+  p.o_ss = bp.o_ss;
+  p.o_sh = bp.o_sh;
+  p.do_sb = bp.do_sb;
+  p.do_ss = bp.do_ss;
+  p.do_sh = bp.do_sh;
+  p.segq_sb = bp.segq_sb;
+  p.segkv_sb = bp.segkv_sb;
+  p.scale = bp.scale;
+  p.scale_log2 = bp.scale * LOG2E;
+  p.causal = bp.causal;
+
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = make_rows_map(&q_map, bp.q, bp.B, bp.Sq, bp.Hq, D,
+                                  bp.q_sb, bp.q_ss, bp.q_sh, TILE);
+  if (err == cudaSuccess) {
+    err = make_rows_map(&do_map, bp.dout, bp.B, bp.Sq, bp.Hq, D, bp.do_sb,
+                        bp.do_ss, bp.do_sh, TILE);
+  }
+  if (err == cudaSuccess) {
+    err = make_rows_map(&k_map, bp.k, bp.B, bp.Skv, bp.Hkv, D, bp.k_sb,
+                        bp.k_ss, bp.k_sh, BLOCK_KV);
+  }
+  if (err == cudaSuccess) {
+    err = make_rows_map(&v_map, bp.v, bp.B, bp.Skv, bp.Hkv, D, bp.v_sb,
+                        bp.v_ss, bp.v_sh, BLOCK_KV);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool opted_in[64] = {};
+  err = opt_in_smem(flash_bwd_fused_kernel<D, KVW>, L::BYTES, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int PREP_ROWS = PREP_THREADS / (D / 8);
+  const long long rows = static_cast<long long>(bp.B) * sq_pad * bp.Hq;
+  flash_bwd_prep_kernel<D>
+      <<<static_cast<unsigned>((rows + PREP_ROWS - 1) / PREP_ROWS),
+         PREP_THREADS, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(bp.B * bp.Hkv, (bp.Skv + BLOCK_KV - 1) / BLOCK_KV);
+  flash_bwd_fused_kernel<D, KVW>
+      <<<grid, KVW * WG_THREADS, L::BYTES, stream>>>(q_map, k_map, v_map,
+                                                      do_map, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- the split pair (K2a, K2b) --------------------------------------------------
+
+template <int D>
 int launch_kv(const BwdParams& p, cudaStream_t stream) {
   using L = BwdSmem<D>;
   static bool opted_in[64] = {};
-  cudaError_t err =
-      opt_in_smem(flash_bwd_kv_kernel<D, FUSED>, L::BYTES, opted_in);
+  cudaError_t err = opt_in_smem(flash_bwd_kv_kernel<D>, L::BYTES, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.Skv + BLOCK_N - 1) / BLOCK_N, p.Hkv, p.B);
-  flash_bwd_kv_kernel<D, FUSED><<<grid, THREADS, L::BYTES, stream>>>(p);
+  flash_bwd_kv_kernel<D><<<grid, THREADS, L::BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,29 +934,18 @@ int launch_dq(const BwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(int kind, const BwdParams& p, cudaStream_t stream) {
-  switch (kind) {
-    case 0:
-      return launch_dq<D>(p, stream);
-    case 1:
-      return launch_kv<D, false>(p, stream);
-    case 2:
-      return launch_kv<D, true>(p, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 // kind: 0 dq, 1 dkv, 2 fused.  q/o/do [B, Sq, Hq, D] and k/v [B, Skv, Hkv,
-// D]: bf16 views with unit stride on D and the other strides (in elements)
-// given; lse [B, Hq, Sq] fp32; seg_q [B, Sq] / seg_kv [B, Skv] int32 or
-// null.  Outputs are contiguous: dq bf16 [B, Sq, Hq, D] for kind 0, a
-// zeroed fp32 [B, Sq, Hq, D] scratch that receives atomic adds for kind 2;
-// dk/dv bf16 [B, Skv, Hkv, D] for kinds 1 and 2.  Returns
-// cudaGetLastError() after the launch (0 = ok).
+// D]: bf16 views with unit stride on D, 16-byte aligned, the other strides
+// (in elements) multiples of 8; lse [B, Hq, Sq] fp32; seg_q [B, Sq] /
+// seg_kv [B, Skv] int32 or null.  Outputs are contiguous: dq bf16
+// [B, Sq, Hq, D] for kind 0, an fp32 [B, Sq, Hq, D] accumulator for kind 2
+// (zeroed here); dk/dv bf16 [B, Skv, Hkv, D] for kinds 1 and 2.  Kind 2
+// also takes ws, fp32 [2, B, Hq, sq_pad] scratch (sq_pad = Sq rounded up to
+// 64), and block_kv, the kv rows of a block from the host plan (128 at
+// D 64, 64 at D 128).  Returns cudaGetLastError() after the launches
+// (0 = ok).
 extern "C" int flash_bwd_bf16(
     int kind, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* seg_q, const void* seg_kv,
@@ -522,7 +954,8 @@ extern "C" int flash_bwd_bf16(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long do_sb, long long do_ss, long long do_sh, long long segq_sb,
-    long long segkv_sb, float scale, int causal, void* stream) {
+    long long segkv_sb, float scale, int causal, void* ws, int sq_pad,
+    int block_kv, void* stream) {
   if (Hkv < 1 || Hq % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -535,7 +968,7 @@ extern "C" int flash_bwd_bf16(
   p.lse = static_cast<const float*>(lse);
   p.seg_q = static_cast<const int*>(seg_q);
   p.seg_kv = static_cast<const int*>(seg_kv);
-  p.dq = dq;
+  p.dq = static_cast<bf16*>(dq);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   p.B = B;
@@ -564,11 +997,21 @@ extern "C" int flash_bwd_bf16(
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 2) {
+    if (ws == nullptr || sq_pad != (Sq + TILE - 1) / TILE * TILE) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    float* w = static_cast<float*>(ws);
+    if (D == 64 && block_kv == 128) return launch_fused<64, 2>(p, w, sq_pad, s);
+    if (D == 128 && block_kv == 64) return launch_fused<128, 1>(p, w, sq_pad, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kind != 0 && kind != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch<64>(kind, p, s);
+      return kind == 0 ? launch_dq<64>(p, s) : launch_kv<64>(p, s);
     case 128:
-      return launch<128>(kind, p, s);
+      return kind == 0 ? launch_dq<128>(p, s) : launch_kv<128>(p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

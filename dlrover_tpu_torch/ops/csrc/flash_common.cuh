@@ -1,7 +1,9 @@
-// Device helpers shared by the flash-attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels:
-// the 64-row tile geometry, strided tile loads into padded shared memory,
-// warp reductions and the once-per-device shared-memory opt-in.
+// Device helpers of the split flash-attention backward (K2a, K2b in
+// flash_attention_bwd.cu): the 64-row tile geometry, strided tile loads
+// into padded shared memory and warp reductions; and, for every flash
+// kernel, the once-per-device shared-memory opt-in and the -1e30 of a
+// fully masked row.  K1 and K3 take their Hopper pieces from
+// flash_hopper.cuh.
 //
 // kernel_lib hashes every header in csrc/ into each library's name, so a
 // change here rebuilds both kernels.

@@ -28,6 +28,7 @@ transpose to ``[B, H, S, D]`` and no padding to a block multiple.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -36,6 +37,13 @@ from dlrover_tpu_torch.ops import kernel_lib
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+#: Rows of one warpgroup's q or kv tile in the kernels: the (q, kv) blocks
+#: inside which they apply the causal mask are ``MASK_TILE`` square, so a
+#: kernel that mishandled its diagonal would lose whole such blocks (what
+#: ``chip_smoke.diagonal_tiles`` plants).
+MASK_TILE = 64
+#: SMs of an H100 SXM; the launch plans take the card's own count.
+H100_SMS = 132
 
 #: Kernel launches of the forward (K1, :func:`flash_fwd`) and of each
 #: backward wrapper (K3, K2a, K2b); a run sets them to 0 and reads them back
@@ -95,6 +103,12 @@ def _mask(q, k, causal, seg_q, seg_kv) -> torch.Tensor:
     return mask
 
 
+def delta_reference(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's pre-pass: ``delta = rowsum(o * do)`` in fp32,
+    ``[B, Hq, Sq]`` from ``[B, Sq, Hq, D]`` inputs."""
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 1)
+
+
 def _backward_p_ds(q, k, v, o, lse, do, causal, seg_q, seg_kv, scale):
     """``p`` and ``ds`` ``[B, Hkv, group, Sq, Skv]`` in fp32, and the fp32
     operands of the products that follow (q and do split by kv group)."""
@@ -110,8 +124,7 @@ def _backward_p_ds(q, k, v, o, lse, do, causal, seg_q, seg_kv, scale):
     mask = _mask(q, k, causal, seg_q, seg_kv)
     p = torch.where(mask, torch.exp(s - lse5), torch.zeros_like(s))
     dp = torch.einsum("bqhgd,bkhd->bhgqk", do32, v32)
-    delta = (o.float() * do.float()).sum(-1)          # [B, Sq, Hq]
-    delta = delta.reshape(b, sq, hkv, group).permute(0, 2, 3, 1)[..., None]
+    delta = delta_reference(o, do).reshape(b, hkv, group, sq)[..., None]
     ds = p * (dp - delta) * scale
     return p, ds, q32, k32, do32
 
@@ -171,13 +184,66 @@ def mha_backward_dkv_reference(q, k, v, o, lse, do, *, causal=True,
 # -- the CUDA kernels -----------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGTYPES = [_P] * 7 + [_I] * 6 + [_LL] * 11 + [ctypes.c_float, _I, _P]
+# q k v seg_q seg_kv o lse | B Sq Skv Hq Hkv D | strides | scale causal
+# block_m stream
+_FWD_ARGTYPES = (
+    [_P] * 7 + [_I] * 6 + [_LL] * 11 + [ctypes.c_float, _I, _I, _P]
+)
 # kind | q k v o do lse seg_q seg_kv dq dk dv | B Sq Skv Hq Hkv D | batch,
-# row and head strides of q k v o do, seg strides | scale causal stream
+# row and head strides of q k v o do, seg strides | scale causal | ws
+# sq_pad block_kv | stream
 _BWD_ARGTYPES = (
-    [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 17 + [ctypes.c_float, _I, _P]
+    [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 17 + [ctypes.c_float, _I]
+    + [_P, _I, _I, _P]
 )
 _BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_launch_plan(b: int, sq: int, hq: int, d: int,
+                    num_sms: int = H100_SMS) -> dict:
+    """How K1 is launched for q ``[b, sq, hq, d]``: ``block_m`` q rows per
+    block (128, two warpgroups, where B * H * ceil(S / 128) blocks fill the
+    card's ``num_sms`` SMs; 64, one warpgroup, where they would leave SMs
+    idle), the grid ``(b * hq, q tiles)`` (under causal masking the kernel
+    takes the q tiles last first) and the TMA boxes ``(columns, heads,
+    rows, batches)``: 64 columns each, ``d // 64`` boxes per row."""
+    block_m = 2 * MASK_TILE
+    if b * hq * _cdiv(sq, block_m) < num_sms:
+        block_m = MASK_TILE
+    return dict(
+        block_m=block_m, grid=(b * hq, _cdiv(sq, block_m)),
+        q_box=(64, 1, block_m, 1), kv_box=(64, 1, MASK_TILE, 1),
+        boxes_per_row=d // 64,
+    )
+
+
+def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
+                    d: int) -> dict:
+    """How K3 is launched: ``block_kv`` kv rows per block (128, two
+    consumer warpgroups, at D 64; 64 at D 128, where one warpgroup's dk
+    and dv accumulators already take 128 registers a thread), the grid
+    ``(b * hkv, kv tiles)``, the TMA boxes of the streamed (q, do) tiles
+    and of the resident (k, v) tiles, ``sq_pad``
+    (the lse / delta rows' length, sq rounded up to a tile) and the
+    pre-pass grid (``d // 8`` threads a row, 256 a block)."""
+    block_kv = 2 * MASK_TILE if d == 64 else MASK_TILE
+    sq_pad = _cdiv(sq, MASK_TILE) * MASK_TILE
+    rows_per_block = 256 // (d // 8)
+    return dict(
+        block_kv=block_kv, grid=(b * hkv, _cdiv(skv, block_kv)),
+        q_box=(64, 1, MASK_TILE, 1),
+        kv_box=(64, 1, block_kv, 1), boxes_per_row=d // 64, sq_pad=sq_pad,
+        prep_grid=_cdiv(b * sq_pad * hq, rows_per_block),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib_fn(lib_name: str, fn_name: str, argtypes):
@@ -289,6 +355,7 @@ def flash_fwd(
         torch.empty((b, hq, sq), dtype=torch.float32, device=device)
         if return_lse else None
     )
+    plan = fwd_launch_plan(b, sq, hq, d, _num_sms(device.index))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib_fn("flash_attention", "flash_fwd_bf16", _FWD_ARGTYPES)(
@@ -298,7 +365,7 @@ def flash_fwd(
             o.data_ptr(), lse.data_ptr() if lse is not None else None,
             b, sq, skv, hq, hkv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            segq_sb, segkv_sb, scale, int(causal), stream,
+            segq_sb, segkv_sb, scale, int(causal), plan["block_m"], stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
@@ -307,7 +374,7 @@ def flash_fwd(
 
 
 def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
-                causal, scale) -> None:
+                causal, scale, ws=None, plan=None) -> None:
     device = _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     skv = k.shape[1]
@@ -336,7 +403,9 @@ def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
             b, sq, skv, hq, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3],
-            segq_sb, segkv_sb, scale, int(causal), stream,
+            segq_sb, segkv_sb, scale, int(causal), ptr(ws),
+            plan["sq_pad"] if plan else 0, plan["block_kv"] if plan else 0,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -344,22 +413,27 @@ def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
 
 def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
                     seg_kv=None, scale=None):
-    """K3 counterpart: one pass per (b, kv head, 64-row kv tile) computes
-    s, p and ds once for dq, dk and dv.  dk/dv accumulate in registers over
-    the group's q heads and q tiles; dq is summed across kv-tile blocks by
-    fp32 atomics into a zeroed ``[B, Sq, Hq, D]`` scratch, then cast to
-    bf16 (the order of those atomic adds varies from run to run, so dq is
-    not bitwise reproducible; dk and dv are).  ``delta = rowsum(o * do)``
-    is computed in the kernel from ``o`` and the ``do`` tile, as the JAX
-    kernel does.  Launch counted in ``LAUNCHES["flash_bwd_fused"]``."""
+    """K3 counterpart, two launches counted as one: a pre-pass computes
+    ``delta = rowsum(o * do)`` once per row (and ``lse * log2(e)``) into
+    row buffers and zeroes an fp32 ``[B, Sq, Hq, D]`` dq accumulator; then
+    one block per (b, kv head, kv tile of ``bwd_launch_plan``'s
+    ``block_kv`` rows) computes s, p and ds once for dq, dk and dv.  dk/dv
+    accumulate in registers over the group's q heads and q tiles; dq is
+    summed across kv-tile blocks by 16-byte vector reductions into the
+    accumulator, then cast to bf16 here (the order of those adds varies
+    from run to run, so dq is reproducible to rounding only; dk and dv are
+    bitwise).  Launch counted in ``LAUNCHES["flash_bwd_fused"]``."""
     b, sq, hq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
-    dq_acc = torch.zeros((b, sq, hq, d), dtype=torch.float32,
+    plan = bwd_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d)
+    dq_acc = torch.empty((b, sq, hq, d), dtype=torch.float32,
                          device=q.device)
+    ws = torch.empty((2, b, hq, plan["sq_pad"]), dtype=torch.float32,
+                     device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_fused", q, k, v, o, lse, do, seg_q, seg_kv,
-                dq_acc, dk, dv, causal, scale)
+                dq_acc, dk, dv, causal, scale, ws=ws, plan=plan)
     LAUNCHES["flash_bwd_fused"] += 1
     return dq_acc.to(q.dtype), dk, dv
 

@@ -160,7 +160,10 @@ def chunked_cross_entropy_loss(
     c = s // num_chunks
 
     def chunk_sum(x_c, t_c, w_c):
-        logits = (x_c.to(head.dtype) @ head.t()).float()
+        # bf16 products accumulated and returned in fp32, as the JAX
+        # einsum's preferred_element_type=float32: both operands upcast
+        # (a bf16 product is exact in fp32), on every device.
+        logits = x_c.to(head.dtype).float() @ head.float().t()
         return (_token_loss(logits, t_c, z_loss) * w_c.float()).sum()
 
     total = hidden.new_zeros((), dtype=torch.float32)

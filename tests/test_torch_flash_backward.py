@@ -245,9 +245,11 @@ def test_chip_backward_check_catches_planted_faults(hq, hkv):
     dead = [torch.zeros((1, s), dtype=torch.bool)] * 3
     for g, r, dd in zip(sound, ref, dead):
         assert cs.bwd_ok(cs.bwd_errors(g, r, dd))
+    tiles = s // tfa.MASK_TILE
     lost = {region: cs.diagonal_tiles(q, k, v, o, lse, do, causal=True,
                                       first_tile=first)
-            for region, first in (("late_half", 2), ("last_tile", 3))}
+            for region, first in (("late_half", tiles // 2),
+                                  ("last_tile", tiles - 1))}
     faults = cs.planted_faults(sound, ref, dead, lost)
     assert len(faults) == 12
     assert all(f["caught"] for f in faults.values()), faults
