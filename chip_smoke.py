@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flags-ab    # a measurement, see ``flags_ab``
+    python3 chip_smoke.py --flash       # build and the flash checks only
+    python3 chip_smoke.py --gmm         # build and the MoE work only
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
@@ -63,9 +65,13 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``GMM_ROW_TOL`` of its largest |ref| and the tensor within
                ``GMM_NORM_TOL``, padding rows and empty experts exactly 0;
                three planted faults (a row block times the wrong expert,
-               the last K tile skipped, one expert's dw zeroed) must each
-               fail the check.  Kernel, plain and ``torch._grouped_mm``
-               (yardstick only) times at the MoE step's shape.  Then ``moe_sync_check``:
+               the last K tile (``grouped_matmul.BLOCK_K`` wide) skipped,
+               one expert's dw zeroed) must each fail the check.  Every
+               product run twice must give bit-equal outputs.  At the MoE
+               step's shape: kernel, plain and ``torch._grouped_mm``
+               (yardstick only) times, and the host microseconds a wrapper
+               call costs.
+               Then ``moe_sync_check``:
                one ``MoEMlp`` forward and backward at full width under
                ``torch.cuda.set_sync_debug_mode("error")``.
 4c. ``norm_kernel_checks``  the fused norm backward K4 at the training
@@ -150,6 +156,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                MFU/HFU by ``bench.py``'s activated-FLOP rule, peak memory
                (also split before and inside the optimizer update), and
                one profiled step.
+    (``--gmm`` runs the build, ``gmm_kernel_checks``, ``train_moe``,
+    ``train_moe_parity`` and then ``train_moe_48``: the same at all 48
+    layers, 1 warm-up then 2 measured steps and one profiled.)
 13. ``train_moe_parity``  4 layers, batch 4: one step through K8/K9
                against the plain grouped matmuls swapped in, within the
                ``MOE_PARITY_*`` limits, with the kernel leg's own rerun
@@ -819,6 +828,15 @@ def _gmm_products(activation, rows, h, g, dh, dg, dout, layer):
     return out
 
 
+def _gmm_runner(kind, a, b, gs):
+    """The kernel for one product."""
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+
+    if kind == "dw":
+        return lambda: gm.gmm_dw(a, b, gs)
+    return lambda: gm.gmm_fwd(a, b, gs, transpose_w=kind == "dx")
+
+
 def _gmm_bound(kind, a, b, rows_used):
     """Least time for one product: each operand read once and the output
     written once; FLOPs over every row the function multiplies (K8: all
@@ -886,11 +904,11 @@ def check_gmm_case(c, gen):
     ok = True
     results = {}
     for name, (kind, a, b) in products.items():
+        run = _gmm_runner(kind, a, b, gs)
+        got = run()
         if kind == "dw":
-            got = gm.gmm_dw(a, b, gs)
             ref = gm.grouped_matmul_dw_reference(a.float(), b.float(), gs)
         else:
-            got = gm.gmm_fwd(a, b, gs, transpose_w=kind == "dx")
             ref = gm.grouped_matmul_reference(a.float(), b.float(), gs,
                                               transpose_w=kind == "dx")
         torch.cuda.synchronize()
@@ -901,8 +919,10 @@ def check_gmm_case(c, gen):
                                    if size == 0)
         elif kind == "fwd":
             e["exact_zeros"] = bool((got[zero_rows] == 0).all())
+        # No atomics, a fixed order of sums: a second run is bit-equal.
+        e["bit_equal_rerun"] = bool(torch.equal(run(), got))
+        ok = ok and gmm_ok(e) and e["bit_equal_rerun"]
         out[name] = e
-        ok = ok and gmm_ok(e)
         results[name] = (got, ref)
     out["max_abs_err"] = max(out[p]["max_abs"] for p in products)
 
@@ -916,24 +936,24 @@ def check_gmm_case(c, gen):
     if c.get("timed"):
         timed = {}
         for name, (kind, a, b) in products.items():
+            run = _gmm_runner(kind, a, b, gs)
             if kind == "dw":
-                def kernel(a=a, b=b):
-                    gm.gmm_dw(a, b, gs)
-
                 def plain(a=a, b=b):
                     gm.grouped_matmul_dw_reference(a, b, gs)
             else:
-                def kernel(a=a, b=b, kind=kind):
-                    gm.gmm_fwd(a, b, gs, transpose_w=kind == "dx")
-
                 def plain(a=a, b=b, kind=kind):
                     gm.grouped_matmul_reference(a, b, gs,
                                                 transpose_w=kind == "dx")
             library = _library_gmm(kind, a, b, gs)
             b_ms, b_by, nbytes, flops = _gmm_bound(kind, a, b, rows_used)
-            ms = device_ms(kernel)
+            m = b.shape[1] if kind == "dx" else b.shape[-1]
+            plan = gm.gmm_launch_plan(kind, n, a.shape[1], m, MOE_EXPERTS)
+            ms = device_ms(run)
             timed[name] = dict(
-                ms=ms, eager_ms=eager_ms(kernel),
+                ms=ms, eager_ms=eager_ms(run),
+                # The wrapper's host cost, its two tensor maps encoded.
+                host_us=host_us(run, iters=50),
+                grid=plan["grid"], tiles=plan["tiles"],
                 # The plain versions read the group sizes back to the host
                 # (no graph capture): eager, back to back.
                 plain_ms=eager_ms(plain, iters=3, warmup=1),
@@ -950,8 +970,8 @@ def check_gmm_case(c, gen):
 def _gmm_planted_faults(products, results, gs, sizes, ranges):
     """The check applied to planted faults, each of which must fail it: one
     row block of the largest expert multiplied by another expert's
-    weights, the last 32-wide reduction step (the kernel's K tile)
-    skipped, and the largest expert's dw zeroed."""
+    weights, the last reduction step (the kernels' K tile, ``BLOCK_K``
+    wide) skipped, and the largest expert's dw zeroed."""
     from dlrover_tpu_torch.ops import grouped_matmul as gm
 
     big = max(range(len(sizes)), key=lambda i: sizes[i])
@@ -964,7 +984,7 @@ def _gmm_planted_faults(products, results, gs, sizes, ranges):
     wrong = got.clone()
     wrong[blk] = (a[blk].float() @ w[other].float()).to(got.dtype)
     a_last = torch.zeros_like(a)
-    a_last[:, -32:] = a[:, -32:]
+    a_last[:, -gm.BLOCK_K:] = a[:, -gm.BLOCK_K:]
     skipped = (got.float() - gm.grouped_matmul_reference(
         a_last.float(), w.float(), gs)).to(got.dtype)
     dw, dw_ref = results["dw_wi"]
@@ -1480,12 +1500,13 @@ def _memory_split(train, state, batch):
     return state, marks
 
 
-def train_moe_and_check():
-    """The MoE training path at full width and ``MOE_TRAIN_LAYERS``
-    layers; returns its counts."""
+def train_moe_and_check(layers=MOE_TRAIN_LAYERS, steps=MOE_TRAIN_STEPS,
+                        phase="train_moe"):
+    """The MoE training path at full width and ``layers`` layers (48 is
+    the whole model); returns its counts."""
     from dlrover_tpu_torch.trainer import train_lib
 
-    cfg = moe_config(num_layers=MOE_TRAIN_LAYERS)
+    cfg = moe_config(num_layers=layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1507,8 +1528,8 @@ def train_moe_and_check():
     aux = []
     state, warm_losses, warm_s = _train_steps(train, state, batch,
                                               TRAIN_WARMUP, per_step, aux)
-    state, losses, seconds = _train_steps(train, state, batch,
-                                          MOE_TRAIN_STEPS, per_step, aux)
+    state, losses, seconds = _train_steps(train, state, batch, steps,
+                                          per_step, aux)
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     allocator = {k: torch.cuda.memory_stats()[k] for k in (
@@ -1538,7 +1559,7 @@ def train_moe_and_check():
     prof = _profile(lambda: train.step(state, batch), top=16)
     busy = prof.get("device_busy_ms")
     emit({
-        "phase": "train_moe",
+        "phase": phase,
         "model": f"gpt2-1.5b MoE ({cfg.num_layers} of 48 layers, d_model "
                  "1600, 25 heads x 64, "
                  "vocab 50304, 8 experts top-2 of d_ff 3200, grouped "
@@ -1768,6 +1789,18 @@ def train_moe_parity():
         raise AssertionError(f"MoE train parity failed: {out}")
     del model
     torch.cuda.empty_cache()
+
+
+def gmm_only():
+    """``--gmm``: the MoE work alone, to repeat it cheaply on the card: the
+    grouped-matmul checks, the 24-layer MoE step, its parity, and the
+    whole 48-layer MoE step (1 warm-up, 2 measured steps, one profiled),
+    each step's launches asserted as in the whole run."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gmm_kernel_checks(gen)
+    train_moe_and_check()
+    train_moe_parity()
+    train_moe_and_check(48, 2, "train_moe_48")
 
 
 def _moe_parity_ok(loss_diff, gap) -> bool:
@@ -3190,8 +3223,8 @@ def main() -> int:
     for name in kernel_lib.sources():
         kernel_lib.load(name)
     ptxas = {
-        name: re.findall(r"Used \d+ registers[^\n]*|\d+ bytes spill[^\n]*",
-                         log)
+        name: re.findall(r"Used \d+ registers[^\n]*|\d+ bytes stack[^\n]*"
+                         r"|Performance Loss[^\n]*", log)
         for name, log in kernel_lib.BUILD_LOGS.items()
     }
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
@@ -3202,6 +3235,10 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     flash_only = sys.argv[1:] == ["--flash"]
+    if sys.argv[1:] == ["--gmm"]:
+        gmm_only()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] and not flash_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -3314,9 +3351,10 @@ def main() -> int:
             shape={"product": product, "rows": gmm["rows"], "d": gmm["d"],
                    "f": gmm["f"], "experts": MOE_EXPERTS,
                    "group_sizes": gmm["group_sizes"]},
-            products={p: {k: v[k] for k in ("ms", "bound_ms", "library_ms",
-                                            "library_eager_ms")}
-                      for p, v in gmm["timed"].items()},
+            products={p: {k: v[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms",
+                "library_eager_ms", "host_us")}
+                for p, v in gmm["timed"].items()},
         ))
     norm = next(c for c in norm_cases if c["case"] == NORM_TRAIN_CASE)
     t = norm["timed"]

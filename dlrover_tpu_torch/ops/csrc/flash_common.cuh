@@ -1,8 +1,9 @@
 // Device helpers of the split flash-attention backward (K2a, K2b in
 // flash_attention_bwd.cu): the 64-row tile geometry, strided tile loads
-// into padded shared memory and warp reductions; and, for every flash
-// kernel, the once-per-device shared-memory opt-in and the -1e30 of a
-// fully masked row.  K1 and K3 take their Hopper pieces from
+// into padded shared memory and warp reductions; for every flash kernel,
+// the -1e30 of a fully masked row; and, for every kernel that takes more
+// than 48 KB of shared memory (the grouped GEMMs too), the once-per-device
+// opt-in.  K1 and K3 take their Hopper pieces from
 // flash_hopper.cuh.
 //
 // kernel_lib hashes every header in csrc/ into each library's name, so a

@@ -28,7 +28,6 @@ transpose to ``[B, H, S, D]`` and no padding to a block multiple.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -42,8 +41,6 @@ HEAD_DIMS = (64, 128)
 #: kernel that mishandled its diagonal would lose whole such blocks (what
 #: ``chip_smoke.diagonal_tiles`` plants).
 MASK_TILE = 64
-#: SMs of an H100 SXM; the launch plans take the card's own count.
-H100_SMS = 132
 
 #: Kernel launches of the forward (K1, :func:`flash_fwd`) and of each
 #: backward wrapper (K3, K2a, K2b); a run sets them to 0 and reads them back
@@ -204,7 +201,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def fwd_launch_plan(b: int, sq: int, hq: int, d: int,
-                    num_sms: int = H100_SMS) -> dict:
+                    num_sms: int = kernel_lib.H100_SMS) -> dict:
     """How K1 is launched for q ``[b, sq, hq, d]``: ``block_m`` q rows per
     block (128, two warpgroups, where B * H * ceil(S / 128) blocks fill the
     card's ``num_sms`` SMs; 64, one warpgroup, where they would leave SMs
@@ -239,11 +236,6 @@ def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
         kv_box=(64, 1, block_kv, 1), boxes_per_row=d // 64, sq_pad=sq_pad,
         prep_grid=_cdiv(b * sq_pad * hq, rows_per_block),
     )
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib_fn(lib_name: str, fn_name: str, argtypes):
@@ -355,7 +347,7 @@ def flash_fwd(
         torch.empty((b, hq, sq), dtype=torch.float32, device=device)
         if return_lse else None
     )
-    plan = fwd_launch_plan(b, sq, hq, d, _num_sms(device.index))
+    plan = fwd_launch_plan(b, sq, hq, d, kernel_lib.num_sms(device.index))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib_fn("flash_attention", "flash_fwd_bf16", _FWD_ARGTYPES)(

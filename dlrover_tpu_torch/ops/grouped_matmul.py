@@ -24,18 +24,26 @@ without a ``grad_fn``).  Selective checkpointing sees it as one op, so
 under the ``flash_only`` remat policy it is recomputed in the backward.
 Nothing on the kernel path reads a value back to the host: the group
 offsets stay on the device and each kernel block finds its expert itself.
+How a kernel is launched (its tiles, ring depth, shared memory and the
+persistent grid) is :func:`gmm_launch_plan`, a pure function of the shapes
+that the CPU tests check: the kernels read its tile counts and grid, and
+refuse a plan whose tile, ring or shared memory they are not built for.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from dlrover_tpu_torch.ops import kernel_lib
 
 KERNEL_ROWS = 128  # the kernels' row tile: block_rows must be a multiple
+BLOCK_N = 256      # the kernels' column tile (half wide where 128 are left)
+BLOCK_K = 64       # the kernels' reduction step (K tile): one swizzle row
+STAGES = 4         # the kernels' TMA ring depth
+MAX_EXPERTS = 64   # the kernels keep the experts' row ranges in shared memory
 
 #: Kernel launches of K8 (forward and dx, ``gmm_fwd``) and K9 (dw,
 #: ``gmm_dw``); a run sets them to 0 and reads them back to show its path
@@ -55,17 +63,20 @@ def expert_of_block(group_sizes: torch.Tensor, num_blocks: int,
     return eob.clamp_max(group_sizes.shape[0] - 1).to(torch.int32)
 
 
-def _row_ranges(group_sizes: torch.Tensor, n: int) -> List[Tuple[int, int]]:
-    """Each expert's ``[start, end)`` rows, the last expert's reaching
-    ``n`` (the padding rows).  Reads the sizes back to the host: for the
-    plain versions only."""
-    sizes = [int(s) for s in group_sizes.tolist()]
+def _ranges_of(sizes: List[int], n: int) -> List[Tuple[int, int]]:
     ranges, start = [], 0
     for e, size in enumerate(sizes):
         end = n if e == len(sizes) - 1 else min(start + size, n)
         ranges.append((min(start, n), end))
         start += size
     return ranges
+
+
+def _row_ranges(group_sizes: torch.Tensor, n: int) -> List[Tuple[int, int]]:
+    """Each expert's ``[start, end)`` rows, the last expert's reaching
+    ``n`` (the padding rows).  Reads the sizes back to the host: for the
+    plain versions only."""
+    return _ranges_of([int(s) for s in group_sizes.tolist()], n)
 
 
 def grouped_matmul_reference(x: torch.Tensor, w: torch.Tensor,
@@ -102,13 +113,63 @@ def grouped_matmul_dw_reference(x: torch.Tensor, dy: torch.Tensor,
     return dw.to(x.dtype)
 
 
+# -- launch plan ----------------------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gmm_launch_plan(kind: str, n: int, k: int, m: int, experts: int,
+                    num_sms: int = kernel_lib.H100_SMS) -> Dict:
+    """How K8 (``kind`` ``"fwd"`` or ``"dx"``: ``x [n, k]`` times an
+    expert's ``[k, m]``, the output ``[n, m]``) or K9 (``"dw"``: ``x [n,
+    k]``, ``dy [n, m]``, the output ``[experts, k, m]``) is launched:
+    ``KERNEL_ROWS`` x ``BLOCK_N`` output tiles (two consumer warpgroups of
+    64 rows; the kernels make a tile half wide where at most 128 columns
+    are left), a reduction step of ``BLOCK_K``, a ring of ``STAGES`` and the
+    block's shared memory (``SMEM_BYTES`` in ``csrc/grouped_matmul.cu``),
+    the tiles (K9: per expert, ``experts`` times over) and the persistent
+    grid, one block per SM at most."""
+    if kind not in ("fwd", "dx", "dw"):
+        raise ValueError(f"unknown grouped matmul kind {kind!r}")
+    stage_bytes = (KERNEL_ROWS + BLOCK_N) * BLOCK_K * 2
+    rows = k if kind == "dw" else n
+    row_tiles, col_tiles = _cdiv(rows, KERNEL_ROWS), _cdiv(m, BLOCK_N)
+    tiles = row_tiles * col_tiles * (experts if kind == "dw" else 1)
+    return dict(
+        kind=kind, block_m=KERNEL_ROWS, block_n=BLOCK_N, block_k=BLOCK_K,
+        stages=STAGES,
+        # The ring, a full and an empty mbarrier a stage, three int tables
+        # of MAX_EXPERTS, 1024 bytes of alignment slack.
+        smem_bytes=STAGES * (stage_bytes + 16) + 12 * MAX_EXPERTS + 1024,
+        row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles,
+        grid=min(tiles, num_sms),
+    )
+
+
 # -- the CUDA kernels -----------------------------------------------------------
 
+
+class GmmPlan(ctypes.Structure):
+    """The kernels' ``GmmPlan``: the fields of :func:`gmm_launch_plan` that
+    they check or read, in the C struct's order."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "block_m", "block_n", "block_k", "stages", "smem_bytes",
+        "row_tiles", "col_tiles", "tiles", "grid")]
+
+    @classmethod
+    def of(cls, plan: Dict) -> "GmmPlan":
+        return cls(*(plan[name] for name, _ in cls._fields_))
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# a w group_sizes out | N n_red n_cols E trans_w | lda ldb w_se | stream
-_GMM_ARGTYPES = [_P] * 4 + [_I] * 5 + [_LL] * 3 + [_P]
-# x dy group_sizes dw | N K M E | stream
-_DW_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
+_PLAN = ctypes.POINTER(GmmPlan)
+# a w group_sizes out | N n_red n_cols E trans_w | lda ldb w_se | plan
+# stream
+_GMM_ARGTYPES = [_P] * 4 + [_I] * 5 + [_LL] * 3 + [_PLAN, _P]
+# x dy group_sizes dw | N K M E | plan stream
+_DW_ARGTYPES = [_P] * 4 + [_I] * 4 + [_PLAN, _P]
 
 
 def _lib_fn(fn_name: str, argtypes):
@@ -150,6 +211,9 @@ def _check_groups(x: torch.Tensor, group_sizes: torch.Tensor, e: int,
         raise ValueError(
             f"group_sizes must be [{e}] on {x.device}, got "
             f"{tuple(group_sizes.shape)} on {group_sizes.device}")
+    if e > MAX_EXPERTS:
+        raise ValueError(f"the kernels take at most {MAX_EXPERTS} experts, "
+                         f"got {e}")
     return group_sizes.to(torch.int32).contiguous()
 
 
@@ -175,12 +239,14 @@ def gmm_fwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         raise ValueError(f"x [N, {k}] does not contract with w "
                          f"{tuple(w.shape)} (transpose_w={transpose_w})")
     out = torch.empty((n, cols), dtype=x.dtype, device=x.device)
+    plan = gmm_launch_plan("dx" if transpose_w else "fwd", n, k, cols, e,
+                           kernel_lib.num_sms(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib_fn("gmm_bf16", _GMM_ARGTYPES)(
             x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
             n, k, cols, e, int(transpose_w), x.stride(0), w.stride(1),
-            w.stride(0), stream,
+            w.stride(0), ctypes.byref(GmmPlan.of(plan)), stream,
         )
     if err != 0:
         raise RuntimeError(f"gmm_bf16 launch failed: CUDA error {err}")
@@ -205,11 +271,13 @@ def gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     n, k = x.shape
     m = dy.shape[1]
     dw = torch.empty((e, k, m), dtype=x.dtype, device=x.device)
+    plan = gmm_launch_plan("dw", n, k, m, e,
+                           kernel_lib.num_sms(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib_fn("gmm_dw_bf16", _DW_ARGTYPES)(
             x.data_ptr(), dy.data_ptr(), gs.data_ptr(), dw.data_ptr(),
-            n, k, m, e, stream,
+            n, k, m, e, ctypes.byref(GmmPlan.of(plan)), stream,
         )
     if err != 0:
         raise RuntimeError(f"gmm_dw_bf16 launch failed: CUDA error {err}")

@@ -15,6 +15,7 @@ missing ``nvcc`` or a failed compile raises with the compiler's output.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +33,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: SMs of an H100 SXM; the launch plans take the card's own count
+#: (:func:`num_sms`).
+H100_SMS = 132
 
 # name -> loaded library; name -> compiler output of the build (ptxas
 # register/shared-memory report), empty when the library was cached.
@@ -116,3 +121,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
