@@ -5,6 +5,7 @@
     python3 chip_smoke.py --flags-ab    # a measurement, see ``flags_ab``
     python3 chip_smoke.py --flash       # build and the flash checks only
     python3 chip_smoke.py --gmm         # build and the MoE work only
+    python3 chip_smoke.py --pin         # build and the layout pin's check
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
@@ -52,7 +53,8 @@ of the JAX package.  Phases, each one JSON line on stdout:
                backward replayed as one CUDA graph, less the forward's;
                the eager time beside it).  Two runs of the fused kernel
                must give bit-equal dk and dv and dq within one bf16 ulp
-               of each row's largest value.
+               of each row's largest value; two runs of the split dkv
+               kernel bit-equal dk and dv, equal to the fused kernel's.
 4b. ``gmm_kernel_checks``  the grouped-matmul kernels K8 (forward, and
                dx with w read transposed) and K9 (dw) on every grouped
                product of one MoE layer routed by a real gate (uneven
@@ -95,7 +97,10 @@ of the JAX package.  Phases, each one JSON line on stdout:
                PyTorch call computes these functions: no yardstick.
 4e. ``pin_kernel_check``  K11 on [16, 1024, 1600] bf16 contiguous and
                transposed, and on sliced, expanded and byte-sized views:
-               contiguous and bit-equal.  Yardstick ``clone()``.
+               contiguous and bit-equal.  Yardstick ``clone()``, timed
+               against the kernel in ``PIN_PAIRS`` alternating pairs
+               (medians and spreads).  ``--pin`` runs the build and this
+               phase alone.
 4f. ``embed_kernel_checks``  the hot-row cache's gather K10a and scatter
                K10b (``EMBED_CASES``): the CTR loop's shape (cache
                [4,194,304, 128] fp32, 32,768 slots with a padded tail at
@@ -134,9 +139,10 @@ of the JAX package.  Phases, each one JSON line on stdout:
                MFU and HFU against 989 TFLOP/s (``bench.py``'s FLOP
                formulas), peak memory, and one profiled step's device-busy
                share and top kernels.
-10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``: every
-               step launches ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times
-               each and the fused kernel never.
+10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
+               warm-up then 3 measured steps: every step launches
+               ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
+               fused kernel never.  Step time (median).
 11. ``train_parity``  full width, 4 layers, bf16, batch 4: one step's loss
                and gradients through the kernels against the same model
                with the plain forward and backward swapped in: loss gap,
@@ -307,6 +313,7 @@ NORM_PARAM_TOL = 1e-6
 # faults read 0.56 and 0.71 on the update's norm.
 QUANT_CODE_SHARE, QUANT_SCALE_RTOL, QUANT_UPD_NORM_TOL = 1e-4, 1e-6, 1e-3
 LOWBIT_STEPS, LOWBIT_Q4_STEPS = 3, 2
+PIN_PAIRS = 10  # K11 against clone(), alternating (``pin_kernel_check``)
 # K4 and K11 against their plain versions over one 4-layer step (the flash
 # kernels in both legs).  Sound kernels read (H100): loss gap 0 (neither
 # kernel changes a forward value), lowest cosine 0.9999877 and worst
@@ -652,6 +659,7 @@ def check_bwd_case(c, gen):
                strided_views=bool(c.get("fused")), timed=c["kernel"],
                dead_q_rows=int(dead_q.sum()), dead_kv_rows=int(dead_kv.sum()))
     ok = True
+    fused_dkv = None
     for path in ("fused", "split"):
         grads = fa.flash_bwd(q, k, v, o, lse, do, fused=path == "fused",
                              **kw)
@@ -672,7 +680,24 @@ def check_bwd_case(c, gen):
             out["fused_repro"] = repro
             ok = ok and repro["dk_dv_bit_equal"] and (
                 repro["dq_row"] <= REPRO_DQ_ROW_TOL)
+            fused_dkv = grads[1:]
             del again
+        else:
+            # Two runs of K2b bit for bit; and K2b is K3 without dq: each
+            # kv row's dk and dv are summed over the same q tiles, in the
+            # same order and with the same instructions, whichever block
+            # holds the row, so they equal K3's bit for bit.
+            again = fa.flash_bwd_dkv(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            repro = dict(
+                dk_dv_bit_equal=bool(torch.equal(grads[1], again[0])
+                                     and torch.equal(grads[2], again[1])),
+                dk_dv_equal_fused=bool(torch.equal(grads[1], fused_dkv[0])
+                                       and torch.equal(grads[2],
+                                                       fused_dkv[1])))
+            out["split_repro"] = repro
+            ok = ok and all(repro.values())
+            del again, fused_dkv
         if c.get("plant") and path == ("fused" if c["kernel"] == "fused"
                                        else "split"):
             tiles = c["s"] // fa.MASK_TILE
@@ -1286,12 +1311,16 @@ def train_split_and_check():
     per_step = _per_step(flash_fwd=SPLIT_LAYERS, flash_bwd_dq=SPLIT_LAYERS,
                          flash_bwd_dkv=SPLIT_LAYERS)
     _zero_counts()
-    state, losses, seconds = _train_steps(train, state, batch, 2, per_step)
+    state, warm_losses, warm_s = _train_steps(train, state, batch,
+                                              TRAIN_WARMUP, per_step)
+    state, losses, seconds = _train_steps(train, state, batch, TRAIN_STEPS,
+                                          per_step)
     counts = _counts()
     emit({"phase": "train_split", "layers": SPLIT_LAYERS,
-          "flash_block_kv": SPLIT_BLOCK_KV, "losses": losses,
-          "step_s": seconds, "launches": counts,
-          "launches_per_step": per_step})
+          "flash_block_kv": SPLIT_BLOCK_KV,
+          "losses": warm_losses + losses, "warmup_step_s": warm_s,
+          "step_s": seconds, "step_s_median": statistics.median(seconds),
+          "launches": counts, "launches_per_step": per_step})
     del state, train, batch
     torch.cuda.empty_cache()
     return counts
@@ -2209,13 +2238,23 @@ def pin_kernel_check(gen):
     nbytes = 2.0 * x.numel() * x.element_size()
     b_ms, b_by = bound(nbytes, 0.0)
     xt = views["transposed"]
+    # The kernel against clone() in PIN_PAIRS alternating pairs: one
+    # reading of each is within a few per cent of the other.
+    pairs = [(device_ms(lambda: lp.pin_copy(x)),
+              device_ms(lambda: x.clone())) for _ in range(PIN_PAIRS)]
+    kernel_ms, clone_ms = ([p[i] for p in pairs] for i in (0, 1))
     timed = dict(
-        ms=device_ms(lambda: lp.pin_copy(x)),
+        ms=statistics.median(kernel_ms),
         eager_ms=eager_ms(lambda: lp.pin_copy(x)),
         transposed_ms=device_ms(lambda: lp.pin_copy(xt)),
         plain_ms=device_ms(lambda: lp.pin_layout_reference(x)),
         plain_transposed_ms=device_ms(lambda: lp.pin_layout_reference(xt)),
-        library_ms=device_ms(lambda: x.clone()), library="Tensor.clone()",
+        library_ms=statistics.median(clone_ms), library="Tensor.clone()",
+        pairs=dict(kernel_ms=kernel_ms, clone_ms=clone_ms,
+                   kernel_spread_ms=max(kernel_ms) - min(kernel_ms),
+                   clone_spread_ms=max(clone_ms) - min(clone_ms),
+                   kernel_faster_in=sum(a < b for a, b in pairs)),
+        share_of_bound=b_ms / statistics.median(kernel_ms),
         bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
     res = {"phase": "pin_kernel_check", "views": results, "timed": timed,
            "max_abs_err": 0.0 if ok else float("nan"), "ok": ok}
@@ -3222,8 +3261,11 @@ def main() -> int:
     build_s = kernel_lib.build_all()
     for name in kernel_lib.sources():
         kernel_lib.load(name)
+    # Per kernel (its mangled name, template arguments included): the
+    # registers, the stack frame and spills, and any warning.
     ptxas = {
-        name: re.findall(r"Used \d+ registers[^\n]*|\d+ bytes stack[^\n]*"
+        name: re.findall(r"Compiling entry function '[^']*'"
+                         r"|Used \d+ registers[^\n]*|\d+ bytes stack[^\n]*"
                          r"|Performance Loss[^\n]*", log)
         for name, log in kernel_lib.BUILD_LOGS.items()
     }
@@ -3237,6 +3279,10 @@ def main() -> int:
     flash_only = sys.argv[1:] == ["--flash"]
     if sys.argv[1:] == ["--gmm"]:
         gmm_only()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--pin"]:
+        pin_kernel_check(torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
     if sys.argv[1:] and not flash_only:
@@ -3398,6 +3444,7 @@ def main() -> int:
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
         bound_by=t["bound_by"], library_ms=t["library_ms"],
         library=t["library"], transposed_ms=t["transposed_ms"],
+        pairs=t["pairs"],
         shape={"x": [TRAIN_BATCH, TRAIN_SEQ, 1600], "dtype": "bf16"},
     ))
     for name, replaces, kind in (("embed_gather", 67, "gather"),

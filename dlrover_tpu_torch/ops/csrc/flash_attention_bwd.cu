@@ -60,19 +60,29 @@
 // warpgroups' dQ partials go to device memory separately, and one block
 // fits on an SM (its registers).
 //
-// K2a / K2b (kinds 0 and 1, the split path) keep the first, simple design:
-// wmma 16x16x16 from shared memory, scores and probabilities staged in
-// shared memory, no overlap of loads with products.  Nothing carries
-// across blocks on this card, so the TPU's sequential grid axis becomes a
-// loop inside the block:
-// * dkv: one block of 4 warps per (b, kv head, 64-row kv tile) loops over
-//   its group's q heads and the q tiles that can see the tile.  Warp w owns
-//   kv columns 16w..16w+15 of every (64 x 64) score tile, so s, dp, p, ds
-//   and the dv += p^T do, dk += ds^T q updates are all warp-local; dk and
-//   dv accumulate in registers.  delta is computed per q tile from o.
-// * dq: one block per (b, q head, 64-row q tile) loops over the kv tiles
-//   it can see; warp w owns q rows 16w.., so everything is warp-local and
-//   dq accumulates in registers.
+// K2b (kind 1, the split path's dk/dv) is K3's kernel with the dq half
+// compiled out (WITH_DQ false): the same pre-pass (delta and lse2 only, no
+// accumulator to zero), the same register-resident dK and dV, a (Q, dO)
+// ring 4 stages deep (3 for K3, whose dS^T tiles take the room), and no
+// dS^T tile, dQ product or reductions.  Its blocks are one warpgroup of 64
+// kv rows at both head dims; at D 64, without dq's registers (184 a
+// thread), two fit on an SM.  Its pairs are summed in K3's order with
+// K3's arithmetic, so its dk and dv equal K3's bit for bit.
+// What bounds it: at the train_split shape (B 16, H 25, S 1024, D 64,
+// causal) four S x S x D products over the live pairs, 1.07e11 FLOP, 0.109
+// ms at 989 TFLOP/s, beside 0.37 GB of bytes, 0.110 ms: both about equal.
+// What holds it back is K3's minus the reductions: each warpgroup runs its
+// products and elementwise work in sequence.  Issuing a pair's dV and dK
+// with the next pair's S^T and dP^T, with or without the two warpgroups
+// taking turns, ran slower (PERF.md).
+//
+// K2a (kind 0) keeps the first, simple design: wmma 16x16x16 from shared
+// memory, scores and probabilities staged in shared memory, no overlap of
+// loads with products.  Nothing carries across blocks on this card, so the
+// TPU's sequential grid axis becomes a loop inside the block: one block
+// per (b, q head, 64-row q tile) loops over the kv tiles it can see; warp
+// w owns q rows 16w.., so everything is warp-local and dq accumulates in
+// registers; delta is computed per block from o.
 
 #include "flash_common.cuh"
 #include "flash_hopper.cuh"
@@ -102,12 +112,12 @@ struct BwdParams {
   int causal;
 };
 
-// Shared-memory plan.  Four bf16 row tiles (the block's fixed pair and
-// the pair streamed by its loop), fp32 scores and dp, bf16 p and ds, and
-// per-row statistics.  Leading dimensions are padded as in the forward
-// (wmma: multiples of 8 bf16 / 4 fp32, 32-byte aligned fragment
-// pointers).  The fp32 result rows (dk, dv, dq) are staged through the
-// score and dp tiles, which are contiguous and large enough.
+// K2a's shared-memory plan.  Four bf16 row tiles (the block's fixed pair
+// and the pair streamed by its loop), fp32 scores and dp, bf16 p and ds,
+// and per-row statistics.  Leading dimensions are padded as in the
+// forward (wmma: multiples of 8 bf16 / 4 fp32, 32-byte aligned fragment
+// pointers).  The fp32 dq rows are staged through the score and dp
+// tiles, which are contiguous and large enough.
 template <int D>
 struct BwdSmem {
   static constexpr int LD_T = D + 8;        // [64, D] bf16 tiles
@@ -132,7 +142,6 @@ struct BwdSmem {
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
 
@@ -215,139 +224,6 @@ __device__ __forceinline__ void write_rows(bf16* out, const float* stage,
           c] = __float2bfloat16(stage[r * LD_ACC + c]);
     }
   }
-}
-
-// dkv: one block per (kv tile, kv head, batch).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kv_kernel(const BwdParams p) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::A_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::B_OFF);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::C_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::E_OFF);
-  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* DPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* DSs = reinterpret_cast<bf16*>(smem + L::DS_OFF);
-  float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
-  float* delta_s = lse_s + BLOCK_M;
-  int* segq_s = reinterpret_cast<int*>(smem + L::SEG_OFF);
-  int* segkv_s = segq_s + BLOCK_M;
-  float* stage = Ss;  // fp32 result rows, LD_ACC; aliases Ss and DPs
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int n0 = blockIdx.x * BLOCK_N;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int c0 = warp * 16;  // this warp's kv columns of the tile
-
-  load_tile<D, BLOCK_N, L::LD_T>(Ks, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss,
-                                 n0, p.Skv, tid);
-  load_tile<D, BLOCK_N, L::LD_T>(Vs, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss,
-                                 n0, p.Skv, tid);
-  load_kv_rows(p, b, n0, segkv_s, tid);
-
-  Acc dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::fill_fragment(dk_acc[nt], 0.f);
-    wmma::fill_fragment(dv_acc[nt], 0.f);
-  }
-
-  // Causal (rows >= cols, top-left aligned): q rows below n0 see nothing
-  // of this tile, so the q loop starts at the diagonal tile.
-  const int q_begin = p.causal ? n0 : 0;
-  for (int g = 0; g < p.group; ++g) {
-    const int h = hk * p.group + g;
-    const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += BLOCK_M) {
-      __syncthreads();  // the previous tile's reads are finished
-      load_tile<D, BLOCK_M, L::LD_T>(Qs, qb, p.q_ss, q0, p.Sq, tid);
-      load_tile<D, BLOCK_M, L::LD_T>(dOs, dob, p.do_ss, q0, p.Sq, tid);
-      load_q_rows(p, b, h, q0, lse_s, segq_s, tid);
-      __syncthreads();
-      warp_delta<D>(p, dOs, b, h, q0, warp * ROWS_PER_WARP, delta_s, lane);
-      __syncthreads();
-
-      // s and dp for this warp's 16 columns, all 64 rows.
-#pragma unroll
-      for (int mi = 0; mi < BLOCK_M / 16; ++mi) {
-        Acc acc_s, acc_dp;
-        wmma::fill_fragment(acc_s, 0.f);
-        wmma::fill_fragment(acc_dp, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          ARow a;
-          BCol bt;
-          wmma::load_matrix_sync(a, Qs + mi * 16 * L::LD_T + kk * 16,
-                                 L::LD_T);
-          wmma::load_matrix_sync(bt, Ks + c0 * L::LD_T + kk * 16, L::LD_T);
-          wmma::mma_sync(acc_s, a, bt, acc_s);
-          wmma::load_matrix_sync(a, dOs + mi * 16 * L::LD_T + kk * 16,
-                                 L::LD_T);
-          wmma::load_matrix_sync(bt, Vs + c0 * L::LD_T + kk * 16, L::LD_T);
-          wmma::mma_sync(acc_dp, a, bt, acc_dp);
-        }
-        wmma::store_matrix_sync(Ss + mi * 16 * L::LD_S + c0, acc_s, L::LD_S,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(DPs + mi * 16 * L::LD_S + c0, acc_dp,
-                                L::LD_S, wmma::mem_row_major);
-      }
-      __syncwarp();
-
-      for (int i = lane; i < BLOCK_M * 16; i += 32) {
-        const int r = i / 16;
-        const int c = c0 + i % 16;
-        const bool live =
-            is_live(p, q0 + r, n0 + c, segq_s[r], segkv_s[c]);
-        p_ds(p, live, Ss[r * L::LD_S + c], DPs[r * L::LD_S + c], lse_s[r],
-             delta_s[r], Ps + r * L::LD_P + c, DSs + r * L::LD_P + c);
-      }
-      __syncwarp();
-
-      // dv += p^T do and dk += ds^T q for this warp's 16 kv rows.
-#pragma unroll
-      for (int nt = 0; nt < D / 16; ++nt) {
-#pragma unroll
-        for (int kk = 0; kk < BLOCK_M / 16; ++kk) {
-          ACol at;
-          BRow bm;
-          wmma::load_matrix_sync(at, Ps + kk * 16 * L::LD_P + c0, L::LD_P);
-          wmma::load_matrix_sync(bm, dOs + kk * 16 * L::LD_T + nt * 16,
-                                 L::LD_T);
-          wmma::mma_sync(dv_acc[nt], at, bm, dv_acc[nt]);
-          wmma::load_matrix_sync(at, DSs + kk * 16 * L::LD_P + c0, L::LD_P);
-          wmma::load_matrix_sync(bm, Qs + kk * 16 * L::LD_T + nt * 16,
-                                 L::LD_T);
-          wmma::mma_sync(dk_acc[nt], at, bm, dk_acc[nt]);
-        }
-      }
-    }
-  }
-
-  // dk and dv rows [c0, c0 + 16) of the tile, staged through shared memory
-  // to convert to bf16.
-  __syncthreads();  // no warp still reads Ss / DPs, which stage aliases
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(stage + c0 * L::LD_ACC + nt * 16, dk_acc[nt],
-                            L::LD_ACC, wmma::mem_row_major);
-  }
-  __syncwarp();
-  write_rows<D>(p.dk, stage, c0, b, n0, hk, p.Skv, p.Hkv, lane);
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(stage + c0 * L::LD_ACC + nt * 16, dv_acc[nt],
-                            L::LD_ACC, wmma::mem_row_major);
-  }
-  __syncwarp();
-  write_rows<D>(p.dv, stage, c0, b, n0, hk, p.Skv, p.Hkv, lane);
 }
 
 // dq: one block per (q tile, q head, batch).
@@ -462,7 +338,8 @@ flash_bwd_dq_kernel(const BwdParams p) {
   write_rows<D>(p.dq, stage, r0, b, q0, h, p.Sq, p.Hq, lane);
 }
 
-// -- K3: the fused backward ----------------------------------------------------
+
+// -- K3 and K2b: one block per kv tile, on wgmma ----------------------------
 
 struct FusedParams {
   const bf16* o;       // prep: [B, Sq, Hq, D] views
@@ -472,7 +349,7 @@ struct FusedParams {
   const int* seg_kv;   // [B, Skv] or null
   float* lse2;         // [B, Hq, Sq_pad]: lse * log2(e), 0 past Sq
   float* delta;        // [B, Hq, Sq_pad]: rowsum(o * do), 0 past Sq
-  float* dq;           // [B, Sq, Hq, D] fp32 accumulator
+  float* dq;           // K3: [B, Sq, Hq, D] fp32 accumulator; K2b: null
   bf16* dk;            // [B, Skv, Hkv, D]
   bf16* dv;
   int B, Sq, Skv, Sq_pad, Hq, Hkv, group;
@@ -484,10 +361,10 @@ struct FusedParams {
 
 constexpr int PREP_THREADS = 256;
 
-// delta, lse * log2(e) and a zeroed dq accumulator, one (b, s, h) row per
-// D / 8 threads (16 bytes each), rows with h fastest; rows s in [Sq, Sq_pad)
-// get delta = lse2 = 0.
-template <int D>
+// delta, lse * log2(e) and, for K3 (ZERO_DQ), a zeroed dq accumulator, one
+// (b, s, h) row per D / 8 threads (16 bytes each), rows with h fastest;
+// rows s in [Sq, Sq_pad) get delta = lse2 = 0.
+template <int D, bool ZERO_DQ>
 __global__ void __launch_bounds__(PREP_THREADS)
 flash_bwd_prep_kernel(const FusedParams p) {
   constexpr int TPR = D / 8;
@@ -513,11 +390,13 @@ flash_bwd_prep_kernel(const FusedParams p) {
     for (int e = 0; e < 8; ++e) {
       acc += __bfloat162float(oe[e]) * __bfloat162float(de[e]);
     }
-    float4* dq = reinterpret_cast<float4*>(
-        p.dq + ((static_cast<long long>(b) * p.Sq + s) * p.Hq + h) * D +
-        part * 8);
-    dq[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dq[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (ZERO_DQ) {
+      float4* dq = reinterpret_cast<float4*>(
+          p.dq + ((static_cast<long long>(b) * p.Sq + s) * p.Hq + h) * D +
+          part * 8);
+      dq[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+      dq[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1) {
@@ -530,9 +409,9 @@ flash_bwd_prep_kernel(const FusedParams p) {
   }
 }
 
-constexpr int BWD_STAGES = 3;  // the (Q, dO, lse2, delta) ring
-
-template <int D, int KVW>
+// K and V resident, a ring of STAGES (Q, dO) tiles with their lse2 and
+// delta rows, and, for K3 (WITH_DQ), two dS^T tiles a warpgroup.
+template <int D, int KVW, int STAGES, bool WITH_DQ>
 struct FusedSmem {
   static constexpr int BLOCK_KV = TILE * KVW;
   static constexpr uint32_t KV_BYTES = BLOCK_KV * D * 2;  // K or V, resident
@@ -541,34 +420,36 @@ struct FusedSmem {
   static constexpr uint32_t K_OFF = 0;
   static constexpr uint32_t V_OFF = KV_BYTES;
   static constexpr uint32_t Q_OFF = 2 * KV_BYTES;
-  static constexpr uint32_t DO_OFF = Q_OFF + BWD_STAGES * Q_BYTES;
-  static constexpr uint32_t DS_OFF = DO_OFF + BWD_STAGES * Q_BYTES;
-  static constexpr uint32_t ROW_OFF = DS_OFF + KVW * 2 * DS_BYTES;  // 2 a wg
+  static constexpr uint32_t DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr uint32_t DS_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr uint32_t ROW_OFF =
+      DS_OFF + (WITH_DQ ? KVW * 2 * DS_BYTES : 0);
   // lse2 [stage][64], delta [stage][64]
-  static constexpr uint32_t BAR_OFF = ROW_OFF + 2 * BWD_STAGES * TILE * 4;
+  static constexpr uint32_t BAR_OFF = ROW_OFF + 2 * STAGES * TILE * 4;
   // kv_full, full[stage], empty[stage]; 1024 bytes of alignment slack.
-  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * BWD_STAGES) + 1024;
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
 // One block per (batch, kv head, BLOCK_KV kv rows); warpgroup wg owns kv
-// rows [n0 + 64 wg, n0 + 64 wg + 64).
-template <int D, int KVW>
-__global__ void __launch_bounds__(KVW * WG_THREADS, 1)
-flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map,
-                       const __grid_constant__ CUtensorMap do_map,
-                       const FusedParams p) {
-  using L = FusedSmem<D, KVW>;
+// rows [n0 + 64 wg, n0 + 64 wg + 64).  WITH_DQ: K3 (dq, dk, dv); without:
+// K2b (dk, dv).  MIN_BLOCKS: blocks an SM the registers must allow.
+template <int D, int KVW, bool WITH_DQ, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(KVW * WG_THREADS, MIN_BLOCKS)
+flash_bwd_kv_tile_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const FusedParams p) {
+  using L = FusedSmem<D, KVW, STAGES, WITH_DQ>;
   constexpr int BLOCK_KV = L::BLOCK_KV;
   constexpr int SUBS = D / BOX_COLS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
-  float* delta_s = lse_s + BWD_STAGES * TILE;
+  float* delta_s = lse_s + STAGES * TILE;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + BWD_STAGES;
+  uint64_t* empty = full + STAGES;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -582,7 +463,7 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], KVW * 4);  // one arrival per warp
     }
@@ -590,13 +471,13 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  // Thread 0 issues every load: K and V once, the first BWD_STAGES pairs'
+  // Thread 0 issues every load: K and V once, the first STAGES pairs'
   // (Q, dO, lse2, delta) now, each later pair's when its stage comes free
   // (`release`).
   auto load_pair = [&](int i) {
     const int h = hk * p.group + i / n_qt;
     const int q0 = q_begin + (i % n_qt) * TILE;
-    const int s = i % BWD_STAGES;
+    const int s = i % STAGES;
     mbar_expect_tx(&full[s], 2 * L::Q_BYTES + 2 * TILE * 4);
     for (int c = 0; c < SUBS; ++c) {
       tma_load_4d(smem + L::Q_OFF + s * L::Q_BYTES + c * TILE * ROW_BYTES,
@@ -617,18 +498,18 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
       tma_load_4d(smem + L::V_OFF + c * BLOCK_KV * ROW_BYTES, &v_map,
                   kv_full, c * BOX_COLS, hk, n0, b);
     }
-    for (int i = 0; i < min(BWD_STAGES, n_iter); ++i) load_pair(i);
+    for (int i = 0; i < min(STAGES, n_iter); ++i) load_pair(i);
   }
   // Every warp frees pair i's stage after its last read; thread 0 then
   // refills the stage of pair i - 1, once every warp has freed it, with
-  // pair i - 1 + BWD_STAGES: one pair of slack, so it seldom waits.
+  // pair i - 1 + STAGES: one pair of slack, so it seldom waits.
   auto release = [&](int i) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[i % BWD_STAGES]);
+    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
     const int r = i - 1;
-    if (threadIdx.x == 0 && r >= 0 && r + BWD_STAGES < n_iter) {
-      mbar_wait(&empty[r % BWD_STAGES], (r / BWD_STAGES) & 1);
-      load_pair(r + BWD_STAGES);
+    if (threadIdx.x == 0 && r >= 0 && r + STAGES < n_iter) {
+      mbar_wait(&empty[r % STAGES], (r / STAGES) & 1);
+      load_pair(r + STAGES);
     }
     __syncwarp();  // the warp's next wgmma is issued by all its lanes at once
   };
@@ -656,15 +537,14 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int j = 0; j < D / 2; ++j) acc_dk[j] = acc_dv[j] = 0.f;
   const uint32_t k_addr = smem_u32(smem + L::K_OFF) + wg * TILE * ROW_BYTES;
   const uint32_t v_addr = smem_u32(smem + L::V_OFF) + wg * TILE * ROW_BYTES;
-  unsigned char* ds_tiles = smem + L::DS_OFF + wg * 2 * L::DS_BYTES;
   const bool wg_live = n0w < p.Skv;
 
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_iter; ++i) {
-    const int h = hk * p.group + i / n_qt;
+    [[maybe_unused]] const int h = hk * p.group + i / n_qt;
     const int q0 = q_begin + (i % n_qt) * TILE;
-    const int s = i % BWD_STAGES;
-    mbar_wait(&full[s], (i / BWD_STAGES) & 1);
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
     // A q tile wholly above this warpgroup's diagonal sees none of its rows.
     if (wg_live && (!p.causal || q0 + TILE - 1 >= n0w)) {
       const uint32_t q_addr = smem_u32(smem + L::Q_OFF + s * L::Q_BYTES);
@@ -737,16 +617,19 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
 
       // dS^T (bf16) into this warpgroup's tile, swizzled as TMA would
       // write it, for dQ = dS K; two tiles alternate between pairs.
-      unsigned char* ds = ds_tiles + (i & 1) * L::DS_BYTES;
+      [[maybe_unused]] unsigned char* ds =
+          smem + L::DS_OFF + (wg * 2 + (i & 1)) * L::DS_BYTES;
+      if constexpr (WITH_DQ) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const int row = wrow + 8 * (ii % 2);
-          const int chunk = 2 * kk + ii / 2;
-          *reinterpret_cast<uint32_t*>(ds + row * ROW_BYTES +
-                                       ((chunk ^ (row & 7)) << 4) + 4 * t) =
-              da[kk][ii];
+          for (int ii = 0; ii < 4; ++ii) {
+            const int row = wrow + 8 * (ii % 2);
+            const int chunk = 2 * kk + ii / 2;
+            *reinterpret_cast<uint32_t*>(
+                ds + row * ROW_BYTES + ((chunk ^ (row & 7)) << 4) + 4 * t) =
+                da[kk][ii];
+          }
         }
       }
 
@@ -767,56 +650,68 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
                     1);
       }
       wgmma_commit();
-      fence_async_shared();
-      named_barrier(1 + wg, WG_THREADS);  // the whole dS^T tile is written
-
-      // dQ = dS K, 64 columns at a time, added into the accumulator by
-      // 16-byte vector reductions: lanes t and t ^ 1 swap halves so each
-      // holds 4 adjacent columns of one row.
-      const uint32_t ds_addr = smem_u32(ds);
-      float* dq_head = p.dq + static_cast<long long>(b) * p.Sq * p.Hq * D +
-                       static_cast<long long>(h) * D;
-      const bool odd = t & 1;
-      const int qi = q0 + wrow + (odd ? 8 : 0);
-#pragma unroll
-      for (int c = 0; c < SUBS; ++c) {
-        float acc_dq[32];
-#pragma unroll
-        for (int j = 0; j < 32; ++j) acc_dq[j] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          wgmma_ss<1, 1>(
-              acc_dq,
-              desc_mnmajor(ds_addr + kk * 16 * ROW_BYTES, TILE * ROW_BYTES),
-              desc_mnmajor(k_addr + c * BLOCK_KV * ROW_BYTES +
-                               kk * 16 * ROW_BYTES,
-                           BLOCK_KV * ROW_BYTES),
-              kk > 0);
-        }
-        wgmma_commit();
+      if constexpr (!WITH_DQ) {
+        // K2b: nothing follows; the stage is freed once they have run.
         wgmma_wait<0>();
-        fence_regs(acc_dq);
-        if (c == 0) {
-          fence_regs(acc_dv);
-          fence_regs(acc_dk);
-          fence_regs(pa);
-          fence_regs(da);
-        }
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+        fence_regs(pa);
+        fence_regs(da);
+      } else {
+        fence_async_shared();
+        named_barrier(1 + wg, WG_THREADS);  // the whole dS^T tile is written
+
+        // dQ = dS K, 64 columns at a time, added into the accumulator by
+        // 16-byte vector reductions: lanes t and t ^ 1 swap halves so each
+        // holds 4 adjacent columns of one row.
+        const uint32_t ds_addr = smem_u32(ds);
+        float* dq_head = p.dq + static_cast<long long>(b) * p.Sq * p.Hq * D +
+                         static_cast<long long>(h) * D;
+        const bool odd = t & 1;
+        const int qi = q0 + wrow + (odd ? 8 : 0);
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) {
-          const float s0 = odd ? acc_dq[4 * cc] : acc_dq[4 * cc + 2];
-          const float s1 = odd ? acc_dq[4 * cc + 1] : acc_dq[4 * cc + 3];
-          const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-          const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-          const float4 v =
-              odd ? make_float4(r0, r1, acc_dq[4 * cc + 2], acc_dq[4 * cc + 3])
-                  : make_float4(acc_dq[4 * cc], acc_dq[4 * cc + 1], r0, r1);
-          if (qi < p.Sq) {
-            atomicAdd(reinterpret_cast<float4*>(
-                          dq_head + static_cast<long long>(qi) * p.Hq * D +
-                          c * BOX_COLS + 8 * cc + 2 * (t & ~1)),
-                      v);
+        for (int c = 0; c < SUBS; ++c) {
+          float acc_dq[32];
+#pragma unroll
+          for (int j = 0; j < 32; ++j) acc_dq[j] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_ss<1, 1>(
+                acc_dq,
+                desc_mnmajor(ds_addr + kk * 16 * ROW_BYTES,
+                           TILE * ROW_BYTES),
+                desc_mnmajor(k_addr + c * BLOCK_KV * ROW_BYTES +
+                                 kk * 16 * ROW_BYTES,
+                             BLOCK_KV * ROW_BYTES),
+                kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc_dq);
+          if (c == 0) {
+            fence_regs(acc_dv);
+            fence_regs(acc_dk);
+            fence_regs(pa);
+            fence_regs(da);
+          }
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc) {
+            const float s0 = odd ? acc_dq[4 * cc] : acc_dq[4 * cc + 2];
+            const float s1 = odd ? acc_dq[4 * cc + 1] : acc_dq[4 * cc + 3];
+            const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+            const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+            const float4 v =
+                odd ? make_float4(r0, r1, acc_dq[4 * cc + 2],
+                                  acc_dq[4 * cc + 3])
+                    : make_float4(acc_dq[4 * cc], acc_dq[4 * cc + 1], r0,
+                                  r1);
+            if (qi < p.Sq) {
+              atomicAdd(reinterpret_cast<float4*>(
+                            dq_head + static_cast<long long>(qi) * p.Hq * D +
+                            c * BOX_COLS + 8 * cc + 2 * (t & ~1)),
+                        v);
+            }
           }
         }
       }
@@ -841,11 +736,12 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, int KVW>
-int launch_fused(const BwdParams& bp, float* ws, int sq_pad,
-                 cudaStream_t stream) {
+// The pre-pass, then the kv-tile kernel: K3 (WITH_DQ) or K2b.
+template <int D, int KVW, bool WITH_DQ, int STAGES, int MIN_BLOCKS = 1>
+int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
+                    cudaStream_t stream) {
   constexpr int BLOCK_KV = TILE * KVW;
-  using L = FusedSmem<D, KVW>;
+  using L = FusedSmem<D, KVW, STAGES, WITH_DQ>;
   FusedParams p;
   p.o = bp.o;
   p.dout = bp.dout;
@@ -854,7 +750,7 @@ int launch_fused(const BwdParams& bp, float* ws, int sq_pad,
   p.seg_kv = bp.seg_kv;
   p.lse2 = ws;
   p.delta = ws + static_cast<long long>(bp.B) * bp.Hq * sq_pad;
-  p.dq = reinterpret_cast<float*>(bp.dq);
+  p.dq = WITH_DQ ? reinterpret_cast<float*>(bp.dq) : nullptr;
   p.dk = bp.dk;
   p.dv = bp.dv;
   p.B = bp.B;
@@ -893,35 +789,26 @@ int launch_fused(const BwdParams& bp, float* ws, int sq_pad,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   static bool opted_in[64] = {};
-  err = opt_in_smem(flash_bwd_fused_kernel<D, KVW>, L::BYTES, opted_in);
+  err = opt_in_smem(
+      flash_bwd_kv_tile_kernel<D, KVW, WITH_DQ, STAGES, MIN_BLOCKS>,
+      L::BYTES, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   constexpr int PREP_ROWS = PREP_THREADS / (D / 8);
   const long long rows = static_cast<long long>(bp.B) * sq_pad * bp.Hq;
-  flash_bwd_prep_kernel<D>
+  flash_bwd_prep_kernel<D, WITH_DQ>
       <<<static_cast<unsigned>((rows + PREP_ROWS - 1) / PREP_ROWS),
          PREP_THREADS, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(bp.B * bp.Hkv, (bp.Skv + BLOCK_KV - 1) / BLOCK_KV);
-  flash_bwd_fused_kernel<D, KVW>
+  flash_bwd_kv_tile_kernel<D, KVW, WITH_DQ, STAGES, MIN_BLOCKS>
       <<<grid, KVW * WG_THREADS, L::BYTES, stream>>>(q_map, k_map, v_map,
                                                       do_map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- the split pair (K2a, K2b) --------------------------------------------------
-
-template <int D>
-int launch_kv(const BwdParams& p, cudaStream_t stream) {
-  using L = BwdSmem<D>;
-  static bool opted_in[64] = {};
-  cudaError_t err = opt_in_smem(flash_bwd_kv_kernel<D>, L::BYTES, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Skv + BLOCK_N - 1) / BLOCK_N, p.Hkv, p.B);
-  flash_bwd_kv_kernel<D><<<grid, THREADS, L::BYTES, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
+// -- K2a ----------------------------------------------------------------------
 
 template <int D>
 int launch_dq(const BwdParams& p, cudaStream_t stream) {
@@ -936,16 +823,17 @@ int launch_dq(const BwdParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// kind: 0 dq, 1 dkv, 2 fused.  q/o/do [B, Sq, Hq, D] and k/v [B, Skv, Hkv,
-// D]: bf16 views with unit stride on D, 16-byte aligned, the other strides
-// (in elements) multiples of 8; lse [B, Hq, Sq] fp32; seg_q [B, Sq] /
-// seg_kv [B, Skv] int32 or null.  Outputs are contiguous: dq bf16
-// [B, Sq, Hq, D] for kind 0, an fp32 [B, Sq, Hq, D] accumulator for kind 2
-// (zeroed here); dk/dv bf16 [B, Skv, Hkv, D] for kinds 1 and 2.  Kind 2
-// also takes ws, fp32 [2, B, Hq, sq_pad] scratch (sq_pad = Sq rounded up to
-// 64), and block_kv, the kv rows of a block from the host plan (128 at
-// D 64, 64 at D 128).  Returns cudaGetLastError() after the launches
-// (0 = ok).
+// kind: 0 dq (K2a), 1 dkv (K2b), 2 fused (K3).  q/o/do [B, Sq, Hq, D] and
+// k/v [B, Skv, Hkv, D]: bf16 views with unit stride on D, 16-byte aligned,
+// the other strides (in elements) multiples of 8; lse [B, Hq, Sq] fp32;
+// seg_q [B, Sq] / seg_kv [B, Skv] int32 or null.  Outputs are contiguous:
+// dq bf16 [B, Sq, Hq, D] for kind 0, an fp32 [B, Sq, Hq, D] accumulator
+// for kind 2 (zeroed here), none for kind 1; dk/dv bf16 [B, Skv, Hkv, D]
+// for kinds 1 and 2.  Kinds 1 and 2 also take ws, fp32 [2, B, Hq, sq_pad]
+// scratch (sq_pad = Sq rounded up to 64), and the host plan's block_kv
+// (kv rows a block) and stages (of the (Q, dO) ring); a plan no build
+// matches is refused.  Returns cudaGetLastError() after the
+// launches (0 = ok).
 extern "C" int flash_bwd_bf16(
     int kind, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* seg_q, const void* seg_kv,
@@ -955,10 +843,9 @@ extern "C" int flash_bwd_bf16(
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long do_sb, long long do_ss, long long do_sh, long long segq_sb,
     long long segkv_sb, float scale, int causal, void* ws, int sq_pad,
-    int block_kv, void* stream) {
-  if (Hkv < 1 || Hq % Hkv != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+    int block_kv, int stages, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv < 1 || Hq % Hkv != 0) return kInvalid;
   BwdParams p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -997,22 +884,27 @@ extern "C" int flash_bwd_bf16(
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 2) {
-    if (ws == nullptr || sq_pad != (Sq + TILE - 1) / TILE * TILE) {
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 0) {
+    if (D == 64) return launch_dq<64>(p, s);
+    if (D == 128) return launch_dq<128>(p, s);
+    return kInvalid;
+  }
+  if ((kind != 1 && kind != 2) || ws == nullptr ||
+      sq_pad != (Sq + TILE - 1) / TILE * TILE) {
+    return kInvalid;
+  }
+  float* w = static_cast<float*>(ws);
+  if (kind == 2 && stages == 3) {
+    if (D == 64 && block_kv == 128) {
+      return launch_kv_tiles<64, 2, true, 3>(p, w, sq_pad, s);
     }
-    float* w = static_cast<float*>(ws);
-    if (D == 64 && block_kv == 128) return launch_fused<64, 2>(p, w, sq_pad, s);
-    if (D == 128 && block_kv == 64) return launch_fused<128, 1>(p, w, sq_pad, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (D == 128 && block_kv == 64) {
+      return launch_kv_tiles<128, 1, true, 3>(p, w, sq_pad, s);
+    }
   }
-  if (kind != 0 && kind != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64:
-      return kind == 0 ? launch_dq<64>(p, s) : launch_kv<64>(p, s);
-    case 128:
-      return kind == 0 ? launch_dq<128>(p, s) : launch_kv<128>(p, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 1 && stages == 4 && block_kv == 64) {
+    if (D == 64) return launch_kv_tiles<64, 1, false, 4, 2>(p, w, sq_pad, s);
+    if (D == 128) return launch_kv_tiles<128, 1, false, 4>(p, w, sq_pad, s);
   }
+  return kInvalid;
 }

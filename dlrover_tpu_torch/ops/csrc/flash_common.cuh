@@ -1,9 +1,9 @@
-// Device helpers of the split flash-attention backward (K2a, K2b in
+// Device helpers of the split flash-attention backward's dq kernel (K2a in
 // flash_attention_bwd.cu): the 64-row tile geometry, strided tile loads
 // into padded shared memory and warp reductions; for every flash kernel,
 // the -1e30 of a fully masked row; and, for every kernel that takes more
 // than 48 KB of shared memory (the grouped GEMMs too), the once-per-device
-// opt-in.  K1 and K3 take their Hopper pieces from
+// opt-in.  K1, K2b and K3 take their Hopper pieces from
 // flash_hopper.cuh.
 //
 // kernel_lib hashes every header in csrc/ into each library's name, so a

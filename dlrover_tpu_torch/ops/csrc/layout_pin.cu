@@ -8,29 +8,54 @@
 // a strided view in, a contiguous tensor out, bit for bit.
 //
 // What bounds it on this card: bytes, each element read once and written
-// once.  What the design does about it: a contiguous, 16-byte-aligned
-// input (the transformer block's case) is copied 16 bytes a thread in a
-// grid-stride loop; any other input goes element by element, the thread
-// of an output element finding its source through the input's strides (up
-// to 4 dims; the wrapper merges what it can).  The TPU kernel's search
-// for a 4 MiB block is gone.
+// once (the transformer block's [16, 1024, 1600] bf16: 104.9 MB moved,
+// 0.0313 ms at 3.35 TB/s).  What the design does about it, for a dense,
+// 16-byte-aligned input (the block's case): the blocks of the host plan
+// (ops/layout_pin.pin_launch_plan) sweep the tensor together in steps of
+// THREADS * UNROLL 16-byte vectors, block b taking every gridDim.x-th
+// step, and a thread issues its UNROLL loads before its stores, so each SM
+// keeps many bytes in flight.  Tried and slower on an H100 (PERF.md): one
+// contiguous chunk a block, fewer blocks than the SMs oversubscribed,
+// streaming or non-coherent cache hints, and a shared-memory ring of TMA
+// bulk copies.  Any other input goes element by element, the thread of an
+// output element finding its source through the input's strides (up to 4
+// dims; the wrapper merges what it can).  The TPU kernel's search for a
+// 4 MiB block is gone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// ops/layout_pin.py PinPlan, field for field (outside the unnamed
+// namespace: the C entry takes it, and must keep its external name).
+struct PinPlan {
+  long long route;   // 0 strided, 1 vectors
+  long long blocks;  // the grid
+  long long unroll;  // route 1: loads a thread issues before its stores
+};
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 132 * 16;
+constexpr int UNROLL = 8;
 
 __global__ void __launch_bounds__(THREADS)
 copy_vec_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
                 long long n_vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
-                     threadIdx.x;
-       i < n_vec; i += stride) {
-    dst[i] = src[i];
+  constexpr long long STEP = static_cast<long long>(THREADS) * UNROLL;
+  const long long stride = STEP * gridDim.x;
+  for (long long i = blockIdx.x * STEP + threadIdx.x; i < n_vec;
+       i += stride) {
+    uint4 r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long j = i + u * THREADS;
+      if (j < n_vec) r[u] = src[j];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long j = i + u * THREADS;
+      if (j < n_vec) dst[j] = r[u];
+    }
   }
 }
 
@@ -58,15 +83,10 @@ copy_strided_kernel(const U* __restrict__ src, U* __restrict__ dst,
   }
 }
 
-inline unsigned grid_for(long long n) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  return static_cast<unsigned>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
-}
-
 template <typename U>
 int launch_strided(const void* src, void* dst, long long n, const Dims& d,
-                   cudaStream_t s) {
-  copy_strided_kernel<U><<<grid_for(n), THREADS, 0, s>>>(
+                   unsigned blocks, cudaStream_t s) {
+  copy_strided_kernel<U><<<blocks, THREADS, 0, s>>>(
       static_cast<const U*>(src), static_cast<U*>(dst), n, d);
   return static_cast<int>(cudaGetLastError());
 }
@@ -75,33 +95,38 @@ int launch_strided(const void* src, void* dst, long long n, const Dims& d,
 
 // K11.  src: a view of sizes[4] elements of elem_bytes (1, 2, 4 or 8) with
 // strides[4] in elements (leading dims of size 1 pad a lower rank); dst:
-// the same elements, contiguous in row-major order.  `contiguous` says that
-// src is itself dense row-major, and both pointers 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 = ok).
+// the same elements, contiguous in row-major order.  plan: the host plan
+// (route 1 only for a dense row-major src whose bytes are a multiple of
+// 16, both pointers 16-byte aligned); a plan the kernels are not built for
+// is refused.  Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int pin_copy(const void* src, void* dst, const long long* sizes,
                         const long long* strides, int elem_bytes,
-                        int contiguous, void* stream) {
+                        const PinPlan* plan, void* stream) {
+  constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
   Dims d;
   long long n = 1;
   for (int k = 0; k < 4; ++k) {
-    if (sizes[k] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (sizes[k] <= 0) return kInvalid;
     d.size[k] = sizes[k];
     d.stride[k] = strides[k];
     n *= sizes[k];
   }
+  if (plan->blocks < 1 || plan->blocks > 0x7fffffffll) return kInvalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long bytes = n * elem_bytes;
-  if (contiguous && bytes % 16 == 0) {
-    const long long n_vec = bytes / 16;
-    copy_vec_kernel<<<grid_for(n_vec), THREADS, 0, s>>>(
-        static_cast<const uint4*>(src), static_cast<uint4*>(dst), n_vec);
+  if (plan->route == 1) {
+    if (bytes % 16 != 0 || plan->unroll != UNROLL) return kInvalid;
+    copy_vec_kernel<<<static_cast<unsigned>(plan->blocks), THREADS, 0, s>>>(
+        static_cast<const uint4*>(src), static_cast<uint4*>(dst), bytes / 16);
     return static_cast<int>(cudaGetLastError());
   }
+  if (plan->route != 0) return kInvalid;
+  const unsigned blocks = static_cast<unsigned>(plan->blocks);
   switch (elem_bytes) {
-    case 1: return launch_strided<uint8_t>(src, dst, n, d, s);
-    case 2: return launch_strided<uint16_t>(src, dst, n, d, s);
-    case 4: return launch_strided<uint32_t>(src, dst, n, d, s);
-    case 8: return launch_strided<uint64_t>(src, dst, n, d, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return launch_strided<uint8_t>(src, dst, n, d, blocks, s);
+    case 2: return launch_strided<uint16_t>(src, dst, n, d, blocks, s);
+    case 4: return launch_strided<uint32_t>(src, dst, n, d, blocks, s);
+    case 8: return launch_strided<uint64_t>(src, dst, n, d, blocks, s);
+    default: return kInvalid;
   }
 }

@@ -188,10 +188,10 @@ _FWD_ARGTYPES = (
 )
 # kind | q k v o do lse seg_q seg_kv dq dk dv | B Sq Skv Hq Hkv D | batch,
 # row and head strides of q k v o do, seg strides | scale causal | ws
-# sq_pad block_kv | stream
+# sq_pad block_kv stages | stream
 _BWD_ARGTYPES = (
     [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 17 + [ctypes.c_float, _I]
-    + [_P, _I, _I, _P]
+    + [_P, _I, _I, _I, _P]
 )
 _BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
 
@@ -218,23 +218,43 @@ def fwd_launch_plan(b: int, sq: int, hq: int, d: int,
     )
 
 
-def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int,
-                    d: int) -> dict:
-    """How K3 is launched: ``block_kv`` kv rows per block (128, two
-    consumer warpgroups, at D 64; 64 at D 128, where one warpgroup's dk
-    and dv accumulators already take 128 registers a thread), the grid
+#: Stages of the (q, do) ring of the kv-tile kernels: K2b's takes the
+#: room that K3 gives its dS^T tiles.
+BWD_STAGES = {"fused": 3, "dkv": 4}
+
+
+def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                    kind: str = "fused") -> dict:
+    """How the backward's kv-tile kernels are launched: K3 (``kind``
+    ``"fused"``) or K2b (``"dkv"``), the same kernel without dq.
+    ``block_kv`` kv rows per block: K3's 128, two warpgroups, at D 64 and
+    64 at D 128, where one warpgroup's dk and dv accumulators already take
+    128 registers a thread; K2b's 64, one warpgroup, ``blocks_per_sm`` of
+    them an SM at D 64 (the registers its build allows).  The grid
     ``(b * hkv, kv tiles)``, the TMA boxes of the streamed (q, do) tiles
-    and of the resident (k, v) tiles, ``sq_pad``
-    (the lse / delta rows' length, sq rounded up to a tile) and the
-    pre-pass grid (``d // 8`` threads a row, 256 a block)."""
-    block_kv = 2 * MASK_TILE if d == 64 else MASK_TILE
+    and of the resident (k, v) tiles, the ``stages`` of the (q, do) ring
+    (:data:`BWD_STAGES`), ``sq_pad`` (the lse / delta rows' length, sq
+    rounded up to a tile), the pre-pass grid (``d // 8`` threads a row,
+    256 a block) and the ``workspace`` the wrapper allocates, fp32 shapes
+    by name: the pre-pass's lse and delta rows, and K3's dq
+    accumulator."""
+    if kind not in ("fused", "dkv"):
+        raise ValueError(f"no kv-tile backward kernel of kind {kind!r}")
+    wide = kind == "fused" and d == 64
+    block_kv = 2 * MASK_TILE if wide else MASK_TILE
     sq_pad = _cdiv(sq, MASK_TILE) * MASK_TILE
     rows_per_block = 256 // (d // 8)
+    workspace = {"rows": (2, b, hq, sq_pad)}
+    if kind == "fused":
+        workspace["dq_acc"] = (b, sq, hq, d)
     return dict(
-        block_kv=block_kv, grid=(b * hkv, _cdiv(skv, block_kv)),
+        kind=kind, block_kv=block_kv, grid=(b * hkv, _cdiv(skv, block_kv)),
         q_box=(64, 1, MASK_TILE, 1),
-        kv_box=(64, 1, block_kv, 1), boxes_per_row=d // 64, sq_pad=sq_pad,
+        kv_box=(64, 1, block_kv, 1), boxes_per_row=d // 64,
+        stages=BWD_STAGES[kind],
+        blocks_per_sm=2 if kind == "dkv" and d == 64 else 1, sq_pad=sq_pad,
         prep_grid=_cdiv(b * sq_pad * hq, rows_per_block),
+        workspace=workspace,
     )
 
 
@@ -396,11 +416,17 @@ def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3],
             segq_sb, segkv_sb, scale, int(causal), ptr(ws),
-            plan["sq_pad"] if plan else 0, plan["block_kv"] if plan else 0,
+            *((plan["sq_pad"], plan["block_kv"], plan["stages"]) if plan
+              else (0, 0, 0)),
             stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _workspace(plan: dict, device) -> dict:
+    return {name: torch.empty(shape, dtype=torch.float32, device=device)
+            for name, shape in plan["workspace"].items()}
 
 
 def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
@@ -418,16 +444,14 @@ def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     b, sq, hq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
     plan = bwd_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d)
-    dq_acc = torch.empty((b, sq, hq, d), dtype=torch.float32,
-                         device=q.device)
-    ws = torch.empty((2, b, hq, plan["sq_pad"]), dtype=torch.float32,
-                     device=q.device)
+    ws = _workspace(plan, q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_fused", q, k, v, o, lse, do, seg_q, seg_kv,
-                dq_acc, dk, dv, causal, scale, ws=ws, plan=plan)
+                ws["dq_acc"], dk, dv, causal, scale, ws=ws["rows"],
+                plan=plan)
     LAUNCHES["flash_bwd_fused"] += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return ws["dq_acc"].to(q.dtype), dk, dv
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, *, causal=True, seg_q=None,
@@ -448,19 +472,23 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal=True, seg_q=None,
 
 def flash_bwd_dkv(q, k, v, o, lse, do, *, causal=True, seg_q=None,
                   seg_kv=None, scale=None):
-    """K2b counterpart: one block per (b, kv head, 64-row kv tile) loops
+    """K2b counterpart: K3's kernel without dq (``bwd_launch_plan`` kind
+    ``"dkv"``: 64-row kv tiles, a 4-stage ring), two launches counted as
+    one.  The pre-pass computes ``delta`` and ``lse * log2(e)`` into row
+    buffers (no dq accumulator); one block per (b, kv head, kv tile) loops
     over its group's q heads and the q tiles that can see the tile (under
     causal, from the diagonal on), accumulating ``dv += p^T do`` and
-    ``dk += ds^T q`` in fp32 registers; ``delta`` is computed per q tile
-    from ``o`` and ``do``.  GQA sums over the group inside the block.
-    Launch counted in ``LAUNCHES["flash_bwd_dkv"]``; its plain version is
-    :func:`mha_backward_dkv_reference`."""
-    d = q.shape[3]
+    ``dk += ds^T q`` in fp32 registers in K3's order, so dk and dv equal
+    K3's bit for bit.  Launch counted in ``LAUNCHES["flash_bwd_dkv"]``;
+    its plain version is :func:`mha_backward_dkv_reference`."""
+    b, sq, hq, d = q.shape
     scale = d ** -0.5 if scale is None else float(scale)
+    plan = bwd_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d, kind="dkv")
+    ws = _workspace(plan, q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_dkv", q, k, v, o, lse, do, seg_q, seg_kv,
-                None, dk, dv, causal, scale)
+                None, dk, dv, causal, scale, ws=ws["rows"], plan=plan)
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 

@@ -57,11 +57,58 @@ def merged_dims(x: torch.Tensor) -> Tuple[List[int], List[int]]:
     return sizes, strides
 
 
+#: Threads a block of both routes.  The vector route's blocks sweep the
+#: tensor together, ``BLOCKS_PER_SM`` an SM at most, a thread ``UNROLL``
+#: 16-byte loads deep (``UNROLL`` in ``csrc/layout_pin.cu``); the strided
+#: route is a grid-stride loop over at most ``STRIDED_BLOCKS_PER_SM``.
+THREADS = 256
+BLOCKS_PER_SM = 8
+UNROLL = 8
+STRIDED_BLOCKS_PER_SM = 16
+ROUTES = {"strided": 0, "vectors": 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pin_launch_plan(numel: int, elem_bytes: int, dense: bool,
+                    num_sms: int = kernel_lib.H100_SMS) -> dict:
+    """How K11 copies ``numel`` elements of ``elem_bytes``.  A ``dense``
+    input (row-major, 16-byte aligned) whose bytes are a multiple of 16
+    takes the ``vectors`` route: its ``n_vec`` 16-byte vectors in steps of
+    ``threads * unroll``, block b taking steps b, b + blocks, ...  Anything
+    else takes the ``strided`` route, element by element, element i by
+    thread i, i + blocks * threads, ..."""
+    nbytes = numel * elem_bytes
+    if dense and nbytes % 16 == 0:
+        n_vec = nbytes // 16
+        blocks = min(num_sms * BLOCKS_PER_SM, _cdiv(n_vec, THREADS * UNROLL))
+        return dict(route="vectors", n_vec=n_vec, blocks=blocks,
+                    unroll=UNROLL, threads=THREADS)
+    return dict(route="strided", n_vec=0,
+                blocks=max(1, min(_cdiv(numel, THREADS),
+                                  num_sms * STRIDED_BLOCKS_PER_SM)),
+                unroll=1, threads=THREADS)
+
+
+class PinPlan(ctypes.Structure):
+    """The kernel's ``PinPlan``: the fields of :func:`pin_launch_plan` it
+    reads, in the C struct's order (the route by its code)."""
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "route", "blocks", "unroll")]
+
+    @classmethod
+    def of(cls, plan: dict) -> "PinPlan":
+        return cls(ROUTES[plan["route"]], plan["blocks"], plan["unroll"])
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _DIMS = ctypes.c_longlong * MAX_DIMS
-# src dst sizes strides | elem_bytes contiguous | stream
+# src dst sizes strides | elem_bytes | plan | stream
 _ARGTYPES = [_P, _P, ctypes.POINTER(ctypes.c_longlong),
-             ctypes.POINTER(ctypes.c_longlong), _I, _I, _P]
+             ctypes.POINTER(ctypes.c_longlong), _I, ctypes.POINTER(PinPlan),
+             _P]
 
 
 def _lib_fn():
@@ -93,12 +140,14 @@ def pin_copy(x: torch.Tensor) -> torch.Tensor:
             f"merging, got sizes {sizes} strides {strides}")
     pad = MAX_DIMS - len(sizes)
     dense = x.is_contiguous() and x.data_ptr() % 16 == 0
+    plan = pin_launch_plan(x.numel(), x.element_size(), dense,
+                           kernel_lib.num_sms(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib_fn()(
             x.data_ptr(), out.data_ptr(), _DIMS(*([1] * pad + sizes)),
-            _DIMS(*([0] * pad + strides)), x.element_size(), int(dense),
-            stream,
+            _DIMS(*([0] * pad + strides)), x.element_size(),
+            ctypes.byref(PinPlan.of(plan)), stream,
         )
     if err != 0:
         raise RuntimeError(f"pin_copy launch failed: CUDA error {err}")
