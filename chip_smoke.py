@@ -6,6 +6,8 @@
     python3 chip_smoke.py --flash       # build and the flash checks only
     python3 chip_smoke.py --gmm         # build and the MoE work only
     python3 chip_smoke.py --pin         # build and the layout pin's check
+    python3 chip_smoke.py --norm        # build and the norm backward's check
+    python3 chip_smoke.py --ab DIR ...  # K2a, K4 against other trees
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
@@ -36,9 +38,11 @@ of the JAX package.  Phases, each one JSON line on stdout:
                split dq + dkv pair) at the training shape B=16, H=25,
                D=64, S=1024 (fused, and split as ``block_kv=512`` takes
                it), GQA 32/8 D=128 S=2048, segments with a pad segment,
-               non-causal S=512 and fully masked rows; every case through
-               both paths against ``mha_backward_reference`` in fp32 from
-               the same bf16 inputs and the kernel's own o and lse.  Each
+               non-causal S=512, fully masked rows, and ragged GQA S=900
+               (causal, D=64 and D=128) and S=1000 (non-causal, D=128);
+               every case through both paths against
+               ``mha_backward_reference`` in fp32 from the same bf16
+               inputs and the kernel's own o and lse.  Each
                of dq, dk, dv: every row (one (b, s, h) vector) within
                ``BWD_ROW_TOL`` of that row's largest |ref| and the tensor
                within ``BWD_NORM_TOL`` in norm-relative error (the limits'
@@ -54,7 +58,11 @@ of the JAX package.  Phases, each one JSON line on stdout:
                the eager time beside it).  Two runs of the fused kernel
                must give bit-equal dk and dv and dq within one bf16 ulp
                of each row's largest value; two runs of the split dkv
-               kernel bit-equal dk and dv, equal to the fused kernel's.
+               kernel bit-equal dk and dv, equal to the fused kernel's;
+               two runs of the split dq kernel (the split path's, on its
+               shared pre-pass, and ``flash_bwd_dq``'s own) bit-equal dq.
+               On the split cases K2a's time is also read without its
+               pre-pass (``prep_share``).
 4b. ``gmm_kernel_checks``  the grouped-matmul kernels K8 (forward, and
                dx with w read transposed) and K9 (dw) on every grouped
                product of one MoE layer routed by a real gate (uneven
@@ -82,9 +90,11 @@ of the JAX package.  Phases, each one JSON line on stdout:
                and a wide one, against ``layernorm_backward_reference`` in
                fp32 from the same inputs and saved statistics: dx by row
                and by norm (``NORM_ROW_TOL``, ``NORM_NORM_TOL``), dscale
-               and dbias by norm (``NORM_PARAM_TOL``); two planted faults
-               (the mean(g) term dropped, one block's partial row lost)
-               must fail.  Yardstick ``aten.native_layer_norm_backward``.
+               and dbias by norm (``NORM_PARAM_TOL``); two runs bit-equal
+               (dx, dscale, dbias); two planted faults (the mean(g) term
+               dropped, the first block's partial row lost) must fail.
+               Yardstick ``aten.native_layer_norm_backward``.  ``--norm``
+               runs the build and this phase alone.
 4d. ``quant_kernel_checks``  K5a and K5b (round trip, and codes and values
                equal to the plain versions'), K6 and K7 on the largest
                leaf's shape [48, 1600, 6400] bf16, one layer of it and two
@@ -203,6 +213,12 @@ of the JAX package.  Phases, each one JSON line on stdout:
                profiled step's device-busy share, one step's host profile
                (cProfile).  Then 3 steps with a K10b that drops the last
                real row must fail the invariant.
+
+``--ab DIR [DIR ...]`` times K2a and K4 (``time_kernels``) of each tree
+at DIR (a ``git archive`` of a parent commit under ``build/``, or a copy
+of this tree with one constant changed; named by its directory) and of
+this one, each reading in a process of its own, in turns: DIR, change,
+change, DIR for each DIR, twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, train, train_split, train_moe, train_lowbit and
@@ -541,6 +557,16 @@ BWD_CASES = [
          causal=False, fused=True, kernel="fused"),
     dict(case="masked_rows", b=1, s=256, hq=8, hkv=8, d=64, causal=True,
          seg="masked", kernel="fused"),
+    # Ragged sequences, the last q and kv tiles running past S, on each of
+    # K2a's builds that the main-path cases leave out: its 64-row blocks at
+    # D 64 (causal) and D 128 (non-causal), and its 128-row blocks at D
+    # 128, the last one's second warpgroup wholly past S.
+    dict(case="ragged_gqa_s900", b=8, s=900, hq=8, hkv=2, d=64,
+         causal=True, kernel="split"),
+    dict(case="ragged_small_s1000_d128", b=1, s=1000, hq=4, hkv=2, d=128,
+         causal=False, kernel="split"),
+    dict(case="ragged_gqa_s900_d128", b=2, s=900, hq=8, hkv=2, d=128,
+         causal=True, kernel="split"),
 ]
 BWD_FUSED_CASE, BWD_SPLIT_CASE = "train_fused", "train_split"
 
@@ -688,8 +714,13 @@ def check_bwd_case(c, gen):
             # same order and with the same instructions, whichever block
             # holds the row, so they equal K3's bit for bit.
             again = fa.flash_bwd_dkv(q, k, v, o, lse, do, **kw)
+            dq_again = fa.flash_bwd_dq(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
+            # K2a's dq accumulates in registers and is written once: two
+            # runs (the split path's, on its shared pre-pass, and one with
+            # its own) are bit-equal.
             repro = dict(
+                dq_bit_equal=bool(torch.equal(grads[0], dq_again)),
                 dk_dv_bit_equal=bool(torch.equal(grads[1], again[0])
                                      and torch.equal(grads[2], again[1])),
                 dk_dv_equal_fused=bool(torch.equal(grads[1], fused_dkv[0])
@@ -697,7 +728,7 @@ def check_bwd_case(c, gen):
                                                        fused_dkv[1])))
             out["split_repro"] = repro
             ok = ok and all(repro.values())
-            del again, fused_dkv
+            del again, dq_again, fused_dkv
         if c.get("plant") and path == ("fused" if c["kernel"] == "fused"
                                        else "split"):
             tiles = c["s"] // fa.MASK_TILE
@@ -736,6 +767,21 @@ def check_bwd_case(c, gen):
                          plain_ms=device_ms(run(plain), iters=2, replays=2),
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                          flops=flops)
+    if "dq" in out:
+        # The pre-pass's share of K2a's launch: K2a on rows filled once.
+        rows, scale = fa._rows(q), c["d"] ** -0.5
+        fa._dq_launch(q, k, v, o, lse, do, rows, prep=True, scale=scale,
+                      **kw)
+        main_ms = device_ms(lambda: fa._dq_launch(
+            q, k, v, o, lse, do, rows, prep=False, scale=scale, **kw))
+        plan = fa.dq_launch_plan(c["b"], c["s"], c["s"], c["hq"], c["hkv"],
+                                 c["d"], torch.cuda.get_device_properties(
+                                     0).multi_processor_count)
+        out["dq"].update(
+            without_prep_ms=main_ms, prep_share=1.0 - main_ms / out["dq"]["ms"],
+            plan={key: plan[key] for key in ("block_m", "stages",
+                                             "blocks_per_sm", "smem_bytes",
+                                             "grid")})
 
     # Yardstick: SDPA's backward (dq, dk and dv together), at the training
     # shape only (its first call at a new shape takes 1 to 7 s of set-up).
@@ -1890,9 +1936,17 @@ def check_norm_case(c, gen):
     with torch.no_grad():
         _, mean, rstd = fn.norm_forward(x, scale, bias, NORM_EPS, center)
         got = fn.layernorm_backward(x, dy, scale, mean, rstd, center)
+        again = fn.layernorm_backward(x, dy, scale, mean, rstd, center)
         torch.cuda.synchronize()
         ref = fn.layernorm_backward_reference(
             x.float(), dy.float(), scale.float(), mean, rstd, center)
+    # Two runs: dscale and dbias are summed in a fixed order, dx row by
+    # row, so all three are bit-equal.
+    repro = dict(dscale_dbias_bit_equal=bool(torch.equal(got[1], again[1])
+                                             and torch.equal(got[2],
+                                                             again[2])),
+                 dx_bit_equal=bool(torch.equal(got[0], again[0])))
+    del again
 
     def errors(dx, dscale, dbias):
         return {"dx": row_errors(dx, ref[0], NORM_ROW_FLOOR),
@@ -1900,10 +1954,16 @@ def check_norm_case(c, gen):
                 "dbias": _norm_rel(dbias, ref[2])}
 
     e = errors(*got)
+    plan = fn.norm_launch_plan(n, d, torch.cuda.get_device_properties(
+        0).multi_processor_count, x.element_size(), d % fn.CHUNK == 0)
     out = dict(case=c["case"], n=n, d=d, dtype=c["dtype"], center=center,
                dx_dtype=str(got[0].dtype), max_abs_err=e["dx"]["max_abs"],
+               repro=repro, plan={k: plan[k] for k in (
+                   "warps_per_row", "rows_per_group", "stages",
+                   "blocks_per_sm", "blocks", "smem_bytes")},
                **e)
-    ok = norm_ok(e) and got[0].dtype == dtype and got[0].shape == x.shape
+    ok = (norm_ok(e) and got[0].dtype == dtype and got[0].shape == x.shape
+          and all(repro.values()))
 
     if c.get("plant"):
         # The check on planted faults, each of which must fail it: the
@@ -1912,7 +1972,7 @@ def check_norm_case(c, gen):
         g32 = dy.float() * scale.float()
         no_mean = (got[0].float()
                    + rstd[:, None] * g32.mean(-1, keepdim=True)).to(dtype)
-        run = fn._rows_per_block(n, x.device)
+        run = plan["rows_per_block"]
         xhat = (x[:run].float() - mean[:run, None]) * rstd[:run, None]
         lost = got[1] - (dy[:run].float() * xhat).sum(0)
         faults = {}
@@ -2262,6 +2322,94 @@ def pin_kernel_check(gen):
     if not ok:
         raise AssertionError(f"pin_layout kernel disagrees: {results}")
     return res
+
+
+#: Rounds of ``--ab``: other, change, change, other each.
+AB_ROUNDS = 2
+#: Causal grids beside the split ``BWD_CASES`` at which ``time_kernels``
+#: reads K2a, from about 1 to 12 waves of its 128-row blocks on 132 SMs:
+#: D 64 at the training step's heads and length, and GQA 32/8 at D 128.
+DQ_GRID_CASES = [
+    dict(case=f"grid_b{b}_s1024", b=b, s=1024, hq=25, hkv=25, d=64,
+         causal=True) for b in (1, 2, 4, 8)
+] + [
+    dict(case=f"grid_d128_b{b}_s{s}", b=b, s=s, hq=32, hkv=8, d=128,
+         causal=True) for b, s in ((1, 512), (1, 1024), (4, 1024))
+]
+
+
+def time_kernels():
+    """K2a and K4 of whichever package is first on ``sys.path``, through
+    the public wrappers (whose signatures have not changed since the
+    kernels were first ported), at the main paths' shapes: K2a at the
+    split ``BWD_CASES`` and at ``DQ_GRID_CASES``, K4 at the timed
+    ``NORM_CASES``.  Device ms, the median of three CUDA-graph
+    readings."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for c in [c for c in BWD_CASES if c["kernel"] == "split"] + \
+            DQ_GRID_CASES:
+        q, k, v, _, _ = _case_inputs(c, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        o, lse = fa.flash_fwd(q, k, v, causal=c["causal"])
+        out[f"flash_bwd_dq/{c['case']}"] = statistics.median(
+            device_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do,
+                                              causal=c["causal"]))
+            for _ in range(3))
+        del q, k, v, o, lse, do
+    for c in NORM_CASES:
+        if not c.get("timed"):
+            continue
+        n, d, center = c["n"], c["d"], c["center"]
+        x = (torch.randn((n, d), generator=gen, device="cuda") * 2.0
+             + 0.5).bfloat16()
+        dy = (torch.randn((n, d), generator=gen, device="cuda")
+              + 0.25).bfloat16()
+        scale = torch.randn((d,), generator=gen, device="cuda") * 0.3 + 1.0
+        _, mean, rstd = fn.norm_forward(x, scale, None, NORM_EPS, center)
+        out[f"norm_bwd/{c['case']}"] = statistics.median(
+            device_ms(lambda: fn.layernorm_backward(x, dy, scale, mean, rstd,
+                                                    center))
+            for _ in range(3))
+    return out
+
+
+def ab_in_turns(others):
+    """``time_kernels`` of each tree in ``others`` (a ``git archive`` of
+    the parent commit, or a copy of this tree with one constant changed,
+    each of which builds its own kernels there; named by its directory)
+    and of this tree, each reading in a process of its own, in turns:
+    other, change, change, other for each tree, ``AB_ROUNDS`` times."""
+    trees = {os.path.basename(os.path.normpath(t)): os.path.abspath(t)
+             for t in others}
+    for name, path in trees.items():
+        if name == "change" or not os.path.isdir(
+                os.path.join(path, "dlrover_tpu_torch")):
+            raise FileNotFoundError(f"no other tree at {path}")
+    order = [who for _ in range(AB_ROUNDS) for name in trees
+             for who in (name, "change", "change", name)]
+    trees["change"] = REPO
+    readings = {name: [] for name in trees}
+    for who in order:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-tree",
+             trees[who]], capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"--time-tree {trees[who]} failed "
+                               f"(rc {res.returncode}):\n{res.stderr[-4000:]}")
+        readings[who].append(json.loads(res.stdout.splitlines()[-1])["ms"])
+    names = sorted(readings["change"][0])
+    median = {who: {n: statistics.median(r[n] for r in rs) for n in names}
+              for who, rs in readings.items()}
+    emit({"phase": "ab_in_turns", "order": order, "readings": readings,
+          "median_ms": median,
+          "over_change": {who: {n: median[who][n] / median["change"][n]
+                                for n in names}
+                          for who in trees if who != "change"}})
 
 
 def _state_bytes(obj) -> int:
@@ -3243,6 +3391,14 @@ def main() -> int:
         print(f"chip_smoke: the dlrover_tpu_torch package is not beside "
               f"{__file__}", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time-tree"] and len(sys.argv) == 3:
+        # One reading of ``ab_in_turns``: the tree's own package, whose
+        # kernels build (once) into its own build directory.
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        emit({"phase": "time_tree", "tree": sys.argv[2],
+              "ms": time_kernels()})
+        return 0
     sys.path.insert(0, REPO)
     from dlrover_tpu_torch.ops import kernel_lib
 
@@ -3283,6 +3439,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--pin"]:
         pin_kernel_check(torch.Generator(device="cuda").manual_seed(0))
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--norm"]:
+        norm_kernel_checks(torch.Generator(device="cuda").manual_seed(0))
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:
+        ab_in_turns(sys.argv[2:])
         print(smi, flush=True)
         return 0
     if sys.argv[1:] and not flash_only:

@@ -76,14 +76,38 @@
 // with the next pair's S^T and dP^T, with or without the two warpgroups
 // taking turns, ran slower (PERF.md).
 //
-// K2a (kind 0) keeps the first, simple design: wmma 16x16x16 from shared
-// memory, scores and probabilities staged in shared memory, no overlap of
-// loads with products.  Nothing carries across blocks on this card, so the
-// TPU's sequential grid axis becomes a loop inside the block: one block
-// per (b, q head, 64-row q tile) loops over the kv tiles it can see; warp
-// w owns q rows 16w.., so everything is warp-local and dq accumulates in
-// registers; delta is computed per block from o.
-
+// K2a (kind 0, the split path's dq) is built from the same pieces on K1's
+// skeleton, q-tile blocks with K/V streaming:
+// * One block per (batch, q head, q tile) of one or two warpgroups of 64
+//   q rows: 128-row blocks (one an SM at D 64, 147 registers), which share
+//   each K/V tile between two warpgroups, where they make at least 16
+//   waves of the card at D 64 or half a wave at D 128 (crossovers measured
+//   on an H100, PERF.md); 64-row ones, two an SM at D 64, below that (the
+//   host plan, ops/flash_attention.py dq_launch_plan); the heaviest causal
+//   q tiles launch first.  Q and dO are loaded once by TMA and stay in
+//   shared memory with the block's lse2 and delta rows (bulk copies of the
+//   pre-pass's rows); K and V tiles of 64 rows stream through a ring of 4
+//   stages.  Tile i - 1's K is still read by its dQ product during tile
+//   i, so at tile i, once its products are issued, thread 0 refills the
+//   stage of tile i - 2 (freed by every warp at the end of tile i - 1)
+//   with tile i + 2: two tiles load while tile i is computed.
+// * Per kv tile: S = Q K^T and dP = dO V^T are wgmmas from shared memory
+//   with fp32 results in registers; P and dS are built there (K3's
+//   arithmetic, masks only where they can bite), and dS in bf16 is the
+//   register A operand of dQ += dS K, K through the transpose bit.  Tile
+//   i's S and dP are issued with tile i - 1's dQ product, so dS is built
+//   while that runs.  No score, probability or dS touches shared memory.
+// * dq accumulates in fp32 registers over the whole kv loop and is written
+//   once in bf16: no atomics, no accumulator, no cast, and dq is the same
+//   bit for bit from run to run.
+// The split path (flash_bwd_split) runs the pre-pass once, with K2a's
+// launch, and K2b reads the same rows (`prep` 0).  What bounds K2a: at the
+// train_split shape three S x S x D products over the live pairs, 8.0e10
+// FLOP, 0.081 ms at 989 TFLOP/s, beside 0.32 GB of bytes, 0.094 ms: both
+// about equal.  What holds it back: a warpgroup waits for S and dP before
+// it builds dS (issuing them as two groups, to start on P early, read no
+// faster), and the pre-pass, about a tenth of the launch, reads o and do
+// once more.
 #include "flash_common.cuh"
 #include "flash_hopper.cuh"
 
@@ -111,233 +135,6 @@ struct BwdParams {
   float scale;
   int causal;
 };
-
-// K2a's shared-memory plan.  Four bf16 row tiles (the block's fixed pair
-// and the pair streamed by its loop), fp32 scores and dp, bf16 p and ds,
-// and per-row statistics.  Leading dimensions are padded as in the
-// forward (wmma: multiples of 8 bf16 / 4 fp32, 32-byte aligned fragment
-// pointers).  The fp32 dq rows are staged through the score and dp
-// tiles, which are contiguous and large enough.
-template <int D>
-struct BwdSmem {
-  static constexpr int LD_T = D + 8;        // [64, D] bf16 tiles
-  static constexpr int LD_S = BLOCK_N + 4;  // [64, 64] fp32 tiles
-  static constexpr int LD_P = BLOCK_N + 8;  // [64, 64] bf16 tiles
-  static constexpr int LD_ACC = D + 4;      // fp32 staging rows
-  static constexpr size_t TILE = sizeof(bf16) * 64 * LD_T;
-  static constexpr size_t A_OFF = 0;
-  static constexpr size_t B_OFF = A_OFF + TILE;
-  static constexpr size_t C_OFF = B_OFF + TILE;
-  static constexpr size_t E_OFF = C_OFF + TILE;
-  static constexpr size_t S_OFF = E_OFF + TILE;
-  static constexpr size_t DP_OFF = S_OFF + sizeof(float) * 64 * LD_S;
-  static constexpr size_t P_OFF = DP_OFF + sizeof(float) * 64 * LD_S;
-  static constexpr size_t DS_OFF = P_OFF + sizeof(bf16) * 64 * LD_P;
-  static constexpr size_t ROW_OFF = DS_OFF + sizeof(bf16) * 64 * LD_P;
-  static constexpr size_t SEG_OFF = ROW_OFF + sizeof(float) * 2 * 64;
-  static constexpr size_t BYTES = SEG_OFF + sizeof(int) * 2 * 64;
-  static_assert(2 * sizeof(float) * 64 * LD_S >= sizeof(float) * 64 * LD_ACC,
-                "staging rows must fit in the score and dp tiles");
-};
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
-
-// lse and segment id of the q tile's rows (threads 0..63).
-__device__ __forceinline__ void load_q_rows(const BwdParams& p, int b, int h,
-                                            int q0, float* lse_s,
-                                            int* segq_s, int tid) {
-  if (tid < BLOCK_M) {
-    const int qi = q0 + tid;
-    const bool in = qi < p.Sq;
-    lse_s[tid] =
-        in ? p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + qi] : 0.f;
-    segq_s[tid] = p.seg_q ? (in ? p.seg_q[b * p.segq_sb + qi] : -1) : 0;
-  }
-}
-
-// Segment id of the kv tile's rows (threads 0..63).
-__device__ __forceinline__ void load_kv_rows(const BwdParams& p, int b,
-                                             int n0, int* segkv_s, int tid) {
-  if (tid < BLOCK_N) {
-    const int kj = n0 + tid;
-    segkv_s[tid] =
-        p.seg_kv ? (kj < p.Skv ? p.seg_kv[b * p.segkv_sb + kj] : -2) : 0;
-  }
-}
-
-// delta = rowsum(o * do) for the 16 rows [r0, r0 + 16) of the q tile at
-// q0 of head h: o read from device memory, do from its shared tile.
-template <int D>
-__device__ __forceinline__ void warp_delta(const BwdParams& p,
-                                           const bf16* dOs, int b, int h,
-                                           int q0, int r0, float* delta_s,
-                                           int lane) {
-  constexpr int LD_T = BwdSmem<D>::LD_T;
-  const bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = r0 + rr;
-    const int qi = q0 + r;
-    float acc = 0.f;
-    if (qi < p.Sq) {
-      for (int c = lane; c < D; c += 32) {
-        acc += __bfloat162float(ob[qi * p.o_ss + c]) *
-               __bfloat162float(dOs[r * LD_T + c]);
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) delta_s[r] = acc;
-  }
-}
-
-// p and ds of one score element; writes both as bf16.
-__device__ __forceinline__ void p_ds(const BwdParams& p, bool live, float s,
-                                     float dp, float lse, float delta,
-                                     bf16* p_out, bf16* ds_out) {
-  const float pv = live ? expf(s * p.scale - lse) : 0.f;
-  *p_out = __float2bfloat16(pv);
-  *ds_out = __float2bfloat16(pv * (dp - delta) * p.scale);
-}
-
-__device__ __forceinline__ bool is_live(const BwdParams& p, int qi, int kj,
-                                        int seg_q, int seg_kv) {
-  return qi < p.Sq && kj < p.Skv && (!p.causal || kj <= qi) &&
-         seg_q == seg_kv;
-}
-
-// Write 16 fp32 staging rows [r0, r0 + 16) as bf16 into a contiguous
-// [B, S, H, D] output at (b, row base s0, head hh), rows below n_rows.
-template <int D>
-__device__ __forceinline__ void write_rows(bf16* out, const float* stage,
-                                           int r0, int b, int s0, int hh,
-                                           int n_rows, int n_heads,
-                                           int lane) {
-  constexpr int LD_ACC = BwdSmem<D>::LD_ACC;
-  for (int i = lane; i < ROWS_PER_WARP * D; i += 32) {
-    const int r = r0 + i / D;
-    const int c = i % D;
-    const int gr = s0 + r;
-    if (gr < n_rows) {
-      out[((static_cast<long long>(b) * n_rows + gr) * n_heads + hh) * D +
-          c] = __float2bfloat16(stage[r * LD_ACC + c]);
-    }
-  }
-}
-
-// dq: one block per (q tile, q head, batch).
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const BwdParams p) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::A_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::B_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::C_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::E_OFF);
-  float* Ss = reinterpret_cast<float*>(smem + L::S_OFF);
-  float* DPs = reinterpret_cast<float*>(smem + L::DP_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  bf16* DSs = reinterpret_cast<bf16*>(smem + L::DS_OFF);
-  float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
-  float* delta_s = lse_s + BLOCK_M;
-  int* segq_s = reinterpret_cast<int*>(smem + L::SEG_OFF);
-  int* segkv_s = segq_s + BLOCK_M;
-  float* stage = Ss;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / p.group;
-  const int r0 = warp * ROWS_PER_WARP;  // this warp's q rows of the tile
-
-  load_tile<D, BLOCK_M, L::LD_T>(Qs, p.q + b * p.q_sb + h * p.q_sh, p.q_ss,
-                                 q0, p.Sq, tid);
-  load_tile<D, BLOCK_M, L::LD_T>(dOs, p.dout + b * p.do_sb + h * p.do_sh,
-                                 p.do_ss, q0, p.Sq, tid);
-  load_q_rows(p, b, h, q0, lse_s, segq_s, tid);
-  __syncthreads();
-  warp_delta<D>(p, dOs, b, h, q0, r0, delta_s, lane);  // own rows only
-
-  Acc dq_acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) wmma::fill_fragment(dq_acc[nt], 0.f);
-
-  const bf16* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  // Causal: no row of this q tile sees a column past its last row.
-  const int kv_end = p.causal ? min(p.Skv, q0 + BLOCK_M) : p.Skv;
-  for (int n0 = 0; n0 < kv_end; n0 += BLOCK_N) {
-    __syncthreads();  // the previous tile's K/V reads are finished
-    load_tile<D, BLOCK_N, L::LD_T>(Ks, kb, p.k_ss, n0, p.Skv, tid);
-    load_tile<D, BLOCK_N, L::LD_T>(Vs, vb, p.v_ss, n0, p.Skv, tid);
-    load_kv_rows(p, b, n0, segkv_s, tid);
-    __syncthreads();
-
-    // s and dp for this warp's 16 rows, all 64 columns.
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 16; ++nt) {
-      Acc acc_s, acc_dp;
-      wmma::fill_fragment(acc_s, 0.f);
-      wmma::fill_fragment(acc_dp, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        ARow a;
-        BCol bt;
-        wmma::load_matrix_sync(a, Qs + r0 * L::LD_T + kk * 16, L::LD_T);
-        wmma::load_matrix_sync(bt, Ks + nt * 16 * L::LD_T + kk * 16,
-                               L::LD_T);
-        wmma::mma_sync(acc_s, a, bt, acc_s);
-        wmma::load_matrix_sync(a, dOs + r0 * L::LD_T + kk * 16, L::LD_T);
-        wmma::load_matrix_sync(bt, Vs + nt * 16 * L::LD_T + kk * 16,
-                               L::LD_T);
-        wmma::mma_sync(acc_dp, a, bt, acc_dp);
-      }
-      wmma::store_matrix_sync(Ss + r0 * L::LD_S + nt * 16, acc_s, L::LD_S,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(DPs + r0 * L::LD_S + nt * 16, acc_dp, L::LD_S,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    for (int i = lane; i < ROWS_PER_WARP * BLOCK_N; i += 32) {
-      const int r = r0 + i / BLOCK_N;
-      const int c = i % BLOCK_N;
-      const bool live = is_live(p, q0 + r, n0 + c, segq_s[r], segkv_s[c]);
-      p_ds(p, live, Ss[r * L::LD_S + c], DPs[r * L::LD_S + c], lse_s[r],
-           delta_s[r], Ps + r * L::LD_P + c, DSs + r * L::LD_P + c);
-    }
-    __syncwarp();
-
-    // dq += ds k for this warp's rows.
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-#pragma unroll
-      for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-        ARow a;
-        BRow bm;
-        wmma::load_matrix_sync(a, DSs + r0 * L::LD_P + kk * 16, L::LD_P);
-        wmma::load_matrix_sync(bm, Ks + kk * 16 * L::LD_T + nt * 16,
-                               L::LD_T);
-        wmma::mma_sync(dq_acc[nt], a, bm, dq_acc[nt]);
-      }
-    }
-  }
-
-  __syncthreads();  // no warp still reads Ss / DPs, which stage aliases
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(stage + r0 * L::LD_ACC + nt * 16, dq_acc[nt],
-                            L::LD_ACC, wmma::mem_row_major);
-  }
-  __syncwarp();
-  write_rows<D>(p.dq, stage, r0, b, q0, h, p.Sq, p.Hq, lane);
-}
-
 
 // -- K3 and K2b: one block per kv tile, on wgmma ----------------------------
 
@@ -736,12 +533,310 @@ flash_bwd_kv_tile_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The pre-pass, then the kv-tile kernel: K3 (WITH_DQ) or K2b.
-template <int D, int KVW, bool WITH_DQ, int STAGES, int MIN_BLOCKS = 1>
-int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
-                    cudaStream_t stream) {
-  constexpr int BLOCK_KV = TILE * KVW;
-  using L = FusedSmem<D, KVW, STAGES, WITH_DQ>;
+// -- K2a: one block per q tile, on wgmma --------------------------------------
+
+struct DqParams {
+  const int* seg_q;    // [B, Sq] or null
+  const int* seg_kv;   // [B, Skv] or null
+  const float* lse2;   // [B, Hq, Sq_pad]: the pre-pass's rows
+  const float* delta;  // [B, Hq, Sq_pad]
+  bf16* dq;            // [B, Sq, Hq, D] contiguous
+  int Sq, Skv, Sq_pad, Hq, group, n_qt;
+  long long segq_sb, segkv_sb;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Q and dO resident (BLOCK_M rows each, as TMA writes them), a ring of
+// STAGES (K, V) tiles of 64 rows, and the block's lse2 and delta rows.
+template <int D, int NWG, int STAGES>
+struct DqSmem {
+  static constexpr int BLOCK_M = TILE * NWG;
+  static constexpr uint32_t Q_BYTES = BLOCK_M * D * 2;  // Q or dO
+  static constexpr uint32_t KV_BYTES = TILE * D * 2;    // one K or V tile
+  static constexpr uint32_t DO_OFF = Q_BYTES;
+  static constexpr uint32_t K_OFF = 2 * Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  // lse2 [BLOCK_M], delta [BLOCK_M]
+  static constexpr uint32_t ROW_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = ROW_OFF + 2 * BLOCK_M * 4;
+  // q_full, full[STAGES], empty[STAGES]; 1024 bytes of alignment slack.
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// One block per (batch, q head, BLOCK_M q rows); warpgroup wg owns q rows
+// [q0 + 64 wg, q0 + 64 wg + 64).  MIN_BLOCKS: blocks an SM the registers
+// must allow.
+template <int D, int NWG, int STAGES, int MIN_BLOCKS>
+__global__ void __launch_bounds__(NWG * WG_THREADS, MIN_BLOCKS)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const DqParams p) {
+  using L = DqSmem<D, NWG, STAGES>;
+  constexpr int BLOCK_M = L::BLOCK_M;
+  constexpr int SUBS = D / BOX_COLS;
+  // Tile i - 1's K is read by its dQ product while tile i is in use, so
+  // the stage refilled at tile i is tile i - 2's.
+  static_assert(STAGES >= 3, "the ring refills two tiles behind");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
+  float* delta_s = lse_s + BLOCK_M;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x / p.Hq;
+  const int h = blockIdx.x % p.Hq;
+  const int hk = h / p.group;
+  // Under causal masking the last q tiles see the most kv tiles: launch
+  // them first.
+  const int qt = p.causal ? p.n_qt - 1 - static_cast<int>(blockIdx.y)
+                          : static_cast<int>(blockIdx.y);
+  const int q0 = qt * BLOCK_M;
+  const int kv_end = p.causal ? min(p.Skv, q0 + BLOCK_M) : p.Skv;
+  const int n_tiles = (kv_end + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every load: Q, dO and the stat rows now, with the
+  // first STAGES (K, V) tiles, each later tile when its stage comes free
+  // (`refill`).
+  auto load_kv = [&](int i) {
+    const int s = i % STAGES;
+    mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
+    unsigned char* ks = smem + L::K_OFF + s * L::KV_BYTES;
+    unsigned char* vs = smem + L::V_OFF + s * L::KV_BYTES;
+    for (int c = 0; c < SUBS; ++c) {
+      tma_load_4d(ks + c * TILE * ROW_BYTES, &k_map, &full[s],
+                  c * BOX_COLS, hk, i * TILE, b);
+      tma_load_4d(vs + c * TILE * ROW_BYTES, &v_map, &full[s],
+                  c * BOX_COLS, hk, i * TILE, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    // The stat rows end at Sq_pad (a multiple of 64): a last block of two
+    // warpgroups may hold only one warpgroup's rows.
+    const int stat_rows = min(BLOCK_M, p.Sq_pad - q0);
+    mbar_expect_tx(q_full, 2 * L::Q_BYTES + 2 * stat_rows * 4);
+    for (int c = 0; c < SUBS; ++c) {
+      tma_load_4d(smem + c * BLOCK_M * ROW_BYTES, &q_map, q_full,
+                  c * BOX_COLS, h, q0, b);
+      tma_load_4d(smem + L::DO_OFF + c * BLOCK_M * ROW_BYTES, &do_map,
+                  q_full, c * BOX_COLS, h, q0, b);
+    }
+    const long long rows =
+        (static_cast<long long>(b) * p.Hq + h) * p.Sq_pad + q0;
+    bulk_load(lse_s, p.lse2 + rows, stat_rows * 4, q_full);
+    bulk_load(delta_s, p.delta + rows, stat_rows * 4, q_full);
+    for (int i = 0; i < min(STAGES, n_tiles); ++i) load_kv(i);
+  }
+  // Every warp frees tile i's stage after its last read (its dQ product).
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+  };
+  // At tile i, once warpgroup 0 has issued its products, thread 0 refills
+  // the stage of tile i - 2, which every warp freed at the end of tile
+  // i - 1, with tile i - 2 + STAGES: the next STAGES - 2 tiles load while
+  // tile i is computed.
+  auto refill = [&](int i) {
+    const int r = i - 2;
+    if (threadIdx.x == 0 && r >= 0 && r + STAGES < n_tiles) {
+      mbar_wait(&empty[r % STAGES], (r / STAGES) & 1);
+      load_kv(r + STAGES);
+    }
+    __syncwarp();  // the warp's next wgmma is issued by all its lanes at once
+  };
+
+  // Warpgroup wg owns q rows [wg_q0, wg_q0 + 64); this thread holds rows
+  // row0 and row0 + 8 of them, at the accumulator layout's columns
+  // (flash_hopper.cuh).
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wg_q0 = q0 + wg * TILE;
+  const int wrow = wg * TILE + (warp % 4) * 16 + g;  // row within the block
+  const int row0 = q0 + wrow;
+  const int wg_kv_end = p.causal ? min(p.Skv, wg_q0 + TILE) : p.Skv;
+  // A warpgroup whose rows all lie past Sq has nothing to compute.
+  const int n_w = wg_q0 < p.Sq ? (wg_kv_end + TILE - 1) / TILE : 0;
+  const bool has_seg = p.seg_q != nullptr;
+  int seg_row[2] = {0, 0};
+  if (has_seg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      seg_row[r] = qi < p.Sq ? p.seg_q[b * p.segq_sb + qi] : -1;
+    }
+  }
+
+  float acc_dq[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc_dq[j] = 0.f;
+  float sc[32], dp[32];
+  uint32_t da[TILE / 16][4];
+  const uint32_t q_addr = smem_u32(smem) + wg * TILE * ROW_BYTES;
+  const uint32_t do_addr = smem_u32(smem + L::DO_OFF) + wg * TILE * ROW_BYTES;
+
+  // S = Q K^T and dP = dO V^T of tile i into sc and dp, one group
+  // (issued, not waited for).
+  auto issue_s_dp = [&](int i) {
+    const uint32_t k_addr =
+        smem_u32(smem + L::K_OFF + (i % STAGES) * L::KV_BYTES);
+    const uint32_t v_addr =
+        smem_u32(smem + L::V_OFF + (i % STAGES) * L::KV_BYTES);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * BLOCK_M * ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<0, 0>(
+          sc, desc_kmajor(q_addr + off),
+          desc_kmajor(k_addr + (kk / 4) * TILE * ROW_BYTES + (kk % 4) * 32),
+          kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * BLOCK_M * ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss<0, 0>(
+          dp, desc_kmajor(do_addr + off),
+          desc_kmajor(v_addr + (kk / 4) * TILE * ROW_BYTES + (kk % 4) * 32),
+          kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += dS K of tile i, dS (bf16) from the registers, K through the
+  // transpose bit (issued, not waited for).
+  auto issue_dq = [&](int i) {
+    const uint32_t k_addr =
+        smem_u32(smem + L::K_OFF + (i % STAGES) * L::KV_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      wgmma_rs<1>(acc_dq, da[kk],
+                  desc_mnmajor(k_addr + kk * 16 * ROW_BYTES,
+                               TILE * ROW_BYTES),
+                  1);
+    }
+    wgmma_commit();
+  };
+  float lse2[2], delta[2];
+  // p and ds of tile i in place of dp (K2b's and K3's arithmetic): p =
+  // exp2(s * scale * log2(e) - lse2), gated by the mask where it can bite;
+  // ds = p (dp - delta) scale.
+  auto p_ds = [&](int i) {
+    const int n0 = i * TILE;
+    const bool need_mask = has_seg || n0 + TILE > p.Skv ||
+                           (p.causal && n0 + TILE - 1 > wg_q0);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      int seg_col[2] = {0, 0};
+      if (need_mask && has_seg) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = min(n0 + 8 * c + 2 * t + e, p.Skv - 1);
+          seg_col[e] = p.seg_kv[b * p.segkv_sb + kj];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 4 * c + 2 * r + e;
+          float pv = fast_exp2(sc[j] * p.scale_log2 - lse2[r]);
+          if (need_mask) {
+            const int kj = n0 + 8 * c + 2 * t + e;
+            const bool keep = kj < p.Skv &&
+                              (!p.causal || kj <= row0 + 8 * r) &&
+                              seg_row[r] == seg_col[e];
+            pv = keep ? pv : 0.f;
+          }
+          dp[j] = pv * (dp[j] - delta[r]) * p.scale;
+        }
+      }
+    }
+  };
+
+  // The warpgroup computes kv tiles [0, n_w) (under causal masking the
+  // block's last tile may lie wholly above its rows) and passes the rest.
+  // Software pipeline: tile i's S and dP are issued together with tile
+  // i - 1's dQ product, and tile i's dS is built while that runs.
+  mbar_wait(q_full, 0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = lse_s[wrow + 8 * r];
+    delta[r] = delta_s[wrow + 8 * r];
+  }
+  if (n_w > 0) {
+    mbar_wait(&full[0], 0);
+    issue_s_dp(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    p_ds(0);
+    to_a_frags(dp, da);
+    for (int i = 1; i < n_w; ++i) {
+      mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+      issue_s_dp(i);
+      issue_dq(i - 1);
+      refill(i);
+      wgmma_wait<1>();  // S and dP done; dQ may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      p_ds(i);
+      wgmma_wait<0>();
+      fence_regs(acc_dq);
+      fence_regs(da);
+      release(i - 1);
+      to_a_frags(dp, da);
+    }
+    issue_dq(n_w - 1);
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(da);
+    release(n_w - 1);
+  }
+  for (int i = n_w; i < n_tiles; ++i) {
+    refill(i);
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    release(i);
+  }
+
+  // dq rows, bf16, written once.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= p.Sq) continue;
+    bf16* drow = p.dq + (static_cast<long long>(b) * p.Sq + qi) * p.Hq * D +
+                 static_cast<long long>(h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(drow + 8 * c + 2 * t) =
+          pack_bf16(acc_dq[4 * c + 2 * r], acc_dq[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+// -- launches -------------------------------------------------------------------
+
+// The pre-pass's parameters: o, do, lse in; the lse2 and delta rows of
+// ws (fp32 [2, B, Hq, sq_pad]) out; dq_acc (K3) zeroed, or null.
+FusedParams prep_params(const BwdParams& bp, float* ws, int sq_pad,
+                        float* dq_acc) {
   FusedParams p;
   p.o = bp.o;
   p.dout = bp.dout;
@@ -750,7 +845,7 @@ int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
   p.seg_kv = bp.seg_kv;
   p.lse2 = ws;
   p.delta = ws + static_cast<long long>(bp.B) * bp.Hq * sq_pad;
-  p.dq = WITH_DQ ? reinterpret_cast<float*>(bp.dq) : nullptr;
+  p.dq = dq_acc;
   p.dk = bp.dk;
   p.dv = bp.dv;
   p.B = bp.B;
@@ -771,7 +866,29 @@ int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
   p.scale = bp.scale;
   p.scale_log2 = bp.scale * LOG2E;
   p.causal = bp.causal;
+  return p;
+}
 
+template <int D, bool ZERO_DQ>
+cudaError_t run_prep(const FusedParams& p, cudaStream_t stream) {
+  constexpr int PREP_ROWS = PREP_THREADS / (D / 8);
+  const long long rows = static_cast<long long>(p.B) * p.Sq_pad * p.Hq;
+  flash_bwd_prep_kernel<D, ZERO_DQ>
+      <<<static_cast<unsigned>((rows + PREP_ROWS - 1) / PREP_ROWS),
+         PREP_THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The pre-pass (unless `prep` is 0: ws already holds this call's rows),
+// then the kv-tile kernel: K3 (WITH_DQ, always with its pre-pass, which
+// zeroes the dq accumulator) or K2b.
+template <int D, int KVW, bool WITH_DQ, int STAGES, int MIN_BLOCKS>
+int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad, int prep,
+                    cudaStream_t stream) {
+  constexpr int BLOCK_KV = TILE * KVW;
+  using L = FusedSmem<D, KVW, STAGES, WITH_DQ>;
+  const FusedParams p = prep_params(
+      bp, ws, sq_pad, WITH_DQ ? reinterpret_cast<float*>(bp.dq) : nullptr);
   CUtensorMap q_map, k_map, v_map, do_map;
   cudaError_t err = make_rows_map(&q_map, bp.q, bp.B, bp.Sq, bp.Hq, D,
                                   bp.q_sb, bp.q_ss, bp.q_sh, TILE);
@@ -792,14 +909,9 @@ int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
   err = opt_in_smem(
       flash_bwd_kv_tile_kernel<D, KVW, WITH_DQ, STAGES, MIN_BLOCKS>,
       L::BYTES, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  constexpr int PREP_ROWS = PREP_THREADS / (D / 8);
-  const long long rows = static_cast<long long>(bp.B) * sq_pad * bp.Hq;
-  flash_bwd_prep_kernel<D, WITH_DQ>
-      <<<static_cast<unsigned>((rows + PREP_ROWS - 1) / PREP_ROWS),
-         PREP_THREADS, 0, stream>>>(p);
-  err = cudaGetLastError();
+  if (err == cudaSuccess && (prep || WITH_DQ)) {
+    err = run_prep<D, WITH_DQ>(p, stream);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(bp.B * bp.Hkv, (bp.Skv + BLOCK_KV - 1) / BLOCK_KV);
   flash_bwd_kv_tile_kernel<D, KVW, WITH_DQ, STAGES, MIN_BLOCKS>
@@ -808,16 +920,56 @@ int launch_kv_tiles(const BwdParams& bp, float* ws, int sq_pad,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- K2a ----------------------------------------------------------------------
-
-template <int D>
-int launch_dq(const BwdParams& p, cudaStream_t stream) {
-  using L = BwdSmem<D>;
-  static bool opted_in[64] = {};
-  cudaError_t err = opt_in_smem(flash_bwd_dq_kernel<D>, L::BYTES, opted_in);
+// The pre-pass (unless `prep` is 0), then K2a.
+template <int D, int NWG, int STAGES, int MIN_BLOCKS>
+int launch_dq(const BwdParams& bp, float* ws, int sq_pad, int prep,
+              cudaStream_t stream) {
+  constexpr int BLOCK_M = TILE * NWG;
+  using L = DqSmem<D, NWG, STAGES>;
+  DqParams p;
+  p.seg_q = bp.seg_q;
+  p.seg_kv = bp.seg_kv;
+  p.lse2 = ws;
+  p.delta = ws + static_cast<long long>(bp.B) * bp.Hq * sq_pad;
+  p.dq = bp.dq;
+  p.Sq = bp.Sq;
+  p.Skv = bp.Skv;
+  p.Sq_pad = sq_pad;
+  p.Hq = bp.Hq;
+  p.group = bp.group;
+  p.n_qt = (bp.Sq + BLOCK_M - 1) / BLOCK_M;
+  p.segq_sb = bp.segq_sb;
+  p.segkv_sb = bp.segkv_sb;
+  p.scale = bp.scale;
+  p.scale_log2 = bp.scale * LOG2E;
+  p.causal = bp.causal;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t err = make_rows_map(&q_map, bp.q, bp.B, bp.Sq, bp.Hq, D,
+                                  bp.q_sb, bp.q_ss, bp.q_sh, BLOCK_M);
+  if (err == cudaSuccess) {
+    err = make_rows_map(&do_map, bp.dout, bp.B, bp.Sq, bp.Hq, D, bp.do_sb,
+                        bp.do_ss, bp.do_sh, BLOCK_M);
+  }
+  if (err == cudaSuccess) {
+    err = make_rows_map(&k_map, bp.k, bp.B, bp.Skv, bp.Hkv, D, bp.k_sb,
+                        bp.k_ss, bp.k_sh, TILE);
+  }
+  if (err == cudaSuccess) {
+    err = make_rows_map(&v_map, bp.v, bp.B, bp.Skv, bp.Hkv, D, bp.v_sb,
+                        bp.v_ss, bp.v_sh, TILE);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Sq + BLOCK_M - 1) / BLOCK_M, p.Hq, p.B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, L::BYTES, stream>>>(p);
+  static bool opted_in[64] = {};
+  err = opt_in_smem(flash_bwd_dq_kernel<D, NWG, STAGES, MIN_BLOCKS>,
+                    L::BYTES, opted_in);
+  if (err == cudaSuccess && prep) {
+    err = run_prep<D, false>(prep_params(bp, ws, sq_pad, nullptr), stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(bp.B * bp.Hq, p.n_qt);
+  flash_bwd_dq_kernel<D, NWG, STAGES, MIN_BLOCKS>
+      <<<grid, NWG * WG_THREADS, L::BYTES, stream>>>(q_map, k_map, v_map,
+                                                      do_map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -829,11 +981,15 @@ int launch_dq(const BwdParams& p, cudaStream_t stream) {
 // seg_q [B, Sq] / seg_kv [B, Skv] int32 or null.  Outputs are contiguous:
 // dq bf16 [B, Sq, Hq, D] for kind 0, an fp32 [B, Sq, Hq, D] accumulator
 // for kind 2 (zeroed here), none for kind 1; dk/dv bf16 [B, Skv, Hkv, D]
-// for kinds 1 and 2.  Kinds 1 and 2 also take ws, fp32 [2, B, Hq, sq_pad]
-// scratch (sq_pad = Sq rounded up to 64), and the host plan's block_kv
-// (kv rows a block) and stages (of the (Q, dO) ring); a plan no build
-// matches is refused.  Returns cudaGetLastError() after the
-// launches (0 = ok).
+// for kinds 1 and 2.  ws: fp32 [2, B, Hq, sq_pad] rows (sq_pad = Sq
+// rounded up to 64), which the pre-pass fills with lse * log2(e) and
+// delta; `prep` 0 skips the pre-pass of kinds 0 and 1 (ws holds this
+// backward's rows already: the split path fills them once for K2a and
+// K2b).  The host plan's block_rows (q rows a block for kind 0, kv rows
+// for kinds 1 and 2), stages (of the streamed ring) and smem_bytes (a
+// block's dynamic shared memory) must be one of the builds below; any
+// other plan is refused.  Returns cudaGetLastError() after the launches
+// (0 = ok).
 extern "C" int flash_bwd_bf16(
     int kind, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* seg_q, const void* seg_kv,
@@ -843,9 +999,12 @@ extern "C" int flash_bwd_bf16(
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     long long do_sb, long long do_ss, long long do_sh, long long segq_sb,
     long long segkv_sb, float scale, int causal, void* ws, int sq_pad,
-    int block_kv, int stages, void* stream) {
+    int block_rows, int stages, int smem_bytes, int prep, void* stream) {
   constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
-  if (Hkv < 1 || Hq % Hkv != 0) return kInvalid;
+  if (Hkv < 1 || Hq % Hkv != 0 || ws == nullptr ||
+      sq_pad != (Sq + TILE - 1) / TILE * TILE) {
+    return kInvalid;
+  }
   BwdParams p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -884,27 +1043,33 @@ extern "C" int flash_bwd_bf16(
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == 0) {
-    if (D == 64) return launch_dq<64>(p, s);
-    if (D == 128) return launch_dq<128>(p, s);
-    return kInvalid;
-  }
-  if ((kind != 1 && kind != 2) || ws == nullptr ||
-      sq_pad != (Sq + TILE - 1) / TILE * TILE) {
-    return kInvalid;
-  }
   float* w = static_cast<float*>(ws);
-  if (kind == 2 && stages == 3) {
-    if (D == 64 && block_kv == 128) {
-      return launch_kv_tiles<64, 2, true, 3>(p, w, sq_pad, s);
-    }
-    if (D == 128 && block_kv == 64) {
-      return launch_kv_tiles<128, 1, true, 3>(p, w, sq_pad, s);
-    }
+  // The builds: (D, warpgroups a block, ring stages, blocks an SM, shared
+  // memory bytes).  ops/flash_attention.py's plans and
+  // tests/test_torch_flash_plans.py read this table.
+#define DQ_BUILD(DD, NW, ST, MB, SMEM)                                     \
+  static_assert(DqSmem<DD, NW, ST>::BYTES == SMEM, "dq build bytes");      \
+  if (kind == 0 && D == DD && block_rows == TILE * NW && stages == ST &&   \
+      smem_bytes == SMEM) {                                                \
+    return launch_dq<DD, NW, ST, MB>(p, w, sq_pad, prep, s);              \
   }
-  if (kind == 1 && stages == 4 && block_kv == 64) {
-    if (D == 64) return launch_kv_tiles<64, 1, false, 4, 2>(p, w, sq_pad, s);
-    if (D == 128) return launch_kv_tiles<128, 1, false, 4>(p, w, sq_pad, s);
+#define KV_BUILD(KIND, DD, NW, ST, MB, SMEM)                               \
+  static_assert(FusedSmem<DD, NW, ST, KIND == 2>::BYTES == SMEM,           \
+                "kv-tile build bytes");                                    \
+  if (kind == KIND && D == DD && block_rows == TILE * NW &&                \
+      stages == ST && smem_bytes == SMEM) {                                \
+    return launch_kv_tiles<DD, NW, KIND == 2, ST, MB>(p, w, sq_pad, prep,  \
+                                                      s);                  \
   }
+  DQ_BUILD(64, 1, 4, 2, 83528)
+  DQ_BUILD(64, 2, 4, 1, 100424)
+  DQ_BUILD(128, 1, 4, 1, 165448)
+  DQ_BUILD(128, 2, 4, 1, 198728)
+  KV_BUILD(1, 64, 1, 4, 2, 85064)
+  KV_BUILD(1, 128, 1, 4, 1, 166984)
+  KV_BUILD(2, 64, 2, 3, 1, 117304)
+  KV_BUILD(2, 128, 1, 3, 1, 150072)
+#undef DQ_BUILD
+#undef KV_BUILD
   return kInvalid;
 }

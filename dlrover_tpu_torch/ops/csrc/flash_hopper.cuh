@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward (K1,
-// flash_attention.cu) and of the backward's kv-tile kernels (K3 and K2b,
-// flash_attention_bwd.cu): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors and wgmma.  The split backward's dq kernel (K2a) keeps
-// flash_common.cuh.
+// flash_attention.cu), of the backward's kernels (K3, K2a and K2b,
+// flash_attention_bwd.cu), of the grouped GEMMs (through gemm_hopper.cuh)
+// and of the fused norm backward's row ring (K4, fused_norm.cu):
+// mbarriers, TMA tile loads and bulk copies, shared-memory matrix
+// descriptors and wgmma.
 //
 // Tile format.  Every bf16 tile in shared memory is what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes for a box of 64 columns (128 bytes, the

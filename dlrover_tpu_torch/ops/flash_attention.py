@@ -188,10 +188,10 @@ _FWD_ARGTYPES = (
 )
 # kind | q k v o do lse seg_q seg_kv dq dk dv | B Sq Skv Hq Hkv D | batch,
 # row and head strides of q k v o do, seg strides | scale causal | ws
-# sq_pad block_kv stages | stream
+# sq_pad block_rows stages smem_bytes prep | stream
 _BWD_ARGTYPES = (
     [_I] + [_P] * 11 + [_I] * 6 + [_LL] * 17 + [ctypes.c_float, _I]
-    + [_P, _I, _I, _I, _P]
+    + [_P] + [_I] * 5 + [_P]
 )
 _BWD_KINDS = {"flash_bwd_dq": 0, "flash_bwd_dkv": 1, "flash_bwd_fused": 2}
 
@@ -221,6 +221,76 @@ def fwd_launch_plan(b: int, sq: int, hq: int, d: int,
 #: Stages of the (q, do) ring of the kv-tile kernels: K2b's takes the
 #: room that K3 gives its dS^T tiles.
 BWD_STAGES = {"fused": 3, "dkv": 4}
+#: K2a's builds in ``csrc/flash_attention_bwd.cu`` (its ``DQ_BUILD``
+#: table): (head dim, warpgroups a block) -> (stages of the (k, v) ring,
+#: blocks an SM the registers allow).
+DQ_BUILDS = {(64, 2): (4, 1), (64, 1): (4, 2), (128, 2): (4, 1),
+             (128, 1): (4, 1)}
+#: Head dim -> waves of 128-row blocks on the card from which K2a's plan
+#: takes blocks of two warpgroups: the crossovers of the two builds timed
+#: on an H100 (``chip_smoke.py --ab``, PERF.md), between 12 and 24 waves
+#: at D 64 and between a quarter and one wave at D 128.
+DQ_TWO_WARPGROUP_WAVES = {64: 16, 128: 0.5}
+
+
+def _stat_rows(b: int, sq: int, hq: int, d: int) -> dict:
+    """The backward pre-pass's rows: ``sq_pad`` (sq rounded up to a tile),
+    its grid (``d // 8`` threads a row, 256 a block) and the fp32 lse2 /
+    delta buffer ``[2, b, hq, sq_pad]`` every backward kernel reads."""
+    sq_pad = _cdiv(sq, MASK_TILE) * MASK_TILE
+    rows_per_block = 256 // (d // 8)
+    return dict(sq_pad=sq_pad,
+                prep_grid=_cdiv(b * sq_pad * hq, rows_per_block),
+                workspace={"rows": (2, b, hq, sq_pad)})
+
+
+def dq_smem_bytes(d: int, warpgroups: int, stages: int) -> int:
+    """K2a's dynamic shared memory (``DqSmem`` in the source): Q and dO
+    resident, the (k, v) ring, the lse2 / delta rows, the barriers and
+    1024 bytes of alignment slack."""
+    block_m = MASK_TILE * warpgroups
+    return (2 * block_m * d * 2 + 2 * stages * MASK_TILE * d * 2
+            + 2 * block_m * 4 + 8 * (1 + 2 * stages) + 1024)
+
+
+def kv_tile_smem_bytes(d: int, kv_warpgroups: int, stages: int,
+                       with_dq: bool) -> int:
+    """K3's (``with_dq``) or K2b's dynamic shared memory (``FusedSmem``):
+    K and V resident, the (q, do) ring with its lse2 / delta rows, K3's
+    dS^T tiles, the barriers and 1024 bytes of slack."""
+    block_kv = MASK_TILE * kv_warpgroups
+    return (2 * block_kv * d * 2 + 2 * stages * MASK_TILE * d * 2
+            + (kv_warpgroups * 2 * MASK_TILE * MASK_TILE * 2 if with_dq
+               else 0)
+            + 2 * stages * MASK_TILE * 4 + 8 * (1 + 2 * stages) + 1024)
+
+
+def dq_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                   num_sms: int = kernel_lib.H100_SMS) -> dict:
+    """How K2a is launched for q ``[b, sq, hq, d]`` against ``skv`` kv
+    rows: ``block_m`` q rows a block (128, two warpgroups sharing the
+    streamed k and v tiles, where ``b * hq * ceil(sq / 128)`` blocks make
+    at least :data:`DQ_TWO_WARPGROUP_WAVES` waves of the card's
+    ``num_sms`` SMs; else 64, one warpgroup, two blocks an SM at D 64,
+    whose finer tiles balance a shorter grid better), the grid ``(b * hq,
+    q tiles)`` (under causal masking the kernel takes the q tiles last
+    first), the TMA boxes of the resident
+    (q, do) tiles and of the streamed (k, v) tiles, the ``stages`` of the
+    (k, v) ring and ``blocks_per_sm`` (:data:`DQ_BUILDS`), the
+    ``smem_bytes`` of a block, and the pre-pass's rows
+    (:func:`_stat_rows`), the split path's one ``workspace``."""
+    del skv, hkv  # every q tile streams the kv tiles it can see
+    waves = b * hq * _cdiv(sq, 2 * MASK_TILE) / num_sms
+    warpgroups = 2 if waves >= DQ_TWO_WARPGROUP_WAVES[d] else 1
+    stages, blocks_per_sm = DQ_BUILDS[(d, warpgroups)]
+    block_m = MASK_TILE * warpgroups
+    return dict(
+        kind="dq", block_m=block_m, grid=(b * hq, _cdiv(sq, block_m)),
+        q_box=(64, 1, block_m, 1), kv_box=(64, 1, MASK_TILE, 1),
+        boxes_per_row=d // 64, stages=stages, blocks_per_sm=blocks_per_sm,
+        smem_bytes=dq_smem_bytes(d, warpgroups, stages),
+        **_stat_rows(b, sq, hq, d),
+    )
 
 
 def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
@@ -233,28 +303,26 @@ def bwd_launch_plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
     them an SM at D 64 (the registers its build allows).  The grid
     ``(b * hkv, kv tiles)``, the TMA boxes of the streamed (q, do) tiles
     and of the resident (k, v) tiles, the ``stages`` of the (q, do) ring
-    (:data:`BWD_STAGES`), ``sq_pad`` (the lse / delta rows' length, sq
-    rounded up to a tile), the pre-pass grid (``d // 8`` threads a row,
-    256 a block) and the ``workspace`` the wrapper allocates, fp32 shapes
-    by name: the pre-pass's lse and delta rows, and K3's dq
-    accumulator."""
+    (:data:`BWD_STAGES`), the ``smem_bytes`` of a block, the pre-pass's
+    rows (:func:`_stat_rows`) and the ``workspace`` the wrapper
+    allocates, fp32 shapes by name: the pre-pass's lse2 and delta rows,
+    and K3's dq accumulator."""
     if kind not in ("fused", "dkv"):
         raise ValueError(f"no kv-tile backward kernel of kind {kind!r}")
     wide = kind == "fused" and d == 64
     block_kv = 2 * MASK_TILE if wide else MASK_TILE
-    sq_pad = _cdiv(sq, MASK_TILE) * MASK_TILE
-    rows_per_block = 256 // (d // 8)
-    workspace = {"rows": (2, b, hq, sq_pad)}
+    stats = _stat_rows(b, sq, hq, d)
     if kind == "fused":
-        workspace["dq_acc"] = (b, sq, hq, d)
+        stats["workspace"]["dq_acc"] = (b, sq, hq, d)
     return dict(
         kind=kind, block_kv=block_kv, grid=(b * hkv, _cdiv(skv, block_kv)),
         q_box=(64, 1, MASK_TILE, 1),
         kv_box=(64, 1, block_kv, 1), boxes_per_row=d // 64,
         stages=BWD_STAGES[kind],
-        blocks_per_sm=2 if kind == "dkv" and d == 64 else 1, sq_pad=sq_pad,
-        prep_grid=_cdiv(b * sq_pad * hq, rows_per_block),
-        workspace=workspace,
+        blocks_per_sm=2 if kind == "dkv" and d == 64 else 1,
+        smem_bytes=kv_tile_smem_bytes(d, block_kv // MASK_TILE,
+                                      BWD_STAGES[kind], kind == "fused"),
+        **stats,
     )
 
 
@@ -386,7 +454,10 @@ def flash_fwd(
 
 
 def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
-                causal, scale, ws=None, plan=None) -> None:
+                causal, scale, ws, plan, prep=True) -> None:
+    """One call of ``flash_bwd_bf16``: kernel ``name`` with its pre-pass
+    (``prep``; without it, ``ws`` already holds this backward's lse2 and
+    delta rows)."""
     device = _check_qkv(q, k, v)
     b, sq, hq, d = q.shape
     skv = k.shape[1]
@@ -404,6 +475,7 @@ def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
+    block_rows = plan["block_m"] if plan["kind"] == "dq" else plan["block_kv"]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _lib_fn("flash_attention_bwd", "flash_bwd_bf16",
@@ -415,10 +487,9 @@ def _bwd_launch(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
             b, sq, skv, hq, k.shape[2], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3],
-            segq_sb, segkv_sb, scale, int(causal), ptr(ws),
-            *((plan["sq_pad"], plan["block_kv"], plan["stages"]) if plan
-              else (0, 0, 0)),
-            stream,
+            segq_sb, segkv_sb, scale, int(causal), ws.data_ptr(),
+            plan["sq_pad"], block_rows, plan["stages"], plan["smem_bytes"],
+            int(prep), stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -448,26 +519,63 @@ def flash_bwd_fused(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("flash_bwd_fused", q, k, v, o, lse, do, seg_q, seg_kv,
-                ws["dq_acc"], dk, dv, causal, scale, ws=ws["rows"],
-                plan=plan)
+                ws["dq_acc"], dk, dv, causal, scale, ws["rows"], plan)
     LAUNCHES["flash_bwd_fused"] += 1
     return ws["dq_acc"].to(q.dtype), dk, dv
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, *, causal=True, seg_q=None,
-                 seg_kv=None, scale=None):
-    """K2a counterpart: one block per (b, q head, 64-row q tile) loops over
-    the kv tiles it can see and accumulates ``dq += ds k`` in fp32
-    registers; ``delta`` is computed once per block from ``o`` and ``do``.
-    Launch counted in ``LAUNCHES["flash_bwd_dq"]``; its plain version is
-    :func:`mha_backward_dq_reference`."""
-    d = q.shape[3]
-    scale = d ** -0.5 if scale is None else float(scale)
+def _dq_launch(q, k, v, o, lse, do, rows, *, causal, seg_q, seg_kv, scale,
+               prep):
+    """K2a into a new bf16 dq, reading (``prep`` false) or first filling
+    the pre-pass's ``rows``."""
+    b, sq, hq, d = q.shape
+    plan = dq_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d,
+                          kernel_lib.num_sms(_check_qkv(q, k, v).index))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, o, lse, do, seg_q, seg_kv,
-                dq, None, None, causal, scale)
+    _bwd_launch("flash_bwd_dq", q, k, v, o, lse, do, seg_q, seg_kv, dq,
+                None, None, causal, scale, rows, plan, prep=prep)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
+
+
+def _dkv_launch(q, k, v, o, lse, do, rows, *, causal, seg_q, seg_kv, scale,
+                prep):
+    """K2b into new bf16 dk and dv, reading (``prep`` false) or first
+    filling the pre-pass's ``rows``."""
+    b, sq, hq, d = q.shape
+    plan = bwd_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d, kind="dkv")
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("flash_bwd_dkv", q, k, v, o, lse, do, seg_q, seg_kv, None,
+                dk, dv, causal, scale, rows, plan, prep=prep)
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _rows(q) -> torch.Tensor:
+    """The pre-pass's lse2 / delta rows for q (``_stat_rows``)."""
+    b, sq, hq, d = q.shape
+    return torch.empty(_stat_rows(b, sq, hq, d)["workspace"]["rows"],
+                       dtype=torch.float32, device=q.device)
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, *, causal=True, seg_q=None,
+                 seg_kv=None, scale=None):
+    """K2a counterpart, two launches counted as one: the pre-pass fills
+    the lse2 and delta rows, then one block per (b, q head, q tile of
+    ``dq_launch_plan``'s ``block_m`` rows) holds its Q and dO tiles in
+    shared memory, streams the kv tiles it can see through a TMA ring, and
+    builds S, dP, P and dS in registers: dS (bf16) is the register operand
+    of ``dq += ds k``, which accumulates in fp32 registers over the whole
+    kv loop and is written once, so dq is the same bit for bit from run to
+    run.  Its bytes and its three products over the live pairs bound it
+    about equally; a warpgroup still waits for S and dP before it builds
+    dS, and the pre-pass reads o and do once more.  Launch counted in
+    ``LAUNCHES["flash_bwd_dq"]``; its plain version is
+    :func:`mha_backward_dq_reference`."""
+    scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    return _dq_launch(q, k, v, o, lse, do, _rows(q), causal=causal,
+                      seg_q=seg_q, seg_kv=seg_kv, scale=scale, prep=True)
 
 
 def flash_bwd_dkv(q, k, v, o, lse, do, *, causal=True, seg_q=None,
@@ -481,16 +589,22 @@ def flash_bwd_dkv(q, k, v, o, lse, do, *, causal=True, seg_q=None,
     ``dk += ds^T q`` in fp32 registers in K3's order, so dk and dv equal
     K3's bit for bit.  Launch counted in ``LAUNCHES["flash_bwd_dkv"]``;
     its plain version is :func:`mha_backward_dkv_reference`."""
-    b, sq, hq, d = q.shape
-    scale = d ** -0.5 if scale is None else float(scale)
-    plan = bwd_launch_plan(b, sq, k.shape[1], hq, k.shape[2], d, kind="dkv")
-    ws = _workspace(plan, q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, o, lse, do, seg_q, seg_kv,
-                None, dk, dv, causal, scale, ws=ws["rows"], plan=plan)
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    return _dkv_launch(q, k, v, o, lse, do, _rows(q), causal=causal,
+                       seg_q=seg_q, seg_kv=seg_kv, scale=scale, prep=True)
+
+
+def flash_bwd_split(q, k, v, o, lse, do, *, causal=True, seg_q=None,
+                    seg_kv=None, scale=None):
+    """The split backward: K2a then K2b, one of each counted, sharing one
+    pre-pass: K2a's launch fills the lse2 and delta rows and K2b's reads
+    them."""
+    kw = dict(causal=causal, seg_q=seg_q, seg_kv=seg_kv,
+              scale=q.shape[3] ** -0.5 if scale is None else float(scale))
+    rows = _rows(q)
+    dq = _dq_launch(q, k, v, o, lse, do, rows, prep=True, **kw)
+    dk, dv = _dkv_launch(q, k, v, o, lse, do, rows, prep=False, **kw)
+    return dq, dk, dv
 
 
 def flash_bwd(
@@ -509,8 +623,8 @@ def flash_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``o``/``lse`` and the output
     gradient ``do``.  CPU tensors take :func:`mha_backward_reference`; CUDA
-    tensors launch :func:`flash_bwd_fused` (``fused``) or the
-    :func:`flash_bwd_dq` + :func:`flash_bwd_dkv` pair, or raise.  ``do``
+    tensors launch :func:`flash_bwd_fused` (``fused``) or
+    :func:`flash_bwd_split` (K2a and K2b on one pre-pass), or raise.  ``do``
     is read through its strides when it is laid out as the kernels need
     (:func:`_aligned`) and made contiguous first otherwise (autograd can
     hand over an expanded or transposed gradient)."""
@@ -524,9 +638,7 @@ def flash_bwd(
     kw = dict(causal=causal, seg_q=seg_q, seg_kv=seg_kv, scale=scale)
     if fused:
         return flash_bwd_fused(q, k, v, o, lse, do, **kw)
-    dq = flash_bwd_dq(q, k, v, o, lse, do, **kw)
-    dk, dv = flash_bwd_dkv(q, k, v, o, lse, do, **kw)
-    return dq, dk, dv
+    return flash_bwd_split(q, k, v, o, lse, do, **kw)
 
 
 # -- autograd -------------------------------------------------------------------

@@ -16,9 +16,10 @@ Hopper kernel of ``ops/csrc/fused_norm.cu`` (K4; ``center`` is a template
 flag of one kernel body, as in the JAX kernel factory) or raises; on a CPU
 tensor it takes :func:`layernorm_backward_reference`, which the CPU tests
 use and ``chip_smoke.py`` holds the kernel against.  The kernel writes one
-fp32 partial row of dscale and dbias per block of rows and the partials
-are summed outside it, as JAX sums its per-grid-step partials: no atomics,
-so the parameter gradients are deterministic.
+fp32 partial row of dscale and dbias per block of rows, as JAX's kernel
+writes one per grid step, and a second kernel of the same launch sums
+them in a fixed order: no atomics, so the parameter gradients are the same
+bit for bit from run to run.
 
 :func:`fused_layernorm` and :func:`fused_rmsnorm` go through the custom op
 ``dlrover_tpu_torch::norm_fwd`` with a registered backward, so autograd
@@ -85,9 +86,32 @@ def layernorm_backward_reference(
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x dy scale mean rstd dx dscale_parts dbias_parts | n D rows_per_block
-# center is_bf16 | stream
-_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
+# x dy scale mean rstd dx parts sums | n D center is_bf16 | plan stream
+_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P, _P]
+
+# The kernel's constants (``csrc/fused_norm.cu``).
+THREADS = 256              # threads a block: 8 warps
+CHUNK = 8                  # consecutive columns a lane loads at once
+NCH = 4                    # most chunks a lane holds
+MIN_BLOCKS = 2             # blocks an SM its registers allow
+RED_COLS = 32              # columns a block of the partial-row reduction
+STAGES = 3                 # (x, dy) row pairs of a group's ring
+SMEM_PER_SM = 233472       # an H100 SM's shared memory
+SMEM_PER_BLOCK = 232448    # the most one block may take
+SMEM_RESERVED = 1024       # what the card reserves per block
+
+
+class NormPlan(ctypes.Structure):
+    """The C struct ``NormPlan`` of ``csrc/fused_norm.cu``, field for
+    field."""
+
+    _fields_ = [("blocks", _I), ("warps_per_row", _I),
+                ("rows_per_group", _I), ("smem_bytes", _I),
+                ("reduce_blocks", _I)]
+
+    @classmethod
+    def of(cls, plan: dict) -> "NormPlan":
+        return cls(*(plan[name] for name, _ in cls._fields_))
 
 
 def _lib_fn():
@@ -98,11 +122,56 @@ def _lib_fn():
     return fn
 
 
-def _rows_per_block(n: int, device: torch.device) -> int:
-    """Rows a kernel block takes: about four blocks per multiprocessor, so
-    the partial rows stay a small share of the traffic."""
-    blocks = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, -(-n // blocks))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def norm_smem_bytes(d: int, itemsize: int, warps_per_row: int,
+                    stages: int) -> int:
+    """A block's shared memory (``NormSmem`` in the source): the groups'
+    rings of ``stages`` (x, dy) rows (at least room for the groups'
+    partial rows, which take it over at the end), scale in fp32, the
+    groups' row-sum slots and their ring barriers."""
+    groups = THREADS // 32 // warps_per_row
+    row_bytes = _cdiv(d * itemsize, 16) * 16
+    ring = max(groups * stages * 2 * row_bytes,
+               _cdiv(groups * 2 * d * 4, 16) * 16)
+    return (ring + _cdiv(d * 4, 16) * 16 + 16 * groups * warps_per_row
+            + 16 * groups * stages)
+
+
+def norm_launch_plan(n: int, d: int, num_sms: int = kernel_lib.H100_SMS,
+                     itemsize: int = 2, ring: bool = True) -> dict:
+    """How K4 is launched for ``n`` rows of ``d`` features of
+    ``itemsize`` bytes: ``warps_per_row`` (the fewest of 1, 2, 4, 8 that
+    leave a lane at most ``NCH`` chunks of 8 columns), ``groups`` of them
+    in a block of 256 threads, ``rows_per_group`` consecutive rows each
+    (``rows_per_block`` = groups x that, from row 0 on), the ``stages``
+    of a group's (x, dy) ring (``ring``: rows go through shared memory by
+    bulk copies, which needs ``d`` a multiple of 8 and aligned tensors;
+    else 0), ``blocks_per_sm`` (two, as the registers allow, where the
+    ring's ``smem_bytes`` lets them, else one), the grid ``blocks`` (one
+    partial row each), the partial rows' reduction grid ``reduce_blocks``
+    and the fp32 ``workspace``."""
+    if n < 1 or not 1 <= d <= 8192:
+        raise ValueError(f"no norm kernel plan for n={n}, d={d}")
+    chunks = _cdiv(d, CHUNK)
+    warps = next(w for w in (1, 2, 4, 8) if _cdiv(chunks, 32 * w) <= NCH)
+    groups = THREADS // 32 // warps
+    stages = STAGES if ring else 0
+    smem = norm_smem_bytes(d, itemsize, warps, stages)
+    per_sm = (MIN_BLOCKS if MIN_BLOCKS * (smem + SMEM_RESERVED) <= SMEM_PER_SM
+              else 1)
+    blocks = min(num_sms * per_sm, _cdiv(n, groups))
+    rows_per_group = _cdiv(n, blocks * groups)
+    blocks = _cdiv(n, rows_per_group * groups)
+    return dict(
+        warps_per_row=warps, groups=groups, rows_per_group=rows_per_group,
+        rows_per_block=groups * rows_per_group, stages=stages,
+        blocks_per_sm=per_sm, blocks=blocks, smem_bytes=smem,
+        reduce_blocks=_cdiv(2 * d, RED_COLS),
+        workspace={"parts": (blocks, 2, d), "sums": (2, d)},
+    )
 
 
 def layernorm_backward(
@@ -112,7 +181,20 @@ def layernorm_backward(
     """``(dx like x, dscale [D] fp32, dbias [D] fp32)`` from the forward's
     input and saved statistics and the output gradient ``dy``.  CPU tensors
     take :func:`layernorm_backward_reference`; CUDA tensors launch K4
-    (counted in ``LAUNCHES["norm_bwd"]``) or raise."""
+    (counted in ``LAUNCHES["norm_bwd"]``) or raise.
+
+    K4 (``norm_launch_plan``): a row belongs to one warp, or to a pair of
+    warps at D 1600 (up to 8 at D 8192), so its sums are warp shuffles and
+    the row loop has no block barrier; each group of warps takes a run of
+    consecutive rows through a shared-memory ring of three rows, refilled
+    at the top of each row, so the next row's bulk copies are in flight
+    while it reduces and writes this one.  dscale and dbias partials stay
+    in registers, are summed across the block's groups once at the end,
+    and a second kernel of the same launch sums the blocks' partial rows
+    in a fixed order: both are the same bit for bit from run to run, and
+    no reduction is left to the wrapper.  Bytes bound it (x and dy read
+    once, dx written once); a row's two reductions still stand between
+    its loads and its stores."""
     if x.device.type == "cpu":
         return layernorm_backward_reference(x, dy, scale, mean, rstd, center)
     if x.device.type != "cuda":
@@ -140,22 +222,26 @@ def layernorm_backward(
         raise ValueError(
             f"scale {tuple(scale.shape)}, mean {tuple(mean.shape)} and rstd "
             f"{tuple(rstd.shape)} do not fit x {tuple(x.shape)}")
-    rows = _rows_per_block(n, x.device)
-    blocks = -(-n // rows)
     dx = torch.empty_like(x2)
-    parts = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    ring = d % CHUNK == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x2, dy2, dx))
+    plan = norm_launch_plan(n, d, kernel_lib.num_sms(x2.device.index),
+                            x2.element_size(), ring)
+    parts, sums = (torch.empty(plan["workspace"][name], dtype=torch.float32,
+                               device=x2.device)
+                   for name in ("parts", "sums"))
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = _lib_fn()(
             x2.data_ptr(), dy2.data_ptr(), scale32.data_ptr(),
             mean32.data_ptr(), rstd32.data_ptr(), dx.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(), n, d, rows,
-            int(center), int(x.dtype == torch.bfloat16), stream,
+            parts.data_ptr(), sums.data_ptr(), n, d, int(center),
+            int(x2.dtype == torch.bfloat16), ctypes.byref(NormPlan.of(plan)),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"norm_bwd launch failed: CUDA error {err}")
     LAUNCHES["norm_bwd"] += 1
-    sums = parts.sum(dim=1)
     return dx.reshape(x.shape), sums[0], sums[1]
 
 

@@ -1,9 +1,10 @@
-"""The host side of the Hopper kernels K1, K3, K2b and K11 on the CPU:
-their launch plans, pure functions of the shapes, on every shape that
+"""The host side of the Hopper kernels K1, K3, K2a, K2b and K11 on the
+CPU: their launch plans, pure functions of the shapes, on every shape that
 ``chip_smoke.py`` runs the kernels at (``KERNEL_CASES`` for K1,
-``BWD_CASES`` for K3 and K2b, ``pin_kernel_check``'s views for K11), and
-K3's delta pre-pass's plain version against ``rowsum(o * do)`` from the
-JAX package's own forward.  The kernels themselves run only on the card,
+``BWD_CASES`` for K3, K2a and K2b, ``pin_kernel_check``'s views for K11),
+numpy mirrors of K2a's kv walk, the split path's one pre-pass, and the
+delta pre-pass's plain version against ``rowsum(o * do)`` from the JAX
+package's own forward.  The kernels themselves run only on the card,
 where ``chip_smoke.py`` holds them against the plain versions.
 """
 
@@ -196,27 +197,243 @@ def test_dkv_workspace_holds_no_dq_accumulator(d):
         tfa.bwd_launch_plan(2, 1000, 1000, 8, 2, d, kind="dq")
 
 
-def test_kv_tile_plans_are_builds_of_the_kernel_source():
-    """Every plan the K3 and K2b wrappers make names a (head dim,
-    block_kv, stages, blocks an SM) that ``flash_bwd_bf16`` dispatches to
-    for its kind (it refuses any other)."""
+def _build_table(macro):
+    """The rows of a build table of ``flash_bwd_bf16`` (``DQ_BUILD`` or
+    ``KV_BUILD``), as tuples of ints."""
     src = open(os.path.join(os.path.dirname(tfa.__file__), "csrc",
                             "flash_attention_bwd.cu")).read()
     entry = src[src.index('extern "C" int flash_bwd_bf16('):]
+    rows = re.findall(rf"^  {macro}\(([\d, ]+)\)$", entry, re.M)
+    assert rows, macro
+    return {tuple(int(v) for v in row.split(",")) for row in rows}
+
+
+def test_kv_tile_plans_are_builds_of_the_kernel_source():
+    """Every plan the K3 and K2b wrappers make names a (kind, head dim,
+    warpgroups, stages, blocks an SM, shared-memory bytes) of the source's
+    ``KV_BUILD`` table, which ``flash_bwd_bf16`` dispatches on (it refuses
+    any other; a static_assert holds each row's bytes to the kernel's
+    layout)."""
+    builds = _build_table("KV_BUILD")
     for c in CS.BWD_CASES:
         for kind, code in (("fused", 2), ("dkv", 1)):
             plan = tfa.bwd_launch_plan(c["b"], c["s"], c["s"], c["hq"],
                                        c["hkv"], c["d"], kind=kind)
-            branch = entry[entry.index(
-                f"if (kind == {code} && stages == {plan['stages']}"):]
-            branch = branch[:branch.index("\n  }\n")]
-            blocks = plan["blocks_per_sm"]
-            build = (f"launch_kv_tiles<{c['d']}, "
-                     f"{plan['block_kv'] // tfa.MASK_TILE}, "
-                     f"{'true' if kind == 'fused' else 'false'}, "
-                     f"{plan['stages']}{f', {blocks}' if blocks > 1 else ''}>")
-            assert build in branch, build
-            assert f"block_kv == {plan['block_kv']}" in branch
+            row = (code, c["d"], plan["block_kv"] // tfa.MASK_TILE,
+                   plan["stages"], plan["blocks_per_sm"], plan["smem_bytes"])
+            assert row in builds, row
+
+
+# -- K2a: the q-tile kernel ------------------------------------------------------
+
+
+def _dq_walk(plan, b, sq, skv, hq, causal):
+    """The K2a kernel's walk for ``plan``, block by block in launch order:
+    ``(launch index, b, h, q tile, warpgroup, q0 of the warpgroup, kv
+    tiles it computes, kv tiles the block streams)``."""
+    bm = plan["block_m"]
+    n_qt = plan["grid"][1]
+    out = []
+    for y in range(plan["grid"][1]):
+        for x in range(plan["grid"][0]):
+            qt = n_qt - 1 - y if causal else y
+            q0 = qt * bm
+            kv_end = min(skv, q0 + bm) if causal else skv
+            n_tiles = -(-kv_end // tfa.MASK_TILE)
+            for wg in range(bm // tfa.MASK_TILE):
+                wq0 = q0 + wg * tfa.MASK_TILE
+                wg_end = min(skv, wq0 + tfa.MASK_TILE) if causal else skv
+                n_w = -(-wg_end // tfa.MASK_TILE) if wq0 < sq else 0
+                out.append((y * plan["grid"][0] + x, x // hq, x % hq, qt, wg,
+                            wq0, n_w, n_tiles))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(BWD))
+def test_dq_plan_covers_every_q_row_and_stat_row_once(name):
+    """K2a's plan on every ``BWD_CASES`` shape: every q row of every (b,
+    q head) is one warpgroup's, once; every lse2 / delta row below
+    ``sq_pad`` is read by one block, once (a block reads its rows up to
+    ``sq_pad``); the split path's pre-pass writes each once; and under
+    causal masking the q tiles launch heaviest first."""
+    c = BWD[name]
+    b, s, hq, hkv, d = c["b"], c["s"], c["hq"], c["hkv"], c["d"]
+    plan = tfa.dq_launch_plan(b, s, s, hq, hkv, d)
+    bm = plan["block_m"]
+    assert plan["kind"] == "dq" and plan["boxes_per_row"] * 64 == d
+    assert plan["grid"] == (b * hq, math.ceil(s / bm))
+    assert plan["q_box"] == (64, 1, bm, 1)
+    assert plan["kv_box"] == (64, 1, tfa.MASK_TILE, 1)
+    assert plan["sq_pad"] == math.ceil(s / 64) * 64
+    rows = np.zeros((b, hq, plan["sq_pad"]), dtype=np.int64)
+    stats = np.zeros_like(rows)
+    for _, bb, h, qt, wg, wq0, n_w, n_tiles in _dq_walk(
+            plan, b, s, s, hq, c["causal"]):
+        if wq0 < s:
+            rows[bb, h, wq0:min(wq0 + 64, s)] += 1
+        if wg == 0:
+            q0 = qt * bm
+            stats[bb, h, q0:min(q0 + bm, plan["sq_pad"])] += 1
+    assert (rows[:, :, :s] == 1).all() and (rows[:, :, s:] == 0).all()
+    assert (stats == 1).all()
+    assert (_prep_rows_written(plan, b, hq, d) == 1).all()
+    if c["causal"]:
+        # The kv tiles each block streams, in launch order: never
+        # increasing.
+        work = {launch: n_tiles for launch, _, _, _, _, _, _, n_tiles
+                in _dq_walk(plan, b, s, s, hq, True)}
+        order = [work[i] for i in sorted(work)]
+        assert order == sorted(order, reverse=True)
+        assert order[0] > order[-1]
+
+
+#: Ragged sequences beside those of ``BWD_CASES``, at lengths no multiple
+#: of 64: a causal GQA one and a non-causal one at D 128.
+RAGGED = {
+    "ragged_causal_s1000": dict(b=1, s=1000, hq=4, hkv=2, d=64,
+                                causal=True),
+    "ragged_noncausal_s300_d128": dict(b=2, s=300, hq=2, hkv=2, d=128,
+                                       causal=False),
+}
+
+
+def _segment_ids(c):
+    """``(seg_q, seg_kv)`` [B, S] as ``chip_smoke._case_inputs`` makes
+    them, or ``(None, None)``."""
+    b, s, seg = c["b"], c["s"], c.get("seg")
+    if seg is None:
+        return None, None
+    ids = np.tile(np.arange(s) // (100 if seg == "pad" else 40), (b, 1))
+    if seg == "pad":
+        ids[:, -40:] = -1
+        return ids, ids
+    kv = ids.copy()
+    kv[:, :40] = 7  # q rows of segment 0 find no kv of their segment
+    return ids, kv
+
+
+@pytest.mark.parametrize("name", sorted(BWD) + sorted(RAGGED))
+def test_dq_kv_walk_visits_exactly_the_live_tile_pairs(name):
+    """A numpy mirror of K2a's kv walk: each warpgroup computes kv tiles
+    ``[0, n_w)``, masks only where a mask can bite (the causal diagonal,
+    the ragged kv edge, segment ids) and passes the rest of the block's
+    streamed tiles.  The (64-row q tile, kv tile) pairs computed are
+    exactly those that hold a pair the causal mask and the sequence ends
+    leave live; every live pair of the case (segments included) lies in
+    one of them; and a tile computed without the mask holds no masked
+    pair on a row below Sq."""
+    c = BWD.get(name) or RAGGED[name]
+    b, s, hq, hkv, d = c["b"], c["s"], c["hq"], c["hkv"], c["d"]
+    causal = c["causal"]
+    seg_q, seg_kv = _segment_ids(c)
+    qi, kj = np.arange(s)[:, None], np.arange(s)[None, :]
+    allowed = (kj <= qi) if causal else np.ones((s, s), dtype=bool)
+    plan = tfa.dq_launch_plan(b, s, s, hq, hkv, d)
+    t = tfa.MASK_TILE
+    n_t = -(-s // t)
+    want = np.array([[allowed[a * t:(a + 1) * t, i * t:(i + 1) * t].any()
+                      for i in range(n_t)] for a in range(n_t)])
+    walk = _dq_walk(plan, b, s, s, hq, causal)
+    for bb in range(b):
+        live = allowed.copy()
+        if seg_q is not None:
+            live &= seg_q[bb][:, None] == seg_kv[bb][None, :]
+        for h in range(hq):
+            visited = np.zeros((n_t, n_t), dtype=bool)
+            for _, b2, h2, _, _, wq0, n_w, n_tiles in walk:
+                if (b2, h2) != (bb, h):
+                    continue
+                assert n_w <= n_tiles
+                for i in range(n_w):
+                    assert not visited[wq0 // t, i]
+                    visited[wq0 // t, i] = True
+                    n0 = i * t
+                    need_mask = (seg_q is not None or n0 + t > s
+                                 or (causal and n0 + t - 1 > wq0))
+                    if not need_mask:
+                        assert live[wq0:min(wq0 + t, s), n0:n0 + t].all()
+            assert (visited == want).all()
+            rows, cols = np.nonzero(live)
+            assert visited[rows // t, cols // t].all()
+
+
+def test_dq_plans_are_builds_of_the_kernel_source():
+    """``DQ_BUILDS`` is the source's ``DQ_BUILD`` table, and every plan
+    K2a's wrapper makes on the ``BWD_CASES`` shapes, and on small grids,
+    names one of its rows: (head dim, warpgroups, stages, blocks an SM,
+    shared-memory bytes), the bytes also those of :func:`dq_smem_bytes`
+    and the blocks an SM within the card's shared memory."""
+    builds = _build_table("DQ_BUILD")
+    assert {k + v for k, v in tfa.DQ_BUILDS.items()} == {
+        row[:4] for row in builds}
+    for row in builds:
+        assert tfa.dq_smem_bytes(*row[:3]) == row[4]
+        assert row[3] * (row[4] + 1024) <= 233472
+    shapes = [(c["b"], c["s"], c["hq"], c["hkv"], c["d"])
+              for c in CS.BWD_CASES]
+    shapes += [(1, 512, 8, 8, 64), (1, 512, 8, 2, 128)]
+    for b, s, hq, hkv, d in shapes:
+        plan = tfa.dq_launch_plan(b, s, s, hq, hkv, d)
+        row = (d, plan["block_m"] // tfa.MASK_TILE, plan["stages"],
+               plan["blocks_per_sm"], plan["smem_bytes"])
+        assert row in builds, row
+
+
+def test_dq_plan_at_the_main_path_shapes():
+    split = tfa.dq_launch_plan(16, 1024, 1024, 25, 25, 64)
+    assert split["grid"] == (400, 8) and split["block_m"] == 128
+    assert split["stages"] == 4 and split["blocks_per_sm"] == 1
+    gqa = tfa.dq_launch_plan(1, 2048, 2048, 32, 8, 128)
+    assert gqa["block_m"] == 128 and gqa["grid"] == (32, 16)
+    assert gqa["stages"] == 4
+    # Under the crossover of the two builds (16 waves of 128-row blocks at
+    # D 64, half a wave at D 128): one warpgroup a block.
+    small = tfa.dq_launch_plan(1, 512, 512, 8, 8, 128)
+    assert small["block_m"] == 64 and small["grid"] == (8, 8)
+    assert tfa.dq_launch_plan(1, 1024, 1024, 32, 8, 128)["block_m"] == 128
+    small = tfa.dq_launch_plan(1, 512, 512, 8, 8, 64)
+    assert small["block_m"] == 64 and small["blocks_per_sm"] == 2
+    assert tfa.dq_launch_plan(1, 512, 512, 8, 8, 64,
+                              num_sms=2)["block_m"] == 128
+    assert tfa.dq_launch_plan(8, 900, 900, 8, 2, 64)["block_m"] == 64
+    assert tfa.dq_launch_plan(8, 1024, 1024, 25, 25, 64)["block_m"] == 64
+    assert tfa.dq_launch_plan(16, 900, 900, 25, 5, 64)["block_m"] == 128
+
+
+def test_split_path_shares_one_prepass_rows_buffer(monkeypatch):
+    """The split backward's workspace is one rows buffer: K2a's launch runs
+    the pre-pass into it and K2b's reads it without one; each kernel is
+    counted once.  K2a and K2b called alone each run their own."""
+    calls = []
+
+    def record(name, q, k, v, o, lse, do, seg_q, seg_kv, dq, dk, dv,
+               causal, scale, ws, plan, prep=True):
+        calls.append((name, ws, prep, plan))
+
+    monkeypatch.setattr(tfa, "_bwd_launch", record)
+    monkeypatch.setattr(tfa, "_check_qkv", lambda q, k, v: q.device)
+    monkeypatch.setattr(kernel_lib, "num_sms", lambda index: 132)
+    b, s, hq, hkv, d = 2, 200, 4, 2, 64
+    q = torch.zeros((b, s, hq, d), dtype=torch.bfloat16)
+    kv = torch.zeros((b, s, hkv, d), dtype=torch.bfloat16)
+    lse = torch.zeros((b, hq, s))
+    before = dict(tfa.LAUNCHES)
+    dq, dk, dv = tfa.flash_bwd_split(q, kv, kv, q, lse, q)
+    assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+    assert [(n, p) for n, _, p, _ in calls] == [("flash_bwd_dq", True),
+                                                ("flash_bwd_dkv", False)]
+    assert calls[0][1] is calls[1][1]
+    assert tuple(calls[0][1].shape) == (2, b, hq, 256)
+    for _, _, _, plan in calls:
+        assert plan["workspace"] == {"rows": (2, b, hq, 256)}
+    assert tfa.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert tfa.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    calls.clear()
+    tfa.flash_bwd_dq(q, kv, kv, q, lse, q)
+    tfa.flash_bwd_dkv(q, kv, kv, q, lse, q)
+    assert [(n, p) for n, _, p, _ in calls] == [("flash_bwd_dq", True),
+                                                ("flash_bwd_dkv", True)]
+    assert calls[0][1] is not calls[1][1]
 
 
 # -- K11: the layout pin ------------------------------------------------------

@@ -186,6 +186,166 @@ def test_make_norm_passes_the_flag():
         assert isinstance(norm, cls) and norm.fused_backward
 
 
+# -- K4's launch plan and its fixed-order reduction -----------------------------
+
+# (n, d, itemsize, ring): the training step's rows, a narrow and the
+# widest width, fp32 at the widest, and odd widths that take no ring.
+NORM_PLAN_CASES = {
+    "train_d1600": (16384, 1600, 2, True),
+    "narrow_d40": (1237, 40, 2, True),
+    "widest_d8192": (515, 8192, 2, True),
+    "fp32_d8192": (4099, 8192, 4, True),
+    "odd_d33_no_ring": (7, 33, 2, False),
+    "odd_d1001_no_ring": (1237, 1001, 2, False),
+}
+
+
+def _norm_rows(plan, n):
+    """How often K4's groups take each row: group k (block k // groups,
+    group k % groups) takes rows [k r, (k + 1) r) of r = rows_per_group."""
+    hits = np.zeros(n, dtype=np.int64)
+    r = plan["rows_per_group"]
+    for k in range(plan["blocks"] * plan["groups"]):
+        hits[k * r:min((k + 1) * r, n)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("case", sorted(NORM_PLAN_CASES))
+def test_norm_plan_covers_every_row_once(case):
+    """Every row belongs to one group of warps, once; a lane holds at most
+    ``NCH`` chunks of 8 columns; the ring and the blocks an SM fit the
+    card's shared memory; block 0 takes the first ``rows_per_block``
+    rows."""
+    n, d, itemsize, ring = NORM_PLAN_CASES[case]
+    plan = tfn.norm_launch_plan(n, d, itemsize=itemsize, ring=ring)
+    w = plan["warps_per_row"]
+    assert w == {40: 1, 1600: 2, 8192: 8, 33: 1, 1001: 1}[d]
+    assert plan["groups"] == 8 // w
+    assert -(-(-(-d // 8)) // (32 * w)) <= tfn.NCH
+    assert (_norm_rows(plan, n) == 1).all()
+    assert plan["rows_per_block"] == plan["groups"] * plan["rows_per_group"]
+    assert plan["blocks"] <= 132 * plan["blocks_per_sm"]
+    # No block without a row.
+    assert (plan["blocks"] - 1) * plan["rows_per_block"] < n
+    assert plan["smem_bytes"] == tfn.norm_smem_bytes(d, itemsize, w,
+                                                      plan["stages"])
+    assert plan["smem_bytes"] <= tfn.SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + tfn.SMEM_RESERVED) \
+        <= tfn.SMEM_PER_SM
+    assert plan["stages"] == (tfn.STAGES if ring else 0)
+    assert plan["reduce_blocks"] * tfn.RED_COLS >= 2 * d
+    assert plan["workspace"] == {"parts": (plan["blocks"], 2, d),
+                                 "sums": (2, d)}
+
+
+def test_norm_plan_at_the_training_shape():
+    plan = tfn.norm_launch_plan(16384, 1600)
+    assert (plan["warps_per_row"], plan["groups"], plan["stages"],
+            plan["blocks_per_sm"], plan["blocks"]) == (2, 4, 3, 2, 256)
+    assert plan["rows_per_group"] == 16 and plan["rows_per_block"] == 64
+    assert plan["smem_bytes"] == tfn.norm_smem_bytes(1600, 2, 2, tfn.STAGES)
+    assert tfn.norm_launch_plan(7, 33, ring=False)["stages"] == 0
+
+
+def test_norm_plan_struct_matches_the_kernel_source():
+    """``NormPlan`` is the C struct field for field, and the plan's
+    constants are the kernel's."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tfn.__file__), "csrc",
+                            "fused_norm.cu")).read()
+    body = re.search(r"struct NormPlan \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = re.findall(r"\w+", re.sub(r"\bint\b", " ", body))
+    assert fields == [name for name, _ in tfn.NormPlan._fields_]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    for name in ("THREADS", "CHUNK", "NCH", "STAGES", "MIN_BLOCKS",
+                 "RED_COLS"):
+        assert const(name) == getattr(tfn, name), name
+    plan = tfn.norm_launch_plan(16384, 1600)
+    packed = tfn.NormPlan.of(plan)
+    assert [getattr(packed, f) for f, _ in tfn.NormPlan._fields_] == [
+        plan[f] for f, _ in tfn.NormPlan._fields_]
+
+
+def _fixed_order_sums(x, dy, mean, rstd, plan, center):
+    """A numpy mirror, in fp32, of K4's dscale and dbias: each group sums
+    its rows' ``dy * xhat`` and ``dy`` in row order; a block adds its
+    groups' sums in group order; the reduction kernel sums eight runs of
+    consecutive blocks, each in block order, then the runs in order."""
+    f32 = np.float32
+    n, d = x.shape
+    r = plan["rows_per_group"]
+    groups = plan["groups"]
+    parts = np.zeros((plan["blocks"], 2, d), dtype=f32)
+    for blk in range(plan["blocks"]):
+        acc = np.zeros((groups, 2, d), dtype=f32)
+        for g in range(groups):
+            k = blk * groups + g
+            for row in range(k * r, min((k + 1) * r, n)):
+                mu = mean[row] if center else f32(0)
+                xhat = ((x[row] - mu) * rstd[row]).astype(f32)
+                acc[g, 0] = (acc[g, 0] + dy[row] * xhat).astype(f32)
+                acc[g, 1] = (acc[g, 1] + dy[row]).astype(f32)
+        parts[blk] = acc[0]
+        for g in range(1, groups):
+            parts[blk] = (parts[blk] + acc[g]).astype(f32)
+    runs = 256 // tfn.RED_COLS
+    per_run = -(-plan["blocks"] // runs)
+    run_sums = np.zeros((runs, 2, d), dtype=f32)
+    for run in range(runs):
+        for blk in range(run * per_run, min((run + 1) * per_run,
+                                            plan["blocks"])):
+            run_sums[run] = (run_sums[run] + parts[blk]).astype(f32)
+    total = run_sums[0]
+    for run in range(1, runs):
+        total = (total + run_sums[run]).astype(f32)
+    return total
+
+
+@pytest.mark.parametrize("n,d,center", [(1000, 40, True), (600, 1600, True),
+                                        (333, 264, False)])
+def test_fixed_order_reduction_mirror_matches_reference(n, d, center):
+    """The mirror of K4's fixed-order dscale / dbias sums (on a card of 8
+    SMs, so groups take several rows) equals
+    ``layernorm_backward_reference``'s to fp32 rounding: each column within
+    4e-7 of the sum of its terms' magnitudes (a few ulps of summing up to
+    1000 terms in two orders), and the JAX kernel's in interpret mode
+    likewise."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(n, d)) * 2.0 + 0.5).astype(np.float32)
+    dy = (rng.normal(size=(n, d)) + 0.25).astype(np.float32)
+    scale = (rng.normal(size=(d,)) * 0.3 + 1.0).astype(np.float32)
+    _, mean, rstd = tfn.norm_forward(torch.as_tensor(x),
+                                     torch.as_tensor(scale), None, EPS,
+                                     center)
+    mean_np = mean.numpy() if center else None
+    plan = tfn.norm_launch_plan(n, d, num_sms=8, itemsize=4)
+    assert plan["rows_per_group"] > 1
+    got = _fixed_order_sums(x, dy, mean_np, rstd.numpy(), plan, center)
+    ref = tfn.layernorm_backward_reference(
+        torch.as_tensor(x), torch.as_tensor(dy), torch.as_tensor(scale),
+        mean, rstd, center)
+    xhat = (x - (mean_np[:, None] if center else 0)) * rstd.numpy()[:, None]
+    for i, (want, terms) in enumerate(((ref[1], dy * xhat), (ref[2], dy))):
+        limit = 4e-7 * np.abs(terms).sum(0)
+        assert (np.abs(got[i] - want.numpy()) <= limit).all(), i
+    fn = jfn.fused_layernorm if center else (
+        lambda x_, s_, b_, eps, rows: jfn.fused_rmsnorm(x_, s_, eps, rows))
+    _, vjp = jax.vjp(lambda x_, s_: fn(x_, s_, None, EPS, 64),
+                     jnp.asarray(x), jnp.asarray(scale))
+    jax_dscale = np.asarray(vjp(jnp.asarray(dy))[1])
+    # JAX's dscale is sum(dy * xhat * 1): the same sum, from its own
+    # statistics.
+    assert (np.abs(got[0] - jax_dscale)
+            <= 4e-7 * np.abs(dy * xhat).sum(0) + 1e-5).all()
+
+
 # -- pin_layout -----------------------------------------------------------------
 
 
