@@ -7,7 +7,9 @@
     python3 chip_smoke.py --gmm         # build and the MoE work only
     python3 chip_smoke.py --pin         # build and the layout pin's check
     python3 chip_smoke.py --norm        # build and the norm backward's check
-    python3 chip_smoke.py --ab DIR ...  # K2a, K4 against other trees
+    python3 chip_smoke.py --quant       # build and the quantization checks
+    python3 chip_smoke.py --ab DIR ... [--only NAME,...]
+                                        # K2a, K4, K6, K7 against other trees
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
@@ -105,6 +107,16 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``QUANT_UPD_NORM_TOL``; two planted faults (v decoded
                linearly, the high nibble dropped) must fail.  No one
                PyTorch call computes these functions: no yardstick.
+               Then ``quant_code_check``: K7's codes by its own path (one
+               reciprocal a block, a corrected product, thresholds)
+               against the IEEE chain (correctly rounded division and
+               roots) for every float32 x in [0, s], at every power of
+               two s from 2^-126 to 1, FLT_MIN's neighbours and
+               ``QUANT_CHECK_RANDOM_SCALES`` seeded scales in [1e-30,
+               1e3]: no m level and no v code may differ; one threshold
+               of m and one of v moved by an ulp (two planted faults)
+               must each be caught.  ``--quant`` runs the build and this
+               phase alone.
 4e. ``pin_kernel_check``  K11 on [16, 1024, 1600] bf16 contiguous and
                transposed, and on sliced, expanded and byte-sized views:
                contiguous and bit-equal.  Yardstick ``clone()``, timed
@@ -193,14 +205,17 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``_lowbit_per_step`` (48 + 48 flash, 96 K4, 288 K11, one K6
                or K7 per quantized leaf); step time, tokens/s, MFU/HFU,
                peak memory, optimizer-state bytes beside Adafactor's, one
-               profiled step; then a q8 first moment is read back through
-               K5b (finite, non-zero) and requantized through K5a.
+               profiled step each (with K6's or K7's device time summed
+               over the step's launches); then a q8 first moment is read
+               back through K5b (finite, non-zero) and requantized
+               through K5a.
 15. ``train_lowbit_parity``  4 layers, batch 4: one step's loss and
                gradients through K4 and K11 against their plain versions
                swapped in (``LOWBIT_PARITY_*``), and the same step's
-               update through K6 against the plain update from the same
-               gradients and one-step-old state (codes, scales, updates);
-               one planted fault per kernel must fail.
+               update through K6, and through K7 from a one-step-old q4
+               state, against the plain updates from the same gradients
+               and state (codes, scales, updates); one planted fault per
+               kernel must fail.
 16. ``train_rec``  ``dlrover_tpu_torch.examples.train_rec.run`` at MLPerf
                DLRM width (``REC_ARGV``: batch 8,192, 26 fields, dim 128,
                40M ids, hidden 1024, world 4 folding to 3 after step 16,
@@ -214,11 +229,13 @@ of the JAX package.  Phases, each one JSON line on stdout:
                (cProfile).  Then 3 steps with a K10b that drops the last
                real row must fail the invariant.
 
-``--ab DIR [DIR ...]`` times K2a and K4 (``time_kernels``) of each tree
-at DIR (a ``git archive`` of a parent commit under ``build/``, or a copy
-of this tree with one constant changed; named by its directory) and of
-this one, each reading in a process of its own, in turns: DIR, change,
-change, DIR for each DIR, twice.
+``--ab DIR [DIR ...]`` times K2a, K4, K6 and K7 (``time_kernels``; ``--only
+NAME,...`` keeps the readings whose names start with one of the NAMEs,
+e.g. ``q4_adam,q8_adam``) of each tree at DIR (a ``git archive`` of a
+parent commit under ``build/``, or a copy of this tree with one constant
+changed; named by its directory) and of this one, each reading in a
+process of its own, in turns: DIR, change, change, DIR for each DIR,
+twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, train, train_split, train_moe, train_lowbit and
@@ -328,6 +345,9 @@ NORM_PARAM_TOL = 1e-6
 # boundary.  K5a's codes and K5b's values must be equal.  The planted
 # faults read 0.56 and 0.71 on the update's norm.
 QUANT_CODE_SHARE, QUANT_SCALE_RTOL, QUANT_UPD_NORM_TOL = 1e-4, 1e-6, 1e-3
+# Seeded scales in [1e-30, 1e3], beside the powers of two, at which
+# ``quant_code_check`` holds K7's codes to the IEEE chain.
+QUANT_CHECK_RANDOM_SCALES = 16
 LOWBIT_STEPS, LOWBIT_Q4_STEPS = 3, 2
 PIN_PAIRS = 10  # K11 against clone(), alternating (``pin_kernel_check``)
 # K4 and K11 against their plain versions over one 4-layer step (the flash
@@ -2185,7 +2205,10 @@ def check_quant_case(c, gen):
 
         def add(name, kernel, plain, nbytes, flops):
             b_ms, b_by = bound(nbytes, flops, PEAK_FP32_FLOPS)
-            ms = device_ms(kernel, iters=5, replays=3)
+            # The median of three readings: one reading of K7 here has
+            # read 5% above its readings in turns (``--ab``).
+            ms = statistics.median(device_ms(kernel, iters=5, replays=3)
+                                   for _ in range(3))
             timed[name] = dict(
                 ms=ms, eager_ms=eager_ms(kernel, iters=5),
                 # Eager, back to back: passes over gigabytes, where launch
@@ -2267,6 +2290,77 @@ def quant_kernel_checks(gen):
     return cases
 
 
+def _code_check_scales():
+    """The scales ``quant_code_check`` takes: every power of two from
+    2^-126 to 1, FLT_MIN's two neighbours (the largest subnormal and the
+    float above FLT_MIN), and ``QUANT_CHECK_RANDOM_SCALES`` seeded ones,
+    log-uniform in [1e-30, 1e3]."""
+    rng = np.random.default_rng(0)
+    bits = np.array([0x007FFFFF, 0x00800001], dtype=np.uint32)
+    return np.concatenate([
+        np.ldexp(np.float32(1.0), np.arange(-126, 1)).astype(np.float32),
+        bits.view(np.float32),
+        (10.0 ** rng.uniform(-30, 3, QUANT_CHECK_RANDOM_SCALES)).astype(
+            np.float32)])
+
+
+def planted_threshold_faults(maps):
+    """Two copies of K7's maps, each with one threshold moved up by one
+    ulp: m's level 3 and v's code 5."""
+    def up(t, k):
+        moved = np.nextafter(np.float32(t[k]), np.float32(np.inf))
+        return t[:k] + (float(moved),) + t[k + 1:]
+
+    return {"m_threshold_3_up_an_ulp": maps._replace(
+                m_thresholds=up(maps.m_thresholds, 2)),
+            "v_threshold_5_up_an_ulp": maps._replace(
+                v_thresholds=up(maps.v_thresholds, 4))}
+
+
+def quant_code_check():
+    """K7's codes by its own path against the IEEE chain, for every float32
+    x in [0, s] at each of ``_code_check_scales``: mismatching m levels and
+    v codes must be 0, and each planted threshold fault must give some."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    scales_np = _code_check_scales()
+    scales = torch.from_numpy(scales_np).cuda()
+    want_seen = scales_np.view(np.uint32).astype(np.int64) + 1
+
+    def run(maps=None):
+        t0 = time.perf_counter()
+        counts = tq.q4_code_check(scales, maps)
+        torch.cuda.synchronize()
+        counts = counts.cpu().numpy()
+        return counts, time.perf_counter() - t0
+
+    counts, seconds = run()
+    bad = [dict(scale=float(s), m=int(c[0]), v=int(c[1]))
+           for s, c in zip(scales_np, counts) if c[0] or c[1]]
+    out = {"phase": "quant_code_check", "scales": len(scales_np),
+           "values_checked": int(counts[:, 2].sum()),
+           "all_values_checked": bool((counts[:, 2] == want_seen).all()),
+           "m_level_mismatches": int(counts[:, 0].sum()),
+           "v_code_mismatches": int(counts[:, 1].sum()),
+           "mismatching_scales": bad[:8], "seconds": seconds,
+           "thresholds": {"m": tq.q4_maps().m_thresholds,
+                          "v": tq.q4_maps().v_thresholds}}
+    faults = {}
+    for name, maps in planted_threshold_faults(tq.q4_maps()).items():
+        f_counts, _ = run(maps)
+        faults[name] = dict(m_level_mismatches=int(f_counts[:, 0].sum()),
+                            v_code_mismatches=int(f_counts[:, 1].sum()))
+        faults[name]["caught"] = (faults[name]["m_level_mismatches"]
+                                  + faults[name]["v_code_mismatches"]) > 0
+    out["planted_faults"] = faults
+    out["ok"] = (out["all_values_checked"] and not bad
+                 and all(f["caught"] for f in faults.values()))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"K7's codes differ from the IEEE chain: {out}")
+    return out
+
+
 def pin_kernel_check(gen):
     """K11 on the attention's input at the training shape, contiguous and
     as a transposed view, and on a sliced, expanded odd-sized view: the
@@ -2338,20 +2432,48 @@ DQ_GRID_CASES = [
 ]
 
 
-def time_kernels():
-    """K2a and K4 of whichever package is first on ``sys.path``, through
-    the public wrappers (whose signatures have not changed since the
-    kernels were first ported), at the main paths' shapes: K2a at the
+def _adam_states(gen, rows):
+    """A seeded q8 and q4 state of ``rows`` blocks from the functions every
+    tree since the kernels' port has (random codes, random scales)."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    def codes(lo, hi):
+        return torch.randint(lo, hi, (rows, 256), generator=gen,
+                             device="cuda", dtype=torch.int8)
+
+    def scales(lo, span):
+        return torch.rand((rows,), generator=gen, device="cuda") * span + lo
+
+    return {
+        8: (tq.QMoment(codes(-127, 128), scales(1e-6, 1e-3)),
+            tq.QMoment(codes(0, 128), scales(1e-9, 1e-6))),
+        4: (tq.QMoment(tq.pack_nibbles(codes(-7, 8)), scales(1e-6, 1e-3)),
+            tq.QMoment(tq.pack_nibbles(codes(0, 16)), scales(1e-9, 1e-6))),
+    }
+
+
+def time_kernels(only=None):
+    """K2a, K4, K6 and K7 of whichever package is first on ``sys.path``,
+    through the public wrappers (whose signatures have not changed since
+    the kernels were first ported), at the main paths' shapes: K2a at the
     split ``BWD_CASES`` and at ``DQ_GRID_CASES``, K4 at the timed
-    ``NORM_CASES``.  Device ms, the median of three CUDA-graph
-    readings."""
+    ``NORM_CASES``, K6 and K7 at the largest leaf (``QUANT_LEAF_CASE``),
+    each reading from fresh clones of one seeded state.  Device ms, the
+    median of three CUDA-graph readings.  ``only``: name prefixes of the
+    readings to take (all when None)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import fused_norm as fn
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    def wanted(name):
+        return only is None or any(name.startswith(k) for k in only)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for c in [c for c in BWD_CASES if c["kernel"] == "split"] + \
             DQ_GRID_CASES:
+        if not wanted("flash_bwd_dq"):
+            break
         q, k, v, _, _ = _case_inputs(c, gen)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -2362,7 +2484,7 @@ def time_kernels():
             for _ in range(3))
         del q, k, v, o, lse, do
     for c in NORM_CASES:
-        if not c.get("timed"):
+        if not c.get("timed") or not wanted("norm_bwd"):
             continue
         n, d, center = c["n"], c["d"], c["center"]
         x = (torch.randn((n, d), generator=gen, device="cuda") * 2.0
@@ -2375,15 +2497,41 @@ def time_kernels():
             device_ms(lambda: fn.layernorm_backward(x, dy, scale, mean, rstd,
                                                     center))
             for _ in range(3))
+        del x, dy
+    leaf = next(c for c in QUANT_CASES if c["case"] == QUANT_LEAF_CASE)
+    n = int(np.prod(leaf["shape"]))
+    wrappers = {8: tq.q8_adam_update, 4: tq.q4_adam_update}
+    if any(wanted(f"q{bits}_adam") for bits in wrappers):
+        p = (torch.randn(leaf["shape"], generator=gen, device="cuda")
+             * 0.02).bfloat16()
+        g = (torch.randn(leaf["shape"], generator=gen, device="cuda")
+             * 1e-3).bfloat16()
+        states = _adam_states(gen, tq.num_blocks(n))
+        h = tq.adam_hyper(3, TRAIN_LR, 0.9, 0.95, 1e-8, 0.1)
+        for bits, update in wrappers.items():
+            if not wanted(f"q{bits}_adam"):
+                continue
+            readings = []
+            for _ in range(3):
+                m, v = (_clone_moment(x) for x in states[bits])
+                readings.append(device_ms(
+                    lambda: update(g, p, m, v, h), iters=5, replays=3))
+                del m, v
+            out[f"q{bits}_adam/{QUANT_LEAF_CASE}"] = statistics.median(
+                readings)
+        del p, g, states
+    torch.cuda.empty_cache()
     return out
 
 
-def ab_in_turns(others):
-    """``time_kernels`` of each tree in ``others`` (a ``git archive`` of
-    the parent commit, or a copy of this tree with one constant changed,
-    each of which builds its own kernels there; named by its directory)
-    and of this tree, each reading in a process of its own, in turns:
-    other, change, change, other for each tree, ``AB_ROUNDS`` times."""
+def ab_in_turns(others, only=None):
+    """``time_kernels(only)`` of each tree in ``others`` (a ``git archive``
+    of the parent commit, or a copy of this tree with one constant
+    changed, each of which builds its own kernels there; named by its
+    directory) and of this tree, each reading in a process of its own, in
+    turns: other, change, change, other for each tree, ``AB_ROUNDS``
+    times.  The first reading of each tree also brings its quantization
+    library's ptxas report."""
     trees = {os.path.basename(os.path.normpath(t)): os.path.abspath(t)
              for t in others}
     for name, path in trees.items():
@@ -2394,19 +2542,24 @@ def ab_in_turns(others):
              for who in (name, "change", "change", name)]
     trees["change"] = REPO
     readings = {name: [] for name in trees}
+    ptxas = {}
     for who in order:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--time-tree",
-             trees[who]], capture_output=True, text=True, timeout=900)
+             trees[who]] + ([",".join(only)] if only else []),
+            capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"--time-tree {trees[who]} failed "
                                f"(rc {res.returncode}):\n{res.stderr[-4000:]}")
-        readings[who].append(json.loads(res.stdout.splitlines()[-1])["ms"])
+        reading = json.loads(res.stdout.splitlines()[-1])
+        readings[who].append(reading["ms"])
+        if reading["ptxas"]:
+            ptxas.setdefault(who, reading["ptxas"])
     names = sorted(readings["change"][0])
     median = {who: {n: statistics.median(r[n] for r in rs) for n in names}
               for who, rs in readings.items()}
     emit({"phase": "ab_in_turns", "order": order, "readings": readings,
-          "median_ms": median,
+          "ptxas": ptxas, "median_ms": median,
           "over_change": {who: {n: median[who][n] / median["change"][n]
                                 for n in names}
                           for who in trees if who != "change"}})
@@ -2535,13 +2688,17 @@ def train_lowbit_and_check(adafactor_state_bytes):
             "peak_memory_allocated_bytes": peak, "setup_s": setup_s,
             "state_read_back": readback,
         }
-        if bits == 8:
-            prof = _profile(lambda: train.step(state, batch), top=28)
-            busy = prof.get("device_busy_ms")
-            res["profiled_step"] = prof
-            res["device_busy_share_of_median_step"] = (
-                busy / (step_s * 1e3) if isinstance(busy, float) else
-                "not measured")
+        kernel = f"q{bits}_adam_kernel"
+        prof = _profile(lambda: train.step(state, batch), top=28,
+                        match=(kernel,))
+        busy = prof.get("device_busy_ms")
+        res["profiled_step"] = prof
+        res["device_busy_share_of_median_step"] = (
+            busy / (step_s * 1e3) if isinstance(busy, float) else
+            "not measured")
+        # K6's or K7's device time over the profiled step's launches.
+        res["adam_kernel_step"] = prof.get("matched", {}).get(
+            kernel, "not measured")
         emit(res)
         counts[f"train_lowbit_q{bits}"] = run_counts
         del state, train
@@ -2635,10 +2792,10 @@ def _lowbit_grad_ok(loss_diff, gap) -> bool:
         LOWBIT_PARITY_MIN_COSINE, LOWBIT_PARITY_PARAM_RTOL))
 
 
-def _tree_adam_errors(got, ref):
+def _tree_adam_errors(bits, got, ref):
     """The worst of ``_adam_errors`` over the quantized leaves of two
-    optimizer results ``(updates, state)``, and the small leaves' update
-    error."""
+    q``bits`` optimizer results ``(updates, state)``, and the small
+    leaves' update error."""
     from dlrover_tpu_torch.ops import quantization as tq
 
     (g_upd, g_state), (r_upd, r_state) = got, ref
@@ -2647,7 +2804,8 @@ def _tree_adam_errors(got, ref):
         if not isinstance(r_m, tq.QMoment):
             small = max(small, _norm_rel(g_upd[name], r_upd[name]))
             continue
-        e = _adam_errors(8, (g_upd[name], g_state.m[name], g_state.v[name]),
+        e = _adam_errors(bits,
+                         (g_upd[name], g_state.m[name], g_state.v[name]),
                          (r_upd[name], r_m, r_state.v[name]))
         for k, val in e.items():
             worst[k] = (min if k == "finite" else max)(worst.get(k, val),
@@ -2660,9 +2818,10 @@ def train_lowbit_parity():
     """4 layers, batch 4.  One step's loss and gradients through K4 and
     K11 against the same model with their plain versions swapped in (the
     flash kernels run in both legs), and the same step's optimizer update
-    through K6 against the plain update from the same gradients and the
-    same non-trivial state (one step old).  One planted fault per kernel
-    must fail its check."""
+    through K6, and through K7, against the plain update from the same
+    gradients and the same non-trivial state (one step old: the q8 run's
+    own, and a q4 state one update from its initial one).  One planted
+    fault per kernel must fail its check."""
     from dlrover_tpu_torch.models.transformer import TransformerLM
     from dlrover_tpu_torch.optimizers import optax_ports as ox
     from dlrover_tpu_torch.trainer import train_lib
@@ -2756,7 +2915,7 @@ def train_lowbit_parity():
             del f_grads
     del r_grads, model
 
-    # -- K6: the update, from the kernel leg's gradients ---------------------------
+    # -- K6, K7: the update, from the kernel leg's gradients ----------------------
     grad_tree = ox.stack_layers(
         {n: g.to(torch.bfloat16) for n, g in k_grads.items()})
     del k_grads
@@ -2769,40 +2928,51 @@ def train_lowbit_parity():
                     for k, v in tree.items()}
         return clip, type(adam)(adam.count, moments(adam.m), moments(adam.v))
 
-    def update(adam_fn=None):
+    def update(optimizer, opt_state, adam_fn=None):
         with _lowbit_swapped(adam=adam_fn):
-            upd, (_, new) = train.optimizer.update(
-                grad_tree, clone_state(state.opt_state), params)
+            upd, (_, new) = optimizer.update(grad_tree, clone_state(opt_state),
+                                             params)
         return upd, new
 
-    before = _counts()["q8_adam"]
-    k_out = update()
-    launched = _counts()["q8_adam"] - before
-    r_out = update(ref_adam)
-    if _counts()["q8_adam"] != before + launched or launched == 0:
-        raise AssertionError("the update legs launched K6 "
-                             f"{_counts()['q8_adam'] - before} times")
-    adam_e = _tree_adam_errors(k_out, r_out)
-    out["adam"] = {"k6_launches": launched, **adam_e}
-    adam_fine = adam_ok(adam_e) and adam_e["small_leaves_upd_norm"] <= 1e-6
+    # K6 from the q8 run's state, K7 from a q4 state one update old.
+    q4 = train_lib.make_optimizer("q4_adam", learning_rate=TRAIN_LR,
+                                  grad_clip=1.0)
+    q4_state = q4.update(grad_tree, q4.init(params), params)[1]
+    legs = {8: (train.optimizer, state.opt_state), 4: (q4, q4_state)}
+    adam_fine = True
+    for bits, (optimizer, opt_state) in legs.items():
+        name = f"q{bits}_adam"
+        before = _counts()[name]
+        k_out = update(optimizer, opt_state)
+        launched = _counts()[name] - before
+        r_out = update(optimizer, opt_state, ref_adam)
+        if _counts()[name] != before + launched or launched == 0:
+            raise AssertionError(f"the {name} update legs launched its "
+                                 f"kernel {_counts()[name] - before} times")
+        adam_e = _tree_adam_errors(bits, k_out, r_out)
+        out[f"adam_q{bits}"] = {"launches": launched, **adam_e}
+        adam_fine = (adam_fine and adam_ok(adam_e)
+                     and adam_e["small_leaves_upd_norm"] <= 1e-6)
 
-    with _lowbit_swapped() as (_, _, kernel_adam):
-        def faulty_adam(bits, g, p, m, v, h):
-            # The first moment's scales written at half their value.
-            upd, m, v = kernel_adam(bits, g, p, m, v, h)
-            m.scales.mul_(0.5)
-            return upd, m, v
+        with _lowbit_swapped() as (_, _, kernel_adam):
+            def faulty_adam(bits_, g, p, m, v, h):
+                # The first moment's scales written at half their value.
+                upd, m, v = kernel_adam(bits_, g, p, m, v, h)
+                m.scales.mul_(0.5)
+                return upd, m, v
 
-        f_e = _tree_adam_errors(update(faulty_adam), r_out)
-    faults["adam_m_scales_halved"] = {
-        "m_scales_rel": f_e["m_scales_rel"], "upd_norm": f_e["upd_norm"],
-        "caught": not adam_ok(f_e)}
+            f_e = _tree_adam_errors(bits, update(optimizer, opt_state,
+                                                 faulty_adam), r_out)
+        faults[f"adam_q{bits}_m_scales_halved"] = {
+            "m_scales_rel": f_e["m_scales_rel"], "upd_norm": f_e["upd_norm"],
+            "caught": not adam_ok(f_e)}
+        del k_out, r_out
     out["planted_faults"] = faults
     out["ok"] = grads_ok and adam_fine
     emit(out)
     if not out["ok"] or not all(f["caught"] for f in faults.values()):
         raise AssertionError(f"lowbit train parity failed: {out}")
-    del state, train, grad_tree, params, k_out, r_out
+    del state, train, grad_tree, params, legs, q4_state
     torch.cuda.empty_cache()
 
 
@@ -3173,8 +3343,9 @@ def _requests(vocab: int):
     return out
 
 
-def _profile(fn, top: int = 8):
-    """Device time by kernel for one call of ``fn``."""
+def _profile(fn, top: int = 8, match=()):
+    """Device time by kernel for one call of ``fn``; ``match``: see
+    ``_profile_summary``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3184,11 +3355,13 @@ def _profile(fn, top: int = 8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _profile_summary(prof, wall_ms, top)
+    return _profile_summary(prof, wall_ms, top, match)
 
 
-def _profile_summary(prof, wall_ms: float, top: int = 8):
-    """Device busy time and the top kernels of a finished profile."""
+def _profile_summary(prof, wall_ms: float, top: int = 8, match=()):
+    """Device busy time and the top kernels of a finished profile, and for
+    each name in ``match`` the device ms and launches of the kernels whose
+    names hold it."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -3201,18 +3374,24 @@ def _profile_summary(prof, wall_ms: float, top: int = 8):
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us > 0:
-            rows.append((dev_us / 1e3, evt.count, evt.key[:70]))
+            rows.append((dev_us / 1e3, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         return {"device_ms": "not measured", "wall_ms": wall_ms}
-    return {
+    out = {
         "wall_ms_under_profiler": wall_ms,
         "device_busy_ms": busy,
         "kernels": len(rows),
-        "top": [{"ms": ms, "count": n, "name": name}
+        "top": [{"ms": ms, "count": n, "name": name[:70]}
                 for ms, n, name in rows[:top]],
     }
+    if match:
+        out["matched"] = {
+            m: {"ms": sum(r[0] for r in rows if m in r[2]),
+                "launches": sum(r[1] for r in rows if m in r[2])}
+            for m in match}
+    return out
 
 
 @contextlib.contextmanager
@@ -3382,6 +3561,18 @@ def serve_and_check():
     return counts
 
 
+def _ptxas_report(kernel_lib):
+    """Per kernel of each library built in this process (its mangled name,
+    template arguments included): the registers, the stack frame and
+    spills, and any warning."""
+    return {
+        name: re.findall(r"Compiling entry function '[^']*'"
+                         r"|Used \d+ registers[^\n]*|\d+ bytes stack[^\n]*"
+                         r"|Performance Loss[^\n]*", log)
+        for name, log in kernel_lib.BUILD_LOGS.items()
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -3391,13 +3582,16 @@ def main() -> int:
         print(f"chip_smoke: the dlrover_tpu_torch package is not beside "
               f"{__file__}", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--time-tree"] and len(sys.argv) == 3:
+    if sys.argv[1:2] == ["--time-tree"] and len(sys.argv) in (3, 4):
         # One reading of ``ab_in_turns``: the tree's own package, whose
         # kernels build (once) into its own build directory.
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        from dlrover_tpu_torch.ops import kernel_lib
+
         torch.backends.cuda.matmul.allow_tf32 = False
+        only = sys.argv[3].split(",") if len(sys.argv) == 4 else None
         emit({"phase": "time_tree", "tree": sys.argv[2],
-              "ms": time_kernels()})
+              "ms": time_kernels(only), "ptxas": _ptxas_report(kernel_lib)})
         return 0
     sys.path.insert(0, REPO)
     from dlrover_tpu_torch.ops import kernel_lib
@@ -3417,15 +3611,8 @@ def main() -> int:
     build_s = kernel_lib.build_all()
     for name in kernel_lib.sources():
         kernel_lib.load(name)
-    # Per kernel (its mangled name, template arguments included): the
-    # registers, the stack frame and spills, and any warning.
-    ptxas = {
-        name: re.findall(r"Compiling entry function '[^']*'"
-                         r"|Used \d+ registers[^\n]*|\d+ bytes stack[^\n]*"
-                         r"|Performance Loss[^\n]*", log)
-        for name, log in kernel_lib.BUILD_LOGS.items()
-    }
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+    emit({"phase": "build", "seconds": build_s,
+          "ptxas": _ptxas_report(kernel_lib),
           "build_dir": os.path.relpath(kernel_lib.BUILD_DIR, REPO)})
 
     if sys.argv[1:] == ["--flags-ab"]:
@@ -3445,8 +3632,17 @@ def main() -> int:
         norm_kernel_checks(torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        quant_kernel_checks(torch.Generator(device="cuda").manual_seed(0))
+        quant_code_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 3:
-        ab_in_turns(sys.argv[2:])
+        trees, only = sys.argv[2:], None
+        if "--only" in trees:
+            at = trees.index("--only")
+            trees, only = trees[:at], trees[at + 1].split(",")
+        ab_in_turns(trees, only)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] and not flash_only:
@@ -3482,6 +3678,7 @@ def main() -> int:
     gmm_cases = gmm_kernel_checks(gen)
     norm_cases = norm_kernel_checks(gen)
     quant_cases = quant_kernel_checks(gen)
+    quant_code_check()
     pin_check = pin_kernel_check(gen)
     embed_check = embed_kernel_checks(gen)
 

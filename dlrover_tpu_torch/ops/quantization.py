@@ -37,7 +37,8 @@ step reads nothing back from the card.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, NamedTuple, Tuple
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -180,13 +181,25 @@ def _adam(h: AdamHyper, g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
     return upd, m, v
 
 
+def _sqrt_level(q: torch.Tensor, levels: float) -> torch.Tensor:
+    """``round(levels * sqrt(q))`` clamped to [0, levels]: q4's m level
+    of a quotient ``|m| / absmax`` in [0, 1]."""
+    return torch.clamp(torch.round(levels * torch.sqrt(q)), 0, levels)
+
+
+def _root4_level(q: torch.Tensor, levels: float) -> torch.Tensor:
+    """``round(levels * q^(1/4))`` clamped to [0, levels]: v's code of a
+    quotient ``v / max(v)`` in [0, 1]."""
+    return torch.clamp(torch.round(levels * torch.sqrt(torch.sqrt(q))), 0,
+                       levels)
+
+
 def _root4_codes(v: torch.Tensor, levels: float):
     """v >= 0 spans many decades inside one block, and a linear map would
     flush the small values to 0: the code is linear in the 4th root."""
     v_max = v.amax(dim=1, keepdim=True)
     scale = torch.where(v_max == 0.0, torch.ones_like(v_max), v_max)
-    v_norm = torch.sqrt(torch.sqrt(v / scale))
-    return torch.clamp(torch.round(levels * v_norm), 0, levels), scale[:, 0]
+    return _root4_level(v / scale, levels), scale[:, 0]
 
 
 def q8_adam_update_reference(g, p, m: QMoment, v: QMoment, h: AdamHyper):
@@ -200,25 +213,147 @@ def q8_adam_update_reference(g, p, m: QMoment, v: QMoment, h: AdamHyper):
             QMoment(v_codes.to(torch.int8), v_scale))
 
 
+def _q4_m_decode(m: QMoment) -> torch.Tensor:
+    """q4's first moment in fp32 ``[R, 256]``: ``sign(n) n^2 scale``, ``n
+    = code / 7``."""
+    m_n = unpack_nibbles_signed(m.q) * float(np.float32(1.0 / 7.0))
+    return torch.sign(m_n) * m_n.square() * m.scales[:, None]
+
+
+def _q4_v_decode(v: QMoment) -> torch.Tensor:
+    """q4's second moment in fp32 ``[R, 256]``: ``(code / 15)^4 scale``."""
+    v_norm = unpack_nibbles_unsigned(v.q) * float(np.float32(1.0 / 15.0))
+    return v_norm.square().square() * v.scales[:, None]
+
+
 def q4_adam_update_reference(g, p, m: QMoment, v: QMoment, h: AdamHyper):
     """Plain version of K7 -> ``(update in p's dtype, new m, new v)``."""
-    m_n = unpack_nibbles_signed(m.q) * float(np.float32(1.0 / 7.0))
-    m32 = torch.sign(m_n) * m_n.square() * m.scales[:, None]
-    v_norm = unpack_nibbles_unsigned(v.q) * float(np.float32(1.0 / 15.0))
-    v32 = v_norm.square().square() * v.scales[:, None]
+    m32, v32 = _q4_m_decode(m), _q4_v_decode(v)
     upd, m32, v32 = _adam(h, _to_blocks(g), _to_blocks(p), m32, v32)
     # sign(m) * round(7 sqrt(|m| / absmax)): the sqrt map puts the 15
     # levels near zero, where the momentum's mass lies.
     m_absmax = m32.abs().amax(dim=1, keepdim=True)
     m_scale = torch.where(m_absmax == 0.0, torch.ones_like(m_absmax),
                           m_absmax)
-    m_level = torch.clamp(
-        torch.round(7.0 * torch.sqrt(m32.abs() / m_scale)), 0, 7)
+    m_level = _sqrt_level(m32.abs() / m_scale, 7.0)
     m_codes = (torch.sign(m32) * m_level).to(torch.int32)
     v_codes, v_scale = _root4_codes(v32, 15.0)
     return (_from_blocks(upd, p),
             QMoment(pack_nibbles(m_codes), m_scale[:, 0]),
             QMoment(pack_nibbles(v_codes.to(torch.int32)), v_scale))
+
+
+# -- K7's maps -----------------------------------------------------------------
+
+
+class Q4Maps(NamedTuple):
+    """What K7 computes a q4 code's decode and a code from, instead of the
+    plain version's roots (``ops/csrc/quantization.cu``, ``Q4Maps``).
+
+    ``m_table[j]`` / ``v_table[j]``: the plain decode of nibble ``j`` at
+    scale 1 (m's nibbles 8..15 are the codes -8..-1), so a value decodes
+    to ``RN(table[nibble] * scale)``, bit for bit the plain version's.
+    ``m_thresholds[k - 1]`` / ``v_thresholds[k - 1]``: the least float32
+    quotient ``q`` in [0, 1] whose m level (``round(7 sqrt(q))``) or v
+    code (``round(15 q^(1/4))``) is ``k`` or more; both maps are monotone
+    in ``q``, so a code is the number of its thresholds ``<= q``."""
+
+    m_table: Tuple[float, ...]       # 16
+    v_table: Tuple[float, ...]       # 16
+    m_thresholds: Tuple[float, ...]  # 7
+    v_thresholds: Tuple[float, ...]  # 15
+
+
+def _f32(bits: torch.Tensor) -> torch.Tensor:
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _thresholds(level: Callable[[torch.Tensor, float], torch.Tensor],
+                levels: int) -> Tuple[float, ...]:
+    """The least float32 ``q`` in [0, 1] with ``level(q, levels) >= k``,
+    for k = 1..levels, by bisection over the bit patterns of [0, 1]
+    (ordered as the values are), through the plain version's own fp32
+    chain on the CPU: ties fall as they fall there."""
+    want = torch.arange(1, levels + 1, dtype=torch.float32)
+    lo = torch.zeros(levels, dtype=torch.int64)            # level < k
+    hi = torch.full((levels,), 0x3F800000, dtype=torch.int64)  # 1.0: >= k
+    while bool((hi - lo > 1).any()):
+        mid = (lo + hi) // 2
+        up = level(_f32(mid), float(levels)) >= want
+        hi, lo = torch.where(up, mid, hi), torch.where(up, lo, mid)
+    return tuple(_f32(hi).tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def q4_maps() -> Q4Maps:
+    """K7's tables and thresholds, computed once from the plain chain."""
+    nibbles = torch.arange(BLOCK, dtype=torch.int32) % 16
+    signed = torch.where(nibbles >= 8, nibbles - 16, nibbles)
+    one = torch.ones(1, dtype=torch.float32)
+    m_table = _q4_m_decode(QMoment(pack_nibbles(signed[None]), one))
+    v_table = _q4_v_decode(QMoment(pack_nibbles(nibbles[None]), one))
+    return Q4Maps(tuple(m_table[0, :16].tolist()),
+                  tuple(v_table[0, :16].tolist()),
+                  _thresholds(_sqrt_level, 7),
+                  _thresholds(_root4_level, 15))
+
+
+# How K7 counts the thresholds <= q: by q's bin, its float32 bits >>
+# BIN_SHIFT (exponent and two mantissa bits).  Bin 0 holds every q below
+# 2^-24, bins 1 .. BINS - 2 the keys BIN_LOW .. BIN_HIGH (2^-24 to 1.0),
+# the last bin every larger key (in K7 only NaN and -0.0 reach it).  The
+# constants are the C source's (``quantization.cu``).
+BIN_SHIFT = 21
+BIN_LOW = 0x33800000 >> BIN_SHIFT    # 2^-24
+BIN_HIGH = 0x3F800000 >> BIN_SHIFT   # 1.0
+BINS = BIN_HIGH - BIN_LOW + 3
+
+
+def q4_bins(thresholds: Tuple[float, ...]) -> Tuple[Tuple[float, int], ...]:
+    """``(t, base)`` for each of the ``BINS`` bins: ``base`` thresholds lie
+    at or below the bin's least float, and ``t`` is the one above that
+    inside the bin (+inf if none), so a ``q`` of the bin has the code
+    ``base + (q >= t)``.  Raises if a bin holds two thresholds or one lies
+    below 2^-24."""
+    bits = np.asarray(thresholds, dtype=np.float32).view(np.uint32)
+    if (np.diff(bits.astype(np.int64)) <= 0).any() or bits.min() < (
+            BIN_LOW << BIN_SHIFT):
+        raise ValueError(f"thresholds {thresholds} are not increasing "
+                         "floats from 2^-24")
+    inf = float("inf")
+    bins = [(inf, 0)]
+    for key in range(BIN_LOW, BIN_HIGH + 1):
+        least = key << BIN_SHIFT
+        inside = bits[((bits >> BIN_SHIFT) == key) & (bits > least)]
+        if len(inside) > 1:
+            raise ValueError(f"bin {key:#x} holds thresholds {inside}")
+        t = float(inside.view(np.float32)[0]) if len(inside) else inf
+        bins.append((t, int((bits <= least).sum())))
+    bins.append((inf, 0))
+    return tuple(bins)
+
+
+def q4_maps_words(maps: Q4Maps) -> np.ndarray:
+    """The C struct ``Q4Maps`` as 32-bit words, in its order: the two
+    tables, then m's and v's bins, each ``(t, base)``."""
+    def bins(thresholds):
+        t, base = zip(*q4_bins(thresholds))
+        return np.stack([np.asarray(t, np.float32).view(np.uint32),
+                         np.asarray(base, np.uint32)], axis=1).reshape(-1)
+
+    tables = np.asarray(maps.m_table + maps.v_table, np.float32)
+    return np.concatenate([tables.view(np.uint32), bins(maps.m_thresholds),
+                           bins(maps.v_thresholds)])
+
+
+def _maps_arg(maps: Q4Maps) -> ctypes.Array:
+    words = q4_maps_words(maps)
+    return (ctypes.c_uint32 * len(words))(*words.tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def _q4_maps_arg() -> ctypes.Array:
+    return _maps_arg(q4_maps())
 
 
 # -- the CUDA kernels -----------------------------------------------------------
@@ -230,8 +365,11 @@ _ARGTYPES = {
     "quantize_blocks": [_P] * 3 + [_LL] * 2 + [_I, _P],
     # q scales out | n rows | stream
     "dequantize_blocks": [_P] * 3 + [_LL] * 2 + [_P],
-    # g p mq ms vq vs upd | n rows | bits is_bf16 | 6 scalars | stream
-    "low_bit_adam": [_P] * 7 + [_LL] * 2 + [_I] * 2 + [_F] * 6 + [_P],
+    # g p mq ms vq vs upd | n rows | bits is_bf16 | 6 scalars | q4 maps
+    # | stream
+    "low_bit_adam": [_P] * 7 + [_LL] * 2 + [_I] * 2 + [_F] * 6 + [_P, _P],
+    # q4 maps scales | n_scales | counts | stream
+    "q4_code_check": [_P] * 2 + [_I] + [_P] * 2,
 }
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -341,7 +479,8 @@ def _low_bit_update(bits: int, g, p, m: QMoment, v: QMoment, h: AdamHyper):
     _launch("low_bit_adam", f"q{bits}_adam", p.device, g.data_ptr(),
             p.data_ptr(), m.q.data_ptr(), m.scales.data_ptr(),
             v.q.data_ptr(), v.scales.data_ptr(), upd.data_ptr(), n, rows,
-            bits, int(p.dtype == torch.bfloat16), *h)
+            bits, int(p.dtype == torch.bfloat16), *h,
+            _q4_maps_arg() if bits == 4 else None)
     return upd, m, v
 
 
@@ -361,6 +500,29 @@ def q4_adam_update(g: torch.Tensor, p: torch.Tensor, m: QMoment, v: QMoment,
     ``LAUNCHES["q4_adam"]``; plain version
     :func:`q4_adam_update_reference`."""
     return _low_bit_update(4, g, p, m, v, h)
+
+
+def q4_code_check(scales: torch.Tensor, maps: Q4Maps = None) -> torch.Tensor:
+    """K7's codes checked against the IEEE chain on the card: for each
+    scale ``s`` (fp32, on a CUDA device), every float32 ``x`` in [0, s]
+    through K7's path (one reciprocal, a corrected product, the bins of
+    ``maps``' thresholds; :func:`q4_maps` by default) and through
+    correctly rounded divisions and roots.  Returns int64 ``[len(scales),
+    3]``: mismatching m levels, mismatching v codes, values checked."""
+    if scales.device.type != "cuda" or scales.dtype != torch.float32:
+        raise ValueError(f"q4_code_check takes fp32 scales on a CUDA "
+                         f"device, got {scales.dtype} on {scales.device}")
+    scales = scales.contiguous()
+    counts = torch.zeros((scales.numel(), 3), dtype=torch.int64,
+                         device=scales.device)
+    with torch.cuda.device(scales.device):
+        err = _lib_fn("q4_code_check")(
+            _maps_arg(maps if maps is not None else q4_maps()),
+            scales.data_ptr(), scales.numel(), counts.data_ptr(),
+            torch.cuda.current_stream(scales.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"q4_code_check launch failed: CUDA error {err}")
+    return counts
 
 
 # -- the optimizers ---------------------------------------------------------------
