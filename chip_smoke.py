@@ -8,16 +8,19 @@
     python3 chip_smoke.py --pin         # build and the layout pin's check
     python3 chip_smoke.py --norm        # build and the norm backward's check
     python3 chip_smoke.py --quant       # build and the quantization checks
+    python3 chip_smoke.py --repairs     # build, the grouped-matmul checks
+                                        # and the padded-head-dim flash checks
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
-                                        # K2a, K4, K6, K7 against other trees
+                                        # K2a, K4, K6-K9 against other trees
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
 optimizers) and mixture-of-experts training, at the full width of GPT-2
 1.5B and of its MoE variant (full depth but for the MoE run) with random
 weights from a seed, and the CTR loop on the embedding plane at MLPerf
-DLRM width, and holds every CUDA kernel of those paths against its plain
-PyTorch version.  Imports nothing of JAX or
+DLRM width, saves and restores the GPT-2 1.5B training state through Flash
+Checkpoint, serves under an injected admission fault plan, and holds
+every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
 
 1. ``device``  the card (``nvidia-smi`` name and power limit), torch, CUDA.
@@ -65,13 +68,27 @@ of the JAX package.  Phases, each one JSON line on stdout:
                shared pre-pass, and ``flash_bwd_dq``'s own) bit-equal dq.
                On the split cases K2a's time is also read without its
                pre-pass (``prep_share``).
+3b. ``pad_flash_checks``  ``mha`` at head dims the kernels have no build
+               for (``PAD_CASES``: D 80 with the fused backward, D 96 GQA
+               with the split one): q, k and v zero-padded to 128, forward
+               and backward through autograd, against the plain versions at
+               the true head dim (the phase 3 and 4 tolerances); the
+               padding copies (3 forward, 4 backward) and launches a call
+               makes.  Then, at the full width of public configs with those
+               head dims (``PAD_TIMED_CASES``: Phi-2's 32 x D 80 and
+               Phi-3-mini's 32 x D 96 at B16 S1024), the padded call's
+               device time beside the kernels alone on inputs padded
+               beforehand.
 4b. ``gmm_kernel_checks``  the grouped-matmul kernels K8 (forward, and
                dx with w read transposed) and K9 (dw) on every grouped
                product of one MoE layer routed by a real gate (uneven
                groups, one expert empty, padding rows at the tail): the
                MoE step's shape (16 x 1024 tokens, top-2 of 8 experts,
                d_model 1600, d_ff 3200: 33,792 rows), a small ragged one
-               with the last expert empty, and a swiglu one; against
+               with the last expert empty, a swiglu one, and 65, 512 and
+               1,536 experts at small widths, many of them empty (the first
+               two on the tables the kernels build in shared memory, the
+               last on the wrapper's global tables); against
                ``grouped_matmul_reference`` / ``grouped_matmul_dw_reference``
                in fp32 from the same bf16 inputs, each output row within
                ``GMM_ROW_TOL`` of its largest |ref| and the tensor within
@@ -143,6 +160,12 @@ of the JAX package.  Phases, each one JSON line on stdout:
                kernel launched 48 times (one per layer) per prefill.
                Prefill ms per bucket, decode-step p50/p95, generated
                tokens/s, peak device memory.
+6b. ``serve_faults``  the same engine, its 8 greedy requests run plan-free
+               and then under a ``serve.admit`` plan failing admission
+               attempts ``SERVE_FAULT_HITS`` with a ``RetryPolicy``: every
+               request finishes, the streams equal the plan-free run's
+               token for token, the telemetry ring holds one fault event
+               per fired hit.
 7. ``profile`` device time by kernel for one 512-token prefill and one
                decode step (``torch.profiler``).
 8. ``parity``  prefill logits through the kernel vs the same model with
@@ -161,6 +184,28 @@ of the JAX package.  Phases, each one JSON line on stdout:
                MFU and HFU against 989 TFLOP/s (``bench.py``'s FLOP
                formulas), peak memory, and one profiled step's device-busy
                share and top kernels.
+9b. ``flash_ckpt``  the ``train`` phase's model and step (full depth
+               unless ``/dev/shm`` cannot hold the arena: the cut is
+               printed), 1 + 2 steps, then ``Checkpointer.save_checkpoint``
+               MEMORY and DISK with ``AsyncCheckpointSaver`` in a spawned
+               process, then 2 more steps (the uninterrupted run).  A fresh
+               state restored from shm, and one from storage through a
+               ``StorageStepReader``, each equal the saved state leaf for
+               leaf bit for bit; each then takes the 2 steps, the first
+               loss equal to the uninterrupted run's (the forward is
+               deterministic: two evaluations of one state give one loss),
+               the second within ``CKPT_LOSS_ATOL`` (K3's dq atomics).
+               The trainer's state right after ``Train.restore`` must
+               equal the saved state bit for bit too.  Three planted
+               faults must be caught: the shm restore's params with a
+               fresh optimizer state (that check sees it; the losses
+               cannot); the saver's
+               ``storage.write`` plan fails a third persist (the tracker
+               keeps the second step), and one flipped byte in the second
+               step's data makes the restore fall back to the first.
+               ``df -B1`` of ``/dev/shm`` and the checkpoint disk, arena
+               bytes, the memory save's blocking seconds and GB/s, the
+               persist seconds, the restore seconds from shm and storage.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -229,17 +274,17 @@ of the JAX package.  Phases, each one JSON line on stdout:
                (cProfile).  Then 3 steps with a K10b that drops the last
                real row must fail the invariant.
 
-``--ab DIR [DIR ...]`` times K2a, K4, K6 and K7 (``time_kernels``; ``--only
-NAME,...`` keeps the readings whose names start with one of the NAMEs,
-e.g. ``q4_adam,q8_adam``) of each tree at DIR (a ``git archive`` of a
+``--ab DIR [DIR ...]`` times K2a, K4, K6, K7, K8 and K9 (``time_kernels``;
+``--only NAME,...`` keeps the readings whose names start with one of the
+NAMEs, e.g. ``q4_adam,q8_adam`` or ``gmm``) of each tree at DIR (a ``git archive`` of a
 parent commit under ``build/``, or a copy of this tree with one constant
 changed; named by its directory) and of this one, each reading in a
 process of its own, in turns: DIR, change, change, DIR for each DIR,
 twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, train, train_split, train_moe, train_lowbit and
-train_rec paths,
+runs of the serve, serve_faults, train, flash_ckpt, train_split,
+train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -361,6 +406,9 @@ PIN_PAIRS = 10  # K11 against clone(), alternating (``pin_kernel_check``)
 # of 0.18 and 0.53 and grad-norm gaps of 0.063 and 0.034.
 LOWBIT_PARITY_LOSS_ATOL, LOWBIT_PARITY_NORM_RTOL = 1e-5, 8e-5
 LOWBIT_PARITY_MIN_COSINE, LOWBIT_PARITY_PARAM_RTOL = 0.99996, 0.015
+#: ``serve_faults``: the admission attempts (``serve.admit`` hits) that
+#: fail, among the 8 greedy requests' (the engine's policy retries each).
+SERVE_FAULT_HITS = (1, 3, 4, 9)
 # (prompt length, max_new_tokens): every bucket 16..512, one prompt > 256.
 SERVE_REQUESTS = [
     (5, 16), (16, 24), (12, 64), (20, 32), (32, 40), (40, 16), (64, 48),
@@ -837,6 +885,161 @@ def check_bwd_case(c, gen):
     return out
 
 
+# -- head dims padded to a kernel's (ROADMAP Queue 3 item 7) ------------------
+
+PAD_CASES = [
+    # One kv block: the fused backward (K3).
+    dict(case="pad_d80", b=2, s=512, hq=8, hkv=8, d=80, causal=True,
+         block_kv=512),
+    # GQA, two kv blocks: the split backward (K2a and K2b).
+    dict(case="pad_d96_gqa", b=2, s=1024, hq=8, hkv=2, d=96, causal=True,
+         block_kv=512),
+]
+
+
+def check_pad_case(c, gen):
+    """``mha`` at a head dim the kernels have no build for, forward and
+    backward through autograd: q, k and v zero-padded to 128, the kernels
+    at D 128, the output and the gradients sliced back.  Held against the
+    plain versions at the true head dim in fp32 from the same bf16 inputs
+    (the forward as ``check_kernel_case`` holds K1, the gradients as
+    ``check_bwd_case`` holds K3, K2a and K2b, from the kernel's own o and
+    lse).  Records the padding copies and the launches a call makes
+    (``time_pad_case`` times the padded path at full width)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = (c[x] for x in ("b", "s", "hq", "hkv", "d"))
+    causal, block_kv = c["causal"], c["block_kv"]
+    width = fa.padded_head_dim(d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_() for h in (hq, hkv, hkv))
+    do = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fused = fa.uses_fused_backward(s, block_kv)
+    before, pads_before = _counts(), fa.PAD_COPIES["flash_pad"]
+    o = fa.mha(q, k, v, causal=causal, block_kv=block_kv)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    o = o.detach()
+    torch.cuda.synchronize()
+    after = _counts()
+    launched = {key: after[key] - before[key] for key in after
+                if after[key] != before[key]}
+    pads = fa.PAD_COPIES["flash_pad"] - pads_before
+    want = ({"flash_fwd": 1, "flash_bwd_fused": 1} if fused else
+            {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+
+    q32, k32, v32 = (x.detach().float() for x in (q, k, v))
+    ref_o, _ = fa.mha_reference(q32, k32, v32, causal=causal)
+    o_err = (o.float() - ref_o).abs()
+    fwd_ok = bool((o_err <= O_ATOL + O_RTOL * ref_o.abs()).all())
+    padded = [torch.nn.functional.pad(x.detach(), (0, width - d))
+              for x in (q, k, v)]
+    scale = d ** -0.5  # the true head dim's, as mha passes it
+    o_p, lse_p = fa.flash_fwd(*padded, causal=causal, scale=scale)
+    ref = fa.mha_backward_reference(q32, k32, v32, o_p[..., :d].float(),
+                                    lse_p, do.float(), causal=causal)
+    dead = torch.zeros((b, s), dtype=torch.bool, device="cuda")
+    out = dict(case=c["case"], b=b, s=s, hq=hq, hkv=hkv, d=d,
+               padded_to=width, causal=causal,
+               backward="fused" if fused else "split",
+               launches=launched, launches_wanted=want,
+               pad_copies_counted=pads, fwd_ok=fwd_ok,
+               max_abs_err=float(o_err.max()))
+    ok = fwd_ok and launched == want and pads == 7
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        e = bwd_errors(g, r, dead)
+        e["shape_ok"] = tuple(g.shape) == tuple(r.shape)
+        out[name] = e
+        ok = ok and bwd_ok(e) and e["shape_ok"]
+        out["max_abs_err"] = max(out["max_abs_err"], e["max_abs"])
+    del o, grads, o_p, lse_p, ref
+    out["ok"] = ok
+    return out
+
+
+#: The padded path timed at the full width of public configs with those
+#: head dims, at the ``train`` phase's batch (B16 S1024) and the model's
+#: default kv block (one block: the fused backward, as the train step
+#: runs it).
+PAD_TIMED_CASES = [
+    dict(case="phi2_d80", config="microsoft/phi-2: d_model 2560, 32 heads "
+         "x D 80", b=16, s=1024, hq=32, hkv=32, d=80, causal=True,
+         block_kv=1024),
+    dict(case="phi3_mini_d96", config="microsoft/Phi-3-mini-4k-instruct: "
+         "hidden 3072, 32 heads x D 96", b=16, s=1024, hq=32, hkv=32, d=96,
+         causal=True, block_kv=1024),
+]
+
+
+def time_pad_case(c, gen):
+    """Device time of ``mha`` at a padded head dim, forward alone (no
+    grad) and forward with backward, beside the kernels alone on inputs
+    padded beforehand: what the padding copies cost at that width."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = (c[x] for x in ("b", "s", "hq", "hkv", "d"))
+    causal, block_kv = c["causal"], c["block_kv"]
+    width = fa.padded_head_dim(d)
+    scale = d ** -0.5  # the true head dim's, as mha passes it
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (hq, hkv, hkv))
+    do = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    padded = [torch.nn.functional.pad(x, (0, width - d)).requires_grad_()
+              for x in (q, k, v)]
+    dop = torch.nn.functional.pad(do, (0, width - d))
+    for x in (q, k, v):
+        x.requires_grad_()
+
+    def fwd_padded():
+        with torch.no_grad():
+            fa.mha(q, k, v, causal=causal, block_kv=block_kv)
+
+    def fwd_kernel():
+        with torch.no_grad():
+            fa.flash_fwd(*padded, causal=causal, scale=scale,
+                         return_lse=False)
+
+    def fwd_bwd_padded():
+        torch.autograd.grad(fa.mha(q, k, v, causal=causal,
+                                   block_kv=block_kv), (q, k, v), do)
+
+    def fwd_bwd_kernel():
+        torch.autograd.grad(fa.mha(*padded, causal=causal, scale=scale,
+                                   block_kv=block_kv), padded, dop)
+
+    timed = dict(fwd_ms=device_ms(fwd_padded),
+                 fwd_kernel_only_ms=device_ms(fwd_kernel),
+                 fwd_bwd_ms=device_ms(fwd_bwd_padded, iters=5),
+                 fwd_bwd_kernel_only_ms=device_ms(fwd_bwd_kernel, iters=5))
+    timed["fwd_padding_share"] = 1.0 - (timed["fwd_kernel_only_ms"]
+                                        / timed["fwd_ms"])
+    timed["fwd_bwd_padding_share"] = 1.0 - (
+        timed["fwd_bwd_kernel_only_ms"] / timed["fwd_bwd_ms"])
+    out = {key: c[key] for key in ("case", "config", "b", "s", "hq", "hkv",
+                                   "d")}
+    out.update(padded_to=width,
+               backward="fused" if fa.uses_fused_backward(s, block_kv)
+               else "split", **timed)
+    del q, k, v, do, padded, dop
+    torch.cuda.empty_cache()
+    return out
+
+
+def pad_flash_checks(gen):
+    cases = [check_pad_case(c, gen) for c in PAD_CASES]
+    timed = [time_pad_case(c, gen) for c in PAD_TIMED_CASES]
+    emit({"phase": "pad_flash_checks",
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "row": BWD_ROW_TOL, "norm": BWD_NORM_TOL},
+          "cases": cases, "timed": timed})
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"padded flash path disagrees on {bad}")
+    torch.cuda.empty_cache()
+    return cases
+
+
 # -- grouped matmul kernel checks (K8, K9) ------------------------------------
 
 GMM_CASES = [
@@ -853,19 +1056,30 @@ GMM_CASES = [
     # swiglu: three grouped products in each direction.
     dict(case="swiglu", tokens=2048, d=1600, f=3200, activation="swiglu",
          empty=2),
+    # Past the 64 experts the kernels once refused, at small widths: 65
+    # experts with the last one empty, 512 (as many public MoEs route)
+    # with many empty, and 1536, which K9's pre-pass ranks four to a
+    # thread.
+    dict(case="experts_65", tokens=1024, d=64, f=128, activation="gelu",
+         empty=64, experts=65),
+    dict(case="experts_512", tokens=2048, d=40, f=72, activation="swiglu",
+         empty=7, experts=512),
+    dict(case="experts_1536", tokens=1024, d=64, f=64, activation="gelu",
+         empty=3, experts=1536),
 ]
 GMM_SLICE_CASE = "slice"
 GMM_PRODUCTS = tuple(f"{kind}_{w}" for kind in ("fwd", "dx", "dw")
                      for w in ("wi", "wg", "wo"))
 
 
-def moe_layer(d, f, activation, gen, param_dtype=torch.bfloat16):
+def moe_layer(d, f, activation, gen, param_dtype=torch.bfloat16,
+              experts=MOE_EXPERTS):
     """A grouped-dispatch ``MoEMlp`` on the card with weights drawn as
     ``init_params`` draws them (router N(0, 1/d), experts N(0, 1/(E in)))."""
     from dlrover_tpu_torch.models import layers
     from dlrover_tpu_torch.models.moe import MoEMlp
 
-    layer = MoEMlp(d, MOE_EXPERTS, f, top_k=MOE_TOP_K,
+    layer = MoEMlp(d, experts, f, top_k=MOE_TOP_K,
                    capacity_factor=MOE_CAPACITY, activation=activation,
                    dtype=torch.bfloat16, param_dtype=param_dtype,
                    dispatch="grouped", device="cuda")
@@ -963,11 +1177,12 @@ def check_gmm_case(c, gen):
     from dlrover_tpu_torch.ops import grouped_matmul as gm
 
     d, f = c["d"], c["f"]
-    layer = moe_layer(d, f, c["activation"], gen)
+    experts = c.get("experts", MOE_EXPERTS)
+    layer = moe_layer(d, f, c["activation"], gen, experts=experts)
     x = torch.randn((c["tokens"], d), generator=gen, device="cuda").to(
         torch.bfloat16)
     # Uneven loads from a bias on the router logits; one expert shut out.
-    bias = torch.linspace(-1.0, 1.0, MOE_EXPERTS, device="cuda")
+    bias = torch.linspace(-1.0, 1.0, experts, device="cuda")
     bias[c["empty"]] = -1e4
     with torch.no_grad():
         logits = layer.router(x.float()) + bias
@@ -990,7 +1205,9 @@ def check_gmm_case(c, gen):
                              rand(f) if g is not None else None, rand(d),
                              layer)
     out = dict(case=c["case"], tokens=c["tokens"], d=d, f=f, rows=n,
-               activation=c["activation"], group_sizes=sizes,
+               activation=c["activation"], experts=experts,
+               empty_experts=sizes.count(0),
+               group_sizes=sizes if experts <= MOE_EXPERTS else None,
                padding_rows=int(zero_rows.sum()), rows_used_by_k9=rows_used)
     ok = True
     results = {}
@@ -1358,6 +1575,364 @@ def train_and_check():
     del state, train, batch
     torch.cuda.empty_cache()
     return counts, state_bytes
+
+
+# -- Flash Checkpoint on the training state --------------------------------------
+
+#: ``flash_ckpt``: the saver process's fault plan.  Each committed persist
+#: makes five storage writes (meta, data, digest, done marker, tracker), so
+#: hit 12 is the data write of the third persist.
+CKPT_WRITE_FAULT_HIT = 12
+#: ``flash_ckpt``: the loss of the second step after a restore against the
+#: uninterrupted run's.  Both start from bit-equal states and take the
+#: same first step bit for bit; the fused backward's dq atomics then make
+#: the updates differ by fp32 rounding.  Sound readings (H100, GPT-2 1.5B,
+#: loss 11.147): 1.08e-4 and 2.9e-6 against the uninterrupted run, 1.05e-4
+#: between the two restored runs; the limit is about 3x the largest.  The
+#: losses cannot show a restore that drops the optimizer state (the
+#: planted fault read 9.5e-6 on an H100): the restored trainer's state is
+#: held to the saved one bit for bit instead.
+CKPT_LOSS_ATOL = 3.5e-4
+
+
+def _wait_persist_attempt(ckpt, timeout=600.0):
+    """Wait for the saver to take the arena's lock for a persist and to
+    give it back, whether the persist committed or failed (a failure is
+    only logged in the saver's process)."""
+    lock = ckpt._engine._lock
+    deadline = time.monotonic() + 60.0
+    while not lock.locked() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    deadline = time.monotonic() + timeout
+    while lock.locked() and time.monotonic() < deadline:
+        time.sleep(0.1)
+
+
+def _saver_main(ckpt_dir, ready, stop, report):
+    """The saver process (started with ``spawn``): an ``AsyncCheckpointSaver``
+    for host 0 that persists the trainer's arena until ``stop`` is set,
+    then removes the arena; it reads shm and writes storage only, and
+    never touches the card.  Puts the faults it fired on ``report`` before
+    it exits."""
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common import faults
+
+    saver = AsyncCheckpointSaver(ckpt_dir, host_index=0, num_hosts=1)
+    saver.start()
+    ready.set()
+    stop.wait()
+    saver.stop(unlink_shm=True)
+    plan = faults.active()
+    report.put(list(plan.fired) if plan is not None else [])
+
+
+def _df(path):
+    out = subprocess.run(["df", "-B1", path], capture_output=True,
+                         text=True)
+    lines = out.stdout.strip().splitlines()
+    fields = lines[-1].split() if lines else []
+    return {"line": lines[-1] if lines else out.stderr.strip(),
+            "available_bytes": int(fields[3]) if len(fields) > 3 else None}
+
+
+def _tree_nbytes(tree):
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in sh.tree_flatten_with_path(tree)
+               if isinstance(leaf, torch.Tensor))
+
+
+def _tree_snapshot(tree):
+    """A copy of every tensor of ``tree`` on the card (the saved state, to
+    hold restores against after training moves on)."""
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+
+    return sh.tree_map_with_path(
+        lambda _, x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _same_bits(got, want):
+    """Whether two tensors have one dtype, shape and device and the same
+    bytes (so -0.0 differs from 0.0 and a NaN equals its own bits)."""
+    if not (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+            and got.shape == want.shape and got.device == want.device):
+        return False
+    return torch.equal(got.reshape(-1).view(torch.uint8),
+                       want.reshape(-1).view(torch.uint8))
+
+
+def _trees_bit_equal(got, want):
+    """Paths whose leaves differ (dtype, shape or any bit)."""
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+
+    gl, wl = (sh.tree_flatten_with_path(t) for t in (got, want))
+    if [p for p, _ in gl] != [p for p, _ in wl]:
+        return ["<structure>"]
+    bad = []
+    for (path, g), (_, w) in zip(gl, wl):
+        if isinstance(w, torch.Tensor):
+            same = _same_bits(g, w)
+        else:
+            same = g == w and type(g) is type(w)
+        if not same:
+            bad.append("".join(path))
+    return bad
+
+
+def flash_ckpt_and_check():
+    """Flash Checkpoint on the ``train`` phase's GPT-2 1.5B state (full
+    width; full depth unless ``/dev/shm`` cannot hold the arena), with the
+    saver in a process of its own (``spawn``)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import Checkpointer, StorageType
+    from dlrover_tpu_torch.checkpoint.engine import StorageStepReader
+    from dlrover_tpu_torch.common.storage import (
+        CheckpointDirLayout,
+        PosixDiskStorage,
+    )
+    from dlrover_tpu_torch.models import gpt2_config
+    from dlrover_tpu_torch.trainer import train_lib
+
+    shm_df = _df("/dev/shm")
+    ckpt_dir = os.path.join(REPO, "build", "flash_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    disk_df = _df(ckpt_dir)
+    sock_dir = tempfile.mkdtemp(prefix="ckpt_socks_")
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    os.environ["DLROVER_TPU_JOB"] = f"smoke{os.getpid()}"
+
+    def build(layers):
+        cfg = gpt2_config("1.5b", attention_impl="flash",
+                          remat="flash_only", param_dtype=torch.bfloat16,
+                          num_layers=layers)
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor",
+                                          learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, ce_chunks=0,
+            device="cuda")
+        return cfg, train
+
+    # The arena is the state's bytes (and the meta) rounded up to a power
+    # of two; cut the depth only if /dev/shm cannot hold it.
+    cfg, train = build(48)
+    state = train.init(seed=0)
+    full_bytes = _tree_nbytes(state.checkpoint_tree())
+    per_layer = (full_bytes - _tree_nbytes({"params": {
+        k: v for k, v in state.params().items()
+        if not k.startswith("blocks.")}})) / 48
+    layers = 48
+    avail = shm_df["available_bytes"]
+
+    def arena(nbytes):
+        return 1 << (int(nbytes * 1.001) + (1 << 20) - 1).bit_length()
+
+    while avail is not None and layers > 1 and arena(
+            full_bytes - (48 - layers) * per_layer) > avail:
+        layers -= 1
+    emit({"phase": "flash_ckpt_setup", "dev_shm": shm_df,
+          "checkpoint_disk": disk_df, "full_depth_state_bytes": full_bytes,
+          "layers": layers})
+    if layers != 48:
+        del state, train
+        torch.cuda.empty_cache()
+        cfg, train = build(layers)
+        state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    per_step = _per_step(flash_fwd=cfg.num_layers,
+                         flash_bwd_fused=cfg.num_layers)
+
+    ctx = multiprocessing.get_context("spawn")
+    ready, stop, report = ctx.Event(), ctx.Event(), ctx.Queue()
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_FAULTS",
+                                                "DLROVER_TPU_FAULTS_SEED")}
+    os.environ["DLROVER_TPU_FAULTS"] = (
+        f"storage.write:error@{CKPT_WRITE_FAULT_HIT}")
+    os.environ["DLROVER_TPU_FAULTS_SEED"] = "0"
+    saver = ctx.Process(target=_saver_main,
+                        args=(ckpt_dir, ready, stop, report), daemon=True)
+    saver.start()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    out = {"phase": "flash_ckpt", "layers": cfg.num_layers,
+           "depth_cut_for_dev_shm": cfg.num_layers != 48,
+           "dev_shm": shm_df, "checkpoint_disk": disk_df}
+    try:
+        if not ready.wait(120):
+            raise AssertionError("the saver process did not start")
+        ckpt = Checkpointer(ckpt_dir, host_index=0, num_hosts=1,
+                            device="cuda")
+        layout, storage = CheckpointDirLayout(ckpt_dir), PosixDiskStorage()
+
+        # -- the main path, counted: 1 + 2 steps, save, step on -------------
+        _zero_counts()
+        state, warm, _ = _train_steps(train, state, batch, 1, per_step)
+        state, losses, _ = _train_steps(train, state, batch, 2, per_step)
+        # The forward is deterministic: the same state gives the same loss
+        # bit for bit, so a restored state's next loss must equal.
+        evals = [float(train.eval_step(state, batch)["loss"])
+                 for _ in range(2)]
+        saved_step = state.step
+        tree = state.checkpoint_tree()
+        saved = _tree_snapshot(tree)
+        nbytes = _tree_nbytes(tree)
+        if not ckpt.save_checkpoint(saved_step, tree, StorageType.MEMORY):
+            raise AssertionError("memory save skipped")
+        memory_s = ckpt._engine.last_save_seconds
+        arena_bytes = ckpt._engine._shm.size
+        t0 = time.perf_counter()
+        if not ckpt.save_checkpoint(saved_step, tree, StorageType.DISK):
+            raise AssertionError("disk save skipped")
+        disk_memory_s = ckpt._engine.last_save_seconds
+        if not ckpt.wait(timeout=600):
+            raise AssertionError("persist did not commit")
+        persist_s = time.perf_counter() - t0
+        del tree
+        state, after, _ = _train_steps(train, state, batch, 2, per_step)
+        counts = _counts()
+        del state
+        torch.cuda.empty_cache()
+        # A restarted trainer on another host: no arena, storage only.
+        reader = StorageStepReader(ckpt_dir, num_hosts=1, device="cuda")
+
+        def restored_run(label, load, fresh_opt=False):
+            """Restore into a fresh state's tree (another seed), check it
+            bit for bit against the saved state, then take the two steps
+            the uninterrupted run took; returns the record and the state
+            two steps on.  ``fresh_opt`` plants a fault: the restored
+            params with the fresh state's optimizer state, which the
+            trainer's state after ``Train.restore`` must show."""
+            fresh = train.init(seed=1)
+            template = fresh.checkpoint_tree()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step, tree = load(template)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            opt = fresh.opt_state
+            del template, fresh
+            differ = _trees_bit_equal(tree, saved)
+            res = {"step": step, "restore_s": seconds,
+                   "leaves_differing": differ[:8]}
+            if step != saved_step or differ:
+                raise AssertionError(f"{label}: {res}")
+            restored = train.restore(
+                step, dict(tree, opt_state=opt) if fresh_opt else tree)
+            del tree, opt
+            res["state_differing"] = _trees_bit_equal(
+                restored.checkpoint_tree(), saved)[:8]
+            restored, got, _ = _train_steps(train, restored, batch, 2,
+                                            per_step)
+            res["losses"] = got
+            res["step3_loss_equal"] = got[0] == after[0]
+            res["step4_loss_diff"] = abs(got[1] - after[1])
+            sound = (not res["state_differing"] and res["step3_loss_equal"]
+                     and res["step4_loss_diff"] <= CKPT_LOSS_ATOL)
+            if fresh_opt:
+                res["caught"] = not sound
+            if sound == fresh_opt:
+                raise AssertionError(f"{label}: {res}")
+            return res, restored
+
+        def from_arena(template):
+            return ckpt.load_checkpoint(state_template=template)
+
+        from_shm, state = restored_run("restore from shm", from_arena)
+        del state
+        torch.cuda.empty_cache()
+        fresh_opt, state = restored_run("fresh optimizer state (planted)",
+                                        from_arena, fresh_opt=True)
+        del state
+        torch.cuda.empty_cache()
+        from_storage, state = restored_run(
+            "restore from storage",
+            lambda template: reader.load_from_storage(template=template))
+
+        # -- planted faults ------------------------------------------------
+        # A second committed step (the restored state two steps on), then
+        # a third whose data write the saver's plan fails: the tracker keeps
+        # the second.  Then one flipped byte in the second's data: the crc
+        # and digest chain rejects it and the restore falls back to the
+        # first.
+        later_step = state.step
+        later = _tree_snapshot(state.checkpoint_tree())
+        if not ckpt.save_checkpoint(later_step, later, StorageType.DISK):
+            raise AssertionError("second disk save skipped")
+        if not ckpt.wait(timeout=600):
+            raise AssertionError("second persist did not commit")
+        state, _, _ = _train_steps(train, state, batch, 1, per_step)
+        t0 = time.perf_counter()
+        if not ckpt.save_checkpoint(state.step, state.checkpoint_tree(),
+                                    StorageType.DISK):
+            raise AssertionError("third disk save skipped")
+        _wait_persist_attempt(ckpt)
+        committed = ckpt.wait(timeout=2.0)
+        tracker = layout.latest_step(storage)
+        write_fault = {"step": state.step, "committed": committed,
+                       "tracker": tracker, "wait_s": time.perf_counter() - t0,
+                       "caught": not committed and tracker == later_step}
+        del state
+        torch.cuda.empty_cache()
+        step, tree = reader.load_from_storage(template=later)
+        write_fault["restored_step"] = step
+        write_fault["restored_equal"] = (
+            step == later_step and not _trees_bit_equal(tree, later))
+        del tree
+        data_path = layout.data_path(later_step, 0, 1)
+        flip_at = os.path.getsize(data_path) // 3
+        with open(data_path, "r+b") as f:
+            f.seek(flip_at)
+            byte = f.read(1)
+            f.seek(flip_at)
+            f.write(bytes([byte[0] ^ 0x40]))
+        step, tree = reader.load_from_storage(template=later)
+        flip = {"step": later_step, "offset": flip_at, "restored_step": step,
+                "caught": step == saved_step
+                and not _trees_bit_equal(tree, saved)}
+        del tree, later
+        ckpt.close()
+    finally:
+        stop.set()
+        saver.join(120)
+        fired = report.get(timeout=30) if saver.exitcode == 0 else None
+        if saver.is_alive():
+            saver.terminate()
+            saver.join(30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    write_fault["saver_fired"] = fired
+    write_fault["caught"] = write_fault["caught"] and fired == [
+        ("storage.write", "error", CKPT_WRITE_FAULT_HIT)]
+    out.update({
+        "state_bytes": nbytes, "full_depth_state_bytes": full_bytes,
+        "arena_bytes": arena_bytes, "saved_step": saved_step,
+        "losses": warm + losses, "uninterrupted_after_save": after,
+        "forward_deterministic": evals[0] == evals[1], "eval_losses": evals,
+        "memory_save_s": memory_s,
+        "memory_save_gbytes_per_s": nbytes / memory_s / 1e9,
+        "disk_call_memory_save_s": disk_memory_s,
+        "persist_s": persist_s,
+        "restore_shm": from_shm, "restore_storage": from_storage,
+        "restore_shm_s": from_shm["restore_s"],
+        "restore_storage_s": from_storage["restore_s"],
+        "planted_fresh_optimizer_state": fresh_opt,
+        "planted_write_fault": write_fault, "planted_byte_flip": flip,
+        "launches": counts,
+    })
+    emit(out)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not (out["forward_deterministic"] and write_fault["caught"]
+            and write_fault["restored_equal"] and flip["caught"]):
+        raise AssertionError(f"flash_ckpt failed: {out}")
+    del train, batch, saved
+    torch.cuda.empty_cache()
+    return counts
 
 
 def train_split_and_check():
@@ -2452,15 +3027,40 @@ def _adam_states(gen, rows):
     }
 
 
+def _gmm_timed_inputs(gen):
+    """The six grouped products of one MoE layer at the MoE step's shape
+    (``GMM_SLICE_CASE``: 33,792 rows, d 1600, f 3200, 8 experts), from
+    seeded bf16 operands and the group sizes its routed gate gave on an
+    H100 (one expert empty, 640 padding rows at the tail), as ``name ->
+    (kind, a, b)`` and the group sizes: what ``time_kernels`` reads K8 and
+    K9 at."""
+    n, d, f = 33792, 1600, 3200
+    gs = torch.tensor([896, 1536, 2176, 3584, 4992, 0, 8960, 11008],
+                      dtype=torch.int32, device="cuda")
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    x, h, dh, dout = rand(n, d), rand(n, f), rand(n, f), rand(n, d)
+    wi, wo = rand(MOE_EXPERTS, d, f, scale=d ** -0.5), rand(
+        MOE_EXPERTS, f, d, scale=f ** -0.5)
+    return {"fwd_wi": ("fwd", x, wi), "fwd_wo": ("fwd", h, wo),
+            "dx_wi": ("dx", dh, wi), "dx_wo": ("dx", dout, wo),
+            "dw_wi": ("dw", x, dh), "dw_wo": ("dw", h, dout)}, gs
+
+
 def time_kernels(only=None):
-    """K2a, K4, K6 and K7 of whichever package is first on ``sys.path``,
-    through the public wrappers (whose signatures have not changed since
-    the kernels were first ported), at the main paths' shapes: K2a at the
-    split ``BWD_CASES`` and at ``DQ_GRID_CASES``, K4 at the timed
-    ``NORM_CASES``, K6 and K7 at the largest leaf (``QUANT_LEAF_CASE``),
-    each reading from fresh clones of one seeded state.  Device ms, the
-    median of three CUDA-graph readings.  ``only``: name prefixes of the
-    readings to take (all when None)."""
+    """K2a, K4, K6, K7, K8 and K9 of whichever package is first on
+    ``sys.path``, through the public wrappers (whose signatures have not
+    changed since the kernels were first ported), at the main paths'
+    shapes: K2a at the split ``BWD_CASES`` and at ``DQ_GRID_CASES``, K4 at
+    the timed ``NORM_CASES``, K6 and K7 at the largest leaf
+    (``QUANT_LEAF_CASE``), each reading from fresh clones of one seeded
+    state, and K8 (four products) and K9 (two) at the MoE step's shape
+    (``_gmm_timed_inputs``).  Device ms, the median of three CUDA-graph
+    readings.  ``only``: name prefixes of the readings to take (all when
+    None)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import fused_norm as fn
     from dlrover_tpu_torch.ops import quantization as tq
@@ -2470,6 +3070,14 @@ def time_kernels(only=None):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    if wanted("gmm"):
+        products, gs = _gmm_timed_inputs(gen)
+        for name, (kind, a, b) in products.items():
+            label = f"gmm_{'dw' if kind == 'dw' else 'fwd'}/{name}"
+            out[label] = statistics.median(
+                device_ms(_gmm_runner(kind, a, b, gs), iters=10)
+                for _ in range(3))
+        del products, gs
     for c in [c for c in BWD_CASES if c["kernel"] == "split"] + \
             DQ_GRID_CASES:
         if not wanted("flash_bwd_dq"):
@@ -3556,8 +4164,71 @@ def serve_and_check():
             and parity["prefill_argmax_equal"]
             and parity["decode_argmax_equal"]):
         raise AssertionError(f"parity failed: {parity}")
-    del engine, programs, model, twin, row
+    del programs, model, twin, row
+    fault_counts = serve_faults_and_check(engine, requests)
+    del engine
     torch.cuda.empty_cache()
+    return counts, fault_counts
+
+
+def serve_faults_and_check(engine, requests):
+    """The serve phase's engine with a ``serve.admit`` plan that fires on
+    ``SERVE_FAULT_HITS`` and a ``RetryPolicy``: the greedy requests of
+    ``SERVE_REQUESTS``, first plan-free, then (counted as this phase's
+    path) under the plan.  Every request finishes, the greedy streams
+    equal the plan-free run's token for token, and the telemetry ring holds
+    one fault event per fired hit.  Returns the path's launch counts."""
+    from dlrover_tpu_torch.common import faults, telemetry
+    from dlrover_tpu_torch.common.retry import RetryPolicy
+
+    greedy = [r for r in requests if r.sampling.temperature == 0.0]
+
+    def run(tag):
+        got = engine.run([dataclasses.replace(r, uid=f"{tag}{r.uid}")
+                          for r in greedy])
+        return {r.uid: got[f"{tag}{r.uid}"] for r in greedy}
+
+    faults.reset()
+    clean = run("clean_")
+    rec = telemetry.recorder()
+    rec.configure(enabled=True)
+    rec.drain()
+    plan = "serve.admit:error@" + ",".join(map(str, SERVE_FAULT_HITS))
+    engine.admit_policy = RetryPolicy(
+        max_attempts=4, base_delay_s=0.01, max_delay_s=0.05, jitter=False,
+        retryable=(faults.FaultInjected,), name="serve.admit", quiet=True)
+    faults.configure(plan, seed=0)
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        faulted = run("fault_")
+    finally:
+        fired = list(faults.active().fired)
+        faults.reset()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    events = rec.drain()
+    fault_events = [e for e in events if e[0] == "fault"
+                    and e[4].get("seam") == "serve.admit"]
+    retries = [e for e in events if e[0] == "retry"]
+    finished = all(len(faulted[r.uid].tokens) == r.sampling.max_new_tokens
+                   for r in greedy)
+    equal = all(np.array_equal(faulted[r.uid].tokens, clean[r.uid].tokens)
+                for r in greedy)
+    out = {
+        "phase": "serve_faults", "plan": plan, "requests": len(greedy),
+        "fired": fired, "fault_events": len(fault_events),
+        "fault_event_hits": [e[4]["hit"] for e in fault_events],
+        "retry_events": len(retries), "every_request_finished": finished,
+        "streams_equal_plan_free": equal, "run_s": run_s,
+        "flash_launches": counts["flash_fwd"],
+    }
+    emit(out)
+    if not (finished and equal and len(fired) == len(SERVE_FAULT_HITS)
+            and len(fault_events) == len(fired)
+            and out["fault_event_hits"] == list(SERVE_FAULT_HITS)):
+        raise AssertionError(f"serve_faults failed: {out}")
     return counts
 
 
@@ -3624,6 +4295,12 @@ def main() -> int:
         gmm_only()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--repairs"]:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        gmm_kernel_checks(gen)
+        pad_flash_checks(gen)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--pin"]:
         pin_kernel_check(torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
@@ -3675,6 +4352,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
 
+    pad_flash_checks(gen)
     gmm_cases = gmm_kernel_checks(gen)
     norm_cases = norm_kernel_checks(gen)
     quant_cases = quant_kernel_checks(gen)
@@ -3683,8 +4361,10 @@ def main() -> int:
     embed_check = embed_kernel_checks(gen)
 
     mha_dispatch()
-    paths = {"serve": serve_and_check()}
+    paths = {}
+    paths["serve"], paths["serve_faults"] = serve_and_check()
     paths["train"], adafactor_state_bytes = train_and_check()
+    paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()

@@ -11,7 +11,12 @@ Slices ported so far:
 
 * serving: ``serving.ServingEngine`` (continuous batching over a slotted KV
   pool) on ``models.TransformerLM``, with bucketed prefill through the
-  flash-attention forward kernel (``ops/flash_attention.py``).
+  flash-attention forward kernel (``ops/flash_attention.py``);
+* training (``trainer.train_lib``), dense and MoE, with the opt-in
+  kernels of the dense step and the low-bit Adam optimizers;
+* the embedding plane (``embedding``) and its CTR example;
+* the fault, retry and telemetry planes (``common``) and Flash Checkpoint
+  (``checkpoint``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than move to the CPU.

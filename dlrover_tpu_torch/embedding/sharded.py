@@ -21,8 +21,15 @@ Port of ``dlrover_tpu/embedding/sharded.py``:
 
 In-process the plane holds all P stores; a real deployment would back each
 store with one host process and replace the in-memory exchange with its
-transport (the record codec is already the wire format).  The JAX plane's
-fault-injection seams and telemetry spans are not ported yet.
+transport (the record codec is already the wire format).
+
+The JAX plane's fault seams and spans are the port's too: ``embed.fetch``
+fires once per owner exchange of a lookup or an update, ``embed.reshard``
+before any owner mutates (an injected error aborts cleanly with the old
+fold intact), ``storage.write``/``storage.read`` around a shard export and
+import; ``embed.lookup``, ``embed.apply`` and ``embed.reshard`` are spans,
+and :meth:`ShardedEmbeddingTable.emit_telemetry` books an ``embed`` event.
+With no fault plan every seam is a no-op.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dlrover_tpu_torch.common import faults, telemetry
 from dlrover_tpu_torch.common.storage import digest_stamp, parse_digest
 from dlrover_tpu_torch.embedding import spill as spill_mod
 from dlrover_tpu_torch.embedding.store import KVStore
@@ -175,36 +183,52 @@ class ShardedEmbeddingTable:
         init depends only on ``(key, seed)``, never on which owner holds
         the bucket.
         """
-        self.step += 1
-        flat = np.ascontiguousarray(keys, np.int64).reshape(-1)
-        unique, inverse = np.unique(flat, return_inverse=True)
-        rows = np.empty((unique.size, self.dim), np.float32)
-        owners = self.owner_of(unique)
-        for rank in range(self.world):
-            sel = owners == rank
-            if not sel.any():
-                continue
-            # One exchange per owner.
-            rows[sel] = self._hosts[rank].lookup(
-                unique[sel], init_scale=self.init_scale,
-                seed=self.seed, step=self.step,
-            )
-        self._stats["lookups"] += 1
-        self._stats["rows_fetched"] += int(unique.size)
-        return rows, unique, inverse.astype(np.int32)
+        with telemetry.span("embed.lookup") as sp:
+            self.step += 1
+            flat = np.ascontiguousarray(keys, np.int64).reshape(-1)
+            unique, inverse = np.unique(flat, return_inverse=True)
+            rows = np.empty((unique.size, self.dim), np.float32)
+            owners = self.owner_of(unique)
+            touched = 0
+            for rank in range(self.world):
+                sel = owners == rank
+                count = int(np.count_nonzero(sel))
+                if not count:
+                    continue
+                # One exchange per owner: the seam models the peer host
+                # dropping/straggling this batch's row fetch.
+                faults.fire("embed.fetch", rank=rank, rows=count)
+                rows[sel] = self._hosts[rank].lookup(
+                    unique[sel], init_scale=self.init_scale,
+                    seed=self.seed, step=self.step,
+                )
+                touched += 1
+            self._stats["lookups"] += 1
+            self._stats["rows_fetched"] += int(unique.size)
+            if sp is not None:
+                sp.attrs["rows"] = int(unique.size)
+                sp.attrs["owners"] = touched
+            return rows, unique, inverse.astype(np.int32)
 
     def apply_gradients(self, unique_keys, grad_rows) -> None:
         """Group-sparse update pushed to each owner — moments live in the
         owner's store (per-bucket slot partitioning)."""
-        self._adam_t += 1
-        unique_keys = np.ascontiguousarray(unique_keys, np.int64)
-        grads = np.asarray(grad_rows, np.float32)
-        owners = self.owner_of(unique_keys)
-        for rank in range(self.world):
-            sel = owners == rank
-            if not sel.any():
-                continue
-            self._apply_one(self._hosts[rank], unique_keys[sel], grads[sel])
+        with telemetry.span("embed.apply") as sp:
+            self._adam_t += 1
+            unique_keys = np.ascontiguousarray(unique_keys, np.int64)
+            grads = np.asarray(grad_rows, np.float32)
+            owners = self.owner_of(unique_keys)
+            for rank in range(self.world):
+                sel = owners == rank
+                count = int(np.count_nonzero(sel))
+                if not count:
+                    continue
+                faults.fire("embed.fetch", rank=rank, rows=count)
+                self._apply_one(
+                    self._hosts[rank], unique_keys[sel], grads[sel]
+                )
+            if sp is not None:
+                sp.attrs["rows"] = int(unique_keys.size)
 
     def _apply_one(self, store, keys, grads):
         if self.optimizer == "adam":
@@ -253,7 +277,9 @@ class ShardedEmbeddingTable:
         """Re-fold the bucket map onto ``new_world`` owners, moving ONLY
         the rows whose bucket changed owner (spill-log record transport).
 
-        Returns a summary for the resize ledger.
+        The seam fires before any owner mutates, so an injected error
+        aborts cleanly and a retrying caller re-enters with the old fold
+        intact.  Returns a summary for the resize ledger.
         """
         new_world = int(new_world)
         if new_world < 1:
@@ -264,40 +290,48 @@ class ShardedEmbeddingTable:
                 "owners: grow num_buckets at table construction"
             )
         t0 = time.monotonic()
-        old_world = self.world
-        moved_rows = 0
-        moved_bytes = 0
-        if new_world != old_world:
-            while len(self._hosts) < new_world:
-                self._hosts.append(self._make_store(len(self._hosts)))
-            for src in range(old_world):
-                moved_rows, moved_bytes = self._migrate_from(
-                    src, new_world, moved_rows, moved_bytes,
-                )
-            for rank in range(new_world, len(self._hosts)):
-                leftover = len(self._hosts[rank])
-                if leftover:  # pragma: no cover - invariant guard
-                    raise RuntimeError(
-                        f"reshard left {leftover} rows on retired host "
-                        f"{rank}"
+        with telemetry.span(
+            "embed.reshard", src=self.world, dst=new_world
+        ) as sp:
+            faults.fire("embed.reshard", src=self.world, dst=new_world)
+            old_world = self.world
+            moved_rows = 0
+            moved_bytes = 0
+            if new_world != old_world:
+                while len(self._hosts) < new_world:
+                    self._hosts.append(self._make_store(len(self._hosts)))
+                for src in range(old_world):
+                    moved_rows, moved_bytes = self._migrate_from(
+                        src, new_world, moved_rows, moved_bytes,
                     )
-                self._hosts[rank].close()
-            del self._hosts[new_world:]
-            self.world = new_world
-        dt = time.monotonic() - t0
-        self._stats["reshards"] += 1
-        self._stats["reshard_s"] += dt
-        self._stats["moved_rows"] += moved_rows
-        self._stats["moved_bytes"] += moved_bytes
-        logger.info(
-            "embedding plane %s: resharded %d -> %d owners, moved %d rows "
-            "(%d bytes) in %.3fs",
-            self.name, old_world, new_world, moved_rows, moved_bytes, dt,
-        )
-        return {
-            "src": old_world, "dst": new_world,
-            "moved_rows": moved_rows, "moved_bytes": moved_bytes,
-        }
+                for rank in range(new_world, len(self._hosts)):
+                    leftover = len(self._hosts[rank])
+                    if leftover:  # pragma: no cover - invariant guard
+                        raise RuntimeError(
+                            f"reshard left {leftover} rows on retired "
+                            f"host {rank}"
+                        )
+                    self._hosts[rank].close()
+                del self._hosts[new_world:]
+                self.world = new_world
+            dt = time.monotonic() - t0
+            self._stats["reshards"] += 1
+            self._stats["reshard_s"] += dt
+            self._stats["moved_rows"] += moved_rows
+            self._stats["moved_bytes"] += moved_bytes
+            if sp is not None:
+                sp.attrs["moved_rows"] = moved_rows
+                sp.attrs["moved_bytes"] = moved_bytes
+            logger.info(
+                "embedding plane %s: resharded %d -> %d owners, moved %d "
+                "rows (%d bytes) in %.3fs",
+                self.name, old_world, new_world, moved_rows, moved_bytes,
+                dt,
+            )
+            return {
+                "src": old_world, "dst": new_world,
+                "moved_rows": moved_rows, "moved_bytes": moved_bytes,
+            }
 
     def _migrate_from(self, src: int, new_world: int,
                       moved_rows: int, moved_bytes: int):
@@ -370,6 +404,9 @@ class ShardedEmbeddingTable:
             base = os.path.join(
                 out_dir, f"host_{rank}_of_{self.world}"
             )
+            # Same seam the checkpoint savers declare: shard export is
+            # remote-storage-shaped I/O and must be drillable.
+            faults.fire("storage.write", path=base, op="embed.save")
             with open(base + ".meta.tmp", "wb") as f:
                 f.write(meta)
             with open(base + ".data.tmp", "wb") as f:
@@ -393,6 +430,7 @@ class ShardedEmbeddingTable:
     def _read_shard(self, base: str):
         """One digest-verified host shard -> (meta dict, npz arrays).
         Raises ``ValueError`` on a digest mismatch (corrupt/torn shard)."""
+        faults.fire("storage.read", path=base, op="embed.restore")
         with open(base + ".meta", "rb") as f:
             meta_bytes = f.read()
         with open(base + ".data", "rb") as f:
@@ -565,7 +603,7 @@ class ShardedEmbeddingTable:
         if booked_world != self.world:
             self.reshard(booked_world)
 
-    # -- stats -----------------------------------------------------------------
+    # -- stats / telemetry -----------------------------------------------------
 
     def stats(self) -> Dict[str, float]:
         per_host = [len(h) for h in self._hosts]
@@ -586,6 +624,14 @@ class ShardedEmbeddingTable:
             "moved_rows": int(self._stats["moved_rows"]),
             "spill_bytes": int(spill_bytes),
         }
+
+    def emit_telemetry(self, **extra) -> None:
+        """Book one ``embed`` telemetry event (the master's speed monitor
+        aggregates these into the ``dlrover_embed_*`` gauges).  ``extra``
+        merges cache-side stats (hit rate) the plane cannot see."""
+        snapshot = self.stats()
+        snapshot.update(extra)
+        telemetry.event("embed", **snapshot)
 
     def close(self):
         for host in self._hosts:

@@ -13,7 +13,9 @@ AND counts, so a faulted feature resumes training where it left off.
 
 The record codec (:func:`pack_records` / :func:`unpack_records`) is also
 the reshard's owner-to-owner wire format, byte for byte the JAX
-package's.
+package's.  The log's opens, appends, reads, rebuilds and compactions are
+the ``storage.write``/``storage.read`` fault seams, and a demotion is an
+``embed.spill`` span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from dlrover_tpu_torch.common import faults, telemetry
 from dlrover_tpu_torch.embedding.store import KVStore
 
 logger = logging.getLogger(__name__)
@@ -99,6 +102,9 @@ class SpillFile:
         self._payload = 3 * dim * 4  # value + m + v, fp32
         if os.path.exists(path):
             self._rebuild_index()
+        # The append handle is the spill tier's write path; a full disk or
+        # yanked mount surfaces here, so the drills must be able to reach it.
+        faults.fire("storage.write", path=path, op="spill.open")
         self._file = open(path, "ab")
         self._reader = open(path, "rb")
 
@@ -112,6 +118,7 @@ class SpillFile:
         return list(self._index.keys())
 
     def _rebuild_index(self):
+        faults.fire("storage.read", path=self.path, op="spill.rebuild")
         size = os.path.getsize(self.path)
         with open(self.path, "rb") as f:
             while True:
@@ -140,6 +147,7 @@ class SpillFile:
             [np.asarray(a, np.float32).reshape(-1) for a in (row, m, v)]
         ).tobytes()
         assert len(payload) == self._payload
+        faults.fire("storage.write", path=self.path, op="spill.append")
         offset = self._file.tell()
         self._file.write(
             _HEADER.pack(int(key), int(count), int(step), len(payload))
@@ -159,6 +167,7 @@ class SpillFile:
         offset = self._index.get(int(key))
         if offset is None:
             return None
+        faults.fire("storage.read", path=self.path, op="spill.read")
         self.flush()  # the reader must see everything appended so far
         self._reader.seek(offset)
         _, count, step, nbytes = _HEADER.unpack(
@@ -184,6 +193,7 @@ class SpillFile:
         self.flush()
         live = list(self._index.keys())
         tmp = self.path + ".compact"
+        faults.fire("storage.write", path=self.path, op="spill.compact")
         with open(tmp, "wb") as out:
             new_index: Dict[int, int] = {}
             for key in live:
@@ -301,7 +311,7 @@ class HybridKVStore:
 
     def spill(self, min_step: int, min_count: int = 0) -> int:
         """Demote features colder than the thresholds to the disk tier."""
-        with self._mu:
+        with self._mu, telemetry.span("embed.spill") as sp:
             keys, rows, m, v, counts, steps = self.ram.export()
             cold = [
                 i for i in range(keys.size)
@@ -317,6 +327,9 @@ class HybridKVStore:
                 # so the spilled rows must be on stable storage first.
                 self.disk.flush(durable=True)
                 self.ram.evict(min_step, min_count)
+            if sp is not None:
+                sp.attrs["rows"] = len(cold)
+                sp.attrs["bytes"] = len(cold) * (3 * self.dim * 4 + 20)
             return len(cold)
 
     def export(self, min_step: int = 0):

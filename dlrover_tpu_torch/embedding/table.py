@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from dlrover_tpu_torch.common import faults
 from dlrover_tpu_torch.embedding.store import KVStore
 
 logger = logging.getLogger(__name__)
@@ -206,6 +207,9 @@ class EmbeddingTable:
         kind = "delta" if delta else "full"
         path = os.path.join(directory, f"{self.name}_{kind}_{step}.kv")
         tmp = path + ".tmp"
+        # The same storage seam the checkpoint savers declare: a full disk
+        # or yanked mount during a table export is drillable fault input.
+        faults.fire("storage.write", path=path, op="table.save")
         with open(tmp, "wb") as f:
             f.write(self.state_blob(delta=delta))
         os.replace(tmp, path)
@@ -239,6 +243,7 @@ class EmbeddingTable:
             e for e in entries if e[1] == "delta" and e[0] > base_step
         )
         for step, kind, fname in replay:
+            faults.fire("storage.read", path=fname, op="table.restore")
             with open(os.path.join(directory, fname), "rb") as f:
                 self.load_blob(f.read())
         logger.info(

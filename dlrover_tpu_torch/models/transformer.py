@@ -21,7 +21,7 @@ Two opt-in flags of the dense step, both off by default as in JAX:
 backward kernel of ``ops/fused_norm.py``, and ``pin_attn_layouts`` puts
 ``ops/layout_pin.pin_layout`` before and after each block's attention.
 
-Not ported yet (ROADMAP Queue 1 items 2 and 7): pipeline stages, ring
+Not ported yet (ROADMAP Queue 1 items 6 and 8): pipeline stages, ring
 attention and the remat policies other than those three; their config
 values raise ``NotImplementedError``.
 """
@@ -121,6 +121,22 @@ class TransformerConfig:
             )
         remat_policy.validate(self.remat, self.attention_impl)
 
+    def check_device(self, device: torch.device) -> None:
+        """Refuse what the card's flash kernels have no build for: under
+        ``attention_impl="flash"`` on ``cuda``, a head dim above 128 (those
+        below run zero-padded to 64 or 128) or a compute dtype other than
+        bf16 (ROADMAP Queue 3 item 7).  Nothing is cast silently."""
+        if device.type != "cuda" or self.attention_impl != "flash":
+            return
+        if self.resolved_head_dim > 128:
+            raise NotImplementedError(
+                f"attention_impl='flash' on cuda takes head dims up to 128, "
+                f"got {self.resolved_head_dim} (ROADMAP Queue 3 item 7)")
+        if self.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"attention_impl='flash' on cuda computes in bf16 only, got "
+                f"dtype {self.dtype} (ROADMAP Queue 3 item 7)")
+
 
 class Mlp(nn.Module):
     def __init__(self, d_model: int, d_ff: int, activation: str,
@@ -215,6 +231,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = config
+        cfg.check_device(device)
         self.config = cfg
         self.embed = layers.Embed(
             cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,

@@ -52,14 +52,21 @@
 //      blocks in flight share a few row tiles of a and one expert's w in
 //      L2.  A row tile lies inside one expert: every group size is a
 //      multiple of block_rows, a multiple of 128 (the wrapper checks the
-//      latter).  The block finds the expert from group_sizes on the device.
+//      latter).  The block finds the expert on the device, by a binary
+//      search of the experts' row ends (the TPU kernel's searchsorted).
 //  K9: work units are (expert, 128-row tile of dw, 256-column tile), the
 //      largest experts' units first (each block ranks the group sizes), so
 //      no long reduction is left for the end.  A unit's block sums its
 //      expert's rows in steps of 64 (group boundaries are multiples of
 //      128), in a fixed order and with no atomics: dw is deterministic.
-// Widths must be multiples of 8 (16-byte rows for TMA and the stores);
-// at most MAX_EXPERTS experts.
+// * The experts' tables (each expert's first and end row, and K9's order
+//   of the experts) take any number of experts.  A one-block pre-pass in
+//   the same stream writes them to a [3, E] int32 workspace in global
+//   memory: the group sizes loaded by a strided loop, one prefix sum by
+//   warp 0 (a chunk a lane and a shuffle scan of the chunk sums), and
+//   K9's ranks by a strided loop.  The persistent blocks read them there
+//   (a few hundred bytes, held in L2).
+// Widths must be multiples of 8 (16-byte rows for TMA and the stores).
 // What holds it back still: every block streams its own operand tiles
 // from L2, 48 KB for each 4.2 MFLOP step, about 7.7 TB/s across the card
 // at the measured times; sharing the w tile between the two blocks of a
@@ -80,7 +87,6 @@ constexpr int BN = 256;        // output tile columns (a half tile: 128)
 constexpr int BK = 64;         // reduction step: one 128-byte swizzle row
 constexpr int STAGES = 4;      // depth of the TMA ring
 constexpr int THREADS = 3 * WG_THREADS;  // producer + two consumers
-constexpr int MAX_EXPERTS = 64;
 constexpr uint32_t SMEM_LIMIT = 232448;  // a block's most, H100
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr uint32_t A_BYTES = BM * BK * 2;          // 16 KB
@@ -91,11 +97,10 @@ constexpr uint32_t B_HALF = BN / 2 * ROW_BYTES;    // dx: 128 rows of w
 constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
 
 // Shared memory of a block: the ring (stage s: the A tile, then the B
-// tile), full[STAGES] and empty[STAGES] mbarriers, the experts' row ranges
-// and their order by size; 1024 bytes of alignment slack.
+// tile), full[STAGES] and empty[STAGES] mbarriers; 1024 bytes of
+// alignment slack.
 constexpr uint32_t BAR_OFF = STAGES * STAGE_BYTES;
-constexpr uint32_t TAB_OFF = BAR_OFF + 16 * STAGES;
-constexpr uint32_t SMEM_BYTES = TAB_OFF + 3 * 4 * MAX_EXPERTS + 1024;
+constexpr uint32_t SMEM_BYTES = BAR_OFF + 16 * STAGES + 1024;
 static_assert(SMEM_BYTES <= SMEM_LIMIT, "the ring does not fit");
 
 }  // namespace
@@ -115,7 +120,7 @@ struct GmmPlan {
 namespace {
 
 struct GmmParams {
-  const int* gs;       // group sizes [E]
+  const int* tables;   // [3, E] start, end, K9 order (the pre-pass's)
   bf16* out;           // K8: [N, n_cols]; K9: [E, n_rows, n_cols]
   int n_rows;          // output rows: K8 N, K9 K
   int n_cols;          // output columns
@@ -129,13 +134,73 @@ __device__ __forceinline__ int unit_index(int round, int block, int blocks) {
   return round * blocks + (round % 2 == 0 ? block : blocks - 1 - block);
 }
 
-// The expert owning row `row`: the first e with row < end[e], clamped to
-// the last expert (rows past the groups are padding).
+// The expert owning row `row`: the first e with row < end[e] (the ends
+// never decrease: a binary search), clamped to the last expert (rows past
+// the groups are padding).
 __device__ __forceinline__ int expert_of_row(const int* end, int E, int row) {
-  for (int e = 0; e < E; ++e) {
-    if (row < end[e]) return e;
+  int lo = 0, hi = E;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row < end[mid]) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
   }
-  return E - 1;
+  return lo < E ? lo : E - 1;
+}
+
+// The pre-pass: one block writes the experts' tables to `tables` [3, E]
+// (start, end, order): expert e owns rows [start[e], end[e]), clipped to
+// the n_tok token rows; the last expert also the padding rows up to n_tok,
+// unless it owns no rows (its dw is then 0).  With `rank`, order[] lists
+// the experts by rows owned, largest first, ties by index (K8 reads no
+// order).  The block's barriers make its global writes visible to it.
+__global__ void __launch_bounds__(THREADS, 1)
+expert_tables_kernel(const int* gs, int E, int n_tok, int* tables,
+                     int rank) {
+  int* start = tables;
+  int* end = tables + E;
+  int* order = tables + 2 * E;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < E; e += THREADS) end[e] = gs[e];
+  __syncthreads();
+  if (tid < 32) {
+    // Lane l sums the chunk [l C, l C + C); a shuffle scan gives the rows
+    // before each chunk; the lane then walks its chunk once more.
+    const int chunk = (E + 31) / 32;
+    const int lo = min(tid * chunk, E), hi = min(lo + chunk, E);
+    long long sum = 0;
+    for (int e = lo; e < hi; ++e) sum += end[e];
+    long long incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (tid >= off) incl += v;
+    }
+    long long before = incl - sum;
+    for (int e = lo; e < hi; ++e) {
+      const int size = end[e];
+      long long stop = before + size;
+      if (e == E - 1 && size > 0) stop = n_tok;
+      const int first = static_cast<int>(before < n_tok ? before : n_tok);
+      start[e] = first;
+      end[e] = static_cast<int>(stop < first ? first
+                                             : (stop < n_tok ? stop : n_tok));
+      before += size;
+    }
+  }
+  __syncthreads();
+  if (!rank) return;
+  for (int e = tid; e < E; e += THREADS) {
+    const int own = end[e] - start[e];
+    int r = 0;
+    for (int i = 0; i < E; ++i) {
+      const int other = end[i] - start[i];
+      r += other > own || (other == own && i < e);
+    }
+    order[r] = e;
+  }
 }
 
 // Four 4-byte pieces v[q] (piece t of chunk q, t this thread's place in its
@@ -177,9 +242,6 @@ gmm_kernel(const __grid_constant__ CUtensorMap a_map,
   unsigned char* smem = align_1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
   uint64_t* empty = full + STAGES;
-  int* g_start = reinterpret_cast<int*>(smem + TAB_OFF);
-  int* g_end = g_start + MAX_EXPERTS;
-  int* g_order = g_end + MAX_EXPERTS;  // experts by rows owned, largest first
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -189,32 +251,12 @@ gmm_kernel(const __grid_constant__ CUtensorMap a_map,
     }
     mbar_init_fence();
   }
-  // Expert e owns rows [g_start[e], g_end[e]), clipped to the N token
-  // rows; the last expert also the padding rows up to N, unless it owns
-  // no rows (its dw is then 0).
-  const int n_tok = KIND == KIND_DW ? p.n_red : p.n_rows;
-  if (tid < p.E) {
-    long long before = 0;
-    for (int i = 0; i < tid; ++i) before += p.gs[i];
-    const int size = p.gs[tid];
-    long long end = before + size;
-    if (tid == p.E - 1 && size > 0) end = n_tok;
-    const int start = static_cast<int>(before < n_tok ? before : n_tok);
-    g_start[tid] = start;
-    g_end[tid] = static_cast<int>(end < start ? start : (end < n_tok ? end
-                                                                  : n_tok));
-  }
-  __syncthreads();
-  if (tid < p.E) {
-    const int own = g_end[tid] - g_start[tid];
-    int rank = 0;
-    for (int i = 0; i < p.E; ++i) {
-      const int other = g_end[i] - g_start[i];
-      rank += other > own || (other == own && i < tid);
-    }
-    g_order[rank] = tid;
-  }
-  __syncthreads();
+  // The experts' first and end rows, and (K9) their order by rows owned,
+  // largest first: the pre-pass's tables.
+  const int* g_start = p.tables;
+  const int* g_end = p.tables + p.E;
+  const int* g_order = p.tables + 2 * p.E;
+  __syncthreads();  // the mbarriers' init, before any thread uses them
 
   // The work unit `tile`: its expert, output origin and reduction range.
   struct Unit {
@@ -375,9 +417,11 @@ gmm_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
+// The pre-pass into `tables`, then the kernel, on one stream.
 template <int KIND>
 int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, GmmParams p,
-           const GmmPlan& plan, cudaStream_t stream) {
+           const void* gs, void* tables, const GmmPlan& plan,
+           cudaStream_t stream) {
   if (plan.block_m != BM || plan.block_n != BN || plan.block_k != BK ||
       plan.stages != STAGES ||
       static_cast<uint32_t>(plan.smem_bytes) != SMEM_BYTES ||
@@ -388,6 +432,11 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, GmmParams p,
   cudaError_t err =
       flash::opt_in_smem(gmm_kernel<KIND>, SMEM_BYTES, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
+  expert_tables_kernel<<<1, THREADS, 0, stream>>>(
+      static_cast<const int*>(gs), p.E,
+      KIND == KIND_DW ? p.n_red : p.n_rows, static_cast<int*>(tables),
+      KIND == KIND_DW);
+  p.tables = static_cast<const int*>(tables);
   p.row_tiles = plan.row_tiles;
   p.col_tiles = plan.col_tiles;
   p.tiles = plan.tiles;
@@ -401,15 +450,17 @@ int launch(const CUtensorMap& a_map, const CUtensorMap& b_map, GmmParams p,
 // K8.  a [N, n_red] bf16 with row stride lda (unit column stride); w bf16
 // with expert stride w_se: [E, n_red, n_cols] row stride ldb (trans_w 0)
 // or [E, n_cols, n_red] row stride ldb (trans_w 1, the product against
-// w^T); group_sizes [E] int32 on the device; out [N, n_cols] contiguous
-// bf16.  n_red, n_cols, lda, ldb and w_se multiples of 8, pointers 16-byte
-// aligned, every group a multiple of 128 rows, E <= 64; plan from the
-// host.  Returns cudaGetLastError() after the launch (0 = ok).
+// w^T); group_sizes [E] int32 on the device; tables a [3, E] int32
+// workspace on the device, which the pre-pass fills; out [N, n_cols]
+// contiguous bf16.  n_red, n_cols, lda, ldb and w_se multiples of
+// 8, pointers 16-byte aligned, every group a multiple of 128 rows; plan
+// from the host.  Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int gmm_bf16(const void* a, const void* w, const void* group_sizes,
-                        void* out, int N, int n_red, int n_cols, int E,
-                        int trans_w, long long lda, long long ldb,
-                        long long w_se, const GmmPlan* plan, void* stream) {
-  if (N <= 0 || n_red <= 0 || n_cols <= 0 || E <= 0 || E > MAX_EXPERTS) {
+                        void* tables, void* out, int N, int n_red,
+                        int n_cols, int E, int trans_w, long long lda,
+                        long long ldb, long long w_se, const GmmPlan* plan,
+                        void* stream) {
+  if (N <= 0 || n_red <= 0 || n_cols <= 0 || E <= 0 || tables == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap a_map, b_map;
@@ -435,26 +486,28 @@ extern "C" int gmm_bf16(const void* a, const void* w, const void* group_sizes,
   err = make_tiled_map(&b_map, w, 3, w_dims, w_strides, w_box);
   if (err != cudaSuccess) return static_cast<int>(err);
   GmmParams p = {};
-  p.gs = static_cast<const int*>(group_sizes);
   p.out = static_cast<bf16*>(out);
   p.n_rows = N;
   p.n_cols = n_cols;
   p.n_red = n_red;
   p.E = E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return trans_w ? launch<KIND_DX>(a_map, b_map, p, *plan, s)
-                 : launch<KIND_FWD>(a_map, b_map, p, *plan, s);
+  return trans_w ? launch<KIND_DX>(a_map, b_map, p, group_sizes, tables,
+                                   *plan, s)
+                 : launch<KIND_FWD>(a_map, b_map, p, group_sizes, tables,
+                                    *plan, s);
 }
 
 // K9.  x [N, K] and dy [N, M] contiguous bf16, group_sizes [E] int32 on
-// the device, dw [E, K, M] contiguous bf16 (every element written).  K and
-// M multiples of 8, pointers 16-byte aligned, every group a multiple of 128
-// rows, E <= 64; plan from the host.  Returns cudaGetLastError() after
-// the launch (0 = ok).
+// the device, tables as for K8, dw [E, K, M] contiguous bf16 (every
+// element written).  K and M multiples of 8, pointers 16-byte aligned,
+// every group a multiple of 128 rows; plan from the host.  Returns
+// cudaGetLastError() after the launch (0 = ok).
 extern "C" int gmm_dw_bf16(const void* x, const void* dy,
-                           const void* group_sizes, void* dw, int N, int K,
-                           int M, int E, const GmmPlan* plan, void* stream) {
-  if (N <= 0 || K <= 0 || M <= 0 || E <= 0 || E > MAX_EXPERTS) {
+                           const void* group_sizes, void* tables,
+                           void* dw, int N, int K, int M, int E,
+                           const GmmPlan* plan, void* stream) {
+  if (N <= 0 || K <= 0 || M <= 0 || E <= 0 || tables == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap x_map, dy_map;
@@ -472,12 +525,11 @@ extern "C" int gmm_dw_bf16(const void* x, const void* dy,
   err = make_tiled_map(&dy_map, dy, 2, dy_dims, dy_strides, box);
   if (err != cudaSuccess) return static_cast<int>(err);
   GmmParams p = {};
-  p.gs = static_cast<const int*>(group_sizes);
   p.out = static_cast<bf16*>(dw);
   p.n_rows = K;
   p.n_cols = M;
   p.n_red = N;
   p.E = E;
-  return launch<KIND_DW>(x_map, dy_map, p, *plan,
+  return launch<KIND_DW>(x_map, dy_map, p, group_sizes, tables, *plan,
                          static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,11 @@ an optional segment mask and GQA, the JAX ``mha``'s function, and is
 differentiable on every device.  On a CUDA tensor the forward launches the
 hand-written Hopper kernel ``ops/csrc/flash_attention.cu`` and the backward
 launches the kernels of ``ops/csrc/flash_attention_bwd.cu`` (bf16, ``D`` in
-{64, 128}), or they raise; on a CPU tensor they take :func:`mha_reference`
+{64, 128}), or they raise; on a CUDA tensor ``mha`` zero-pads a smaller
+head dim to the next of those (:func:`mha_padded`) and slices the output
+back, which is exact: zero columns of q and k add nothing to ``q k^T``,
+those of v give output columns that are dropped, and the scale is the true
+head dim's.  On a CPU tensor the kernels' wrappers take :func:`mha_reference`
 and :func:`mha_backward_reference`, the plain fp32 versions that the CPU
 tests use and that ``chip_smoke.py`` holds the kernels against.
 
@@ -31,6 +35,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dlrover_tpu_torch.ops import kernel_lib
 
@@ -49,6 +54,24 @@ MASK_TILE = 64
 #: kernel it calls (``ops/grouped_matmul.LAUNCHES`` likewise).
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0}
+#: Zero-padding copies ``mha`` makes for a head dim that is not one of
+#: ``HEAD_DIMS``: three a forward (q, k and v padded) and four a backward
+#: (the output gradient padded, the three input gradients sliced back).
+#: Not kernel launches: a cost of those shapes, which ``chip_smoke.py``
+#: records beside the kernels' counts and times.
+PAD_COPIES = {"flash_pad": 0}
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernels' head dim for ``d``: the smallest of ``HEAD_DIMS`` that
+    is at least ``d``.  Above the largest there is no kernel (ROADMAP
+    Queue 3 item 7)."""
+    for width in HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"head_dim {d} > {HEAD_DIMS[-1]}: the flash kernels have no build "
+        f"for it (ROADMAP Queue 3 item 7)")
 
 
 def mha_reference(
@@ -723,12 +746,17 @@ def mha(
     restricts token i to tokens j of the same segment (and j <= i when
     causal).  ``block_kv`` chooses the backward as JAX does (fused when the
     kv sequence fits in one clamped block, split dq/dkv kernels otherwise);
-    the kernels' own tiles are fixed, so ``block_q`` changes nothing."""
+    the kernels' own tiles are fixed, so ``block_q`` changes nothing.  On
+    a CUDA tensor a head dim that is not one of ``HEAD_DIMS`` runs through
+    :func:`mha_padded`."""
     del block_q
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention has no kernel for {q.device}")
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cuda" and d not in HEAD_DIMS:
+        return mha_padded(q, k, v, causal=causal, segment_ids=segment_ids,
+                          block_kv=block_kv, scale=scale)
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         # Nothing to differentiate (serving): the kernel alone.  The op's
@@ -743,3 +771,41 @@ def mha(
         uses_fused_backward(k.shape[1], block_kv),
     )
     return o
+
+
+def mha_padded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: Optional[torch.Tensor] = None,
+    block_kv: int = 512,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`mha` with q, k and v zero-padded along D to
+    :func:`padded_head_dim` and the output sliced back, at the scale of
+    the true head dim; autograd pads the output gradient and slices the
+    input gradients back.  Each of these copies is counted in
+    ``PAD_COPIES`` (the backward's by gradient hooks, as autograd makes
+    them).  What ``mha`` runs on the card for a head dim the kernels have
+    no build for; on CPU tensors it runs the same padding through the
+    plain versions (the tests' check that it is exact)."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    width = padded_head_dim(d)
+    q, k, v = (F.pad(x, (0, width - d)) for x in (q, k, v))
+    PAD_COPIES["flash_pad"] += 3
+    o = mha(q, k, v, causal=causal, segment_ids=segment_ids,
+            block_kv=block_kv, scale=scale)
+    for t in (o, q, k, v):
+        if t.requires_grad:
+            t.register_hook(_count_backward_pad)
+    return o[..., :d]
+
+
+def _count_backward_pad(grad: torch.Tensor) -> None:
+    """A padded tensor's gradient: the output's is the sliced output's
+    gradient padded back, an input's is sliced to the true head dim next;
+    either is one copy."""
+    PAD_COPIES["flash_pad"] += 1

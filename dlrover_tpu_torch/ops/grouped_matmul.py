@@ -24,6 +24,10 @@ without a ``grad_fn``).  Selective checkpointing sees it as one op, so
 under the ``flash_only`` remat policy it is recomputed in the backward.
 Nothing on the kernel path reads a value back to the host: the group
 offsets stay on the device and each kernel block finds its expert itself.
+Any number of experts is taken: a one-block pre-pass of the same C call
+writes the experts' tables (each one's rows, and K9's order of them) to a
+``[3, E]`` workspace the wrapper allocates, and the kernels read them
+there.
 How a kernel is launched (its tiles, ring depth, shared memory and the
 persistent grid) is :func:`gmm_launch_plan`, a pure function of the shapes
 that the CPU tests check: the kernels read its tile counts and grid, and
@@ -43,7 +47,6 @@ KERNEL_ROWS = 128  # the kernels' row tile: block_rows must be a multiple
 BLOCK_N = 256      # the kernels' column tile (half wide where 128 are left)
 BLOCK_K = 64       # the kernels' reduction step (K tile): one swizzle row
 STAGES = 4         # the kernels' TMA ring depth
-MAX_EXPERTS = 64   # the kernels keep the experts' row ranges in shared memory
 
 #: Kernel launches of K8 (forward and dx, ``gmm_fwd``) and K9 (dw,
 #: ``gmm_dw``); a run sets them to 0 and reads them back to show its path
@@ -140,9 +143,9 @@ def gmm_launch_plan(kind: str, n: int, k: int, m: int, experts: int,
     return dict(
         kind=kind, block_m=KERNEL_ROWS, block_n=BLOCK_N, block_k=BLOCK_K,
         stages=STAGES,
-        # The ring, a full and an empty mbarrier a stage, three int tables
-        # of MAX_EXPERTS, 1024 bytes of alignment slack.
-        smem_bytes=STAGES * (stage_bytes + 16) + 12 * MAX_EXPERTS + 1024,
+        # The ring, a full and an empty mbarrier a stage, 1024 bytes of
+        # alignment slack.
+        smem_bytes=STAGES * (stage_bytes + 16) + 1024,
         row_tiles=row_tiles, col_tiles=col_tiles, tiles=tiles,
         grid=min(tiles, num_sms),
     )
@@ -165,11 +168,11 @@ class GmmPlan(ctypes.Structure):
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PLAN = ctypes.POINTER(GmmPlan)
-# a w group_sizes out | N n_red n_cols E trans_w | lda ldb w_se | plan
-# stream
-_GMM_ARGTYPES = [_P] * 4 + [_I] * 5 + [_LL] * 3 + [_PLAN, _P]
-# x dy group_sizes dw | N K M E | plan stream
-_DW_ARGTYPES = [_P] * 4 + [_I] * 4 + [_PLAN, _P]
+# a w group_sizes tables out | N n_red n_cols E trans_w | lda ldb w_se |
+# plan stream
+_GMM_ARGTYPES = [_P] * 5 + [_I] * 5 + [_LL] * 3 + [_PLAN, _P]
+# x dy group_sizes tables dw | N K M E | plan stream
+_DW_ARGTYPES = [_P] * 5 + [_I] * 4 + [_PLAN, _P]
 
 
 def _lib_fn(fn_name: str, argtypes):
@@ -211,10 +214,14 @@ def _check_groups(x: torch.Tensor, group_sizes: torch.Tensor, e: int,
         raise ValueError(
             f"group_sizes must be [{e}] on {x.device}, got "
             f"{tuple(group_sizes.shape)} on {group_sizes.device}")
-    if e > MAX_EXPERTS:
-        raise ValueError(f"the kernels take at most {MAX_EXPERTS} experts, "
-                         f"got {e}")
     return group_sizes.to(torch.int32).contiguous()
+
+
+def _tables(e: int, device: torch.device) -> torch.Tensor:
+    """The ``[3, E]`` int32 workspace the C call's pre-pass fills with the
+    experts' tables (the caching allocator keeps it for the stream until
+    the launch that reads it is done)."""
+    return torch.empty((3, e), dtype=torch.int32, device=device)
 
 
 def gmm_fwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -241,10 +248,12 @@ def gmm_fwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     out = torch.empty((n, cols), dtype=x.dtype, device=x.device)
     plan = gmm_launch_plan("dx" if transpose_w else "fwd", n, k, cols, e,
                            kernel_lib.num_sms(x.device.index))
+    tables = _tables(e, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib_fn("gmm_bf16", _GMM_ARGTYPES)(
-            x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
+            x.data_ptr(), w.data_ptr(), gs.data_ptr(), tables.data_ptr(),
+            out.data_ptr(),
             n, k, cols, e, int(transpose_w), x.stride(0), w.stride(1),
             w.stride(0), ctypes.byref(GmmPlan.of(plan)), stream,
         )
@@ -273,10 +282,12 @@ def gmm_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     dw = torch.empty((e, k, m), dtype=x.dtype, device=x.device)
     plan = gmm_launch_plan("dw", n, k, m, e,
                            kernel_lib.num_sms(x.device.index))
+    tables = _tables(e, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib_fn("gmm_dw_bf16", _DW_ARGTYPES)(
-            x.data_ptr(), dy.data_ptr(), gs.data_ptr(), dw.data_ptr(),
+            x.data_ptr(), dy.data_ptr(), gs.data_ptr(), tables.data_ptr(),
+            dw.data_ptr(),
             n, k, m, e, ctypes.byref(GmmPlan.of(plan)), stream,
         )
     if err != 0:

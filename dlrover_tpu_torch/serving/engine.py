@@ -8,10 +8,18 @@ occupied slot one token, and a request that finishes frees its slot for
 the next queued request on the very next step.  ``static_batching=True``
 is the baseline: admission waits until the whole pool drains.
 
+Admission is the ``serve.admit`` fault seam (``common/faults.py``), retried
+under ``admit_policy`` (a :class:`~dlrover_tpu_torch.common.retry.
+RetryPolicy`): an injected admission fault is retried with backoff under a
+deadline instead of dropping the request.  The engine books a ``serve``
+telemetry event every ``telemetry_every`` steps and at the end of each
+drain, and a ``compile`` event for its warm-up.  With no fault plan the
+seam is a no-op.
+
 Not in this slice: tensor parallelism and re-folding, disaggregated
 prefill (``role="prefill"``/``"decode"``, pages), speculative decoding,
-the fault-injection admission seam and its retry policy, telemetry
-events, the memory registry and weight hot-swap.
+the master client, the memory registry and weight hot-swap (and with it
+the ``serve.swap`` seam).
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common import faults, telemetry
+from dlrover_tpu_torch.common.retry import RetryPolicy
 from dlrover_tpu_torch.models.transformer import TransformerConfig
 from dlrover_tpu_torch.rl.generation import SamplingParams
 from dlrover_tpu_torch.runtime.device import DeviceLike
@@ -109,6 +119,8 @@ class ServingEngine:
         max_top_k: int = 64,
         seed: int = 0,
         static_batching: bool = False,
+        telemetry_every: int = 32,
+        admit_policy: Optional[RetryPolicy] = None,
         device: DeviceLike = None,
     ):
         if buckets is None:
@@ -130,6 +142,14 @@ class ServingEngine:
         self._topks = np.zeros((slots,), np.int64)
         self._queue: Deque[Tuple[Request, float]] = deque()
         self.results: Dict[str, RequestResult] = {}
+        self.telemetry_every = max(1, telemetry_every)
+        # Injected admission faults (serve.admit) are retried with backoff
+        # under a deadline instead of dropping the request on the floor.
+        self.admit_policy = admit_policy or RetryPolicy(
+            max_attempts=4, base_delay_s=0.05, max_delay_s=0.5,
+            deadline_s=5.0, retryable=(faults.FaultInjected,),
+            name="serve.admit", quiet=True,
+        )
         self._step_i = 0
         self._completed: Deque[Tuple[float, float, int]] = deque(maxlen=512)
         self._occupancy: Deque[float] = deque(maxlen=256)
@@ -170,7 +190,13 @@ class ServingEngine:
                 f"exceeds the engine's max_top_k {self.programs.max_top_k}"
             )
         request = dataclasses.replace(request, prompt=prompt)
-        self._queue.append((request, time.perf_counter()))
+        submit_t = time.perf_counter()
+
+        def admit():
+            faults.fire("serve.admit", uid=request.uid)
+            self._queue.append((request, submit_t))
+
+        self.admit_policy.call(admit)
         return request.uid
 
     def _free_slots(self) -> List[int]:
@@ -278,6 +304,8 @@ class ServingEngine:
                 self._maybe_finish(slot, tok)
             self._step_lat.append(time.perf_counter() - t0)
         self._occupancy.append(len(live) / self.slots)
+        if self._step_i % self.telemetry_every == 0:
+            self._emit_telemetry()
         return len(live)
 
     def run(
@@ -310,6 +338,7 @@ class ServingEngine:
                 f"drain did not converge within {max_steps} steps "
                 f"(queue={len(self._queue)}, live={self._live_slots()})"
             )
+        self._emit_telemetry()
         return self.results
 
     # -- stats ----------------------------------------------------------------
@@ -346,8 +375,22 @@ class ServingEngine:
             "prefills": float(self._prefills),
         }
 
+    def _emit_telemetry(self):
+        stats = self.stats()
+        telemetry.event(
+            "serve",
+            qps=stats["qps"], p50_s=stats["p50_s"], p95_s=stats["p95_s"],
+            p95_n=int(stats["p95_n"]),
+            occupancy=stats["occupancy"], slots=int(stats["slots"]),
+            requests=int(stats["requests"]), tokens=int(stats["tokens"]),
+            decode_step_p95_s=stats["decode_step_p95_s"],
+        )
+
     def warmup(self) -> float:
         """Build and load the kernels the serving path launches ahead of
-        the first request (the JAX engine's ``aot_compile``).  Returns
-        wall seconds."""
-        return self.programs.warmup()
+        the first request (the JAX engine's ``aot_compile``), booked as a
+        ``compile`` telemetry event.  Returns wall seconds."""
+        seconds = self.programs.warmup()
+        telemetry.event("compile", duration_s=seconds,
+                        cached=seconds == 0.0, phase="serve_aot")
+        return seconds

@@ -22,8 +22,8 @@ one CUDA kernel on the card).
 
 Not ported yet, and refused when asked for: a device mesh and logical
 sharding rules, ZeRO-1, the overlap engine and the int8 gradient reduce
-(ROADMAP Queue 1 items 3 and 4), and the ``sgd``, ``lion`` and ``agd``
-optimizers (Queue 1 item 2).
+(ROADMAP Queue 1 item 4), and the ``sgd``, ``lion`` and ``agd``
+optimizers (Queue 1 item 6).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -101,7 +101,7 @@ def make_optimizer(
     elif name in ("sgd", "lion", "agd"):
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item "
-            "2); the training slice has adamw, adafactor, q8_adam and "
+            "6); the training slice has adamw, adafactor, q8_adam and "
             "q4_adam"
         )
     else:
@@ -198,6 +198,12 @@ class TrainState:
     def params(self) -> Dict[str, torch.Tensor]:
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """What Flash Checkpoint saves of the state (``checkpoint/``; the
+        step rides in the checkpoint's meta): ``{"params": the state dict,
+        "opt_state": the optimizer state}``, views of the live tensors."""
+        return {"params": self.params(), "opt_state": self.opt_state}
+
 
 @dataclasses.dataclass
 class Train:
@@ -227,6 +233,15 @@ class Train:
         with torch.no_grad():
             opt_state = self.optimizer.init(_param_tree(model))
         return TrainState(step=0, model=model, opt_state=opt_state)
+
+    def restore(self, step: int, tree: Mapping[str, Any]) -> TrainState:
+        """The state a restored checkpoint tree (``TrainState.
+        checkpoint_tree``'s layout, e.g. ``Checkpointer.load_checkpoint``
+        with a fresh state's tree as the template) describes."""
+        state = self.init(params=tree["params"])
+        state.opt_state = tree["opt_state"]
+        state.step = step
+        return state
 
     # -- one step -------------------------------------------------------------
 
@@ -376,12 +391,12 @@ def build_train(
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "a device mesh and sharding rules are a later slice of the port "
-            "(ROADMAP Queue 1 item 3)"
+            "(ROADMAP Queue 1 item 4)"
         )
     if zero1 or overlap or reduce_quant != "none":
         raise NotImplementedError(
             "zero1, overlap and reduce_quant are later slices of the port "
-            "(ROADMAP Queue 1 items 3 and 4)"
+            "(ROADMAP Queue 1 item 4)"
         )
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")

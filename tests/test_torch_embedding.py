@@ -578,3 +578,131 @@ def test_a_cuda_request_without_a_card_raises():
         device_cache.DeviceHotRowCache(plane, capacity=8, max_unique=4,
                                        device="cuda")
     plane.close()
+
+
+# -- fault seams and telemetry (as the JAX plane's) -------------------------------
+
+
+@pytest.fixture
+def seams():
+    """Both packages' fault and telemetry planes, reset around the test."""
+    from dlrover_tpu.common import faults as jfaults
+    from dlrover_tpu.common import telemetry as jtelemetry
+    from dlrover_tpu_torch.common import faults, telemetry
+
+    for mod in (faults, jfaults):
+        mod.reset()
+    for tel in (telemetry, jtelemetry):
+        tel.recorder().configure(enabled=True)
+        tel.recorder().drain()
+    yield (faults, telemetry), (jfaults, jtelemetry)
+    for mod in (faults, jfaults):
+        mod.reset()
+
+
+def _faulted_run(pkg, plane, plan, tmp_dir):
+    """Drive ``plane`` under ``plan`` (errors caught and counted), reshard
+    4 -> 2, save; returns (fired, the telemetry names and span attrs)."""
+    faults, telemetry = pkg
+    faults.configure(plan, seed=9)
+    raised = 0
+    rng = np.random.default_rng(4)
+    for _ in range(4):
+        keys = rng.integers(0, 500, size=64).astype(np.int64)
+        try:
+            _, uniq, _ = plane.lookup(keys)
+            plane.apply_gradients(uniq, np.full((uniq.size, DIM), 0.01,
+                                                np.float32))
+        except faults.FaultInjected:
+            raised += 1
+    try:
+        plane.reshard(2)
+    except faults.FaultInjected:
+        raised += 1
+        plane.reshard(2)
+    plane.save(str(tmp_dir), step=1)
+    plane.emit_telemetry(hit_rate=0.5)
+    fired = list(faults.active().fired)
+    faults.reset()
+    events = [(name, {k: v for k, v in attrs.items()
+                      if k not in ("src", "reshard_s")})
+              for name, _, _, _, attrs in telemetry.recorder().drain()
+              if name != "fault"]
+    return raised, fired, events
+
+
+@pytest.mark.parametrize("plan", [
+    "embed.fetch:error@2,5", "embed.reshard:error@1",
+    "storage.write:error@2;embed.fetch:error@p=0.3",
+])
+def test_plane_seams_and_spans_fire_as_the_jax_planes(seams, tmp_path, plan):
+    """The same plan and seed fire ``embed.fetch`` (once per owner
+    exchange of a lookup or an update), ``embed.reshard`` (before any
+    owner mutates: the retry finds the old fold) and ``storage.write`` (a
+    shard export) on the same hits in both packages, and both book the
+    same ``embed.lookup``/``embed.apply``/``embed.reshard`` spans and
+    ``embed`` event."""
+    port, ref = seams
+    if "storage.write" in plan:
+        # The export of the second owner's shard is the failing write.
+        with pytest.raises(port[0].FaultInjected) as got:
+            _faulted_run(port, make_plane(4), plan, tmp_path / "p")
+        with pytest.raises(ref[0].FaultInjected) as want:
+            _faulted_run(ref, make_jax_plane(4), plan, tmp_path / "j")
+        assert (got.value.seam, got.value.hit) == (
+            want.value.seam, want.value.hit) == ("storage.write", 2)
+        return
+    got = _faulted_run(port, make_plane(4), plan, tmp_path / "p")
+    want = _faulted_run(ref, make_jax_plane(4), plan, tmp_path / "j")
+    assert got == want
+    assert got[0] >= 1 and got[1]
+    names = {name for name, _ in got[2]}
+    assert {"embed.lookup", "embed.apply", "embed.reshard",
+            "embed"} <= names
+
+
+def test_no_plan_leaves_the_plane_bitwise_and_the_seams_silent(seams):
+    """With no plan every seam is a no-op: the plane matches the JAX plane
+    bitwise and nothing but the spans is recorded."""
+    port, ref = seams
+    a, b = drive(make_plane(3)), drive(make_jax_plane(3))
+    assert_snapshots_equal(snapshot(a), snapshot(b))
+    events = port[1].recorder().drain()
+    assert events and not [e for e in events if e[0] == "fault"]
+    assert {e[0] for e in events} == {"embed.lookup", "embed.apply"}
+
+
+def test_spill_and_table_storage_seams(seams, tmp_path):
+    """The spill tier's log (open, append on a demotion, read on a fault
+    back) and the host-local table's export fire ``storage.write`` and
+    ``storage.read`` as the JAX package's do; a demotion is an
+    ``embed.spill`` span."""
+    port, ref = seams
+
+    def run(pkg, hybrid_cls, table_cls, out):
+        faults, telemetry = pkg
+        faults.configure("storage.read:delay=0.0@every:1;"
+                         "storage.write:delay=0.0@every:1")
+        faults.active()._sleep = lambda s: None
+        st = hybrid_cls(DIM, str(out / "spill.log"), native=False)
+        keys = np.arange(16, dtype=np.int64)
+        st.lookup(keys, init_scale=0.1, seed=1, step=1)
+        st.spill(min_step=5, min_count=10)
+        st.lookup(keys[:4], init_scale=0.1, seed=1, step=6)
+        table = table_cls("t", dim=DIM, learning_rate=0.1, seed=1)
+        table.lookup(keys)
+        table.save(str(out / "tab"), step=1)
+        table.restore(str(out / "tab"))
+        fired = [(seam, hit) for seam, _, hit in faults.active().fired]
+        faults.reset()
+        ops = [e[4].get("op") for e in telemetry.recorder().drain()
+               if e[0] == "fault"]
+        spans = [e[4] for e in telemetry.recorder().peek()]
+        return fired, ops, spans
+
+    got = run(port, spill.HybridKVStore, EmbeddingTable, tmp_path / "p")
+    want = run(ref, jspill.HybridKVStore, jtable.EmbeddingTable,
+               tmp_path / "j")
+    assert got[:2] == want[:2]
+    assert {"spill.open", "spill.append", "spill.read", "table.save",
+            "table.restore"} <= set(got[1])

@@ -161,3 +161,60 @@ def test_kernel_sources_ship_with_the_package():
     src, out = kernel_lib._target("flash_attention")
     assert os.path.exists(src)
     assert out.startswith(kernel_lib.BUILD_DIR) and out.endswith(".so")
+
+
+# -- head dims the kernels have no build for (zero-padded) ------------------
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("causal,hq,hkv", [(True, 4, 4), (False, 4, 2)])
+def test_padded_head_dim_equals_unpadded_and_jax(d, causal, hq, hkv):
+    """``mha_padded`` (what ``mha`` runs on the card for D 80 and 96: q, k
+    and v zero-padded to 128, the true scale, the output sliced back)
+    through the plain versions equals the unpadded plain result and the
+    JAX ``mha`` in interpret mode, which takes any head dim as a full
+    block."""
+    rng = np.random.default_rng(1000 + d + hkv)
+    q, k, v = _qkv(rng, 1, 96, hq, hkv, d)
+    assert tfa.padded_head_dim(d) == 128
+    before = tfa.PAD_COPIES["flash_pad"]
+    t = [torch.as_tensor(x) for x in (q, k, v)]
+    got = tfa.mha_padded(*t, causal=causal)
+    assert tfa.PAD_COPIES["flash_pad"] == before + 3
+    assert tuple(got.shape) == q.shape
+    plain, _ = tfa.mha_reference(*t, causal=causal)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    _, want = _both(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_padded_head_dim_table_and_refusals():
+    assert [tfa.padded_head_dim(d) for d in (8, 64, 65, 80, 96, 128)] == [
+        64, 64, 128, 128, 128, 128]
+    with pytest.raises(ValueError, match="Queue 3 item 7"):
+        tfa.padded_head_dim(160)
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(d_model=320, num_heads=2), "head dims up to 128"),
+    (dict(dtype=torch.float32), "bf16 only"),
+])
+def test_config_refuses_flash_without_a_kernel_on_cuda(overrides, match):
+    """A flash config with a head dim above 128, or a compute dtype other
+    than bf16, is refused for ``cuda`` when the model is built (naming
+    ROADMAP Queue 3 item 7) and nothing is cast; the CPU takes it, and a
+    head dim of 80 is taken on either."""
+    from dlrover_tpu_torch.models.transformer import TransformerConfig
+
+    base = dict(vocab_size=64, num_layers=1, d_model=128, num_heads=2,
+                max_seq_len=32, attention_impl="flash")
+    cfg = TransformerConfig(**{**base, **overrides})
+    with pytest.raises(NotImplementedError, match=match) as err:
+        cfg.check_device(torch.device("cuda"))
+    assert "Queue 3 item 7" in str(err.value)
+    cfg.check_device(torch.device("cpu"))
+    TransformerConfig(**{**base, "attention_impl": "xla", **overrides}
+                      ).check_device(torch.device("cuda"))
+    TransformerConfig(**{**base, "d_model": 160}).check_device(
+        torch.device("cuda"))

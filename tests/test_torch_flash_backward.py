@@ -253,3 +253,36 @@ def test_chip_backward_check_catches_planted_faults(hq, hkv):
     faults = cs.planted_faults(sound, ref, dead, lost)
     assert len(faults) == 12
     assert all(f["caught"] for f in faults.values()), faults
+
+
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("hq,hkv,block", [(2, 2, 64), (4, 2, 16)])
+def test_padded_head_dim_gradients_equal_unpadded_and_jax(d, hq, hkv, block):
+    """Autograd through ``mha_padded`` (D 80 and 96 zero-padded to 128, as
+    ``mha`` runs them on the card) gives the unpadded plain gradients, the
+    padded columns dropped, and those of ``jax.vjp`` of the JAX ``mha``
+    (interpret mode; fused at one kv block, split at four)."""
+    rng = np.random.default_rng(2000 + d + hq)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (1, S, hq, d), (1, S, hkv, d), (1, S, hkv, d), (1, S, hq, d)))
+    leaves = [torch.as_tensor(x).requires_grad_() for x in (q, k, v)]
+    before = tfa.PAD_COPIES["flash_pad"]
+    o = tfa.mha_padded(*leaves, causal=True, block_kv=block)
+    assert tuple(o.shape) == q.shape
+    o.backward(torch.as_tensor(do))
+    # Three pads forward; the output gradient's pad and three slices back.
+    assert tfa.PAD_COPIES["flash_pad"] == before + 7
+    got = [x.grad.numpy() for x in leaves]
+    t = [torch.as_tensor(x) for x in (q, k, v, do)]
+    o2, lse = tfa.mha_reference(*t[:3], causal=True)
+    plain = tfa.mha_backward_reference(*t[:3], o2, lse, t[3], causal=True)
+    for g, p in zip(got, plain):
+        assert g.shape == tuple(p.shape)
+        np.testing.assert_allclose(g, p.numpy(), atol=1e-5, rtol=1e-5)
+
+    def f(q, k, v):
+        return jfa.mha(q, k, v, causal=True, block_q=block, block_kv=block)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)

@@ -313,3 +313,96 @@ def test_pad_to_bucket_right_pads_and_reports_true_len():
     assert n == 8 and exact.shape == (8,)
     two_d, n = pad_to_bucket(np.ones((3, 5), np.int32), (8,))
     assert n == 5 and two_d.shape == (3, 8)
+
+
+# -- the serve.admit seam and the serve telemetry ---------------------------------
+
+
+@pytest.fixture
+def _fault_free():
+    from dlrover_tpu_torch.common import faults
+
+    faults.reset()
+    yield faults
+    faults.reset()
+
+
+def _greedy(requests):
+    return [Request(f"r{i}", _prompt(i, n),
+                    SamplingParams(temperature=0.0, max_new_tokens=m))
+            for i, (n, m) in enumerate(requests)]
+
+
+def test_admit_faults_are_retried_and_streams_unchanged(setup, _fault_free):
+    """A ``serve.admit`` plan that fires on listed hits: every request is
+    still admitted (the engine's ``RetryPolicy`` retries the injected
+    fault), the greedy streams equal a plan-free run's token for token,
+    the ring holds one fault event per fired hit, as the JAX engine's
+    (same plan, same seed) does, and the retry policy books its retries."""
+    from dlrover_tpu.common import faults as jfaults
+    from dlrover_tpu.common import telemetry as jtelemetry
+    from dlrover_tpu.common.retry import RetryPolicy as JRetryPolicy
+    from dlrover_tpu_torch.common import telemetry
+    from dlrover_tpu_torch.common.retry import RetryPolicy
+
+    faults = _fault_free
+    _, _, tcfg, state = setup
+    want = _engine(tcfg, state, slots=2).run(_greedy(GREEDY))
+    plan = "serve.admit:error@1,3,4"
+    rec = telemetry.recorder()
+    rec.configure(enabled=True)
+    rec.drain()
+    faults.configure(plan, seed=11)
+    policy = RetryPolicy(max_attempts=4, base_delay_s=0.0, jitter=False,
+                         retryable=(faults.FaultInjected,),
+                         name="serve.admit", sleep=lambda s: None)
+    engine = _engine(tcfg, state, slots=2, admit_policy=policy,
+                     telemetry_every=2)
+    got = engine.run(_greedy(GREEDY))
+    fired = list(faults.active().fired)
+    faults.reset()
+    events = rec.drain()
+    assert sorted(got) == sorted(want)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens)
+    assert fired == [("serve.admit", "error", h) for h in (1, 3, 4)]
+    booked = [e for e in events if e[0] == "fault"]
+    assert [(e[4]["seam"], e[4]["hit"]) for e in booked] == [
+        ("serve.admit", 1), ("serve.admit", 3), ("serve.admit", 4)]
+    assert len([e for e in events if e[0] == "retry"]) == 3
+    serve = [e for e in events if e[0] == "serve"]
+    assert serve and serve[-1][4]["requests"] == len(GREEDY)
+
+    # The JAX engine's seam fires on the same hits of the same plan.
+    jcfg, params, _, _ = setup
+    jfaults.configure(plan, seed=11)
+    JEngine(jcfg, params, slots=2, buckets=BUCKETS, seed=0,
+            admit_policy=JRetryPolicy(
+                max_attempts=4, base_delay_s=0.0, jitter=False,
+                retryable=(jfaults.FaultInjected,), name="serve.admit",
+                sleep=lambda s: None)).run([
+        JRequest(f"r{i}", _prompt(i, n),
+                 JSampling(temperature=0.0, max_new_tokens=m))
+        for i, (n, m) in enumerate(GREEDY)])
+    assert jfaults.active().fired == fired
+    jfaults.reset()
+    jtelemetry.recorder().drain()
+
+
+def test_admit_fault_past_the_policy_surfaces(setup, _fault_free):
+    """A plan that outlasts the policy raises ``RetryError`` from
+    ``submit`` and queues nothing; no plan, no seam."""
+    from dlrover_tpu_torch.common.retry import RetryError, RetryPolicy
+
+    faults = _fault_free
+    _, _, tcfg, state = setup
+    engine = _engine(tcfg, state, slots=2, admit_policy=RetryPolicy(
+        max_attempts=2, base_delay_s=0.0, jitter=False,
+        sleep=lambda s: None))
+    faults.configure("serve.admit:error")
+    with pytest.raises(RetryError):
+        engine.submit(_greedy(GREEDY[:1])[0])
+    assert not engine._queue
+    faults.reset()
+    engine.submit(_greedy(GREEDY[:1])[0])
+    assert len(engine._queue) == 1

@@ -159,7 +159,7 @@ def test_make_schedule_matches_jax(warmup, decay):
 
 
 def test_make_optimizer_refuses_unported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ttl.make_optimizer("lion")
     with pytest.raises(ValueError, match="unknown optimizer"):
         ttl.make_optimizer("nope")
