@@ -10,6 +10,7 @@
     python3 chip_smoke.py --quant       # build and the quantization checks
     python3 chip_smoke.py --repairs     # build, the grouped-matmul checks
                                         # and the padded-head-dim flash checks
+    python3 chip_smoke.py --fit         # build and the elastic loop
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
                                         # K2a, K4, K6-K9 against other trees
 
@@ -19,7 +20,8 @@ optimizers) and mixture-of-experts training, at the full width of GPT-2
 1.5B and of its MoE variant (full depth but for the MoE run) with random
 weights from a seed, and the CTR loop on the embedding plane at MLPerf
 DLRM width, saves and restores the GPT-2 1.5B training state through Flash
-Checkpoint, serves under an injected admission fault plan, and holds
+Checkpoint, trains and resumes it through ``ElasticTrainer.fit``, serves
+under an injected admission fault plan, and holds
 every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
 
@@ -206,6 +208,43 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``df -B1`` of ``/dev/shm`` and the checkpoint disk, arena
                bytes, the memory save's blocking seconds and GB/s, the
                persist seconds, the restore seconds from shm and storage.
+9c. ``train_fit``  ``ElasticTrainer`` on the ``train`` phase's model
+               (``FIT_CONFIG``: batch 16 x 1024, Adafactor lr 1e-4,
+               ``ckpt_every=4``, ``report_every=2``, ``metrics_lag=2``,
+               ``prefetch_to_device=2``, ``sdc_check_every=2``,
+               ``eval_every=4`` with one eval batch, a checkpoint directory
+               under ``build/``), ``fit`` over an ``ElasticDataLoader`` of
+               ``synthetic_lm_sample_fn(50304, 1024)`` with a shuffled
+               ``ElasticDistributedSampler`` (seed 0; the eval loader seed
+               1), 6 steps.  Every step, and every batch the prefetcher
+               places and hands out, runs under
+               ``torch.cuda.set_sync_debug_mode("error")``; each step
+               launches the flash forward and the fused backward 48 times
+               each and the split kernels never; the eval batch launches
+               the forward 48 times; losses and grad norms finite, no
+               numeric anomaly; the batches the prefetcher hands out equal
+               the host batches bit for bit; the pipeline counters hold no
+               sync block and exactly the ring's 3 flushes, 1 eval fetch
+               and, when the step-6 save found the saver still persisting
+               step 4 (and was skipped), the end-of-fit barrier's one wait
+               for the saver before it saves step 6.  No wait is added
+               for the cadence: the last save is at step 6 and storage
+               commits step 6 by ``close()``.
+               Two digests of the final state are equal and equal the
+               step-6 check's; a planted ``sdc.flip`` changes it (and
+               flipping back restores it).  A new trainer on the directory
+               resumes at step 6 with the state bit-equal (byte views) and
+               the booked ``grad_accum_ref``, and ``fit`` to step 8 takes 2
+               finite steps.  Then the ported ``train_lm`` example
+               (``EXAMPLE_ARGV``) in a subprocess exits 17 at step 10 and a
+               restart (``DLROVER_TPU_RESTART_COUNT=1``) resumes at step 8,
+               from shm or storage (printed), and exits 0.  Printed: the
+               device time between step starts (CUDA events) and its median
+               beside tokens/s and MFU, each checkpoint call's blocking
+               seconds and whether it saved, ``close()``'s wait, the restore's
+               seconds and source, each host block's seconds by label, and
+               the digest's device and host ms and temporary bytes.
+               ``--fit`` runs the build and this phase alone.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -283,8 +322,8 @@ process of its own, in turns: DIR, change, change, DIR for each DIR,
 twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, serve_faults, train, flash_ckpt, train_split,
-train_moe, train_lowbit and train_rec paths,
+runs of the serve, serve_faults, train, flash_ckpt, train_fit,
+train_split, train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1932,6 +1971,464 @@ def flash_ckpt_and_check():
         raise AssertionError(f"flash_ckpt failed: {out}")
     del train, batch, saved
     torch.cuda.empty_cache()
+    return counts
+
+
+# -- the elastic loop at world 1 ---------------------------------------------------
+
+#: ``train_fit``: ``TrainerConfig`` of the run (PERF.md §4).
+FIT_CONFIG = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                  optimizer="adafactor", learning_rate=TRAIN_LR,
+                  ckpt_every=4, report_every=2, metrics_lag=2,
+                  prefetch_to_device=2, sdc_check_every=2, eval_every=4,
+                  eval_batches=1)
+FIT_STEPS, FIT_MORE_STEPS = 6, 8
+#: The sampler's dataset (indices; each sample is made from its index).
+FIT_DATASET = 100_000
+#: The ported example's crash-and-resume pair: its default model size,
+#: flash attention (the config computes in bf16), saves at 4 and 8, a
+#: crash at 10 on the first run.
+EXAMPLE_ARGV = ["--steps", "12", "--ckpt-every", "4", "--fail-at-step",
+                "10", "--attention-impl", "flash", "--device", "cuda"]
+EXAMPLE_CRASH_RC, EXAMPLE_RESUME_STEP = 17, 8
+
+
+class _RecordedLoader:
+    """An ``ElasticDataLoader`` whose host batches are kept in the order
+    the prefetcher takes them (``batches_with_acks`` is what it reads)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.host = []
+
+    def batches_with_acks(self):
+        for batch, ack in self.loader.batches_with_acks():
+            self.host.append(batch)
+            yield batch, ack
+
+
+def _fit_loader(vocab, seed):
+    from dlrover_tpu_torch.data.loader import (
+        ElasticDataLoader,
+        ElasticDistributedSampler,
+        synthetic_lm_sample_fn,
+    )
+
+    return ElasticDataLoader(
+        synthetic_lm_sample_fn(vocab, TRAIN_SEQ, seed=seed),
+        batch_size=TRAIN_BATCH,
+        source=ElasticDistributedSampler(FIT_DATASET, shuffle=True,
+                                         seed=seed))
+
+
+@contextlib.contextmanager
+def _captured_log(pattern):
+    """Messages of the port's logger that match ``pattern``, while the
+    block runs."""
+    import logging
+
+    from dlrover_tpu_torch.common.log import default_logger
+
+    found = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            message = record.getMessage()
+            if re.search(pattern, message):
+                found.append(message)
+
+    handler = Grab()
+    default_logger.addHandler(handler)
+    try:
+        yield found
+    finally:
+        default_logger.removeHandler(handler)
+
+
+def _example_pair(scratch):
+    """The ported example crashes (exit 17) and a restarted run resumes
+    from its last save, each a process of its own on the card."""
+    from dlrover_tpu_torch.common.storage import (
+        CheckpointDirLayout,
+        PosixDiskStorage,
+    )
+
+    ckpt_dir = os.path.join(scratch, "example_ckpt")
+    env = dict(os.environ,
+               DLROVER_TPU_JOB=f"fitex{os.getpid()}",
+               DLROVER_TPU_SOCKET_DIR=os.path.join(scratch, "example_socks"),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("DLROVER_TPU_RESTART_COUNT", None)
+    argv = [sys.executable, "-m", "dlrover_tpu_torch.examples.train_lm",
+            "--checkpoint-dir", ckpt_dir] + EXAMPLE_ARGV
+    out = {"argv": argv[3:]}
+    try:
+        for label, restarts in (("first", None), ("restart", "1")):
+            run_env = dict(env)
+            if restarts is not None:
+                run_env["DLROVER_TPU_RESTART_COUNT"] = restarts
+            t0 = time.perf_counter()
+            res = subprocess.run(argv, env=run_env, cwd=REPO, timeout=300,
+                                 capture_output=True, text=True)
+            resumed = re.findall(r"resumed from checkpoint at step (\d+)",
+                                 res.stderr)
+            source = re.findall(r"restoring step \d+ from (shm)", res.stderr)
+            out[label] = {
+                "rc": res.returncode, "seconds": time.perf_counter() - t0,
+                "resumed_at": int(resumed[-1]) if resumed else None,
+                "restored_from": (source[-1] if source else "storage")
+                if resumed else None,
+                "stderr_tail": res.stderr[-1500:] if res.returncode not in (
+                    0, EXAMPLE_CRASH_RC) else "",
+            }
+        out["committed_step"] = CheckpointDirLayout(ckpt_dir).latest_step(
+            PosixDiskStorage())
+    finally:
+        arena = f"/dev/shm/dlrover_tpu_ckpt_fitex{os.getpid()}_h0"
+        if os.path.exists(arena):
+            os.unlink(arena)
+    out["ok"] = (out["first"]["rc"] == EXAMPLE_CRASH_RC
+                 and out["first"]["resumed_at"] is None
+                 and out["restart"]["rc"] == 0
+                 and out["restart"]["resumed_at"] == EXAMPLE_RESUME_STEP
+                 and out["committed_step"] == int(EXAMPLE_ARGV[1]))
+    return out
+
+
+def train_fit_and_check():
+    """``ElasticTrainer.fit`` on the ``train`` phase's GPT-2 1.5B at full
+    width and depth: the data tier, the CUDA-stream prefetcher, the
+    deferred metrics, the numeric monitor, the SDC digest, Flash
+    Checkpoint at the cadence and a restore on a new trainer; then the
+    ported example's crash-and-resume pair.  Returns the counted
+    launches of the fit."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.common.storage import (
+        CheckpointDirLayout,
+        PosixDiskStorage,
+    )
+    from dlrover_tpu_torch.models import gpt2_config
+    from dlrover_tpu_torch.trainer import state_digest
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        ElasticTrainer,
+        TrainerConfig,
+    )
+    from dlrover_tpu_torch.utils.profiler import pipeline_counters
+
+    scratch = os.path.join(REPO, "build", "train_fit")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    ckpt_dir = os.path.join(scratch, "ckpt")
+    sock_dir = tempfile.mkdtemp(prefix="fit_socks_")
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_JOB",
+                                                "DLROVER_TPU_SOCKET_DIR")}
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    os.environ["DLROVER_TPU_JOB"] = f"fit{os.getpid()}"
+    arena = f"/dev/shm/{sh.SharedMemoryHandler('h0').name}"
+    cfg = gpt2_config("1.5b", attention_impl="flash", remat="flash_only",
+                      param_dtype=torch.bfloat16)
+    tcfg = TrainerConfig(checkpoint_dir=ckpt_dir, **FIT_CONFIG)
+    per_step = _per_step(flash_fwd=cfg.num_layers,
+                         flash_bwd_fused=cfg.num_layers)
+    per_eval = _per_step(flash_fwd=cfg.num_layers)
+    out = {"phase": "train_fit",
+           "model": "gpt2-1.5b (48 layers, bf16 params and compute, "
+                    "flash_only, random weights seed 0)",
+           "trainer_config": FIT_CONFIG, "max_steps": FIT_STEPS}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = ElasticTrainer(cfg, tcfg, device="cuda")
+        torch.cuda.synchronize()
+        out["construct_s"] = time.perf_counter() - t0
+        if trainer.step != 0:
+            raise AssertionError(f"a fresh directory restored {trainer.step}")
+
+        # -- instrumentation: none of it reads the device inside a step ----
+        step_log = []     # (step, per-step launch deltas)
+        placed_log = []   # clones of what each step was handed
+        starts = []       # a CUDA event at the start of each step
+        train_step = trainer.train_step
+
+        def checked_step(batch):
+            placed_log.append({k: batch[k].clone()
+                               for k in ("inputs", "targets")})
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            before = _counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics = train_step(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            after = _counts()
+            step_log.append((trainer.step,
+                             {k: after[k] - before[k] for k in after}))
+            return metrics
+
+        def nonzero(launched):
+            return {k: v for k, v in launched.items() if v}
+
+        trainer.train_step = checked_step
+        batch_stream = trainer._batch_stream
+
+        def checked_stream(loader):
+            # The prefetcher places batches N+1..N+depth and hands out N
+            # inside each next(): the same sync check as the step.
+            it = iter(batch_stream(loader))
+            while True:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                yield batch
+
+        trainer._batch_stream = checked_stream
+        evaluate = trainer.evaluate
+        eval_log = []
+
+        def counted_eval(*args, **kwargs):
+            before = _counts()
+            t = time.perf_counter()
+            res = evaluate(*args, **kwargs)
+            after = _counts()
+            eval_log.append({"step": trainer.step,
+                             "seconds": time.perf_counter() - t,
+                             "launches": {k: after[k] - before[k]
+                                          for k in after}, **res})
+            return res
+
+        trainer.evaluate = counted_eval
+        save = trainer.save_checkpoint
+        saves = []
+
+        def timed_save(**kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            saved = save(**kwargs)
+            saves.append({
+                "step": trainer.step, "saved": saved,
+                "barrier": kwargs.get("wait_for_saver", False),
+                "blocking_s": time.perf_counter() - t,
+                "memory_save_s": trainer._ckpt._engine.last_save_seconds
+                if saved else None,
+                "in_arena": trainer._ckpt._engine.latest_memory_step()
+                == trainer.step})
+            return saved
+
+        trainer.save_checkpoint = timed_save
+        losses = []
+        train_loader = _RecordedLoader(_fit_loader(cfg.vocab_size, 0))
+
+        # -- the main path, counted ----------------------------------------
+        pipeline_counters().reset()
+        _zero_counts()
+        t0 = time.perf_counter()
+        final = trainer.fit(
+            train_loader, max_steps=FIT_STEPS,
+            on_step=lambda step, m: losses.append((step, m["loss"],
+                                                   m["grad_norm"])),
+            eval_loader=_fit_loader(cfg.vocab_size, 1))
+        fit_s = time.perf_counter() - t0
+        counts = _counts()
+        summary = pipeline_counters().summary()
+        blocks = pipeline_counters().blocks()
+        torch.cuda.synchronize()
+        intervals = [starts[i].elapsed_time(starts[i + 1]) / 1e3
+                     for i in range(len(starts) - 1)]
+        out.update({"final_step": final, "fit_s": fit_s,
+                    "losses": losses, "launches": counts,
+                    "step_launches": [(s, nonzero(got))
+                                      for s, got in step_log],
+                    "eval": [dict(e, launches=nonzero(e["launches"]))
+                             for e in eval_log],
+                    "checkpoints": saves,
+                    "pipeline": summary,
+                    "host_blocks": [{"label": b.label, "steps": b.steps,
+                                     "seconds": b.duration_s}
+                                    for b in blocks]})
+        if final != FIT_STEPS or [s for s, _, _ in losses] != list(
+                range(1, FIT_STEPS + 1)):
+            raise AssertionError(f"fit ran steps {losses}, final {final}")
+        bad = [s for s, loss, g in losses
+               if not (np.isfinite(loss) and np.isfinite(g))]
+        if bad or trainer.numeric_monitor.anomalies:
+            raise AssertionError(
+                f"non-finite steps {bad}, anomalies "
+                f"{[a.encode() for a in trainer.numeric_monitor.anomalies]}")
+        wrong = [(s, got) for s, got in step_log if got != per_step]
+        if wrong:
+            raise AssertionError(f"step launches {wrong}, want {per_step}")
+        if len(eval_log) != 1 or eval_log[0]["launches"] != per_eval:
+            raise AssertionError(f"eval launches {eval_log}, want {per_eval}")
+        # Saved at step 4, and the last save is step 6's: by the cadence
+        # or, when the saver was still persisting step 4, by the
+        # end-of-fit barrier after its wait.
+        made = [s["step"] for s in saves if s["saved"]]
+        skipped = [s for s in saves if not s["saved"]]
+        if made[:1] != [4] or made[-1] != FIT_STEPS or not all(
+                s["in_arena"] for s in saves if s["saved"]) or any(
+                s["barrier"] for s in skipped):
+            raise AssertionError(f"checkpoints {saves}")
+        # No hidden host sync: every step ran under sync-debug "error";
+        # the blocks booked are the ring's flushes and the eval fetch.
+        by_label = {}
+        for b in blocks:
+            by_label.setdefault(b.label, []).append(b.duration_s)
+        out["host_block_seconds"] = by_label
+        want_blocks = {"metrics-flush": FIT_STEPS // tcfg.metrics_lag,
+                       "eval-fetch": 1}
+        if skipped:
+            want_blocks["checkpoint-wait"] = 1
+        got_blocks = {k: len(v) for k, v in by_label.items()}
+        if (summary["sync_block_count"] != 0 or got_blocks != want_blocks
+                or summary["host_block_count"] != sum(want_blocks.values())):
+            raise AssertionError(
+                f"host blocks {got_blocks} (sync {summary['sync_block_count']}"
+                f"), want {want_blocks} and 0")
+        # Placed batches: bit for bit the host batches, in order.
+        mismatched = []
+        for i, placed in enumerate(placed_log):
+            host = train_loader.host[i]
+            for key in ("inputs", "targets"):
+                got = placed[key].cpu().numpy()
+                if got.dtype != np.int64 or not np.array_equal(
+                        got, host[key].astype(np.int64)):
+                    mismatched.append((i, key))
+        out["placed_batches_bit_equal"] = not mismatched
+        if mismatched:
+            raise AssertionError(f"placed batches differ: {mismatched}")
+
+        # Step time: device time between step starts (CUDA events); the
+        # median of the intervals after steps 2, 3 and 5 (the one after
+        # step 1 holds the first step's warm-up, the one after step 4 the
+        # eval and the checkpoint).
+        quiet = [intervals[i] for i in range(1, len(intervals))
+                 if (i + 1) % tcfg.eval_every != 0]
+        step_s = statistics.median(quiet)
+        tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+        ftok = flops_per_token(cfg, TRAIN_SEQ)
+        out.update({
+            "step_intervals_s": intervals, "step_s_median": step_s,
+            "step_s_median_of": "device time between step starts, after "
+                                "steps 2, 3 and 5 (after step 1: warm-up; "
+                                "after step 4: the eval and the "
+                                "checkpoint)",
+            "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * ftok / PEAK_BF16_FLOPS,
+        })
+
+        # -- digests and the planted flip (outside the checked window) -----
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        t0 = time.perf_counter()
+        value = state_digest.digest_state(trainer.state)
+        host_s = time.perf_counter() - t0
+        marks[1].record()
+        d1 = int(value)
+        state_bytes = _tree_nbytes(trainer.state.checkpoint_tree())
+        out["digest_cost"] = {
+            "ms": marks[0].elapsed_time(marks[1]), "host_ms": host_s * 1e3,
+            "leaves": 1 + len(sh.tree_flatten_with_path(
+                trainer.state.checkpoint_tree())),
+            "temp_bytes": torch.cuda.max_memory_allocated() - base,
+            "state_bytes": state_bytes,
+            "bound_ms": state_bytes / PEAK_BYTES_PER_S * 1e3,
+            "row_bytes": state_digest.ROW_BYTES,
+            "group_rows": state_digest.GROUP_ROWS}
+        d2 = int(state_digest.digest_state(trainer.state))
+        pending = [(s, int(v)) for s, v in trainer._pending_digests]
+        faults.configure("sdc.flip:error@1", seed=0)
+        try:
+            trainer._sdc_check()
+        finally:
+            faults.reset()
+        flipped = int(trainer._pending_digests[-1][1])
+        state_digest.flip_mantissa_bit(trainer.state)  # flip it back
+        d3 = int(state_digest.digest_state(trainer.state))
+        out["digest"] = {
+            "repeat": [state_digest.format_digest(d) for d in (d1, d2)],
+            "pending": [(s, state_digest.format_digest(v))
+                        for s, v in pending],
+            "after_planted_flip": state_digest.format_digest(flipped),
+            "after_flip_back": state_digest.format_digest(d3),
+            "flip_caught": flipped != d1}
+        if not (d1 == d2 == d3 and pending and pending[-1] ==
+                (FIT_STEPS, d1) and flipped != d1):
+            raise AssertionError(f"digest checks failed: {out['digest']}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.close()
+        out["close_wait_s"] = time.perf_counter() - t0
+        out["committed_step"] = CheckpointDirLayout(ckpt_dir).latest_step(
+            PosixDiskStorage())
+        if out["committed_step"] != FIT_STEPS:
+            raise AssertionError(
+                f"storage committed step {out['committed_step']}")
+
+        # -- restore on a new trainer ----------------------------------------
+        old = trainer
+        del trainer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _captured_log(r"from shm|resumed from") as restore_log:
+            resumed = ElasticTrainer(cfg, tcfg, device="cuda")
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["restored_from"] = ("shm" if any("from shm" in m for m in
+                                             restore_log) else "storage")
+        differ = _trees_bit_equal(resumed.state.checkpoint_tree(),
+                                  old.state.checkpoint_tree())
+        extra = resumed._ckpt.last_extra
+        out["restore"] = {"step": resumed.step, "leaves_differing": differ[:8],
+                          "grad_accum_ref": extra.get("grad_accum_ref")}
+        del old
+        torch.cuda.empty_cache()
+        if (resumed.step != FIT_STEPS or differ or extra.get(
+                "grad_accum_ref") != {"accum": 1, "world": 1}):
+            raise AssertionError(f"restore: {out['restore']}")
+        more = []
+        _zero_counts()
+        resumed.fit(_fit_loader(cfg.vocab_size, 0), max_steps=FIT_MORE_STEPS,
+                    on_step=lambda step, m: more.append((step, m["loss"])))
+        more_counts = _counts()
+        resumed.close()
+        out["resumed_losses"] = more
+        if [s for s, _ in more] != list(range(FIT_STEPS + 1,
+                                              FIT_MORE_STEPS + 1)) or not all(
+                np.isfinite(loss) for _, loss in more):
+            raise AssertionError(f"resumed fit: {more}")
+        counts = {k: counts[k] + more_counts[k] for k in counts}
+        del resumed
+        torch.cuda.empty_cache()
+        out["example"] = _example_pair(scratch)
+    finally:
+        if os.path.exists(arena):
+            os.unlink(arena)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["launches"] = counts
+    emit(out)
+    shutil.rmtree(scratch, ignore_errors=True)
+    if not out["example"]["ok"]:
+        raise AssertionError(f"example crash-and-resume: {out['example']}")
     return counts
 
 
@@ -4295,6 +4792,10 @@ def main() -> int:
         gmm_only()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--fit"]:
+        train_fit_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--repairs"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         gmm_kernel_checks(gen)
@@ -4365,6 +4866,7 @@ def main() -> int:
     paths["serve"], paths["serve_faults"] = serve_and_check()
     paths["train"], adafactor_state_bytes = train_and_check()
     paths["flash_ckpt"] = flash_ckpt_and_check()
+    paths["train_fit"] = train_fit_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()

@@ -108,7 +108,7 @@ class TransformerConfig:
         if self.attention_impl == "ring":
             raise NotImplementedError(
                 "attention_impl='ring' (context parallelism) is a later "
-                "slice of the port (long context)"
+                "slice of the port (long context, ROADMAP Queue 1 item 8)"
             )
         if self.attention_impl not in ("xla", "flash"):
             raise ValueError(
@@ -117,7 +117,8 @@ class TransformerConfig:
             )
         if self.pipeline_stages > 1:
             raise NotImplementedError(
-                "pipeline_stages > 1 is a later slice of the port (pipeline)"
+                "pipeline_stages > 1 is a later slice of the port (pipeline, "
+                "ROADMAP Queue 1 item 8)"
             )
         remat_policy.validate(self.remat, self.attention_impl)
 

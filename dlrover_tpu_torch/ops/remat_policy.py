@@ -111,7 +111,8 @@ def validate(name: str, attention_impl: str = "xla") -> RematPolicy:
     if policy.name not in PORTED:
         raise NotImplementedError(
             f"remat={policy.name!r} is a later slice of the port (training: "
-            f"the policies other than {list(PORTED)} and host offload)"
+            f"the policies other than {list(PORTED)} and host offload, "
+            f"ROADMAP Queue 1 item 6)"
         )
     return policy
 

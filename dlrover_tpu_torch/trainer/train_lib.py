@@ -20,6 +20,11 @@ leaves.
 ``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf update is
 one CUDA kernel on the card).
 
+``shard_batch`` places a host batch on the train's device in the dtypes
+``Train._batch`` takes (pinned, ``non_blocking`` on the card), so the step
+passes it through with no copy; ``elastic_grad_accum`` is the elastic
+trainer's microbatch accounting.
+
 Not ported yet, and refused when asked for: a device mesh and logical
 sharding rules, ZeRO-1, the overlap engine and the int8 gradient reduce
 (ROADMAP Queue 1 item 4), and the ``sgd``, ``lion`` and ``agd``
@@ -33,8 +38,10 @@ the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -416,3 +423,92 @@ def build_train(
         global_batch_size=global_batch_size, seq_len=seq_len,
         ce_chunks=ce_chunks, grad_accum=grad_accum, accum_dtype=accum_dtype,
     )
+
+
+def elastic_grad_accum(
+    ref_accum: int,
+    ref_world: int,
+    world: int,
+    global_batch_size: int,
+    dp: int,
+) -> int:
+    """Rescale grad_accum for a resized world, tokens/step invariant.
+
+    The global batch (hence tokens/step and the optimizer trajectory) is a
+    property of the step, not the world; what a resize changes is the
+    per-device working set.  Scaling N by ``ref_world / world`` keeps each
+    microbatch's per-device rows (so activation memory) about constant:
+    half the devices, twice the microbatches, same step semantics.  The
+    target is snapped to the nearest feasible N (one that keeps every
+    microbatch divisible over the ``dp``-way batch split), preferring the
+    next LARGER feasible N so the reference per-microbatch memory budget
+    is never exceeded.
+    """
+    world = max(1, world)
+    ref_world = max(1, ref_world) or world
+    target = max(1, int(round(ref_accum * ref_world / world)))
+    per_shard = max(1, global_batch_size // max(1, dp))
+    feasible = [
+        n for n in range(1, per_shard + 1)
+        if global_batch_size % (max(1, dp) * n) == 0
+    ]
+    if not feasible:
+        return 1
+    larger = [n for n in feasible if n >= target]
+    return min(larger) if larger else max(feasible)
+
+
+#: The dtypes ``Train._batch`` takes; other keys keep their own.
+BATCH_DTYPES = {"inputs": torch.long, "targets": torch.long,
+                "weights": torch.float32}
+
+
+def _on_device(t: torch.Tensor, device: torch.device) -> bool:
+    return t.device.type == device.type and (
+        device.index is None or t.device.index == device.index)
+
+
+def shard_batch(batch: Mapping[str, Any], train: Train
+                ) -> Dict[str, torch.Tensor]:
+    """Place a host batch on ``train``'s device the way ``Train._batch``
+    takes it: ``inputs``/``targets`` int64, ``weights`` fp32 (all-ones
+    when absent, made on the device).  A tensor already on the device in
+    its dtype passes through untouched (no copy, no "place" event), so
+    the trainer hands prefetched batches back through this function.
+
+    On the CPU this is a plain move.  On the card each host array is
+    converted on the host, pinned and copied with ``non_blocking=True``
+    on the current stream (``data.loader.DevicePrefetcher`` makes that
+    its copy stream), so placing never waits for the device; a failure
+    to pin or to copy raises.
+    """
+    device = train.device
+    out: Dict[str, torch.Tensor] = {}
+    placed_any = False
+    t0 = time.perf_counter()
+    for key, value in batch.items():
+        if value is None:
+            continue
+        dtype = BATCH_DTYPES.get(key)
+        if isinstance(value, torch.Tensor) and _on_device(value, device) \
+                and (dtype is None or value.dtype == dtype):
+            out[key] = value  # already placed (prefetched): passthrough
+            continue
+        placed_any = True
+        host = (value if isinstance(value, torch.Tensor)
+                else torch.as_tensor(np.asarray(value)))
+        if dtype is not None:
+            host = host.to(dtype)
+        if device.type == "cuda" and not host.is_cuda:
+            host = host.pin_memory().to(device, non_blocking=True)
+        else:
+            host = host.to(device)
+        out[key] = host
+    if "weights" not in out:
+        out["weights"] = torch.ones(tuple(out["targets"].shape),
+                                    dtype=torch.float32, device=device)
+    if placed_any:
+        from dlrover_tpu_torch.utils.profiler import pipeline_counters
+
+        pipeline_counters().record_place(time.perf_counter() - t0)
+    return out

@@ -1,0 +1,738 @@
+"""Port parity: the elastic loop at world 1 (``dlrover_tpu_torch.trainer.
+elastic_trainer`` with ``numeric_health``, ``state_digest``, the runtime's
+``env`` and ``virtual_mesh``, and the ported
+``train_lm`` example) against the JAX package.
+
+A 4-step ``fit`` through both packages from one JAX init holds to
+``tests/test_torch_train.py``'s limits; the numeric monitor, the digest,
+the mantissa flipper, the grad-accumulation rule and the virtual mesh's
+logical shape match exactly.  The rest holds the port's loop to the
+reference's contracts: the lagged, prefetched fit equal to the
+synchronous one, resume at the committed step with the state bit-equal,
+the booked grad-accumulation reference, no NaN state checkpointed, the
+epoch accounting, the embedding booking, a checkpoint skipped while
+the saver is busy and then made by the end-of-fit barrier, and every
+unported option refused with its ROADMAP queue item.
+"""
+
+import dataclasses
+import os
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dlrover_tpu.models.gpt2 import gpt2_config as jgpt2_config
+from dlrover_tpu.runtime import virtual_mesh as jvm
+from dlrover_tpu.trainer import numeric_health as jnh
+from dlrover_tpu.trainer import state_digest as jsd
+from dlrover_tpu.trainer import train_lib as jtl
+from dlrover_tpu.trainer.elastic_trainer import ElasticTrainer as JTrainer
+from dlrover_tpu.trainer.elastic_trainer import TrainerConfig as JConfig
+from dlrover_tpu_torch.common import faults
+from dlrover_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+from dlrover_tpu_torch.models import gpt2_config
+from dlrover_tpu_torch.models.from_jax import state_dict_from_jax
+from dlrover_tpu_torch.runtime import env as tenv
+from dlrover_tpu_torch.runtime import virtual_mesh as tvm
+from dlrover_tpu_torch.trainer import numeric_health as tnh
+from dlrover_tpu_torch.trainer import state_digest as tsd
+from dlrover_tpu_torch.trainer import train_lib as ttl
+from dlrover_tpu_torch.trainer.elastic_trainer import (
+    ElasticTrainer,
+    TrainerCallback,
+    TrainerConfig,
+)
+from dlrover_tpu_torch.utils.profiler import pipeline_counters
+
+# tests/test_torch_train.py's model, batch and limits.
+TINY = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=128,
+            max_seq_len=64)
+BATCH, SEQ = 8, 32
+METRIC_RTOL = 2e-6
+PARAM_ATOL = 3e-5
+
+
+@pytest.fixture(autouse=True)
+def _isolated_shm(monkeypatch, tmp_path):
+    """The shm arena outlives processes and is named by the job tag."""
+    monkeypatch.setenv("DLROVER_TPU_JOB", f"tet{os.getpid()}_{tmp_path.name}")
+    monkeypatch.setenv("DLROVER_TPU_SOCKET_DIR", str(tmp_path / "socks"))
+    yield
+    _unlink_arena()
+
+
+def _batches(n, seed=0, vocab=TINY["vocab_size"]):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, vocab, size=(BATCH, SEQ + 1), dtype=np.int32)
+        out.append({"inputs": toks[:, :-1].copy(),
+                    "targets": toks[:, 1:].copy()})
+    return out
+
+
+def _config(**kw):
+    kw.setdefault("report_every", 2)
+    kw.setdefault("ckpt_every", 1000)
+    return TrainerConfig(global_batch_size=BATCH, seq_len=SEQ,
+                         learning_rate=1e-3, **kw)
+
+
+def _trainer(cfg_kw=None, **kw):
+    model = gpt2_config("124m", **TINY, dtype=torch.float32,
+                        **(cfg_kw or {}))
+    return ElasticTrainer(model, _config(**kw), device="cpu")
+
+
+def _snapshot(state):
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+
+    return {"".join(p): v.clone() if isinstance(v, torch.Tensor) else v
+            for p, v in sh.tree_flatten_with_path(state.checkpoint_tree())}
+
+
+def _assert_bit_equal(got, want):
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, torch.Tensor):
+            assert g.dtype == w.dtype and g.shape == w.shape, k
+            assert torch.equal(g.reshape(-1).view(torch.uint8),
+                               w.reshape(-1).view(torch.uint8)), k
+        else:
+            assert g == w, k
+
+
+# -- fit against the reference ------------------------------------------------
+
+
+def test_fit_matches_the_reference_trainer():
+    """4 steps of AdamW through both trainers from one JAX init: per-step
+    loss and grad norm within METRIC_RTOL, parameters within PARAM_ATOL
+    (the key slice of the qkv bias excluded, as tests/test_torch_train.py
+    explains)."""
+    batches = _batches(4, seed=3)
+    jcfg = jgpt2_config("124m", **TINY, dtype=jnp.float32)
+    jtrainer = JTrainer(jcfg, JConfig(global_batch_size=BATCH, seq_len=SEQ,
+                                      learning_rate=1e-3, ckpt_every=1000,
+                                      report_every=2), client=None)
+    init = jax.tree.map(np.asarray, jtrainer.state.params)
+    jseen = []
+    jtrainer.fit(batches, max_steps=4, on_step=lambda s, m: jseen.append(
+        (s, float(m["loss"]), float(m["grad_norm"]))))
+    trainer = _trainer()
+    cfg = trainer.model_config
+    trainer.state = trainer.train.init(params=state_dict_from_jax(init, cfg))
+    tseen = []
+    trainer.fit(batches, max_steps=4, on_step=lambda s, m: tseen.append(
+        (s, float(m["loss"]), float(m["grad_norm"]))))
+    assert [s for s, _, _ in tseen] == [s for s, _, _ in jseen] == [1, 2, 3,
+                                                                    4]
+    np.testing.assert_allclose([x[1:] for x in tseen],
+                               [x[1:] for x in jseen], rtol=METRIC_RTOL)
+    want = state_dict_from_jax(jax.tree.map(np.asarray,
+                                            jtrainer.state.params), cfg)
+    got = trainer.state.params()
+    hd = cfg.resolved_head_dim
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith("attn.qkv.bias"):
+            keep = torch.ones(w.shape, dtype=torch.bool)
+            keep[..., hd:2 * hd] = False
+            g, w = g[keep], w[keep]
+        torch.testing.assert_close(g, w, rtol=0, atol=PARAM_ATOL, msg=name)
+    assert trainer.step == jtrainer.step == 4
+
+
+class _Recorder(TrainerCallback):
+    def __init__(self):
+        self.events = []
+
+    def on_train_begin(self, trainer):
+        self.events.append(("begin",))
+
+    def on_step_end(self, trainer, step, metrics):
+        self.events.append(("step", step, float(metrics["loss"]),
+                            float(metrics["grad_norm"])))
+
+    def on_evaluate(self, trainer, step, eval_metrics):
+        self.events.append(("eval", step, eval_metrics["eval_loss"]))
+
+    def on_checkpoint(self, trainer, step):
+        self.events.append(("ckpt", step))
+
+    def on_epoch_end(self, trainer, epoch):
+        self.events.append(("epoch", epoch))
+
+    def on_train_end(self, trainer, step):
+        self.events.append(("end", step))
+
+
+def _unlink_arena():
+    from dlrover_tpu_torch.checkpoint.shm_handler import SharedMemoryHandler
+
+    arena = f"/dev/shm/{SharedMemoryHandler('h0').name}"
+    if os.path.exists(arena):
+        os.unlink(arena)
+
+
+def test_lagged_prefetched_fit_equals_the_synchronous_fit(tmp_path,
+                                                          monkeypatch):
+    """Same batches: the pipelined loop (metrics_lag 2, prefetch 2) gives
+    the synchronous loop's metrics bit for bit, the same callbacks in the
+    same order (eval and checkpoint barriers included), the same state,
+    and no per-step sync."""
+    batches, evals = _batches(6, seed=4), _batches(2, seed=9)
+
+    def run(tag, **kw):
+        # Each run its own arena: a trainer restores from shm first.
+        _unlink_arena()
+        monkeypatch.setenv("DLROVER_TPU_JOB",
+                           f"tet{os.getpid()}_{tmp_path.name}_{tag}")
+        rec = _Recorder()
+        trainer = _trainer(eval_every=3, eval_batches=1, ckpt_every=3,
+                           checkpoint_dir=str(tmp_path / tag), **kw)
+        trainer.callbacks.append(rec)
+        pipeline_counters().reset()
+        trainer.fit(batches, max_steps=6, eval_loader=evals)
+        summary = pipeline_counters().summary()
+        state = _snapshot(trainer.state)
+        trainer.close()
+        _unlink_arena()
+        return rec.events, state, summary
+
+    sync_events, sync_state, sync_summary = run("sync")
+    lag_events, lag_state, lag_summary = run("lag", metrics_lag=2,
+                                             prefetch_to_device=2)
+    assert lag_events == sync_events
+    assert [e[0] for e in sync_events] == (
+        ["begin"] + ["step"] * 3 + ["eval", "ckpt"] + ["step"] * 3
+        + ["eval", "ckpt", "epoch", "end"])
+    _assert_bit_equal(lag_state, sync_state)
+    assert sync_summary["sync_block_count"] == 3      # reports at 2, 4, 6
+    assert lag_summary["sync_block_count"] == 0
+    assert lag_summary["flush_block_count"] == 4      # 1-2, 3, 4-5, 6
+    assert lag_summary["place_count"] >= 6
+
+
+def test_evaluate_accumulates_on_device_with_one_fetch():
+    trainer = _trainer()
+    counters = pipeline_counters()
+    counters.reset()
+    out = trainer.evaluate(_batches(3, seed=5), max_batches=3)
+    assert out["eval_batches"] == 3 and out["eval_tokens"] == 3 * BATCH * SEQ
+    want = np.mean([float(trainer.train.eval_step(
+        trainer.state, ttl.shard_batch(b, trainer.train))["loss"])
+        for b in _batches(3, seed=5)])
+    np.testing.assert_allclose(out["eval_loss"], want, rtol=1e-6)
+    assert len(counters.blocks("eval-fetch")) == 1
+    assert counters.sync_block_count() == 0
+
+
+# -- checkpoint and resume ------------------------------------------------------
+
+
+def test_resume_at_the_committed_step_with_the_state_bit_equal(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    first = _trainer(checkpoint_dir=ckpt, ckpt_every=5)
+    assert first.fit(_batches(8), max_steps=5) == 5
+    saved = _snapshot(first.state)
+    first.close()
+    second = _trainer(checkpoint_dir=ckpt, ckpt_every=5)
+    assert second.step == 5
+    _assert_bit_equal(_snapshot(second.state), saved)
+    assert second._ckpt.last_extra["grad_accum_ref"] == {"accum": 1,
+                                                         "world": 1}
+    assert second.fit(_batches(8, seed=1), max_steps=7) == 7
+    second.close()
+    # Resuming AT max_steps re-commits the state under this world.
+    third = _trainer(checkpoint_dir=ckpt, ckpt_every=5)
+    assert third.step == 7
+    assert third.fit(_batches(2), max_steps=7) == 7
+    third.close()
+    from dlrover_tpu_torch.common.storage import (
+        CheckpointDirLayout,
+        PosixDiskStorage,
+    )
+
+    assert CheckpointDirLayout(ckpt).latest_step(PosixDiskStorage()) == 7
+
+
+def test_booked_grad_accum_reference_resolves_as_the_reference(tmp_path):
+    """A checkpoint booked at (accum 2, world 2), restored at world 1 by a
+    trainer configured for accum 1: grad_accum is the reference's
+    ``elastic_grad_accum`` of the booking, and the step is rebuilt."""
+    ckpt = str(tmp_path / "ckpt")
+    booked = _trainer(checkpoint_dir=ckpt, grad_accum=2,
+                      grad_accum_ref_world=2)
+    want = jtl.elastic_grad_accum(2, 2, 1, BATCH, 1)
+    assert booked.grad_accum == want == 4
+    booked.fit(_batches(1), max_steps=1)
+    booked.close()
+    plain = _trainer(checkpoint_dir=ckpt)
+    assert plain.step == 1
+    assert (plain._ref_accum, plain._ref_world) == (2, 2)
+    assert plain.grad_accum == plain.train.grad_accum == want
+    assert plain.vmesh.logical_shape == (2,)
+    assert plain._accum_extra()["grad_accum_ref"] == {"accum": 2, "world": 2}
+    plain.close()
+
+
+class _BusySaver:
+    """Stands for a saver still persisting the previous checkpoint: every
+    save while it is busy is skipped (returns False); ``wait`` ends the
+    persist."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.busy, self.calls, self.waits = ckpt, True, [], 0
+        self.save = ckpt.save_checkpoint
+
+    def save_checkpoint(self, step, state, storage_type, extra=None):
+        self.calls.append((step, not self.busy))
+        if self.busy:
+            return False
+        return self.save(step, state, storage_type, extra=extra)
+
+    def wait(self, timeout=600.0):
+        self.waits += 1
+        self.busy = False
+        return self.ckpt.wait(timeout)
+
+    def __getattr__(self, name):
+        return getattr(self.ckpt, name)
+
+
+@pytest.mark.parametrize("lag", [0, 2])
+def test_a_skipped_save_is_not_booked_and_fit_ends_saved(tmp_path, lag):
+    """A cadence save that the busy saver skips leaves the step unsaved
+    and fires no ``on_checkpoint``; the end-of-fit barrier waits for the
+    saver and saves the final step, which a new trainer resumes."""
+    ckpt = str(tmp_path / "ckpt")
+    trainer = _trainer(checkpoint_dir=ckpt, ckpt_every=2, metrics_lag=lag)
+    rec = _Recorder()
+    trainer.callbacks.append(rec)
+    busy = trainer._ckpt = _BusySaver(trainer._ckpt)
+    pipeline_counters().reset()
+    assert trainer.fit(_batches(4), max_steps=4) == 4
+    # Cadence saves at 2 and 4 skipped; the barrier tries, waits, saves.
+    assert busy.calls == [(2, False), (4, False), (4, False), (4, True)]
+    assert busy.waits == 1
+    assert [e for e in rec.events if e[0] == "ckpt"] == [("ckpt", 4)]
+    assert len(pipeline_counters().blocks("checkpoint-wait")) == 1
+    assert trainer._last_saved == 4
+    saved = _snapshot(trainer.state)
+    trainer.close()
+    resumed = _trainer(checkpoint_dir=ckpt)
+    assert resumed.step == 4
+    _assert_bit_equal(_snapshot(resumed.state), saved)
+    resumed.close()
+
+
+def test_a_skipped_cadence_save_returns_false(tmp_path):
+    trainer = _trainer(checkpoint_dir=str(tmp_path / "ckpt"))
+    trainer.fit(_batches(1), max_steps=1)
+    busy = trainer._ckpt = _BusySaver(trainer._ckpt)
+    trainer.step = 3
+    assert trainer.save_checkpoint() is False
+    assert trainer._last_saved == 1 and busy.waits == 0
+    assert trainer.save_checkpoint(wait_for_saver=True) is True
+    assert trainer._last_saved == 3 and busy.waits == 1
+    trainer.close()
+
+
+@pytest.mark.parametrize("lag", [0, 2])
+def test_a_nan_state_is_never_checkpointed(tmp_path, lag):
+    trainer = _trainer(checkpoint_dir=str(tmp_path / "ckpt"), ckpt_every=2,
+                       metrics_lag=lag)
+    with torch.no_grad():
+        trainer.state.model.embed.embedding.fill_(float("nan"))
+    trainer.fit(_batches(4), max_steps=4)
+    assert trainer._state_poisoned
+    assert trainer._ckpt._engine.latest_memory_step() == -1
+    assert any(a.kind == "nan" for a in trainer.numeric_monitor.anomalies)
+    trainer.close()
+    assert _trainer(checkpoint_dir=str(tmp_path / "ckpt")).step == 0
+
+
+def test_epoch_and_resume_accounting(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    rec = _Recorder()
+    trainer = _trainer(checkpoint_dir=ckpt, ckpt_every=100)
+    trainer.callbacks.append(rec)
+    batches = _batches(3)
+    assert trainer.fit(batches, max_steps=100, epochs=2) == 6
+    assert trainer.epoch == 2
+    assert [e for e in rec.events if e[0] in ("epoch", "ckpt")] == [
+        ("epoch", 1), ("epoch", 2), ("ckpt", 6)]
+    trainer.close()
+    # A restored step implies the epoch of a sized loader: 6 // 3 = 2,
+    # so a 3-epoch budget has one epoch left.
+    resumed = _trainer(checkpoint_dir=ckpt, ckpt_every=100)
+    assert resumed.fit(batches, max_steps=100, epochs=3) == 9
+    assert resumed.epoch == 3
+    # At or past the budget: nothing runs.
+    assert resumed.fit(batches, max_steps=100, epochs=3) == 9
+    resumed.close()
+
+
+def test_epochs_refuse_a_one_shot_iterator():
+    trainer = _trainer()
+    with pytest.raises(ValueError, match="re-iterable"):
+        trainer.fit(iter(_batches(2)), max_steps=4, epochs=2)
+    # Without epochs a generator is one pass.
+    assert trainer.fit((b for b in _batches(2)), max_steps=4) == 2
+
+
+def test_embedding_booking_rides_extra_and_comes_back(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    plane = ShardedEmbeddingTable("plane", dim=4, world=1, native=False)
+    keys = np.arange(20, dtype=np.int64)
+    _, rows, _ = plane.lookup(keys)
+    plane.apply_gradients(keys, np.ones((len(keys), 4), np.float32))
+    trainer = _trainer(checkpoint_dir=ckpt, ckpt_every=1)
+    trainer.attach_embedding_plane(plane, directory=str(tmp_path / "embed"))
+    trainer.fit(_batches(1), max_steps=1)
+    booked = plane.booking()
+    assert trainer._accum_extra()["embed"] == booked
+    trainer.close()
+    fresh = ShardedEmbeddingTable("plane", dim=4, world=1, native=False)
+    assert fresh.booking() != booked
+    resumed = _trainer(checkpoint_dir=ckpt)
+    assert resumed._ckpt.last_extra["embed"] == booked
+    resumed.attach_embedding_plane(fresh)
+    assert fresh.booking() == booked
+    resumed.close()
+    plane.close()
+    fresh.close()
+
+
+def test_moe_config_trains_and_the_harvest_is_off(caplog):
+    trainer = _trainer(cfg_kw=dict(num_experts=4, top_k=2), report_every=1)
+    assert trainer.fit(_batches(3), max_steps=3) == 3
+    assert trainer._moe_stats_fn is False
+
+
+# -- the SDC seam ------------------------------------------------------------------
+
+
+class _FakeMaster:
+    """The duck-typed master client the trainer reports to."""
+
+    def __init__(self):
+        self.digests = []
+
+    def report_step(self, step, tokens=0, loss=None, anomalies=()):
+        pass
+
+    def report_telemetry(self, events, dropped):
+        pass
+
+    def report_digest(self, step, digest, check_every=0):
+        self.digests.append((step, digest))
+
+
+def test_sdc_digests_queue_and_the_flip_seam_changes_them():
+    master = _FakeMaster()
+    clean = _trainer(sdc_check_every=2)
+    clean.client = master
+    clean.fit(_batches(4), max_steps=4)
+    final = int(tsd.digest_state(clean.state))
+    assert master.digests[-1] == (4, tsd.format_digest(final))
+    assert [s for s, _ in master.digests] == [2, 4]
+    assert clean._pending_digests == []
+    faults.configure("sdc.flip:error@2", seed=0)
+    try:
+        flipped = _trainer(sdc_check_every=2)
+        flipped.client = _FakeMaster()
+        flipped.fit(_batches(4), max_steps=4)
+    finally:
+        faults.reset()
+    d = flipped.client.digests
+    assert d[0] == master.digests[0]
+    assert d[1][0] == 4 and d[1][1] != tsd.format_digest(final)
+
+
+@pytest.mark.parametrize("every", [1, 2])
+def test_sdc_digests_without_a_master_keep_only_the_newest(every):
+    trainer = _trainer(sdc_check_every=every)
+    assert trainer.client is None
+    trainer.fit(_batches(6), max_steps=6)
+    assert len(trainer._pending_digests) == 1
+    step, value = trainer._pending_digests[0]
+    assert step == 6 and int(value) == int(tsd.digest_state(trainer.state))
+
+
+# -- refusals ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("zero1", True, 4), ("overlap", True, 4), ("reduce_quant", "int8", 4),
+    ("allgather_quant", "int8", 4), ("world", 2, 4), ("auto_tune", True, 9),
+    ("profile_every", 1, 9), ("memory_report", True, 9),
+    ("warmup_compile", True, 3), ("compile_cache_dir", "/tmp/cc", 3),
+])
+def test_unported_config_fields_are_refused(field, value, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}"):
+        _trainer(**{field: value})
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: t.prewarm_worlds([1, 2]),
+    lambda t: t.apply_world_change(2),
+    lambda t: t._rebind_sampler(2),
+    lambda t: ElasticTrainer(t.model_config, t.config, parallel=object(),
+                             device="cpu"),
+])
+def test_live_resize_and_the_mesh_are_refused(call):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        call(_trainer())
+
+
+def test_runtime_env_contract(monkeypatch):
+    for name in ("DLROVER_TPU_MASTER_ADDR", "DLROVER_TPU_COORDINATOR",
+                 "DLROVER_TPU_NUM_PROCESSES", "DLROVER_TPU_RESTART_COUNT"):
+        monkeypatch.delenv(name, raising=False)
+    assert tenv.master_client() is None
+    assert not tenv.under_agent() and tenv.restart_count() == 0
+    assert (tenv.process_id(), tenv.num_processes(), tenv.node_id()) == (
+        0, 1, 0)
+    tenv.initialize()
+    monkeypatch.setenv("DLROVER_TPU_RESTART_COUNT", "2")
+    assert tenv.restart_count() == 2
+    monkeypatch.setenv("DLROVER_TPU_COORDINATOR", "localhost:1")
+    tenv.initialize()  # one process under the agent: nothing to join
+    monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tenv.initialize()
+    monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "localhost:2")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tenv.master_client()
+    from dlrover_tpu.agent import training_agent as agent
+
+    for name in ("ENV_MASTER_ADDR", "ENV_NODE_ID", "ENV_COORDINATOR",
+                 "ENV_NUM_PROC", "ENV_PROC_ID", "ENV_RESTART_COUNT"):
+        assert getattr(tenv, name) == getattr(agent, name)
+
+
+# -- numeric health -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_numeric_monitor_matches_the_reference(seed):
+    """One seeded trace of (loss, grad_norm) with NaN, Inf, spikes,
+    explosions and missing grad norms: the same anomaly stream."""
+    rng = np.random.default_rng(seed)
+    trace = []
+    for step in range(1, 121):
+        loss = 3.0 - 0.01 * step + float(rng.normal(0, 0.05))
+        grad = float(abs(rng.normal(1.0, 0.1)))
+        roll = rng.random()
+        if roll < 0.04:
+            loss = float("nan")
+        elif roll < 0.06:
+            grad = float("inf")
+        elif roll < 0.12:
+            loss *= float(rng.uniform(1.5, 4.0))
+        elif roll < 0.18:
+            grad *= float(rng.uniform(5.0, 40.0))
+        trace.append((step, loss, None if roll > 0.95 else grad))
+    kw = dict(window=16, min_samples=4)
+    j, t = jnh.NumericHealthMonitor(**kw), tnh.NumericHealthMonitor(**kw)
+    for step, loss, grad in trace:
+        assert [a.encode() for a in t.check(step, loss, grad)] == [
+            a.encode() for a in j.check(step, loss, grad)]
+    assert [dataclasses.astuple(a) for a in t.anomalies] == [
+        dataclasses.astuple(a) for a in j.anomalies]
+    assert {a.kind for a in t.anomalies} == {"nan", "loss_spike",
+                                             "grad_explosion"}
+
+
+# -- the SDC digest --------------------------------------------------------------------
+
+
+def _leaves(seed):
+    """The same raw bits as numpy, JAX and torch leaves: fp32, bf16,
+    int32, bool and 0-d."""
+    rng = np.random.default_rng(seed)
+    f32 = rng.normal(size=(7, 33)).astype(np.float32)
+    bf16 = rng.integers(0, 1 << 16, size=(129,), dtype=np.uint16)
+    i32 = rng.integers(-2 ** 31, 2 ** 31, size=(5, 4), dtype=np.int64
+                       ).astype(np.int32)
+    flags = rng.random((3, 9)) < 0.5
+    scalar = np.float32(rng.normal())
+    step = np.int32(rng.integers(0, 10 ** 6))
+    jleaves = [jnp.asarray(f32),
+               jax.lax.bitcast_convert_type(jnp.asarray(bf16), jnp.bfloat16),
+               jnp.asarray(i32), jnp.asarray(flags), jnp.asarray(scalar),
+               jnp.asarray(step)]
+    tleaves = [torch.from_numpy(f32),
+               torch.from_numpy(bf16.view(np.int16)).view(torch.bfloat16),
+               torch.from_numpy(i32), torch.from_numpy(flags),
+               torch.tensor(scalar), torch.tensor(step)]
+    return jleaves, tleaves, int(step)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_digest_matches_the_reference_bit_for_bit(seed, monkeypatch):
+    jleaves, tleaves, step = _leaves(seed)
+    want = int(jsd._digest_tree(jleaves))
+    got = tsd.digest_leaves(tleaves)
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == want
+    assert tsd.format_digest(got) == jsd.format_digest(want)
+    # Leaves longer than a row are summed by rows, in groups.
+    monkeypatch.setattr(tsd, "ROW_BYTES", 64)
+    monkeypatch.setattr(tsd, "GROUP_ROWS", 3)
+    assert int(tsd.digest_leaves(tleaves)) == want
+    # A Python int leaf is the reference's int32 step counter.
+    assert int(tsd.digest_leaves(tleaves[:-1] + [step])) == want
+    # Order matters; one flipped bit anywhere changes the digest.
+    assert int(tsd.digest_leaves(tleaves[::-1])) != want
+    flipped = [t.clone() for t in tleaves]
+    flipped[1].view(torch.int16).view(-1)[77] ^= 1 << 3
+    assert int(tsd.digest_leaves(flipped)) != want
+
+
+def test_digest_of_a_non_contiguous_leaf_and_of_nothing():
+    base = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    view = base.t()
+    assert int(tsd.digest_leaves([view])) == int(
+        jsd._digest_tree([jnp.asarray(view.contiguous().numpy())]))
+    assert int(tsd.digest_leaves([])) == int(jsd._digest_tree([])) == 0
+
+
+class _JState:
+    """What the reference's flipper reads: ``params`` and ``replace``."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def replace(self, params):
+        return _JState(params)
+
+
+@pytest.mark.parametrize("bit,leaf_index,flat_index", [
+    (10, 0, 0), (3, 1, 77), (22, 5, 1000), (10, 11, 12345), (7, 2, 5),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flip_mantissa_bit_flips_the_references_bit(bit, leaf_index,
+                                                    flat_index, dtype):
+    jcfg = jgpt2_config("124m", **TINY)
+    from dlrover_tpu.models.transformer import TransformerLM as JModel
+    import flax
+
+    variables = JModel(jcfg).init(jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 8), jnp.int32))
+    jparams = jax.tree.map(
+        lambda x: x.astype(jnp.dtype(dtype)),
+        flax.linen.meta.unbox(variables["params"]))
+    cfg = gpt2_config("124m", **TINY,
+                      param_dtype=getattr(torch, dtype))
+    train = ttl.build_train(cfg, ttl.make_optimizer("adamw"),
+                            global_batch_size=BATCH, seq_len=SEQ,
+                            device="cpu")
+    # bf16 -> fp32 -> bf16 is exact.
+    as_np = (lambda tree: jax.tree.map(
+        lambda x: np.asarray(x, np.float32), tree))
+    state = train.init(params=state_dict_from_jax(as_np(jparams), cfg))
+    before = state.params()
+    before = {k: v.clone() for k, v in before.items()}
+    jflipped = jsd.flip_mantissa_bit(_JState(jparams), bit=bit,
+                                     leaf_index=leaf_index,
+                                     flat_index=flat_index)
+    assert tsd.flip_mantissa_bit(state, bit=bit, leaf_index=leaf_index,
+                                 flat_index=flat_index) is state
+    want = state_dict_from_jax(as_np(jflipped.params), cfg)
+    got = state.params()
+    changed = [k for k in got if not torch.equal(
+        got[k].view(-1).view(torch.uint8),
+        before[k].view(-1).view(torch.uint8))]
+    assert len(changed) == 1
+    for k, w in want.items():
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                           w.reshape(-1).view(torch.uint8)), k
+
+
+# -- grad accumulation, the virtual mesh and the cache key ------------------------
+
+
+GRAD_ACCUM_CASES = [
+    (ref_accum, ref_world, world, gbs, dp)
+    for ref_accum in (1, 2, 3, 4)
+    for ref_world, world in ((1, 1), (2, 1), (4, 1), (4, 2), (2, 4), (3, 2),
+                             (8, 3), (0, 2))
+    for gbs, dp in ((8, 1), (16, 2), (12, 1), (6, 4), (7, 1))
+]
+
+
+def test_elastic_grad_accum_matches_the_reference():
+    for case in GRAD_ACCUM_CASES:
+        assert ttl.elastic_grad_accum(*case) == jtl.elastic_grad_accum(
+            *case), case
+
+
+@pytest.mark.parametrize("logical,physical", [(1, 1), (2, 1), (4, 2),
+                                              (4, 3), (3, 5)])
+def test_virtual_mesh_accounting_matches_the_reference(logical, physical):
+    fake_mesh = types.SimpleNamespace(devices=np.zeros((1,)),
+                                      axis_names=("data",))
+    j = jvm.VirtualMesh(fake_mesh, logical_world=logical,
+                        physical_world=physical)
+    t = tvm.VirtualMesh((1,), logical_world=logical, physical_world=physical)
+    assert t.logical_shape == j.logical_shape
+    for ref_accum, gbs, dp in ((1, 8, 1), (2, 16, 2), (3, 12, 1),
+                               (4, 16, 1), (1, 6, 2)):
+        assert t.grad_accum_for(ref_accum, gbs, dp) == \
+            j.grad_accum_for(ref_accum, gbs, dp)
+    with pytest.raises(ValueError):
+        tvm.VirtualMesh((1,), logical_world=0, physical_world=1)
+
+
+# -- the ported example ---------------------------------------------------------------
+
+
+def test_example_main_runs_on_the_cpu(tmp_path, monkeypatch):
+    from dlrover_tpu_torch.common import telemetry
+    from dlrover_tpu_torch.examples import train_lm
+
+    monkeypatch.delenv("DLROVER_TPU_MASTER_ADDR", raising=False)
+    monkeypatch.delenv("DLROVER_TPU_RESTART_COUNT", raising=False)
+    timeline = tmp_path / "tl.json"
+    argv = ["--device", "cpu", "--steps", "3", "--ckpt-every", "2",
+            "--checkpoint-dir", str(tmp_path / "ckpt"), "--layers", "1",
+            "--d-model", "32", "--heads", "2", "--vocab", "64",
+            "--seq-len", "16", "--batch-size", "4", "--metrics-lag", "2",
+            "--prefetch", "1", "--sdc-check-every", "1",
+            "--timeline", str(timeline)]
+    telemetry.recorder().drain()
+    assert train_lm.main(argv) == 0
+    import json
+
+    names = {e["name"] for e in json.loads(timeline.read_text())[
+        "traceEvents"] if "name" in e}
+    assert {"step", "checkpoint"} <= names
+    from dlrover_tpu_torch.common.storage import (
+        CheckpointDirLayout,
+        PosixDiskStorage,
+    )
+
+    assert CheckpointDirLayout(str(tmp_path / "ckpt")).latest_step(
+        PosixDiskStorage()) == 3
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--zero1"], 4), (["--live-relayout"], 4), (["--ref-world", "2"], 4),
+    (["--reduce-quant", "int8"], 4), (["--attention-impl", "ring"], 8),
+    (["--auto-tune"], 9), (["--profile-every", "2"], 9),
+    (["--remat", "dots"], 6), (["--optimizer", "sgd"], 6),
+])
+def test_example_refuses_unported_flags(flags, item):
+    from dlrover_tpu_torch.examples import train_lm
+
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        train_lm.main(["--device", "cpu", "--steps", "1"] + flags)

@@ -50,6 +50,9 @@ def test_port_has_the_expected_files():
         "dlrover_tpu_torch/embedding/device_cache.py",
         "dlrover_tpu_torch/embedding/kernels.py",
         "dlrover_tpu_torch/examples/train_rec.py",
+        "dlrover_tpu_torch/examples/train_lm.py",
+        "dlrover_tpu_torch/data/loader.py",
+        "dlrover_tpu_torch/trainer/elastic_trainer.py",
     ):
         assert need in rel
 
