@@ -11,6 +11,8 @@
     python3 chip_smoke.py --repairs     # build, the grouped-matmul checks
                                         # and the padded-head-dim flash checks
     python3 chip_smoke.py --fit         # build and the elastic loop
+    python3 chip_smoke.py --dp          # build, train, the elastic loop at
+                                        # world 1 and the world of two
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
                                         # K2a, K4, K6-K9 against other trees
 
@@ -20,7 +22,10 @@ optimizers) and mixture-of-experts training, at the full width of GPT-2
 1.5B and of its MoE variant (full depth but for the MoE run) with random
 weights from a seed, and the CTR loop on the embedding plane at MLPerf
 DLRM width, saves and restores the GPT-2 1.5B training state through Flash
-Checkpoint, trains and resumes it through ``ElasticTrainer.fit``, serves
+Checkpoint, trains and resumes it through ``ElasticTrainer.fit`` (in a
+one-process NCCL group, through the mesh), trains it data-parallel in a
+world of two processes (replicated, ZeRO-1, the overlap engine, the int8
+wires on K5a/K5b) with a live re-layout and a sharded save, serves
 under an injected admission fault plan, and holds
 every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
@@ -244,7 +249,37 @@ of the JAX package.  Phases, each one JSON line on stdout:
                seconds and whether it saved, ``close()``'s wait, the restore's
                seconds and source, each host block's seconds by label, and
                the digest's device and host ms and temporary bytes.
-               ``--fit`` runs the build and this phase alone.
+               ``--fit`` runs the build and this phase alone.  The phase
+               runs in a one-process NCCL group, its trainer built with
+               ``parallel=ParallelConfig(data=-1)`` and ``zero1``,
+               ``overlap`` and ``reduce_quant="int8"`` asked for: all three
+               must report themselves inactive, and the pipelined step
+               must be within ``FIT_STEP_RTOL`` (1%) of the ``train``
+               phase's median in the same call.
+9d. ``train_dp2``  two processes on ``cuda:0`` joined in a gloo group
+               (every collective staged through host memory,
+               ``parallel/wire.py``; the copies counted): GPT-2 1.5B's
+               width at ``DP2_LAYERS`` of 48 layers (printed), global
+               batch 16 x 1024, 8 rows a rank.  For Adafactor and q8_adam
+               (clip 1.0, lr 1e-4), ``DP2_STEPS`` steps each of the
+               replicated step, ZeRO-1, ZeRO-1 with the overlap engine and
+               two microbatches, and ZeRO-1 with the int8 reduce-scatter
+               and all-gather: each held against the world-1 run of the
+               same model, batch and seed (``DP2_*`` limits and their
+               reasons), both replicas' parameters equal, every step's
+               launches (K1, K3; K5a/K5b on the int8 wire; K6 on shards)
+               and tokens as stated.  K5a's codes and scales on one real
+               wire payload equal the plain version's.  Then the live
+               re-layout: 2 steps at world 2, ``apply_world_change(1)``,
+               1 step, back to 2, 1 step: never rewound, tokens/step
+               unchanged, losses within the fp limit of 4 unresized
+               steps.  Then a sharded save at world 2 and a restore into
+               this one process, bit-equal to the state the ranks held.
+               Printed: launches, wire bytes and host staging copies per
+               step and leg beside the model's count, the overlap plan's
+               buckets, step seconds (gloo over loopback: for the record,
+               not a speed claim).  ``--dp`` runs the build, ``train``,
+               ``train_fit`` and this phase.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -322,7 +357,7 @@ process of its own, in turns: DIR, change, change, DIR for each DIR,
 twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, serve_faults, train, flash_ckpt, train_fit,
+runs of the serve, serve_faults, train, flash_ckpt, train_fit, train_dp2,
 train_split, train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
@@ -1550,6 +1585,14 @@ def _train_steps(train, state, batch, steps, want_per_step, aux_out=None):
     return state, losses, seconds
 
 
+#: The ``train`` phase's median synchronised step (the yardstick of
+#: ``train_fit``'s pipelined step in the same call).
+TRAIN_STEP_S = {}
+#: ``train_fit``'s pipelined step may be at most this much slower than
+#: the ``train`` phase's (PERF.md §6: +0.23% and -0.17% in PR 12).
+FIT_STEP_RTOL = 0.01
+
+
 def train_and_check():
     """The training path at full width and depth; returns its counts and
     the bytes of its (Adafactor) optimizer state."""
@@ -1586,6 +1629,7 @@ def train_and_check():
         raise AssertionError(f"loss did not fall: {all_losses}")
 
     step_s = statistics.median(seconds)
+    TRAIN_STEP_S["train"] = step_s
     tokens = TRAIN_BATCH * TRAIN_SEQ
     tokens_per_s = tokens / step_s
     ftok = flops_per_token(cfg, TRAIN_SEQ)
@@ -1983,6 +2027,9 @@ FIT_CONFIG = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                   prefetch_to_device=2, sdc_check_every=2, eval_every=4,
                   eval_batches=1)
 FIT_STEPS, FIT_MORE_STEPS = 6, 8
+#: ``train_fit`` asks for the data-parallel options; at one data rank they
+#: deactivate, as the reference's do.
+FIT_DP_OPTIONS = dict(zero1=True, overlap=True, reduce_quant="int8")
 #: The sampler's dataset (indices; each sample is made from its index).
 FIT_DATASET = 100_000
 #: The ported example's crash-and-resume pair: its default model size,
@@ -2130,24 +2177,49 @@ def train_fit_and_check():
     os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
     os.environ["DLROVER_TPU_JOB"] = f"fit{os.getpid()}"
     arena = f"/dev/shm/{sh.SharedMemoryHandler('h0').name}"
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig
+
     cfg = gpt2_config("1.5b", attention_impl="flash", remat="flash_only",
                       param_dtype=torch.bfloat16)
-    tcfg = TrainerConfig(checkpoint_dir=ckpt_dir, **FIT_CONFIG)
+    tcfg = TrainerConfig(checkpoint_dir=ckpt_dir, **FIT_CONFIG,
+                         **FIT_DP_OPTIONS)
     per_step = _per_step(flash_fwd=cfg.num_layers,
                          flash_bwd_fused=cfg.num_layers)
     per_eval = _per_step(flash_fwd=cfg.num_layers)
     out = {"phase": "train_fit",
            "model": "gpt2-1.5b (48 layers, bf16 params and compute, "
                     "flash_only, random weights seed 0)",
-           "trainer_config": FIT_CONFIG, "max_steps": FIT_STEPS}
+           "trainer_config": dict(FIT_CONFIG, **FIT_DP_OPTIONS),
+           "max_steps": FIT_STEPS}
+    # A world of one process over NCCL: the mesh through
+    # ParallelConfig(data=-1), where ZeRO-1, the overlap engine and the
+    # int8 reduce must all report themselves inactive.
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer = ElasticTrainer(cfg, tcfg, device="cuda")
+        trainer = ElasticTrainer(cfg, tcfg, parallel=ParallelConfig(data=-1),
+                                 device="cuda")
         torch.cuda.synchronize()
         out["construct_s"] = time.perf_counter() - t0
         if trainer.step != 0:
             raise AssertionError(f"a fresh directory restored {trainer.step}")
+        out["world"] = {
+            "backend": dist.get_backend(), "processes":
+                dist.get_world_size(), "mesh": dict(zip(
+                    trainer.mesh.mesh_dim_names, trainer.mesh.shape)),
+            "zero1_active": trainer.train.zero1,
+            "overlap_active": trainer.train.overlap,
+            "data_ranks": trainer.train.dp,
+            "int8_wire": trainer.train.wire is not None}
+        if (trainer.train.zero1 or trainer.train.overlap
+                or trainer.train.wire is not None or trainer.train.dp != 1):
+            raise AssertionError(f"data-parallel options active at world "
+                                 f"1: {out['world']}")
 
         # -- instrumentation: none of it reads the device inside a step ----
         step_log = []     # (step, per-step launch deltas)
@@ -2311,10 +2383,18 @@ def train_fit_and_check():
         # Step time: device time between step starts (CUDA events); the
         # median of the intervals after steps 2, 3 and 5 (the one after
         # step 1 holds the first step's warm-up, the one after step 4 the
-        # eval and the checkpoint).
+        # eval and the checkpoint).  Against the train phase: the fastest
+        # interval that holds none of the loop's periodic work (after
+        # steps 3 and 5: no warm-up, digest, eval or checkpoint), since
+        # the digest dispatch (every sdc_check_every steps, 30-46 ms) and
+        # the saver thread's persist of step 4 (ROADMAP Queue 2 item 10)
+        # land in the others.
         quiet = [intervals[i] for i in range(1, len(intervals))
                  if (i + 1) % tcfg.eval_every != 0]
         step_s = statistics.median(quiet)
+        bare_s = min(intervals[i] for i in range(1, len(intervals))
+                     if (i + 1) % tcfg.eval_every
+                     and (i + 1) % tcfg.sdc_check_every)
         tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / step_s
         ftok = flops_per_token(cfg, TRAIN_SEQ)
         out.update({
@@ -2326,6 +2406,21 @@ def train_fit_and_check():
             "tokens_per_s": tokens_per_s,
             "mfu": tokens_per_s * ftok / PEAK_BF16_FLOPS,
         })
+        train_s = TRAIN_STEP_S.get("train")
+        out["step_s_bare"] = bare_s
+        out["step_s_bare_of"] = ("the fastest interval after steps 3 and "
+                                 "5 (no warm-up, digest, eval or "
+                                 "checkpoint)")
+        out["vs_train_phase"] = (bare_s / train_s - 1 if train_s else
+                                 "not measured (no train phase in this "
+                                 "call)")
+        out["median_vs_train_phase"] = (step_s / train_s - 1 if train_s
+                                        else "not measured")
+        if train_s and bare_s / train_s - 1 > FIT_STEP_RTOL:
+            raise AssertionError(
+                f"fit step {bare_s:.4f} s is more than {FIT_STEP_RTOL:.0%} "
+                f"slower than the train phase's {train_s:.4f} s "
+                f"(intervals {intervals})")
 
         # -- digests and the planted flip (outside the checked window) -----
         torch.cuda.synchronize()
@@ -2385,7 +2480,9 @@ def train_fit_and_check():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with _captured_log(r"from shm|resumed from") as restore_log:
-            resumed = ElasticTrainer(cfg, tcfg, device="cuda")
+            resumed = ElasticTrainer(cfg, tcfg,
+                                     parallel=ParallelConfig(data=-1),
+                                     device="cuda")
         torch.cuda.synchronize()
         out["restore_s"] = time.perf_counter() - t0
         out["restored_from"] = ("shm" if any("from shm" in m for m in
@@ -2416,6 +2513,7 @@ def train_fit_and_check():
         torch.cuda.empty_cache()
         out["example"] = _example_pair(scratch)
     finally:
+        dist.destroy_process_group()
         if os.path.exists(arena):
             os.unlink(arena)
         shutil.rmtree(sock_dir, ignore_errors=True)
@@ -2429,6 +2527,550 @@ def train_fit_and_check():
     shutil.rmtree(scratch, ignore_errors=True)
     if not out["example"]["ok"]:
         raise AssertionError(f"example crash-and-resume: {out['example']}")
+    return counts
+
+
+# -- the data-parallel world ----------------------------------------------------
+
+#: ``train_dp2``: GPT-2 1.5B at full width (d_model 1600, 25 heads of 64,
+#: vocab 50304, bf16) with its depth cut to this many layers so that two
+#: processes on one card run every case within the script's time.
+DP2_LAYERS = 8
+DP2_STEPS = 3
+#: The runs, each for Adafactor (clip 1.0) and q8_adam (clip 1.0), lr 1e-4.
+DP2_OPTIMIZERS = ("adafactor", "q8_adam")
+DP2_MODES = (
+    ("replicated", {}),
+    ("zero1", dict(zero1=True)),
+    ("zero1_overlap_accum2", dict(zero1=True, overlap=True, grad_accum=2)),
+    ("zero1_int8", dict(zero1=True, overlap=True, reduce_quant="int8",
+                        allgather_quant="int8")),
+)
+# Each run against the world-1 run of the same model, batch and seed in
+# one process, both in bf16 parameters.
+# fp (reassociation): the world-1 step takes each weight gradient from
+# one product over 16 rows, the world-2 step from two products over 8
+# rows, each rounded to bf16 and summed on the wire in bf16, so gradient
+# elements differ by about an ulp (2^-8 relative).  Adafactor and Adam
+# normalise the update, so an update moves by about that share of
+# itself, and at lr 1e-4 an update is at or below a bf16 weight's own
+# ulp: a weight differs only where its rounding sat on a boundary, by one
+# ulp.  Limits: loss 1e-3 (CE sums over 16,384 tokens in another order),
+# grad norm 5e-3 relative, every leaf drawn at init within 1e-3 of its
+# norm.  A leaf that starts at zero (the biases) is all update after
+# three steps, and where its gradient is at the level of rounding noise
+# a normalised update takes either sign: such a leaf within 0.25 of its
+# norm (the key slice of the fused qkv bias, whose gradient is zero in
+# exact arithmetic, is left out, ``_leaf_errors``).
+DP2_FP_LOSS_ATOL, DP2_FP_NORM_RTOL, DP2_FP_PARAM_RTOL = 1e-3, 5e-3, 1e-3
+DP2_FP_ZERO_INIT_RTOL = 0.25
+# int8 (block quantization): the all-gather quantizes each updated
+# parameter shard in blocks of 256, a step of max|p| / 127 a block, and
+# rounds every value to it.  An update smaller than half a step is
+# rounded away (Adam at lr 1e-4 moves a weight by about 1e-4, half a step
+# is about 3e-4 for weights drawn at std 0.02), so the run may keep as
+# little as none of the reference's updates; and where a gradient sits
+# at the level of the reduce-scatter's rounding, a normalised update may
+# take the other sign.  Limits, each leaf: max|p - p_ref| <= 2U + steps *
+# max|p| / 254 + an ulp, with U the reference's largest total update of
+# that leaf; the loss within |ref_t - ref_0| + 0.05 and the grad norm
+# within |g_t - g_0| + 5% of the reference's, the distance the reference
+# itself moved plus the rounding's own effect.
+DP2_INT8_LOSS_ATOL, DP2_INT8_NORM_RTOL = 0.05, 0.05
+#: The resize run: 2 steps at world 2, ``apply_world_change(1)``, 1 step,
+#: ``apply_world_change(2)``, 1 step, against 4 unresized steps.
+DP2_RESIZE_STEPS = (2, 1, 1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp2_config(layers=DP2_LAYERS):
+    from dlrover_tpu_torch.models import gpt2_config
+
+    return gpt2_config("1.5b", num_layers=layers, attention_impl="flash",
+                       remat="flash_only", param_dtype=torch.bfloat16)
+
+
+def _leaf_errors(got, want, init, head_dim=64):
+    """Per leaf: the norm-relative error ``|got - want| / |want|``, the
+    largest difference, the reference's largest total update ``U`` and
+    largest value ``A``, and whether the leaf started at zero.  The key
+    slice of the fused qkv bias is left out: its gradient is exactly zero
+    in exact arithmetic (a shift of every key leaves the softmax
+    unchanged), so each run updates it from rounding noise that the
+    optimizer's normalisation amplifies (``tests/test_torch_train.py``
+    leaves it out for the same reason)."""
+    out = {}
+    for name, w in want.items():
+        w32 = w.float()
+        g32 = got[name].float().to(w32.device)
+        i32 = init[name].float()
+        if name.endswith("attn.qkv.bias"):
+            keep = torch.ones(w32.shape, dtype=torch.bool)
+            keep[..., head_dim:2 * head_dim] = False
+            w32, g32, i32 = w32[keep], g32[keep.to(g32.device)], i32[keep]
+        out[name] = (
+            float((g32 - w32).norm() / w32.norm().clamp_min(1e-30)),
+            float((g32 - w32).abs().max()), float((w32 - i32).abs().max()),
+            float(w32.abs().max()), bool((i32 == 0).all()))
+    return out
+
+
+def _params_ok(stats, int8):
+    """The parameter limits of ``train_dp2`` (see ``DP2_*``)."""
+    for rel, diff, moved, big, zero_init in stats.values():
+        if int8:
+            if diff > 2 * moved + DP2_STEPS * big / 254 + 2.0 ** -7 * big:
+                return False
+        elif rel > (DP2_FP_ZERO_INIT_RTOL if zero_init
+                    else DP2_FP_PARAM_RTOL):
+            return False
+    return True
+
+
+def _dp2_reference(opt, out_dir):
+    """The world-1 run: one process, the whole batch, no mesh."""
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = _dp2_config()
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer(opt, learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+    state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    losses, norms = [], []
+    for _ in range(DP2_STEPS):
+        state, m = train.step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    params = {k: v.cpu() for k, v in state.params().items()}
+    torch.save({"losses": losses, "grad_norms": norms, "params": params},
+               os.path.join(out_dir, f"ref_{opt}.pt"))
+    del state, train, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms}
+
+
+def _dp2_worker(rank, port, out_dir, job):
+    """One of the two ranks of ``train_dp2``: a gloo group on ``cuda:0``
+    (every collective staged through the host, ``parallel/wire.py``)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    os.environ["DLROVER_TPU_JOB"] = job
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        result = _dp2_rank(rank, out_dir)
+    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
+        import traceback
+
+        torch.save({"error": traceback.format_exc()},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        raise e
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dp2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+    from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import state_digest, train_lib
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        ElasticTrainer,
+        TrainerConfig,
+    )
+
+    mesh = build_mesh(ParallelConfig(data=-1), device_type="cuda")
+    cfg = _dp2_config()
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    out = {"rank": rank, "runs": [], "backend": dist.get_backend(),
+           "torch": torch.__version__}
+    captured = {}
+    for opt in DP2_OPTIMIZERS:
+        ref = torch.load(os.path.join(out_dir, f"ref_{opt}.pt"),
+                         weights_only=False) \
+            if rank == 0 else None
+        for mode, kw in DP2_MODES:
+            train = train_lib.build_train(
+                cfg, train_lib.make_optimizer(opt, learning_rate=TRAIN_LR),
+                global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                mesh=mesh, device="cuda", **kw)
+            state = train.init(seed=0)
+            if rank == 0 and "init" not in captured:
+                captured["init"] = {k: v.cpu().clone()
+                                   for k, v in state.params().items()}
+            placed = train_lib.shard_batch(batch, train)
+            quantize = tq.quantize
+            if mode == "zero1_int8" and opt == DP2_OPTIMIZERS[0]:
+                def first_payload(x, _q=quantize):
+                    captured.setdefault("x", x.detach().clone())
+                    return _q(x)
+                tq.quantize = first_payload
+            steps = []
+            try:
+                for _ in range(DP2_STEPS):
+                    _zero_counts()
+                    wire_lib.reset_counts()
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = train.step(state, placed)
+                    loss, norm = float(m["loss"]), float(m["grad_norm"])
+                    torch.cuda.synchronize()
+                    steps.append({
+                        "s": time.perf_counter() - t0, "loss": loss,
+                        "grad_norm": norm, "tokens": float(m["tokens"]),
+                        "launches": {k: v for k, v in _counts().items()
+                                     if v},
+                        "wire_bytes": dict(wire_lib.COUNTS["bytes"]),
+                        "staged": wire_lib.COUNTS["staged"]})
+            finally:
+                tq.quantize = quantize
+            params = state.params()
+            # Replicas identical: this rank's parameter digest against the
+            # other rank's.
+            digest = torch.tensor([int(state_digest.digest_leaves(
+                list(params.values())))], dtype=torch.int64)
+            both = [torch.zeros_like(digest) for _ in range(2)]
+            dist.all_gather(both, digest)
+            run = {"optimizer": opt, "mode": mode, "steps": steps,
+                   "zero1": train.zero1, "overlap": train.overlap,
+                   "grad_accum": train.grad_accum,
+                   "replicas_equal": bool(both[0] == both[1]),
+                   "zero1_stats": train.zero1_stats,
+                   "overlap_plan": train.overlap_plan,
+                   # Buckets the overlap engine sent from a gradient hook,
+                   # before the backward ended, over the run.
+                   "early_buckets": (train._issuer.early
+                                     if train._issuer is not None else None)}
+            if rank == 0:
+                run["leaf_stats"] = _leaf_errors(params, ref["params"],
+                                                 captured["init"])
+            out["runs"].append(run)
+            del state, train, placed, params
+            torch.cuda.empty_cache()
+    captured.pop("init", None)
+    if rank == 0 and "x" in captured:
+        x = captured["x"]
+        before = _counts()
+        q, s = tq.quantize(x)
+        _restore_counts(before)
+        qr, sr = tq.quantize_reference(x)
+        out["k5a_payload"] = {
+            "values": x.numel(), "dtype": str(x.dtype),
+            "codes_equal": bool(torch.equal(q.cpu(), qr.cpu())),
+            "scales_equal": bool(torch.equal(s.cpu(), sr.cpu())),
+            "codes_max_diff": int((q.int() - qr.int().to(q.device)).abs()
+                                  .max())}
+
+    # -- live re-layout and the sharded save --------------------------------
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    base = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                optimizer="adafactor", learning_rate=TRAIN_LR, zero1=True,
+                report_every=1000, ckpt_every=1000)
+    plain = ElasticTrainer(cfg, TrainerConfig(**base),
+                           parallel=ParallelConfig(data=-1), device="cuda")
+    unresized = [float(plain.train_step(batch)["loss"])
+                 for _ in range(sum(DP2_RESIZE_STEPS))]
+    del plain
+    torch.cuda.empty_cache()
+    trainer = ElasticTrainer(cfg, TrainerConfig(checkpoint_dir=ckpt_dir,
+                                                **base),
+                             parallel=ParallelConfig(data=-1), device="cuda")
+    resized, tokens, details = [], [], []
+    for i, (n, world) in enumerate(zip(DP2_RESIZE_STEPS, (2, 1, 2))):
+        if i:
+            details.append(trainer.apply_world_change(world))
+        for _ in range(n):
+            m = trainer.train_step(batch)
+            resized.append(float(m["loss"]))
+            tokens.append(float(m["tokens"]))
+    out["resize"] = {
+        "unresized_losses": unresized, "resized_losses": resized,
+        "loss_gap": max(abs(a - b) for a, b in zip(unresized, resized)),
+        "tokens_per_step": tokens, "final_step": trainer.step,
+        "details": [{k: d[k] for k in ("ok", "fallback", "old_world",
+                                       "new_world", "grad_accum", "fold",
+                                       "relayout_s") if k in d}
+                    for d in details]}
+    t0 = time.perf_counter()
+    saved = trainer.save_checkpoint(wait_for_saver=True)
+    out["save"] = {"saved": saved, "step": trainer.step,
+                   "seconds": time.perf_counter() - t0}
+    layout = trainer._layout()
+    pieces = {path: leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+              else leaf for path, leaf in
+              sh.tree_flatten_with_path(trainer.state.checkpoint_tree())}
+    torch.save({"layout": {p: (s.global_shape, s.index, s.replica_id)
+                           for p, s in layout.items()},
+                "pieces": pieces},
+               os.path.join(out_dir, f"pieces_r{rank}.pt"))
+    t0 = time.perf_counter()
+    trainer.close()
+    out["save"]["close_s"] = time.perf_counter() - t0
+    return out
+
+
+def _restore_counts(counts):
+    for launches in _launch_dicts():
+        for name in launches:
+            launches[name] = counts[name]
+
+
+def _assemble_pieces(dumps):
+    """The whole state from the ranks' dumped pieces, by plain indexing
+    (independent of the checkpoint code): each piece a rank holds as
+    replica 0 lands at its index."""
+    whole = {}
+    for dump in dumps:
+        for path, (shape, index, replica) in dump["layout"].items():
+            if replica != 0:
+                continue
+            piece = dump["pieces"][path]
+            if not isinstance(piece, torch.Tensor):
+                whole[path] = piece
+                continue
+            if path not in whole:
+                whole[path] = torch.zeros(shape, dtype=piece.dtype)
+            whole[path][tuple(slice(b, e) for b, e in index)] = piece
+    return whole
+
+
+def train_dp2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the data-parallel
+    step (replicated, ZeRO-1, the overlap engine with two microbatches,
+    the int8 wires) at GPT-2 1.5B's width, each held against the world-1
+    run; a live re-layout 2 -> 1 -> 2; a sharded save at world 2 and a
+    restore into one process on the card.  Returns the counted launches
+    of the main-path runs (both ranks)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import Checkpointer
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    out_dir = os.path.join(REPO, "build", "train_dp2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    sock_dir = tempfile.mkdtemp(prefix="dp2_socks_")
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_JOB",
+                                                "DLROVER_TPU_SOCKET_DIR")}
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    job = f"dp2{os.getpid()}"
+    out = {"phase": "train_dp2",
+           "model": f"gpt2-1.5b width (d_model 1600, 25 heads x 64, vocab "
+                    f"50304, bf16 params and compute, flash_only), depth "
+                    f"cut to {DP2_LAYERS} of 48 layers, random weights "
+                    f"seed 0",
+           "world": "2 processes on cuda:0, gloo (collectives staged "
+                    "through the host)",
+           "batch": f"global {TRAIN_BATCH} x {TRAIN_SEQ}, "
+                    f"{TRAIN_BATCH // 2} rows a rank, one batch re-fed",
+           "steps": DP2_STEPS,
+           "tolerance": {
+               "fp": {"loss_atol": DP2_FP_LOSS_ATOL,
+                      "grad_norm_rtol": DP2_FP_NORM_RTOL,
+                      "param_rel": DP2_FP_PARAM_RTOL,
+                      "zero_init_param_rel": DP2_FP_ZERO_INIT_RTOL},
+               "int8": {"loss": "|ref_t - ref_0| + "
+                                f"{DP2_INT8_LOSS_ATOL}",
+                        "grad_norm": "|g_t - g_0| / g_t + "
+                                     f"{DP2_INT8_NORM_RTOL}",
+                        "param": "max|p - p_ref| <= 2U + steps * max|p| "
+                                 "/ 254 + 2^-7 max|p|"}}}
+    t_start = time.perf_counter()
+    try:
+        out["reference"] = {opt: _dp2_reference(opt, out_dir)
+                            for opt in DP2_OPTIMIZERS}
+        port = _free_port()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_dp2_worker,
+                             args=(r, port, out_dir, job)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                              weights_only=False)
+                   if os.path.exists(os.path.join(out_dir, f"rank{r}.pt"))
+                   else {"error": "no result"} for r in range(2)]
+        codes = [p.exitcode for p in procs]
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [0, 0]:
+            raise AssertionError(f"train_dp2 ranks failed (exit codes "
+                                 f"{codes}): {errors}")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        out["backend"], out["worker_torch"] = r0["backend"], r0["torch"]
+        cfg = _dp2_config()
+        elements = sum(int(np.prod(v)) for v in
+                       train_lib._stacked_shapes(cfg).values())
+        out["model_elements"] = elements
+        out["model_wire_bytes"] = {
+            "fp_bf16_per_leg": elements * 2,
+            "int8_per_phase": elements * (1 + 4 / 256)}
+        runs, counts, bad = [], dict.fromkeys(_counts(), 0), []
+        shapes = train_lib._stacked_shapes(cfg)
+        n_leaves = len(shapes)
+        n_quant = sum(int(np.prod(v)) >= 4096 for v in shapes.values())
+        for a, b in zip(r0["runs"], r1["runs"]):
+            int8 = a["mode"] == "zero1_int8"
+            ref = out["reference"][a["optimizer"]]
+            losses = [s["loss"] for s in a["steps"]]
+            norms = [s["grad_norm"] for s in a["steps"]]
+            gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
+            ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+            if int8:
+                loss_ok = all(g <= abs(r - ref["losses"][0])
+                              + DP2_INT8_LOSS_ATOL
+                              for g, r in zip(gaps, ref["losses"]))
+                norm_ok = all(g <= abs(r - ref["grad_norms"][0]) / r
+                              + DP2_INT8_NORM_RTOL
+                              for g, r in zip(ngaps, ref["grad_norms"]))
+            else:
+                loss_ok = max(gaps) <= DP2_FP_LOSS_ATOL
+                norm_ok = max(ngaps) <= DP2_FP_NORM_RTOL
+            stats = a["leaf_stats"]
+            drawn = {k: v for k, v in stats.items() if not v[4]}
+            zero = {k: v for k, v in stats.items() if v[4]}
+            worst = {
+                "drawn_rel": max(((v[0], k) for k, v in drawn.items()),
+                                 default=None),
+                "zero_init_rel": max(((v[0], k) for k, v in zero.items()),
+                                     default=None),
+                "max_diff_over_bound": max(
+                    (v[1] / (2 * v[2] + DP2_STEPS * v[3] / 254
+                             + 2.0 ** -7 * v[3]), k)
+                    for k, v in stats.items())}
+            step = a["steps"][-1]
+            per_step = {k: v for k, v in step["launches"].items()}
+            accum = a["grad_accum"]
+            want = {"flash_fwd": DP2_LAYERS * accum,
+                    "flash_bwd_fused": DP2_LAYERS * accum}
+            if a["optimizer"] == "q8_adam":
+                # One K6 launch a quantized leaf, on its shard or whole.
+                want["q8_adam"] = n_quant
+            if int8:
+                # A leaf's two int8 phases: one K5a each, and one K5b a
+                # member each (its dequantized contributions).
+                want["quantize"] = 2 * n_leaves
+                want["dequantize"] = 2 * 2 * n_leaves
+            ok = (loss_ok and norm_ok and _params_ok(stats, int8)
+                  and a["replicas_equal"] and b["replicas_equal"]
+                  and a["zero1"] == (a["mode"] != "replicated")
+                  and a["overlap"] == ("overlap" in a["mode"] or int8)
+                  and all(s["launches"] == per_step for s in a["steps"])
+                  and all(s["tokens"] == TRAIN_BATCH * TRAIN_SEQ
+                          for s in a["steps"])
+                  and per_step == want)
+            for x in (a, b):
+                for s in x["steps"]:
+                    for k, v in s["launches"].items():
+                        counts[k] += v
+            runs.append({
+                "optimizer": a["optimizer"], "mode": a["mode"], "ok": ok,
+                "losses": losses, "loss_gap": max(gaps),
+                "grad_norm_rgap": max(ngaps), "worst_leaf": worst,
+                "launches_per_step": per_step,
+                "wire_bytes_per_step": step["wire_bytes"],
+                "staged_copies_per_step": step["staged"],
+                "step_s": [s["s"] for s in a["steps"]],
+                "zero1_stats": a["zero1_stats"],
+                "overlap_buckets": (a["overlap_plan"] or {}).get(
+                    "num_buckets"),
+                "early_buckets": a["early_buckets"],
+                "overlap_bucket_mb": (a["overlap_plan"] or {}).get(
+                    "bucket_mb")})
+            if not ok:
+                bad.append(f"{a['optimizer']}/{a['mode']}")
+        out["runs"] = runs
+        out["overlap_plan"] = next(
+            (a["overlap_plan"] for a in r0["runs"] if a["overlap_plan"]),
+            None)
+        out["k5a_payload"] = r0.get("k5a_payload")
+        if not (out["k5a_payload"] and out["k5a_payload"]["codes_equal"]
+                and out["k5a_payload"]["scales_equal"]):
+            bad.append("k5a_payload")
+        rs = r0["resize"]
+        out["resize"] = rs
+        if not (rs["final_step"] == sum(DP2_RESIZE_STEPS)
+                and rs["loss_gap"] <= DP2_FP_LOSS_ATOL
+                and all(t == TRAIN_BATCH * TRAIN_SEQ
+                        for t in rs["tokens_per_step"])
+                and [d["grad_accum"] for d in rs["details"]] == [2, 1]
+                and all(d["ok"] and not d["fallback"]
+                        for d in rs["details"])):
+            bad.append("resize")
+        out["save"] = [r0["save"], r1["save"]]
+        if not (r0["save"]["saved"] and r1["save"]["saved"]):
+            bad.append("save")
+
+        # -- restore into one process on the card ----------------------
+        dumps = [torch.load(os.path.join(out_dir, f"pieces_r{r}.pt"),
+                            weights_only=False)
+                 for r in range(2)]
+        whole = _assemble_pieces(dumps)
+        os.environ["DLROVER_TPU_JOB"] = f"{job}_restore"
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor",
+                                          learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+        template = train.init(seed=0).checkpoint_tree()
+        t0 = time.perf_counter()
+        ckpt = Checkpointer(os.path.join(out_dir, "ckpt"), host_index=0,
+                            num_hosts=1, device="cuda")
+        step, tree = ckpt.load_checkpoint(state_template=template)
+        restore_s = time.perf_counter() - t0
+        ckpt.close()
+        differ = [
+            "".join(path) for path, leaf in sh.tree_flatten_with_path(tree)
+            if not (_same_bits(leaf.cpu(), whole[path])
+                    if isinstance(leaf, torch.Tensor)
+                    else leaf == whole[path])]
+        out["restore"] = {"step": step, "seconds": restore_s,
+                          "leaves": len(whole), "leaves_differing":
+                          differ[:8], "saved_by_hosts": 2,
+                          "restored_into_hosts": 1}
+        if step != sum(DP2_RESIZE_STEPS) or differ:
+            bad.append("restore")
+        del tree, template, train
+        torch.cuda.empty_cache()
+        out["launches"] = counts
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_dp2 checks failed: {bad}")
+    finally:
+        emit(out)
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrover_tpu_ckpt_{job}"):
+                os.unlink(os.path.join("/dev/shm", name))
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(out_dir, ignore_errors=True)
     return counts
 
 
@@ -4796,6 +5438,12 @@ def main() -> int:
         train_fit_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--dp"]:
+        train_and_check()
+        train_fit_and_check()
+        train_dp2_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--repairs"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         gmm_kernel_checks(gen)
@@ -4867,6 +5515,7 @@ def main() -> int:
     paths["train"], adafactor_state_bytes = train_and_check()
     paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_fit"] = train_fit_and_check()
+    paths["train_dp2"] = train_dp2_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()

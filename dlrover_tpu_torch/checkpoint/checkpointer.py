@@ -3,8 +3,11 @@
 
 One class for every layout: the state is a tree of tensors, and a restore
 fills a template of the same structure (``shm_handler.tree_map_with_path``)
-with tensors on the engine's device.  Resharding on restore waits for the
-mesh (ROADMAP Queue 1 item 4).
+with tensors on the engine's device.  A data rank saves its pieces under
+a layout (``{path: shm_handler.LeafLayout}``, ``train_lib.Train.
+checkpoint_layout``), and a restore takes the target world's layout as
+its ``shardings``: every leaf is reassembled from the saved records and
+cut to this rank's slice, whatever world saved it.
 """
 
 from __future__ import annotations
@@ -56,10 +59,13 @@ class Checkpointer:
         state: Any,
         storage_type: StorageType = StorageType.MEMORY,
         extra: Optional[Dict[str, Any]] = None,
+        layout: Any = None,
     ) -> bool:
+        """Save ``state`` at ``step``; ``layout`` is where each leaf lies
+        on this rank (None: whole leaves)."""
         if storage_type == StorageType.MEMORY:
-            return self._engine.save_to_memory(step, state, extra)
-        return self._engine.save_to_storage(step, state, extra)
+            return self._engine.save_to_memory(step, state, extra, layout)
+        return self._engine.save_to_storage(step, state, extra, layout)
 
     def load_checkpoint(self, shardings: Any = None,
                         state_template: Any = None):
@@ -68,13 +74,11 @@ class Checkpointer:
         ``state_template`` (any tree of tensors with the target structure,
         dtypes and shapes, e.g. a freshly initialised state) gives the
         structure; each restored tensor lands on the engine's device.
-        Without it, state is the flat ``{path: tensor}`` dict.
+        ``shardings`` (``{path: LeafLayout}`` of the target world) cuts
+        each leaf to this rank's slice.  Without a template, state is the
+        flat ``{path: tensor}`` dict.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring under shardings waits for the mesh (ROADMAP "
-                "Queue 1 item 4)")
-        return self._engine.load(template=state_template)
+        return self._engine.load(template=state_template, layout=shardings)
 
     @property
     def last_extra(self) -> Dict[str, Any]:

@@ -4,8 +4,13 @@
 State is a tree of tensors (``shm_handler.tree_flatten_with_path``);
 saving copies each tensor device->host into the host shm arena, off the
 training loop's storage path; restore reassembles each leaf and places it
-on the engine's device.  There is no sharding before ROADMAP Queue 1 item
-4, so every leaf is one whole block and a restore lands on one device.
+on the engine's device.  A data rank saves its pieces of the state under
+a layout (``shm_handler.LeafLayout`` per leaf: a ZeRO-1 shard from its
+owner, a replicated leaf from rank 0), the ranks agree that every one of
+them saves the step before any copies, and the lowest host commits it
+(``saver.py``).  A restore reassembles each leaf from every host's
+records of the step, whatever world saved it, and lays it out under the
+target world's layout: each rank takes its own slice (any n to m).
 
 One engine per host process, so there is exactly one shm arena per host.
 The host is ``DLROVER_TPU_NODE_ID`` when set, else the ``torch.distributed``
@@ -63,13 +68,21 @@ class CheckpointEvent:
     step: int = 0
 
 
-def _restore_leaf(path, saved: Optional[torch.Tensor], like, device):
+def _restore_leaf(path, saved: Optional[torch.Tensor], like, device,
+                  spot=None):
     """One restored leaf in the template leaf's kind: a tensor on
     ``device`` (its dtype and shape must be the template's: nothing is
-    cast), a numpy array, or a Python scalar."""
+    cast), a numpy array, or a Python scalar.  With a layout ``spot``,
+    the rank's slice of the whole leaf."""
     name = "".join(path)
     if saved is None:
         raise KeyError(f"checkpoint has no leaf {name}")
+    if spot is not None and isinstance(saved, torch.Tensor):
+        if tuple(saved.shape) != tuple(spot.global_shape):
+            raise ValueError(
+                f"{name}: saved {tuple(saved.shape)}, the target layout's "
+                f"whole leaf {tuple(spot.global_shape)}")
+        saved = saved[tuple(slice(b, e) for b, e in spot.index)]
     if isinstance(like, torch.Tensor):
         if saved.dtype != like.dtype or tuple(saved.shape) != tuple(
                 like.shape):
@@ -89,16 +102,21 @@ def _restore_leaf(path, saved: Optional[torch.Tensor], like, device):
 
 def materialize_records(arrays: Dict[tuple, torch.Tensor],
                         meta: CheckpointMeta, template: Any,
-                        device: torch.device):
+                        device: torch.device, layout=None):
     """Land reassembled tensors: with a ``template`` (any tree of the
     state's structure), each of its leaves is replaced by the restored
-    leaf of the same path; without one, the flat ``{path: tensor}`` dict
-    with every tensor on ``device``."""
+    leaf of the same path, cut to this rank's slice where ``layout``
+    (``{path: shm_handler.LeafLayout}``, the target world's) has one;
+    without a template, the flat ``{path: tensor}`` dict with every
+    tensor on ``device``.  The storage restore and the live re-layout
+    (``runtime/virtual_mesh.relayout_state``) both land through here."""
     if template is None:
         return {t.path: arrays[t.path].to(device) for t in meta.tensors}
+    layout = layout or {}
     return tree_map_with_path(
         lambda path, like: _restore_leaf(path, arrays.get(path), like,
-                                         device), template)
+                                         device, layout.get(path)),
+        template)
 
 
 def default_host_index() -> int:
@@ -170,6 +188,9 @@ class StorageStepReader:
             default_num_hosts() if num_hosts is None else num_hosts
         )
         self.device = resolve_device(device)
+        #: The target world's ``{path: LeafLayout}`` a restore cuts each
+        #: leaf to (None: whole leaves).
+        self.target_layout = None
         # ``extra`` sidecar of the most recently restored checkpoint.
         self.last_restored_extra: Dict[str, Any] = {}
 
@@ -177,14 +198,17 @@ class StorageStepReader:
         self,
         template: Any = None,
         step: Optional[int] = None,
+        layout=None,
     ):
         """Restore from durable storage.
 
         With ``step=None`` tries the tracker's committed step first, then
         older committed steps newest-first; an explicit ``step`` (the
         world-agreed one) is tried alone — silently restoring a different
-        step than the rest of the world would diverge state.
+        step than the rest of the world would diverge state.  ``layout``
+        cuts each leaf to this rank's slice (see ``load``).
         """
+        self.target_layout = layout
         if step is not None:
             candidates = [step]
         else:
@@ -439,7 +463,8 @@ class StorageStepReader:
         # Surface the checkpoint's small non-array sidecar to the caller
         # without widening every load path's (step, state) return.
         self.last_restored_extra = dict(getattr(meta, "extra", None) or {})
-        return materialize_records(arrays, meta, template, self.device)
+        return materialize_records(arrays, meta, template, self.device,
+                                   self.target_layout)
 
 
 class CheckpointEngine(StorageStepReader):
@@ -491,20 +516,31 @@ class CheckpointEngine(StorageStepReader):
     # -- save -----------------------------------------------------------------
 
     def save_to_memory(
-        self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None
+        self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None,
+        layout=None,
     ) -> bool:
-        """Pack ``state`` into shm (each tensor copied device->host into the
-        arena).  Skips (returns False) if the saver is mid-persist — never
-        blocks training on storage I/O.  ``last_save_seconds`` is the
-        blocking time of the last save that ran."""
-        if not self._lock.acquire(blocking=False):
+        """Pack ``state`` (this rank's pieces under ``layout``, a ``{path:
+        LeafLayout}``) into shm, each tensor copied device->host into the
+        arena.  Skips (returns False) if the saver is mid-persist — never
+        blocks training on storage I/O; in a world of several hosts every
+        host skips when one does (one MIN agreement), so a step is saved
+        by all of them or by none.  ``last_save_seconds`` is the blocking
+        time of the last save that ran."""
+        got = self._lock.acquire(blocking=False)
+        if self.num_hosts > 1 and self._agree_min(int(got)) == 0:
+            if got:
+                self._lock.release()
+            logger.info("step %d: a host's saver is busy; skip memory save",
+                        step)
+            return False
+        if not got:
             logger.info(
                 "step %d: shm busy (saver persisting); skip memory save", step
             )
             return False
         try:
             t0 = time.monotonic()
-            self._shm.save_state_dict(state, step, extra)
+            self._shm.save_state_dict(state, step, extra, layout)
             self._latest_memory_step = step
             self.last_save_seconds = time.monotonic() - t0
             logger.info(
@@ -515,9 +551,10 @@ class CheckpointEngine(StorageStepReader):
             self._lock.release()
 
     def save_to_storage(
-        self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None
+        self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None,
+        layout=None,
     ) -> bool:
-        saved = self.save_to_memory(step, state, extra)
+        saved = self.save_to_memory(step, state, extra, layout)
         if saved:
             self._latest_storage_step = step
             self._event_queue.put(
@@ -527,7 +564,7 @@ class CheckpointEngine(StorageStepReader):
 
     # -- load -----------------------------------------------------------------
 
-    def load(self, template: Any = None):
+    def load(self, template: Any = None, layout=None):
         """Restore the newest *world-agreed* state: shm if it holds the agreed
         step, committed storage otherwise.
 
@@ -540,8 +577,10 @@ class CheckpointEngine(StorageStepReader):
 
         Returns ``(step, state)`` where ``state`` has ``template``'s
         structure (or is a flat ``{path: tensor}`` dict when no template)
-        with every tensor on the engine's device.
+        with every tensor on the engine's device, cut to this rank's
+        slices where ``layout`` (``{path: LeafLayout}``) has them.
         """
+        self.target_layout = layout
         meta = self._shm.load_meta()
         shm_ok = meta is not None and self._all_local(meta)
         shm_step = meta.step if shm_ok else -1

@@ -18,7 +18,18 @@ its leaves are ordered as JAX orders them (dict keys sorted), so a path
 means the same leaf in either package.  Dtypes are recorded as numpy's
 ``dtype.str``; bf16, which numpy lacks, is ``'<V2'`` as JAX's
 ``ml_dtypes.bfloat16`` records itself, so each package reads the other's
-bf16 leaves.  There is no sharding yet: every leaf is one whole block.
+bf16 leaves.
+
+A data rank holds pieces of the state: a ZeRO-1 optimizer-state leaf is
+split over the data ranks, and a parameter is replicated on every rank.
+``pack_pytree(state, step, extra, layout)`` takes each leaf's
+:class:`LeafLayout` (the whole leaf's shape, this rank's slice of it and
+its replica id) and, as the reference's ``_select_shards`` keeps the
+shards with ``replica_id == 0``, writes a piece only where this rank
+holds its replica 0: the owners write the shards, rank 0 the replicated
+leaves, and each piece is stored exactly once across the ranks, with
+its global index so a restore can reassemble it under any other split.
+Without a layout every leaf is one whole block, as at one rank.
 
 A meta pickle written by the JAX package names the JAX package's classes;
 :func:`loads_meta` maps those three names onto this module's and refuses
@@ -83,6 +94,17 @@ class TensorMeta:
     def local_covers_global(self) -> bool:
         covered = sum(int(np.prod(s.shape)) for s in self.shards)
         return covered == int(np.prod(self.global_shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafLayout:
+    """Where one leaf lies on one rank: the whole leaf's shape, the
+    rank's slice of it (``(start, stop)`` per dimension) and the rank's
+    replica id of that slice (0 on the one rank that writes it)."""
+
+    global_shape: Tuple[int, ...]
+    index: Tuple[Tuple[int, int], ...]
+    replica_id: int = 0
 
 
 @dataclasses.dataclass
@@ -207,26 +229,49 @@ def _leaf_info(leaf) -> Tuple[Tuple[int, ...], str, int]:
     return tuple(block.shape), block.dtype.str, block.nbytes
 
 
+def _select_shards(path: Path, leaf, layout: Optional[Dict[Path, LeafLayout]]
+                   ) -> Tuple[Tuple[int, ...], str, List[Tuple[Tuple, Any]]]:
+    """``(global_shape, dtype, [(index, block)])`` of one leaf: its piece
+    when this rank holds that piece's replica 0, else nothing."""
+    shape, dtype, _ = _leaf_info(leaf)
+    spot = layout.get(path) if layout is not None else None
+    if spot is None:
+        return shape, dtype, [(tuple((0, d) for d in shape), leaf)]
+    piece = tuple(e - b for b, e in spot.index)
+    if piece != shape:
+        raise ValueError(
+            f"{''.join(path)}: a {shape} piece laid out as {spot.index} of "
+            f"{spot.global_shape}")
+    if spot.replica_id != 0:
+        return tuple(spot.global_shape), dtype, []
+    return tuple(spot.global_shape), dtype, [(tuple(spot.index), leaf)]
+
+
 def pack_pytree(
-    state: Any, step: int, extra: Optional[Dict[str, Any]] = None
+    state: Any, step: int, extra: Optional[Dict[str, Any]] = None,
+    layout: Optional[Dict[Path, LeafLayout]] = None,
 ) -> Tuple[CheckpointMeta, List[Any]]:
-    """Flatten ``state`` into (meta, ordered leaves).  Pure: no copy, no
-    shm I/O; each leaf is one whole block."""
+    """Flatten ``state`` into (meta, ordered blocks): one block per piece
+    this rank writes (:func:`_select_shards`).  Pure: no copy, no shm
+    I/O.  Every tensor's path and global shape is in the meta, written or
+    not, so any rank's meta describes the whole tree."""
     tensors: List[TensorMeta] = []
-    leaves: List[Any] = []
+    blocks: List[Any] = []
     offset = 0
     for path, leaf in tree_flatten_with_path(state):
-        shape, dtype, nbytes = _leaf_info(leaf)
-        index = tuple((0, d) for d in shape)
-        tensors.append(TensorMeta(
-            path=path, global_shape=shape, dtype=dtype,
-            shards=[ShardRecord(index=index, offset=offset, nbytes=nbytes,
-                                shape=shape)]))
-        leaves.append(leaf)
-        offset += nbytes
+        global_shape, dtype, pieces = _select_shards(path, leaf, layout)
+        records = []
+        for index, block in pieces:
+            shape, _, nbytes = _leaf_info(block)
+            records.append(ShardRecord(index=index, offset=offset,
+                                       nbytes=nbytes, shape=shape))
+            blocks.append(block)
+            offset += nbytes
+        tensors.append(TensorMeta(path=path, global_shape=global_shape,
+                                  dtype=dtype, shards=records))
     meta = CheckpointMeta(step=step, created_at=time.time(),
                           tensors=tensors, extra=dict(extra or {}))
-    return meta, leaves
+    return meta, blocks
 
 
 def _copy_into(buf: memoryview, start: int, record: ShardRecord,
@@ -267,12 +312,14 @@ class SharedMemoryHandler:
     # -- writer side (trainer) ------------------------------------------------
 
     def save_state_dict(
-        self, state: Any, step: int, extra: Optional[Dict[str, Any]] = None
+        self, state: Any, step: int, extra: Optional[Dict[str, Any]] = None,
+        layout: Optional[Dict[Path, LeafLayout]] = None,
     ) -> CheckpointMeta:
-        meta, leaves = pack_pytree(state, step, extra)
+        meta, leaves = pack_pytree(state, step, extra, layout)
         meta_bytes = pickle.dumps(meta)
         data_offset = _HEADER.size + len(meta_bytes)
-        total = data_offset + sum(t.shards[0].nbytes for t in meta.tensors)
+        records = [r for t in meta.tensors for r in t.shards]
+        total = data_offset + sum(r.nbytes for r in records)
         self._ensure_capacity(total)
         buf = self._shm.buf
         # Crash-consistency ordering: invalidate the header first, then write
@@ -280,8 +327,7 @@ class SharedMemoryHandler:
         # mid-copy leaves meta_len == 0, which readers treat as "no
         # checkpoint" instead of committing torn tensor bytes.
         buf[: _HEADER.size] = _HEADER.pack(0)
-        for tensor, leaf in zip(meta.tensors, leaves):
-            record = tensor.shards[0]
+        for record, leaf in zip(records, leaves):
             _copy_into(buf, data_offset + record.offset, record, leaf)
         if any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
                for leaf in leaves):

@@ -54,12 +54,20 @@ class ElasticDistributedSampler:
     def __init__(
         self,
         dataset_size: int,
-        num_replicas: int = 1,
-        rank: int = 0,
+        num_replicas: Optional[int] = None,
+        rank: Optional[int] = None,
         shuffle: bool = True,
         seed: int = 0,
         logical_world: int = 0,
     ):
+        # The member count and this member's rank default to the default
+        # process group's (1 and 0 without one).
+        group = torch.distributed.is_available() and \
+            torch.distributed.is_initialized()
+        if num_replicas is None:
+            num_replicas = torch.distributed.get_world_size() if group else 1
+        if rank is None:
+            rank = torch.distributed.get_rank() if group else 0
         self.dataset_size = dataset_size
         self.num_replicas = num_replicas
         self.rank = rank
@@ -360,7 +368,7 @@ class DevicePrefetcher:
         self._buf = None  # the active pass's buffer, for drain() to size
         # The reference registers device_buffers as the memory registry's
         # "prefetch" pool (utils/memory_profile); that registry is part of
-        # the measurement planes, ROADMAP Queue 1 item 9.
+        # the measurement planes, ROADMAP Queue 1 item 10.
 
     def device_buffers(self):
         """Device-placed batches currently buffered (empty outside an

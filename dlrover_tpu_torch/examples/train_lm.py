@@ -7,11 +7,16 @@
 The full loop through :class:`ElasticTrainer`: the agent's environment,
 the train step, step reporting, Flash Checkpoint every ``--ckpt-every``
 steps, and crash-resume (a restart picks up from the latest checkpoint).
-The flags are the reference's, plus ``--device`` (default ``cuda``;
-``cpu`` runs the plain versions of the kernels).  A flag whose feature is
-not ported raises ``NotImplementedError`` naming its ROADMAP queue item:
-a master (data sharding, reporting) and the measurement flags are item
-9, the mesh, ZeRO-1 and live re-layout item 4, ring attention item 8.
+Under the agent's world (``runtime/env.initialize``: one process a
+device, NCCL on ``cuda``, gloo on ``cpu``) the step is data-parallel, with
+``--zero1``, ``--overlap``, ``--reduce-quant int8`` and
+``--allgather-quant int8``, and ``--live-relayout`` polls the master's
+node ledger and re-folds the world in place.  The flags are the
+reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+versions of the kernels).  A flag whose feature is not ported raises
+``NotImplementedError`` naming its ROADMAP queue item: a master (data
+sharding, reporting, the live-relayout poll's ledger) and the measurement
+flags are item 10, ring attention item 9.
 """
 
 from __future__ import annotations
@@ -41,13 +46,13 @@ def parse_args(argv=None):
                    help="test hook: slow steps down (chaos windows)")
     p.add_argument("--remat", default="none",
                    help="remat policy (ops/remat_policy.py): none, full, "
-                        "flash_only (the others are ROADMAP Queue 1 item 6)")
+                        "flash_only (the others are ROADMAP Queue 1 item 7)")
     p.add_argument("--auto-tune", action="store_true",
                    help="search the strategy before training (ROADMAP "
-                        "Queue 1 item 9)")
+                        "Queue 1 item 10)")
     p.add_argument("--optimizer", default="adamw",
-                   help="adamw | adafactor | q8_adam | q4_adam (sgd, lion "
-                        "and agd are ROADMAP Queue 1 item 6)")
+                   help="adamw | adafactor | sgd | q8_adam | q4_adam (lion "
+                        "and agd are ROADMAP Queue 1 item 7)")
     p.add_argument("--metrics-lag", type=int, default=0,
                    help="defer metrics materialization by N steps (one "
                         "batched device fetch per N steps; 0 = sync)")
@@ -69,21 +74,29 @@ def parse_args(argv=None):
                    help="gradient accumulator dtype: float32 (default) | "
                         "bfloat16")
     p.add_argument("--reduce-quant", default="none",
-                   help="none | int8 (ROADMAP Queue 1 item 4)")
+                   help="wire format of the data-parallel gradient reduce: "
+                        "none (full precision) | int8 (block-quantized "
+                        "all-reduce; with --zero1, a quantized "
+                        "reduce-scatter)")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 sharded weight update (ROADMAP Queue 1 "
-                        "item 4)")
+                   help="ZeRO-1 sharded weight update: optimizer state and "
+                        "update sharded over the data ranks, the reduce a "
+                        "reduce-scatter + all-gather")
     p.add_argument("--overlap", action="store_true",
-                   help="overlap engine (ROADMAP Queue 1 item 4)")
+                   help="overlap engine (with --zero1): each microbatch's "
+                        "reduce-scatter issued per bucket off the backward, "
+                        "the all-gather per bucket after the update")
     p.add_argument("--overlap-bucket-mb", type=float, default=4.0,
-                   help="collective bucket size for the overlap engine")
+                   help="collective bucket size (MB of wire bytes) for the "
+                        "overlap engine")
     p.add_argument("--allgather-quant", default="none",
-                   help="none | int8 (ROADMAP Queue 1 item 4)")
+                   help="wire format of the zero1 parameter all-gather: "
+                        "none | int8")
     p.add_argument("--attention-impl", default="xla",
                    choices=("xla", "flash", "ring"),
                    help="attention math: xla (plain softmax), flash (the "
                         "CUDA flash kernels on the card), ring (ROADMAP "
-                        "Queue 1 item 8)")
+                        "Queue 1 item 9)")
     p.add_argument("--flash-block-q", type=int, default=0,
                    help="flash attention query block size (0 = model "
                         "default)")
@@ -112,16 +125,19 @@ def parse_args(argv=None):
                         "the identical sequential sample stream")
     p.add_argument("--ref-world", type=int, default=0,
                    help="logical member count the job was sized for "
-                        "(above 1: ROADMAP Queue 1 item 4)")
+                        "(virtual-mesh reference world); 0 = the process "
+                        "group's size")
     p.add_argument("--live-relayout", action="store_true",
-                   help="fold the virtual mesh in place on a world change "
-                        "(ROADMAP Queue 1 item 4)")
+                   help="poll the master's node ledger every 2 steps and "
+                        "fold the virtual mesh in place when the live "
+                        "member count changes (the ledger is the master "
+                        "client's, ROADMAP Queue 1 item 10)")
     p.add_argument("--timeline", default="",
                    help="write this process's telemetry (step/checkpoint "
                         "spans) as a Chrome-trace JSON at exit")
     p.add_argument("--profile-every", type=int, default=0,
                    help="device-time capture every N steps (ROADMAP Queue 1 "
-                        "item 9)")
+                        "item 10)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
@@ -146,12 +162,8 @@ def main(argv=None):
     if args.attention_impl == "ring":
         raise NotImplementedError(
             "--attention-impl ring is a later slice of the port (ROADMAP "
-            "Queue 1 item 8)")
-    if args.live_relayout:
-        raise NotImplementedError(
-            "--live-relayout is a later slice of the port (ROADMAP Queue 1 "
-            "item 4)")
-    renv.initialize()
+            "Queue 1 item 9)")
+    renv.initialize(device=args.device)
     client = renv.master_client()
 
     model_kw = dict(
@@ -230,11 +242,35 @@ def main(argv=None):
         source=loader_source,
     )
 
+    # Live-relayout: watch the master's node ledger and fold/fan the
+    # virtual mesh in place when the live member count changes.  Dead or
+    # preempting members drop out of the "running" set; the survivor
+    # re-lays-out state onto itself instead of restarting from storage.
+    live_world = [trainer.vmesh.physical_world]
+
+    def _poll_world(step):
+        try:
+            status = client.get_job_status()
+        except Exception as e:  # noqa: BLE001 - master may be mid-resize
+            logger.warning("live-relayout: job status poll failed: %s", e)
+            return
+        alive = sum(1 for s in status.nodes.values() if s == "running")
+        if alive >= 1 and alive != live_world[0]:
+            logger.info(
+                "live-relayout: world %d -> %d at step %d",
+                live_world[0], alive, step,
+            )
+            detail = trainer.apply_world_change(alive, reason="scale")
+            if detail.get("ok"):
+                live_world[0] = alive
+
     def on_step(step, metrics):
         if args.fail_at_step and step == args.fail_at_step:
             if renv.restart_count() == 0:
                 logger.error("test hook: crashing at step %d", step)
                 os._exit(17)
+        if args.live_relayout and client is not None and step % 2 == 0:
+            _poll_world(step)
         if args.step_sleep:
             time.sleep(args.step_sleep)
 

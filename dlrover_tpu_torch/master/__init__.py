@@ -1,2 +1,2 @@
 """Control-plane messages (the data-sharding pair only; the master itself
-is ROADMAP Queue 1 item 9)."""
+is ROADMAP Queue 1 item 10)."""

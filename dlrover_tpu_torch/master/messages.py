@@ -3,7 +3,7 @@ of ``dlrover_tpu/master/messages.py``).
 
 ``data/sharding_client.py`` speaks them to the master.  The rest of the
 reference file, the envelope and the other control-plane messages, belongs
-to the master and the agent (ROADMAP Queue 1 item 9).
+to the master and the agent (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ Two opt-in flags of the dense step, both off by default as in JAX:
 backward kernel of ``ops/fused_norm.py``, and ``pin_attn_layouts`` puts
 ``ops/layout_pin.pin_layout`` before and after each block's attention.
 
-Not ported yet (ROADMAP Queue 1 items 6 and 8): pipeline stages, ring
+Not ported yet (ROADMAP Queue 1 items 7 and 9): pipeline stages, ring
 attention and the remat policies other than those three; their config
 values raise ``NotImplementedError``.
 """
@@ -108,7 +108,7 @@ class TransformerConfig:
         if self.attention_impl == "ring":
             raise NotImplementedError(
                 "attention_impl='ring' (context parallelism) is a later "
-                "slice of the port (long context, ROADMAP Queue 1 item 8)"
+                "slice of the port (long context, ROADMAP Queue 1 item 9)"
             )
         if self.attention_impl not in ("xla", "flash"):
             raise ValueError(
@@ -118,7 +118,7 @@ class TransformerConfig:
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1 is a later slice of the port (pipeline, "
-                "ROADMAP Queue 1 item 8)"
+                "ROADMAP Queue 1 item 9)"
             )
         remat_policy.validate(self.remat, self.attention_impl)
 

@@ -532,10 +532,11 @@ def _low_bit_adam(bits: int, learning_rate, b1, b2, eps, weight_decay,
                   min_quant_size) -> ox.GradientTransformation:
     state_cls = Q8AdamState if bits == 8 else Q4AdamState
 
-    def init_moment(p: torch.Tensor):
+    def init_moment(name: str, p: torch.Tensor):
         # Decided on the leaf the optimizer sees: a block parameter's
-        # layer-stacked leaf, as JAX decides on its scan-stacked one.
-        if p.numel() < min_quant_size:
+        # layer-stacked leaf, as JAX decides on its scan-stacked one (the
+        # whole leaf, when ``p`` is its ZeRO-1 shard).
+        if int(np.prod(ox.full_shape(name, p))) < min_quant_size:
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         rows = num_blocks(p.numel())
         return QMoment(
@@ -546,8 +547,8 @@ def _low_bit_adam(bits: int, learning_rate, b1, b2, eps, weight_decay,
     def init(params: ox.Tree):
         return state_cls(
             count=0,
-            m={k: init_moment(p) for k, p in params.items()},
-            v={k: init_moment(p) for k, p in params.items()})
+            m={k: init_moment(k, p) for k, p in params.items()},
+            v={k: init_moment(k, p) for k, p in params.items()})
 
     def update(grads: ox.Tree, state, params=None):
         if params is None:
@@ -572,7 +573,8 @@ def _low_bit_adam(bits: int, learning_rate, b1, b2, eps, weight_decay,
             updates[name], new_m[name], new_v[name] = out
         return updates, state_cls(count, new_m, new_v)
 
-    return ox.GradientTransformation(init, update)
+    # A ZeRO-1 shard of a quantized leaf must be whole blocks of the leaf.
+    return ox.GradientTransformation(init, update, BLOCK)
 
 
 def q8_adam(learning_rate: ox.ScalarOrSchedule = 1e-3, b1: float = 0.9,

@@ -112,7 +112,7 @@ def validate(name: str, attention_impl: str = "xla") -> RematPolicy:
         raise NotImplementedError(
             f"remat={policy.name!r} is a later slice of the port (training: "
             f"the policies other than {list(PORTED)} and host offload, "
-            f"ROADMAP Queue 1 item 6)"
+            f"ROADMAP Queue 1 item 7)"
         )
     return policy
 

@@ -21,11 +21,24 @@ leaf, factored over its two largest axes as optax factors it.
 
 A transformation is ``GradientTransformation(init, update)`` with
 ``update(updates, state, params) -> (updates, state)``; counts are host
-integers.
+integers.  ``shard_block`` > 0 says the state is block-quantized in
+blocks of that many values of the flattened leaf, so a ZeRO-1 shard must
+be whole blocks (``optimizers/zero1.ShardPlan``).
+
+Under ZeRO-1 the update runs on each rank's shard of every leaf
+(:func:`sharded_update`).  The reference's ``tx.update`` runs on sharded
+arrays too, and GSPMD keeps every reduction over a leaf global.  Here
+each such reduction says so itself: the global norm, Adafactor's
+factored row and column means, its block-RMS clip and its parameter
+scale sum the shard and add the other ranks' sums with one all-reduce
+per pass, and the factored dimensions and the low-bit quantization
+threshold are chosen on the whole leaf's shape.  Elementwise
+transformations need nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, \
@@ -44,6 +57,78 @@ _BLOCK_NAME = re.compile(r"^blocks\.(\d+)\.(.+)$")
 class GradientTransformation(NamedTuple):
     init: Callable[[Tree], Any]
     update: Callable[[Tree, Any, Optional[Tree]], Tuple[Tree, Any]]
+    shard_block: int = 0
+
+
+# -- the shard view (ZeRO-1) ---------------------------------------------------
+
+#: The :class:`ShardView` of the update in progress, or None.
+_VIEW = None
+
+
+class ShardView(NamedTuple):
+    """What a transformation needs to know of sharded leaves: ``plan``
+    maps a leaf name to its ``optimizers.zero1.LeafShard`` (whole shape
+    and split dimension), and ``all_reduce(t)`` sums ``t`` over the data
+    group in place."""
+
+    plan: Any
+    all_reduce: Callable[[torch.Tensor], Any]
+
+
+@contextlib.contextmanager
+def sharded_update(view: Optional[ShardView]):
+    """Run ``init``/``update`` calls on ZeRO-1 shards under ``view``."""
+    global _VIEW
+    prev, _VIEW = _VIEW, view
+    try:
+        yield
+    finally:
+        _VIEW = prev
+
+
+def _split_dim(name: str) -> Optional[int]:
+    """The dimension of leaf ``name`` the data axis splits, under the
+    active view (None: not split, or no view)."""
+    if _VIEW is None or name not in _VIEW.plan.leaves:
+        return None
+    return _VIEW.plan[name].dim
+
+
+def full_shape(name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    """The whole leaf's shape (``t`` is its shard under the view)."""
+    if _split_dim(name) is None:
+        return tuple(t.shape)
+    return _VIEW.plan[name].shape
+
+
+def _reduce_many(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each fp32 tensor of ``parts`` over the data group with ONE
+    all-reduce."""
+    if not parts:
+        return []
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    _VIEW.all_reduce(flat)
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out
+
+
+def _mean_squares(tree: Tree) -> Dict[str, torch.Tensor]:
+    """``{name: mean of x^2 over the whole leaf}``; a split leaf's sum of
+    squares is completed over the group (one all-reduce for all)."""
+    out = {name: x.square().mean() for name, x in tree.items()
+           if _split_dim(name) is None}
+    split = [name for name in tree if _split_dim(name) is not None]
+    sums = _reduce_many([tree[n].float().square().sum().reshape(1)
+                         for n in split])
+    for name, total in zip(split, sums):
+        x = tree[name]
+        numel = math.prod(_VIEW.plan[name].shape)
+        out[name] = (total[0] / numel).to(x.dtype)
+    return out
 
 
 def _map(fn, *trees: Tree) -> Tree:
@@ -92,8 +177,15 @@ def unstack_layers(tree: Tree) -> Dict[str, torch.Tensor]:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of squares of every leaf, in
-    fp32."""
-    total = sum(x.float().square().sum() for x in tree.values())
+    fp32 (over the whole leaves under a shard view)."""
+    split = [n for n in tree if _split_dim(n) is not None]
+    if not split:
+        total = sum(x.float().square().sum() for x in tree.values())
+        return torch.sqrt(total)
+    (part,) = _reduce_many([sum(tree[n].float().square().sum()
+                                for n in split).reshape(1)])
+    total = part[0] + sum(x.float().square().sum() for n, x in tree.items()
+                          if _split_dim(n) is None)
     return torch.sqrt(total)
 
 
@@ -113,7 +205,8 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return updates, tuple(new_state)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(
+        init, update, max((tx.shard_block for tx in txs), default=0))
 
 
 def _stateless(fn: Callable[[Tree, Optional[Tree]], Tree]
@@ -220,15 +313,19 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 
 def clip_by_block_rms(threshold: float) -> GradientTransformation:
-    def clip(u):
-        denom = torch.clamp(u.square().mean().sqrt() / threshold, min=1.0)
-        return u / denom
+    def fn(updates, params):
+        ms = _mean_squares(updates)
+        out = {}
+        for name, u in updates.items():
+            denom = torch.clamp(ms[name].sqrt() / threshold, min=1.0)
+            out[name] = u / denom
+        return out
 
-    return _stateless(lambda u, p: _map(clip, u))
+    return _stateless(fn)
 
 
-def _safe_rms(x: torch.Tensor, min_rms: float) -> torch.Tensor:
-    rms = x.square().mean().sqrt()
+def _safe_rms(mean_square: torch.Tensor, min_rms: float) -> torch.Tensor:
+    rms = mean_square.sqrt()
     return torch.where(rms <= min_rms, torch.full_like(rms, min_rms), rms)
 
 
@@ -237,8 +334,9 @@ def scale_by_param_block_rms(min_scale: float = 1e-3
     def fn(updates, params):
         if params is None:
             raise ValueError("scale_by_param_block_rms needs params")
-        return _map(lambda u, p: u * _safe_rms(p, min_scale), updates,
-                    params)
+        ms = _mean_squares({name: params[name] for name in updates})
+        return {name: u * _safe_rms(ms[name], min_scale)
+                for name, u in updates.items()}
 
     return _stateless(fn)
 
@@ -275,7 +373,7 @@ def scale_by_factored_rms() -> GradientTransformation:
     def init(params):
         v_row, v_col, v = {}, {}, {}
         for name, p in params.items():
-            dims = _factored_dims(tuple(p.shape), factored,
+            dims = _factored_dims(full_shape(name, p), factored,
                                   min_dim_size_to_factor)
             one = p.new_zeros((1,))
             if dims is not None:
@@ -293,35 +391,70 @@ def scale_by_factored_rms() -> GradientTransformation:
             raise ValueError("scale_by_factored_rms needs params")
         t = np.float32(state["count"] - step_offset + 1)
         decay_t = float(np.float32(1.0) - t ** np.float32(-decay_rate))
+        dims_of = {name: _factored_dims(full_shape(name, g), factored,
+                                        min_dim_size_to_factor)
+                   for name, g in grads.items()}
+        sqr = {name: g * g + epsilon for name, g in grads.items()}
+        # The factored means; one over the split dimension of a sharded
+        # leaf is a sum completed over the group (one all-reduce for all).
+        means, pending = {}, []
+        for name, dims in dims_of.items():
+            if dims is None:
+                continue
+            d1, d0 = dims
+            for key, d in (("row", d0), ("col", d1)):
+                if _split_dim(name) == d:
+                    pending.append((name, key, d))
+                else:
+                    means[name, key] = sqr[name].mean(d)
+        sums = _reduce_many([sqr[n].float().sum(d) for n, _, d in pending])
+        for (name, key, d), total in zip(pending, sums):
+            n = _VIEW.plan[name].shape[d]
+            means[name, key] = (total / n).to(sqr[name].dtype)
         updates, v_row, v_col, v = {}, {}, {}, {}
+        new_rows = {}
         for name, g in grads.items():
             dtype = params[name].dtype
-            dims = _factored_dims(tuple(g.shape), factored,
-                                  min_dim_size_to_factor)
-            grad_sqr = g * g + epsilon
+            dims = dims_of[name]
             if dims is not None:
-                d1, d0 = dims
-                new_row = (decay_t * state["v_row"][name].float()
-                           + (1.0 - decay_t) * grad_sqr.mean(d0).float()
-                           ).to(dtype)
-                new_col = (decay_t * state["v_col"][name].float()
-                           + (1.0 - decay_t) * grad_sqr.mean(d1).float()
-                           ).to(dtype)
-                reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = new_row.mean(reduced_d1, keepdim=True)
-                row_factor = (new_row / row_col_mean) ** -0.5
-                col_factor = new_col ** -0.5
-                updates[name] = (g * row_factor.unsqueeze(d0)
-                                 * col_factor.unsqueeze(d1))
-                v_row[name], v_col[name] = new_row, new_col
-                v[name] = state["v"][name]
+                new_rows[name] = (
+                    decay_t * state["v_row"][name].float()
+                    + (1.0 - decay_t) * means[name, "row"].float()
+                ).to(dtype)
+                v_col[name] = (
+                    decay_t * state["v_col"][name].float()
+                    + (1.0 - decay_t) * means[name, "col"].float()
+                ).to(dtype)
             else:
                 new_v = (decay_t * state["v"][name].float()
-                         + (1.0 - decay_t) * grad_sqr.float()).to(dtype)
+                         + (1.0 - decay_t) * sqr[name].float()).to(dtype)
                 updates[name] = g * new_v ** -0.5
                 v_row[name] = state["v_row"][name]
                 v_col[name] = state["v_col"][name]
                 v[name] = new_v
+        # The row factor's mean over the column dimension: over the group
+        # where the split dimension is the column one.
+        row_means, pending = {}, []
+        for name, new_row in new_rows.items():
+            d1, d0 = dims_of[name]
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            if _split_dim(name) == d1:
+                pending.append((name, reduced_d1))
+            else:
+                row_means[name] = new_row.mean(reduced_d1, keepdim=True)
+        sums = _reduce_many([new_rows[n].float().sum(d, keepdim=True)
+                             for n, d in pending])
+        for (name, d), total in zip(pending, sums):
+            n = _VIEW.plan[name].shape[dims_of[name][0]]
+            row_means[name] = (total / n).to(new_rows[name].dtype)
+        for name, new_row in new_rows.items():
+            d1, d0 = dims_of[name]
+            row_factor = (new_row / row_means[name]) ** -0.5
+            col_factor = v_col[name] ** -0.5
+            updates[name] = (grads[name] * row_factor.unsqueeze(d0)
+                             * col_factor.unsqueeze(d1))
+            v_row[name] = new_row
+            v[name] = state["v"][name]
         return updates, {"count": state["count"] + 1, "v_row": v_row,
                          "v_col": v_col, "v": v}
 
@@ -351,7 +484,28 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return GradientTransformation(init, update)
 
 
+def trace(decay: float) -> GradientTransformation:
+    """``optax.trace`` (no Nesterov): ``t = g + decay * t``, state in each
+    param's dtype."""
+    def init(params):
+        return {"trace": _map(torch.zeros_like, params)}
+
+    def update(updates, state, params=None):
+        new = _map(lambda g, t: g + decay * t, updates, state["trace"])
+        return new, {"trace": new}
+
+    return GradientTransformation(init, update)
+
+
 # -- the optimizers -------------------------------------------------------------
+
+
+def sgd(learning_rate: ScalarOrSchedule, momentum: Optional[float] = None
+        ) -> GradientTransformation:
+    """``optax.sgd``: an optional momentum trace, then the negated
+    learning rate."""
+    parts = [trace(momentum)] if momentum is not None else []
+    return chain(*parts, scale_by_learning_rate(learning_rate))
 
 
 def adafactor(learning_rate: ScalarOrSchedule) -> GradientTransformation:

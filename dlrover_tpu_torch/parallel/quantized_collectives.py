@@ -1,0 +1,268 @@
+"""Quantized collectives: the int8 wire format for the data-parallel
+gradient (port of ``dlrover_tpu/parallel/quantized_collectives.py``).
+
+The scheme is the EQuARX shape: two quantized phases instead of one fp
+all-reduce.
+
+  1. reduce-scatter phase: each member block-quantizes its chunks and
+     exchanges int8 blocks + fp32 scales (one all-to-all, or ``n - 1``
+     ring hops re-quantizing the travelling partial); the owner
+     dequantizes and sums in fp32;
+  2. broadcast phase: owners re-quantize their reduced chunk and
+     all-gather int8 + scales.
+
+The block format is 256 values a block, scale ``absmax / 127`` (1 where
+the block is all zero), codes ``clip(round(x / scale), -127, 127)``: K5a
+and K5b (``ops/quantization.quantize`` / ``dequantize``) compute exactly
+this, so on a CUDA tensor every wire payload is quantized by K5a and
+dequantized by K5b; a CPU tensor takes their plain versions.  Another
+block size has no kernel and raises on CUDA.  Wire bytes: ``1 + 4/256``
+a value per phase against 2 (bf16) or 4 (fp32).
+
+The reference calls these inside ``shard_map``, where every member holds
+the value the collective reduces.  The port calls them on each rank's
+own tensor over a :class:`~dlrover_tpu_torch.parallel.wire.Wire`; given
+the same per-member inputs they compute what the reference computes
+(``tests/test_torch_collectives.py``).  ``mean`` divides by the member
+count; a data-parallel step passes partial gradients already divided by
+the global token count and sums them (``mean=False``).
+
+``quantized_all_to_all`` (the MoE dispatch's int8 transport) comes with
+the expert axis, ROADMAP Queue 1 item 6; ``quantized_process_allgather``
+(Local SGD's transport) with ``parallel/local_sgd.py``, item 7.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dlrover_tpu_torch.ops import quantization
+from dlrover_tpu_torch.parallel.wire import Wire
+
+# Below this payload the n-1 quantized ring hops are pure latency: the
+# one-shot all-to-all (two logical hops) wins.
+RING_MIN_BYTES = 1 << 20
+
+
+def axis_crosses_dcn(group: Wire) -> bool:
+    """Whether the group's members span more than one host (so its wire
+    leaves the host's own interconnect).  One collective, the first time
+    a group is asked."""
+    return len(set(group.host_names())) > 1
+
+
+def select_reduce_algo(
+    n: int, payload_bytes: int = 0, crosses_dcn: bool = False
+) -> str:
+    """Topology-aware algorithm choice: "oneshot" | "ring".
+
+    The one-shot (all-to-all, one quantization round) wins when latency
+    dominates: tiny groups, small payloads, or a wire across hosts.  The
+    ring (``n-1`` neighbor hops, quantizing the travelling partial each
+    hop) is bandwidth-optimal per element; its error grows with ``n``.
+    """
+    if crosses_dcn or n <= 2:
+        return "oneshot"
+    if payload_bytes and payload_bytes < RING_MIN_BYTES:
+        return "oneshot"
+    return "ring"
+
+
+def _block_quant(x: torch.Tensor, block: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N] fp -> (int8 [N], scales fp32 [N/block]); N a multiple of
+    ``block``.  K5a on a CUDA tensor."""
+    if block != quantization.BLOCK:
+        if x.is_cuda:
+            raise ValueError(
+                f"block {block} has no kernel: K5a quantizes blocks of "
+                f"{quantization.BLOCK}")
+        rows = x.float().reshape(-1, block)
+        q, scales = quantization._absmax_int8(rows)
+        return q.reshape(-1), scales
+    q, scales = quantization.quantize(x)
+    return q.reshape(-1), scales
+
+
+def _block_dequant(q: torch.Tensor, scales: torch.Tensor, block: int
+                   ) -> torch.Tensor:
+    """The inverse: fp32 [N].  K5b on a CUDA tensor."""
+    n = q.numel()
+    if block != quantization.BLOCK:
+        if q.is_cuda:
+            raise ValueError(
+                f"block {block} has no kernel: K5b dequantizes blocks of "
+                f"{quantization.BLOCK}")
+        return (q.reshape(-1, block).float() * scales[:, None]).reshape(-1)
+    return quantization.dequantize(q.reshape(-1, block), scales, (n,))
+
+
+def _sum_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``rows[0] + rows[1] + ...`` in member order."""
+    acc = rows[0]
+    for j in range(1, rows.shape[0]):
+        acc = acc + rows[j]
+    return acc
+
+
+def _oneshot_rs(chunks: torch.Tensor, group: Wire, n: int, block: int
+                ) -> torch.Tensor:
+    """One-shot reduce-scatter core: quantize all n chunks, one
+    all-to-all so member i receives every member's chunk i, dequantize +
+    fp32 sum.  ``chunks`` is fp32 [n, shard], shard % block == 0; returns
+    this member's reduced fp32 [shard]."""
+    shard = chunks.shape[1]
+    q, scales = _block_quant(chunks.reshape(-1), block)
+    q_recv = torch.empty_like(q)
+    s_recv = torch.empty_like(scales)
+    group.all_to_all(q_recv, q)
+    group.all_to_all(s_recv, scales)
+    q_recv = q_recv.reshape(n, shard)
+    s_recv = s_recv.reshape(n, shard // block)
+    parts = torch.stack([_block_dequant(q_recv[j], s_recv[j], block)
+                         for j in range(n)])
+    return _sum_rows(parts)
+
+
+def _ring_rs(chunks: torch.Tensor, group: Wire, n: int, block: int
+             ) -> torch.Tensor:
+    """Ring reduce-scatter core: ``n-1`` neighbor hops, the travelling
+    partial re-quantized per hop.  At hop t member i sends the partial for
+    chunk (i - t - 1) mod n and receives chunk (i - t - 2) mod n, adding
+    its local copy; after n-1 hops member i holds chunk i, reduced."""
+    idx = group.rank
+    acc = chunks[(idx - 1) % n]
+    for t in range(n - 1):
+        q, s = _block_quant(acc, block)
+        q_in, s_in = torch.empty_like(q), torch.empty_like(s)
+        group.shift(q, q_in)
+        group.shift(s, s_in)
+        received = _block_dequant(q_in, s_in, block)
+        acc = received + chunks[(idx - t - 2) % n]
+    return acc
+
+
+def _gather_blocks(q: torch.Tensor, s: torch.Tensor, group: Wire,
+                   algo: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every member's (int8, scales) payload, stacked by source member.
+    The ring passes each payload ``n - 1`` hops unchanged, so both
+    algorithms give the same bits."""
+    n = group.size
+    if algo == "ring":
+        qs, ss = [None] * n, [None] * n
+        qs[group.rank], ss[group.rank] = q, s
+        cur_q, cur_s = q, s
+        for t in range(n - 1):
+            nq, ns = torch.empty_like(q), torch.empty_like(s)
+            group.shift(cur_q, nq)
+            group.shift(cur_s, ns)
+            src = (group.rank - t - 1) % n
+            qs[src], ss[src] = nq, ns
+            cur_q, cur_s = nq, ns
+        return torch.stack(qs), torch.stack(ss)
+    q_all = torch.empty((n,) + tuple(q.shape), dtype=q.dtype,
+                        device=q.device)
+    s_all = torch.empty((n,) + tuple(s.shape), dtype=s.dtype,
+                        device=s.device)
+    group.all_gather(q_all, q.contiguous())
+    group.all_gather(s_all, s.contiguous())
+    return q_all, s_all
+
+
+def quantized_all_reduce(
+    x: torch.Tensor,
+    group: Wire,
+    block: int = 256,
+    mean: bool = True,
+    algo: str = "oneshot",
+) -> torch.Tensor:
+    """All-reduce ``x`` over ``group`` with an int8 wire format.  The
+    result is identical on every member (quantization error included).
+    ``algo`` selects the reduce-scatter phase's lowering; the broadcast
+    phase is an all-gather either way."""
+    n = group.size
+    if n == 1:
+        return x
+    orig_shape, orig_dtype = x.shape, x.dtype
+    flat = x.float().reshape(-1)
+    shard = -(-flat.numel() // (n * block)) * block
+    flat = F.pad(flat, (0, shard * n - flat.numel()))
+    chunks = flat.reshape(n, shard)
+    rs = _ring_rs if algo == "ring" else _oneshot_rs
+    reduced = rs(chunks, group, n, block)
+    if mean:
+        reduced = reduced / n
+    q2, s2 = _block_quant(reduced, block)
+    q_all, s_all = _gather_blocks(q2, s2, group, "oneshot")
+    out = torch.cat([_block_dequant(q_all[j], s_all[j], block)
+                     for j in range(n)])
+    return out[: x.numel()].reshape(orig_shape).to(orig_dtype)
+
+
+def quantized_reduce_scatter(
+    x: torch.Tensor,
+    group: Wire,
+    *,
+    dim: int = 0,
+    block: int = 256,
+    mean: bool = True,
+    algo: str = "oneshot",
+) -> torch.Tensor:
+    """Reduce-scatter ``x`` over ``group`` on the int8 wire format.
+    Member ``i`` returns chunk ``i`` of the reduction, split along ``dim``
+    (which must divide evenly by the group size): the ZeRO-1 gradient leg,
+    feeding the shard-local optimizer update."""
+    n = group.size
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"reduce-scatter dim {dim} (size {x.shape[dim]}) must divide "
+            f"by the {n}-member group"
+        )
+    orig_dtype = x.dtype
+    moved = torch.movedim(x, dim, 0)
+    chunk_shape = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+    chunks = moved.float().reshape(n, -1)
+    csize = chunks.shape[1]
+    padded = -(-csize // block) * block
+    chunks = F.pad(chunks, (0, padded - csize))
+    rs = _ring_rs if algo == "ring" else _oneshot_rs
+    reduced = rs(chunks, group, n, block)
+    if mean:
+        reduced = reduced / n
+    out = reduced[:csize].reshape(chunk_shape)
+    return torch.movedim(out, 0, dim).to(orig_dtype)
+
+
+def quantized_all_gather(
+    x: torch.Tensor,
+    group: Wire,
+    *,
+    dim: int = 0,
+    block: int = 256,
+    algo: str = "oneshot",
+) -> torch.Tensor:
+    """All-gather ``x`` over ``group`` on the int8 wire format: member
+    ``i`` contributes its shard, every member returns the ``n`` shards
+    concatenated along ``dim`` in member order, each quantized once at its
+    source (the result is identical everywhere).  "oneshot" and "ring"
+    give the same bits.  The ZeRO-1 re-replication leg."""
+    n = group.size
+    if n == 1:
+        return x
+    orig_dtype = x.dtype
+    moved = torch.movedim(x, dim, 0)
+    flat = moved.float().reshape(-1)
+    padded = -(-flat.numel() // block) * block
+    q, s = _block_quant(F.pad(flat, (0, padded - flat.numel())), block)
+    q_all, s_all = _gather_blocks(q, s, group, algo)
+    shards = torch.stack([_block_dequant(q_all[j], s_all[j], block)
+                          for j in range(n)])
+    out = shards[:, : flat.numel()].reshape((n,) + tuple(moved.shape))
+    out = out.reshape((n * moved.shape[0],) + tuple(moved.shape[1:]))
+    return torch.movedim(out, 0, dim).to(orig_dtype)
+

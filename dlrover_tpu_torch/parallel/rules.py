@@ -1,0 +1,147 @@
+"""Logical-axis sharding rules (port of ``dlrover_tpu/parallel/rules.py``,
+as data).
+
+The reference annotates every parameter and activation with logical axis
+names and maps them onto mesh axes with a rule table; XLA then inserts
+the collectives.  The tables here are the reference's, entry for entry
+(``make_rules``, ``DEFAULT_RULES``, ``DDP_RULES``, ``RING_RULES``).  The
+port applies one rule itself: the batch rule, which splits the global
+batch into each data rank's rows (:func:`batch_axes`,
+:func:`batch_shard_count`).  At ``fsdp = tensor = seq = 1`` the default
+table collapses to data parallelism: parameters replicated, the batch
+split over ``data``.  The model-parallel axes wait for ROADMAP Queue 1
+item 5 (``runtime/mesh.check_axes``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple, Union
+
+from dlrover_tpu_torch.runtime.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    FSDP_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    TENSOR_AXIS,
+    mesh_axis_sizes,
+)
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+Rules = Sequence[Tuple[str, MeshAxes]]
+
+# Logical axis names used by all models.
+BATCH = "batch"            # activation batch dim
+ACT_SEQ = "act_seq"        # activation sequence dim (sharded under SP)
+ACT_HEADS = "act_heads"    # activation heads dim inside attention
+ACT_EMBED = "act_embed"    # activation embedding dim
+EMBED = "embed"            # param embedding dim (FSDP shard dim)
+MLP = "mlp"                # param MLP hidden dim (TP col split)
+HEADS = "heads"            # param attention heads dim (TP split)
+KV = "kv"                  # param per-head dim
+VOCAB = "vocab"            # param vocab dim (TP vocab split)
+EXPERT = "expert"          # param expert dim (EP shard dim)
+LAYERS = "layers"          # scanned layer dim (within one pipeline stage)
+STAGES = "stages"          # pipeline stage dim
+NORM = "norm"              # 1-D norm scales/biases
+GATHERED = "gathered"      # force-unsharded dim
+
+
+def make_rules(
+    *,
+    fsdp: bool = True,
+    tensor: bool = True,
+    sequence: bool = True,
+    expert: bool = True,
+    pipeline: bool = True,
+    context: str = "ulysses",
+) -> List[Tuple[str, MeshAxes]]:
+    """The rule table for a strategy combination (the reference's,
+    entry for entry).  Every rule is safe at an axis size of 1, so the
+    mesh shape alone decides the real strategy.  ``context`` picks the
+    sequence-parallel style inside attention: ``"ulysses"`` (heads
+    sharded over seq and tensor) or ``"ring"`` (sequence stays
+    seq-sharded)."""
+    rules: List[Tuple[str, MeshAxes]] = [
+        (BATCH, (DATA_AXIS, FSDP_AXIS)),
+        (ACT_EMBED, TENSOR_AXIS),
+        (KV, None),
+        (NORM, None),
+        (GATHERED, None),
+    ]
+    rules.append((ACT_SEQ, SEQ_AXIS if sequence else None))
+    if context == "ring":
+        rules.append((ACT_HEADS, TENSOR_AXIS if tensor else None))
+    else:
+        rules.append(
+            (ACT_HEADS, ((SEQ_AXIS, TENSOR_AXIS) if sequence else TENSOR_AXIS)
+             if tensor or sequence else None)
+        )
+    rules.append((EMBED, FSDP_AXIS if fsdp else None))
+    if tensor:
+        rules += [(MLP, TENSOR_AXIS), (HEADS, TENSOR_AXIS), (VOCAB, TENSOR_AXIS)]
+    else:
+        rules += [(MLP, None), (HEADS, None), (VOCAB, None)]
+    rules.append((EXPERT, EXPERT_AXIS if expert else None))
+    rules.append((STAGES, PIPE_AXIS if pipeline else None))
+    rules.append((LAYERS, None))
+    return rules
+
+
+# The default "everything composable" rule table.
+DEFAULT_RULES: List[Tuple[str, MeshAxes]] = make_rules()
+
+# Pure data-parallel (DDP-equivalent): replicate params, shard batch.
+DDP_RULES: List[Tuple[str, MeshAxes]] = make_rules(
+    fsdp=False, tensor=False, sequence=False, expert=False
+)
+
+# Ring context-parallelism: pair with TransformerConfig.attention_impl="ring".
+RING_RULES: List[Tuple[str, MeshAxes]] = make_rules(context="ring")
+
+
+def _entry_names(entry: MeshAxes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    if isinstance(entry, tuple):
+        return tuple(entry)
+    return (entry,)
+
+
+def logical_to_mesh_axes(logical: Sequence[str], rules: Rules
+                         ) -> Tuple[MeshAxes, ...]:
+    """A spec (one entry per dim) for the logical axis names: each name's
+    first rule, as flax resolves it; an unknown name is unsharded."""
+    table: Dict[str, MeshAxes] = {}
+    for name, axes in rules:
+        table.setdefault(name, axes)
+    return tuple(table.get(name) for name in logical)
+
+
+def batch_axes(rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes the batch rule splits the batch over."""
+    return _entry_names(logical_to_mesh_axes([BATCH], rules)[0])
+
+
+def batch_shard_count(mesh, rules: Rules) -> int:
+    """How many ways the batch dim is split on ``mesh`` (product of the
+    batch rule's axis sizes)."""
+    sizes = mesh_axis_sizes(mesh)
+    out = 1
+    for axis in batch_axes(rules):
+        out *= sizes.get(axis, 1)
+    return out
+
+
+def batch_group_axis(mesh, rules: Rules) -> str:
+    """The one mesh axis whose ranks split the batch: the data axis.  A
+    batch rule that splits over another axis above 1 is refused (its axes
+    are ROADMAP Queue 1 item 5)."""
+    sizes = mesh_axis_sizes(mesh)
+    for axis in batch_axes(rules):
+        if axis != DATA_AXIS and sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"the batch rule splits over {axis!r} (size {sizes[axis]}),"
+                " a later slice of the port (ROADMAP Queue 1 item 5)"
+            )
+    return DATA_AXIS

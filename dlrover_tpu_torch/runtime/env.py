@@ -1,12 +1,13 @@
 """Trainer-side runtime bootstrap (port of ``dlrover_tpu/runtime/env.py``:
-the agent's environment contract at one process).
+the agent's environment contract).
 
-The agent (ROADMAP Queue 1 item 9) rendezvouses with the master and
+The agent (ROADMAP Queue 1 item 10) rendezvouses with the master and
 exports the world and restart variables named below; the trainer reads
 them here.  The names are this module's own copies of the agent's
 (``dlrover_tpu/agent/training_agent.py``), so a trainer of either package
-reads the same environment.  A multi-process world waits for the mesh
-(item 4), and a master client for the control plane (item 9).
+reads the same environment.  ``initialize`` joins the agent's world with
+``torch.distributed.init_process_group``; a master client waits for the
+control plane (item 10).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ ENV_COORDINATOR = "DLROVER_TPU_COORDINATOR"
 ENV_NUM_PROC = "DLROVER_TPU_NUM_PROCESSES"
 ENV_PROC_ID = "DLROVER_TPU_PROCESS_ID"
 ENV_RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"
+# The agent's control-plane-only switch: each trainer keeps a world of its
+# own while rendezvous, sharding and checkpoints stay multi-host.
+ENV_SKIP_INIT = "DLROVER_TPU_SKIP_JAX_INIT"
 
 
 def under_agent() -> bool:
@@ -44,18 +48,61 @@ def node_id() -> int:
     return int(os.environ.get(ENV_NODE_ID, 0))
 
 
-def initialize(force: bool = False):
-    """Join the world the agent rendezvoused for this process: nothing to
-    do in a one-process world; more processes wait for the mesh."""
+def default_backend(device=None) -> str:
+    """The backend that follows the device: NCCL for ``cuda`` (the
+    default device), gloo for ``cpu``."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    return "nccl" if dev.type == "cuda" else "gloo"
+
+
+def initialize(force: bool = False, device=None, backend: str = None):
+    """Join the world the agent rendezvoused for this process.
+
+    Reads the agent's variables as the reference does: the coordinator
+    (``host:port``), the process count and this process's id, and calls
+    ``torch.distributed.init_process_group`` over
+    ``tcp://<coordinator>`` with that rank and world size.  ``backend``
+    defaults to the one that follows ``device`` (NCCL for ``cuda``, gloo
+    for ``cpu``); a caller may name gloo on ``cuda`` (a world of several
+    processes on one card stages its collectives through the host,
+    ``parallel/wire.py``).  Nothing here switches backend on a failure.
+
+    No-op for a one-process job (no group; the mesh is then
+    ``runtime.mesh.single_device_mesh``).  With the agent's
+    ``DLROVER_TPU_SKIP_JAX_INIT=1`` each process keeps a one-process group
+    of its own (a local store), the control plane staying multi-host.
+    Safe to call twice: a live group is kept.
+    """
+    import torch.distributed as dist
+
     if not under_agent():
         logger.info("no agent environment; single-process torch")
         return
     n = num_processes()
     if n <= 1 and not force:
         return
-    raise NotImplementedError(
-        f"a {n}-process world (torch.distributed over the agent's "
-        "rendezvous) is a later slice of the port (ROADMAP Queue 1 item 4)"
+    if dist.is_initialized():
+        return
+    backend = backend or default_backend(device)
+    if os.environ.get(ENV_SKIP_INIT, "") == "1":
+        logger.warning(
+            "%s=1: not joining the %d-process world; a one-process group "
+            "(control-plane-only multi-host mode)", ENV_SKIP_INIT, n,
+        )
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        return
+    dist.init_process_group(
+        backend,
+        init_method=f"tcp://{os.environ[ENV_COORDINATOR]}",
+        world_size=n,
+        rank=process_id(),
+    )
+    logger.info(
+        "joined the torch world: process %d/%d (coordinator %s, %s)",
+        process_id(), n, os.environ[ENV_COORDINATOR], backend,
     )
 
 
@@ -68,5 +115,5 @@ def master_client(node_type: str = "worker"):
     raise NotImplementedError(
         f"{ENV_MASTER_ADDR}={addr!r} names a master, but the master client "
         f"({node_type}) is a later slice of the port (ROADMAP Queue 1 item "
-        "9)"
+        "10)"
     )

@@ -1,5 +1,5 @@
 """ElasticTrainer: the reusable high-level training loop (port of
-``dlrover_tpu/trainer/elastic_trainer.py`` at world 1).
+``dlrover_tpu/trainer/elastic_trainer.py``).
 
 Capability ref: ``dlrover/trainer/torch/elastic/trainer.py:181-336``
 (``ElasticTrainer.step`` keeps the global batch fixed via gradient
@@ -14,15 +14,32 @@ and the crash/elastic-resume contract.  The global batch is a property of
 the step; ``grad_accum`` is recomputed from the booked reference world
 on every restore (``_adopt_checkpoint_accum``).
 
+The data-parallel world: ``parallel=ParallelConfig(data=-1)`` (the
+default) builds the mesh over the default process group
+(``runtime/mesh.build_mesh``; ``runtime/env.initialize`` joins the
+agent's world), and the step is ``train_lib.build_train`` on it with the
+config's ``zero1``, ``overlap``, ``reduce_quant`` and ``allgather_quant``.
+``world`` defaults to the group's size, as the reference's defaults to
+its device count.  Flash Checkpoint saves each rank's pieces under
+``Train.checkpoint_layout`` and a restore lays them out for this world,
+whatever world saved them.  The numeric-health save decision and the SDC
+digest are taken over the group.  ``apply_world_change`` re-folds the
+virtual mesh live: the data group stays (as the reference's per-process
+mesh does), the fold's ``grad_accum`` follows the new world, the state is
+re-laid out in memory through the checkpoint's record path
+(``virtual_mesh.relayout_state``), and the sampler rebinds; a failed
+re-layout retries under its ``relayout.apply`` fault seam and falls back
+to a restore.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-a mesh, ZeRO-1, the overlap engine, int8 wires, a world above 1 and live
-re-layout (``prewarm_worlds``, ``apply_world_change``; ROADMAP Queue 1
-item 4); ``auto_tune``, device-time capture (``profile_every``), the
-memory report, OOM forensics and the agent's device metrics (item 9).
-The MoE router-statistics harvest (item 5) is off: an MoE model trains
-and the trainer says once that the harvest is off.  Eager PyTorch has
-nothing to compile ahead of time, so ``warmup_compile`` and a persistent
+the model-parallel mesh axes (``runtime/mesh.check_axes``; ROADMAP Queue
+1 items 5, 6 and 9); ``auto_tune``, device-time capture
+(``profile_every``), the memory report, OOM forensics and the agent's
+device metrics (item 10).  The MoE router-statistics harvest (item 6) is
+off: an MoE model trains and the trainer says once that the harvest is
+off.  Eager PyTorch has nothing to compile ahead of time, so
+``warmup_compile``, ``prewarm_worlds(aot=True)`` and a persistent
 ``compile_cache_dir`` are refused too, and ``reuse_compiled`` has no
 effect (item 3).
 """
@@ -38,9 +55,12 @@ import torch
 
 from dlrover_tpu_torch.common import faults, telemetry
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.common.retry import RetryError, RetryPolicy
 from dlrover_tpu_torch.models.transformer import TransformerConfig
 from dlrover_tpu_torch.optimizers import optax_ports as ox
+from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime import env as renv
+from dlrover_tpu_torch.runtime import mesh as mesh_lib
 from dlrover_tpu_torch.runtime import virtual_mesh
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.trainer import state_digest, train_lib
@@ -63,7 +83,7 @@ class TrainerConfig:
     # Evaluation cadence: 0 disables periodic eval during fit().
     eval_every: int = 0
     eval_batches: int = 10
-    # Strategy search (ROADMAP Queue 1 item 9): refused.
+    # Strategy search (ROADMAP Queue 1 item 10): refused.
     auto_tune: bool = False
     ce_chunks: int = 0
     # Numeric health (trainer/numeric_health.py): anomalies ship to the
@@ -98,64 +118,53 @@ class TrainerConfig:
     grad_accum: int = 1
     # Accumulator dtype: "float32" (default) or "bf16".
     accum_dtype: str = "float32"
-    # "int8" routes the DP gradient reduce through the quantized
-    # all-reduce (ROADMAP Queue 1 item 4): refused.
+    # "int8" routes the data-parallel gradient reduce through the int8
+    # wire (parallel/quantized_collectives.py; K5a/K5b on the card).
     reduce_quant: str = "none"
-    # ZeRO-1 sharded weight update (item 4): refused.
+    # ZeRO-1 sharded weight update (optimizers/zero1.py).
     zero1: bool = False
-    # Overlap engine (item 4): refused.
+    # Overlap engine (parallel/overlap.py; with zero1).
     overlap: bool = False
     # Collective bucket size for the overlap engine's wave schedule.
     overlap_bucket_mb: float = 4.0
-    # "int8" zero1 param all-gather (item 4): refused.
+    # "int8" zero1 param all-gather under the overlap engine.
     allgather_quant: str = "none"
     # -- silent data corruption ---------------------------------------------
     # Every N steps, digest the post-update train state on device
     # (trainer/state_digest.py) and queue it for the master's cross-replica
     # vote.  0 disables: nothing is built or allocated.
     sdc_check_every: int = 0
-    # -- device-time capture (item 9): refused when > 0 ---------------------
+    # -- device-time capture (item 10): refused when > 0 --------------------
     profile_every: int = 0
-    # -- classified device-memory accounting (item 9): refused --------------
+    # -- classified device-memory accounting (item 10): refused -------------
     memory_report: bool = False
     # World size ``grad_accum`` was chosen for; 0 = the world at first
     # construction.  Booked in checkpoint `extra` so a restore into a
     # different world recomputes N from the ORIGINAL reference pairing.
     grad_accum_ref_world: int = 0
     # -- virtual mesh ---------------------------------------------------------
-    # Logical member count for elastic accounting (0 = this process's one
-    # device).  Above 1 waits for the mesh (item 4): refused.
+    # Logical member count for elastic accounting (0 = the process
+    # group's size).
     world: int = 0
 
 
-def _refuse_unported(config: TrainerConfig, parallel, rules) -> None:
+def _refuse_unported(config: TrainerConfig) -> None:
     """Raise for every option whose feature the port does not have yet."""
     def later(what: str, item: int):
         raise NotImplementedError(
             f"{what} is a later slice of the port (ROADMAP Queue 1 item "
             f"{item})")
 
-    if parallel is not None or rules is not None:
-        later("a device mesh (parallel=, rules=)", 4)
     for name, value in (("reduce_quant", config.reduce_quant),
                         ("allgather_quant", config.allgather_quant)):
-        if value == "int8":
-            later(f"TrainerConfig.{name}='int8'", 4)
-        if value != "none":
+        if value not in ("none", "int8"):
             raise ValueError(f"{name} {value!r} must be 'none' or 'int8'")
-    if config.zero1:
-        later("TrainerConfig.zero1", 4)
-    if config.overlap:
-        later("TrainerConfig.overlap", 4)
-    if config.world > 1:
-        later(f"TrainerConfig.world={config.world} (more than one member)",
-              4)
     if config.auto_tune:
-        later("TrainerConfig.auto_tune", 9)
+        later("TrainerConfig.auto_tune", 10)
     if config.profile_every > 0:
-        later("TrainerConfig.profile_every (device-time capture)", 9)
+        later("TrainerConfig.profile_every (device-time capture)", 10)
     if config.memory_report:
-        later("TrainerConfig.memory_report", 9)
+        later("TrainerConfig.memory_report", 10)
     if config.warmup_compile:
         raise NotImplementedError(
             "TrainerConfig.warmup_compile: eager PyTorch has nothing to "
@@ -228,14 +237,19 @@ class ElasticTrainer:
         callbacks=None,
         device: DeviceLike = None,
     ):
-        _refuse_unported(config, parallel, rules)
+        _refuse_unported(config)
         self.config = config
         self.callbacks = list(callbacks or [])
         self.client = client if client is not None else renv.master_client()
         self.model_config = model_config
         self.device = resolve_device(device)
-        # The per-process mesh: one device.
-        self.mesh_shape: Tuple[int, ...] = (1,)
+        # The mesh over the default process group (one process without
+        # one); its shape is constant for the process's lifetime.
+        self.parallel = parallel or mesh_lib.ParallelConfig(data=-1)
+        self.mesh = mesh_lib.build_mesh(self.parallel,
+                                        device_type=self.device.type)
+        self.mesh_shape: Tuple[int, ...] = tuple(self.mesh.shape)
+        self._rules = rules if rules is not None else lr.DEFAULT_RULES
         self.optimizer = optimizer or train_lib.make_optimizer(
             config.optimizer, learning_rate=config.learning_rate,
             warmup_steps=config.warmup_steps,
@@ -266,14 +280,14 @@ class ElasticTrainer:
         # cadence ship — the fetch happens off the step's critical path.
         # Without a master only the newest is kept (_sdc_check).
         self._pending_digests: List[Tuple[int, Any]] = []
-        # MoE router statistics: not ported (item 5); False once logged.
+        # MoE router statistics: not ported (item 6); False once logged.
         self._moe_stats_fn = None
         self._on_step: Optional[Callable[[int, Dict], None]] = None
         self._fit_max_steps = 0
         # Microbatch engine: resolve the effective grad_accum for THIS
         # world from the configured reference pairing (config.grad_accum @
         # grad_accum_ref_world, default: the current world).
-        self._world = max(1, config.world or 1)
+        self._world = max(1, config.world or mesh_lib.process_count())
         self._ref_accum = max(1, config.grad_accum)
         self._ref_world = config.grad_accum_ref_world or self._world
         # The virtual mesh: logical shape fixed at the reference world for
@@ -299,6 +313,7 @@ class ElasticTrainer:
                 config.global_batch_size * config.seq_len,
             )
         self.train = self._build_train()
+        self._layout_of = None  # (train, layout) of the live state
         self.state = self.train.init(seed=0)
         self.step = 0
         self._last_saved = 0
@@ -312,6 +327,7 @@ class ElasticTrainer:
             )
             with telemetry.span("restore"):
                 restored_step, restored = self._ckpt.load_checkpoint(
+                    shardings=self._layout(),
                     state_template=self.state.checkpoint_tree(),
                 )
             if restored is not None:
@@ -331,10 +347,22 @@ class ElasticTrainer:
 
     # -- microbatch engine -----------------------------------------------------
 
+    def _dp_shards(self) -> int:
+        """How many ways the batch dim splits on this mesh + rule table."""
+        return lr.batch_shard_count(self.mesh, self._rules)
+
     def _resolve_grad_accum(self) -> int:
-        # One device: the batch splits one way.
         return self.vmesh.grad_accum_for(
-            self._ref_accum, self.config.global_batch_size, 1)
+            self._ref_accum, self.config.global_batch_size,
+            self._dp_shards())
+
+    def _layout(self):
+        """Where each leaf of the live state lies on this rank (the
+        checkpoint's and the digest's layout), per step program."""
+        if self._layout_of is None or self._layout_of[0] is not self.train:
+            self._layout_of = (self.train,
+                               self.train.checkpoint_layout(self.state))
+        return self._layout_of[1]
 
     def _build_train(self, grad_accum: Optional[int] = None
                      ) -> train_lib.Train:
@@ -349,6 +377,13 @@ class ElasticTrainer:
             ce_chunks=config.ce_chunks,
             grad_accum=accum,
             accum_dtype=config.accum_dtype,
+            reduce_quant=config.reduce_quant,
+            zero1=config.zero1,
+            overlap=config.overlap,
+            overlap_bucket_mb=config.overlap_bucket_mb,
+            allgather_quant=config.allgather_quant,
+            mesh=self.mesh,
+            rules=self._rules,
             device=self.device,
         )
 
@@ -439,38 +474,227 @@ class ElasticTrainer:
         self.grad_accum = resolved
         self.train = self._build_train()
 
-    # -- virtual mesh: live resize (ROADMAP Queue 1 item 4) ---------------------
+    # -- virtual mesh: live resize ---------------------------------------------
 
-    @staticmethod
-    def _resize_not_ported(what: str):
-        raise NotImplementedError(
-            f"{what}: live re-layout across worlds is a later slice of the "
-            "port (ROADMAP Queue 1 item 4)")
+    def prewarm_worlds(
+        self, worlds: Iterable[int], aot: bool = False
+    ) -> Dict[int, int]:
+        """Build the step for every fold ``worlds`` implies, so a later
+        ``apply_world_change`` to any of them is known to build; returns
+        ``{world: grad_accum}``.  Eager PyTorch compiles nothing ahead of
+        time, so a rebuild at the resize costs what this one did, and
+        ``aot=True`` is refused (ROADMAP Queue 1 item 3)."""
+        if aot:
+            raise NotImplementedError(
+                "prewarm_worlds(aot=True): eager PyTorch has nothing to "
+                "compile ahead of time (ROADMAP Queue 1 item 3)")
+        out: Dict[int, int] = {}
+        for world in worlds:
+            vm = self.vmesh.with_world(int(world))
+            accum = vm.grad_accum_for(
+                self._ref_accum, self.config.global_batch_size,
+                self._dp_shards(),
+            )
+            self._build_train(grad_accum=accum)
+            out[int(world)] = accum
+        return out
 
-    def prewarm_worlds(self, worlds: Iterable[int], aot: bool = False):
-        self._resize_not_ported("prewarm_worlds")
+    def apply_world_change(
+        self, new_world: int, reason: str = "scale"
+    ) -> Dict[str, Any]:
+        """Live re-layout to a resized world: no restore.
 
-    def apply_world_change(self, new_world: int, reason: str = "scale"):
-        self._resize_not_ported("apply_world_change")
+        The graceful-resize path: the job world changed but THIS member
+        survived, so its live state is authoritative — re-fold the virtual
+        mesh onto the new member count in memory and keep stepping.
+        ``self.step`` is never rewound: the graceful path loses zero steps
+        by construction.  Every rank of the data group calls it.
 
-    def _relayout(self, new_world: int):
-        self._resize_not_ported("_relayout")
+        Retries ride the ``relayout.apply`` fault seam under a
+        RetryPolicy; on exhaustion the path degrades to the checkpoint
+        restore.  Returns the booking detail (also emitted as a
+        "relayout" telemetry event): ok/fallback flags, worlds, fold,
+        grad_accum, relayout seconds.
+        """
+        new_world = max(1, int(new_world))
+        if new_world == self._world:
+            return {
+                "ok": True, "noop": True, "fallback": False,
+                "old_world": self._world, "new_world": new_world,
+            }
+        # Barrier: the deferred-metrics ring references the pre-resize
+        # step's outputs — flush under their own step attribution.
+        self._flush_metrics()
+        old_world = self._world
+        t0 = time.perf_counter()
+        policy = RetryPolicy(
+            max_attempts=3, base_delay_s=0.05, max_delay_s=0.5,
+            name="relayout.apply", quiet=True,
+        )
+        try:
+            detail = policy.call(self._relayout, new_world)
+        except RetryError as e:
+            return self._relayout_fallback(new_world, reason, e)
+        relayout_s = time.perf_counter() - t0
+        detail.update(
+            ok=True, fallback=False, old_world=old_world,
+            new_world=new_world, reason=reason,
+            relayout_s=round(relayout_s, 6),
+        )
+        logger.info(
+            "live relayout: world %d -> %d (fold %d, grad_accum %d) in "
+            "%.1f ms", old_world, new_world, detail["fold"],
+            detail["grad_accum"], relayout_s * 1e3,
+        )
+        self._ship_relayout(detail, relayout_s)
+        return detail
 
-    def _relayout_fallback(self, new_world: int, reason: str, err):
-        self._resize_not_ported("_relayout_fallback")
+    def _relayout(self, new_world: int) -> Dict[str, Any]:
+        """One re-layout attempt; commits only once everything succeeded,
+        so a retried attempt always starts from a consistent trainer."""
+        faults.fire(
+            "relayout.apply", old_world=self._world, new_world=new_world,
+        )
+        vmesh = self.vmesh.with_world(new_world)
+        accum = vmesh.grad_accum_for(
+            self._ref_accum, self.config.global_batch_size,
+            self._dp_shards(),
+        )
+        # Drain the prefetcher: device placements of the old fold are
+        # dropped, host batches retained and re-placed.
+        drained = (
+            self._prefetcher.drain() if self._prefetcher is not None else 0
+        )
+        rebuilt = accum != self.grad_accum
+        train = self._build_train(grad_accum=accum) if rebuilt else self.train
+        # In-memory re-layout of params and optimizer state through the
+        # checkpoint's record path, the data group's wire in place of
+        # storage.  Transient cost: one host copy of the state.
+        old_train, live = self.train, self.state.checkpoint_tree()
+        tree = virtual_mesh.relayout_state(
+            live, lambda r: old_train.checkpoint_layout(self.state, r),
+            train.checkpoint_layout(self.state), live, self.device,
+            old_train.wire,
+        )
+        state = train.restore(self.step, tree)
+        del tree, live
+        moves = len(self.vmesh.relayout_plan(new_world))
+        embed_moved = 0
+        if self._embed_plane is not None:
+            embed_moved = self._embed_plane.reshard(
+                new_world
+            )["moved_rows"]
+        self.vmesh = vmesh
+        self._world = new_world
+        self.grad_accum = accum
+        self.train = train
+        self.state = state
+        rebound = self._rebind_sampler(new_world)
+        return {
+            "fold": vmesh.fold, "grad_accum": accum,
+            "drained_batches": drained, "rebuilt_program": rebuilt,
+            "shard_moves": moves, "sampler_rebound": rebound,
+            "embed_moved_rows": embed_moved,
+        }
 
-    def _rebind_sampler(self, new_world: int):
-        self._resize_not_ported("_rebind_sampler")
+    def _relayout_fallback(
+        self, new_world: int, reason: str, err: BaseException
+    ) -> Dict[str, Any]:
+        """Re-layout exhausted its retries: degrade to checkpoint restore
+        (the live source state is unusable, storage is the only truth)."""
+        logger.error(
+            "live relayout to world %d failed after retries (%s); "
+            "degrading to checkpoint restore", new_world, err,
+        )
+        if self._ckpt is None:
+            raise err
+        old_world = self._world
+        t0 = time.perf_counter()
+        if self._prefetcher is not None:
+            self._prefetcher.drain()
+        self.vmesh = self.vmesh.with_world(new_world)
+        self._world = new_world
+        resolved = self._resolve_grad_accum()
+        if resolved != self.grad_accum:
+            self.grad_accum = resolved
+            self.train = self._build_train()
+        with telemetry.span("restore"):
+            restored_step, restored = self._ckpt.load_checkpoint(
+                shardings=self._layout(),
+                state_template=self.state.checkpoint_tree(),
+            )
+        if restored is None:
+            raise err
+        self.state = self.train.restore(restored_step, restored)
+        self.step = restored_step
+        self._last_saved = -1
+        self._adopt_checkpoint_accum(self._ckpt.last_extra)
+        if (self._embed_plane is not None
+                and self._embed_plane.world != new_world):
+            self._embed_plane.reshard(new_world)
+        self._rebind_sampler(new_world)
+        restore_s = time.perf_counter() - t0
+        detail = {
+            "ok": True, "fallback": True, "old_world": old_world,
+            "new_world": new_world, "reason": reason,
+            "relayout_s": round(restore_s, 6),
+            "restored_step": restored_step,
+            "grad_accum": self.grad_accum,
+        }
+        logger.warning(
+            "relayout fallback: restored step %d from checkpoint in "
+            "%.2f s", restored_step, restore_s,
+        )
+        self._ship_relayout(detail, restore_s)
+        return detail
+
+    def _rebind_sampler(self, new_world: int) -> bool:
+        """Rebind the active loader's sampler onto the new physical world
+        (its logical keying keeps the batch order invariant).  Lockstep
+        and dynamic-sharding sources carry no rank binding — no-op."""
+        loader = self._active_loader
+        for candidate in (loader, getattr(loader, "source", None)):
+            if candidate is not None and hasattr(candidate, "rebind_world"):
+                candidate.rebind_world(num_replicas=new_world)
+                return True
+        return False
+
+    def _ship_relayout(self, detail: Dict[str, Any], seconds: float):
+        attrs = {k: v for k, v in detail.items() if k != "relayout_s"}
+        telemetry.event("relayout", duration_s=seconds, **attrs)
+        if self.client is not None:
+            import json
+
+            try:
+                self.client.report_event("relayout", json.dumps(detail))
+                telemetry.recorder().ship(self.client)
+            except Exception as e:  # noqa: BLE001 — booking is best-effort
+                logger.warning("relayout report failed: %s", e)
 
     # -- loop -----------------------------------------------------------------
 
     def train_step(self, batch: Dict[str, Any]):
         # The span times what the host observes of this step: H2D place +
         # dispatch, plus any backpressure when the device falls behind.
-        # The reference's modeled accumulate/reduce/update sub-spans come
-        # with the data-parallel reduce (ROADMAP Queue 1 item 4).
+        t_span = time.monotonic()
         with telemetry.span("step", step=self.step + 1):
             metrics = self._dispatch_step(batch)
+        if (
+            self.train.grad_accum > 1 or self.train.zero1
+        ) and telemetry.recorder().enabled:
+            # The accumulate/reduce/update phases are not timed one by
+            # one: emit the reference's cost-model breakdown as sub-spans
+            # backdated into the measured step span (source="modeled").
+            wall = time.monotonic() - t_span
+            for row in train_lib.microbatch_phase_plan(
+                self.train.grad_accum, self.train.reduce_quant, wall,
+                zero1=self.train.zero1, overlap=self.train.overlap,
+            ):
+                telemetry.event(
+                    row["phase"], duration_s=row["dur"],
+                    t_mono=t_span + row["t0"], step=self.step,
+                    micro=row["micro"], source="modeled",
+                )
         self._last_metrics = metrics
         return metrics
 
@@ -478,7 +702,7 @@ class ElasticTrainer:
         placed = train_lib.shard_batch(batch, self.train)
         t0 = time.perf_counter()
         # The reference writes an OOM postmortem before re-raising; that
-        # forensics is the measurement planes' (ROADMAP Queue 1 item 9).
+        # forensics is the measurement planes' (ROADMAP Queue 1 item 10).
         self.state, metrics = self.train.step(self.state, placed)
         self.step += 1
         pipeline_counters().record_dispatch(
@@ -498,13 +722,13 @@ class ElasticTrainer:
 
     def _moe_stats_check(self, placed):
         """The router-stats harvest is not ported (ROADMAP Queue 1 item
-        5): say so once and go on, as the reference does when its harvest
+        6): say so once and go on, as the reference does when its harvest
         fails."""
         if self._moe_stats_fn is False:
             return
         logger.warning(
             "moe stats harvest is off: the router statistics are a later "
-            "slice of the port (ROADMAP Queue 1 item 5)")
+            "slice of the port (ROADMAP Queue 1 item 6)")
         self._moe_stats_fn = False
 
     # -- silent data corruption ------------------------------------------------
@@ -525,7 +749,8 @@ class ElasticTrainer:
                 e,
             )
             self.state = state_digest.flip_mantissa_bit(self.state)
-        entry = (self.step, state_digest.digest_state(self.state))
+        entry = (self.step, state_digest.digest_state(
+            self.state, self._layout(), self.train.wire))
         if self.client is None:
             # No master to vote: keep the newest digest for a caller to
             # read, not one device scalar per check for the whole run.
@@ -773,7 +998,7 @@ class ElasticTrainer:
         the synchronous path; the deferred-metrics flush passes the ring
         entry's own step so lagged values keep correct attribution).  The
         reference also writes the agent's device metrics here
-        (``write_device_metrics``, ROADMAP Queue 1 item 9)."""
+        (``write_device_metrics``, ROADMAP Queue 1 item 10)."""
         cfg = self.config
         step = self.step if step is None else step
         loss = metrics["loss"]
@@ -855,7 +1080,7 @@ class ElasticTrainer:
         def save() -> bool:
             return self._ckpt.save_checkpoint(
                 self.step, self.state.checkpoint_tree(), StorageType.DISK,
-                extra=self._accum_extra(),
+                extra=self._accum_extra(), layout=self._layout(),
             )
 
         with telemetry.span("checkpoint", step=self.step):
@@ -881,13 +1106,24 @@ class ElasticTrainer:
         return True
 
     def _healthy_to_save(self) -> bool:
-        """False when the live state is known (or found) non-finite.
+        """False when the live state is known (or found) non-finite on any
+        rank of the data group (one MIN vote).
 
         The monitor only samples on report cadence, so a NaN can land
         between reports; re-check the newest step's loss at save time —
         one scalar read per checkpoint — so a poisoned state is never
         committed.
         """
+        healthy = self._healthy_here()
+        wire = self.train.wire
+        if wire is None:
+            return healthy
+        vote = torch.tensor([int(healthy)], dtype=torch.int64,
+                            device=self.device)
+        wire.all_reduce(vote, op=torch.distributed.ReduceOp.MIN)
+        return bool(vote.item())
+
+    def _healthy_here(self) -> bool:
         if self._state_poisoned:
             return False
         if self.numeric_monitor is not None and (

@@ -3,7 +3,7 @@
 
 Every replica of one train state holds the same bits, so one uint32 per
 replica turns that invariant into a vote (the master's digest ledger,
-ROADMAP Queue 1 item 9).  Construction, as in the reference: each leaf's
+ROADMAP Queue 1 item 10).  Construction, as in the reference: each leaf's
 raw bytes are summed (mod 2^32), then folded into a running accumulator
 with an odd multiplier, ``acc = acc * 1000003 + leaf_sum`` (mod 2^32).
 The multiplier is invertible mod 2^32, so one flipped bit anywhere
@@ -100,20 +100,42 @@ def digest_leaves(leaves: Sequence[Any]) -> torch.Tensor:
     device = _device_of(leaves)
     if not leaves:
         return torch.zeros((), dtype=torch.int64, device=device)
-    sums = torch.stack([leaf_sum(leaf, device) for leaf in leaves])
+    return _fold(torch.stack([leaf_sum(leaf, device) for leaf in leaves]))
+
+
+def _fold(sums: torch.Tensor) -> torch.Tensor:
+    """The ordered fold of per-leaf byte sums into one uint32."""
     s = sums & MASK
-    powers = _powers(len(leaves), device)
+    powers = _powers(sums.numel(), sums.device)
     hi, lo = powers >> 16, powers & 0xFFFF
     terms = ((((s * hi) & 0xFFFF) << 16) + s * lo) & MASK
     return terms.sum() & MASK
 
 
-def digest_state(state) -> torch.Tensor:
+def digest_state(state, layout=None, wire=None) -> torch.Tensor:
     """The digest of a ``train_lib.TrainState``: its step counter, then
-    what Flash Checkpoint saves of it (parameters and optimizer state)."""
-    return digest_leaves([state.step] + [
-        leaf for _, leaf in
-        shm_handler.tree_flatten_with_path(state.checkpoint_tree())])
+    what Flash Checkpoint saves of it (parameters and optimizer state).
+
+    Over a data group (``wire``, with each leaf's ``layout`` on this rank)
+    the digest is the whole state's: a leaf every rank writes a piece of
+    (a ZeRO-1 shard) has its byte sum completed over the group with one
+    all-reduce, since a byte sum is a sum over pieces; a replicated leaf
+    keeps this rank's own sum, so a rank whose replica differs gives a
+    different digest and the master's vote finds it."""
+    flat = shm_handler.tree_flatten_with_path(state.checkpoint_tree())
+    leaves = [state.step] + [leaf for _, leaf in flat]
+    if wire is None or layout is None:
+        return digest_leaves(leaves)
+    device = _device_of(leaves)
+    sums = torch.stack([leaf_sum(leaf, device) for leaf in leaves])
+    split = [False] + [layout[p].index != tuple(
+        (0, d) for d in layout[p].global_shape) for p, _ in flat]
+    if any(split):
+        mask = torch.tensor(split, device=device)
+        shared = torch.where(mask, sums, torch.zeros_like(sums))
+        wire.all_reduce(shared)
+        sums = torch.where(mask, shared, sums)
+    return _fold(sums)
 
 
 def format_digest(value) -> str:

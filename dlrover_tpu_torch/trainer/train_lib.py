@@ -1,34 +1,65 @@
-"""The train step on one device (port of
-``dlrover_tpu/trainer/train_lib.py``).
+"""The train step (port of ``dlrover_tpu/trainer/train_lib.py``).
 
-``build_train`` is the single-device counterpart of the JAX
-``build_sharded_train``: the same arguments and the same step.  The loss
-is the token-weighted cross entropy normalised by the *global* token
-count (with ``grad_accum`` microbatches each microbatch's CE sum is
-divided by the whole batch's weight, so the accumulated gradient equals
-the full-batch gradient), plus the model's aux loss; the gradient's
-global norm is reported before clipping; the optimizer is a hand port of
-the optax chain ``make_optimizer`` builds (``optimizers/optax_ports.py``)
-applied to the JAX-shaped, layer-stacked parameter tree.  Metrics carry
-the JAX names: ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``,
-``step``.  MoE configs (``num_experts > 0``) train through the same step:
-``aux_loss`` is the blocks' load-balancing loss times ``moe_aux_weight``,
-and the expert kernels ``[E, ., .]`` stack to ``[layers, E, ., .]``
-leaves.
+``build_train`` is the counterpart of the JAX ``build_sharded_train``: the
+same arguments and the same step.  The loss is the token-weighted cross
+entropy normalised by the *global* token count (with ``grad_accum``
+microbatches each microbatch's CE sum is divided by the whole batch's
+weight, so the accumulated gradient equals the full-batch gradient),
+plus the model's aux loss; the gradient's global norm is reported
+before clipping; the optimizer is a hand port of the optax chain
+``make_optimizer`` builds (``optimizers/optax_ports.py``) applied to the
+JAX-shaped, layer-stacked parameter tree.  Metrics carry the JAX names:
+``loss``, ``aux_loss``, ``tokens``, ``grad_norm``, ``step``.  MoE configs
+(``num_experts > 0``) train through the same step at one data rank:
+``aux_loss`` is the blocks' load-balancing loss times
+``moe_aux_weight``, and the expert kernels ``[E, ., .]`` stack to
+``[layers, E, ., .]`` leaves.
 
-``make_optimizer`` builds ``adamw``, ``adafactor`` and the low-bit
-``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf update is
-one CUDA kernel on the card).
+``make_optimizer`` builds ``adamw``, ``adafactor``, ``sgd`` and the
+low-bit ``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf
+update is one CUDA kernel on the card).
+
+The data-parallel world.  ``mesh`` (``runtime/mesh.build_mesh``) with a
+``data`` axis of ``dp`` > 1 makes each process one data rank: it holds a
+replica of the parameters and takes its own rows of the global batch,
+the contiguous block ``[r * B / dp, (r + 1) * B / dp)`` that the JAX
+batch sharding gives data index ``r`` (``shard_batch``).  The loss is
+normalised by the global token count (one all-reduce of the rows'
+weights), so each rank's gradient is its share of the global gradient,
+and the shares are summed across ranks:
+
+* replicated (the default): one all-reduce per leaf, fp, or int8
+  (``parallel/quantized_collectives.quantized_all_reduce``) with
+  ``reduce_quant="int8"`` and ``grad_accum`` > 1, as the reference
+  reduces on the int8 wire only in its microbatched step;
+* ``zero1=True``: each leaf is reduce-scattered to its ZeRO-1 shard
+  (``optimizers/zero1.ShardPlan``; fp, or int8 with ``reduce_quant``),
+  the optimizer updates the shard (its state lives as shards, and its
+  reductions over a leaf stay global, ``optax_ports.sharded_update``),
+  and the updated shards are all-gathered back into every replica;
+* ``overlap=True`` (with ``zero1``): the reduce-scatters are issued per
+  bucket (``parallel/overlap.py``) from the backward's gradient hooks,
+  per microbatch, into a 1/dp shard accumulator, and the all-gathers per
+  bucket after the update (int8 with ``allgather_quant="int8"``).
+
+As in the reference, ``zero1`` and ``overlap`` deactivate silently
+without a data axis above 1 (``Train.zero1``/``Train.overlap`` say what
+is active), and ``overlap`` without ``zero1``.  The int8 step quantizes
+each rank's partial gradient, where the reference, under GSPMD,
+quantizes the gradient already summed: the two steps agree within a
+block-quantization bound, not bit for bit (ROADMAP Queue 3, "by
+design").
 
 ``shard_batch`` places a host batch on the train's device in the dtypes
-``Train._batch`` takes (pinned, ``non_blocking`` on the card), so the step
-passes it through with no copy; ``elastic_grad_accum`` is the elastic
-trainer's microbatch accounting.
+``Train._batch`` takes (pinned, ``non_blocking`` on the card), so the
+step passes it through with no copy; ``elastic_grad_accum`` is the
+elastic trainer's microbatch accounting and ``microbatch_phase_plan`` its
+modeled phase breakdown.
 
-Not ported yet, and refused when asked for: a device mesh and logical
-sharding rules, ZeRO-1, the overlap engine and the int8 gradient reduce
-(ROADMAP Queue 1 item 4), and the ``sgd``, ``lion`` and ``agd``
-optimizers (Queue 1 item 6).
+Not ported yet, and refused when asked for: the model-parallel mesh axes
+(``runtime/mesh.check_axes``: ROADMAP Queue 1 items 5, 6 and 9), MoE at
+more than one data rank (item 6), and the ``lion`` and ``agd``
+optimizers (item 7).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -39,12 +70,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from dlrover_tpu_torch.checkpoint import shm_handler
+from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -52,6 +85,12 @@ from dlrover_tpu_torch.models.transformer import (
 )
 from dlrover_tpu_torch.ops import quantization
 from dlrover_tpu_torch.optimizers import optax_ports as ox
+from dlrover_tpu_torch.optimizers import zero1 as zero1_lib
+from dlrover_tpu_torch.parallel import overlap as overlap_lib
+from dlrover_tpu_torch.parallel import quantized_collectives as qc
+from dlrover_tpu_torch.parallel import rules as lr
+from dlrover_tpu_torch.parallel.wire import Pending, Wire
+from dlrover_tpu_torch.runtime import mesh as mesh_lib
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 _ACCUM_DTYPES = {
@@ -91,24 +130,26 @@ def make_optimizer(
     decay_steps: int = 0,
     **kwargs,
 ) -> ox.GradientTransformation:
-    """``adamw``, ``adafactor``, ``q8_adam`` or ``q4_adam`` behind an
-    optional global-norm clip, as the JAX ``make_optimizer`` composes
-    them."""
+    """``adamw``, ``adafactor``, ``sgd`` (momentum 0.9), ``q8_adam`` or
+    ``q4_adam`` behind an optional global-norm clip, as the JAX
+    ``make_optimizer`` composes them."""
     schedule = make_schedule(learning_rate, warmup_steps, decay_steps)
     if name == "adamw":
         opt = ox.adamw(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
                        **kwargs)
     elif name == "adafactor":
         opt = ox.adafactor(schedule)
+    elif name == "sgd":
+        opt = ox.sgd(schedule, momentum=0.9)
     elif name in ("q8_adam", "q4_adam"):
         low_bit = (quantization.q8_adam if name == "q8_adam"
                    else quantization.q4_adam)
         opt = low_bit(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
                       **kwargs)
-    elif name in ("sgd", "lion", "agd"):
+    elif name in ("lion", "agd"):
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item "
-            "6); the training slice has adamw, adafactor, q8_adam and "
+            "7); the training slice has adamw, adafactor, sgd, q8_adam and "
             "q4_adam"
         )
     else:
@@ -196,7 +237,8 @@ def output_head(model: TransformerLM) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TrainState:
-    """``step`` / the model (holding the params) / ``opt_state``."""
+    """``step`` / the model (holding the params) / ``opt_state`` (under
+    ZeRO-1, this rank's shards of it)."""
 
     step: int
     model: TransformerLM
@@ -212,10 +254,28 @@ class TrainState:
         return {"params": self.params(), "opt_state": self.opt_state}
 
 
+class _Accum:
+    """What the microbatches of one step accumulate: each leaf's gradient
+    (the whole leaf, or under the overlap engine its shard), in the
+    accumulator's dtype (None: as it comes, one microbatch)."""
+
+    def __init__(self, dtype: Optional[torch.dtype]):
+        self.dtype = dtype
+        self.tree: Dict[str, torch.Tensor] = {}
+
+    def add(self, name: str, g: torch.Tensor) -> None:
+        if self.dtype is not None:
+            g = g.to(self.dtype)
+        if name in self.tree:
+            self.tree[name].add_(g)
+        else:
+            self.tree[name] = g
+
+
 @dataclasses.dataclass
 class Train:
-    """The training program on one device: ``init``, ``step`` and
-    ``eval_step`` for one (config, optimizer, batch shape)."""
+    """The training program of one data rank: ``init``, ``step`` and
+    ``eval_step`` for one (config, optimizer, batch shape, mesh)."""
 
     config: TransformerConfig
     optimizer: ox.GradientTransformation
@@ -225,20 +285,63 @@ class Train:
     ce_chunks: int = 0
     grad_accum: int = 1
     accum_dtype: str = "float32"
+    mesh: Any = None
+    rules: Any = None
+    reduce_quant: str = "none"
+    zero1: bool = False
+    overlap: bool = False
+    overlap_bucket_mb: float = 0.0
+    allgather_quant: str = "none"
+    zero1_stats: Optional[Dict[str, Any]] = None
+    overlap_plan: Optional[Dict[str, Any]] = None
+    wire: Optional[Wire] = None
+
+    def __post_init__(self):
+        self.dp = self.wire.size if self.wire is not None else 1
+        self.rank = self.wire.rank if self.wire is not None else 0
+        shapes = {name: shape for name, shape in _stacked_shapes(
+            self.config).items()}
+        #: The layer-stacked leaf names in the reference's tree order.
+        self.leaf_names = sorted(shapes, key=lambda n: tuple(n.split(".")))
+        self.shards: Optional[zero1_lib.ShardPlan] = None
+        if self.zero1:
+            itemsize = torch.empty((), dtype=self.config.param_dtype
+                                   ).element_size()
+            self.shards = zero1_lib.ShardPlan(
+                shapes, self.dp, block=self.optimizer.shard_block,
+                itemsizes={n: itemsize for n in shapes})
+        self._plan: Optional[overlap_lib.OverlapPlan] = None
+        if self.overlap:
+            self._plan = overlap_lib.plan_buckets(
+                [shapes[n] for n in self.leaf_names], self.overlap_bucket_mb,
+                dtype_bytes=torch.empty(
+                    (), dtype=_ACCUM_DTYPES[self.accum_dtype]).element_size())
+            self.overlap_plan = self._plan.describe()
+        self._issuer = None
+        self._hooked = None
+        self._armed = False  # the overlap engine's hooks issue buckets
+
+    @property
+    def local_batch(self) -> int:
+        """This rank's rows of the global batch."""
+        return self.global_batch_size // self.dp
+
+    # -- state ------------------------------------------------------------------
 
     def init(self, seed: int = 0,
              params: Optional[Mapping[str, torch.Tensor]] = None
              ) -> TrainState:
         """A fresh state: parameters from ``init_params(seed)`` (or the
         given state dict, e.g. ``state_dict_from_jax``), optimizer state
-        from the optimizer's ``init``."""
+        from the optimizer's ``init`` (on this rank's shards under
+        ZeRO-1).  Every rank draws the same parameters from the seed."""
         model = TransformerLM(self.config, self.device)
         if params is None:
             params = init_params(self.config, seed=seed, device=self.device)
         model.load_state_dict(params)
         model.train()
-        with torch.no_grad():
-            opt_state = self.optimizer.init(_param_tree(model))
+        with torch.no_grad(), ox.sharded_update(self._view()):
+            opt_state = self.optimizer.init(self._local(_param_tree(model)))
         return TrainState(step=0, model=model, opt_state=opt_state)
 
     def restore(self, step: int, tree: Mapping[str, Any]) -> TrainState:
@@ -249,6 +352,56 @@ class Train:
         state.opt_state = tree["opt_state"]
         state.step = step
         return state
+
+    def _view(self) -> Optional[ox.ShardView]:
+        if self.shards is None:
+            return None
+        return ox.ShardView(self.shards,
+                            lambda t: self.wire.all_reduce(t))
+
+    def _local(self, tree: ox.Tree) -> ox.Tree:
+        """This rank's shards of a whole (stacked) tree."""
+        if self.shards is None:
+            return tree
+        return {n: self.shards[n].take(t, self.rank)
+                for n, t in tree.items()}
+
+    def checkpoint_layout(self, state: TrainState, rank: Optional[int] = None
+                          ) -> Dict[Tuple[str, ...], shm_handler.LeafLayout]:
+        """Where each leaf of ``state.checkpoint_tree()`` lies on data
+        rank ``rank`` (default: this one): the whole leaf's shape, the
+        rank's slice of it and its replica id (0 on the one rank that
+        writes it).  Parameters are replicated (rank 0 writes them); under
+        ZeRO-1 an optimizer-state leaf whose shape differs from the whole
+        leaf's (the optimizer's ``init`` on the whole tree, on the meta
+        device) is a split of one dimension, written by every rank."""
+        rank = self.rank if rank is None else rank
+        tree = state.checkpoint_tree()
+        out: Dict[Tuple[str, ...], shm_handler.LeafLayout] = {}
+        whole = {}
+        if self.shards is not None:
+            meta = {n: torch.empty(leaf.shape, dtype=self.config.param_dtype,
+                                   device="meta")
+                    for n, leaf in self.shards.leaves.items()}
+            whole = dict(shm_handler.tree_flatten_with_path(
+                {"opt_state": self.optimizer.init(meta)}))
+        for path, leaf in shm_handler.tree_flatten_with_path(tree):
+            shape = tuple(getattr(leaf, "shape", ()))
+            full = tuple(getattr(whole.get(path), "shape", shape))
+            if full == shape:
+                out[path] = shm_handler.LeafLayout(
+                    full, tuple((0, d) for d in full), rank)
+                continue
+            diff = [d for d, (a, b) in enumerate(zip(full, shape)) if a != b]
+            if len(diff) != 1 or full[diff[0]] != shape[diff[0]] * self.dp:
+                raise ValueError(
+                    f"{''.join(path)}: shard {shape} of {full} is not a "
+                    f"{self.dp}-way split of one dimension")
+            d, k = diff[0], shape[diff[0]]
+            index = [(0, n) for n in full]
+            index[d] = (rank * k, (rank + 1) * k)
+            out[path] = shm_handler.LeafLayout(full, tuple(index), 0)
+        return out
 
     # -- one step -------------------------------------------------------------
 
@@ -263,10 +416,10 @@ class Train:
                                  device=self.device)
         else:
             weights = dev(batch["weights"], torch.float32)
-        if tuple(inputs.shape) != (self.global_batch_size, self.seq_len):
+        if tuple(inputs.shape) != (self.local_batch, self.seq_len):
             raise ValueError(
-                f"batch inputs {tuple(inputs.shape)} != (global_batch_size, "
-                f"seq_len) = {(self.global_batch_size, self.seq_len)}"
+                f"batch inputs {tuple(inputs.shape)} != (global_batch_size"
+                f" / dp, seq_len) = {(self.local_batch, self.seq_len)}"
             )
         return inputs, targets, weights
 
@@ -286,7 +439,10 @@ class Train:
     def step(self, state: TrainState, batch: Mapping[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
         """One optimizer step on ``batch`` (``inputs``/``targets`` int
-        ``[global_batch, seq_len]``, optional fp ``weights``)."""
+        ``[global_batch / dp, seq_len]``, this rank's rows, optional fp
+        ``weights``)."""
+        if self.dp > 1:
+            return self._dp_step(state, batch)
         model = state.model
         inputs, targets, weights = self._batch(batch)
         named = dict(model.named_parameters())
@@ -353,14 +509,262 @@ class Train:
         grads = {k: acc[k].to(p.dtype) for k, p in named.items()}
         return grads, ce_acc / w_total, aux_acc / n, w_total
 
+    # -- the data-parallel step -------------------------------------------------
+
+    def _layer_parts(self, named: Dict[str, torch.Tensor]
+                     ) -> Dict[str, List[str]]:
+        """Each stacked leaf's per-layer parameter names, in layer
+        order."""
+        parts: Dict[str, List[Tuple[int, str]]] = {}
+        for name in named:
+            m = ox._BLOCK_NAME.match(name)
+            key = f"blocks.{m.group(2)}" if m else name
+            parts.setdefault(key, []).append((int(m.group(1)) if m else 0,
+                                              name))
+        return {k: [n for _, n in sorted(v)] for k, v in parts.items()}
+
+    def _leaf_grad(self, named, parts: List[str], stacked: bool
+                   ) -> torch.Tensor:
+        grads = [_grad(named[n]) for n in parts]
+        for n in parts:
+            named[n].grad = None
+        return torch.stack(grads) if stacked else grads[0]
+
+    def _algo(self, nbytes: int) -> str:
+        return qc.select_reduce_algo(
+            self.dp, payload_bytes=nbytes,
+            crosses_dcn=qc.axis_crosses_dcn(self.wire))
+
+    def _scatter(self, name: str, g: torch.Tensor, async_op: bool,
+                 then) -> Optional[Pending]:
+        """Reduce one leaf's gradient to its ZeRO-1 shard (all of it when
+        the leaf is not split), fp or int8; ``then(shard)`` receives the
+        result."""
+        leaf = self.shards[name]
+        nbytes = g.numel() * g.element_size()
+        if self.reduce_quant == "int8":
+            if leaf.dim is None:
+                out = qc.quantized_all_reduce(g, self.wire, mean=False,
+                                              algo=self._algo(nbytes))
+            else:
+                out = qc.quantized_reduce_scatter(
+                    g, self.wire, dim=leaf.dim, mean=False,
+                    algo=self._algo(nbytes))
+            then(out)
+            return None
+        if leaf.dim is None:
+            g = g.contiguous()
+            return self.wire.all_reduce(g, async_op=async_op).then(
+                lambda: then(g))
+        moved = torch.movedim(g, leaf.dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // self.dp,) + tuple(
+            moved.shape[1:]), dtype=g.dtype, device=g.device)
+        pending = self.wire.reduce_scatter(out, moved, async_op=async_op)
+        result = torch.movedim(out, 0, leaf.dim)
+        return pending.then(lambda: then(result))
+
+    def _gather(self, name: str, shard: torch.Tensor, async_op: bool,
+                then) -> Optional[Pending]:
+        """Re-replicate one updated leaf from its shards (fp, or int8 under
+        the overlap engine with ``allgather_quant``)."""
+        leaf = self.shards[name]
+        if leaf.dim is None:
+            then(shard)
+            return None
+        if self.overlap and self.allgather_quant == "int8":
+            nbytes = shard.numel() * shard.element_size()
+            then(qc.quantized_all_gather(shard, self.wire, dim=leaf.dim,
+                                         algo=self._algo(nbytes)))
+            return None
+        moved = torch.movedim(shard, leaf.dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] * self.dp,) + tuple(
+            moved.shape[1:]), dtype=shard.dtype, device=shard.device)
+        pending = self.wire.all_gather(out, moved, async_op=async_op)
+        whole = torch.movedim(out, 0, leaf.dim)
+        return pending.then(lambda: then(whole))
+
+    def _hook(self, model: TransformerLM, named) -> None:
+        """The overlap engine's gradient hooks (once per model): each
+        parameter's hook marks a part of its stacked leaf ready, and the
+        issuer sends every complete bucket in plan order."""
+        if self._hooked is model:
+            return
+        parts = self._layer_parts(named)
+        index = {name: i for i, name in enumerate(self.leaf_names)}
+        owner = {p: index[leaf] for leaf, ps in parts.items() for p in ps}
+
+        def issue(_bucket, leaves):
+            out = []
+            for i in leaves:
+                name = self.leaf_names[i]
+                g = self._leaf_grad(named, parts[name],
+                                    name.startswith("blocks."))
+                out.append(self._scatter(
+                    name, g, True,
+                    lambda shard, name=name: self._acc.add(name, shard)))
+            return out
+
+        self._issuer = overlap_lib.BucketIssuer(
+            self._plan, [len(parts[n]) for n in self.leaf_names], issue)
+        self._armed = False
+
+        def ready(pname):
+            def fn(_p):
+                if self._armed:
+                    self._issuer.ready(owner[pname])
+            return fn
+
+        for pname, p in named.items():
+            p.register_post_accumulate_grad_hook(ready(pname))
+        self._hooked = model
+
+    def _global_sum(self, values: torch.Tensor) -> torch.Tensor:
+        """``values`` (fp32) summed over the data ranks."""
+        values = values.clone()
+        self.wire.all_reduce(values)
+        return values
+
+    def _dp_step(self, state: TrainState, batch: Mapping[str, Any]):
+        model = state.model
+        inputs, targets, weights = self._batch(batch)
+        named = dict(model.named_parameters())
+        for p in named.values():
+            p.grad = None
+        parts = self._layer_parts(named)
+        n_micro = self.grad_accum
+        micro = self.local_batch // n_micro
+        w_total = torch.clamp(self._global_sum(weights.float().sum()),
+                              min=1.0)
+        self._acc = _Accum(_ACCUM_DTYPES[self.accum_dtype]
+                           if (n_micro > 1 or self.overlap) else None)
+        if self.overlap:
+            self._hook(model, named)
+        pending: List[Optional[Pending]] = []
+        ce_acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        aux_acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(n_micro):
+            sl = slice(i * micro, (i + 1) * micro)
+            ce_sum, _, aux = self._forward_sums(
+                model, inputs[sl], targets[sl], weights[sl])
+            # The previous microbatch's reduce-scatters ran under this
+            # forward; land them before the backward issues the next.
+            for p in pending:
+                if p is not None:
+                    p.wait()
+            pending = []
+            self._armed = self.overlap
+            (ce_sum / w_total + aux / (n_micro * self.dp)).backward()
+            self._armed = False
+            with torch.no_grad():
+                if self.overlap:
+                    for issued in self._issuer.finish():
+                        pending += issued
+                else:
+                    for name in self.leaf_names:
+                        self._acc.add(name, self._leaf_grad(
+                            named, parts[name], name.startswith("blocks.")))
+                ce_acc += ce_sum.detach()
+                aux_acc += aux.detach()
+        for p in pending:
+            if p is not None:
+                p.wait()
+        with torch.no_grad():
+            sums = self._global_sum(torch.stack([ce_acc, aux_acc]))
+            params = _param_tree(model)
+            grads = self._reduce(self._acc.tree, params)
+            self._acc = None
+            with ox.sharded_update(self._view()):
+                local = self._local(params)
+                grad_norm = ox.global_norm(grads)
+                updates, state.opt_state = self.optimizer.update(
+                    grads, state.opt_state, local)
+                del grads
+                # optax.apply_updates: the sum in the param dtype, which
+                # is also the all-gather's wire dtype.
+                new = {n: (local[n] + updates[n]).to(local[n].dtype)
+                       for n in updates}
+            del updates
+            self._replicate(named, parts, new)
+        state.step += 1
+        metrics = {
+            "loss": sums[0] / w_total,
+            "aux_loss": sums[1] / (n_micro * self.dp),
+            "tokens": w_total,
+            "grad_norm": grad_norm,
+            "step": state.step,
+        }
+        return state, metrics
+
+    def _reduce(self, acc: Dict[str, torch.Tensor], params: ox.Tree
+                ) -> ox.Tree:
+        """The accumulated partial gradients summed over the data ranks,
+        in the params' dtype: whole leaves (replicated update) or this
+        rank's ZeRO-1 shards."""
+        out: Dict[str, torch.Tensor] = {}
+        if self.overlap:
+            return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
+        if self.shards is None:
+            for name in self.leaf_names:
+                g = acc[name]
+                if self.reduce_quant == "int8" and self.grad_accum > 1:
+                    g = qc.quantized_all_reduce(
+                        g, self.wire, mean=False,
+                        algo=self._algo(g.numel() * g.element_size()))
+                else:
+                    g = g.contiguous()
+                    self.wire.all_reduce(g)
+                out[name] = g.to(params[name].dtype)
+            return out
+        for name in self.leaf_names:
+            g = acc[name].to(params[name].dtype)
+            self._scatter(name, g, False,
+                          lambda shard, name=name: out.__setitem__(name,
+                                                                   shard))
+        return out
+
+    def _replicate(self, named, parts, new: ox.Tree) -> None:
+        """Copy the updated leaves into the model's parameters: whole
+        leaves directly, ZeRO-1 shards through an all-gather (per bucket,
+        in plan order, under the overlap engine)."""
+        def land(name, whole):
+            whole = whole.to(named[parts[name][0]].dtype)
+            if name.startswith("blocks."):
+                for i, pname in enumerate(parts[name]):
+                    named[pname].copy_(whole[i])
+            else:
+                named[name].copy_(whole)
+
+        if self.shards is None:
+            for name in self.leaf_names:
+                land(name, new[name])
+            return
+        buckets = (self._plan.buckets if self.overlap else
+                   [tuple(range(len(self.leaf_names)))])
+        for bucket in buckets:
+            issued = [self._gather(self.leaf_names[i],
+                                   new[self.leaf_names[i]], self.overlap,
+                                   lambda w, n=self.leaf_names[i]: land(n, w))
+                      for i in bucket]
+            if not self.overlap:
+                continue
+            for p in issued:
+                if p is not None:
+                    p.wait()
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Mapping[str, Any]
                   ) -> Dict[str, torch.Tensor]:
         """Forward-only loss on one batch -> ``{"loss", "aux_loss",
-        "tokens"}``."""
+        "tokens"}`` (over every data rank's rows)."""
         inputs, targets, weights = self._batch(batch)
         ce_sum, total_weight, aux = self._forward_sums(
             state.model, inputs, targets, weights)
+        if self.dp > 1:
+            sums = self._global_sum(torch.stack([
+                ce_sum.float(), weights.float().sum(), aux.float()]))
+            total_weight = torch.clamp(sums[1], min=1.0)
+            return {"loss": sums[0] / total_weight,
+                    "aux_loss": sums[2] / self.dp, "tokens": total_weight}
         return {"loss": ce_sum / total_weight, "aux_loss": aux,
                 "tokens": total_weight}
 
@@ -378,6 +782,23 @@ def _param_tree(model: TransformerLM) -> ox.Tree:
         {k: p.detach() for k, p in model.named_parameters()})
 
 
+def _stacked_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """``{name: shape}`` of the layer-stacked parameter tree."""
+    from dlrover_tpu_torch.models.transformer import param_shapes
+
+    shapes = param_shapes(config)
+    out: Dict[str, Tuple[int, ...]] = {}
+    for name, shape in shapes.items():
+        m = ox._BLOCK_NAME.match(name)
+        if m:
+            key = f"blocks.{m.group(2)}"
+            layers = out.get(key, (0,))[0] + 1
+            out[key] = (layers,) + tuple(shape)
+        else:
+            out[name] = tuple(shape)
+    return out
+
+
 def build_train(
     config: TransformerConfig,
     optimizer: ox.GradientTransformation,
@@ -390,39 +811,73 @@ def build_train(
     reduce_quant: str = "none",
     zero1: bool = False,
     overlap: bool = False,
+    overlap_bucket_mb: float = 4.0,
+    allgather_quant: str = "none",
     mesh: Any = None,
     rules: Any = None,
     device: DeviceLike = None,
 ) -> Train:
-    """The single-device counterpart of ``build_sharded_train``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "a device mesh and sharding rules are a later slice of the port "
-            "(ROADMAP Queue 1 item 4)"
-        )
-    if zero1 or overlap or reduce_quant != "none":
-        raise NotImplementedError(
-            "zero1, overlap and reduce_quant are later slices of the port "
-            "(ROADMAP Queue 1 item 4)"
-        )
+    """The counterpart of ``build_sharded_train``: one data rank's step on
+    ``mesh`` (its data axis; :func:`runtime.mesh.single_device_mesh`, one
+    rank, when None) under ``rules`` (``parallel.rules.DEFAULT_RULES``
+    when None)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if accum_dtype not in _ACCUM_DTYPES:
         raise ValueError(
             f"accum_dtype {accum_dtype!r} not in {sorted(_ACCUM_DTYPES)}"
         )
-    if global_batch_size % grad_accum:
-        raise ValueError(
-            f"global_batch_size {global_batch_size} must be divisible by "
-            f"grad_accum {grad_accum}"
-        )
+    for name, value in (("reduce_quant", reduce_quant),
+                        ("allgather_quant", allgather_quant)):
+        if value not in ("none", "int8"):
+            raise ValueError(f"{name} {value!r} must be 'none' or 'int8'")
     if config.decode:
         raise ValueError("training takes a config with decode=False")
-    return Train(
-        config=config, optimizer=optimizer, device=resolve_device(device),
+    device = resolve_device(device)
+    rules = list(rules if rules is not None else lr.DEFAULT_RULES)
+    sizes = mesh_lib.mesh_axis_sizes(mesh)
+    mesh_lib.check_axes(sizes)
+    lr.batch_group_axis(mesh, rules)
+    dp = lr.batch_shard_count(mesh, rules)
+    wire = None
+    if dp > 1:
+        if config.num_experts:
+            raise NotImplementedError(
+                "an MoE model at more than one data rank is a later slice "
+                "of the port (ROADMAP Queue 1 item 6: the expert axis and "
+                "the router statistics over the group)")
+        wire = Wire(mesh_lib.data_group(mesh))
+    if global_batch_size % (dp * grad_accum):
+        raise ValueError(
+            f"global_batch_size {global_batch_size} must be divisible by "
+            f"dp*grad_accum = {dp}*{grad_accum} = {dp * grad_accum}"
+        )
+    zero1_active = bool(zero1) and dp > 1
+    overlap_active = bool(overlap) and zero1_active
+    train = Train(
+        config=config, optimizer=optimizer, device=device,
         global_batch_size=global_batch_size, seq_len=seq_len,
         ce_chunks=ce_chunks, grad_accum=grad_accum, accum_dtype=accum_dtype,
+        mesh=mesh, rules=rules, reduce_quant=reduce_quant,
+        zero1=zero1_active, overlap=overlap_active,
+        overlap_bucket_mb=overlap_bucket_mb if overlap_active else 0.0,
+        allgather_quant=allgather_quant if overlap_active else "none",
+        wire=wire,
     )
+    if train.shards is not None:
+        train.zero1_stats = dict(train.shards.stats)
+        logger.info(
+            "zero1 sharded update: dp=%d, %d/%d leaves sharded",
+            dp, train.zero1_stats["sharded_leaves"],
+            len(train.leaf_names))
+    if train.overlap_plan is not None:
+        logger.info(
+            "overlap engine: %d bucket(s) of ~%.1f MB over %d leaves%s%s",
+            train.overlap_plan["num_buckets"], overlap_bucket_mb,
+            train.overlap_plan["num_leaves"],
+            " [int8 reduce-scatter]" if reduce_quant == "int8" else "",
+            " [int8 all-gather]" if allgather_quant == "int8" else "")
+    return train
 
 
 def elastic_grad_accum(
@@ -458,6 +913,88 @@ def elastic_grad_accum(
     return min(larger) if larger else max(feasible)
 
 
+# Modeled share of each zero1 collective leg the overlap engine hides
+# under compute (parallel/overlap.py: per-microbatch reduce-scatter,
+# per-bucket all-gather).  Starting points of the phase model.
+OVERLAP_HIDDEN_RS = 0.75
+OVERLAP_HIDDEN_AG = 0.5
+
+
+def microbatch_phase_plan(
+    grad_accum: int,
+    reduce_quant: str,
+    step_seconds: float,
+    zero1: bool = False,
+    overlap: bool = False,
+) -> list:
+    """Modeled accumulate/reduce/update breakdown of one microbatched step
+    (the reference's cost model, unchanged).
+
+    The phases run inside one step the host times as a whole; this
+    apportions the measured step time by the reference's model (reduce
+    ~8% of the step on the fp wire, ~3% on int8; update ~4%; the rest
+    accumulates, split evenly over the N microbatches).  Rows are dicts
+    ``{"phase", "micro", "t0", "dur"}`` with times relative to step start
+    — the trainer emits them as telemetry (``source="modeled"``).
+
+    ``zero1=True`` replaces the replicated reduce/update tail with the
+    sharded-update phases: ``reduce_scatter``, ``shard_update`` and
+    ``allgather``.  ``overlap=True`` (zero1 only) books only the exposed
+    remainder of each collective leg (``1 - OVERLAP_HIDDEN_RS`` of the
+    reduce-scatter, ``1 - OVERLAP_HIDDEN_AG`` of the all-gather).
+    """
+    if zero1:
+        rs_frac = 0.015 if reduce_quant == "int8" else 0.04
+        update_frac = 0.015
+        ag_frac = 0.04
+        if overlap:
+            rs_frac *= 1.0 - OVERLAP_HIDDEN_RS
+            ag_frac *= 1.0 - OVERLAP_HIDDEN_AG
+        accum_total = step_seconds * (
+            1.0 - rs_frac - update_frac - ag_frac
+        )
+        per_micro = accum_total / max(1, grad_accum)
+        rows = [
+            {
+                "phase": "accumulate", "micro": i,
+                "t0": i * per_micro, "dur": per_micro,
+            }
+            for i in range(grad_accum)
+        ]
+        t = accum_total
+        for phase, frac in (
+            ("reduce_scatter", rs_frac),
+            ("shard_update", update_frac),
+            ("allgather", ag_frac),
+        ):
+            rows.append({
+                "phase": phase, "micro": -1,
+                "t0": t, "dur": step_seconds * frac,
+            })
+            t += step_seconds * frac
+        return rows
+    reduce_frac = 0.03 if reduce_quant == "int8" else 0.08
+    update_frac = 0.04
+    accum_total = step_seconds * (1.0 - reduce_frac - update_frac)
+    per_micro = accum_total / max(1, grad_accum)
+    rows = []
+    for i in range(grad_accum):
+        rows.append({
+            "phase": "accumulate", "micro": i,
+            "t0": i * per_micro, "dur": per_micro,
+        })
+    rows.append({
+        "phase": "reduce", "micro": -1,
+        "t0": accum_total, "dur": step_seconds * reduce_frac,
+    })
+    rows.append({
+        "phase": "update", "micro": -1,
+        "t0": step_seconds * (1.0 - update_frac),
+        "dur": step_seconds * update_frac,
+    })
+    return rows
+
+
 #: The dtypes ``Train._batch`` takes; other keys keep their own.
 BATCH_DTYPES = {"inputs": torch.long, "targets": torch.long,
                 "weights": torch.float32}
@@ -468,6 +1005,18 @@ def _on_device(t: torch.Tensor, device: torch.device) -> bool:
         device.index is None or t.device.index == device.index)
 
 
+def _own_rows(value, train: Train):
+    """This data rank's rows of ``value``: the contiguous block the JAX
+    batch sharding gives data index ``rank`` when ``value`` holds the
+    whole global batch, ``value`` itself when it holds the rank's rows
+    already (a rank's own loader)."""
+    rows = int(value.shape[0]) if getattr(value, "shape", None) else 0
+    if train.dp > 1 and rows == train.global_batch_size:
+        b = train.local_batch
+        return value[train.rank * b:(train.rank + 1) * b]
+    return value
+
+
 def shard_batch(batch: Mapping[str, Any], train: Train
                 ) -> Dict[str, torch.Tensor]:
     """Place a host batch on ``train``'s device the way ``Train._batch``
@@ -475,6 +1024,11 @@ def shard_batch(batch: Mapping[str, Any], train: Train
     when absent, made on the device).  A tensor already on the device in
     its dtype passes through untouched (no copy, no "place" event), so
     the trainer hands prefetched batches back through this function.
+
+    At ``dp`` > 1 each rank takes its own rows: of a whole global batch,
+    the block ``[rank * B / dp, (rank + 1) * B / dp)`` (the rows the JAX
+    batch sharding puts on data index ``rank``); a batch of the rank's
+    rows (its own loader's) passes as it is.
 
     On the CPU this is a plain move.  On the card each host array is
     converted on the host, pinned and copied with ``non_blocking=True``
@@ -490,6 +1044,7 @@ def shard_batch(batch: Mapping[str, Any], train: Train
         if value is None:
             continue
         dtype = BATCH_DTYPES.get(key)
+        value = _own_rows(value, train)
         if isinstance(value, torch.Tensor) and _on_device(value, device) \
                 and (dtype is None or value.dtype == dtype):
             out[key] = value  # already placed (prefetched): passthrough

@@ -3,7 +3,7 @@
 ``dlrover_tpu/utils/profiler.py``).
 
 The reference's device-time capture and trace parsing (``jax.profiler``)
-wait for the measurement planes (ROADMAP Queue 1 item 9).  On the card a
+wait for the measurement planes (ROADMAP Queue 1 item 10).  On the card a
 "place" is a batch's copy from pinned host memory issued on the
 prefetcher's CUDA stream, and a "block" is a device-to-host read that
 waits for the device.

@@ -231,8 +231,19 @@ def test_memory_and_disk_cycle(tmp_path):
     _assert_trees_equal(loaded, s12)
     step, flat = fresh._engine.load_from_storage()
     assert torch.equal(flat[("['params']", "['b16']")], s12["params"]["b16"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        fresh.load_checkpoint(shardings=object())
+    # A target layout (``shardings``) cuts a leaf to the rank's slice.
+    path = ("['params']", "['b16']")
+    spot = tsh.LeafLayout((3, 8), ((0, 3), (4, 8)), 0)
+    template = _state(0)
+    template["params"]["b16"] = template["params"]["b16"][:, 4:].clone()
+    step, cut = fresh.load_checkpoint(shardings={path: spot},
+                                      state_template=template)
+    assert step == 12
+    assert torch.equal(cut["params"]["b16"], s12["params"]["b16"][:, 4:])
+    with pytest.raises(ValueError, match="whole leaf"):
+        fresh.load_checkpoint(
+            shardings={path: tsh.LeafLayout((6, 8), ((0, 3), (0, 8)), 0)},
+            state_template=_state(0))
     ckpt.close()
 
 

@@ -37,6 +37,7 @@ from dlrover_tpu_torch.embedding.sharded import ShardedEmbeddingTable
 from dlrover_tpu_torch.models import gpt2_config
 from dlrover_tpu_torch.models.from_jax import state_dict_from_jax
 from dlrover_tpu_torch.runtime import env as tenv
+from dlrover_tpu_torch.runtime import mesh as tmesh
 from dlrover_tpu_torch.runtime import virtual_mesh as tvm
 from dlrover_tpu_torch.trainer import numeric_health as tnh
 from dlrover_tpu_torch.trainer import state_digest as tsd
@@ -277,7 +278,7 @@ def test_booked_grad_accum_reference_resolves_as_the_reference(tmp_path):
     assert plain.step == 1
     assert (plain._ref_accum, plain._ref_world) == (2, 2)
     assert plain.grad_accum == plain.train.grad_accum == want
-    assert plain.vmesh.logical_shape == (2,)
+    assert plain.vmesh.logical_shape == (2, 1, 1, 1, 1, 1)
     assert plain._accum_extra()["grad_accum_ref"] == {"accum": 2, "world": 2}
     plain.close()
 
@@ -291,11 +292,13 @@ class _BusySaver:
         self.ckpt, self.busy, self.calls, self.waits = ckpt, True, [], 0
         self.save = ckpt.save_checkpoint
 
-    def save_checkpoint(self, step, state, storage_type, extra=None):
+    def save_checkpoint(self, step, state, storage_type, extra=None,
+                        layout=None):
         self.calls.append((step, not self.busy))
         if self.busy:
             return False
-        return self.save(step, state, storage_type, extra=extra)
+        return self.save(step, state, storage_type, extra=extra,
+                         layout=layout)
 
     def wait(self, timeout=600.0):
         self.waits += 1
@@ -470,9 +473,8 @@ def test_sdc_digests_without_a_master_keep_only_the_newest(every):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("zero1", True, 4), ("overlap", True, 4), ("reduce_quant", "int8", 4),
-    ("allgather_quant", "int8", 4), ("world", 2, 4), ("auto_tune", True, 9),
-    ("profile_every", 1, 9), ("memory_report", True, 9),
+    ("auto_tune", True, 10), ("profile_every", 1, 10),
+    ("memory_report", True, 10),
     ("warmup_compile", True, 3), ("compile_cache_dir", "/tmp/cc", 3),
 ])
 def test_unported_config_fields_are_refused(field, value, item):
@@ -481,16 +483,67 @@ def test_unported_config_fields_are_refused(field, value, item):
         _trainer(**{field: value})
 
 
-@pytest.mark.parametrize("call", [
-    lambda t: t.prewarm_worlds([1, 2]),
-    lambda t: t.apply_world_change(2),
-    lambda t: t._rebind_sampler(2),
-    lambda t: ElasticTrainer(t.model_config, t.config, parallel=object(),
-                             device="cpu"),
+@pytest.mark.parametrize("field,value", [
+    ("zero1", True), ("overlap", True), ("reduce_quant", "int8"),
+    ("allgather_quant", "int8"), ("world", 2),
 ])
-def test_live_resize_and_the_mesh_are_refused(call):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        call(_trainer())
+def test_data_parallel_config_fields_at_one_process(field, value):
+    """The data-parallel options build at one process, as the reference's
+    do at one data rank: ZeRO-1 and the overlap engine deactivate, the
+    int8 wires have no wire, and ``world`` is a logical member count."""
+    trainer = _trainer(**{field: value})
+    assert (trainer.train.zero1, trainer.train.overlap, trainer.train.dp,
+            trainer.train.wire) == (False, False, 1, None)
+    assert trainer._world == (value if field == "world" else 1)
+    trainer.fit(_batches(1), max_steps=1)
+    assert trainer.step == 1
+    trainer.close()
+
+
+def test_a_model_parallel_mesh_and_aot_prewarm_are_refused():
+    trainer = _trainer()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        trainer.prewarm_worlds([1, 2], aot=True)
+    with pytest.raises(ValueError, match="devices"):
+        ElasticTrainer(trainer.model_config, trainer.config,
+                       parallel=tmesh.ParallelConfig(data=1, fsdp=2),
+                       device="cpu")
+    trainer.close()
+
+
+def test_live_resize_at_one_process_folds_the_logical_world(tmp_path):
+    """``apply_world_change`` at one process: the reference's logical
+    fold (the step's grad_accum follows the world, tokens/step and the
+    step are unchanged), the state re-laid out in memory bit for bit, the
+    sampler rebound, and the event booked; ``prewarm_worlds`` maps every
+    world to its fold's grad_accum."""
+    from dlrover_tpu_torch.data.loader import (
+        ElasticDataLoader,
+        ElasticDistributedSampler,
+    )
+
+    trainer = _trainer(world=4, grad_accum_ref_world=4)
+    assert trainer.prewarm_worlds([1, 2, 4]) == {
+        w: jtl.elastic_grad_accum(1, 4, w, BATCH, 1) for w in (1, 2, 4)}
+    trainer.fit(_batches(2), max_steps=2)
+    before = _snapshot(trainer.state)
+    sampler = ElasticDistributedSampler(64, num_replicas=4, rank=3)
+    trainer._active_loader = ElasticDataLoader(
+        lambda i: {"inputs": np.zeros(SEQ, np.int32),
+                   "targets": np.zeros(SEQ, np.int32)}, BATCH,
+        source=sampler)
+    assert trainer.apply_world_change(4)["noop"]
+    detail = trainer.apply_world_change(2)
+    assert detail["ok"] and not detail["fallback"]
+    assert (detail["grad_accum"], detail["fold"]) == (
+        jtl.elastic_grad_accum(1, 4, 2, BATCH, 1), 2)
+    assert detail["sampler_rebound"] and sampler.num_replicas == 2
+    assert sampler.rank == 1  # 3 % 2: the member keeps its identity
+    assert trainer.step == 2 and trainer.grad_accum == detail["grad_accum"]
+    _assert_bit_equal(_snapshot(trainer.state), before)
+    trainer.fit(_batches(3)[2:], max_steps=3)
+    assert trainer.step == 3
+    trainer.close()
 
 
 def test_runtime_env_contract(monkeypatch):
@@ -507,10 +560,21 @@ def test_runtime_env_contract(monkeypatch):
     monkeypatch.setenv("DLROVER_TPU_COORDINATOR", "localhost:1")
     tenv.initialize()  # one process under the agent: nothing to join
     monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tenv.initialize()
+    # The agent's control-plane-only switch: a one-process group of its
+    # own (the two-process join itself runs in spawned worlds,
+    # tests/test_torch_resize.py and test_torch_zero1.py).
+    monkeypatch.setenv("DLROVER_TPU_SKIP_JAX_INIT", "1")
+    assert tenv.default_backend("cpu") == "gloo"
+    assert tenv.default_backend("cuda") == "nccl"
+    tenv.initialize(device="cpu")
+    try:
+        assert torch.distributed.get_world_size() == 1
+        assert torch.distributed.get_backend() == "gloo"
+        tenv.initialize(device="cpu")  # a live group is kept
+    finally:
+        torch.distributed.destroy_process_group()
     monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "localhost:2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         tenv.master_client()
     from dlrover_tpu.agent import training_agent as agent
 
@@ -725,11 +789,28 @@ def test_example_main_runs_on_the_cpu(tmp_path, monkeypatch):
         PosixDiskStorage()) == 3
 
 
+@pytest.mark.parametrize("flags", [
+    ["--zero1"], ["--live-relayout"], ["--ref-world", "2"],
+    ["--reduce-quant", "int8"], ["--optimizer", "sgd"],
+    ["--zero1", "--overlap", "--overlap-bucket-mb", "0.01",
+     "--allgather-quant", "int8", "--grad-accum", "2"],
+])
+def test_example_takes_the_data_parallel_flags(flags, monkeypatch):
+    """At one process the flags build and train (ZeRO-1 and the overlap
+    engine deactivate, as the reference's do at one data rank)."""
+    from dlrover_tpu_torch.examples import train_lm
+
+    monkeypatch.delenv("DLROVER_TPU_MASTER_ADDR", raising=False)
+    assert train_lm.main(["--device", "cpu", "--steps", "1", "--layers",
+                          "1", "--d-model", "32", "--heads", "2", "--vocab",
+                          "64", "--seq-len", "16", "--batch-size", "4"]
+                         + flags) == 0
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--zero1"], 4), (["--live-relayout"], 4), (["--ref-world", "2"], 4),
-    (["--reduce-quant", "int8"], 4), (["--attention-impl", "ring"], 8),
-    (["--auto-tune"], 9), (["--profile-every", "2"], 9),
-    (["--remat", "dots"], 6), (["--optimizer", "sgd"], 6),
+    (["--attention-impl", "ring"], 9), (["--auto-tune"], 10),
+    (["--profile-every", "2"], 10), (["--remat", "dots"], 7),
+    (["--optimizer", "lion"], 7),
 ])
 def test_example_refuses_unported_flags(flags, item):
     from dlrover_tpu_torch.examples import train_lm

@@ -53,6 +53,9 @@ def test_port_has_the_expected_files():
         "dlrover_tpu_torch/examples/train_lm.py",
         "dlrover_tpu_torch/data/loader.py",
         "dlrover_tpu_torch/trainer/elastic_trainer.py",
+        "dlrover_tpu_torch/runtime/mesh.py",
+        "dlrover_tpu_torch/parallel/quantized_collectives.py",
+        "dlrover_tpu_torch/optimizers/zero1.py",
     ):
         assert need in rel
 

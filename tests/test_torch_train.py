@@ -159,7 +159,7 @@ def test_make_schedule_matches_jax(warmup, decay):
 
 
 def test_make_optimizer_refuses_unported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ttl.make_optimizer("lion")
     with pytest.raises(ValueError, match="unknown optimizer"):
         ttl.make_optimizer("nope")
@@ -426,11 +426,27 @@ def test_flash_forward_runs_once_per_layer_under_flash_only(
 def test_build_train_refuses_later_slices():
     cfg = gpt2_config("124m", **TINY)
     opt = ttl.make_optimizer()
+    # The data-parallel options at one data rank: built, and inactive as
+    # the reference's are.
     for kw in (dict(zero1=True), dict(overlap=True),
-               dict(reduce_quant="int8"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
-                            device="cpu", **kw)
+               dict(reduce_quant="int8"),
+               dict(zero1=True, overlap=True, allgather_quant="int8")):
+        train = ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
+                                device="cpu", **kw)
+        assert (train.zero1, train.overlap, train.dp, train.wire) == (
+            False, False, 1, None)
+
+    class FsdpMesh:
+        mesh_dim_names = ("data", "fsdp", "pipe", "expert", "seq",
+                          "tensor")
+        shape = (1, 2, 1, 1, 1, 1)
+
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
+                        device="cpu", mesh=FsdpMesh)
+    with pytest.raises(ValueError, match="reduce_quant"):
+        ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
+                        device="cpu", reduce_quant="fp8")
     with pytest.raises(ValueError, match="divisible"):
         ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
                         device="cpu", grad_accum=3)
