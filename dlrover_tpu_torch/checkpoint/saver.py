@@ -254,6 +254,7 @@ class AsyncCheckpointSaver:
         # overwrite the arena mid-persist (it skips the save instead).
         if not self._lock.acquire(blocking=True):
             return False
+        data = None
         try:
             meta = self._shm.load_meta()
             if meta is None or meta.step != step:
@@ -281,15 +282,15 @@ class AsyncCheckpointSaver:
             # between here and the restoring host is caught, and the step
             # degrades to an older verified one instead of feeding the
             # model torn tensors.  crc cost is off the training path (this
-            # is the async saver thread).
-            data = bytes(self._shm.raw_data(meta))
+            # is the async saver thread).  ``data`` is a view of the arena,
+            # not a copy: a copy into ``bytes`` holds the GIL for the whole
+            # memcpy and stalls the training thread's dispatch, while
+            # ``zlib.crc32`` and the file writes release it on a buffer.
+            data = self._shm.raw_data(meta)
             for tensor in meta.tensors:
                 for record in tensor.shards:
                     record.crc32 = zlib.crc32(
-                        memoryview(data)[
-                            record.offset:record.offset + record.nbytes
-                        ]
-                    )
+                        data[record.offset:record.offset + record.nbytes])
             # World booking for cross-world restore: the meta records which
             # world persisted it, so a restoring world of a different size
             # can pick the authoritative group in a mixed step dir and
@@ -328,6 +329,8 @@ class AsyncCheckpointSaver:
                 self.host_index, step, time.monotonic() - t0,
             )
         finally:
+            if data is not None:
+                data.release()
             self._lock.release()
         with self._state_lock:
             self._persisted_step = step

@@ -45,18 +45,6 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _rs(output, input, group, async_op):
-    fn = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    return fn(output, input, group=group, async_op=async_op)
-
-
-def _ag(output, input, group, async_op):
-    fn = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    return fn(output, input, group=group, async_op=async_op)
-
-
 class Pending:
     """An issued collective: ``wait()`` completes it, copies staged
     results back to the card and runs the callbacks of ``then``."""
@@ -138,8 +126,9 @@ class Wire:
         rank's block of the flattened sum over the group."""
         COUNTS["bytes"]["reduce_scatter"] += _nbytes(inp)
         copies: list = []
-        work = _rs(self._out(out, copies).view(-1),
-                   self._in(inp).reshape(-1), self.group, async_op)
+        work = dist.reduce_scatter_tensor(
+            self._out(out, copies).view(-1), self._in(inp).reshape(-1),
+            group=self.group, async_op=async_op)
         return self._finish(work, copies, async_op)
 
     def all_gather(self, out: torch.Tensor, inp: torch.Tensor,
@@ -148,8 +137,9 @@ class Wire:
         rank's ``inp``, flattened, in rank order."""
         COUNTS["bytes"]["all_gather"] += _nbytes(inp)
         copies: list = []
-        work = _ag(self._out(out, copies).view(-1),
-                   self._in(inp).reshape(-1), self.group, async_op)
+        work = dist.all_gather_into_tensor(
+            self._out(out, copies).view(-1), self._in(inp).reshape(-1),
+            group=self.group, async_op=async_op)
         return self._finish(work, copies, async_op)
 
     def all_to_all(self, out: torch.Tensor, inp: torch.Tensor,

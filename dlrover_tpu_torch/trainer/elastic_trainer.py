@@ -749,8 +749,9 @@ class ElasticTrainer:
                 e,
             )
             self.state = state_digest.flip_mantissa_bit(self.state)
+        wire = self.train.wire
         entry = (self.step, state_digest.digest_state(
-            self.state, self._layout(), self.train.wire))
+            self.state, self._layout() if wire is not None else None, wire))
         if self.client is None:
             # No master to vote: keep the newest digest for a caller to
             # read, not one device scalar per check for the whole run.

@@ -14,15 +14,20 @@ it is PyTorch ops on the leaves' device, and no host sync: the value
 stays a 0-d int64 tensor until a report formats it.  The uint32
 arithmetic runs in int64 under a mask.
 
-Temporaries: ``sum`` of a uint8 byte view with a wider accumulator
-casts its input first (an int64 sum of 200 MB of bytes took 1.6 GB more
-on the CPU), and a byte view of the 3.37 GB GPT-2 1.5B train state
-widened to int64 would be about 27 GB.  So a leaf longer than
-``ROW_BYTES`` (8 MiB: a row's int32 sum is exact, 2^23 * 255 < 2^31) is
-summed in rows, ``GROUP_ROWS`` rows a launch (128 MiB of bytes widened to
-512 MiB), and the row sums in int64; a shorter one in int64 at once.  The fold is vectorised: with ``p_i = M^(n-1-i)``
-mod 2^32, ``acc = sum_i s_i p_i`` mod 2^32, each product split at 16 bits
-of ``p_i`` so it stays below 2^49.
+Few launches and small temporaries (:func:`byte_sums`).  A leaf's bytes
+are summed in rows of ``ROW_BYTES`` (128: a row's sum fits int16,
+128 * 255 < 2^15), the rows widened to int16 ``GROUP_ROWS`` rows a
+launch (128 MiB of bytes to 256 MiB; a wider accumulator casts its whole
+input first, and the 3.37 GB GPT-2 1.5B train state widened to int64
+would be 27 GB).  A leaf of whole rows and at least ``DIRECT_ROWS`` rows
+is summed where it lies; the others are packed, each zero-padded to
+whole rows, into one buffer (``torch.cat``, a launch for many leaves) and
+summed there.  Every row sum lands in one int16 vector, and each leaf's
+sum is the difference of that vector's int64 prefix sums at the leaf's
+first and last rows: one gather for all the leaves, not launches for
+each.  The fold is vectorised: with ``p_i = M^(n-1-i)`` mod 2^32,
+``acc = sum_i s_i p_i`` mod 2^32, each product split at 16 bits of
+``p_i`` so it stays below 2^49.
 """
 
 from __future__ import annotations
@@ -36,34 +41,103 @@ from dlrover_tpu_torch.checkpoint import shm_handler
 
 MULTIPLIER = 1000003
 MASK = 0xFFFFFFFF
-ROW_BYTES = 1 << 23
-GROUP_ROWS = 16
+ROW_BYTES = 128
+GROUP_ROWS = 1 << 20
+DIRECT_ROWS = 1 << 13
 
 _POWERS: Dict[Tuple[int, str], torch.Tensor] = {}
+_SPANS: Dict[Tuple[Any, ...], torch.Tensor] = {}
 
 
-def leaf_sum(leaf: Any, device: torch.device) -> torch.Tensor:
-    """Byte sum of one leaf's raw bits as a 0-d int64 tensor on
-    ``device`` (not yet reduced mod 2^32).  A Python int is the JAX
-    package's int32 step counter."""
-    if not isinstance(leaf, torch.Tensor):
-        if not isinstance(leaf, int):
-            raise TypeError(f"cannot digest a {type(leaf).__name__} leaf")
-        total = int(np.asarray(leaf, np.int32).reshape(1).view(np.uint8)
-                    .sum(dtype=np.int64))
-        return torch.full((), total, dtype=torch.int64, device=device)
+def _int_sum(value: int) -> int:
+    """Byte sum of the reference's int32 step counter."""
+    return int(np.asarray(value, np.int32).reshape(1).view(np.uint8)
+               .sum(dtype=np.int64))
+
+
+def _bytes(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf's raw bits as a flat uint8 tensor (a view when it is
+    contiguous)."""
     t = leaf.detach()
     if t.dtype == torch.bool:
         t = t.view(torch.uint8)
-    flat = t.reshape(-1).contiguous().view(torch.uint8)
-    if flat.numel() <= ROW_BYTES:
-        return flat.sum(dtype=torch.int64)
-    rows = flat.numel() // ROW_BYTES
-    tail = flat[rows * ROW_BYTES:].sum(dtype=torch.int64)
-    body = flat[:rows * ROW_BYTES].view(rows, ROW_BYTES)
-    parts = [group.sum(dim=1, dtype=torch.int32).sum(dtype=torch.int64)
-             for group in body.split(GROUP_ROWS)]
-    return torch.stack(parts + [tail]).sum()
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def _upload(values: List[int], device: torch.device) -> torch.Tensor:
+    """An int64 host list on ``device`` without a host sync."""
+    host = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def _sum_rows(flat: torch.Tensor, out: torch.Tensor) -> None:
+    """``out[r]`` = the sum of row ``r`` of ``flat`` (whole rows of
+    ``ROW_BYTES`` bytes), ``GROUP_ROWS`` rows a launch."""
+    rows = flat.view(-1, ROW_BYTES)
+    for at in range(0, rows.shape[0], GROUP_ROWS):
+        torch.sum(rows[at:at + GROUP_ROWS], dim=1, dtype=torch.int16,
+                  out=out[at:at + GROUP_ROWS])
+
+
+def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
+    """Each leaf's raw-byte sum (not yet reduced mod 2^32), as int64
+    ``[len(leaves)]`` on ``device``.  A Python int is the JAX package's
+    int32 step counter."""
+    for leaf in leaves:
+        if not isinstance(leaf, (torch.Tensor, int)):
+            raise TypeError(f"cannot digest a {type(leaf).__name__} leaf")
+    flats = [_bytes(leaf) for leaf in leaves
+             if isinstance(leaf, torch.Tensor)]
+    counts = [-(-f.numel() // ROW_BYTES) for f in flats]
+    # Row 0 is a zero row, so every leaf's sum is a difference of two
+    # prefix sums.
+    row_sums = torch.empty(1 + sum(counts), dtype=torch.int16,
+                           device=device)
+    row_sums[:1].zero_()
+    pad = torch.zeros(ROW_BYTES, dtype=torch.uint8, device=device)
+    batch: List[torch.Tensor] = []
+    batch_at = batch_rows = 0
+
+    def flush():
+        if batch:
+            packed = torch.cat(batch) if len(batch) > 1 else batch[0]
+            _sum_rows(packed, row_sums[batch_at:batch_at + batch_rows])
+            batch.clear()
+
+    at = 1
+    for flat, n in zip(flats, counts):
+        if flat.numel() == n * ROW_BYTES and n >= DIRECT_ROWS:
+            flush()
+            _sum_rows(flat, row_sums[at:at + n])
+        elif n:
+            if batch and batch_rows + n > GROUP_ROWS:
+                flush()
+            if not batch:
+                batch_at, batch_rows = at, 0
+            batch.append(flat)
+            tail = n * ROW_BYTES - flat.numel()
+            if tail:
+                batch.append(pad[:tail])
+            batch_rows += n
+        at += n
+    flush()
+    key = (ROW_BYTES, tuple(counts), str(device))
+    spans = _SPANS.get(key)
+    if spans is None:
+        spans = _SPANS[key] = _upload(np.cumsum([0] + counts).tolist(),
+                                      device)
+    prefix = torch.cumsum(row_sums, 0, dtype=torch.int64)[spans]
+    sums = prefix[1:] - prefix[:-1]
+    if len(flats) == len(leaves):
+        return sums
+    base = [0 if isinstance(leaf, torch.Tensor) else _int_sum(leaf)
+            for leaf in leaves]
+    where = [i for i, leaf in enumerate(leaves)
+             if isinstance(leaf, torch.Tensor)]
+    return _upload(base, device).index_copy_(0, _upload(where, device),
+                                             sums)
 
 
 def _powers(n: int, device: torch.device) -> torch.Tensor:
@@ -100,7 +174,7 @@ def digest_leaves(leaves: Sequence[Any]) -> torch.Tensor:
     device = _device_of(leaves)
     if not leaves:
         return torch.zeros((), dtype=torch.int64, device=device)
-    return _fold(torch.stack([leaf_sum(leaf, device) for leaf in leaves]))
+    return _fold(byte_sums(leaves, device))
 
 
 def _fold(sums: torch.Tensor) -> torch.Tensor:
@@ -127,7 +201,7 @@ def digest_state(state, layout=None, wire=None) -> torch.Tensor:
     if wire is None or layout is None:
         return digest_leaves(leaves)
     device = _device_of(leaves)
-    sums = torch.stack([leaf_sum(leaf, device) for leaf in leaves])
+    sums = byte_sums(leaves, device)
     split = [False] + [layout[p].index != tuple(
         (0, d) for d in layout[p].global_shape) for p, _ in flat]
     if any(split):

@@ -319,6 +319,7 @@ class Train:
             self.overlap_plan = self._plan.describe()
         self._issuer = None
         self._hooked = None
+        self._parts = None  # (model, its _layer_parts)
         self._armed = False  # the overlap engine's hooks issue buckets
 
     @property
@@ -436,92 +437,23 @@ class Train:
             ce, total_weight = cross_entropy_loss(logits, targets, weights)
         return ce * total_weight, total_weight, aux
 
-    def step(self, state: TrainState, batch: Mapping[str, Any]
-             ) -> Tuple[TrainState, Dict[str, Any]]:
-        """One optimizer step on ``batch`` (``inputs``/``targets`` int
-        ``[global_batch / dp, seq_len]``, this rank's rows, optional fp
-        ``weights``)."""
-        if self.dp > 1:
-            return self._dp_step(state, batch)
-        model = state.model
-        inputs, targets, weights = self._batch(batch)
-        named = dict(model.named_parameters())
-        for p in named.values():
-            p.grad = None
-        if self.grad_accum == 1:
-            ce_sum, total_weight, aux = self._forward_sums(
-                model, inputs, targets, weights)
-            ce = ce_sum / total_weight
-            (ce + aux).backward()
-            grads = {k: _grad(p) for k, p in named.items()}
-            loss, aux_loss = ce.detach(), aux.detach()
-        else:
-            grads, loss, aux_loss, total_weight = self._accumulate(
-                model, named, inputs, targets, weights)
-        with torch.no_grad():
-            # The stacked copies cost less than per-layer trees: those ran
-            # 30x more small launches, a 16% slower GPT-2 1.5B step on an
-            # H100, and no lower peak memory (PERF.md).
-            grad_tree = ox.stack_layers(grads)
-            del grads
-            for p in named.values():
-                p.grad = None
-            grad_norm = ox.global_norm(grad_tree)
-            updates, state.opt_state = self.optimizer.update(
-                grad_tree, state.opt_state, _param_tree(model))
-            del grad_tree
-            for name, u in ox.unstack_layers(updates).items():
-                p = named[name]
-                p.copy_(p + u)  # optax.apply_updates, in the param dtype
-        state.step += 1
-        metrics = {
-            "loss": loss,
-            "aux_loss": aux_loss,
-            "tokens": total_weight.detach(),
-            "grad_norm": grad_norm,
-            "step": state.step,
-        }
-        return state, metrics
+    # -- the step ---------------------------------------------------------------
 
-    def _accumulate(self, model, named, inputs, targets, weights):
-        """``grad_accum`` microbatches, gradients summed in
-        ``accum_dtype`` and handed to the optimizer in the params'
-        dtype."""
-        n = self.grad_accum
-        micro = self.global_batch_size // n
-        accum_dtype = _ACCUM_DTYPES[self.accum_dtype]
-        w_total = torch.clamp(weights.float().sum(), min=1.0)
-        acc = {k: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-               for k, p in named.items()}
-        ce_acc = torch.zeros((), dtype=torch.float32, device=self.device)
-        aux_acc = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(n):
-            sl = slice(i * micro, (i + 1) * micro)
-            ce_sum, _, aux = self._forward_sums(
-                model, inputs[sl], targets[sl], weights[sl])
-            (ce_sum / w_total + aux / n).backward()
-            with torch.no_grad():
-                for k, p in named.items():
-                    acc[k] += _grad(p).to(accum_dtype)
-                    p.grad = None
-                ce_acc += ce_sum.detach()
-                aux_acc += aux.detach()
-        grads = {k: acc[k].to(p.dtype) for k, p in named.items()}
-        return grads, ce_acc / w_total, aux_acc / n, w_total
-
-    # -- the data-parallel step -------------------------------------------------
-
-    def _layer_parts(self, named: Dict[str, torch.Tensor]
-                     ) -> Dict[str, List[str]]:
-        """Each stacked leaf's per-layer parameter names, in layer
-        order."""
+    def _layer_parts(self, model: TransformerLM,
+                     named: Dict[str, torch.Tensor]) -> Dict[str, List[str]]:
+        """Each stacked leaf's per-layer parameter names, in layer order
+        (once per model)."""
+        if self._parts is not None and self._parts[0] is model:
+            return self._parts[1]
         parts: Dict[str, List[Tuple[int, str]]] = {}
         for name in named:
             m = ox._BLOCK_NAME.match(name)
             key = f"blocks.{m.group(2)}" if m else name
             parts.setdefault(key, []).append((int(m.group(1)) if m else 0,
                                               name))
-        return {k: [n for _, n in sorted(v)] for k, v in parts.items()}
+        out = {k: [n for _, n in sorted(v)] for k, v in parts.items()}
+        self._parts = (model, out)
+        return out
 
     def _leaf_grad(self, named, parts: List[str], stacked: bool
                    ) -> torch.Tensor:
@@ -589,7 +521,7 @@ class Train:
         issuer sends every complete bucket in plan order."""
         if self._hooked is model:
             return
-        parts = self._layer_parts(named)
+        parts = self._layer_parts(model, named)
         index = {name: i for i, name in enumerate(self.leaf_names)}
         owner = {p: index[leaf] for leaf, ps in parts.items() for p in ps}
 
@@ -620,17 +552,24 @@ class Train:
 
     def _global_sum(self, values: torch.Tensor) -> torch.Tensor:
         """``values`` (fp32) summed over the data ranks."""
+        if self.wire is None:
+            return values
         values = values.clone()
         self.wire.all_reduce(values)
         return values
 
-    def _dp_step(self, state: TrainState, batch: Mapping[str, Any]):
+    def step(self, state: TrainState, batch: Mapping[str, Any]
+             ) -> Tuple[TrainState, Dict[str, Any]]:
+        """One optimizer step on ``batch`` (``inputs``/``targets`` int
+        ``[global_batch / dp, seq_len]``, this rank's rows, optional fp
+        ``weights``).  At one data rank the collectives are no-ops and
+        the step is the plain microbatched step."""
         model = state.model
         inputs, targets, weights = self._batch(batch)
         named = dict(model.named_parameters())
         for p in named.values():
             p.grad = None
-        parts = self._layer_parts(named)
+        parts = self._layer_parts(model, named)
         n_micro = self.grad_accum
         micro = self.local_batch // n_micro
         w_total = torch.clamp(self._global_sum(weights.float().sum()),
@@ -702,6 +641,8 @@ class Train:
         rank's ZeRO-1 shards."""
         out: Dict[str, torch.Tensor] = {}
         if self.overlap:
+            return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
+        if self.wire is None:
             return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
         if self.shards is None:
             for name in self.leaf_names:

@@ -662,6 +662,24 @@ def test_digest_matches_the_reference_bit_for_bit(seed, monkeypatch):
     assert int(tsd.digest_leaves(flipped)) != want
 
 
+@pytest.mark.parametrize("row_bytes,group_rows,direct_rows",
+                         [(4, 3, 2), (16, 2, 4), (64, 3, 2)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_digest_sums_long_leaves_in_place_and_packs_the_rest(
+        seed, row_bytes, group_rows, direct_rows, monkeypatch):
+    """Leaves of whole rows and at least ``DIRECT_ROWS`` rows are summed
+    where they lie, the rest packed and padded; either way the digest is
+    the reference's."""
+    jleaves, tleaves, step = _leaves(seed)
+    want = int(jsd._digest_tree(jleaves))
+    monkeypatch.setattr(tsd, "ROW_BYTES", row_bytes)
+    monkeypatch.setattr(tsd, "GROUP_ROWS", group_rows)
+    monkeypatch.setattr(tsd, "DIRECT_ROWS", direct_rows)
+    assert int(tsd.digest_leaves(tleaves)) == want
+    assert int(tsd.digest_leaves([step] + tleaves[:-1])) == int(
+        jsd._digest_tree([jleaves[-1]] + jleaves[:-1]))
+
+
 def test_digest_of_a_non_contiguous_leaf_and_of_nothing():
     base = torch.arange(24, dtype=torch.float32).reshape(4, 6)
     view = base.t()

@@ -26,7 +26,13 @@ Tolerances, and why:
   the other run's largest total update of the leaf: an update may be
   rounded away or, where the gradient is at the rounding's level,
   flipped; then the all-gather's own rounding), and the loss within
-  ``INT8_LOSS_RTOL``.
+  ``INT8_LOSS_RTOL``.  That bound passes a step that drops its update,
+  so step 1 is also held against the replicated step's step-1
+  parameters put through the all-gather's block rounding: of the values
+  of split leaves drawn at init, those in another quantization bin than
+  the rounded reference's must be at most ``INT8_STEP1_SHARE`` of those
+  a dropped update puts in another bin.  A run at learning rate 0 (a planted step that applies
+  no update, through the same path) must fail it.
 """
 
 import jax
@@ -51,6 +57,7 @@ PARAM_ATOL = 3e-5
 LOW_BIT_METRIC_RTOL, LOW_BIT_PARAM_ATOL, LOW_BIT_PARAM_SHARE = 2e-5, 3e-4, \
     1e-3
 INT8_LOSS_RTOL = 1e-2
+INT8_STEP1_SHARE = 0.25
 
 OPTIMIZERS = {"sgd": 1e-2, "adamw": 1e-3, "adafactor": 1e-2,
               "q8_adam": 1e-3}
@@ -95,6 +102,13 @@ def port_runs(init, tmp_path_factory):
     _, state_dict = init
     cases = [(f"{opt}/{mode}", opt, lr, kw)
              for opt, lr in OPTIMIZERS.items() for mode, kw in MODES.items()]
+    # One step of the int8 wires, of the replicated step, and of the int8
+    # wires at learning rate 0 (the planted step that drops its update).
+    cases += [(f"{opt}/{mode}@1", opt, rate, MODES[base], 1)
+              for opt, lr in OPTIMIZERS.items()
+              for mode, base, rate in (("int8", "int8", lr),
+                                       ("replicated", "replicated", lr),
+                                       ("int8_lr0", "int8", 0.0))]
     out = {}
     for n in WORLDS:
         out[n] = torch_worlds.run_world(
@@ -180,6 +194,70 @@ def _assert_int8_bound(got, fp, opt, init_params):
         bound = 2 * moved + STEPS * np.abs(w).max() / 127
         diff = np.abs(gp[name] - w).max()
         assert diff <= bound, (opt, name, diff, bound)
+
+
+def _gather_roundtrip(whole, dim, n):
+    """``whole`` as the int8 all-gather re-replicates it from its ``n``
+    shards along ``dim`` (each shard moved to dim 0, flattened,
+    block-quantized and dequantized by the plain K5a/K5b), and each
+    value's block step."""
+    from dlrover_tpu_torch.ops import quantization as tq
+
+    t = torch.from_numpy(whole)
+    values, steps = [], []
+    for shard in torch.chunk(t, n, dim=dim):
+        moved = torch.movedim(shard, dim, 0)
+        flat = moved.float().reshape(-1)
+        q, scales = tq.quantize_reference(flat)
+        for out, got in ((values, tq.dequantize_reference(
+                q, scales, tuple(flat.shape))), (steps, scales[:, None].expand(
+                    -1, tq.BLOCK).reshape(-1)[:flat.numel()])):
+            out.append(torch.movedim(got.reshape(moved.shape), 0, dim))
+    return (torch.cat(values, dim=dim).to(t.dtype).numpy(),
+            torch.cat(steps, dim=dim).numpy())
+
+
+def _step1_differ(got, ref, init_params, dims, n):
+    """Over the split leaves drawn at init: the values of ``got`` in
+    another quantization bin (more than half a block step away) than
+    ``ref`` put through the all-gather's rounding, and the values the
+    rounded init (a dropped update) has in another bin."""
+    from dlrover_tpu_torch.optimizers import optax_ports as ox
+
+    def stacked(tree):
+        return {k: v.numpy() for k, v in ox.stack_layers(
+            {k: torch.from_numpy(v) for k, v in tree.items()}).items()}
+
+    got, ref, init_params = map(stacked, (got, ref, init_params))
+    differ = dropped = 0
+    for name, dim in dims.items():
+        if dim is None or not init_params[name].any():
+            continue
+        want, steps = _gather_roundtrip(ref[name], dim, n)
+        drop, _ = _gather_roundtrip(init_params[name], dim, n)
+        differ += int((np.abs(got[name] - want) > steps / 2).sum())
+        dropped += int((np.abs(drop - want) > steps / 2).sum())
+    return differ, dropped
+
+
+@pytest.mark.parametrize("opt", list(OPTIMIZERS))
+@pytest.mark.parametrize("n", WORLDS)
+def test_int8_step_one_keeps_its_update(port_runs, init, opt, n):
+    """The int8 step 1 against the replicated step 1 through the
+    all-gather's rounding: at most ``INT8_STEP1_SHARE`` as many values in
+    another bin as a dropped update leaves; the planted step at learning
+    rate 0, through the same path, fails."""
+    runs = port_runs[n][0]
+    ref = runs[f"{opt}/replicated@1"][1]
+    dims = runs[f"{opt}/int8@1"][2]["split_dims"]
+    assert any(d is not None for d in dims.values())
+    differ, dropped = _step1_differ(runs[f"{opt}/int8@1"][1], ref, init[1],
+                                    dims, n)
+    assert dropped > 0
+    assert differ <= INT8_STEP1_SHARE * dropped, (differ, dropped)
+    planted, _ = _step1_differ(runs[f"{opt}/int8_lr0@1"][1], ref, init[1],
+                               dims, n)
+    assert planted > INT8_STEP1_SHARE * dropped, (planted, dropped)
 
 
 @pytest.mark.parametrize("opt", list(OPTIMIZERS))

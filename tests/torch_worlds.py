@@ -172,24 +172,28 @@ def run_train(opt, lr, kw, init=None, mesh=None, steps=3):
                         m["tokens"].item()))
     flags = {"zero1": train.zero1, "overlap": train.overlap,
              "zero1_stats": train.zero1_stats,
-             "overlap_plan": train.overlap_plan, "dp": train.dp}
+             "overlap_plan": train.overlap_plan, "dp": train.dp,
+             "split_dims": ({n: leaf.dim for n, leaf in
+                             train.shards.leaves.items()}
+                            if train.shards is not None else None)}
     params = {k: v.numpy().copy() for k, v in state.params().items()}
     return metrics, params, flags
 
 
 def run_train_cases(rank, n, payload):
-    """Every ``(key, opt, lr, kw)`` of ``payload["cases"]`` from
-    ``payload["init"]``: rank 0 returns metrics and parameters, every
-    rank a digest of its parameters (replicas must agree)."""
+    """Every ``(key, opt, lr, kw[, steps])`` of ``payload["cases"]`` from
+    ``payload["init"]`` (3 steps unless given): rank 0 returns metrics and
+    parameters, every rank a digest of its parameters (replicas must
+    agree)."""
     from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
     from dlrover_tpu_torch.trainer import state_digest
 
     mesh = build_mesh(ParallelConfig(), device_type="cpu")
     init = {k: torch.from_numpy(v) for k, v in payload["init"].items()}
     out = {}
-    for key, opt, lr, kw in payload["cases"]:
+    for key, opt, lr, kw, *steps in payload["cases"]:
         metrics, params, flags = run_train(opt, lr, kw, init=init,
-                                           mesh=mesh)
+                                           mesh=mesh, steps=(steps or [3])[0])
         digest = int(state_digest.digest_leaves(
             [torch.from_numpy(v) for v in params.values()]))
         out[key] = (metrics, params if rank == 0 else None, flags, digest)
