@@ -13,8 +13,12 @@
     python3 chip_smoke.py --fit         # build and the elastic loop
     python3 chip_smoke.py --dp          # build, train, the elastic loop at
                                         # world 1 and the world of two
+    python3 chip_smoke.py --mp          # build and the fsdp/tensor world
+    python3 chip_smoke.py --digest      # build and the digest kernel check
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
-                                        # K2a, K4, K6-K9 against other trees
+                                        # K2a, K4, K6-K9 (and, asked for by
+                                        # name, the train step) against
+                                        # other trees
 
 Drives the port's main paths, serving, training (with Adafactor, and
 with the fused norm backward, the layout pin and the low-bit Adam
@@ -25,7 +29,9 @@ DLRM width, saves and restores the GPT-2 1.5B training state through Flash
 Checkpoint, trains and resumes it through ``ElasticTrainer.fit`` (in a
 one-process NCCL group, through the mesh), trains it data-parallel in a
 world of two processes (replicated, ZeRO-1, the overlap engine, the int8
-wires on K5a/K5b) with a live re-layout and a sharded save, serves
+wires on K5a/K5b) with a live re-layout and a sharded save, trains
+Llama-2 7B's width on the fsdp and tensor axes in a world of two
+processes with a sharded save, serves
 under an injected admission fault plan, and holds
 every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
@@ -156,6 +162,14 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``slots[i] + 1`` and a scatter that drops the last real row
                must fail.  Times over ``EMBED_TIMED_SETS`` slot sets (L2
                cold); yardsticks ``index_select`` and ``index_copy_``.
+4g. ``digest_kernel_check``  the SDC digest's byte-sum kernel
+               (``ops/csrc/byte_sums.cu``, one launch for every leaf)
+               against its plain version (int16 row sums) on GPT-2 1.5B's
+               parameter leaves in bf16 and on odd leaves (misaligned,
+               empty, one byte, 0-d, bool, transposed, an int): equal
+               exactly, two runs equal, a dropped last chunk caught; device
+               ms of each and the wrapper's host ms.  ``--digest`` runs the
+               build and this phase.
 5. ``dispatch``  host microseconds per flash forward under ``no_grad``
                at the S=16 and S=512 prefill shapes, through the custom
                op against the bare kernel call, and the op's first call.
@@ -191,9 +205,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                MFU and HFU against 989 TFLOP/s (``bench.py``'s FLOP
                formulas), peak memory, and one profiled step's device-busy
                share and top kernels.
-9b. ``flash_ckpt``  the ``train`` phase's model and step (full depth
-               unless ``/dev/shm`` cannot hold the arena: the cut is
-               printed), 1 + 2 steps, then ``Checkpointer.save_checkpoint``
+9b. ``flash_ckpt``  the ``train`` phase's model and step at
+               ``FLASH_CKPT_LAYERS`` of 48 layers (cut further if
+               ``/dev/shm`` cannot hold the arena: the cut is printed), 1 + 2 steps, then ``Checkpointer.save_checkpoint``
                MEMORY and DISK with ``AsyncCheckpointSaver`` in a spawned
                process, then 2 more steps (the uninterrupted run).  A fresh
                state restored from shm, and one from storage through a
@@ -289,6 +303,31 @@ of the JAX package.  Phases, each one JSON line on stdout:
                buckets, step seconds (gloo over loopback: for the record,
                not a speed claim).  ``--dp`` runs the build, ``train``,
                ``train_fit`` and this phase.
+9e. ``train_mp2``  two processes on ``cuda:0`` in a gloo group, the fsdp
+               and tensor axes (``parallel/sharding.py``; every collective
+               through the axes' wires, staged through the host): the
+               dense Llama step at Llama-2 7B's width (``MP2_LAYERS`` of
+               32 layers, bf16, ``flash_only``), global batch 16 x 1024,
+               Adafactor and q8_adam (clip 1.0, lr 1e-4), ``MP2_STEPS``
+               steps at ``fsdp=2`` (Adafactor, q8_adam) and ``tensor=2``
+               (Adafactor), each held against the world-1 run of the same
+               config, init and batch (``MP2_*`` limits: losses, grad
+               norms, every leaf by norm-relative error, each limit below
+               the smallest update the reference makes), every step's
+               launches (K1, K3 on the local heads; K6 on fsdp shards) and
+               tokens as stated, the wire bytes by axis and leg equal to
+               ``_mp2_predicted_wire``'s count from the shapes, and each
+               rank's resident bytes at ``fsdp=2`` at most
+               ``MP2_RESIDENT_SHARE`` of the world-1 run's.  Three
+               planted faults must fail: one rank's shards left at the
+               init (the fsdp run's check with rank 1's boxes unchanged),
+               the first block's row-parallel sum skipped and the tensor
+               group's whole leaves counted twice in the global norm (one
+               step each at ``tensor=2``).  Then a sharded save at
+               ``fsdp=2`` through ``ElasticTrainer`` restored into this
+               one process, bit-equal.  Printed: step seconds, wire bytes
+               and host staging copies, resident and peak bytes a rank,
+               losses.  ``--mp`` runs the build and this phase.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -367,7 +406,7 @@ twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, serve_faults, train, flash_ckpt, train_fit, train_dp2,
-train_split, train_moe, train_lowbit and train_rec paths,
+train_mp2, train_split, train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -377,6 +416,7 @@ or without the package beside it, it exits non-zero before any phase.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -1534,9 +1574,10 @@ def _launch_dicts():
     from dlrover_tpu_torch.ops import layout_pin as lp
     from dlrover_tpu_torch.ops import quantization as tq
     from dlrover_tpu_torch.embedding import kernels as ek
+    from dlrover_tpu_torch.trainer import state_digest as sd
 
     return (fa.LAUNCHES, gm.LAUNCHES, fn.LAUNCHES, lp.LAUNCHES, tq.LAUNCHES,
-            ek.LAUNCHES)
+            ek.LAUNCHES, sd.LAUNCHES)
 
 
 def _counts():
@@ -1772,6 +1813,12 @@ def _trees_bit_equal(got, want):
     return bad
 
 
+#: ``flash_ckpt``'s depth: 24 of GPT-2 1.5B's 48 layers, 1.68 GB of state
+#: (48 until PR 15, whose ``train_mp2`` needed the script's time; the
+#: phase took 79.7–90.9 s at 48).
+FLASH_CKPT_LAYERS = 24
+
+
 def flash_ckpt_and_check():
     """Flash Checkpoint on the ``train`` phase's GPT-2 1.5B state (full
     width; full depth unless ``/dev/shm`` cannot hold the arena), with the
@@ -1810,26 +1857,27 @@ def flash_ckpt_and_check():
         return cfg, train
 
     # The arena is the state's bytes (and the meta) rounded up to a power
-    # of two; cut the depth only if /dev/shm cannot hold it.
-    cfg, train = build(48)
+    # of two; cut the depth further only if /dev/shm cannot hold it.
+    depth = FLASH_CKPT_LAYERS
+    cfg, train = build(depth)
     state = train.init(seed=0)
     full_bytes = _tree_nbytes(state.checkpoint_tree())
     per_layer = (full_bytes - _tree_nbytes({"params": {
         k: v for k, v in state.params().items()
-        if not k.startswith("blocks.")}})) / 48
-    layers = 48
+        if not k.startswith("blocks.")}})) / depth
+    layers = depth
     avail = shm_df["available_bytes"]
 
     def arena(nbytes):
         return 1 << (int(nbytes * 1.001) + (1 << 20) - 1).bit_length()
 
     while avail is not None and layers > 1 and arena(
-            full_bytes - (48 - layers) * per_layer) > avail:
+            full_bytes - (depth - layers) * per_layer) > avail:
         layers -= 1
     emit({"phase": "flash_ckpt_setup", "dev_shm": shm_df,
-          "checkpoint_disk": disk_df, "full_depth_state_bytes": full_bytes,
+          "checkpoint_disk": disk_df, "uncut_state_bytes": full_bytes,
           "layers": layers})
-    if layers != 48:
+    if layers != depth:
         del state, train
         torch.cuda.empty_cache()
         cfg, train = build(layers)
@@ -1854,7 +1902,7 @@ def flash_ckpt_and_check():
         else:
             os.environ[k] = v
     out = {"phase": "flash_ckpt", "layers": cfg.num_layers,
-           "depth_cut_for_dev_shm": cfg.num_layers != 48,
+           "depth_cut_for_dev_shm": cfg.num_layers != FLASH_CKPT_LAYERS,
            "dev_shm": shm_df, "checkpoint_disk": disk_df}
     try:
         if not ready.wait(120):
@@ -2002,7 +2050,7 @@ def flash_ckpt_and_check():
     write_fault["caught"] = write_fault["caught"] and fired == [
         ("storage.write", "error", CKPT_WRITE_FAULT_HIT)]
     out.update({
-        "state_bytes": nbytes, "full_depth_state_bytes": full_bytes,
+        "state_bytes": nbytes, "uncut_state_bytes": full_bytes,
         "arena_bytes": arena_bytes, "saved_step": saved_step,
         "losses": warm + losses, "uninterrupted_after_save": after,
         "forward_deterministic": evals[0] == evals[1], "eval_losses": evals,
@@ -2407,9 +2455,14 @@ def train_fit_and_check():
             raise AssertionError(
                 f"non-finite steps {bad}, anomalies "
                 f"{[a.encode() for a in trainer.numeric_monitor.anomalies]}")
-        wrong = [(s, got) for s, got in step_log if got != per_step]
+        # A step that ends with the SDC digest launches its byte-sum kernel
+        # once more.
+        wrong = [(s, got) for s, got in step_log if got != dict(
+            per_step, digest_sums=int(s % tcfg.sdc_check_every == 0))]
         if wrong:
-            raise AssertionError(f"step launches {wrong}, want {per_step}")
+            raise AssertionError(f"step launches {wrong}, want {per_step} "
+                                 f"(and 1 digest_sums every "
+                                 f"{tcfg.sdc_check_every} steps)")
         if len(eval_log) != 1 or eval_log[0]["launches"] != per_eval:
             raise AssertionError(f"eval launches {eval_log}, want {per_eval}")
         # Saved at step 4, and the last save is step 6's: by the cadence
@@ -3245,6 +3298,597 @@ def train_dp2_and_check():
         out["phase_s"] = time.perf_counter() - t_start
         if bad:
             raise AssertionError(f"train_dp2 checks failed: {bad}")
+    finally:
+        emit(out)
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrover_tpu_ckpt_{job}"):
+                os.unlink(os.path.join("/dev/shm", name))
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
+# -- the fsdp and tensor axes ----------------------------------------------------
+
+#: ``train_mp2``: Llama-2 7B at full width (d_model 4096, 32 heads of 128
+#: and 32 KV heads, d_ff 11008 SwiGLU, vocab 32000, untied head; bf16
+#: parameters and compute, flash_only) with its depth cut to this many
+#: layers (666,914,816 parameters), trained on two processes of the one
+#: card at each mesh of ``MP2_RUNS``, each against the world-1 run of the
+#: same config, init and batch in one process.
+MP2_LAYERS = 2
+# Cut from 3 to 2 steps: at 3 the phase took 153.9 s of its 120 (PR 15).
+MP2_STEPS = 2
+MP2_RUNS = (
+    ("fsdp2_adafactor", dict(fsdp=2), "adafactor"),
+    ("tensor2_adafactor", dict(tensor=2), "adafactor"),
+    ("fsdp2_q8_adam", dict(fsdp=2), "q8_adam"),
+)
+# Limits, each about 3x the sound readings and below the smallest update
+# a run's steps make (the printed ``smallest_update_rel``; a run that
+# drops an update must fail); PERF.md §6 (PR 15) has the readings.  At
+# 3 steps the sound runs read loss gaps of at most 1.13e-4 (the bf16
+# reductions in another order; Adafactor's loss moves 4.2e-3 a step),
+# grad-norm gaps of at most 1.76e-5 (the replicated leaves counted twice
+# read 9.75e-5), Adafactor's leaves at most 7.9e-6 of their norm (its
+# smallest kept update 5.3e-5; one rank's shards left at the init read
+# 6.0e-5) and q8_adam's 1.01e-3 (smallest update 8.5e-3).
+MP2_LOSS_ATOL, MP2_NORM_RTOL = 3.5e-4, 5e-5
+MP2_PARAM_RTOL = {"adafactor": 2e-5, "q8_adam": 2e-3}
+#: Under fsdp=2 each rank holds at most this share of the world-1 run's
+#: parameters and optimizer state between steps.
+MP2_RESIDENT_SHARE = 0.55
+
+
+def _mp2_config():
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("7b", num_layers=MP2_LAYERS, attention_impl="flash",
+                        remat="flash_only", param_dtype=torch.bfloat16)
+
+
+def _resident_bytes(state) -> int:
+    """Parameters, gradients and optimizer state a rank holds between
+    steps (the gradients are released by the step: counted where
+    present)."""
+    params = list(state.model.parameters())
+    return (sum(p.numel() * p.element_size() for p in params)
+            + sum(_state_bytes(p.grad) for p in params)
+            + _state_bytes(state.opt_state))
+
+
+def _mp2_predicted_wire(cfg, parallel, opt, rows, seq):
+    """The bytes one step of one rank hands to each axis's wire, by leg
+    (``"fsdp/all_gather"``...), from the shapes alone: the fsdp gathers
+    (the leaves outside the blocks once, each block's twice: its forward
+    and flash_only's recompute) and reduce-scatters, the tensor axis's
+    activation all-reduces (the embedding lookup; each block's two
+    row-parallel sums in the forward, the attention's again in the
+    recompute, which stops after the last tensor the backward saves, so
+    before the MLP's sum, and the two column-parallel gradient sums; the
+    head's gradient sum) and the
+    vocab-parallel cross entropy's three ``[rows, seq]`` fp32 sums, and
+    the small fp32 sums: the batch group's token and loss sums, the
+    gradients of the leaves fsdp leaves whole, and the optimizer's
+    reductions over split leaves (two global norms, and for Adafactor
+    its factored means over split dimensions, its row factor's mean and
+    two block mean squares)."""
+    from dlrover_tpu_torch.models.transformer import (
+        TransformerLM,
+        param_logical_axes,
+        param_shapes,
+        stacked_logical_axes,
+    )
+    from dlrover_tpu_torch.optimizers.optax_ports import _factored_dims
+    from dlrover_tpu_torch.parallel import rules as lr
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.runtime import mesh as mesh_lib
+    from dlrover_tpu_torch.trainer import train_lib
+
+    sizes = dict.fromkeys(mesh_lib.MESH_AXES, 1)
+    sizes.update(parallel)
+    f, t = sizes["fsdp"], sizes["tensor"]
+    axes = param_logical_axes(TransformerLM(cfg, device="meta"))
+    layers = sharding.leaf_layouts(axes, param_shapes(cfg),
+                                   lr.DEFAULT_RULES, sizes)
+    stacked = sharding.leaf_layouts(
+        stacked_logical_axes(axes), train_lib._stacked_shapes(cfg),
+        lr.DEFAULT_RULES, sizes)
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    out = collections.Counter()
+
+    def local(lay):
+        return int(np.prod(lay.local_shape(sizes)))
+
+    def reduce_many(parts):
+        """``_reduce_many``: fp32, per axis of each group."""
+        for axes_of, numel in parts:
+            for a in axes_of:
+                out[f"{a}/all_reduce"] += 4 * numel
+
+    if f > 1:
+        def split(n):
+            return layers[n].dim_of("fsdp") is not None
+
+        root = sum(local(layers[n]) for n in layers
+                   if not n.startswith("blocks.") and split(n)) * item
+        block = sum(local(layers[n]) for n in layers
+                    if n.startswith("blocks.0.") and split(n)) * item
+        out["fsdp/all_gather"] += root + 2 * cfg.num_layers * block
+        out["fsdp/reduce_scatter"] += f * (root + cfg.num_layers * block)
+        whole = sum(local(lay) for lay in stacked.values()
+                    if lay.dim_of("fsdp") is None)
+        out["fsdp/all_reduce"] += whole * item + 4 + 8
+    if t > 1:
+        act = rows * seq * cfg.d_model * 2
+        out["tensor/all_reduce"] += act * (2 + 5 * cfg.num_layers)
+        out["tensor/all_reduce"] += 3 * rows * seq * 4
+    groups = collections.Counter()
+    for lay in stacked.values():
+        if lay.axes:
+            groups[lay.axes] += 1
+    # The step's grad norm and the clip's.
+    reduce_many([(a, 1) for a in groups] * 2)
+    if opt == "adafactor":
+        means, rows_mean = [], []
+        for lay in stacked.values():
+            dims = _factored_dims(lay.shape, True, 128)
+            if dims is None:
+                continue
+            d1, d0 = dims
+            shape = lay.local_shape(sizes)
+            for d in (d0, d1):
+                if lay.dim_axes(d):
+                    means.append((lay.dim_axes(d),
+                                  int(np.prod(shape)) // shape[d]))
+            if lay.dim_axes(d1):
+                rows_mean.append((lay.dim_axes(d1), int(np.prod(shape))
+                                  // shape[d0] // shape[d1]))
+        for parts in (means, rows_mean):
+            merged = collections.Counter()
+            for a, n in parts:
+                merged[a] += n
+            reduce_many(list(merged.items()))
+        # clip_by_block_rms and scale_by_param_block_rms: one sum a leaf.
+        reduce_many(list(groups.items()) * 2)
+    return dict(out)
+
+
+def _mp2_leaf_sums(train, state, ref, init):
+    """Per parameter, over this rank's boxes it writes (replica 0): the
+    squared distance to the reference's parameters, the reference's
+    squared norm, the reference's squared update (from ``init``, this
+    rank's boxes at the init) and the squared distance of the init's box
+    (a rank whose update was dropped), as one fp64 CPU tensor ``[names,
+    4]`` to be summed over the world."""
+    layout = train.param_layout()
+    params = state.params()
+    names = sorted(params)
+    out = torch.zeros((len(names), 4), dtype=torch.float64, device="cuda")
+    for i, name in enumerate(names):
+        spot = layout[name]
+        if spot.replica_id != 0:
+            continue
+        box = tuple(slice(b, e) for b, e in spot.index)
+        w = ref[name][box].to("cuda").double()
+        i0, g = init[name].double(), params[name].double()
+        out[i] = torch.stack([(g - w).square().sum(), w.square().sum(),
+                              (w - i0).square().sum(),
+                              (i0 - w).square().sum()])
+    return names, out.cpu()
+
+
+def _mp2_reference(opt, out_dir):
+    """The world-1 run: one process, the whole batch, no mesh; its
+    parameters after step 1 and after the last, and what it holds."""
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = _mp2_config()
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer(opt, learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    losses, norms, params1, seconds = [], [], None, []
+    for _ in range(MP2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        seconds.append(time.perf_counter() - t0)
+        if params1 is None and opt == "adafactor":
+            # The planted faults' one step is held against this.
+            params1 = {k: v.to("cpu", copy=True)
+                       for k, v in state.params().items()}
+    resident = _resident_bytes(state)
+    params = {k: v.cpu() for k, v in state.params().items()}
+    torch.save({"losses": losses, "grad_norms": norms, "params": params,
+                "params1": params1},
+               os.path.join(out_dir, f"mp_ref_{opt}.pt"))
+    out = {"losses": losses, "grad_norms": norms, "step_s": seconds,
+           "resident_bytes": resident,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del state, train, batch, params, params1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp2_worker(rank, port, out_dir, job):
+    """One of the two ranks of ``train_mp2``: a gloo group on ``cuda:0``
+    (every collective staged through the host by the axes' wires)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    os.environ["DLROVER_TPU_JOB"] = job
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        result = _mp2_rank(rank, out_dir)
+    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
+        import traceback
+
+        torch.save({"error": traceback.format_exc()},
+                   os.path.join(out_dir, f"mp_rank{rank}.pt"))
+        raise e
+    torch.save(result, os.path.join(out_dir, f"mp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mp2_summed(names, sums):
+    """The world's per-leaf sums (fp64 on the host, never a CUDA tensor
+    handed to the group)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(sums)
+    return {n: [float(x) for x in row] for n, row in zip(names, sums)}
+
+
+def _mp2_planted(train, state, placed, fault):
+    """One step with a planted fault: ``row_sum_skipped`` (the first
+    block's attention output projection keeps its partial product: its
+    sum over the tensor group is skipped), ``replicated_counted_twice``
+    (the global norm counts every leaf the tensor group holds whole once
+    per rank).  Returns the step's loss and grad norm."""
+    from dlrover_tpu_torch.optimizers import optax_ports as ox
+
+    out_proj = state.model.blocks[0].attn.out
+    reduce, norm = out_proj.reduce, ox.global_norm
+    if fault == "row_sum_skipped":
+        out_proj.reduce = lambda x: x.clone()
+    else:
+        def twice(tree):
+            total = norm(tree).square()
+            whole = [x for n, x in tree.items() if not ox._leaf_axes(n)]
+            total = total + sum(x.float().square().sum() for x in whole)
+            return torch.sqrt(total)
+        ox.global_norm = twice
+    try:
+        state, m = train.step(state, placed)
+        return state, float(m["loss"]), float(m["grad_norm"])
+    finally:
+        out_proj.reduce, ox.global_norm = reduce, norm
+
+
+def _mp2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+    from dlrover_tpu_torch.trainer.elastic_trainer import (
+        ElasticTrainer,
+        TrainerConfig,
+    )
+
+    cfg = _mp2_config()
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    meshes = {}
+    out = {"rank": rank, "runs": [], "planted": {},
+           "backend": dist.get_backend(), "torch": torch.__version__}
+    refs = {}
+    for key, par, opt in MP2_RUNS:
+        if opt not in refs:
+            refs.clear()
+            refs[opt] = torch.load(os.path.join(out_dir, f"mp_ref_{opt}.pt"),
+                                   weights_only=False)
+        ref = refs[opt]
+        name = "x".join(f"{a}{n}" for a, n in par.items())
+        if name not in meshes:
+            meshes[name] = build_mesh(ParallelConfig(data=1, **par),
+                                      device_type="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer(opt, learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            mesh=meshes[name], device="cuda")
+        state = train.init(seed=0)
+        build_s = time.perf_counter() - t_build
+        init = {k: v.clone() for k, v in state.params().items()}
+        placed = train_lib.shard_batch(batch, train)
+        steps = []
+        for _ in range(MP2_STEPS):
+            _zero_counts()
+            wire_lib.reset_counts()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train.step(state, placed)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            steps.append({
+                "s": time.perf_counter() - t0, "loss": loss,
+                "grad_norm": norm, "tokens": float(m["tokens"]),
+                "launches": {k: v for k, v in _counts().items() if v},
+                "wire_bytes": dict(wire_lib.COUNTS["axes"]),
+                "staged": dict(wire_lib.COUNTS["staged_axes"])})
+        names, sums = _mp2_leaf_sums(train, state, ref["params"], init)
+        run = {"key": key, "optimizer": opt, "parallel": par,
+               "steps": steps, "build_s": build_s,
+               "resident_bytes": _resident_bytes(state),
+               "memory_allocated": torch.cuda.memory_allocated(),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "batch": (train.batch_rank, train.batch_ranks),
+               "leaf_sums": _mp2_summed(names, sums)}
+        # The planted fault of a dropped update on one rank: rank 1's
+        # boxes at the init's values, rank 0's at the run's.
+        if opt == "adafactor" and "fsdp" in par:
+            mixed = sums.clone()
+            if rank == 1:
+                mixed[:, 0] = mixed[:, 3]
+            run["planted_unchanged_shard"] = _mp2_summed(names, mixed)
+        out["runs"].append(run)
+        if key == "tensor2_adafactor":
+            for fault in ("row_sum_skipped", "replicated_counted_twice"):
+                state = train.init(seed=0)
+                state, loss, norm = _mp2_planted(train, state, placed,
+                                                 fault)
+                names, sums = _mp2_leaf_sums(train, state, ref["params1"],
+                                             init)
+                out["planted"][fault] = {
+                    "loss": loss, "grad_norm": norm,
+                    "leaf_sums": _mp2_summed(names, sums)}
+        del state, train, placed, init
+        torch.cuda.empty_cache()
+
+    # -- the sharded save at fsdp=2 --------------------------------------
+    ckpt_dir = os.path.join(out_dir, "mp_ckpt")
+    trainer = ElasticTrainer(
+        cfg, TrainerConfig(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           optimizer="adafactor", learning_rate=TRAIN_LR,
+                           report_every=1000, ckpt_every=1000,
+                           checkpoint_dir=ckpt_dir),
+        parallel=ParallelConfig(data=1, fsdp=2), device="cuda")
+    m = trainer.train_step(batch)
+    t0 = time.perf_counter()
+    saved = trainer.save_checkpoint(wait_for_saver=True)
+    out["save"] = {"saved": saved, "step": trainer.step,
+                   "loss": float(m["loss"]),
+                   "seconds": time.perf_counter() - t0}
+    layout = trainer._layout()
+    pieces = {path: leaf.detach().cpu() if isinstance(leaf, torch.Tensor)
+              else leaf for path, leaf in
+              sh.tree_flatten_with_path(trainer.state.checkpoint_tree())}
+    torch.save({"layout": {p: (s.global_shape, s.index, s.replica_id)
+                           for p, s in layout.items()},
+                "pieces": pieces},
+               os.path.join(out_dir, f"mp_pieces_r{rank}.pt"))
+    trainer.close()
+    return out
+
+
+def _mp2_leaf_stats(leaf_sums):
+    """Per leaf: the norm-relative error against the reference and the
+    reference's update relative to its norm."""
+    return {n: (float(np.sqrt(s[0] / max(s[1], 1e-60))),
+                float(np.sqrt(s[2] / max(s[1], 1e-60))))
+            for n, s in leaf_sums.items()}
+
+
+def train_mp2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the dense Llama step
+    at Llama-2 7B's width on an fsdp=2 mesh (Adafactor, q8_adam) and a
+    tensor=2 mesh (Adafactor), each held against the world-1 run; three
+    planted faults; a sharded save at fsdp=2 restored into one process.
+    Returns the counted launches of the runs (both ranks)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import Checkpointer
+    from dlrover_tpu_torch.checkpoint import shm_handler as sh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    out_dir = os.path.join(REPO, "build", "train_mp2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    sock_dir = tempfile.mkdtemp(prefix="mp2_socks_")
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_JOB",
+                                                "DLROVER_TPU_SOCKET_DIR")}
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    job = f"mp2{os.getpid()}"
+    cfg = _mp2_config()
+    out = {"phase": "train_mp2",
+           "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
+                    f"heads, d_ff 11008 swiglu, vocab 32000, untied head, "
+                    f"bf16 params and compute, flash_only), depth cut to "
+                    f"{MP2_LAYERS} of 32 layers, random weights seed 0",
+           "params": sum(int(np.prod(s)) for s in
+                         train_lib._stacked_shapes(cfg).values()),
+           "world": "2 processes on cuda:0, gloo (every collective staged "
+                    "through the host by the axes' wires)",
+           "batch": f"global {TRAIN_BATCH} x {TRAIN_SEQ}, one batch re-fed",
+           "steps": MP2_STEPS,
+           "tolerance": {"loss_atol": MP2_LOSS_ATOL,
+                         "grad_norm_rtol": MP2_NORM_RTOL,
+                         "param_rel": MP2_PARAM_RTOL,
+                         "resident_share": MP2_RESIDENT_SHARE}}
+    t_start = time.perf_counter()
+    try:
+        out["reference"] = {opt: _mp2_reference(opt, out_dir)
+                            for opt in ("adafactor", "q8_adam")}
+        port = _free_port()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_mp2_worker,
+                             args=(r, port, out_dir, job)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        paths = [os.path.join(out_dir, f"mp_rank{r}.pt") for r in range(2)]
+        results = [torch.load(p, weights_only=False) if os.path.exists(p)
+                   else {"error": "no result"} for p in paths]
+        codes = [p.exitcode for p in procs]
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [0, 0]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"train_mp2 ranks failed (exit codes "
+                                 f"{codes})")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        out["backend"], out["worker_torch"] = r0["backend"], r0["torch"]
+        shapes = train_lib._stacked_shapes(cfg)
+        n_quant = sum(int(np.prod(v)) >= 4096 for v in shapes.values())
+        runs, counts, bad = [], dict.fromkeys(_counts(), 0), []
+        for a, b in zip(r0["runs"], r1["runs"]):
+            ref = out["reference"][a["optimizer"]]
+            losses = [s["loss"] for s in a["steps"]]
+            norms = [s["grad_norm"] for s in a["steps"]]
+            gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
+            ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+            stats = _mp2_leaf_stats(a["leaf_sums"])
+            limit = MP2_PARAM_RTOL[a["optimizer"]]
+            worst = max((v[0], k) for k, v in stats.items())
+            # Updates under half a bf16 ulp round away: the smallest
+            # update a leaf keeps.
+            smallest = min(((v[1], k) for k, v in stats.items() if v[1] > 0),
+                           default=(0.0, None))
+            rows = TRAIN_BATCH // a["batch"][1]
+            predicted = _mp2_predicted_wire(cfg, a["parallel"],
+                                            a["optimizer"], rows, TRAIN_SEQ)
+            step = a["steps"][-1]
+            want = {"flash_fwd": MP2_LAYERS, "flash_bwd_fused": MP2_LAYERS}
+            if a["optimizer"] == "q8_adam":
+                want["q8_adam"] = n_quant
+            both = [s["launches"] for s in a["steps"] + b["steps"]]
+            resident_share = max(a["resident_bytes"], b["resident_bytes"]) \
+                / ref["resident_bytes"]
+            ok = (max(gaps) <= MP2_LOSS_ATOL and max(ngaps) <= MP2_NORM_RTOL
+                  and worst[0] <= limit and limit < smallest[0]
+                  and all(x == want for x in both)
+                  and all(s["tokens"] == TRAIN_BATCH * TRAIN_SEQ
+                          for s in a["steps"])
+                  and all(s["loss"] == t["loss"] for s, t in zip(
+                      a["steps"], b["steps"]))
+                  and step["wire_bytes"] == predicted
+                  and b["steps"][-1]["wire_bytes"] == predicted
+                  and ("fsdp" not in a["parallel"]
+                       or resident_share <= MP2_RESIDENT_SHARE))
+            for x in (a, b):
+                for s in x["steps"]:
+                    for k, v in s["launches"].items():
+                        counts[k] += v
+            run = {"key": a["key"], "ok": ok, "losses": losses,
+                   "reference_losses": ref["losses"], "loss_gap": max(gaps),
+                   "grad_norms": norms, "grad_norm_rgap": max(ngaps),
+                   "worst_leaf_rel": worst, "smallest_update_rel": smallest,
+                   "step_s": [[s["s"] for s in x["steps"]] for x in (a, b)],
+                   "reference_step_s": ref["step_s"],
+                   "build_s": [a["build_s"], b["build_s"]],
+                   "launches_per_step_rank": step["launches"],
+                   "wire_bytes_per_step": step["wire_bytes"],
+                   "wire_bytes_predicted": predicted,
+                   "staged_copies_per_step": step["staged"],
+                   "resident_bytes": [a["resident_bytes"],
+                                      b["resident_bytes"]],
+                   "reference_resident_bytes": ref["resident_bytes"],
+                   "resident_share": resident_share,
+                   "memory_allocated": [a["memory_allocated"],
+                                        b["memory_allocated"]],
+                   "peak_memory_bytes": [a["peak_memory_bytes"],
+                                         b["peak_memory_bytes"]],
+                   "reference_peak_memory_bytes": ref["peak_memory_bytes"]}
+            if "planted_unchanged_shard" in a:
+                planted = _mp2_leaf_stats(a["planted_unchanged_shard"])
+                run["planted_unchanged_shard_worst"] = max(
+                    (v[0], k) for k, v in planted.items())
+                if run["planted_unchanged_shard_worst"][0] <= limit:
+                    bad.append(f"{a['key']}: planted unchanged shard passed")
+            runs.append(run)
+            if not ok:
+                bad.append(a["key"])
+        out["runs"] = runs
+        ref = out["reference"]["adafactor"]
+        planted = {}
+        for fault, got in r0["planted"].items():
+            stats = _mp2_leaf_stats(got["leaf_sums"])
+            worst = max((v[0], k) for k, v in stats.items())
+            loss_gap = abs(got["loss"] - ref["losses"][0])
+            norm_gap = abs(got["grad_norm"] - ref["grad_norms"][0]) \
+                / ref["grad_norms"][0]
+            caught = (loss_gap > MP2_LOSS_ATOL or norm_gap > MP2_NORM_RTOL
+                      or worst[0] > MP2_PARAM_RTOL["adafactor"])
+            planted[fault] = {"loss_gap": loss_gap, "grad_norm_rgap":
+                              norm_gap, "worst_leaf_rel": worst,
+                              "caught": caught}
+            if not caught:
+                bad.append(f"planted {fault} passed")
+        out["planted"] = planted
+        out["save"] = [r0["save"], r1["save"]]
+        if not (r0["save"]["saved"] and r1["save"]["saved"]):
+            bad.append("save")
+
+        # -- restore into one process on the card ----------------------
+        dumps = [torch.load(os.path.join(out_dir, f"mp_pieces_r{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        whole = _assemble_pieces(dumps)
+        del dumps
+        os.environ["DLROVER_TPU_JOB"] = f"{job}_restore"
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor",
+                                          learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+        template = train.init(seed=0).checkpoint_tree()
+        t0 = time.perf_counter()
+        ckpt = Checkpointer(os.path.join(out_dir, "mp_ckpt"), host_index=0,
+                            num_hosts=1, device="cuda")
+        step, tree = ckpt.load_checkpoint(state_template=template)
+        restore_s = time.perf_counter() - t0
+        ckpt.close()
+        differ = [
+            "".join(path) for path, leaf in sh.tree_flatten_with_path(tree)
+            if not (_same_bits(leaf.cpu(), whole[path])
+                    if isinstance(leaf, torch.Tensor)
+                    else leaf == whole[path])]
+        out["restore"] = {"step": step, "seconds": restore_s,
+                          "leaves": len(whole), "leaves_differing":
+                          differ[:8], "saved_by_ranks": 2,
+                          "restored_into_processes": 1}
+        if step != 1 or differ:
+            bad.append("restore")
+        del tree, template, train, whole
+        torch.cuda.empty_cache()
+        out["launches"] = counts
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_mp2 checks failed: {bad}")
     finally:
         emit(out)
         for name in os.listdir("/dev/shm"):
@@ -4385,7 +5029,9 @@ def time_kernels(only=None):
     state, and K8 (four products) and K9 (two) at the MoE step's shape
     (``_gmm_timed_inputs``).  Device ms, the median of three CUDA-graph
     readings.  ``only``: name prefixes of the readings to take (all when
-    None)."""
+    None).  ``train_step`` (only when asked for by name) is the ``train``
+    phase's step, GPT-2 1.5B at full size through ``build_train``: the
+    median of three synchronised steps after one warm-up, host ms."""
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import fused_norm as fn
     from dlrover_tpu_torch.ops import quantization as tq
@@ -4395,6 +5041,29 @@ def time_kernels(only=None):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
+    if only is not None and wanted("train_step"):
+        from dlrover_tpu_torch.models import gpt2_config
+        from dlrover_tpu_torch.trainer import train_lib
+
+        cfg = gpt2_config("1.5b", attention_impl="flash", remat="flash_only",
+                          param_dtype=torch.bfloat16)
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor",
+                                          learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+        state = train.init(seed=0)
+        batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+        seconds = []
+        for _ in range(1 + TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train.step(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out["train_step/gpt2_1.5b"] = 1e3 * statistics.median(seconds[1:])
+        del state, train, batch
+        torch.cuda.empty_cache()
     if wanted("gmm"):
         products, gs = _gmm_timed_inputs(gen)
         for name, (kind, a, b) in products.items():
@@ -5038,6 +5707,100 @@ def embed_kernel_checks(gen):
     return res
 
 
+def _queued_ms(fn, reps: int = 5) -> float:
+    """Device milliseconds of ``fn``'s work alone: the median of ``reps``
+    runs, each queued behind a sleeping kernel so the host's dispatch is
+    done before the device starts."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(DIGEST_SLEEP_CYCLES)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        fn()
+        marks[1].record()
+        torch.cuda.synchronize()
+        times.append(marks[0].elapsed_time(marks[1]))
+    return statistics.median(times)
+
+
+def digest_kernel_check(gen):
+    """The SDC digest's byte-sum kernel (``ops/csrc/byte_sums.cu``) against
+    its plain version (``state_digest.byte_sums_reference``, the int16 row
+    sums) on the card: GPT-2 1.5B's parameter leaves in bf16 (random
+    bytes), and odd leaves (a view one byte off a 16-byte boundary, an
+    empty leaf, one byte, a 0-d fp32, a bool, a transposed view, the int32
+    step counter); the sums equal, exactly, and equal across two runs; a
+    planted fault (the table's last chunk dropped) must differ.  Device
+    ms of each (queued behind a sleeping kernel, so the host's dispatch is
+    not in it) and the wrapper's host ms, at the parameter leaves."""
+    from dlrover_tpu_torch.models import gpt2_config
+    from dlrover_tpu_torch.models.transformer import param_shapes
+    from dlrover_tpu_torch.trainer import state_digest as sd
+
+    dev = torch.device("cuda")
+    leaves = [torch.randint(0, 256, (int(np.prod(s)) * 2,),
+                            dtype=torch.uint8, device=dev, generator=gen)
+              for s in param_shapes(gpt2_config("1.5b")).values()]
+    big = torch.randint(0, 256, (10_000_019,), dtype=torch.uint8,
+                        device=dev, generator=gen)
+    odd = [big[1:], big[3:1_000_003], big[:0], big[7:8],
+           torch.tensor(3.5, device=dev), big[:4099] > 128,
+           big[:6_000_000].view(2000, 3000).t(), 7]
+    out = {"phase": "digest_kernel_check", "leaves": len(leaves),
+           "bytes": sum(t.numel() for t in leaves)}
+    try:
+        for name, case in (("params", leaves), ("odd", odd)):
+            before = dict(sd.LAUNCHES)
+            got = sd.byte_sums(case, dev)
+            again = sd.byte_sums(case, dev)
+            launched = sd.LAUNCHES["digest_sums"] - before["digest_sums"]
+            sd.LAUNCHES.update(before)
+            want = sd.byte_sums_reference(case, dev)
+            out[name] = {"equal": bool(torch.equal(got, want)),
+                         "repeat_equal": bool(torch.equal(got, again)),
+                         "launches": launched,
+                         "max_abs_err": float((got - want).abs().max())}
+        table = sd.chunk_table
+        sd.chunk_table = lambda *a, **k: table(*a, **k)[:-1]
+        try:
+            before = dict(sd.LAUNCHES)
+            dropped = sd.byte_sums(leaves, dev)
+            sd.LAUNCHES.update(before)
+        finally:
+            sd.chunk_table = table
+        out["planted_last_chunk_dropped_caught"] = not bool(torch.equal(
+            dropped, sd.byte_sums_reference(leaves, dev)))
+        before = dict(sd.LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sd.byte_sums(leaves, dev)
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        ms = _queued_ms(lambda: sd.byte_sums(leaves, dev))
+        plain_ms = _queued_ms(lambda: sd.byte_sums_reference(leaves, dev))
+        sd.LAUNCHES.update(before)
+        out["timed"] = {
+            "ms": ms, "plain_ms": plain_ms, "host_ms": host_ms,
+            # One integer add a byte, on the CUDA cores.
+            "bound_ms": bound(out["bytes"], out["bytes"],
+                              PEAK_FP32_FLOPS)[0],
+            "bound_by": bound(out["bytes"], out["bytes"],
+                              PEAK_FP32_FLOPS)[1],
+            "library_ms": None,
+            "library": "none: no one PyTorch call sums many leaves apart"}
+        out["ok"] = (all(out[c]["equal"] and out[c]["repeat_equal"]
+                         and out[c]["launches"] == 2
+                         for c in ("params", "odd"))
+                     and out["planted_last_chunk_dropped_caught"])
+    finally:
+        emit(out)
+    del leaves, big, odd
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError(f"digest byte-sum kernel disagrees: {out}")
+    return out
+
+
 def _embed_times(cache, slots, rows, rng):
     """Kernel, plain and library device times at one case, and the bound
     from the bytes this case's slots need, 4 bytes a slot besides: the
@@ -5630,6 +6393,14 @@ def main() -> int:
         train_dp2_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--mp"]:
+        train_mp2_and_check()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--digest"]:
+        digest_kernel_check(torch.Generator(device="cuda").manual_seed(0))
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--repairs"]:
         gen = torch.Generator(device="cuda").manual_seed(0)
         gmm_kernel_checks(gen)
@@ -5694,6 +6465,7 @@ def main() -> int:
     quant_code_check()
     pin_check = pin_kernel_check(gen)
     embed_check = embed_kernel_checks(gen)
+    digest_check = digest_kernel_check(gen)
 
     mha_dispatch()
     paths = {}
@@ -5702,6 +6474,7 @@ def main() -> int:
     paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_fit"] = train_fit_and_check()
     paths["train_dp2"] = train_dp2_and_check()
+    paths["train_mp2"] = train_mp2_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()
@@ -5841,6 +6614,21 @@ def main() -> int:
             shape={"cache": [capacity, dim], "slots": n, "real": real,
                    "dtype": "fp32"},
         ))
+    t = digest_check["timed"]
+    entries.append(dict(
+        name="digest_sums", route="cuda", source=src + "byte_sums.cu",
+        # The reference's jit-fused reduction (no Pallas kernel).
+        replaces="dlrover_tpu/trainer/state_digest.py:39",
+        launches=launches("digest_sums"),
+        launches_by_path=by_path("digest_sums"),
+        max_abs_err=max(digest_check[c]["max_abs_err"]
+                        for c in ("params", "odd")),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        library=t["library"], host_ms=t["host_ms"],
+        shape={"leaves": digest_check["leaves"],
+               "bytes": digest_check["bytes"]},
+    ))
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -31,6 +31,23 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
 
+def batch_group_member(mesh, rules=None):
+    """``(rank, count)`` of this process in the batch group of ``mesh``
+    under ``rules`` (the default table when None): the ``data x fsdp``
+    ranks that split the batch, data-major, as ``train_lib.shard_batch``
+    takes its rows."""
+    from dlrover_tpu_torch.parallel import rules as lr
+    from dlrover_tpu_torch.runtime import mesh as mesh_lib
+
+    rules = lr.DEFAULT_RULES if rules is None else rules
+    sizes = mesh_lib.mesh_axis_sizes(mesh)
+    coords = mesh_lib.mesh_coords(mesh)
+    rank, count = 0, 1
+    for axis in lr.batch_group_axes(mesh, rules):
+        rank, count = rank * sizes[axis] + coords[axis], count * sizes[axis]
+    return rank, count
+
+
 class ElasticDistributedSampler:
     """Deterministic logically-keyed sampler with save/restore of position.
 
@@ -49,6 +66,11 @@ class ElasticDistributedSampler:
     (live re-layout) leaves the global batch order invariant.  Default
     ``logical_world=0`` means "= num_replicas": one shard per member —
     exactly the legacy rank-stride, bit-for-bit.
+
+    On a mesh with model-parallel axes (``mesh``, with ``rules``) the
+    members are the batch group's ranks (``data x fsdp``,
+    :func:`batch_group_member`): the ranks of a tensor group draw the
+    same samples.
     """
 
     def __init__(
@@ -59,11 +81,18 @@ class ElasticDistributedSampler:
         shuffle: bool = True,
         seed: int = 0,
         logical_world: int = 0,
+        mesh=None,
+        rules=None,
     ):
-        # The member count and this member's rank default to the default
-        # process group's (1 and 0 without one).
+        # The member count and this member's rank default to the batch
+        # group's on ``mesh``, else to the default process group's (1 and
+        # 0 without one).
         group = torch.distributed.is_available() and \
             torch.distributed.is_initialized()
+        if mesh is not None:
+            member, members = batch_group_member(mesh, rules)
+            num_replicas = members if num_replicas is None else num_replicas
+            rank = member if rank is None else rank
         if num_replicas is None:
             num_replicas = torch.distributed.get_world_size() if group else 1
         if rank is None:

@@ -13,7 +13,14 @@ least 16 tokens under ``"flash"`` is a bucketed prompt prefill at position
 cache prefix; narrower chunks (single-token decode) take
 :func:`cached_attention` over the whole cache.
 
-Sequence parallelism (Ulysses) and ring attention are later slices.
+Under a tensor axis (``tp``, ``parallel/sharding.TensorGroup``) the
+module holds its rank's heads: ``num_heads / size`` query heads and
+``num_kv_heads / size`` KV heads (the KV heads must divide by the
+degree), the q/k/v projections column-parallel behind ``tp.enter`` and
+``out`` row-parallel, summed over the group before its bias.
+
+Sequence parallelism (Ulysses) and ring attention are later slices
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from torch import nn
 
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
 NEG_INF = -1e15
@@ -128,11 +136,21 @@ class Attention(nn.Module):
         fused_qkv: bool = True,
         flash_block_q: int = 512,
         flash_block_kv: int = 512,
+        tp=None,
         device: DeviceLike = None,
     ):
         super().__init__()
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        self.tp = tp
+        self.fused = fused_qkv and num_kv_heads == num_heads
+        if tp is not None:
+            if num_heads % tp.size or num_kv_heads % tp.size:
+                raise ValueError(
+                    f"{num_heads} heads and {num_kv_heads} KV heads must "
+                    f"divide by the tensor degree {tp.size}")
+            num_heads //= tp.size
+            num_kv_heads //= tp.size
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -142,25 +160,30 @@ class Attention(nn.Module):
         self.attention_impl = attention_impl
         self.flash_blocks = dict(block_q=flash_block_q,
                                  block_kv=flash_block_kv)
-        self.fused = fused_qkv and num_kv_heads == num_heads
         dense = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
                      device=device)
+        qkv_axes = (lr.EMBED, lr.HEADS, lr.KV)
         if self.fused:
             self.qkv = layers.DenseGeneral(
-                d_model, (num_heads, 3 * head_dim), **dense
+                d_model, (num_heads, 3 * head_dim), kernel_axes=qkv_axes,
+                **dense
             )
         else:
             self.query = layers.DenseGeneral(
-                d_model, (num_heads, head_dim), **dense
+                d_model, (num_heads, head_dim), kernel_axes=qkv_axes, **dense
             )
             self.key = layers.DenseGeneral(
-                d_model, (num_kv_heads, head_dim), **dense
+                d_model, (num_kv_heads, head_dim), kernel_axes=qkv_axes,
+                **dense
             )
             self.value = layers.DenseGeneral(
-                d_model, (num_kv_heads, head_dim), **dense
+                d_model, (num_kv_heads, head_dim), kernel_axes=qkv_axes,
+                **dense
             )
         self.out = layers.DenseGeneral(
-            (num_heads, head_dim), d_model, **dense
+            (num_heads, head_dim), d_model,
+            kernel_axes=(lr.HEADS, lr.KV, lr.EMBED),
+            reduce=tp.exit if tp is not None else None, **dense
         )
 
     def forward(
@@ -171,6 +194,8 @@ class Attention(nn.Module):
         cache: Optional[KVCache] = None,
     ) -> torch.Tensor:
         hd = self.head_dim
+        if self.tp is not None:
+            x = self.tp.enter(x)
         if self.fused:
             qkv = self.qkv(x)
             # Strided views, no copy: the flash kernel reads them as is.

@@ -12,6 +12,9 @@ not match the config, raises: nothing is numbered by guesswork.  Floating
 leaves are cast to the config's ``param_dtype``, the dtype the port's model
 holds them in.
 
+:func:`shard_state_dict` cuts such a whole state dict to one rank's boxes
+under the fsdp and tensor axes (``parallel/sharding.py``).
+
 :func:`low_bit_state_from_jax` carries a ``q8_adam``/``q4_adam`` optimizer
 state across the same way, dropping the TPU layout padding of its arrays.
 :func:`rec_dense_from_jax` carries the CTR example's dense parameters
@@ -83,6 +86,30 @@ def state_dict_from_jax(
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"JAX tree lacks parameters: {missing}")
+    return out
+
+
+def shard_state_dict(state: Mapping[str, Any], layouts: Mapping[str, Any],
+                     parallel) -> Dict[str, torch.Tensor]:
+    """A whole state dict (``state_dict_from_jax``'s, or ``init_params``')
+    cut to one rank's boxes: ``layouts`` is ``{name: parallel.sharding.
+    LeafSplit}`` (a model's ``layouts``) and ``parallel`` the rank's
+    ``ModelParallel`` (its axis sizes and coordinates).  Each box is a
+    contiguous tensor on the whole leaf's device."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in state.items():
+        if name not in layouts:
+            raise KeyError(f"{name!r} has no layout")
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
+            np.asarray(value))
+        lay = layouts[name]
+        if tuple(t.shape) != tuple(lay.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != the whole "
+                             f"leaf's {tuple(lay.shape)}")
+        out[name] = lay.take(t, parallel.coords, parallel.sizes).contiguous()
+    missing = sorted(set(layouts) - set(out))
+    if missing:
+        raise KeyError(f"state dict lacks parameters: {missing}")
     return out
 
 

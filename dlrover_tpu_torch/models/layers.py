@@ -11,6 +11,16 @@ use (``layers.py:84, 104, 153``); norms take their statistics in fp32
 (``layers.py:184, 230-232``).  The cast is a no-op when the two dtypes are
 equal, which is how serving holds bf16 weights (``param_dtype=bfloat16``)
 without an fp32 copy or a per-step cast.  Parameters are trainable.
+
+Every parameter carries the reference's logical axis names
+(``kernel_axes`` on :class:`DenseGeneral`, ``("vocab", "embed")`` on
+:class:`Embed`, ``("norm",)`` on the norms; :func:`logical_axes` collects
+them), which ``parallel/rules.py``'s table maps onto mesh axes.  Under a
+tensor axis (``parallel/sharding.TensorGroup``) a layer is built with its
+local features: a column-parallel ``DenseGeneral`` holds its columns, a
+row-parallel one (``reduce=group.exit``) its rows and sums its partial
+product over the group before the bias, and :class:`Embed` holds its
+vocabulary rows (the lookup masks the others and sums over the group).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 from torch import nn
 
 from dlrover_tpu_torch.ops import fused_norm
+from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
 Features = Union[int, Sequence[int]]
@@ -37,6 +48,10 @@ class DenseGeneral(nn.Module):
     ``kernel`` is ``[*in_shape, *features]`` and ``bias`` ``[*features]``,
     as in the JAX module, both in ``param_dtype``; the product is one 2-D
     matmul in ``dtype`` over the flattened contraction and feature axes.
+    ``kernel_axes`` names every kernel dimension (the bias takes the
+    feature dimensions' names); ``reduce``, when given, is applied to the
+    product before the bias (a row-parallel layer's sum over the tensor
+    group).
     """
 
     def __init__(
@@ -44,14 +59,22 @@ class DenseGeneral(nn.Module):
         in_shape: Features,
         features: Features,
         *,
+        kernel_axes: Tuple[Optional[str], ...] = (),
         use_bias: bool = False,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype = torch.float32,
+        reduce=None,
         device: DeviceLike = None,
     ):
         super().__init__()
         self.in_shape = _tuple(in_shape)
         self.features = _tuple(features)
+        if kernel_axes and len(kernel_axes) != len(self.in_shape) + len(
+                self.features):
+            raise ValueError(f"kernel_axes {kernel_axes} must name every "
+                             f"dim of {self.in_shape + self.features}")
+        self.kernel_axes = tuple(kernel_axes)
+        self.reduce = reduce
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(self.in_shape + self.features, dtype=param_dtype,
@@ -74,6 +97,8 @@ class DenseGeneral(nn.Module):
         x2 = x.to(self.dtype).reshape(-1, self.fan_in)
         out = x2 @ self.kernel.to(self.dtype).reshape(self.fan_in, -1)
         out = out.reshape(*batch, *self.features)
+        if self.reduce is not None:
+            out = self.reduce(out)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)
         return out
@@ -81,7 +106,10 @@ class DenseGeneral(nn.Module):
 
 class Embed(nn.Module):
     """Token embedding ``[V, d]``; ``attend`` projects onto the (tied)
-    table to give logits."""
+    table to give logits.  Under a tensor group (``tp``) the table holds
+    this rank's ``V / size`` rows and ``attend`` gives their logits."""
+
+    kernel_axes = (lr.VOCAB, lr.EMBED)
 
     def __init__(
         self,
@@ -90,16 +118,22 @@ class Embed(nn.Module):
         *,
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype = torch.float32,
+        tp=None,
         device: DeviceLike = None,
     ):
         super().__init__()
         self.dtype = dtype
+        self.tp = tp
+        if tp is not None:
+            num_embeddings //= tp.size
         self.embedding = nn.Parameter(
             torch.empty((num_embeddings, features), dtype=param_dtype,
                         device=device)
         )
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.lookup(self.embedding, ids, self.dtype)
         # Gather, then cast: the rows of the cast table, without casting it.
         return self.embedding[ids].to(self.dtype)
 
@@ -111,6 +145,8 @@ class RMSNorm(nn.Module):
     """Root-mean-square norm: fp32 statistics, result in the input dtype.
     ``fused_backward``: the one-pass backward kernel
     (``ops/fused_norm.fused_rmsnorm``), as on :class:`LayerNorm`."""
+
+    kernel_axes = (lr.NORM,)
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
                  param_dtype: torch.dtype = torch.float32,
@@ -139,6 +175,8 @@ class LayerNorm(nn.Module):
     whose backward is one kernel pass over ``(x, dy)`` where autograd runs
     a chain of elementwise and reduction kernels; off by default, as in
     the JAX module."""
+
+    kernel_axes = (lr.NORM,)
 
     def __init__(self, features: int, *, epsilon: float = 1e-5,
                  use_bias: bool = True,
@@ -182,6 +220,20 @@ def make_norm(kind: str, features: int, device: DeviceLike = None,
         return LayerNorm(features, param_dtype=param_dtype,
                          fused_backward=fused_backward, device=device)
     raise ValueError(f"unknown norm kind {kind!r}")
+
+
+def logical_axes(module: nn.Module) -> dict:
+    """``{parameter name: logical axes}`` of ``module``'s own parameters
+    (not its children's), as the reference names them."""
+    out = {}
+    if isinstance(module, DenseGeneral):
+        out["kernel"] = module.kernel_axes
+        if module.bias is not None:
+            out["bias"] = module.kernel_axes[len(module.in_shape):]
+    elif isinstance(module, (Embed, RMSNorm, LayerNorm)):
+        for name, _ in module.named_parameters(recurse=False):
+            out[name] = module.kernel_axes
+    return out
 
 
 def rotary_embedding(

@@ -21,6 +21,21 @@ Two opt-in flags of the dense step, both off by default as in JAX:
 backward kernel of ``ops/fused_norm.py``, and ``pin_attn_layouts`` puts
 ``ops/layout_pin.pin_layout`` before and after each block's attention.
 
+The fsdp and tensor axes: ``TransformerLM(config, device, parallel=
+parallel.sharding.ModelParallel(mesh, rules, wires))`` builds this rank's
+part of the model.  Under ``tensor`` the layers hold their local heads,
+MLP columns and vocabulary rows (``models/layers.py``); under ``fsdp``
+each parameter holds its slice of its ``embed`` dimension, and each
+block's slices are gathered for its forward (and again for a remat
+policy's recompute) and its gradients reduce-scattered in its backward;
+the leaves outside the blocks are gathered once a forward
+(:meth:`TransformerLM.gathered`, ``parallel/sharding.FsdpUnit``).
+:func:`check_parallel` refuses a config whose heads, KV heads, ``d_ff``
+or vocabulary do not divide by the tensor degree, or whose ``d_model``
+does not divide by the fsdp degree, and an MoE config on either axis
+(ROADMAP Queue 1 item 6).  :func:`param_logical_axes` gives every
+parameter's logical axes, the reference's ``kernel_axes``.
+
 Not ported yet (ROADMAP Queue 1 items 7 and 9): pipeline stages, ring
 attention and the remat policies other than those three; their config
 values raise ``NotImplementedError``.
@@ -28,8 +43,10 @@ values raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +57,7 @@ from dlrover_tpu_torch.models.attention import Attention, KVCache
 from dlrover_tpu_torch.models.moe import MoEMlp
 from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.ops.layout_pin import pin_layout
+from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 
@@ -139,22 +157,51 @@ class TransformerConfig:
                 f"dtype {self.dtype} (ROADMAP Queue 3 item 7)")
 
 
+def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
+    """Refuse a config the fsdp and tensor axes cannot split evenly."""
+    if (sizes.get("tensor", 1) > 1 or sizes.get("fsdp", 1) > 1) \
+            and cfg.num_experts:
+        raise NotImplementedError(
+            "an MoE model on the fsdp or tensor axis is a later slice of "
+            "the port (ROADMAP Queue 1 item 6)")
+    for what, n, axis in (("heads", cfg.num_heads, "tensor"),
+                          ("KV heads", cfg.resolved_kv_heads, "tensor"),
+                          ("d_ff", cfg.resolved_d_ff, "tensor"),
+                          ("vocab_size", cfg.vocab_size, "tensor"),
+                          ("d_model", cfg.d_model, "fsdp")):
+        k = sizes.get(axis, 1)
+        if n % k:
+            raise ValueError(
+                f"{what} {n} does not divide by the {axis} degree {k}")
+
+
 class Mlp(nn.Module):
     def __init__(self, d_model: int, d_ff: int, activation: str,
                  use_bias: bool, dtype: torch.dtype,
-                 param_dtype: torch.dtype, device: DeviceLike = None):
+                 param_dtype: torch.dtype, device: DeviceLike = None,
+                 tp=None):
         super().__init__()
         if activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
+        self.tp = tp
+        if tp is not None:
+            d_ff //= tp.size
         dense = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
                      device=device)
-        self.wi = layers.DenseGeneral(d_model, d_ff, **dense)
+        column = (lr.EMBED, lr.MLP)
+        self.wi = layers.DenseGeneral(d_model, d_ff, kernel_axes=column,
+                                      **dense)
         if activation == "swiglu":
-            self.wg = layers.DenseGeneral(d_model, d_ff, **dense)
-        self.wo = layers.DenseGeneral(d_ff, d_model, **dense)
+            self.wg = layers.DenseGeneral(d_model, d_ff, kernel_axes=column,
+                                          **dense)
+        self.wo = layers.DenseGeneral(
+            d_ff, d_model, kernel_axes=(lr.MLP, lr.EMBED),
+            reduce=tp.exit if tp is not None else None, **dense)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.enter(x)
         h = self.wi(x)
         if self.activation == "swiglu":
             h = F.silu(self.wg(x)) * h
@@ -165,7 +212,8 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: DeviceLike = None):
+    def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
+                 tp=None):
         super().__init__()
         self.pin_attn_layouts = cfg.pin_attn_layouts
         self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device,
@@ -185,6 +233,7 @@ class Block(nn.Module):
             fused_qkv=cfg.fused_qkv,
             flash_block_q=cfg.flash_block_q,
             flash_block_kv=cfg.flash_block_kv,
+            tp=tp,
             device=device,
         )
         self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device,
@@ -201,7 +250,7 @@ class Block(nn.Module):
         else:
             self.mlp = Mlp(
                 cfg.d_model, cfg.resolved_d_ff, cfg.activation, cfg.use_bias,
-                cfg.dtype, cfg.param_dtype, device,
+                cfg.dtype, cfg.param_dtype, device, tp=tp,
             )
 
     def forward(self, x, positions, segment_ids=None, cache=None):
@@ -225,36 +274,88 @@ class TransformerLM(nn.Module):
     ``logits_dtype``; :meth:`forward_aux` for training.  Parameters are
     allocated uninitialised on ``device``; load a state dict
     (:func:`init_params`, ``models.from_jax.state_dict_from_jax``) before
-    use."""
+    use.  With ``parallel`` (``parallel/sharding.ModelParallel``) the
+    model is this rank's part of it: the state dict holds its boxes of
+    the whole leaves (``layouts``), the logits its vocabulary columns."""
 
     def __init__(self, config: TransformerConfig,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, parallel=None):
         super().__init__()
         device = resolve_device(device)
         cfg = config
         cfg.check_device(device)
         self.config = cfg
+        self.parallel = parallel if parallel is not None and \
+            parallel.active else None
+        tp = self.parallel.tp if self.parallel is not None else None
+        self.tp = tp
+        fsdp = self.parallel is not None and self.parallel.fsdp > 1
+        if self.parallel is not None:
+            check_parallel(cfg, self.parallel.sizes)
+        # Under fsdp the modules are built on the meta device and each
+        # parameter is then allocated at its slice's shape.
+        build = torch.device("meta") if fsdp else device
         self.embed = layers.Embed(
             cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
-            param_dtype=cfg.param_dtype, device=device,
+            param_dtype=cfg.param_dtype, tp=tp, device=build,
         )
         if cfg.position == "learned":
             self.pos_embedding = nn.Parameter(
                 torch.empty((cfg.max_seq_len, cfg.d_model),
-                            dtype=cfg.param_dtype, device=device)
+                            dtype=cfg.param_dtype, device=build)
             )
         elif cfg.position != "rope":
             raise ValueError(f"unknown position {cfg.position!r}")
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers)
+            Block(cfg, build, tp=tp) for _ in range(cfg.num_layers)
         )
-        self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, device,
+        self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, build,
                                          cfg.param_dtype)
         if not cfg.tie_embeddings:
             self.lm_head = layers.DenseGeneral(
-                cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
-                param_dtype=cfg.param_dtype, device=device,
+                cfg.d_model, cfg.vocab_size // (tp.size if tp else 1),
+                kernel_axes=(lr.EMBED, lr.VOCAB), dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, device=build,
             )
+        self.layouts = None
+        self._root_unit, self._block_units = None, []
+        self._root_active = False
+        if self.parallel is not None:
+            self.layouts = self.parallel.layouts(param_logical_axes(self),
+                                                 param_shapes(cfg))
+            for name, p in list(self.named_parameters()):
+                local = self.layouts[name].local_shape(self.parallel.sizes)
+                if fsdp:
+                    owner, _, leaf = name.rpartition(".")
+                    module = self.get_submodule(owner) if owner else self
+                    module._parameters[leaf] = nn.Parameter(torch.empty(
+                        local, dtype=p.dtype, device=device))
+                elif tuple(p.shape) != local:
+                    raise AssertionError(f"{name}: {tuple(p.shape)} built, "
+                                         f"{local} laid out")
+        if fsdp:
+            self._root_unit = self.parallel.unit(
+                {n: s for n, s in self.layouts.items()
+                 if not n.startswith("blocks.")})
+            self._block_units = [
+                self.parallel.unit(self.layouts, f"blocks.{i}.")
+                for i in range(cfg.num_layers)]
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """Under fsdp, the leaves outside the blocks (embedding, positions,
+        head) read whole within the block: gathered once, their gradients
+        reduce-scattered at the end of the backward.  Nests; a no-op
+        without fsdp."""
+        if self._root_unit is None or self._root_active:
+            yield
+            return
+        self._root_active = True
+        try:
+            with self._root_unit.gathered(self):
+                yield
+        finally:
+            self._root_active = False
 
     def hidden(
         self,
@@ -292,13 +393,20 @@ class TransformerLM(nn.Module):
             positions = torch.arange(
                 tokens.shape[1], device=tokens.device
             )[None, :]
-        x = self.embed(tokens)
-        if cfg.position == "learned":
-            x = x + self.pos_embedding[positions].to(cfg.dtype)
+        with self.gathered():
+            x = self.embed(tokens)
+            if cfg.position == "learned":
+                x = x + self.pos_embedding[positions].to(cfg.dtype)
         aux = None
         for i, block in enumerate(self.blocks):
             if caches is not None:
                 x, layer_aux = block(x, positions, segment_ids, caches[i])
+            elif self._block_units:
+                # The gather runs inside the checkpoint: a remat policy's
+                # recompute gathers the block's leaves again.
+                x, layer_aux = remat_policy.run(
+                    cfg.remat, self._block_units[i].run, block, x,
+                    positions, segment_ids)
             else:
                 # The (x, aux) pair goes through the checkpoint together.
                 x, layer_aux = remat_policy.run(cfg.remat, block, x,
@@ -310,20 +418,25 @@ class TransformerLM(nn.Module):
         return self.ln_final(x), aux
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Head over hidden states, in ``logits_dtype``."""
+        """Head over hidden states, in ``logits_dtype`` (this rank's
+        vocabulary columns under a tensor axis)."""
         cfg = self.config
-        if cfg.tie_embeddings:
-            out = self.embed.attend(x)
-        else:
-            out = self.lm_head(x)
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        with self.gathered():
+            if cfg.tie_embeddings:
+                out = self.embed.attend(x)
+            else:
+                out = self.lm_head(x)
         if cfg.logit_scale != 1.0:
             out = out * cfg.logit_scale
         return out.to(cfg.logits_dtype)
 
     def forward(self, tokens, positions=None, segment_ids=None, caches=None):
-        return self.logits(
-            self.hidden(tokens, positions, segment_ids, caches)
-        )
+        with self.gathered():
+            return self.logits(
+                self.hidden(tokens, positions, segment_ids, caches)
+            )
 
     def forward_aux(
         self,
@@ -337,12 +450,13 @@ class TransformerLM(nn.Module):
         that computes the head itself (chunked cross entropy).  ``aux_loss``
         is the fp32 sum of the MoE blocks' aux losses times
         ``moe_aux_weight``, 0 for a dense model."""
-        x, aux = self._hidden_aux(tokens, positions, segment_ids)
-        aux = aux * self.config.moe_aux_weight
-        if return_hidden:
-            scale = self.config.logit_scale
-            return (x * scale if scale != 1.0 else x), aux
-        return self.logits(x), aux
+        with self.gathered():
+            x, aux = self._hidden_aux(tokens, positions, segment_ids)
+            aux = aux * self.config.moe_aux_weight
+            if return_hidden:
+                scale = self.config.logit_scale
+                return (x * scale if scale != 1.0 else x), aux
+            return self.logits(x), aux
 
 
 @torch.no_grad()
@@ -371,6 +485,35 @@ def init_params(
     if config.position == "learned":
         layers.normal_(model.pos_embedding, 0.02, gen)
     return model.state_dict()
+
+
+def param_logical_axes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """``{parameter name: logical axes}`` of a dense model's state dict,
+    the reference's names: the layers' ``kernel_axes`` and ``("act_seq",
+    "embed")`` for the learned positions (an MoE model's experts wait for
+    the expert axis, ROADMAP Queue 1 item 6)."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for prefix, module in model.named_modules():
+        at = f"{prefix}." if prefix else ""
+        for name, axes in layers.logical_axes(module).items():
+            out[at + name] = tuple(axes)
+    if isinstance(model, TransformerLM) and \
+            model.config.position == "learned":
+        out["pos_embedding"] = (lr.ACT_SEQ, lr.EMBED)
+    return out
+
+
+def stacked_logical_axes(axes: Dict[str, Sequence]) -> Dict[str, Tuple]:
+    """The per-layer names' axes -> the layer-stacked leaves' (a leading
+    ``layers`` axis, as the reference's ``nn.scan`` adds)."""
+    out: Dict[str, Tuple] = {}
+    for name, a in axes.items():
+        m = re.match(r"^blocks\.(\d+)\.(.+)$", name)
+        if m:
+            out[f"blocks.{m.group(2)}"] = (lr.LAYERS,) + tuple(a)
+        else:
+            out[name] = tuple(a)
+    return out
 
 
 def param_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:

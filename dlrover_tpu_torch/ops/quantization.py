@@ -573,8 +573,8 @@ def _low_bit_adam(bits: int, learning_rate, b1, b2, eps, weight_decay,
             updates[name], new_m[name], new_v[name] = out
         return updates, state_cls(count, new_m, new_v)
 
-    # A ZeRO-1 shard of a quantized leaf must be whole blocks of the leaf.
-    return ox.GradientTransformation(init, update, BLOCK)
+    # A shard of a quantized leaf must be whole blocks of the leaf.
+    return ox.GradientTransformation(init, update, BLOCK, min_quant_size)
 
 
 def q8_adam(learning_rate: ox.ScalarOrSchedule = 1e-3, b1: float = 0.9,

@@ -25,14 +25,17 @@ integers.  ``shard_block`` > 0 says the state is block-quantized in
 blocks of that many values of the flattened leaf, so a ZeRO-1 shard must
 be whole blocks (``optimizers/zero1.ShardPlan``).
 
-Under ZeRO-1 the update runs on each rank's shard of every leaf
-(:func:`sharded_update`).  The reference's ``tx.update`` runs on sharded
-arrays too, and GSPMD keeps every reduction over a leaf global.  Here
-each such reduction says so itself: the global norm, Adafactor's
-factored row and column means, its block-RMS clip and its parameter
-scale sum the shard and add the other ranks' sums with one all-reduce
-per pass, and the factored dimensions and the low-bit quantization
-threshold are chosen on the whole leaf's shape.  Elementwise
+Under ZeRO-1 and the fsdp and tensor axes the update runs on each rank's
+shard of every leaf (:func:`sharded_update`).  The reference's
+``tx.update`` runs on sharded arrays too, and GSPMD keeps every
+reduction over a leaf global.  Here each such reduction says so itself:
+the global norm, Adafactor's factored row and column means, its
+block-RMS clip and its parameter scale sum the shard and complete the
+sum over the axes that split what they reduce (a mean over one
+dimension over that dimension's axes only; a leaf no axis splits counts
+once), one all-reduce per axis per pass, and the factored dimensions and
+the low-bit quantization threshold are chosen on the whole leaf's
+shape.  Elementwise
 transformations need nothing.
 """
 
@@ -58,9 +61,12 @@ class GradientTransformation(NamedTuple):
     init: Callable[[Tree], Any]
     update: Callable[[Tree, Any, Optional[Tree]], Tuple[Tree, Any]]
     shard_block: int = 0
+    # The least whole-leaf size whose state is block-quantized (under
+    # ``shard_block``); smaller leaves keep unquantized state.
+    block_min_size: int = 0
 
 
-# -- the shard view (ZeRO-1) ---------------------------------------------------
+# -- the shard view (ZeRO-1, fsdp, tensor) --------------------------------------
 
 #: The :class:`ShardView` of the update in progress, or None.
 _VIEW = None
@@ -68,17 +74,18 @@ _VIEW = None
 
 class ShardView(NamedTuple):
     """What a transformation needs to know of sharded leaves: ``plan``
-    maps a leaf name to its ``optimizers.zero1.LeafShard`` (whole shape
-    and split dimension), and ``all_reduce(t)`` sums ``t`` over the data
-    group in place."""
+    maps a leaf name to its ``parallel.sharding.LeafSplit`` (the whole
+    shape, and the mesh axes that split each dimension: ``fsdp`` and
+    ``tensor`` from the rules, ``data`` from ZeRO-1), and ``reduce(t,
+    axes)`` sums ``t`` in place over the groups of ``axes``."""
 
     plan: Any
-    all_reduce: Callable[[torch.Tensor], Any]
+    reduce: Callable[[torch.Tensor, Tuple[str, ...]], Any]
 
 
 @contextlib.contextmanager
 def sharded_update(view: Optional[ShardView]):
-    """Run ``init``/``update`` calls on ZeRO-1 shards under ``view``."""
+    """Run ``init``/``update`` calls on shards under ``view``."""
     global _VIEW
     prev, _VIEW = _VIEW, view
     try:
@@ -87,46 +94,61 @@ def sharded_update(view: Optional[ShardView]):
         _VIEW = prev
 
 
-def _split_dim(name: str) -> Optional[int]:
-    """The dimension of leaf ``name`` the data axis splits, under the
-    active view (None: not split, or no view)."""
-    if _VIEW is None or name not in _VIEW.plan.leaves:
+def _layout(name: str):
+    if _VIEW is None:
         return None
-    return _VIEW.plan[name].dim
+    return _VIEW.plan.get(name)
+
+
+def _leaf_axes(name: str) -> Tuple[str, ...]:
+    """The mesh axes that split leaf ``name`` under the active view (none:
+    the rank holds it whole)."""
+    layout = _layout(name)
+    return layout.axes if layout is not None else ()
+
+
+def _dim_axes(name: str, dim: int) -> Tuple[str, ...]:
+    """The mesh axes that split dimension ``dim`` of leaf ``name``."""
+    layout = _layout(name)
+    return layout.dim_axes(dim) if layout is not None else ()
 
 
 def full_shape(name: str, t: torch.Tensor) -> Tuple[int, ...]:
     """The whole leaf's shape (``t`` is its shard under the view)."""
-    if _split_dim(name) is None:
-        return tuple(t.shape)
-    return _VIEW.plan[name].shape
+    layout = _layout(name)
+    return tuple(layout.shape) if layout is not None else tuple(t.shape)
 
 
-def _reduce_many(parts: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum each fp32 tensor of ``parts`` over the data group with ONE
-    all-reduce."""
-    if not parts:
-        return []
-    flat = torch.cat([p.reshape(-1) for p in parts])
-    _VIEW.all_reduce(flat)
-    out, at = [], 0
-    for p in parts:
-        out.append(flat[at:at + p.numel()].reshape(p.shape))
-        at += p.numel()
+def _reduce_many(parts: List[torch.Tensor],
+                 axes: List[Tuple[str, ...]]) -> List[torch.Tensor]:
+    """Sum each fp32 tensor of ``parts`` over the groups of its ``axes``:
+    one all-reduce per axis for all the parts of the same axes."""
+    out = list(parts)
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, a in enumerate(axes):
+        if a:
+            groups.setdefault(tuple(a), []).append(i)
+    for a, members in groups.items():
+        flat = torch.cat([parts[i].reshape(-1) for i in members])
+        _VIEW.reduce(flat, a)
+        at = 0
+        for i in members:
+            out[i] = flat[at:at + parts[i].numel()].reshape(parts[i].shape)
+            at += parts[i].numel()
     return out
 
 
 def _mean_squares(tree: Tree) -> Dict[str, torch.Tensor]:
     """``{name: mean of x^2 over the whole leaf}``; a split leaf's sum of
-    squares is completed over the group (one all-reduce for all)."""
+    squares is completed over the axes that split it."""
     out = {name: x.square().mean() for name, x in tree.items()
-           if _split_dim(name) is None}
-    split = [name for name in tree if _split_dim(name) is not None]
+           if not _leaf_axes(name)}
+    split = [name for name in tree if _leaf_axes(name)]
     sums = _reduce_many([tree[n].float().square().sum().reshape(1)
-                         for n in split])
+                         for n in split], [_leaf_axes(n) for n in split])
     for name, total in zip(split, sums):
         x = tree[name]
-        numel = math.prod(_VIEW.plan[name].shape)
+        numel = math.prod(full_shape(name, x))
         out[name] = (total[0] / numel).to(x.dtype)
     return out
 
@@ -177,15 +199,22 @@ def unstack_layers(tree: Tree) -> Dict[str, torch.Tensor]:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum of squares of every leaf, in
-    fp32 (over the whole leaves under a shard view)."""
-    split = [n for n in tree if _split_dim(n) is not None]
-    if not split:
+    fp32 (over the whole leaves under a shard view: each leaf's sum is
+    completed over the axes that split it, so a leaf every rank holds
+    whole counts once)."""
+    groups: Dict[Tuple[str, ...], List[str]] = {}
+    for n in tree:
+        if _leaf_axes(n):
+            groups.setdefault(_leaf_axes(n), []).append(n)
+    if not groups:
         total = sum(x.float().square().sum() for x in tree.values())
         return torch.sqrt(total)
-    (part,) = _reduce_many([sum(tree[n].float().square().sum()
-                                for n in split).reshape(1)])
-    total = part[0] + sum(x.float().square().sum() for n, x in tree.items()
-                          if _split_dim(n) is None)
+    parts = _reduce_many(
+        [sum(tree[n].float().square().sum() for n in names).reshape(1)
+         for names in groups.values()], list(groups))
+    total = sum(p[0] for p in parts) + sum(
+        x.float().square().sum() for n, x in tree.items()
+        if not _leaf_axes(n))
     return torch.sqrt(total)
 
 
@@ -206,7 +235,8 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
         return updates, tuple(new_state)
 
     return GradientTransformation(
-        init, update, max((tx.shard_block for tx in txs), default=0))
+        init, update, max((tx.shard_block for tx in txs), default=0),
+        max((tx.block_min_size for tx in txs), default=0))
 
 
 def _stateless(fn: Callable[[Tree, Optional[Tree]], Tree]
@@ -395,21 +425,22 @@ def scale_by_factored_rms() -> GradientTransformation:
                                         min_dim_size_to_factor)
                    for name, g in grads.items()}
         sqr = {name: g * g + epsilon for name, g in grads.items()}
-        # The factored means; one over the split dimension of a sharded
-        # leaf is a sum completed over the group (one all-reduce for all).
+        # The factored means; one over a split dimension of a sharded
+        # leaf is a sum completed over the axes that split that dimension.
         means, pending = {}, []
         for name, dims in dims_of.items():
             if dims is None:
                 continue
             d1, d0 = dims
             for key, d in (("row", d0), ("col", d1)):
-                if _split_dim(name) == d:
+                if _dim_axes(name, d):
                     pending.append((name, key, d))
                 else:
                     means[name, key] = sqr[name].mean(d)
-        sums = _reduce_many([sqr[n].float().sum(d) for n, _, d in pending])
+        sums = _reduce_many([sqr[n].float().sum(d) for n, _, d in pending],
+                            [_dim_axes(n, d) for n, _, d in pending])
         for (name, key, d), total in zip(pending, sums):
-            n = _VIEW.plan[name].shape[d]
+            n = full_shape(name, sqr[name])[d]
             means[name, key] = (total / n).to(sqr[name].dtype)
         updates, v_row, v_col, v = {}, {}, {}, {}
         new_rows = {}
@@ -432,20 +463,21 @@ def scale_by_factored_rms() -> GradientTransformation:
                 v_row[name] = state["v_row"][name]
                 v_col[name] = state["v_col"][name]
                 v[name] = new_v
-        # The row factor's mean over the column dimension: over the group
-        # where the split dimension is the column one.
+        # The row factor's mean over the column dimension: completed over
+        # the axes that split the column dimension.
         row_means, pending = {}, []
         for name, new_row in new_rows.items():
             d1, d0 = dims_of[name]
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            if _split_dim(name) == d1:
+            if _dim_axes(name, d1):
                 pending.append((name, reduced_d1))
             else:
                 row_means[name] = new_row.mean(reduced_d1, keepdim=True)
         sums = _reduce_many([new_rows[n].float().sum(d, keepdim=True)
-                             for n, d in pending])
+                             for n, d in pending],
+                            [_dim_axes(n, dims_of[n][0]) for n, _ in pending])
         for (name, d), total in zip(pending, sums):
-            n = _VIEW.plan[name].shape[dims_of[name][0]]
+            n = full_shape(name, grads[name])[dims_of[name][0]]
             row_means[name] = (total / n).to(new_rows[name].dtype)
         for name, new_row in new_rows.items():
             d1, d0 = dims_of[name]

@@ -12,11 +12,16 @@ entry per dimension: None, an axis name or a tuple of names).
 :class:`ShardPlan` turns the specs into what each rank holds: for every
 leaf of the (layer-stacked) parameter tree, the dimension the data axis
 splits (or None: the leaf keeps a replicated update) and rank ``r``'s
-slice ``[r * k, (r + 1) * k)`` of it.  ``block`` adds one rule an
-optimizer with block-quantized state needs: a leaf is split only where
-each rank's slice is a whole number of ``block``-value blocks of the
-flattened leaf (a contiguous range, so the blocks of a shard are the
-blocks of the whole leaf).
+slice ``[r * k, (r + 1) * k)`` of it.  Under the fsdp and tensor axes
+the spec of a leaf carries them (``mesh_sizes`` gives their degrees):
+the data axis goes on the first dimension that stays whole after both
+splits, as ``zero1_partition_spec`` chooses it, and the plan's shapes
+are a rank's fsdp/tensor slices, which the data axis splits further.
+``block`` adds one rule an optimizer with block-quantized state needs: a
+leaf is split only where each rank's slice is a whole number of
+``block``-value blocks of the flattened slice (a contiguous range, so
+the blocks of a shard are the blocks of the slice, and, where the
+fsdp/tensor slice is whole blocks of the whole leaf, of the leaf).
 """
 
 from __future__ import annotations
@@ -173,29 +178,35 @@ class ShardPlan:
     """Every leaf's :class:`LeafShard` for a ``dp``-way data axis.
 
     ``shapes`` is ``{name: shape}`` of the whole leaves; ``specs`` their
-    model-parallel specs (empty: replicated); ``block`` > 0 asks that a
-    split leaf's slices be contiguous, whole ``block``-value blocks of the
-    flattened leaf."""
+    model-parallel specs (empty: replicated) on a mesh of ``mesh_sizes``
+    (the model-parallel degrees); ``block`` > 0 asks that a split leaf's
+    slices be contiguous, whole ``block``-value blocks of the flattened
+    leaf.  Each :class:`LeafShard` describes the rank's model-parallel
+    slice of its leaf."""
 
     def __init__(self, shapes: Dict[str, Tuple[int, ...]], dp: int, *,
                  specs: Optional[Dict[str, Spec]] = None, block: int = 0,
-                 itemsizes: Optional[Dict[str, int]] = None):
+                 itemsizes: Optional[Dict[str, int]] = None,
+                 mesh_sizes: Optional[Dict[str, int]] = None):
         self.dp = dp
         self.block = block
-        sizes = {"data": dp}
+        sizes = dict(mesh_sizes or {})
+        sizes["data"] = dp
         specs = specs or {}
         self.leaves: Dict[str, LeafShard] = {}
         for name, shape in shapes.items():
             shape = tuple(int(d) for d in shape)
-            dim = data_axis_dim(zero1_partition_spec(
-                shape, specs.get(name, ()), sizes))
-            if dim is not None and block and not self._aligned(shape, dim):
+            spec = specs.get(name, ())
+            local = tuple(d // _dim_shard(sizes, e) for d, e in zip(
+                shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+            dim = data_axis_dim(zero1_partition_spec(shape, spec, sizes))
+            if dim is not None and block and not self._aligned(local, dim):
                 dim = None
-            self.leaves[name] = LeafShard(shape, dim, dp)
+            self.leaves[name] = LeafShard(local, dim, dp)
         _, self.stats = shard_update_shardings(
             sizes,
-            {n: (leaf.shape, (itemsizes or {}).get(n, 4))
-             for n, leaf in self.leaves.items()},
+            {n: (tuple(int(d) for d in shapes[n]),
+                 (itemsizes or {}).get(n, 4)) for n in self.leaves},
             specs)
         self.stats["sharded_leaves"] = sum(
             leaf.dim is not None for leaf in self.leaves.values())

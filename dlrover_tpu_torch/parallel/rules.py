@@ -5,12 +5,16 @@ The reference annotates every parameter and activation with logical axis
 names and maps them onto mesh axes with a rule table; XLA then inserts
 the collectives.  The tables here are the reference's, entry for entry
 (``make_rules``, ``DEFAULT_RULES``, ``DDP_RULES``, ``RING_RULES``).  The
-port applies one rule itself: the batch rule, which splits the global
-batch into each data rank's rows (:func:`batch_axes`,
-:func:`batch_shard_count`).  At ``fsdp = tensor = seq = 1`` the default
-table collapses to data parallelism: parameters replicated, the batch
-split over ``data``.  The model-parallel axes wait for ROADMAP Queue 1
-item 5 (``runtime/mesh.check_axes``).
+port applies them itself: the batch rule splits the global batch into
+each batch-group rank's rows (:func:`batch_axes`,
+:func:`batch_shard_count`, :func:`batch_group_axes`: the ``data`` and
+``fsdp`` axes), and a parameter's logical axes (``kernel_axes`` on the
+model's layers, ``models/layers.py``) resolve to the ``(dim, axes)``
+splits of :func:`leaf_splits`, which ``parallel/sharding.py`` carries
+out: ``embed`` over ``fsdp``, ``mlp``, ``heads`` and ``vocab`` over
+``tensor``.  At ``fsdp = tensor = seq = 1`` the default table collapses
+to data parallelism: parameters replicated, the batch split over
+``data``.
 """
 
 from __future__ import annotations
@@ -133,15 +137,32 @@ def batch_shard_count(mesh, rules: Rules) -> int:
     return out
 
 
-def batch_group_axis(mesh, rules: Rules) -> str:
-    """The one mesh axis whose ranks split the batch: the data axis.  A
-    batch rule that splits over another axis above 1 is refused (its axes
-    are ROADMAP Queue 1 item 5)."""
+def batch_group_axes(mesh, rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes above 1 whose ranks split the batch, outermost first:
+    the batch group (``data`` and ``fsdp`` under the default table).  A
+    batch rule that splits over another axis above 1 is refused."""
     sizes = mesh_axis_sizes(mesh)
+    out = []
     for axis in batch_axes(rules):
-        if axis != DATA_AXIS and sizes.get(axis, 1) > 1:
+        if sizes.get(axis, 1) <= 1:
+            continue
+        if axis not in (DATA_AXIS, FSDP_AXIS):
             raise NotImplementedError(
-                f"the batch rule splits over {axis!r} (size {sizes[axis]}),"
-                " a later slice of the port (ROADMAP Queue 1 item 5)"
-            )
-    return DATA_AXIS
+                f"the batch rule splits over {axis!r} (size {sizes[axis]});"
+                " the port splits the batch over the data and fsdp axes")
+        out.append(axis)
+    return tuple(out)
+
+
+def leaf_splits(logical: Sequence[str], rules: Rules,
+                sizes: Dict[str, int]) -> Tuple[Tuple[int, Tuple[str, ...]],
+                                                ...]:
+    """A parameter's splits on a mesh of ``sizes``: ``(dim, axes)`` for
+    each dimension whose logical name the rules map onto mesh axes above
+    1 (``axes`` outermost first); the other dimensions are whole."""
+    out = []
+    for dim, entry in enumerate(logical_to_mesh_axes(logical, rules)):
+        axes = tuple(a for a in _entry_names(entry) if sizes.get(a, 1) > 1)
+        if axes:
+            out.append((dim, axes))
+    return tuple(out)

@@ -1,4 +1,4 @@
-"""The data group's wire: the collectives the port issues, and what they
+"""The mesh axes' wires: the collectives the port issues, and what they
 carry.
 
 The reference's collectives ride mesh axes that XLA lowers onto the
@@ -9,7 +9,9 @@ interconnect.  Here a collective names a ``torch.distributed`` group.
   (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
   ``send``), each tensor counted once per call as its element count times
   its item size;
-* ``staged``: host staging copies.  NCCL takes CUDA tensors; gloo, the
+* ``axes``: the same bytes by axis and leg (``"fsdp/all_gather"``; the
+  axis a :class:`Wire` was built for, ``"world"`` for one built without);
+* ``staged``: host staging copies (and ``staged_axes``, by axis).  NCCL takes CUDA tensors; gloo, the
   CPU backend, takes host tensors.  A group whose backend is gloo gets a
   CUDA payload copied to the host before the collective and the result
   copied back after it, each copy counted here.  That is what runs two
@@ -33,12 +35,15 @@ import torch.distributed as dist
 
 #: Bytes handed to collectives by leg, and host staging copies; a run sets
 #: them to 0 (:func:`reset_counts`) and reads them back.
-COUNTS = {"bytes": collections.Counter(), "staged": 0}
+COUNTS = {"bytes": collections.Counter(), "axes": collections.Counter(),
+          "staged": 0, "staged_axes": collections.Counter()}
 
 
 def reset_counts() -> None:
     COUNTS["bytes"].clear()
+    COUNTS["axes"].clear()
     COUNTS["staged"] = 0
+    COUNTS["staged_axes"].clear()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -49,9 +54,11 @@ class Pending:
     """An issued collective: ``wait()`` completes it, copies staged
     results back to the card and runs the callbacks of ``then``."""
 
-    def __init__(self, works, copies: List[Tuple[torch.Tensor, torch.Tensor]]):
+    def __init__(self, works, copies: List[Tuple[torch.Tensor, torch.Tensor]],
+                 axis: str = "world"):
         self._works = [w for w in works if w is not None]
         self._copies = copies
+        self._axis = axis
         self._thens: List[Callable[[], None]] = []
         self.done = False
 
@@ -71,6 +78,7 @@ class Pending:
         for dst, host in self._copies:
             dst.copy_(host)
             COUNTS["staged"] += 1
+            COUNTS["staged_axes"][self._axis] += 1
         self.done = True
         for fn in self._thens:
             fn()
@@ -78,12 +86,14 @@ class Pending:
 
 class Wire:
     """One process group and its collectives.  ``group=None`` is the
-    default group."""
+    default group; ``axis`` names the mesh axis the group spans, for the
+    counts."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, axis: str = "world"):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("a Wire needs an initialized process group")
         self.group = group
+        self.axis = axis
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.backend = str(dist.get_backend(group))
@@ -92,9 +102,17 @@ class Wire:
     def _stage(self, t: torch.Tensor) -> bool:
         return t.is_cuda and self.backend == "gloo"
 
+    def _count(self, leg: str, t: torch.Tensor) -> None:
+        COUNTS["bytes"][leg] += _nbytes(t)
+        COUNTS["axes"][f"{self.axis}/{leg}"] += _nbytes(t)
+
+    def _staged(self) -> None:
+        COUNTS["staged"] += 1
+        COUNTS["staged_axes"][self.axis] += 1
+
     def _in(self, t: torch.Tensor) -> torch.Tensor:
         if self._stage(t):
-            COUNTS["staged"] += 1
+            self._staged()
             return t.cpu()
         return t
 
@@ -108,10 +126,10 @@ class Wire:
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
                    async_op: bool = False) -> Pending:
         """In place: ``t`` becomes the reduction over the group."""
-        COUNTS["bytes"]["all_reduce"] += _nbytes(t)
+        self._count("all_reduce", t)
         copies: list = []
         if self._stage(t):
-            COUNTS["staged"] += 1
+            self._staged()
             host = t.cpu()
             copies.append((t, host))
         else:
@@ -124,7 +142,7 @@ class Wire:
                        async_op: bool = False) -> Pending:
         """``out`` (contiguous, 1/n of ``inp``'s elements) becomes this
         rank's block of the flattened sum over the group."""
-        COUNTS["bytes"]["reduce_scatter"] += _nbytes(inp)
+        self._count("reduce_scatter", inp)
         copies: list = []
         work = dist.reduce_scatter_tensor(
             self._out(out, copies).view(-1), self._in(inp).reshape(-1),
@@ -135,7 +153,7 @@ class Wire:
                    async_op: bool = False) -> Pending:
         """``out`` (contiguous, n times ``inp``'s elements) becomes every
         rank's ``inp``, flattened, in rank order."""
-        COUNTS["bytes"]["all_gather"] += _nbytes(inp)
+        self._count("all_gather", inp)
         copies: list = []
         work = dist.all_gather_into_tensor(
             self._out(out, copies).view(-1), self._in(inp).reshape(-1),
@@ -146,7 +164,7 @@ class Wire:
                    async_op: bool = False) -> Pending:
         """Block ``j`` of ``inp`` (dim 0 in n equal blocks) goes to rank
         ``j``; block ``j`` of ``out`` comes from rank ``j``."""
-        COUNTS["bytes"]["all_to_all"] += _nbytes(inp)
+        self._count("all_to_all", inp)
         copies: list = []
         work = dist.all_to_all_single(self._out(out, copies), self._in(inp),
                                       group=self.group, async_op=async_op)
@@ -155,7 +173,7 @@ class Wire:
     def shift(self, send: torch.Tensor, recv: torch.Tensor) -> None:
         """One ring hop: ``send`` goes to rank + 1, ``recv`` comes from
         rank - 1 (mod n)."""
-        COUNTS["bytes"]["send"] += _nbytes(send)
+        self._count("send", send)
         copies: list = []
         src = self._in(send)
         dst = self._out(recv, copies)
@@ -166,14 +184,14 @@ class Wire:
         ops = [dist.P2POp(dist.isend, src, nxt, self.group),
                dist.P2POp(dist.irecv, dst, prv, self.group)]
         works = dist.batch_isend_irecv(ops)
-        Pending(works, copies).wait()
+        Pending(works, copies, self.axis).wait()
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> None:
         """In place, from group rank ``src``."""
-        COUNTS["bytes"]["broadcast"] += _nbytes(t)
+        self._count("broadcast", t)
         copies: list = []
         if self._stage(t):
-            COUNTS["staged"] += 1
+            self._staged()
             host = t.cpu()
             copies.append((t, host))
         else:
@@ -184,7 +202,7 @@ class Wire:
         self._finish(work, copies, False)
 
     def _finish(self, work, copies, async_op) -> Pending:
-        pending = Pending([work] if async_op else [], copies)
+        pending = Pending([work] if async_op else [], copies, self.axis)
         if not async_op:
             pending.wait()
         return pending

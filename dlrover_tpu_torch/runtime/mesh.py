@@ -9,9 +9,14 @@ same six axis names in the same order (outermost first)::
 
     data > fsdp > pipe > expert > seq > tensor
 
-The data axis is the only one above 1 so far: ``build_mesh`` refuses a
-``fsdp``, ``tensor`` or ``seq`` degree above 1 (ROADMAP Queue 1 item 5),
-a ``pipe`` degree (item 9) and an ``expert`` degree (item 6).  Where no
+The ``data``, ``fsdp`` and ``tensor`` axes may be above 1.
+``build_mesh`` refuses a ``seq`` or ``pipe`` degree above 1 (ROADMAP
+Queue 1 item 9: Ulysses, ring attention and the pipeline) and an
+``expert`` degree (item 6).  Each axis above 1 has its process group (the
+``DeviceMesh``'s ``get_group``) and its :class:`~dlrover_tpu_torch.
+parallel.wire.Wire` (:func:`axis_wires`), through which every collective
+of that axis goes.  A gloo world on one card puts every rank on
+``cuda:0`` (the ``Wire`` stages the payloads through the host).  Where no
 process group is initialized, :func:`single_device_mesh` is the world of
 one process.  ``shard_map_compat`` and ``activate_mesh`` have no
 counterpart: the port's collectives name their group explicitly, and the
@@ -47,8 +52,7 @@ MESH_AXES: Tuple[str, ...] = (
 )
 
 #: The ROADMAP Queue 1 item that brings each model-parallel axis.
-_AXIS_ITEMS = {FSDP_AXIS: 5, TENSOR_AXIS: 5, SEQ_AXIS: 5, PIPE_AXIS: 9,
-               EXPERT_AXIS: 6}
+_AXIS_ITEMS = {SEQ_AXIS: 9, PIPE_AXIS: 9, EXPERT_AXIS: 6}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +127,14 @@ def process_index() -> int:
 
 
 def check_axes(sizes: Dict[str, int]) -> None:
-    """Refuse a model-parallel axis above 1, naming its ROADMAP item."""
-    for axis in (FSDP_AXIS, TENSOR_AXIS, SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS):
+    """Refuse an axis the port does not run yet above 1, naming its
+    ROADMAP item."""
+    for axis in (SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS):
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {sizes[axis]} is a later slice of the "
                 f"port (ROADMAP Queue 1 item {_AXIS_ITEMS[axis]}); the "
-                "mesh takes the data axis (data, dcn_data) only"
+                "mesh takes the data, fsdp and tensor axes"
             )
 
 
@@ -153,6 +158,9 @@ def build_mesh(config: ParallelConfig, device_type: str = "cuda"):
     from torch.distributed.device_mesh import DeviceMesh
 
     shape = [sizes[a] for a in MESH_AXES]
+    if device_type == "cuda" and torch.cuda.device_count() == 1:
+        # Every rank of a world on one card (gloo) sits on cuda:0.
+        torch.cuda.set_device(0)
     mesh = DeviceMesh(device_type, torch.arange(world).reshape(shape),
                       mesh_dim_names=MESH_AXES)
     logger.info("built mesh %s over %d processes (%s, backend %s)",
@@ -177,6 +185,30 @@ def data_group(mesh):
     if mesh_axis_sizes(mesh).get(DATA_AXIS, 1) <= 1:
         return None
     return mesh.get_group(DATA_AXIS)
+
+
+def mesh_coords(mesh, rank: Optional[int] = None) -> Dict[str, int]:
+    """``{axis: coordinate}`` of process ``rank`` (default: this one) on
+    the mesh: ranks are laid out row-major over :data:`MESH_AXES`, as
+    :func:`build_mesh` arranges them."""
+    sizes = mesh_axis_sizes(mesh)
+    if not sizes:
+        return {a: 0 for a in MESH_AXES}
+    rank = process_index() if rank is None else rank
+    out = {}
+    for axis in reversed(mesh.mesh_dim_names):
+        out[axis] = rank % sizes[axis]
+        rank //= sizes[axis]
+    return {a: out[a] for a in mesh.mesh_dim_names}
+
+
+def axis_wires(mesh) -> Dict[str, object]:
+    """One :class:`~dlrover_tpu_torch.parallel.wire.Wire` per mesh axis
+    above 1, over that axis's process group, named by the axis."""
+    from dlrover_tpu_torch.parallel.wire import Wire
+
+    return {axis: Wire(mesh.get_group(axis), axis=axis)
+            for axis, size in mesh_axis_sizes(mesh).items() if size > 1}
 
 
 def mesh_axis_size(mesh, axis: str) -> int:

@@ -31,10 +31,20 @@ re-laid out in memory through the checkpoint's record path
 re-layout retries under its ``relayout.apply`` fault seam and falls back
 to a restore.
 
+The fsdp and tensor axes: ``parallel=ParallelConfig(fsdp=..,
+tensor=..)`` builds the step on that mesh (``train_lib.build_train``:
+each rank holds its boxes of the parameters and the optimizer state, and
+the batch group is ``data x fsdp``).  Flash Checkpoint saves each rank's
+boxes under their global indices, so a save at one mesh restores into
+another (into one process, for one).  The SDC digest completes each
+split leaf's byte sum over the world.  A live re-layout folds the data
+axis only, as the reference's virtual mesh does; on a mesh with an fsdp
+or tensor axis above 1 it is refused (ROADMAP Queue 1 item 5).
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the model-parallel mesh axes (``runtime/mesh.check_axes``; ROADMAP Queue
-1 items 5, 6 and 9); ``auto_tune``, device-time capture
+the ``seq``, ``pipe`` and ``expert`` mesh axes (``runtime/mesh.
+check_axes``; ROADMAP Queue 1 items 9 and 6); ``auto_tune``, device-time capture
 (``profile_every``), the memory report, OOM forensics and the agent's
 device metrics (item 10).  The MoE router-statistics harvest (item 6) is
 off: an MoE model trains and the trainer says once that the harvest is
@@ -517,6 +527,11 @@ class ElasticTrainer:
         grad_accum, relayout seconds.
         """
         new_world = max(1, int(new_world))
+        if self.train.parallel.active:
+            raise NotImplementedError(
+                "a live re-layout on a mesh with an fsdp or tensor axis: the "
+                "reference's virtual mesh folds the data (and expert) axes "
+                "only (ROADMAP Queue 1 item 5)")
         if new_world == self._world:
             return {
                 "ok": True, "noop": True, "fallback": False,
@@ -749,7 +764,7 @@ class ElasticTrainer:
                 e,
             )
             self.state = state_digest.flip_mantissa_bit(self.state)
-        wire = self.train.wire
+        wire = self.train.state_wire
         entry = (self.step, state_digest.digest_state(
             self.state, self._layout() if wire is not None else None, wire))
         if self.client is None:
@@ -1116,7 +1131,7 @@ class ElasticTrainer:
         committed.
         """
         healthy = self._healthy_here()
-        wire = self.train.wire
+        wire = self.train.state_wire
         if wire is None:
             return healthy
         vote = torch.tensor([int(healthy)], dtype=torch.int64,

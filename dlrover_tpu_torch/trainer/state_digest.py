@@ -9,12 +9,18 @@ with an odd multiplier, ``acc = acc * 1000003 + leaf_sum`` (mod 2^32).
 The multiplier is invertible mod 2^32, so one flipped bit anywhere
 changes the digest.  This is a corruption detector, not a hash.
 
-The reference's digest is a jitted reduction, not a Pallas kernel; here
-it is PyTorch ops on the leaves' device, and no host sync: the value
-stays a 0-d int64 tensor until a report formats it.  The uint32
+The reference's digest is a jitted reduction, not a Pallas kernel.  Here
+the per-leaf byte sums of CUDA leaves are one launch of a hand-written
+kernel (``ops/csrc/byte_sums.cu``: the leaves laid out as chunks of at
+most ``CHUNK_BYTES`` in a table uploaded from pinned memory, every byte
+read once, each block's sum added to its leaf's with one integer atomic;
+counted in :data:`LAUNCHES`), the fold PyTorch ops; no host sync: the
+value stays a 0-d int64 tensor until a report formats it.  The uint32
 arithmetic runs in int64 under a mask.
 
-Few launches and small temporaries (:func:`byte_sums`).  A leaf's bytes
+CPU leaves take the kernel's plain version (:func:`byte_sums_reference`,
+PyTorch ops on any device): few launches and small temporaries.  A
+leaf's bytes
 are summed in rows of ``ROW_BYTES`` (128: a row's sum fits int16,
 128 * 255 < 2^15), the rows widened to int16 ``GROUP_ROWS`` rows a
 launch (128 MiB of bytes to 256 MiB; a wider accumulator casts its whole
@@ -32,12 +38,25 @@ each.  The fold is vectorised: with ``p_i = M^(n-1-i)`` mod 2^32,
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dlrover_tpu_torch.checkpoint import shm_handler
+from dlrover_tpu_torch.ops import kernel_lib
+
+#: Launches of the byte-sum kernel; a run sets the count to 0 and reads it
+#: back to show its path went through the kernel.
+LAUNCHES = {"digest_sums": 0}
+#: The most bytes of a leaf one block of the kernel sums.
+CHUNK_BYTES = 1 << 20
+#: The kernel's chunk table row (``struct Chunk`` of ``byte_sums.cu``).
+CHUNK_DTYPE = np.dtype([("addr", "<u8"), ("nbytes", "<i8"),
+                        ("leaf", "<i8")])
+#: Blocks of the kernel per SM.
+BLOCKS_PER_SM = 8
 
 MULTIPLIER = 1000003
 MASK = 0xFFFFFFFF
@@ -81,15 +100,88 @@ def _sum_rows(flat: torch.Tensor, out: torch.Tensor) -> None:
                   out=out[at:at + GROUP_ROWS])
 
 
-def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
-    """Each leaf's raw-byte sum (not yet reduced mod 2^32), as int64
-    ``[len(leaves)]`` on ``device``.  A Python int is the JAX package's
-    int32 step counter."""
+def chunk_table(addrs: Sequence[int], nbytes: Sequence[int],
+                chunk: int = CHUNK_BYTES) -> np.ndarray:
+    """The kernel's table: leaf ``i``'s bytes ``[addrs[i], addrs[i] +
+    nbytes[i])`` as consecutive chunks of at most ``chunk`` bytes (none for
+    an empty leaf), leaf by leaf, as ``CHUNK_DTYPE`` rows."""
+    addrs = np.asarray(addrs, np.uint64).reshape(-1)
+    nbytes = np.asarray(nbytes, np.int64).reshape(-1)
+    per = -(-nbytes // chunk)
+    leaf = np.repeat(np.arange(len(nbytes), dtype=np.int64), per)
+    first = np.repeat(np.cumsum(per) - per, per)
+    offset = (np.arange(len(leaf), dtype=np.int64) - first) * chunk
+    table = np.empty(len(leaf), CHUNK_DTYPE)
+    table["addr"] = addrs[leaf] + offset.astype(np.uint64)
+    table["nbytes"] = np.minimum(chunk, nbytes[leaf] - offset)
+    table["leaf"] = leaf
+    return table
+
+
+def _lib_fn():
+    fn = kernel_lib.load("byte_sums").leaf_byte_sums
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def leaf_sums_kernel(flats: Sequence[torch.Tensor],
+                     device: torch.device) -> torch.Tensor:
+    """Each flat uint8 CUDA tensor's byte sum, int64 ``[len(flats)]`` on
+    ``device``: one launch of ``byte_sums.cu`` (counted in
+    :data:`LAUNCHES`), or an error.  No host sync."""
+    if flats:
+        device = flats[0].device
+    if device.type != "cuda" or any(f.device != device or f.dtype !=
+                                    torch.uint8 for f in flats):
+        raise ValueError(f"the byte-sum kernel takes uint8 tensors on one "
+                         f"CUDA device, got {device}")
+    sums = torch.zeros(len(flats), dtype=torch.int64, device=device)
+    table = chunk_table([f.data_ptr() for f in flats],
+                        [f.numel() for f in flats])
+    if not len(table):
+        return sums
+    rows = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
+        device, non_blocking=True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    with torch.cuda.device(device):
+        err = _lib_fn()(rows.data_ptr(), len(table), sums.data_ptr(),
+                        min(len(table), BLOCKS_PER_SM * sms),
+                        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"byte-sum kernel launch failed: CUDA error {err}")
+    LAUNCHES["digest_sums"] += 1
+    return sums
+
+
+def _flats(leaves: Sequence[Any]) -> List[torch.Tensor]:
+    """The tensor leaves' raw bytes (a Python int is the JAX package's
+    int32 step counter; anything else is refused)."""
     for leaf in leaves:
         if not isinstance(leaf, (torch.Tensor, int)):
             raise TypeError(f"cannot digest a {type(leaf).__name__} leaf")
-    flats = [_bytes(leaf) for leaf in leaves
-             if isinstance(leaf, torch.Tensor)]
+    return [_bytes(leaf) for leaf in leaves
+            if isinstance(leaf, torch.Tensor)]
+
+
+def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
+    """Each leaf's raw-byte sum (not yet reduced mod 2^32), as int64
+    ``[len(leaves)]`` on ``device``.  On a CUDA device one kernel launch
+    sums every tensor leaf (:func:`leaf_sums_kernel`); on the CPU the
+    plain version does (:func:`byte_sums_reference`)."""
+    if device.type == "cuda":
+        return _with_ints(leaves, leaf_sums_kernel(_flats(leaves), device),
+                          device)
+    return byte_sums_reference(leaves, device)
+
+
+def byte_sums_reference(leaves: Sequence[Any], device: torch.device
+                        ) -> torch.Tensor:
+    """:func:`byte_sums` by PyTorch ops alone, on any device: int16 row
+    sums and prefix sums (the module docstring)."""
+    flats = _flats(leaves)
     counts = [-(-f.numel() // ROW_BYTES) for f in flats]
     # Row 0 is a zero row, so every leaf's sum is a difference of two
     # prefix sums.
@@ -129,8 +221,14 @@ def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
         spans = _SPANS[key] = _upload(np.cumsum([0] + counts).tolist(),
                                       device)
     prefix = torch.cumsum(row_sums, 0, dtype=torch.int64)[spans]
-    sums = prefix[1:] - prefix[:-1]
-    if len(flats) == len(leaves):
+    return _with_ints(leaves, prefix[1:] - prefix[:-1], device)
+
+
+def _with_ints(leaves: Sequence[Any], sums: torch.Tensor,
+               device: torch.device) -> torch.Tensor:
+    """The tensor leaves' ``sums`` with the Python ints' byte sums in
+    their places."""
+    if sums.numel() == len(leaves):
         return sums
     base = [0 if isinstance(leaf, torch.Tensor) else _int_sum(leaf)
             for leaf in leaves]
@@ -190,12 +288,14 @@ def digest_state(state, layout=None, wire=None) -> torch.Tensor:
     """The digest of a ``train_lib.TrainState``: its step counter, then
     what Flash Checkpoint saves of it (parameters and optimizer state).
 
-    Over a data group (``wire``, with each leaf's ``layout`` on this rank)
-    the digest is the whole state's: a leaf every rank writes a piece of
-    (a ZeRO-1 shard) has its byte sum completed over the group with one
-    all-reduce, since a byte sum is a sum over pieces; a replicated leaf
-    keeps this rank's own sum, so a rank whose replica differs gives a
-    different digest and the master's vote finds it."""
+    Over a group (``wire``: the data group, or the world on a mesh with
+    model-parallel axes; with each leaf's ``layout`` on this rank) the
+    digest is the whole state's: a leaf split into pieces (a ZeRO-1
+    shard, an fsdp or tensor box) has its byte sum completed over the
+    group with one all-reduce of the pieces' replica-0 copies, since a
+    byte sum is a sum over pieces; a whole leaf keeps this rank's own
+    sum, so a rank whose replica differs gives a different digest and the
+    master's vote finds it."""
     flat = shm_handler.tree_flatten_with_path(state.checkpoint_tree())
     leaves = [state.step] + [leaf for _, leaf in flat]
     if wire is None or layout is None:
@@ -206,7 +306,10 @@ def digest_state(state, layout=None, wire=None) -> torch.Tensor:
         (0, d) for d in layout[p].global_shape) for p, _ in flat]
     if any(split):
         mask = torch.tensor(split, device=device)
-        shared = torch.where(mask, sums, torch.zeros_like(sums))
+        mine = torch.tensor([False] + [
+            split[i + 1] and layout[p].replica_id == 0
+            for i, (p, _) in enumerate(flat)], device=device)
+        shared = torch.where(mine, sums, torch.zeros_like(sums))
         wire.all_reduce(shared)
         sums = torch.where(mask, shared, sums)
     return _fold(sums)

@@ -50,16 +50,38 @@ quantizes the gradient already summed: the two steps agree within a
 block-quantization bound, not bit for bit (ROADMAP Queue 3, "by
 design").
 
+The fsdp and tensor axes.  On a mesh with ``fsdp`` or ``tensor`` above
+1 the model is this rank's part of it (``models/transformer.py``,
+``parallel/sharding.py``): the parameters are this rank's boxes of the
+whole leaves under the rules, the blocks gather their fsdp slices for
+their forward and reduce-scatter their gradients in the backward, and
+the tensor axis sums the row-parallel products.  The batch group is
+``data x fsdp``: each of its ranks takes its rows of the global batch,
+and the ranks of a tensor group take the same rows.  With the tensor
+axis the cross entropy is vocab-parallel (:func:`cross_entropy_loss` and
+:func:`chunked_cross_entropy_loss` take the group: the max and the
+log-sum-exp are completed over it).  A leaf's gradient is completed
+over the fsdp axis where the leaf is not split over it (one all-reduce
+for all of them), then over the data axis as above; the optimizer runs
+on the rank's boxes under ``optax_ports.sharded_update``, its reductions
+over a leaf completed over the axes that split it; ZeRO-1 splits a box
+further over ``data`` on the dimension ``zero1_partition_spec`` picks.
+A block-quantized optimizer (``q8_adam``/``q4_adam``) on a leaf the
+fsdp or tensor axis splits needs each box to be whole blocks of the
+whole leaf (``parallel/sharding.runs_are_whole_blocks``), else
+``build_train`` refuses it.
+
 ``shard_batch`` places a host batch on the train's device in the dtypes
 ``Train._batch`` takes (pinned, ``non_blocking`` on the card), so the
 step passes it through with no copy; ``elastic_grad_accum`` is the
 elastic trainer's microbatch accounting and ``microbatch_phase_plan`` its
 modeled phase breakdown.
 
-Not ported yet, and refused when asked for: the model-parallel mesh axes
-(``runtime/mesh.check_axes``: ROADMAP Queue 1 items 5, 6 and 9), MoE at
-more than one data rank (item 6), and the ``lion`` and ``agd``
-optimizers (item 7).
+Not ported yet, and refused when asked for: the ``seq``, ``pipe`` and
+``expert`` mesh axes (``runtime/mesh.check_axes``: ROADMAP Queue 1 items
+9 and 6), MoE at more than one rank (item 6), the overlap engine and the
+int8 wires beside an fsdp or tensor axis (they stay the data axis's, as
+PR 13 ported them), and the ``lion`` and ``agd`` optimizers (item 7).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -69,6 +91,7 @@ the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -82,6 +105,9 @@ from dlrover_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
     init_params,
+    param_logical_axes,
+    param_shapes,
+    stacked_logical_axes,
 )
 from dlrover_tpu_torch.ops import quantization
 from dlrover_tpu_torch.optimizers import optax_ports as ox
@@ -89,6 +115,7 @@ from dlrover_tpu_torch.optimizers import zero1 as zero1_lib
 from dlrover_tpu_torch.parallel import overlap as overlap_lib
 from dlrover_tpu_torch.parallel import quantized_collectives as qc
 from dlrover_tpu_torch.parallel import rules as lr
+from dlrover_tpu_torch.parallel import sharding
 from dlrover_tpu_torch.parallel.wire import Pending, Wire
 from dlrover_tpu_torch.runtime import mesh as mesh_lib
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
@@ -169,15 +196,23 @@ def _token_loss(logits32: torch.Tensor, targets: torch.Tensor,
     return loss
 
 
+def _tokens(logits32, targets, z_loss, tp):
+    if tp is None:
+        return _token_loss(logits32, targets, z_loss)
+    return sharding.vocab_parallel_token_loss(logits32, targets, z_loss, tp)
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,
     targets: torch.Tensor,
     weights: Optional[torch.Tensor] = None,
     z_loss: float = 0.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-level softmax CE in fp32; returns ``(mean_loss,
-    num_tokens)``."""
-    loss = _token_loss(logits.float(), targets, z_loss)
+    num_tokens)``.  With a tensor group (``tp``) ``logits`` are this
+    rank's vocabulary columns (vocab-parallel)."""
+    loss = _tokens(logits.float(), targets, z_loss, tp)
     if weights is None:
         weights = torch.ones_like(loss)
     weights = weights.float()
@@ -193,11 +228,13 @@ def chunked_cross_entropy_loss(
     *,
     num_chunks: int = 8,
     z_loss: float = 0.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax CE from final hidden states ``[B, S, D]`` and the output
     head ``[V, D]`` without holding the ``[B, S, V]`` fp32 logits: each
     sequence chunk's logits are computed inside a checkpoint, so the
-    backward recomputes them."""
+    backward recomputes them.  With a tensor group (``tp``) the head is
+    this rank's ``[V / size, D]`` rows (vocab-parallel)."""
     b, s, _ = hidden.shape
     if weights is None:
         weights = torch.ones((b, s), dtype=torch.float32,
@@ -212,7 +249,7 @@ def chunked_cross_entropy_loss(
         # einsum's preferred_element_type=float32: both operands upcast
         # (a bf16 product is exact in fp32), on every device.
         logits = x_c.to(head.dtype).float() @ head.float().t()
-        return (_token_loss(logits, t_c, z_loss) * w_c.float()).sum()
+        return (_tokens(logits, t_c, z_loss, tp) * w_c.float()).sum()
 
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(num_chunks):
@@ -274,7 +311,7 @@ class _Accum:
 
 @dataclasses.dataclass
 class Train:
-    """The training program of one data rank: ``init``, ``step`` and
+    """The training program of one rank: ``init``, ``step`` and
     ``eval_step`` for one (config, optimizer, batch shape, mesh)."""
 
     config: TransformerConfig
@@ -295,21 +332,46 @@ class Train:
     zero1_stats: Optional[Dict[str, Any]] = None
     overlap_plan: Optional[Dict[str, Any]] = None
     wire: Optional[Wire] = None
+    wires: Optional[Dict[str, Wire]] = None
+    parallel: Optional[sharding.ModelParallel] = None
 
     def __post_init__(self):
+        #: The data axis (ZeRO-1, the overlap engine and the int8 wires
+        #: ride it): its degree and this rank's index on it.
         self.dp = self.wire.size if self.wire is not None else 1
         self.rank = self.wire.rank if self.wire is not None else 0
+        self.wires = dict(self.wires or {})
+        par = self.parallel
+        sizes, coords = par.sizes, par.coords
+        #: The batch group (data x fsdp): its ranks split the batch.
+        self.batch_axes = lr.batch_group_axes(self.mesh, self.rules)
+        self.batch_ranks, self.batch_rank = 1, 0
+        for axis in self.batch_axes:
+            self.batch_ranks *= sizes[axis]
+            self.batch_rank = self.batch_rank * sizes[axis] + coords[axis]
         shapes = {name: shape for name, shape in _stacked_shapes(
             self.config).items()}
         #: The layer-stacked leaf names in the reference's tree order.
         self.leaf_names = sorted(shapes, key=lambda n: tuple(n.split(".")))
+        #: Each stacked leaf's fsdp/tensor layout (None: one rank holds
+        #: every leaf whole, apart from ZeRO-1's data split).
+        self.layouts: Optional[Dict[str, sharding.LeafSplit]] = None
+        if par.active:
+            meta = TransformerLM(self.config, device="meta")
+            self.layouts = par.layouts(
+                stacked_logical_axes(param_logical_axes(meta)), shapes)
+            self._check_blocks()
         self.shards: Optional[zero1_lib.ShardPlan] = None
         if self.zero1:
             itemsize = torch.empty((), dtype=self.config.param_dtype
                                    ).element_size()
+            specs = {n: tuple(lay.dim_axes(d) or None
+                              for d in range(len(lay.shape)))
+                     for n, lay in (self.layouts or {}).items()}
             self.shards = zero1_lib.ShardPlan(
                 shapes, self.dp, block=self.optimizer.shard_block,
-                itemsizes={n: itemsize for n in shapes})
+                itemsizes={n: itemsize for n in shapes}, specs=specs,
+                mesh_sizes={a: n for a, n in sizes.items() if a != "data"})
         self._plan: Optional[overlap_lib.OverlapPlan] = None
         if self.overlap:
             self._plan = overlap_lib.plan_buckets(
@@ -321,11 +383,47 @@ class Train:
         self._hooked = None
         self._parts = None  # (model, its _layer_parts)
         self._armed = False  # the overlap engine's hooks issue buckets
+        self._opt_layouts = self._leaf_layouts()
+        self._shard_view = None
+        if any(lay.splits for lay in self._opt_layouts.values()):
+            self._shard_view = ox.ShardView(self._opt_layouts,
+                                            self._reduce_over)
+        self._state_layouts = None
+        self._world_wire = None
+
+    @property
+    def state_wire(self) -> Optional[Wire]:
+        """The group whose ranks hold the state between them (an SDC
+        digest completes split leaves over it, a save's health vote runs
+        over it): the data wire, or the world's on a mesh with an fsdp or
+        tensor axis."""
+        if not self.parallel.active:
+            return self.wire
+        if self._world_wire is None:
+            self._world_wire = Wire(axis="world")
+        return self._world_wire
 
     @property
     def local_batch(self) -> int:
         """This rank's rows of the global batch."""
-        return self.global_batch_size // self.dp
+        return self.global_batch_size // self.batch_ranks
+
+    def _check_blocks(self) -> None:
+        """A block-quantized optimizer needs each fsdp/tensor box of a
+        quantized leaf to be whole blocks of the whole leaf."""
+        block = self.optimizer.shard_block
+        if not block:
+            return
+        for name, lay in self.layouts.items():
+            if math.prod(lay.shape) < self.optimizer.block_min_size:
+                continue
+            if not sharding.runs_are_whole_blocks(lay, self.parallel.sizes,
+                                                  block):
+                raise NotImplementedError(
+                    f"{name}: its {lay.splits} box is not whole "
+                    f"{block}-value blocks of the whole leaf {lay.shape}; "
+                    f"a block-quantized optimizer state would differ from "
+                    f"the whole leaf's")
 
     # -- state ------------------------------------------------------------------
 
@@ -336,12 +434,16 @@ class Train:
         given state dict, e.g. ``state_dict_from_jax``), optimizer state
         from the optimizer's ``init`` (on this rank's shards under
         ZeRO-1).  Every rank draws the same parameters from the seed."""
-        model = TransformerLM(self.config, self.device)
+        model = TransformerLM(self.config, self.device,
+                              parallel=self.parallel)
         if params is None:
             params = init_params(self.config, seed=seed, device=self.device)
+        if model.layouts is not None:
+            params = _local_params(model, params)
         model.load_state_dict(params)
+        del params
         model.train()
-        with torch.no_grad(), ox.sharded_update(self._view()):
+        with torch.no_grad(), ox.sharded_update(self._shard_view):
             opt_state = self.optimizer.init(self._local(_param_tree(model)))
         return TrainState(step=0, model=model, opt_state=opt_state)
 
@@ -354,11 +456,22 @@ class Train:
         state.step = step
         return state
 
-    def _view(self) -> Optional[ox.ShardView]:
-        if self.shards is None:
-            return None
-        return ox.ShardView(self.shards,
-                            lambda t: self.wire.all_reduce(t))
+    def _reduce_over(self, t: torch.Tensor, axes) -> None:
+        for axis in axes:
+            self.wires[axis].all_reduce(t)
+
+    def _leaf_layouts(self) -> Dict[str, sharding.LeafSplit]:
+        """Each stacked leaf's layout for the optimizer: the fsdp/tensor
+        splits and ZeRO-1's data split."""
+        out = {}
+        shapes = _stacked_shapes(self.config)
+        for name in self.leaf_names:
+            lay = (self.layouts[name] if self.layouts is not None else
+                   sharding.LeafSplit(shapes[name]))
+            if self.shards is not None and self.shards[name].dim is not None:
+                lay = lay.with_split(self.shards[name].dim, "data")
+            out[name] = lay
+        return out
 
     def _local(self, tree: ox.Tree) -> ox.Tree:
         """This rank's shards of a whole (stacked) tree."""
@@ -369,39 +482,116 @@ class Train:
 
     def checkpoint_layout(self, state: TrainState, rank: Optional[int] = None
                           ) -> Dict[Tuple[str, ...], shm_handler.LeafLayout]:
-        """Where each leaf of ``state.checkpoint_tree()`` lies on data
-        rank ``rank`` (default: this one): the whole leaf's shape, the
-        rank's slice of it and its replica id (0 on the one rank that
-        writes it).  Parameters are replicated (rank 0 writes them); under
-        ZeRO-1 an optimizer-state leaf whose shape differs from the whole
-        leaf's (the optimizer's ``init`` on the whole tree, on the meta
-        device) is a split of one dimension, written by every rank."""
-        rank = self.rank if rank is None else rank
-        tree = state.checkpoint_tree()
+        """Where each leaf of ``state.checkpoint_tree()`` lies on process
+        ``rank`` (default: this one): the whole leaf's shape, the rank's
+        box of it and its replica id (0 on the one rank of each box that
+        writes it).  A parameter's box comes from its fsdp/tensor layout
+        (replicated over the data axis: its data rank 0 writes it).  An
+        optimizer-state leaf's splits are found per axis: the state the
+        optimizer's ``init`` gives for the whole tree, on the meta device,
+        against the state it gives for the tree split by that axis alone;
+        each dimension that shrinks is that axis's.  A block-quantized
+        moment of a leaf split on an inner dimension is not one box of the
+        whole leaf's blocks and is refused."""
+        coords, sizes = self._coords(rank), self.parallel.sizes
+        params = self.param_layout(rank)
+        state_splits = self._state_splits()
         out: Dict[Tuple[str, ...], shm_handler.LeafLayout] = {}
-        whole = {}
-        if self.shards is not None:
-            meta = {n: torch.empty(leaf.shape, dtype=self.config.param_dtype,
-                                   device="meta")
-                    for n, leaf in self.shards.leaves.items()}
-            whole = dict(shm_handler.tree_flatten_with_path(
-                {"opt_state": self.optimizer.init(meta)}))
-        for path, leaf in shm_handler.tree_flatten_with_path(tree):
-            shape = tuple(getattr(leaf, "shape", ()))
-            full = tuple(getattr(whole.get(path), "shape", shape))
-            if full == shape:
-                out[path] = shm_handler.LeafLayout(
-                    full, tuple((0, d) for d in full), rank)
+        for path, leaf in shm_handler.tree_flatten_with_path(
+                state.checkpoint_tree()):
+            if path[0] == "['params']":
+                out[path] = params[path[1][2:-2]]
                 continue
-            diff = [d for d, (a, b) in enumerate(zip(full, shape)) if a != b]
-            if len(diff) != 1 or full[diff[0]] != shape[diff[0]] * self.dp:
+            shape = tuple(getattr(leaf, "shape", ()))
+            lay = state_splits.get(path, sharding.LeafSplit(shape))
+            if lay.local_shape(sizes) != shape:
                 raise ValueError(
-                    f"{''.join(path)}: shard {shape} of {full} is not a "
-                    f"{self.dp}-way split of one dimension")
-            d, k = diff[0], shape[diff[0]]
-            index = [(0, n) for n in full]
-            index[d] = (rank * k, (rank + 1) * k)
-            out[path] = shm_handler.LeafLayout(full, tuple(index), 0)
+                    f"{''.join(path)}: a {shape} piece of a {lay.shape} leaf "
+                    f"laid out as {lay.splits}")
+            out[path] = shm_handler.LeafLayout(
+                lay.shape, lay.index(coords, sizes),
+                lay.replica_id(coords, sizes))
+        return out
+
+    def _coords(self, rank: Optional[int]) -> Dict[str, int]:
+        if rank is None:
+            return self.parallel.coords
+        return mesh_lib.mesh_coords(self.mesh, rank)
+
+    def param_layout(self, rank: Optional[int] = None
+                     ) -> Dict[str, shm_handler.LeafLayout]:
+        """Where each parameter of the model's state dict lies on process
+        ``rank`` (default: this one): its fsdp/tensor box, replicated over
+        the data axis (data rank 0 writes it)."""
+        coords, sizes = self._coords(rank), self.parallel.sizes
+        out = {}
+        for name, shape in param_shapes(self.config).items():
+            lay = sharding.LeafSplit(tuple(shape))
+            if self.layouts is not None:
+                stacked = self.layouts[_block_leaf(name)]
+                # The layers dimension of a block's leaf is never split.
+                shift = len(stacked.shape) - len(shape)
+                lay = sharding.LeafSplit(lay.shape, tuple(
+                    (d - shift, a) for d, a in stacked.splits))
+            out[name] = shm_handler.LeafLayout(
+                lay.shape, lay.index(coords, sizes),
+                lay.replica_id(coords, sizes))
+        return out
+
+    def _state_splits(self) -> Dict[Tuple[str, ...], sharding.LeafSplit]:
+        """Each split optimizer-state leaf's layout (see
+        :meth:`checkpoint_layout`), once per train."""
+        if self._state_layouts is not None:
+            return self._state_layouts
+        plan = self._opt_layouts
+        sizes = self.parallel.sizes
+
+        def flat(shapes, view):
+            meta = {n: torch.empty(s, dtype=self.config.param_dtype,
+                                   device="meta") for n, s in shapes.items()}
+            with ox.sharded_update(view):
+                return {p: tuple(getattr(v, "shape", ())) for p, v in
+                        shm_handler.tree_flatten_with_path(
+                            {"opt_state": self.optimizer.init(meta)})}
+
+        whole = flat({n: lay.shape for n, lay in plan.items()}, None)
+        found: Dict[Tuple[str, ...], Dict[int, List[str]]] = {}
+        axes = [a for a in mesh_lib.MESH_AXES
+                if any(a in lay.axes for lay in plan.values())]
+        for axis in sorted(axes, key=lambda a: a == "data"):
+            cut = {}
+            for n, lay in plan.items():
+                shape = list(lay.shape)
+                d = lay.dim_of(axis)
+                if d is not None:
+                    shape[d] //= sizes[axis]
+                cut[n] = tuple(shape)
+            view = ox.ShardView(plan, lambda t, a: None)
+            for path, shape in flat(cut, view).items():
+                for d, (a, b) in enumerate(zip(whole[path], shape)):
+                    if a == b:
+                        continue
+                    if a != b * sizes[axis]:
+                        raise ValueError(
+                            f"{''.join(path)}: {shape} of {whole[path]} is "
+                            f"not a {sizes[axis]}-way split of one "
+                            f"dimension")
+                    found.setdefault(path, {}).setdefault(d, []).append(axis)
+        out = {}
+        for path, dims in found.items():
+            lay = sharding.LeafSplit(whole[path], tuple(
+                (d, tuple(a)) for d, a in sorted(dims.items())))
+            name = next((c[2:-2] for c in path if c[2:-2] in plan), None)
+            if path[-1] in (".q", ".scales") and name is not None:
+                dims = [d for d, _ in plan[name].splits]
+                if len(dims) != 1 or math.prod(
+                        plan[name].shape[:dims[0]]) != 1:
+                    raise NotImplementedError(
+                        f"{''.join(path)}: the block-quantized moment of "
+                        f"{name}, split {plan[name].splits}, is not one "
+                        f"range of the whole leaf's blocks")
+            out[path] = lay
+        self._state_layouts = out
         return out
 
     # -- one step -------------------------------------------------------------
@@ -426,15 +616,20 @@ class Train:
 
     def _forward_sums(self, model, inputs, targets, weights):
         """One forward pass -> (weighted CE sum, token count, aux loss)."""
-        if self.ce_chunks:
-            hidden, aux = model.forward_aux(inputs, return_hidden=True)
-            ce, total_weight = chunked_cross_entropy_loss(
-                hidden, output_head(model), targets, weights,
-                num_chunks=self.ce_chunks,
-            )
-        else:
-            logits, aux = model.forward_aux(inputs)
-            ce, total_weight = cross_entropy_loss(logits, targets, weights)
+        tp = model.tp
+        with model.gathered():
+            if self.ce_chunks:
+                hidden, aux = model.forward_aux(inputs, return_hidden=True)
+                if tp is not None:
+                    hidden = tp.enter(hidden)
+                ce, total_weight = chunked_cross_entropy_loss(
+                    hidden, output_head(model), targets, weights,
+                    num_chunks=self.ce_chunks, tp=tp,
+                )
+            else:
+                logits, aux = model.forward_aux(inputs)
+                ce, total_weight = cross_entropy_loss(logits, targets,
+                                                      weights, tp=tp)
         return ce * total_weight, total_weight, aux
 
     # -- the step ---------------------------------------------------------------
@@ -551,12 +746,33 @@ class Train:
         self._hooked = model
 
     def _global_sum(self, values: torch.Tensor) -> torch.Tensor:
-        """``values`` (fp32) summed over the data ranks."""
-        if self.wire is None:
+        """``values`` (fp32) summed over the batch group's ranks."""
+        if not self.batch_axes:
             return values
         values = values.clone()
-        self.wire.all_reduce(values)
+        for axis in reversed(self.batch_axes):
+            self.wires[axis].all_reduce(values)
         return values
+
+    def _fsdp_sum(self, grads: Dict[str, torch.Tensor]) -> None:
+        """In place: the gradients of the leaves the fsdp axis does not
+        split (each fsdp rank's share from its rows) summed over the fsdp
+        group, one all-reduce for all; the split leaves were
+        reduce-scattered in the backward."""
+        if self.parallel.fsdp <= 1:
+            return
+        names = [n for n in self.leaf_names if n in grads
+                 and self.layouts[n].dim_of(mesh_lib.FSDP_AXIS) is None]
+        if not names:
+            return
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        self.wires[mesh_lib.FSDP_AXIS].all_reduce(flat)
+        at = 0
+        for n in names:
+            k = grads[n].numel()
+            grads[n] = flat[at:at + k].view(grads[n].shape).to(
+                grads[n].dtype)
+            at += k
 
     def step(self, state: TrainState, batch: Mapping[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -592,7 +808,7 @@ class Train:
                     p.wait()
             pending = []
             self._armed = self.overlap
-            (ce_sum / w_total + aux / (n_micro * self.dp)).backward()
+            (ce_sum / w_total + aux / (n_micro * self.batch_ranks)).backward()
             self._armed = False
             with torch.no_grad():
                 if self.overlap:
@@ -612,7 +828,7 @@ class Train:
             params = _param_tree(model)
             grads = self._reduce(self._acc.tree, params)
             self._acc = None
-            with ox.sharded_update(self._view()):
+            with ox.sharded_update(self._shard_view):
                 local = self._local(params)
                 grad_norm = ox.global_norm(grads)
                 updates, state.opt_state = self.optimizer.update(
@@ -627,7 +843,7 @@ class Train:
         state.step += 1
         metrics = {
             "loss": sums[0] / w_total,
-            "aux_loss": sums[1] / (n_micro * self.dp),
+            "aux_loss": sums[1] / (n_micro * self.batch_ranks),
             "tokens": w_total,
             "grad_norm": grad_norm,
             "step": state.step,
@@ -642,6 +858,7 @@ class Train:
         out: Dict[str, torch.Tensor] = {}
         if self.overlap:
             return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
+        self._fsdp_sum(acc)
         if self.wire is None:
             return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
         if self.shards is None:
@@ -700,14 +917,35 @@ class Train:
         inputs, targets, weights = self._batch(batch)
         ce_sum, total_weight, aux = self._forward_sums(
             state.model, inputs, targets, weights)
-        if self.dp > 1:
+        if self.batch_ranks > 1:
             sums = self._global_sum(torch.stack([
                 ce_sum.float(), weights.float().sum(), aux.float()]))
             total_weight = torch.clamp(sums[1], min=1.0)
             return {"loss": sums[0] / total_weight,
-                    "aux_loss": sums[2] / self.dp, "tokens": total_weight}
+                    "aux_loss": sums[2] / self.batch_ranks,
+                    "tokens": total_weight}
         return {"loss": ce_sum / total_weight, "aux_loss": aux,
                 "tokens": total_weight}
+
+
+def _block_leaf(name: str) -> str:
+    """A per-layer parameter name's stacked leaf (``blocks.<i>.<rest>`` ->
+    ``blocks.<rest>``)."""
+    m = ox._BLOCK_NAME.match(name)
+    return f"blocks.{m.group(2)}" if m else name
+
+
+def _local_params(model: TransformerLM, params: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """``params`` for ``model``'s state dict: each whole leaf cut to this
+    rank's box (``models/from_jax.shard_state_dict``); a leaf already at
+    its box's shape passes as it is."""
+    from dlrover_tpu_torch.models.from_jax import shard_state_dict
+
+    local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    if all(tuple(params[k].shape) == s for k, s in local.items()):
+        return dict(params)
+    return shard_state_dict(params, model.layouts, model.parallel)
 
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
@@ -725,8 +963,6 @@ def _param_tree(model: TransformerLM) -> ox.Tree:
 
 def _stacked_shapes(config: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """``{name: shape}`` of the layer-stacked parameter tree."""
-    from dlrover_tpu_torch.models.transformer import param_shapes
-
     shapes = param_shapes(config)
     out: Dict[str, Tuple[int, ...]] = {}
     for name, shape in shapes.items():
@@ -758,10 +994,10 @@ def build_train(
     rules: Any = None,
     device: DeviceLike = None,
 ) -> Train:
-    """The counterpart of ``build_sharded_train``: one data rank's step on
-    ``mesh`` (its data axis; :func:`runtime.mesh.single_device_mesh`, one
-    rank, when None) under ``rules`` (``parallel.rules.DEFAULT_RULES``
-    when None)."""
+    """The counterpart of ``build_sharded_train``: one rank's step on
+    ``mesh`` (its data, fsdp and tensor axes; :func:`runtime.mesh.
+    single_device_mesh`, one rank, when None) under ``rules``
+    (``parallel.rules.DEFAULT_RULES`` when None)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if accum_dtype not in _ACCUM_DTYPES:
@@ -778,21 +1014,37 @@ def build_train(
     rules = list(rules if rules is not None else lr.DEFAULT_RULES)
     sizes = mesh_lib.mesh_axis_sizes(mesh)
     mesh_lib.check_axes(sizes)
-    lr.batch_group_axis(mesh, rules)
-    dp = lr.batch_shard_count(mesh, rules)
-    wire = None
-    if dp > 1:
-        if config.num_experts:
-            raise NotImplementedError(
-                "an MoE model at more than one data rank is a later slice "
-                "of the port (ROADMAP Queue 1 item 6: the expert axis and "
-                "the router statistics over the group)")
-        wire = Wire(mesh_lib.data_group(mesh))
-    if global_batch_size % (dp * grad_accum):
+    batch_axes = lr.batch_group_axes(mesh, rules)
+    model_parallel = any(sizes.get(a, 1) > 1 for a in (
+        mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS))
+    world = 1
+    for n in sizes.values():
+        world *= n
+    if world > 1 and config.num_experts:
+        raise NotImplementedError(
+            "an MoE model at more than one rank is a later slice of the "
+            "port (ROADMAP Queue 1 item 6: the expert axis and the router "
+            "statistics over the group)")
+    wires = mesh_lib.axis_wires(mesh) if world > 1 else {}
+    wire = wires.get(mesh_lib.DATA_AXIS)
+    dp = wire.size if wire is not None else 1
+    batch_ranks = 1
+    for axis in batch_axes:
+        batch_ranks *= sizes[axis]
+    if global_batch_size % (batch_ranks * grad_accum):
         raise ValueError(
             f"global_batch_size {global_batch_size} must be divisible by "
-            f"dp*grad_accum = {dp}*{grad_accum} = {dp * grad_accum}"
+            f"dp*grad_accum = {batch_ranks}*{grad_accum} = "
+            f"{batch_ranks * grad_accum}"
         )
+    if model_parallel and (overlap or reduce_quant != "none"
+                           or allgather_quant != "none"):
+        raise NotImplementedError(
+            "the overlap engine and the int8 wires ride the data axis "
+            "alone; beside an fsdp or tensor axis they are not ported")
+    parallel = sharding.ModelParallel(
+        mesh if mesh is not None else mesh_lib.single_device_mesh(), rules,
+        wires)
     zero1_active = bool(zero1) and dp > 1
     overlap_active = bool(overlap) and zero1_active
     train = Train(
@@ -803,7 +1055,7 @@ def build_train(
         zero1=zero1_active, overlap=overlap_active,
         overlap_bucket_mb=overlap_bucket_mb if overlap_active else 0.0,
         allgather_quant=allgather_quant if overlap_active else "none",
-        wire=wire,
+        wire=wire, wires=wires, parallel=parallel,
     )
     if train.shards is not None:
         train.zero1_stats = dict(train.shards.stats)
@@ -947,14 +1199,15 @@ def _on_device(t: torch.Tensor, device: torch.device) -> bool:
 
 
 def _own_rows(value, train: Train):
-    """This data rank's rows of ``value``: the contiguous block the JAX
-    batch sharding gives data index ``rank`` when ``value`` holds the
-    whole global batch, ``value`` itself when it holds the rank's rows
-    already (a rank's own loader)."""
+    """This batch-group rank's rows of ``value``: the contiguous block the
+    JAX batch sharding gives batch index ``batch_rank`` (data-major over
+    ``data x fsdp``; the ranks of a tensor group take the same rows) when
+    ``value`` holds the whole global batch, ``value`` itself when it holds
+    the rank's rows already (a rank's own loader)."""
     rows = int(value.shape[0]) if getattr(value, "shape", None) else 0
-    if train.dp > 1 and rows == train.global_batch_size:
+    if train.batch_ranks > 1 and rows == train.global_batch_size:
         b = train.local_batch
-        return value[train.rank * b:(train.rank + 1) * b]
+        return value[train.batch_rank * b:(train.batch_rank + 1) * b]
     return value
 
 
@@ -966,10 +1219,11 @@ def shard_batch(batch: Mapping[str, Any], train: Train
     its dtype passes through untouched (no copy, no "place" event), so
     the trainer hands prefetched batches back through this function.
 
-    At ``dp`` > 1 each rank takes its own rows: of a whole global batch,
-    the block ``[rank * B / dp, (rank + 1) * B / dp)`` (the rows the JAX
-    batch sharding puts on data index ``rank``); a batch of the rank's
-    rows (its own loader's) passes as it is.
+    Over a batch group of ``n`` ranks (``data x fsdp``) each rank takes
+    its own rows: of a whole global batch, the block ``[r * B / n, (r +
+    1) * B / n)`` for its batch index ``r`` (the rows the JAX batch
+    sharding puts there); a batch of the rank's rows (its own loader's)
+    passes as it is.
 
     On the CPU this is a plain move.  On the card each host array is
     converted on the host, pinned and copied with ``non_blocking=True``

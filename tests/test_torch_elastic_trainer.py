@@ -688,6 +688,44 @@ def test_digest_of_a_non_contiguous_leaf_and_of_nothing():
     assert int(tsd.digest_leaves([])) == int(jsd._digest_tree([])) == 0
 
 
+@pytest.mark.parametrize("chunk", [16, 100, 4096, 1 << 20])
+def test_digest_kernels_chunk_table_covers_each_leaf_once(chunk):
+    """The byte-sum kernel's table (``state_digest.chunk_table``): walked
+    as the kernel walks it (each row's bytes added to its leaf), it gives
+    every leaf's byte sum, the plain version's; rows are at most
+    ``chunk`` bytes, consecutive within a leaf, none for an empty leaf."""
+    rng = np.random.default_rng(chunk)
+    buf = rng.integers(0, 256, size=20000, dtype=np.uint8)
+    spans = [(3, 5000), (5003, 0), (5003, 1), (6001, 13000), (19001, 999)]
+    base = 1 << 40
+    table = tsd.chunk_table([base + a for a, _ in spans],
+                            [n for _, n in spans], chunk)
+    assert table.dtype == tsd.CHUNK_DTYPE and table.dtype.itemsize == 24
+    got = np.zeros(len(spans), np.int64)
+    for row in table:
+        assert 0 < row["nbytes"] <= chunk
+        at = int(row["addr"]) - base
+        got[row["leaf"]] += int(buf[at:at + int(row["nbytes"])].sum(
+            dtype=np.int64))
+    want = [int(buf[a:a + n].sum(dtype=np.int64)) for a, n in spans]
+    assert got.tolist() == want
+    assert 1 not in table["leaf"]
+    leaves = [torch.from_numpy(buf[a:a + n].copy()) for a, n in spans]
+    assert tsd.byte_sums(leaves, torch.device("cpu")).tolist() == want
+    # The table's rows are the kernel's ``struct Chunk``, field for field.
+    import os
+    import re
+
+    from dlrover_tpu_torch.ops import kernel_lib
+
+    src = open(os.path.join(kernel_lib.CSRC, "byte_sums.cu")).read()
+    body = re.search(r"struct Chunk \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"(unsigned long long|long long) (\w+);", body)
+    assert fields == [("unsigned long long", "addr"), ("long long", "nbytes"),
+                      ("long long", "leaf")]
+    assert list(tsd.CHUNK_DTYPE.names) == [n for _, n in fields]
+
+
 class _JState:
     """What the reference's flipper reads: ``params`` and ``replace``."""
 

@@ -436,14 +436,14 @@ def test_build_train_refuses_later_slices():
         assert (train.zero1, train.overlap, train.dp, train.wire) == (
             False, False, 1, None)
 
-    class FsdpMesh:
+    class SeqMesh:
         mesh_dim_names = ("data", "fsdp", "pipe", "expert", "seq",
                           "tensor")
-        shape = (1, 2, 1, 1, 1, 1)
+        shape = (1, 1, 1, 1, 2, 1)
 
     with pytest.raises(NotImplementedError, match="later slice"):
         ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
-                        device="cpu", mesh=FsdpMesh)
+                        device="cpu", mesh=SeqMesh)
     with pytest.raises(ValueError, match="reduce_quant"):
         ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
                         device="cpu", reduce_quant="fp8")

@@ -203,9 +203,11 @@ def run_train_cases(rank, n, payload):
 # -- sharded checkpoints and the live re-layout ---------------------------------------
 
 
-def trainer(ckpt_dir, job, **overrides):
+def trainer(ckpt_dir, job, parallel=None, **overrides):
     """An ``ElasticTrainer`` on the tiny model (fp32, Adafactor, ZeRO-1),
-    its shm arena named by ``job``."""
+    its shm arena named by ``job``; ``parallel`` (a dict) its
+    ``ParallelConfig``."""
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig
     from dlrover_tpu_torch.trainer.elastic_trainer import (
         ElasticTrainer,
         TrainerConfig,
@@ -216,7 +218,9 @@ def trainer(ckpt_dir, job, **overrides):
                learning_rate=1e-2, zero1=True, checkpoint_dir=ckpt_dir,
                ckpt_every=1000, report_every=1000, numeric_checks=False)
     cfg.update(overrides)
-    return ElasticTrainer(_port_cfg(), TrainerConfig(**cfg), device="cpu")
+    return ElasticTrainer(
+        _port_cfg(), TrainerConfig(**cfg), device="cpu",
+        parallel=ParallelConfig(**parallel) if parallel else None)
 
 
 def pieces(t):
@@ -258,10 +262,16 @@ def save_and_restore(rank, n, payload):
     pieces and each restore's step and pieces."""
     out = {}
     if payload.get("save"):
-        t = trainer(payload["save"], f"{payload['job']}_save{n}")
+        t = trainer(payload["save"], f"{payload['job']}_save{n}",
+                    parallel=payload.get("parallel"))
         t.fit([lm_batch(i) for i in range(2)], max_steps=2)
         assert t._ckpt.wait(timeout=120)
         out["saved"] = pieces(t)
+        if payload.get("digest"):
+            from dlrover_tpu_torch.trainer import state_digest
+
+            out["digest"] = int(state_digest.digest_state(
+                t.state, t._layout(), t.train.state_wire))
         out["world"] = (t._world, t.train.dp, t.train.zero1)
         t.close()
     for name, directory in payload.get("restore", {}).items():
@@ -314,3 +324,88 @@ def relayout_chain(rank, n, payload):
         a.vmesh.physical_world, len(fired))
     a.close()
     return out
+
+
+# -- the fsdp and tensor axes ------------------------------------------------------------
+
+LLAMA = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+             d_ff=128, vocab_size=128, max_seq_len=64)
+#: A GPT-2 wide enough that every fsdp slice of a leaf a q8 state
+#: quantizes is whole 256-value blocks (d_model / 2 = 256).
+WIDE = dict(num_layers=1, d_model=512, num_heads=4, vocab_size=128,
+            max_seq_len=64)
+
+
+def mp_config(model):
+    """The port's config of a model key: ``gpt2`` (``TINY``), ``llama``
+    (``LLAMA``, GQA and an untied head) or ``wide`` (``WIDE``), fp32."""
+    from dlrover_tpu_torch.models import gpt2_config, llama_config
+
+    if model == "llama":
+        return llama_config("tiny", **LLAMA, dtype=torch.float32)
+    return gpt2_config("124m", **(WIDE if model == "wide" else TINY),
+                       dtype=torch.float32)
+
+
+def run_mp_cases(rank, n, payload):
+    """Every ``(key, model, mesh, world, opt, lr, kw)`` of
+    ``payload["cases"]`` whose world is ``n``: 3 steps of ``build_train`` from
+    ``payload["init"][model]`` (whole state dicts, cut to this rank's
+    boxes by ``train.init``).  Returns per case the metrics, this rank's
+    parameter pieces ``{name: (whole shape, index, replica_id, value)}``,
+    the wire
+    bytes of the last step by axis and leg, and the batch group; or, for
+    a case the step refuses, the refusal's message.  Then, under
+    ``"save"``, :func:`save_and_restore` of ``payload["saves"][n]``."""
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib as ttl
+
+    out = {}
+    for key, model, mesh_kw, world, opt, lr, kw in payload["cases"]:
+        if world != n:
+            continue
+        mesh = build_mesh(ParallelConfig(**mesh_kw), device_type="cpu")
+        try:
+            train = ttl.build_train(
+                mp_config(model), ttl.make_optimizer(opt, learning_rate=lr),
+                global_batch_size=BATCH, seq_len=SEQ, device="cpu",
+                mesh=mesh, **kw)
+        except NotImplementedError as e:
+            out[key] = {"refused": str(e)}
+            continue
+        init = {k: torch.from_numpy(v)
+                for k, v in payload["init"][model].items()}
+        state = train.init(params=init)
+        metrics = []
+        for i in range(3):
+            wire_lib.reset_counts()
+            state, m = train.step(state, ttl.shard_batch(lm_batch(i), train))
+            metrics.append((m["loss"].item(), m["grad_norm"].item(),
+                            m["tokens"].item()))
+        layout = train.param_layout()
+        pieces = {}
+        for name, v in state.params().items():
+            spot = layout[name]
+            pieces[name] = (spot.global_shape, spot.index, spot.replica_id,
+                            v.numpy().copy())
+        out[key] = {"metrics": metrics, "pieces": pieces,
+                    "wire": dict(wire_lib.COUNTS["axes"]),
+                    "batch": (train.batch_rank, train.batch_ranks),
+                    "zero1": train.zero1}
+    if n in payload.get("saves", {}):
+        out["save"] = save_and_restore(rank, n, payload["saves"][n])
+    return out
+
+
+def assemble_params(ranks, key):
+    """A case's whole parameters from every rank's pieces (replica 0)."""
+    whole = {}
+    for got in ranks:
+        for name, (shape, index, replica, value) in got[key][
+                "pieces"].items():
+            if replica != 0:
+                continue
+            arr = whole.setdefault(name, np.zeros(shape, value.dtype))
+            arr[tuple(slice(b, e) for b, e in index)] = value
+    return whole
