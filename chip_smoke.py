@@ -14,6 +14,7 @@
     python3 chip_smoke.py --dp          # build, train, the elastic loop at
                                         # world 1 and the world of two
     python3 chip_smoke.py --mp          # build and the fsdp/tensor world
+    python3 chip_smoke.py --ep          # build and the expert-axis world
     python3 chip_smoke.py --digest      # build and the digest kernel check
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
                                         # K2a, K4, K6-K9 (and, asked for by
@@ -31,7 +32,9 @@ one-process NCCL group, through the mesh), trains it data-parallel in a
 world of two processes (replicated, ZeRO-1, the overlap engine, the int8
 wires on K5a/K5b) with a live re-layout and a sharded save, trains
 Llama-2 7B's width on the fsdp and tensor axes in a world of two
-processes with a sharded save, serves
+processes with a sharded save, trains the MoE entry's width on the expert
+axis (the a2a and int8 a2a dispatch) and on the data axis (the grouped
+dispatch) in a world of two processes, serves
 under an injected admission fault plan, and holds
 every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
@@ -243,7 +246,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                the forward 48 times; losses and grad norms finite, no
                numeric anomaly; the batches the prefetcher hands out equal
                the host batches bit for bit; the pipeline counters hold no
-               sync block and exactly the ring's 3 flushes, 1 eval fetch
+               sync block and exactly the ring's 3 flushes (steps 1-2
+               after step 3's dispatch, which leaves step 3 running; 3-4
+               at the eval; 5-6 at the step-6 save), 1 eval fetch
                and, when the step-6 save found the saver still persisting
                step 4 (and was skipped), the end-of-fit barrier's one wait
                for the saver before it saves step 6.  No wait is added
@@ -263,7 +268,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                seconds and whether it saved, ``close()``'s wait, the restore's
                seconds and source, each host block's seconds by label, and
                the digest's device and host ms and temporary bytes.
-               ``--fit`` runs the build and this phase alone.  The phase
+               ``--fit`` runs the build and this phase alone;
+               ``--fit-gate`` runs ``train`` and then this phase
+               ``FIT_GATE_RUNS`` times, reading every run's gate.  The phase
                runs in a one-process NCCL group, its trainer built with
                ``parallel=ParallelConfig(data=-1)`` and ``zero1``,
                ``overlap`` and ``reduce_quant="int8"`` asked for: all three
@@ -328,6 +335,27 @@ of the JAX package.  Phases, each one JSON line on stdout:
                one process, bit-equal.  Printed: step seconds, wire bytes
                and host staging copies, resident and peak bytes a rank,
                losses.  ``--mp`` runs the build and this phase.
+9f. ``train_ep2``  two processes on ``cuda:0`` in a gloo group, the
+               expert axis (``models/moe.py``'s a2a exchange on the
+               expert axis's wire, staged through the host): bench.py's
+               MoE entry at full width (8 experts top-2 of d_ff 3200,
+               capacity factor 1.25, gelu, bf16, ``flash_only``) at
+               ``EP2_LAYERS`` of 48 layers, global batch 16 x 1024,
+               Adafactor lr 1e-4, ``EP2_STEPS`` steps at ``expert=2``
+               with the a2a and the a2a_int8 dispatch (each rank holding
+               4 experts), each against the world-1 einsum run, and at
+               ``data=2`` with the grouped dispatch (K8, K9) against the
+               world-1 grouped run, both world-1 runs in this process:
+               losses, grad norms, aux losses, every leaf and the router
+               statistics (``build_moe_stats_fn``) within ``EP2_*`` (the
+               int8 run to its derived bound), every step's launches (K1,
+               K3; K5a/K5b a leg on the int8 wire; K8/K9) and wire bytes
+               by axis and leg equal to ``_ep2_per_step`` and
+               ``_ep2_predicted_wire``.  Two planted faults, one step each
+               at ``expert=2``, must fail: the dispatch leg sending each
+               chunk back to its own rank, and the top-1 density left
+               unreduced over the batch group.  ``--ep`` runs the build
+               and this phase.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -406,7 +434,8 @@ twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, serve_faults, train, flash_ckpt, train_fit, train_dp2,
-train_mp2, train_split, train_moe, train_lowbit and train_rec paths,
+train_mp2, train_ep2, train_split, train_moe, train_lowbit and train_rec
+paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -482,8 +511,9 @@ PARITY_MIN_COSINE, PARITY_PARAM_RTOL = 0.99985, 0.03
 # diagonal tiles hit (``diagonal_tiles``), share of their contribution lost).
 PARITY_FAULTS = [("late_diagonal_dropped", TRAIN_SEQ // 2, 1.0),
                  ("every_diagonal_halved", 0, 0.5)]
-# Half of the 48 layers, cut for the script's time; the widths are whole.
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 24, 3
+# A quarter of the 48 layers, cut for the script's time; the widths are
+# whole.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 12, 3
 # K8/K9 against their plain versions over one 4-layer MoE step (the flash
 # kernels in both legs, every leg routed as the kernel leg was).  Sound
 # kernels read (H100): loss gap 4.3e-5, grad-norm gap 7.7e-5, lowest
@@ -2084,6 +2114,8 @@ FIT_CONFIG = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                   prefetch_to_device=2, sdc_check_every=2, eval_every=4,
                   eval_batches=1)
 FIT_STEPS, FIT_MORE_STEPS = 6, 8
+#: ``--fit-gate``: runs of the ``train_fit`` phase after one ``train``.
+FIT_GATE_RUNS = 3
 #: ``train_fit`` asks for the data-parallel options; at one data rank they
 #: deactivate, as the reference's do.
 FIT_DP_OPTIONS = dict(zero1=True, overlap=True, reduce_quant="int8")
@@ -2490,6 +2522,17 @@ def train_fit_and_check():
             raise AssertionError(
                 f"host blocks {got_blocks} (sync {summary['sync_block_count']}"
                 f"), want {want_blocks} and 0")
+        # The ring's flushes: steps 1-2 after step 3's dispatch (step 3
+        # left running), 3-4 at the eval's barrier, 5-6 at step 6's save.
+        out["flushed_steps"] = [list(b.steps) for b in blocks
+                                if b.label == "metrics-flush"]
+        lagged = [step for label, step, _, _ in timeline
+                  if label == "flush"]
+        if out["flushed_steps"] != [[1, 2], [3, 4], [5, 6]] or (
+                3 not in lagged):
+            raise AssertionError(
+                f"ring flushes {out['flushed_steps']} (flush marks at steps "
+                f"{lagged}), want steps 1-2 after step 3, 3-4, 5-6")
         # Placed batches: bit for bit the host batches, in order.
         mismatched = []
         for i, placed in enumerate(placed_log):
@@ -2664,7 +2707,7 @@ def train_fit_and_check():
 #: ``train_dp2``: GPT-2 1.5B at full width (d_model 1600, 25 heads of 64,
 #: vocab 50304, bf16) with its depth cut to this many layers so that two
 #: processes on one card run every case within the script's time.
-DP2_LAYERS = 8
+DP2_LAYERS = 4
 DP2_STEPS = 3
 #: The runs, each for Adafactor (clip 1.0) and q8_adam (clip 1.0), lr 1e-4.
 DP2_OPTIMIZERS = ("adafactor", "q8_adam")
@@ -2709,11 +2752,44 @@ DP2_FP_ZERO_INIT_RTOL = 0.25
 # is about 3e-4 for weights drawn at std 0.02), so the run may keep as
 # little as none of the reference's updates; and where a gradient sits
 # at the level of the reduce-scatter's rounding, a normalised update may
-# take the other sign.  Limits after the last step, each leaf: max|p -
-# p_ref| <= 2U + steps * max|p| / 254 + an ulp, with U the reference's
-# largest total update of that leaf; the loss within |ref_t - ref_0| +
-# 0.05 and the grad norm within |g_t - g_0| + 5% of the reference's, the
-# distance the reference itself moved plus the rounding's own effect.
+# take the other sign.  Limits after the last step, each leaf:
+#
+#   max|p - p_ref| <= U + P + steps * B / 254 + 2^-7 B
+#
+# U is the reference's largest total update of the leaf (no value of
+# p_ref is further than U from the init); P bounds how far any value of
+# the run travels from the init; the rounding terms are the all-gather's
+# half block step a step and a bf16 ulp, of B, the largest value either
+# run can hold (max|p_ref|, or max|init| + P).  P is U where nothing
+# better is known (a factored Adafactor leaf, Adam), which is the first
+# derivation's 2U.  That derivation took each run's travel to be at most
+# the reference's net displacement U, and a zero-init leaf broke it: at 4
+# layers ``blocks.0.ln_attn.bias`` read 1.019 of 2U + rounding on an
+# H100 (PERF.md has the run).  The term it lacked: an Adafactor update of an unfactored leaf
+# (1-D, or no two dimensions of 128; optax's rule) is ``g_t / sqrt(v_t)``
+# with ``v_t = beta_t v_{t-1} + (1 - beta_t) (g_t^2 + eps)`` and
+# ``beta_t = 1 - t^-0.8``, so ``|g_t| / sqrt(v_t) <= (1 - beta_t)^-1/2 =
+# t^0.4``, with equality where the earlier gradients were small next to
+# g_t; the block-rms clip only shrinks it, then it is scaled by lr and by
+# max(rms(p_{t-1}), 1e-3).  So each value travels at most
+#
+#   P = lr * sum_t max(rms(p_ref,t-1), 1e-3) * t^0.4
+#
+# (1 + 1.32 + 1.55 = 3.87 lr-sized steps at 3 steps, rms at its 1e-3
+# floor for a leaf that starts at zero), while the reference's value that
+# moved most, its gradient about steady, travels about 3 such steps.  An
+# int8 run's gradient at the rounding level (rounded to zero on one step,
+# or of changing sign) takes the longer path, in the port and in the
+# reference's ``build_sharded_train`` alike: on the CPU, both move some
+# zero-init value further than the fp run's U, and none further than P
+# (``tests/test_torch_zero1.py::test_int8_zero_init_leaves_travel_alike_
+# within_the_path_bound``).  The run's rms differs from the reference's
+# by far less than a part in 10^3.  A planted run whose updates are four
+# times the reference's (3U from it) must fail this bound.
+#
+# The loss within |ref_t - ref_0| + 0.05 and the grad norm within
+# |g_t - g_0| + 5% of the reference's, the distance the reference itself
+# moved plus the rounding's own effect.
 # Those limits pass a run that drops its updates, so step 1 is held
 # closer: each rank's shards of every split leaf drawn at init, against
 # the reference's step-1 parameters put through the same block
@@ -2753,7 +2829,9 @@ def _dp2_config(layers=DP2_LAYERS):
 def _leaf_errors(got, want, init, head_dim=64):
     """Per leaf: the norm-relative error ``|got - want| / |want|``, the
     largest difference, the reference's largest total update ``U`` and
-    largest value ``A``, and whether the leaf started at zero.  The key
+    largest value ``A``, whether the leaf started at zero, the
+    reference's update relative to its norm and the init's largest
+    value.  The key
     slice of the fused qkv bias is left out: its gradient is exactly zero
     in exact arithmetic (a shift of every key leaves the softmax
     unchanged), so each run updates it from rounding noise that the
@@ -2773,20 +2851,62 @@ def _leaf_errors(got, want, init, head_dim=64):
             float((g32 - w32).norm() / norm),
             float((g32 - w32).abs().max()), float((w32 - i32).abs().max()),
             float(w32.abs().max()), bool((i32 == 0).all()),
-            float((w32 - i32).norm() / norm))
+            float((w32 - i32).norm() / norm), float(i32.abs().max()))
     return out
 
 
-def _params_ok(stats, int8, opt):
+def _int8_bound(name, v, paths):
+    """The int8 limit of one leaf's stats (see ``DP2_*``): ``U + P +
+    steps * B / 254 + 2^-7 B``, ``P`` the stacked leaf's path bound where
+    ``paths`` has one, else ``U``."""
+    from dlrover_tpu_torch.trainer.train_lib import _block_leaf
+
+    moved, big, init_max = v[2], v[3], v[6]
+    path = max(moved, (paths or {}).get(_block_leaf(name), moved))
+    b = max(big, init_max + path)
+    return moved + path + DP2_STEPS * b / 254 + 2.0 ** -7 * b
+
+
+def _params_ok(stats, int8, opt, paths=None):
     """The parameter limits of ``train_dp2`` (see ``DP2_*``)."""
-    for rel, diff, moved, big, zero_init, _ in stats.values():
+    for name, v in stats.items():
+        rel, diff, _, _, zero_init, _, _ = v
         if int8:
-            if diff > 2 * moved + DP2_STEPS * big / 254 + 2.0 ** -7 * big:
+            if diff > _int8_bound(name, v, paths):
                 return False
         elif rel > (DP2_FP_ZERO_INIT_RTOL if zero_init
                     else DP2_FP_PARAM_RTOL[opt]):
             return False
     return True
+
+
+def _stacked_rms(params):
+    """Each layer-stacked leaf's rms, from a per-layer state dict."""
+    from dlrover_tpu_torch.trainer.train_lib import _block_leaf
+
+    sums, counts = collections.Counter(), collections.Counter()
+    for name, v in params.items():
+        key = _block_leaf(name)
+        sums[key] += float(v.float().square().sum())
+        counts[key] += v.numel()
+    return {k: (sums[k] / counts[k]) ** 0.5 for k in sums}
+
+
+def _adafactor_paths(cfg, rms_per_step):
+    """``P`` of each unfactored stacked leaf (see ``DP2_*``): ``lr * sum_t
+    max(rms(p_{t-1}), 1e-3) * t^0.4`` from the reference's rms before each
+    step."""
+    from dlrover_tpu_torch.optimizers.optax_ports import _factored_dims
+    from dlrover_tpu_torch.trainer import train_lib
+
+    out = {}
+    for name, shape in train_lib._stacked_shapes(cfg).items():
+        if _factored_dims(shape, True, 128) is not None:
+            continue
+        out[name] = TRAIN_LR * sum(
+            max(rms[name], 1e-3) * t ** 0.4
+            for t, rms in enumerate(rms_per_step, start=1))
+    return out
 
 
 def _wire_roundtrip(x, dim):
@@ -2853,8 +2973,9 @@ def _dp2_reference(opt, out_dir):
         global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
     state = train.init(seed=0)
     batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
-    losses, norms, params1 = [], [], None
+    losses, norms, params1, rms = [], [], None, []
     for _ in range(DP2_STEPS):
+        rms.append(_stacked_rms(state.params()))
         state, m = train.step(state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -2866,7 +2987,9 @@ def _dp2_reference(opt, out_dir):
                os.path.join(out_dir, f"ref_{opt}.pt"))
     del state, train, batch
     torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norms": norms}
+    return {"losses": losses, "grad_norms": norms,
+            "path_bound": (_adafactor_paths(cfg, rms) if opt == "adafactor"
+                           else {})}
 
 
 def _dp2_worker(rank, port, out_dir, job):
@@ -2930,6 +3053,11 @@ def _dp2_rank(rank, out_dir):
                 # init's.  The checks must fail it.
                 out["planted_unchanged"][opt] = _leaf_errors(
                     captured["init"], ref["params"], captured["init"])
+                # A run whose updates are four times the reference's.
+                out.setdefault("planted_update_x4", {})[opt] = _leaf_errors(
+                    {k: (4 * ref["params"][k].float() - 3 * v.float()).to(
+                        v.dtype) for k, v in captured["init"].items()},
+                    ref["params"], captured["init"])
             placed = train_lib.shard_batch(batch, train)
             quantize = tq.quantize
             if mode == "zero1_int8" and opt == DP2_OPTIMIZERS[0]:
@@ -3113,8 +3241,9 @@ def train_dp2_and_check():
                                 f"{DP2_INT8_LOSS_ATOL}",
                         "grad_norm": "|g_t - g_0| / g_t + "
                                      f"{DP2_INT8_NORM_RTOL}",
-                        "param": "max|p - p_ref| <= 2U + steps * max|p| "
-                                 "/ 254 + 2^-7 max|p|",
+                        "param": "max|p - p_ref| <= U + P + steps * B "
+                                 "/ 254 + 2^-7 B (P: Adafactor's path "
+                                 "bound of an unfactored leaf, else U)",
                         "step1_share_of_dropped": DP2_INT8_STEP1_SHARE}}}
     t_start = time.perf_counter()
     try:
@@ -3188,6 +3317,9 @@ def train_dp2_and_check():
                 "zero_init_rel": max(((v[0], k) for k, v in zero.items()),
                                      default=None),
                 "max_diff_over_bound": max(
+                    (v[1] / _int8_bound(k, v, ref["path_bound"]), k)
+                    for k, v in stats.items()),
+                "max_diff_over_2u_bound": max(
                     (v[1] / (2 * v[2] + DP2_STEPS * v[3] / 254
                              + 2.0 ** -7 * v[3]), k)
                     for k, v in stats.items())}
@@ -3205,7 +3337,8 @@ def train_dp2_and_check():
                 want["quantize"] = 2 * n_leaves
                 want["dequantize"] = 2 * 2 * n_leaves
             ok = (loss_ok and norm_ok and step1_ok
-                  and _params_ok(stats, int8, a["optimizer"])
+                  and _params_ok(stats, int8, a["optimizer"],
+                                 ref["path_bound"])
                   and a["replicas_equal"] and b["replicas_equal"]
                   and a["zero1"] == (a["mode"] != "replicated")
                   and a["overlap"] == ("overlap" in a["mode"] or int8)
@@ -3243,6 +3376,14 @@ def train_dp2_and_check():
             for opt, stats in r0["planted_unchanged"].items()}
         if not all(out["planted_unchanged_fails"].values()):
             bad.append("planted_unchanged")
+        # ... and a run whose updates are four times the reference's fails
+        # the int8 bound (with its path term).
+        out["planted_update_x4_fails_int8"] = {
+            opt: not _params_ok(stats, True, opt,
+                                out["reference"][opt]["path_bound"])
+            for opt, stats in r0["planted_update_x4"].items()}
+        if not all(out["planted_update_x4_fails_int8"].values()):
+            bad.append("planted_update_x4")
         out["overlap_plan"] = next(
             (a["overlap_plan"] for a in r0["runs"] if a["overlap_plan"]),
             None)
@@ -3384,7 +3525,6 @@ def _mp2_predicted_wire(cfg, parallel, opt, rows, seq):
         param_shapes,
         stacked_logical_axes,
     )
-    from dlrover_tpu_torch.optimizers.optax_ports import _factored_dims
     from dlrover_tpu_torch.parallel import rules as lr
     from dlrover_tpu_torch.parallel import sharding
     from dlrover_tpu_torch.runtime import mesh as mesh_lib
@@ -3405,12 +3545,6 @@ def _mp2_predicted_wire(cfg, parallel, opt, rows, seq):
     def local(lay):
         return int(np.prod(lay.local_shape(sizes)))
 
-    def reduce_many(parts):
-        """``_reduce_many``: fp32, per axis of each group."""
-        for axes_of, numel in parts:
-            for a in axes_of:
-                out[f"{a}/all_reduce"] += 4 * numel
-
     if f > 1:
         def split(n):
             return layers[n].dim_of("fsdp") is not None
@@ -3428,34 +3562,7 @@ def _mp2_predicted_wire(cfg, parallel, opt, rows, seq):
         act = rows * seq * cfg.d_model * 2
         out["tensor/all_reduce"] += act * (2 + 5 * cfg.num_layers)
         out["tensor/all_reduce"] += 3 * rows * seq * 4
-    groups = collections.Counter()
-    for lay in stacked.values():
-        if lay.axes:
-            groups[lay.axes] += 1
-    # The step's grad norm and the clip's.
-    reduce_many([(a, 1) for a in groups] * 2)
-    if opt == "adafactor":
-        means, rows_mean = [], []
-        for lay in stacked.values():
-            dims = _factored_dims(lay.shape, True, 128)
-            if dims is None:
-                continue
-            d1, d0 = dims
-            shape = lay.local_shape(sizes)
-            for d in (d0, d1):
-                if lay.dim_axes(d):
-                    means.append((lay.dim_axes(d),
-                                  int(np.prod(shape)) // shape[d]))
-            if lay.dim_axes(d1):
-                rows_mean.append((lay.dim_axes(d1), int(np.prod(shape))
-                                  // shape[d0] // shape[d1]))
-        for parts in (means, rows_mean):
-            merged = collections.Counter()
-            for a, n in parts:
-                merged[a] += n
-            reduce_many(list(merged.items()))
-        # clip_by_block_rms and scale_by_param_block_rms: one sum a leaf.
-        reduce_many(list(groups.items()) * 2)
+    _optimizer_wire(stacked, sizes, opt, out)
     return dict(out)
 
 
@@ -4092,16 +4199,643 @@ def train_parity():
 # -- MoE training ---------------------------------------------------------------
 
 
+# -- the expert axis -------------------------------------------------------------
+
+#: ``train_ep2``: ``bench.py``'s MoE entry at full width (``moe_config``:
+#: d_model 1600, 25 heads of 64, vocab 50304, 8 experts top-2 of d_ff
+#: 3200, capacity factor 1.25, gelu, bf16 parameters and compute,
+#: flash_only) with its depth cut to this many of 48 layers, trained on two
+#: processes of the one card at each mesh of ``EP2_RUNS``, each run against
+#: the world-1 run of the same config, init and batch in one process.
+EP2_LAYERS = 2
+EP2_STEPS = 2
+#: (key, mesh, the run's dispatch, the world-1 run's dispatch): the a2a
+#: exchanges re-transport the einsum dispatch's math; the grouped
+#: dispatch at data=2 is held to its own world-1 run.
+EP2_RUNS = (
+    ("expert2_a2a", dict(data=1, expert=2), "a2a", "einsum"),
+    ("expert2_a2a_int8", dict(data=1, expert=2), "a2a_int8", "einsum"),
+    ("data2_grouped", dict(data=2), "grouped", "grouped"),
+)
+#: Planted on the expert2_a2a run, one step each: the dispatch leg sends
+#: each chunk back to its own rank (every slot of a rank's experts holds
+#: its own rows), and the router's top-1 density is left unreduced over
+#: the batch group (each rank's aux loss from its own rows).
+EP2_FAULTS = ("dispatch_to_self", "density_local")
+# fp limits (the a2a and grouped runs): a rank gates its own 8 rows, so
+# the router's means are the group's average of two halves (fp32, another
+# order), and the trunk's bf16 products run at 8 rows, not 16: a product
+# may round its last bit otherwise, and a token near a tie may take
+# another expert (a capacity slot moves with it), which moves the expert
+# gradients by a whole token's share.  The first limits (loss 5e-4, grad
+# norm 5e-4, aux 1e-4, leaves 3e-5, statistics 2e-3) were set before any
+# reading; two sound runs of the phase on an H100 then read (PERF.md)
+# loss gaps of at most 8.5e-5, grad-norm gaps of 2.1e-3 (the second
+# step: rerouted tokens; the flash backward's atomic sums make the bits
+# of a step, and so the ties, vary from call to call), aux gaps of
+# 2.9e-4, leaves drawn at init 1.1e-5 of their norm (smallest kept
+# update 4.2e-5) and statistics 3.6e-7 apart.  Limits about 3x those:
+# loss 2.5e-4, grad norm 6.5e-3, aux 1e-3, leaves 3e-5 (below the
+# smallest update: a dropped one fails), statistics 5e-5 (below one
+# rerouted choice's share of a layer's load, 3e-5 a layer over two).
+# The key slice of the fused qkv bias is left out of the leaves, as
+# ``_leaf_errors`` leaves it out.  And each rank's own aux loss at init
+# (its forward, before the batch group's sum of the step's metrics) must
+# be the group's: bit-equal on both ranks and within the aux limit of
+# the world-1 run's; a rank whose density is its own fails that (the
+# step's metric, the ranks' mean, cannot show it: the aux is linear in
+# the density).
+EP2_LOSS_ATOL, EP2_NORM_RTOL, EP2_AUX_RTOL = 2.5e-4, 6.5e-3, 1e-3
+EP2_PARAM_RTOL, EP2_STATS_ATOL = 3e-5, 5e-5
+# int8 (a2a_int8): each leg rounds a value to its block's step (absmax /
+# 127, at most half of it off), forward and backward, so the expert
+# inputs, outputs and their gradients move by up to 0.4% of their block's
+# largest value, and a token's routing in the next layer may change.
+# Limits: the loss within |ref_t - ref_0| + 0.05 and the grad norm within
+# |g_t - g_0| / g_t + 5% (the distance the reference itself moved plus
+# the rounding's own effect, as ``DP2_INT8_*``); the aux loss within 1e-2
+# relative and the statistics within 1e-2 (a few percent of the second
+# layer's tokens rerouted); every leaf within ``U + P + 2^-7 B`` of the
+# reference's (``DP2_*``: U its largest total update, P Adafactor's path
+# bound of an unfactored leaf, else U; the parameters' own bf16 rounding,
+# no all-gather here).
+EP2_INT8_LOSS_ATOL, EP2_INT8_NORM_RTOL = 0.05, 0.05
+EP2_INT8_AUX_RTOL, EP2_INT8_STATS_ATOL = 1e-2, 1e-2
+
+
+def _ep2_config(dispatch, layers=EP2_LAYERS):
+    return moe_config(num_layers=layers, moe_dispatch=dispatch)
+
+
+def _optimizer_wire(stacked, sizes, opt, out):
+    """The fp32 sums ``optax_ports.sharded_update`` completes over the
+    axes that split a leaf, into ``out`` by axis: the step's grad norm and
+    the clip's, and for Adafactor its factored means over split
+    dimensions, its row factor's mean and two block mean squares."""
+    from dlrover_tpu_torch.optimizers.optax_ports import _factored_dims
+
+    def reduce_many(parts):
+        for axes_of, numel in parts:
+            for a in axes_of:
+                out[f"{a}/all_reduce"] += 4 * numel
+
+    groups = collections.Counter()
+    for lay in stacked.values():
+        if lay.axes:
+            groups[lay.axes] += 1
+    reduce_many([(a, 1) for a in groups] * 2)
+    if opt != "adafactor":
+        return
+    means, rows_mean = [], []
+    for lay in stacked.values():
+        dims = _factored_dims(lay.shape, True, 128)
+        if dims is None:
+            continue
+        d1, d0 = dims
+        shape = lay.local_shape(sizes)
+        for d in (d0, d1):
+            if lay.dim_axes(d):
+                means.append((lay.dim_axes(d),
+                              int(np.prod(shape)) // shape[d]))
+        if lay.dim_axes(d1):
+            rows_mean.append((lay.dim_axes(d1), int(np.prod(shape))
+                              // shape[d0] // shape[d1]))
+    for parts in (means, rows_mean):
+        merged = collections.Counter()
+        for a, n in parts:
+            merged[a] += n
+        reduce_many(list(merged.items()))
+    reduce_many(list(groups.items()) * 2)
+
+
+def _ep2_predicted_wire(cfg, parallel, rows, seq):
+    """The bytes one Adafactor step of one rank (one microbatch,
+    ``flash_only``) hands to each axis's wire, by leg, from the shapes
+    alone: on the expert axis, per layer six all-to-all legs of the rank's
+    ``[E, rows, C, D]`` expert inputs (dispatch and combine in the
+    forward, again in the recompute, and the backward's two inverse
+    exchanges), in the compute dtype or, for ``a2a_int8``, as
+    ``a2a_wire_bytes`` prices them; on each batch axis, the router's
+    means (density and mean probability, ``2 E`` fp32) per layer in the
+    forward and in the recompute, the token count (4 bytes) and the loss
+    and aux sums (8), and the gradients of the leaves the axis leaves
+    whole in the parameter dtype (the expert axis: the trunk and the
+    routers; the data axis: every leaf); and the optimizer's sums over the
+    expert leaves (:func:`_optimizer_wire`)."""
+    from dlrover_tpu_torch.models.transformer import (
+        TransformerLM,
+        param_logical_axes,
+        stacked_logical_axes,
+    )
+    from dlrover_tpu_torch.parallel import quantized_collectives as qc
+    from dlrover_tpu_torch.parallel import rules as lr
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.runtime import mesh as mesh_lib
+    from dlrover_tpu_torch.trainer import train_lib
+
+    sizes = dict.fromkeys(mesh_lib.MESH_AXES, 1)
+    sizes.update(parallel)
+    stacked = sharding.leaf_layouts(
+        stacked_logical_axes(param_logical_axes(
+            TransformerLM(cfg, device="meta"))),
+        train_lib._stacked_shapes(cfg), lr.DEFAULT_RULES, sizes)
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    out = collections.Counter()
+    e, layers = cfg.num_experts, cfg.num_layers
+    cap = max(1, int(cfg.capacity_factor * seq * cfg.top_k / e))
+    if sizes["expert"] > 1:
+        leg = e * rows * cap * cfg.d_model
+        per = (qc.a2a_wire_bytes(leg, "int8") if cfg.moe_dispatch ==
+               "a2a_int8" else leg * torch.empty(
+                   (), dtype=cfg.dtype).element_size())
+        out["expert/all_to_all"] += 6 * layers * per
+    for axis in ("data", "expert"):
+        if sizes[axis] <= 1:
+            continue
+        out[f"{axis}/all_reduce"] += 2 * layers * 2 * e * 4 + 4 + 8
+        whole = sum(int(np.prod(lay.local_shape(sizes)))
+                    for lay in stacked.values() if axis not in lay.axes)
+        out[f"{axis}/all_reduce"] += whole * item
+    _optimizer_wire(stacked, sizes, "adafactor", out)
+    return dict(out)
+
+
+def _ep2_per_step(cfg):
+    """Launches a step and rank (``flash_only``): the flash forward once a
+    layer (saved) and the fused backward once; on the int8 wire one K5a
+    and one K5b a leg (six legs a layer); the grouped dispatch's K8 and
+    K9 as ``_moe_per_step``."""
+    n = cfg.num_layers
+    want = {"flash_fwd": n, "flash_bwd_fused": n}
+    if cfg.moe_dispatch == "a2a_int8":
+        want.update(quantize=6 * n, dequantize=6 * n)
+    if cfg.moe_dispatch == "grouped":
+        want.update(gmm_fwd=6 * n, gmm_dw=2 * n)
+    return want
+
+
+def _ep2_reference(dispatch, out_dir):
+    """The world-1 run: one process, the whole batch, no mesh; the router
+    statistics at init, its parameters after step 1 and after the last,
+    and each stacked leaf's rms before each step."""
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = _ep2_config(dispatch)
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, device="cuda")
+    state = train.init(seed=0)
+    batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+    stats = train_lib.build_moe_stats_fn(train)(state, batch).tolist()
+    losses, norms, auxes, seconds, rms, params1 = [], [], [], [], [], None
+    for _ in range(EP2_STEPS):
+        rms.append(_stacked_rms(state.params()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux_loss"]))
+        seconds.append(time.perf_counter() - t0)
+        if params1 is None:
+            params1 = {k: v.to("cpu", copy=True)
+                       for k, v in state.params().items()}
+    params = {k: v.cpu() for k, v in state.params().items()}
+    torch.save({"params": params, "params1": params1},
+               os.path.join(out_dir, f"ep_ref_{dispatch}.pt"))
+    out = {"losses": losses, "grad_norms": norms, "aux_losses": auxes,
+           "stats": stats, "step_s": seconds,
+           "path_bound": _adafactor_paths(cfg, rms)}
+    del state, train, batch, params, params1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep2_leaf_stats(train, state, ref, init):
+    """Per parameter, over this rank's boxes it writes (replica 0), summed
+    over the world: the squared distance to the reference's parameters,
+    the reference's squared norm and squared update; and maxed over it:
+    the largest distance, the reference's largest total update, its
+    largest value and the init's.  ``{name: [7 floats]}``."""
+    import torch.distributed as dist
+
+    layout = train.param_layout()
+    params = state.params()
+    names = sorted(params)
+    sums = torch.zeros((len(names), 3), dtype=torch.float64)
+    maxes = torch.zeros((len(names), 4), dtype=torch.float64)
+    for i, name in enumerate(names):
+        spot = layout[name]
+        if spot.replica_id != 0:
+            continue
+        box = tuple(slice(b, e) for b, e in spot.index)
+        w = ref[name][box].to("cuda").double()
+        i0, g = init[name].double(), params[name].double()
+        if name.endswith("attn.qkv.bias"):
+            # The key slice: its gradient is zero in exact arithmetic
+            # (``_leaf_errors``).
+            keep = torch.ones(w.shape, dtype=torch.bool, device=w.device)
+            keep[..., 64:128] = False
+            w, i0, g = w[keep], i0[keep], g[keep]
+        sums[i] = torch.stack([(g - w).square().sum(), w.square().sum(),
+                               (w - i0).square().sum()]).cpu()
+        maxes[i] = torch.stack([(g - w).abs().max(), (w - i0).abs().max(),
+                                w.abs().max(), i0.abs().max()]).cpu()
+    dist.all_reduce(sums)
+    dist.all_reduce(maxes, op=dist.ReduceOp.MAX)
+    return {n: [float(x) for x in s] + [float(x) for x in m]
+            for n, s, m in zip(names, sums, maxes)}
+
+
+@contextlib.contextmanager
+def _ep2_planted(fault):
+    """``dispatch_to_self``: the dispatch leg gives every member's slot of
+    this rank's experts its own chunk; ``density_local``: the top-1
+    density is not reduced over the batch group."""
+    from dlrover_tpu_torch.models import moe
+
+    exchange, means = moe._exchange, moe._group_means
+
+    def to_self(x, wire, split_axis, concat_axis, int8):
+        if split_axis != 0:
+            return exchange(x, wire, split_axis, concat_axis, int8)
+        own = x.reshape((wire.size, x.shape[0] // wire.size)
+                        + tuple(x.shape[1:]))[wire.rank]
+        return torch.cat([own] * wire.size, dim=concat_axis)
+
+    def local_density(density, proxy, group):
+        return density, group.mean(proxy)
+
+    if fault == "dispatch_to_self":
+        moe._exchange = to_self
+    else:
+        moe._group_means = local_density
+    try:
+        yield
+    finally:
+        moe._exchange, moe._group_means = exchange, means
+
+
+def _ep2_rank_aux(state, placed):
+    """This rank's own aux loss at ``state``: a forward of its rows with
+    no gradient (the step's metric is the batch group's mean)."""
+    with torch.no_grad():
+        _, aux = state.model.forward_aux(placed["inputs"])
+    return float(aux)
+
+
+def _ep2_worker(rank, port, out_dir, job):
+    """One of the two ranks of ``train_ep2``: a gloo group on ``cuda:0``
+    (every collective staged through the host by the axes' wires)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    os.environ["DLROVER_TPU_JOB"] = job
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        result = _ep2_rank(rank, out_dir)
+    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
+        import traceback
+
+        torch.save({"error": traceback.format_exc()},
+                   os.path.join(out_dir, f"ep_rank{rank}.pt"))
+        raise e
+    torch.save(result, os.path.join(out_dir, f"ep_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _ep2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    out = {"rank": rank, "runs": [], "planted": {},
+           "backend": dist.get_backend(), "torch": torch.__version__}
+    refs, meshes = {}, {}
+    for key, par, dispatch, ref_dispatch in EP2_RUNS:
+        if ref_dispatch not in refs:
+            refs.clear()
+            refs[ref_dispatch] = torch.load(
+                os.path.join(out_dir, f"ep_ref_{ref_dispatch}.pt"),
+                weights_only=False)
+        ref = refs[ref_dispatch]
+        name = "x".join(f"{a}{n}" for a, n in par.items())
+        if name not in meshes:
+            meshes[name] = build_mesh(ParallelConfig(**par),
+                                      device_type="cuda")
+        cfg = _ep2_config(dispatch)
+        batch = _train_batch(cfg.vocab_size, TRAIN_BATCH)
+        t_build = time.perf_counter()
+        train = train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor",
+                                          learning_rate=TRAIN_LR),
+            global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            mesh=meshes[name], device="cuda")
+        state = train.init(seed=0)
+        build_s = time.perf_counter() - t_build
+        init = {k: v.clone() for k, v in state.params().items()}
+        placed = train_lib.shard_batch(batch, train)
+        stats_fn = train_lib.build_moe_stats_fn(train)
+        stats = stats_fn(state, placed).tolist()
+        aux_init = _ep2_rank_aux(state, placed)
+        steps = []
+        for _ in range(EP2_STEPS):
+            _zero_counts()
+            wire_lib.reset_counts()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train.step(state, placed)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            steps.append({
+                "s": time.perf_counter() - t0, "loss": loss,
+                "grad_norm": norm, "aux_loss": float(m["aux_loss"]),
+                "tokens": float(m["tokens"]),
+                "launches": {k: v for k, v in _counts().items() if v},
+                "wire_bytes": dict(wire_lib.COUNTS["axes"]),
+                "staged": dict(wire_lib.COUNTS["staged_axes"])})
+        run = {"key": key, "parallel": par, "dispatch": dispatch,
+               "steps": steps, "build_s": build_s, "stats": stats,
+               "aux_init": aux_init,
+               "batch": (train.batch_rank, train.batch_ranks),
+               "expert_shape": tuple(state.model.blocks[0].moe.wi.shape),
+               "leaf_stats": _ep2_leaf_stats(train, state, ref["params"],
+                                             init)}
+        out["runs"].append(run)
+        if key == "expert2_a2a":
+            for fault in EP2_FAULTS:
+                state = train.init(seed=0)
+                with _ep2_planted(fault):
+                    got = stats_fn(state, placed).tolist()
+                    aux = _ep2_rank_aux(state, placed)
+                    state, m = train.step(state, placed)
+                out["planted"][fault] = {
+                    "aux_init": aux, "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "aux_loss": float(m["aux_loss"]), "stats": got,
+                    "leaf_stats": _ep2_leaf_stats(train, state,
+                                                  ref["params1"], init)}
+        del state, train, placed, init
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ep2_leaf_errors(leaf_stats):
+    """Per leaf: the norm-relative error against the reference, the
+    reference's update relative to its norm, and whether it started at
+    zero (its init's largest value 0)."""
+    return {n: (float(np.sqrt(s[0] / max(s[1], 1e-60))),
+                float(np.sqrt(s[2] / max(s[1], 1e-60))), s[6] == 0.0)
+            for n, s in leaf_stats.items()}
+
+
+def _ep2_int8_ok(leaf_stats, paths):
+    """The a2a_int8 run's parameter bound (see ``EP2_*``): each leaf's
+    largest distance within ``U + P + 2^-7 B``; and the worst ratio."""
+    from dlrover_tpu_torch.trainer.train_lib import _block_leaf
+
+    worst = (0.0, None)
+    for name, s in leaf_stats.items():
+        diff, moved, big, init_max = s[3:]
+        path = max(moved, paths.get(_block_leaf(name), moved))
+        b = max(big, init_max + path)
+        ratio = diff / max(moved + path + 2.0 ** -7 * b, 1e-30)
+        worst = max(worst, (ratio, name))
+    return worst[0] <= 1.0, worst
+
+
+def _ep2_fp_ok(stats, limit):
+    """The fp runs' parameter limit: every leaf drawn at init within
+    ``limit`` of its norm (a leaf that starts at zero is all update, at
+    rounding-noise level where its gradient is: within ``DP2_FP_ZERO_
+    INIT_RTOL``, as ``train_dp2``'s); and the worst leaf."""
+    worst = max(((v[0], k) for k, v in stats.items() if not v[2]),
+                default=(0.0, None))
+    zero = max(((v[0], k) for k, v in stats.items() if v[2]),
+               default=(0.0, None))
+    return (worst[0] <= limit and zero[0] <= DP2_FP_ZERO_INIT_RTOL,
+            worst, zero)
+
+
+def train_ep2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the MoE step at
+    bench.py's MoE width on an ``expert=2`` mesh with the a2a and the
+    a2a_int8 dispatch and on a ``data=2`` mesh with the grouped dispatch,
+    each held against the world-1 run (einsum for the exchanges, grouped
+    for grouped), with the router statistics; two planted faults.
+    Returns the counted launches of the runs (both ranks)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.trainer import train_lib
+
+    out_dir = os.path.join(REPO, "build", "train_ep2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    sock_dir = tempfile.mkdtemp(prefix="ep2_socks_")
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_JOB",
+                                                "DLROVER_TPU_SOCKET_DIR")}
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    job = f"ep2{os.getpid()}"
+    cfg = _ep2_config("einsum")
+    out = {"phase": "train_ep2",
+           "model": f"gpt2-1.5b MoE width (bench.py's moe entry: d_model "
+                    f"1600, 25 heads x 64, vocab 50304, {MOE_EXPERTS} "
+                    f"experts top-{MOE_TOP_K} of d_ff {MOE_D_FF}, capacity "
+                    f"factor {MOE_CAPACITY}, gelu, bf16 params and compute, "
+                    f"flash_only), depth cut to {EP2_LAYERS} of 48 layers, "
+                    f"random weights seed 0",
+           "params": sum(int(np.prod(s)) for s in
+                         train_lib._stacked_shapes(cfg).values()),
+           "world": "2 processes on cuda:0, gloo (every collective staged "
+                    "through the host by the axes' wires)",
+           "batch": f"global {TRAIN_BATCH} x {TRAIN_SEQ}, one batch re-fed",
+           "optimizer": f"adafactor lr {TRAIN_LR}, clip 1.0",
+           "steps": EP2_STEPS,
+           "tolerance": {
+               "fp": {"loss_atol": EP2_LOSS_ATOL,
+                      "grad_norm_rtol": EP2_NORM_RTOL,
+                      "aux_rtol": EP2_AUX_RTOL,
+                      "param_rel": EP2_PARAM_RTOL,
+                      "zero_init_param_rel": DP2_FP_ZERO_INIT_RTOL,
+                      "stats_atol": EP2_STATS_ATOL},
+               "int8": {"loss": f"|ref_t - ref_0| + {EP2_INT8_LOSS_ATOL}",
+                        "grad_norm": "|g_t - g_0| / g_t + "
+                                     f"{EP2_INT8_NORM_RTOL}",
+                        "aux_rtol": EP2_INT8_AUX_RTOL,
+                        "stats_atol": EP2_INT8_STATS_ATOL,
+                        "param": "max|p - p_ref| <= U + P + 2^-7 B"}}}
+    t_start = time.perf_counter()
+    try:
+        out["reference"] = {d: _ep2_reference(d, out_dir)
+                            for d in ("einsum", "grouped")}
+        port = _free_port()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_ep2_worker,
+                             args=(r, port, out_dir, job)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        paths = [os.path.join(out_dir, f"ep_rank{r}.pt") for r in range(2)]
+        results = [torch.load(p, weights_only=False) if os.path.exists(p)
+                   else {"error": "no result"} for p in paths]
+        codes = [p.exitcode for p in procs]
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [0, 0]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"train_ep2 ranks failed (exit codes "
+                                 f"{codes})")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        out["backend"], out["worker_torch"] = r0["backend"], r0["torch"]
+        runs, counts, bad = [], dict.fromkeys(_counts(), 0), []
+        for a, b in zip(r0["runs"], r1["runs"]):
+            ref_dispatch = next(r[3] for r in EP2_RUNS if r[0] == a["key"])
+            ref = out["reference"][ref_dispatch]
+            int8 = a["dispatch"] == "a2a_int8"
+            losses = [s["loss"] for s in a["steps"]]
+            norms = [s["grad_norm"] for s in a["steps"]]
+            auxes = [s["aux_loss"] for s in a["steps"]]
+            gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
+            ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+            agaps = [abs(x - r) / r for x, r in zip(auxes, ref["aux_losses"])]
+            sgap = max(abs(x - r) for x, r in zip(a["stats"], ref["stats"]))
+            stats = _ep2_leaf_errors(a["leaf_stats"])
+            smallest = min(((v[1], k) for k, v in stats.items() if v[1] > 0),
+                           default=(0.0, None))
+            if int8:
+                loss_ok = all(g <= abs(r - ref["losses"][0])
+                              + EP2_INT8_LOSS_ATOL
+                              for g, r in zip(gaps, ref["losses"]))
+                norm_ok = all(g <= abs(r - ref["grad_norms"][0]) / r
+                              + EP2_INT8_NORM_RTOL
+                              for g, r in zip(ngaps, ref["grad_norms"]))
+                aux_ok = max(agaps) <= EP2_INT8_AUX_RTOL
+                stats_ok = sgap <= EP2_INT8_STATS_ATOL
+                params_ok, worst = _ep2_int8_ok(a["leaf_stats"],
+                                                ref["path_bound"])
+                zero = None
+            else:
+                loss_ok = max(gaps) <= EP2_LOSS_ATOL
+                norm_ok = max(ngaps) <= EP2_NORM_RTOL
+                aux_ok = max(agaps) <= EP2_AUX_RTOL
+                stats_ok = sgap <= EP2_STATS_ATOL
+                params_ok, worst, zero = _ep2_fp_ok(stats, EP2_PARAM_RTOL)
+            aux_init_ok = (a["aux_init"] == b["aux_init"] and abs(
+                a["aux_init"] - ref["aux_losses"][0]) <= (
+                    EP2_INT8_AUX_RTOL if int8 else EP2_AUX_RTOL)
+                * ref["aux_losses"][0])
+            rcfg = _ep2_config(a["dispatch"])
+            rows = TRAIN_BATCH // a["batch"][1]
+            predicted = _ep2_predicted_wire(rcfg, a["parallel"], rows,
+                                            TRAIN_SEQ)
+            want = _ep2_per_step(rcfg)
+            both = [s["launches"] for s in a["steps"] + b["steps"]]
+            experts = MOE_EXPERTS // a["parallel"].get("expert", 1)
+            ok = (loss_ok and norm_ok and aux_ok and stats_ok and params_ok
+                  and aux_init_ok and all(x == want for x in both)
+                  and all(s["tokens"] == TRAIN_BATCH * TRAIN_SEQ
+                          for s in a["steps"])
+                  and all(s["loss"] == t["loss"] for s, t in zip(
+                      a["steps"], b["steps"]))
+                  and a["stats"] == b["stats"]
+                  and a["expert_shape"][0] == experts
+                  and all(s["wire_bytes"] == predicted
+                          for s in a["steps"] + b["steps"]))
+            for x in (a, b):
+                for s in x["steps"]:
+                    for k, v in s["launches"].items():
+                        counts[k] += v
+            runs.append({
+                "key": a["key"], "ok": ok, "losses": losses,
+                "reference_losses": ref["losses"], "loss_gap": max(gaps),
+                "grad_norms": norms, "grad_norm_rgap": max(ngaps),
+                "aux_losses": auxes, "aux_rgap": max(agaps),
+                "aux_init_ranks": [a["aux_init"], b["aux_init"]],
+                "stats": a["stats"], "reference_stats": ref["stats"],
+                "stats_gap": sgap,
+                "worst_leaf": worst, "worst_zero_init_leaf": zero,
+                "smallest_update_rel": smallest,
+                "experts_a_rank": a["expert_shape"][0],
+                "step_s": [[s["s"] for s in x["steps"]] for x in (a, b)],
+                "reference_step_s": ref["step_s"],
+                "build_s": [a["build_s"], b["build_s"]],
+                "launches_per_step_rank": a["steps"][-1]["launches"],
+                "launches_predicted": want,
+                "wire_bytes_per_step": a["steps"][-1]["wire_bytes"],
+                "wire_bytes_predicted": predicted,
+                "staged_copies_per_step": a["steps"][-1]["staged"]})
+            if not ok:
+                bad.append(a["key"])
+        out["runs"] = runs
+        ref = out["reference"]["einsum"]
+        planted = {}
+        for fault, got in r0["planted"].items():
+            other = r1["planted"][fault]["aux_init"]
+            aux_init_ok = (got["aux_init"] == other and abs(
+                got["aux_init"] - ref["aux_losses"][0])
+                <= EP2_AUX_RTOL * ref["aux_losses"][0])
+            stats = _ep2_leaf_errors(got["leaf_stats"])
+            loss_gap = abs(got["loss"] - ref["losses"][0])
+            norm_gap = abs(got["grad_norm"] - ref["grad_norms"][0]) \
+                / ref["grad_norms"][0]
+            aux_gap = abs(got["aux_loss"] - ref["aux_losses"][0]) \
+                / ref["aux_losses"][0]
+            sgap = max(abs(x - r) for x, r in zip(got["stats"],
+                                                  ref["stats"]))
+            params_ok, worst, _ = _ep2_fp_ok(stats, EP2_PARAM_RTOL)
+            caught = (loss_gap > EP2_LOSS_ATOL or norm_gap > EP2_NORM_RTOL
+                      or aux_gap > EP2_AUX_RTOL or sgap > EP2_STATS_ATOL
+                      or not params_ok or not aux_init_ok)
+            planted[fault] = {"aux_init_ranks": [got["aux_init"], other],
+                              "loss_gap": loss_gap, "grad_norm_rgap":
+                              norm_gap, "aux_rgap": aux_gap,
+                              "stats_gap": sgap, "worst_leaf": worst,
+                              "caught": caught}
+            if not caught:
+                bad.append(f"planted {fault} passed")
+        out["planted"] = planted
+        out["launches"] = counts
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_ep2 checks failed: {bad}")
+    finally:
+        emit(out)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
 def moe_config(**overrides):
     """``bench.py``'s MoE entry on the port (bench.py:367-376) with the
-    dropless grouped dispatch in place of its einsum."""
+    dropless grouped dispatch in place of its einsum (``overrides`` may
+    name another)."""
     from dlrover_tpu_torch.models import gpt2_config
 
     return gpt2_config(
         "1.5b", attention_impl="flash", remat="flash_only",
         param_dtype=torch.bfloat16, num_experts=MOE_EXPERTS,
         top_k=MOE_TOP_K, capacity_factor=MOE_CAPACITY, d_ff=MOE_D_FF,
-        moe_dispatch="grouped", **overrides)
+        **{"moe_dispatch": "grouped", **overrides})
 
 
 def _moe_per_step(cfg):
@@ -4287,8 +5021,8 @@ def _routing_recorded(record):
 
     kernel_gate = moe.gate
 
-    def recording_gate(logits, k):
-        out = kernel_gate(logits, k)
+    def recording_gate(logits, k, group=None):
+        out = kernel_gate(logits, k, group)
         record.append(out[1].detach())
         return out
 
@@ -4312,7 +5046,8 @@ def _routing_replayed(record):
     kernel_gate = moe.gate
     calls = iter(record)
 
-    def replaying_gate(logits, k):
+    def replaying_gate(logits, k, group=None):
+        # At one rank: no batch group to take the means over.
         gate_idx = next(calls)
         e = logits.shape[-1]
         probs = torch.softmax(logits.float(), dim=-1)
@@ -6387,6 +7122,19 @@ def main() -> int:
         train_fit_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--fit-gate"]:
+        # The train phase's yardstick, then the elastic loop's phase
+        # FIT_GATE_RUNS times: every run's gate is read.
+        train_and_check()
+        failed = []
+        for run in range(FIT_GATE_RUNS):
+            try:
+                train_fit_and_check()
+            except AssertionError as e:
+                failed.append((run, str(e)))
+        emit({"phase": "fit_gate", "runs": FIT_GATE_RUNS, "failed": failed})
+        print(smi, flush=True)
+        return 1 if failed else 0
     if sys.argv[1:] == ["--dp"]:
         train_and_check()
         train_fit_and_check()
@@ -6395,6 +7143,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--mp"]:
         train_mp2_and_check()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--ep"]:
+        train_ep2_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--digest"]:
@@ -6475,6 +7227,7 @@ def main() -> int:
     paths["train_fit"] = train_fit_and_check()
     paths["train_dp2"] = train_dp2_and_check()
     paths["train_mp2"] = train_mp2_and_check()
+    paths["train_ep2"] = train_ep2_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()

@@ -33,9 +33,9 @@ from dlrover_tpu_torch.runtime.device import DeviceLike
 
 def batch_group_member(mesh, rules=None):
     """``(rank, count)`` of this process in the batch group of ``mesh``
-    under ``rules`` (the default table when None): the ``data x fsdp``
-    ranks that split the batch, data-major, as ``train_lib.shard_batch``
-    takes its rows."""
+    under ``rules`` (the default table when None): the ``data x fsdp x
+    expert`` ranks that split the batch, data-major, as
+    ``train_lib.shard_batch`` takes its rows."""
     from dlrover_tpu_torch.parallel import rules as lr
     from dlrover_tpu_torch.runtime import mesh as mesh_lib
 
@@ -68,7 +68,7 @@ class ElasticDistributedSampler:
     exactly the legacy rank-stride, bit-for-bit.
 
     On a mesh with model-parallel axes (``mesh``, with ``rules``) the
-    members are the batch group's ranks (``data x fsdp``,
+    members are the batch group's ranks (``data x fsdp x expert``,
     :func:`batch_group_member`): the ranks of a tensor group draw the
     same samples.
     """

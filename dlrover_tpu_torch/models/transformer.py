@@ -14,7 +14,10 @@ Training: parameters are trainable and held in ``param_dtype`` (cast to
 aux losses summed and scaled by ``moe_aux_weight`` (0 for a dense model).
 
 With ``num_experts > 0`` each block's MLP is a :class:`~dlrover_tpu_torch.
-models.moe.MoEMlp` named ``moe``, as in the JAX ``Block``.
+models.moe.MoEMlp` named ``moe``, as in the JAX ``Block``; at more than
+one batch rank or on an expert axis it gets the mesh's
+``parallel/sharding.ExpertGroup`` (on the expert axis a rank holds its
+experts, and the router's means are taken over the batch group).
 
 Two opt-in flags of the dense step, both off by default as in JAX:
 ``fused_ln`` gives the blocks' norms (not ``ln_final``) the one-pass
@@ -31,9 +34,10 @@ policy's recompute) and its gradients reduce-scattered in its backward;
 the leaves outside the blocks are gathered once a forward
 (:meth:`TransformerLM.gathered`, ``parallel/sharding.FsdpUnit``).
 :func:`check_parallel` refuses a config whose heads, KV heads, ``d_ff``
-or vocabulary do not divide by the tensor degree, or whose ``d_model``
-does not divide by the fsdp degree, and an MoE config on either axis
-(ROADMAP Queue 1 item 6).  :func:`param_logical_axes` gives every
+or vocabulary do not divide by the tensor degree, whose ``d_model``
+does not divide by the fsdp degree or whose experts do not divide by the
+expert degree, and an MoE config on the fsdp or tensor axis (ROADMAP
+Queue 1 item 6's remainder).  :func:`param_logical_axes` gives every
 parameter's logical axes, the reference's ``kernel_axes``.
 
 Not ported yet (ROADMAP Queue 1 items 7 and 9): pipeline stages, ring
@@ -54,6 +58,7 @@ from torch import nn
 
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.models.attention import Attention, KVCache
+from dlrover_tpu_torch.models import moe as moe_lib
 from dlrover_tpu_torch.models.moe import MoEMlp
 from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.ops.layout_pin import pin_layout
@@ -82,8 +87,9 @@ class TransformerConfig:
     top_k: int = 2
     capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
-    moe_dispatch: str = "einsum"   # "einsum" | "a2a" | "a2a_int8" (run as
-                                   # einsum: no expert axis) | "grouped"
+    moe_dispatch: str = "einsum"   # "einsum" | "a2a" | "a2a_int8" (the
+                                   # einsum without an expert axis) |
+                                   # "grouped"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "xla"    # "xla" | "flash"
@@ -158,17 +164,25 @@ class TransformerConfig:
 
 
 def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
-    """Refuse a config the fsdp and tensor axes cannot split evenly."""
+    """Refuse a config the fsdp, tensor and expert axes cannot split
+    evenly."""
     if (sizes.get("tensor", 1) > 1 or sizes.get("fsdp", 1) > 1) \
             and cfg.num_experts:
         raise NotImplementedError(
             "an MoE model on the fsdp or tensor axis is a later slice of "
-            "the port (ROADMAP Queue 1 item 6)")
+            "the port (ROADMAP Queue 1 item 6's remainder); MoE takes the "
+            "data and expert axes")
+    if sizes.get("expert", 1) > 1 and cfg.num_experts and \
+            cfg.moe_dispatch == "grouped":
+        raise ValueError(
+            "moe_dispatch='grouped' cannot shard over an expert axis; use "
+            "'einsum', 'a2a' or 'a2a_int8' under expert parallelism")
     for what, n, axis in (("heads", cfg.num_heads, "tensor"),
                           ("KV heads", cfg.resolved_kv_heads, "tensor"),
                           ("d_ff", cfg.resolved_d_ff, "tensor"),
                           ("vocab_size", cfg.vocab_size, "tensor"),
-                          ("d_model", cfg.d_model, "fsdp")):
+                          ("d_model", cfg.d_model, "fsdp"),
+                          ("num_experts", cfg.num_experts, "expert")):
         k = sizes.get(axis, 1)
         if n % k:
             raise ValueError(
@@ -213,7 +227,7 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
-                 tp=None):
+                 tp=None, moe_group=None):
         super().__init__()
         self.pin_attn_layouts = cfg.pin_attn_layouts
         self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device,
@@ -245,7 +259,7 @@ class Block(nn.Module):
                 top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                 activation=cfg.activation, dtype=cfg.dtype,
                 param_dtype=cfg.param_dtype, dispatch=cfg.moe_dispatch,
-                device=device,
+                group=moe_group, device=device,
             )
         else:
             self.mlp = Mlp(
@@ -285,6 +299,8 @@ class TransformerLM(nn.Module):
         cfg = config
         cfg.check_device(device)
         self.config = cfg
+        moe_group = (parallel.expert_group() if parallel is not None
+                     and cfg.num_experts else None)
         self.parallel = parallel if parallel is not None and \
             parallel.active else None
         tp = self.parallel.tp if self.parallel is not None else None
@@ -307,7 +323,8 @@ class TransformerLM(nn.Module):
         elif cfg.position != "rope":
             raise ValueError(f"unknown position {cfg.position!r}")
         self.blocks = nn.ModuleList(
-            Block(cfg, build, tp=tp) for _ in range(cfg.num_layers)
+            Block(cfg, build, tp=tp, moe_group=moe_group)
+            for _ in range(cfg.num_layers)
         )
         self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, build,
                                          cfg.param_dtype)
@@ -488,15 +505,19 @@ def init_params(
 
 
 def param_logical_axes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
-    """``{parameter name: logical axes}`` of a dense model's state dict,
-    the reference's names: the layers' ``kernel_axes`` and ``("act_seq",
-    "embed")`` for the learned positions (an MoE model's experts wait for
-    the expert axis, ROADMAP Queue 1 item 6)."""
+    """``{parameter name: logical axes}`` of a model's state dict, the
+    reference's names: the layers' ``kernel_axes``, ``("act_seq",
+    "embed")`` for the learned positions, and an MoE layer's expert
+    kernels ``("expert", "embed", "mlp")`` (``wo``: ``("expert", "mlp",
+    "embed")``) beside its router's ``("embed", None)``."""
     out: Dict[str, Tuple[str, ...]] = {}
     for prefix, module in model.named_modules():
         at = f"{prefix}." if prefix else ""
         for name, axes in layers.logical_axes(module).items():
             out[at + name] = tuple(axes)
+        if isinstance(module, MoEMlp):
+            for name, _ in module.named_parameters(recurse=False):
+                out[at + name] = moe_lib.KERNEL_AXES[name]
     if isinstance(model, TransformerLM) and \
             model.config.position == "learned":
         out["pos_embedding"] = (lr.ACT_SEQ, lr.EMBED)

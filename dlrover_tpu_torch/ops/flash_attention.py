@@ -17,9 +17,12 @@ tests use and that ``chip_smoke.py`` holds the kernels against.
 Autograd: the forward is the custom op ``dlrover_tpu_torch::flash_fwd``
 returning ``(o, lse)``; its registered backward saves ``(q, k, v, o,
 lse)`` and computes ``(dq, dk, dv)`` from them, as the JAX
-``custom_vjp`` does.  Being an op, the forward is visible to selective
-activation checkpointing, so the ``flash_only`` remat policy
-(``ops/remat_policy.py``) can save its outputs instead of re-running it.
+``custom_vjp`` does.  Under the ``flash_only`` remat policy
+(``ops/remat_policy.py``) the checkpointed block's first run keeps the
+op's outputs (:class:`KeptOutputs`) and its recompute hands them back
+through ``_Replay``, which launches nothing and saves what the op saves,
+in its order, so the op's backward finds its tensors and the kernel runs
+once.
 
 Which backward runs follows the JAX dispatch (``_flash_core_bwd``): the
 fused one-pass kernel when the clamped ``block_kv`` covers the whole kv
@@ -31,6 +34,7 @@ transpose to ``[B, H, S, D]`` and no padding to a block multiple.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -678,8 +682,8 @@ def flash_fwd_op(
     scale: float,
     fused_bwd: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` through :func:`flash_fwd`, as one op that autograd and
-    selective checkpointing can see.  ``fused_bwd`` picks the backward
+    """``(o, lse)`` through :func:`flash_fwd`, as one op with its own
+    backward.  ``fused_bwd`` picks the backward
     kernel (:func:`uses_fused_backward`); the forward ignores it."""
     del fused_bwd
     o, lse = flash_fwd(q, k, v, causal=causal, seg_q=seg_q, seg_kv=seg_kv,
@@ -716,6 +720,68 @@ def _backward(ctx, do, dlse):
 
 
 flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+class _Replay(torch.autograd.Function):
+    """The flash forward's outputs handed back in a recompute: no kernel,
+    and the tensors ``flash_fwd_op`` saves, in its order, so a checkpoint
+    that recomputes its block refills that op's saved tensors (its
+    backward is the op's)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, o, lse, seg_q, seg_kv, causal, scale,
+                fused_bwd):
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
+        ctx.flags = (causal, scale, fused_bwd)
+        return o.view_as(o), lse.view_as(lse)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return _backward(ctx, do, dlse) + (None, None)
+
+
+class KeptOutputs:
+    """The flash forward's ``(o, lse)`` of one checkpointed call
+    (``ops/remat_policy.py``'s ``flash_only``): its first run keeps them,
+    each later run (a recompute) hands them back, call by call."""
+
+    def __init__(self):
+        self.kept = []
+        self.runs = 0
+        self.at = 0
+
+    def begin(self) -> None:
+        self.runs += 1
+        self.at = 0
+
+    def attend(self, q, k, v, seg, causal, scale, fused_bwd):
+        if self.runs == 1:
+            o, lse = flash_fwd_op(q, k, v, seg, seg, causal, scale,
+                                  fused_bwd)
+            self.kept.append((o.detach(), lse.detach()))
+            return o
+        o, lse = self.kept[self.at]
+        self.at += 1
+        o, _ = _Replay.apply(q, k, v, o, lse, seg, seg, causal, scale,
+                             fused_bwd)
+        return o
+
+
+#: The :class:`KeptOutputs` of the checkpointed call in progress, or None.
+_KEPT = None
+
+
+@contextlib.contextmanager
+def kept_outputs(store: KeptOutputs):
+    """Within the block, the grad path of :func:`mha` keeps (first run)
+    or replays (recompute) its outputs through ``store``."""
+    global _KEPT
+    prev, _KEPT = _KEPT, store
+    store.begin()
+    try:
+        yield
+    finally:
+        _KEPT = prev
 
 
 def _clamp_block(block: int, s: int) -> int:
@@ -766,10 +832,11 @@ def mha(
         o, _ = flash_fwd(q, k, v, causal=causal, seg_q=segment_ids,
                          seg_kv=segment_ids, scale=scale, return_lse=False)
         return o
-    o, _ = flash_fwd_op(
-        q, k, v, segment_ids, segment_ids, causal, scale,
-        uses_fused_backward(k.shape[1], block_kv),
-    )
+    fused = uses_fused_backward(k.shape[1], block_kv)
+    if _KEPT is not None:
+        return _KEPT.attend(q, k, v, segment_ids, causal, scale, fused)
+    o, _ = flash_fwd_op(q, k, v, segment_ids, segment_ids, causal, scale,
+                        fused)
     return o
 
 

@@ -10,9 +10,13 @@ raise ``ValueError``).  Ported so far:
 * ``full``: each block runs under ``torch.utils.checkpoint`` and the
   backward re-runs the whole block forward, the flash kernel included.
 * ``flash_only``: the same, but the flash forward's outputs ``(o, lse)``
-  are saved (``MUST_SAVE`` for the ``dlrover_tpu_torch::flash_fwd`` op
-  under selective checkpointing), so the backward re-runs everything in
-  the block except the attention forward.  The flash forward then runs
+  are kept from the block's first run and handed back in its recompute
+  (``flash_attention.KeptOutputs``), so the backward re-runs everything
+  in the block except the attention forward: the selective policy that
+  would mark the ``dlrover_tpu_torch::flash_fwd`` op ``MUST_SAVE``,
+  without selective checkpointing's dispatch mode, whose Python hook on
+  every op of the forward and of the recompute costs host time (on an
+  H100 host it left the step after a metrics flush host-bound).  The flash forward then runs
   once per layer per step, against twice under ``full``; everything else
   in the block, an MoE layer's grouped-matmul op included, runs twice.
 
@@ -26,19 +30,12 @@ not ported with them.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Tuple
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-    noop_context_fn,
-)
+from torch.utils.checkpoint import checkpoint
 
-# Importing the module registers the op that flash_only saves.
-from dlrover_tpu_torch.ops import flash_attention  # noqa: F401
+from dlrover_tpu_torch.ops import flash_attention
 
 OFFLOADABLE_NAMES: Tuple[str, ...] = (
     "qkv_proj", "attn_out", "mlp_out", "mlp_wo", "flash_out", "flash_lse",
@@ -117,22 +114,19 @@ def validate(name: str, attention_impl: str = "xla") -> RematPolicy:
     return policy
 
 
-def _save_flash_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
-    del ctx, args, kwargs
-    if op is torch.ops.dlrover_tpu_torch.flash_fwd.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
 def run(name: str, fn: Callable, *args):
     """``fn(*args)`` under the policy ``name`` (see the module docstring).
     Outside autograd (``torch.no_grad``) nothing is checkpointed."""
     if name == "none" or not torch.is_grad_enabled():
         return fn(*args)
-    context_fn = noop_context_fn
     if name == "flash_only":
-        context_fn = functools.partial(
-            create_selective_checkpoint_contexts, _save_flash_outputs)
-    elif name != "full":
+        store = flash_attention.KeptOutputs()
+
+        def body(*a):
+            with flash_attention.kept_outputs(store):
+                return fn(*a)
+
+        return checkpoint(body, *args, use_reentrant=False)
+    if name != "full":
         validate(name)  # raises: not a ported policy
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+    return checkpoint(fn, *args, use_reentrant=False)

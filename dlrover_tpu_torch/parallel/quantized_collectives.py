@@ -27,9 +27,15 @@ the same per-member inputs they compute what the reference computes
 count; a data-parallel step passes partial gradients already divided by
 the global token count and sums them (``mean=False``).
 
-``quantized_all_to_all`` (the MoE dispatch's int8 transport) comes with
-the expert axis, ROADMAP Queue 1 item 6; ``quantized_process_allgather``
-(Local SGD's transport) with ``parallel/local_sgd.py``, item 7.
+The MoE dispatch's transports (the expert axis): :func:`all_to_all`
+(``"a2a"``) and :func:`quantized_all_to_all` (``"a2a_int8"``: each chunk
+block-quantized once at its source, K5a, the int8 payload and fp32
+scales exchanged, what is received dequantized in one K5b launch), each
+differentiable with the inverse exchange as its backward (on the same
+wire: straight through the rounding, as the reference's ``_qa2a_bwd``);
+:func:`a2a_wire_bytes` prices one leg.  ``quantized_process_allgather``
+(Local SGD's transport) comes with ``parallel/local_sgd.py``, ROADMAP
+Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -266,3 +272,120 @@ def quantized_all_gather(
     out = out.reshape((n * moved.shape[0],) + tuple(moved.shape[1:]))
     return torch.movedim(out, 0, dim).to(orig_dtype)
 
+
+
+# -- the MoE dispatch's all-to-all ------------------------------------------------
+
+
+def a2a_wire_bytes(n_elems: int, quant: str = "none", *, block: int = 256,
+                   elem_bytes: int = 4) -> int:
+    """Modeled wire bytes of one all-to-all leg over ``n_elems`` elements
+    (the reference's pricing twin of :func:`quantized_all_to_all`): 1 byte
+    a value and a 4-byte fp32 scale a block on the int8 wire, against
+    ``elem_bytes`` a value on the plain one.  Each chunk pads to whole
+    blocks, so a chunk of whole blocks is priced exactly."""
+    if quant == "int8":
+        return n_elems + (-(-n_elems // block)) * 4
+    return n_elems * elem_bytes
+
+
+def _split_chunks(x: torch.Tensor, split_axis: int, n: int, what: str
+                  ) -> torch.Tensor:
+    """``x`` as ``[n, chunk...]``: its ``n`` chunks along ``split_axis``,
+    the split axis first in each chunk."""
+    if x.shape[split_axis] % n:
+        raise ValueError(
+            f"{what} split axis {split_axis} (size {x.shape[split_axis]}) "
+            f"must divide by the {n}-member group")
+    moved = torch.movedim(x, split_axis, 0)
+    return moved.reshape((n, moved.shape[0] // n) + tuple(moved.shape[1:]))
+
+
+def _merge_pieces(pieces: torch.Tensor, split_axis: int, concat_axis: int
+                  ) -> torch.Tensor:
+    """The received ``[n, chunk...]`` (each chunk's split axis first)
+    concatenated along ``concat_axis`` in member order, the chunks' own
+    dimension order restored (the tiled all-to-all's contract)."""
+    pieces = torch.movedim(pieces, 1, 1 + split_axis)
+    out = torch.movedim(pieces, 0, concat_axis)
+    shape = (tuple(out.shape[:concat_axis])
+             + (out.shape[concat_axis] * out.shape[concat_axis + 1],)
+             + tuple(out.shape[concat_axis + 2:]))
+    return out.reshape(shape)
+
+
+def _a2a_impl(x: torch.Tensor, group: Wire, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
+    n = group.size
+    chunks = _split_chunks(x, split_axis, n, "all-to-all").contiguous()
+    out = torch.empty_like(chunks)
+    group.all_to_all(out, chunks)
+    return _merge_pieces(out, split_axis, concat_axis)
+
+
+def _qa2a_impl(x: torch.Tensor, group: Wire, split_axis: int,
+               concat_axis: int, block: int) -> torch.Tensor:
+    n = group.size
+    chunks = _split_chunks(x, split_axis, n, "all-to-all")
+    chunk_shape = tuple(chunks.shape[1:])
+    rows = chunks.float().reshape(n, -1)
+    csize = rows.shape[1]
+    padded = -(-csize // block) * block
+    # One quantization round at the source; each chunk pads to whole
+    # blocks, so a block never spans two members' chunks.
+    q, s = _block_quant(F.pad(rows, (0, padded - csize)).reshape(-1), block)
+    q_recv, s_recv = torch.empty_like(q), torch.empty_like(s)
+    group.all_to_all(q_recv, q)
+    group.all_to_all(s_recv, s)
+    deq = _block_dequant(q_recv, s_recv, block).reshape(n, padded)
+    pieces = deq[:, :csize].reshape((n,) + chunk_shape)
+    return _merge_pieces(pieces, split_axis, concat_axis).to(x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, block):
+        ctx.args = (group, split_axis, concat_axis, block)
+        if block:
+            return _qa2a_impl(x, group, split_axis, concat_axis, block)
+        return _a2a_impl(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The exact adjoint of the permutation: the inverse exchange, on
+        # the same wire (straight through an int8 wire's rounding).
+        group, split_axis, concat_axis, block = ctx.args
+        if block:
+            g = _qa2a_impl(g.contiguous(), group, concat_axis, split_axis,
+                           block)
+        else:
+            g = _a2a_impl(g.contiguous(), group, concat_axis, split_axis)
+        return g, None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, group: Wire, *, split_axis: int = 0,
+               concat_axis: int = 0) -> torch.Tensor:
+    """All-to-all ``x`` over ``group`` (``jax.lax.all_to_all(..., tiled=
+    True)``): ``x`` splits into ``n`` chunks along ``split_axis``, chunk
+    ``j`` goes to member ``j``, and the ``n`` chunks received are
+    concatenated along ``concat_axis`` in member order.  Differentiable:
+    the backward is the inverse exchange.  The identity on one member."""
+    if group is None or group.size == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis, 0)
+
+
+def quantized_all_to_all(x: torch.Tensor, group: Wire, *,
+                         split_axis: int = 0, concat_axis: int = 0,
+                         block: int = 256) -> torch.Tensor:
+    """:func:`all_to_all` on the int8 wire format (the reference's
+    ``quantized_all_to_all``): each chunk block-quantized once at its
+    source (K5a on a CUDA tensor), the int8 payload and fp32 scales
+    exchanged, and the received chunks dequantized (K5b) and concatenated
+    in ``x``'s dtype: ``a2a_wire_bytes(x.numel(), "int8")`` on the wire
+    for chunks of whole blocks.  Differentiable: the backward is the
+    inverse exchange on the same int8 wire, straight through the
+    rounding.  The identity on one member (no wire, no quantization)."""
+    if group is None or group.size == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis, block)

@@ -8,11 +8,11 @@ the collectives.  The tables here are the reference's, entry for entry
 port applies them itself: the batch rule splits the global batch into
 each batch-group rank's rows (:func:`batch_axes`,
 :func:`batch_shard_count`, :func:`batch_group_axes`: the ``data`` and
-``fsdp`` axes), and a parameter's logical axes (``kernel_axes`` on the
-model's layers, ``models/layers.py``) resolve to the ``(dim, axes)``
-splits of :func:`leaf_splits`, which ``parallel/sharding.py`` carries
-out: ``embed`` over ``fsdp``, ``mlp``, ``heads`` and ``vocab`` over
-``tensor``.  At ``fsdp = tensor = seq = 1`` the default table collapses
+``fsdp`` axes, and the ``expert`` axis), and a parameter's logical axes
+(``kernel_axes`` on the model's layers, ``models/layers.py``) resolve to
+the ``(dim, axes)`` splits of :func:`leaf_splits`, which
+``parallel/sharding.py`` carries out: ``embed`` over ``fsdp``, ``mlp``,
+``heads`` and ``vocab`` over ``tensor``, ``expert`` over ``expert``.  At ``fsdp = tensor = seq = 1`` the default table collapses
 to data parallelism: parameters replicated, the batch split over
 ``data``.
 """
@@ -139,8 +139,15 @@ def batch_shard_count(mesh, rules: Rules) -> int:
 
 def batch_group_axes(mesh, rules: Rules) -> Tuple[str, ...]:
     """The mesh axes above 1 whose ranks split the batch, outermost first:
-    the batch group (``data`` and ``fsdp`` under the default table).  A
-    batch rule that splits over another axis above 1 is refused."""
+    the batch group.  Under the default table that is ``data`` and
+    ``fsdp``, and the ``expert`` axis: the reference keeps the trunk's
+    batch replicated over ``expert`` and splits each chunk again over
+    ``(data, fsdp, expert)`` inside its all-to-all dispatch
+    (``dlrover_tpu/models/moe.py`` ``_a2a_forward``); the port splits the
+    trunk's batch over it too, so no trunk is computed twice, and the
+    gradients are the reference's (``parallel/sharding.py``'s
+    ``ExpertGroup``, ``trainer/train_lib.py``).  A batch rule that splits
+    over another axis above 1 is refused."""
     sizes = mesh_axis_sizes(mesh)
     out = []
     for axis in batch_axes(rules):
@@ -149,8 +156,11 @@ def batch_group_axes(mesh, rules: Rules) -> Tuple[str, ...]:
         if axis not in (DATA_AXIS, FSDP_AXIS):
             raise NotImplementedError(
                 f"the batch rule splits over {axis!r} (size {sizes[axis]});"
-                " the port splits the batch over the data and fsdp axes")
+                " the port splits the batch over the data, fsdp and expert"
+                " axes")
         out.append(axis)
+    if sizes.get(EXPERT_AXIS, 1) > 1:
+        out.append(EXPERT_AXIS)
     return tuple(out)
 
 

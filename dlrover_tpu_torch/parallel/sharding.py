@@ -26,6 +26,13 @@ and this module carries the table out:
   the unit's gradients, in the unit's leaf order (one agreed order on
   every rank, whatever order the hooks fire in), to each rank's slice.
 
+* ``expert``: a rank holds its ``E / ep`` experts of each MoE layer (the
+  expert kernels' ``expert`` dimension; the router and every dense leaf
+  whole).  :class:`ExpertGroup` is what the layer needs of the mesh: the
+  expert axis's wire for the dispatch's all-to-all legs, and the batch
+  group (``data x expert``) its router means and statistics are taken
+  over.
+
 Every collective goes through the axis's :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (a gloo group stages CUDA payloads through the host);
 nothing here hands a tensor to a process group directly, and neither
@@ -363,13 +370,62 @@ class FsdpUnit:
             return module(*args)
 
 
+# -- the expert axis -----------------------------------------------------------
+
+
+class _GroupMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = group.batch_ranks
+        out = x.contiguous().clone()
+        for wire in group.batch_wires:
+            wire.all_reduce(out)
+        return out / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        # Every rank's loss holds the mean: each keeps its own share of
+        # the cotangent, and the gradients' sum over the group completes
+        # it (no second sum here).
+        return g / ctx.n, None
+
+
+class ExpertGroup:
+    """An MoE layer's view of the mesh: the expert axis (``ep`` ranks,
+    this one's index ``rank`` on it, its ``wire``, None at 1) and the
+    batch group (``batch_ranks`` ranks over ``batch_wires``, one wire a
+    batch axis above 1) that gates the global batch between them."""
+
+    def __init__(self, wires: Mapping[str, object], sizes: Mapping[str, int],
+                 coords: Mapping[str, int], batch_axes: Sequence[str]):
+        self.ep = sizes.get(mesh_lib.EXPERT_AXIS, 1)
+        self.rank = coords.get(mesh_lib.EXPERT_AXIS, 0)
+        self.wire = wires.get(mesh_lib.EXPERT_AXIS) if self.ep > 1 else None
+        self.batch_wires = [wires[a] for a in batch_axes]
+        self.batch_ranks = 1
+        for a in batch_axes:
+            self.batch_ranks *= sizes[a]
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged over the batch group; the backward gives each
+        rank ``1 / batch_ranks`` of its cotangent."""
+        return _GroupMean.apply(x, self)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the batch group (no gradient)."""
+        out = x.detach().contiguous().clone()
+        for wire in self.batch_wires:
+            wire.all_reduce(out)
+        return out
+
+
 # -- the model's view of the mesh --------------------------------------------
 
 
 class ModelParallel:
-    """What a model and its step need of a mesh's fsdp and tensor axes:
-    the axis sizes, this rank's coordinates, the axes' wires and the rule
-    table."""
+    """What a model and its step need of a mesh's fsdp, tensor and expert
+    axes: the axis sizes, this rank's coordinates, the axes' wires, the
+    rule table and the batch group."""
 
     def __init__(self, mesh, rules, wires: Optional[Dict[str, object]] = None,
                  rank: Optional[int] = None):
@@ -380,6 +436,8 @@ class ModelParallel:
         self.wires = dict(wires or {})
         self.fsdp = self.sizes.get(mesh_lib.FSDP_AXIS, 1)
         self.tensor = self.sizes.get(mesh_lib.TENSOR_AXIS, 1)
+        self.expert = self.sizes.get(mesh_lib.EXPERT_AXIS, 1)
+        self.batch_axes = lr.batch_group_axes(mesh, self.rules)
         self.tp = None
         if self.tensor > 1:
             for name in (lr.HEADS, lr.MLP, lr.VOCAB):
@@ -392,10 +450,24 @@ class ModelParallel:
             self.tp = TensorGroup(self.wires.get(mesh_lib.TENSOR_AXIS),
                                   self.tensor,
                                   self.coords[mesh_lib.TENSOR_AXIS])
+        if self.expert > 1 and lr.logical_to_mesh_axes(
+                [lr.EXPERT], self.rules)[0] != mesh_lib.EXPERT_AXIS:
+            raise NotImplementedError(
+                "under an expert axis the port splits the experts over it, "
+                "as the default rules do; the rules map 'expert' elsewhere")
 
     @property
     def active(self) -> bool:
-        return self.fsdp > 1 or self.tensor > 1
+        """Whether a rank holds boxes of some leaves (not whole ones)."""
+        return self.fsdp > 1 or self.tensor > 1 or self.expert > 1
+
+    def expert_group(self) -> Optional[ExpertGroup]:
+        """The MoE layers' :class:`ExpertGroup` (None at one batch rank
+        and one expert rank: the layer's own tokens are the batch)."""
+        if not self.batch_axes and self.expert <= 1:
+            return None
+        return ExpertGroup(self.wires, self.sizes, self.coords,
+                           self.batch_axes)
 
     def layouts(self, logical: Mapping[str, Sequence[str]],
                 shapes: Mapping[str, Tuple[int, ...]]

@@ -9,10 +9,10 @@ same six axis names in the same order (outermost first)::
 
     data > fsdp > pipe > expert > seq > tensor
 
-The ``data``, ``fsdp`` and ``tensor`` axes may be above 1.
+The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes may be above 1.
 ``build_mesh`` refuses a ``seq`` or ``pipe`` degree above 1 (ROADMAP
-Queue 1 item 9: Ulysses, ring attention and the pipeline) and an
-``expert`` degree (item 6).  Each axis above 1 has its process group (the
+Queue 1 item 9: Ulysses, ring attention and the pipeline).  Each axis
+above 1 has its process group (the
 ``DeviceMesh``'s ``get_group``) and its :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (:func:`axis_wires`), through which every collective
 of that axis goes.  A gloo world on one card puts every rank on
@@ -52,7 +52,7 @@ MESH_AXES: Tuple[str, ...] = (
 )
 
 #: The ROADMAP Queue 1 item that brings each model-parallel axis.
-_AXIS_ITEMS = {SEQ_AXIS: 9, PIPE_AXIS: 9, EXPERT_AXIS: 6}
+_AXIS_ITEMS = {SEQ_AXIS: 9, PIPE_AXIS: 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,12 +129,12 @@ def process_index() -> int:
 def check_axes(sizes: Dict[str, int]) -> None:
     """Refuse an axis the port does not run yet above 1, naming its
     ROADMAP item."""
-    for axis in (SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS):
+    for axis in (SEQ_AXIS, PIPE_AXIS):
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {sizes[axis]} is a later slice of the "
                 f"port (ROADMAP Queue 1 item {_AXIS_ITEMS[axis]}); the "
-                "mesh takes the data, fsdp and tensor axes"
+                "mesh takes the data, fsdp, expert and tensor axes"
             )
 
 

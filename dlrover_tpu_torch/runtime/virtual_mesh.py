@@ -19,8 +19,10 @@ checkpoint's own record path (``shm_handler.pack_pytree``,
 ``assemble_tensor``, ``engine.materialize_records``), with the data
 ranks' records exchanged over the group instead of storage, so a live
 re-layout equals a save and a cross-world restore bit for bit.  The
-expert plane's fields (``expert_logical``, ``with_expert_world``) come
-with the expert axis (ROADMAP Queue 1 item 6).
+expert plane's fields (``expert_logical``, ``with_expert_world``: the
+elastic expert world and its re-layout) are not ported yet (ROADMAP
+Queue 1 item 6's remainder); the expert axis itself is
+``runtime/mesh.py``'s.
 """
 
 from __future__ import annotations

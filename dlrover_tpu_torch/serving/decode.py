@@ -108,7 +108,8 @@ class ServePrograms:
         if config.num_experts > 0:
             raise NotImplementedError(
                 "serving an MoE config (num_experts > 0) is a later slice "
-                "of the port (MoE serving); this port trains MoE models only"
+                "of the port (MoE serving, ROADMAP Queue 1 item 6's "
+                "remainder); this port trains MoE models only"
             )
         self.device = resolve_device(device)
         self.config = decode_config(config)

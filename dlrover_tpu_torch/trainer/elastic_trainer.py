@@ -31,24 +31,27 @@ re-laid out in memory through the checkpoint's record path
 re-layout retries under its ``relayout.apply`` fault seam and falls back
 to a restore.
 
-The fsdp and tensor axes: ``parallel=ParallelConfig(fsdp=..,
-tensor=..)`` builds the step on that mesh (``train_lib.build_train``:
-each rank holds its boxes of the parameters and the optimizer state, and
-the batch group is ``data x fsdp``).  Flash Checkpoint saves each rank's
+The fsdp, tensor and expert axes: ``parallel=ParallelConfig(fsdp=..,
+tensor=.., expert=..)`` builds the step on that mesh
+(``train_lib.build_train``: each rank holds its boxes of the parameters
+and the optimizer state, and the batch group is ``data x fsdp x
+expert``).  Flash Checkpoint saves each rank's
 boxes under their global indices, so a save at one mesh restores into
 another (into one process, for one).  The SDC digest completes each
 split leaf's byte sum over the world.  A live re-layout folds the data
-axis only, as the reference's virtual mesh does; on a mesh with an fsdp
-or tensor axis above 1 it is refused (ROADMAP Queue 1 item 5).
+axis only; on a mesh with an fsdp or tensor axis above 1 it is refused
+(ROADMAP Queue 1 item 5), and with an expert axis above 1 too, until the
+virtual mesh has its expert fields (item 6's remainder).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the ``seq``, ``pipe`` and ``expert`` mesh axes (``runtime/mesh.
-check_axes``; ROADMAP Queue 1 items 9 and 6); ``auto_tune``, device-time capture
+the ``seq`` and ``pipe`` mesh axes (``runtime/mesh.check_axes``;
+ROADMAP Queue 1 item 9); ``auto_tune``, device-time capture
 (``profile_every``), the memory report, OOM forensics and the agent's
-device metrics (item 10).  The MoE router-statistics harvest (item 6) is
-off: an MoE model trains and the trainer says once that the harvest is
-off.  Eager PyTorch has nothing to compile ahead of time, so
+device metrics (item 10).  An MoE model's router statistics are
+harvested on the report cadence (``train_lib.build_moe_stats_fn``, a
+forward of its own) and shipped as ``moe`` telemetry events with the
+report.  Eager PyTorch has nothing to compile ahead of time, so
 ``warmup_compile``, ``prewarm_worlds(aot=True)`` and a persistent
 ``compile_cache_dir`` are refused too, and ``reuse_compiled`` has no
 effect (item 3).
@@ -57,6 +60,7 @@ effect (item 3).
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -100,10 +104,12 @@ class TrainerConfig:
     # master with step reports.
     numeric_checks: bool = True
     # -- async step pipeline ------------------------------------------------
-    # Deferred metrics: keep step metrics on device in a ring and
-    # materialize them this many steps later with ONE blocking fetch
-    # (flushed early at eval/checkpoint/end-of-fit).  0 = synchronous:
-    # every report blocks on the loss.
+    # Deferred metrics: keep step metrics in a ring, their copy to the
+    # host queued behind each step, and every this many steps materialize
+    # all but the newest step's with ONE blocking wait (the newest step
+    # still runs: waiting for it would leave the device idle until the
+    # next step is dispatched); flushed whole at eval/checkpoint/
+    # end-of-fit.  0 = synchronous: every report blocks on the loss.
     metrics_lag: int = 0
     # Keep this many batches device-resident ahead of compute so the H2D
     # copy of batch N+1 overlaps step N (data.loader.DevicePrefetcher).
@@ -226,6 +232,38 @@ def _fetch(entries: List[Dict[str, Any]]) -> List[Dict[str, float]]:
              for k, v in entry.items()} for entry in entries]
 
 
+class _InFlight:
+    """One step's metrics on their way to the host.  On the card their
+    tensors are stacked and copied, non-blocking, into pinned memory right
+    behind the step that made them, and an event marks the copy's end:
+    reading them waits for that step alone, not for the steps dispatched
+    after it.  Elsewhere they are read as :func:`_fetch` reads them."""
+
+    def __init__(self, metrics: Dict[str, Any]):
+        self.metrics = metrics
+        self.host = self.event = None
+        tensors = [v for v in metrics.values() if isinstance(v, torch.Tensor)]
+        if tensors and all(t.is_cuda for t in tensors):
+            stacked = torch.stack([t.detach().reshape(()).to(torch.float64)
+                                   for t in tensors])
+            self.host = torch.empty(stacked.shape, dtype=torch.float64,
+                                    pin_memory=True)
+            self.host.copy_(stacked, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(stacked.device))
+
+    def read(self) -> Dict[str, float]:
+        """The metrics as floats (fp32 and integer scalars are exact in
+        fp64)."""
+        if self.event is None:
+            (host,) = _fetch([self.metrics])
+            return host
+        self.event.synchronize()
+        values = iter(self.host.tolist())
+        return {k: next(values) if isinstance(v, torch.Tensor) else float(v)
+                for k, v in self.metrics.items()}
+
+
 class ElasticTrainer:
     """Training loop with flash checkpointing + master reporting.
 
@@ -283,15 +321,19 @@ class ElasticTrainer:
         # checkpoint into a fresh trainer.
         self._state_poisoned = False
         self._last_metrics = None
-        # Deferred-metrics ring: (step, device_metrics) pairs awaiting the
-        # single batched fetch in _flush_metrics.
-        self._metrics_ring: List[Tuple[int, Dict[str, Any]]] = []
+        # Deferred-metrics ring: (step, metrics in flight) pairs awaiting
+        # the single wait in _flush_metrics.
+        self._metrics_ring: List[Tuple[int, _InFlight]] = []
         # SDC sentry: (step, device_digest) pairs awaiting the report-
         # cadence ship — the fetch happens off the step's critical path.
         # Without a master only the newest is kept (_sdc_check).
         self._pending_digests: List[Tuple[int, Any]] = []
-        # MoE router statistics: not ported (item 6); False once logged.
+        # MoE router statistics: the harvest (built on first use, False
+        # once it failed) and the (step, device vector) pairs awaiting the
+        # report-cadence fetch.
         self._moe_stats_fn = None
+        self._moe_stats_train = None
+        self._pending_moe_stats: List[Tuple[int, Any]] = []
         self._on_step: Optional[Callable[[int, Dict], None]] = None
         self._fit_max_steps = 0
         # Microbatch engine: resolve the effective grad_accum for THIS
@@ -354,6 +396,13 @@ class ElasticTrainer:
                     "resumed from checkpoint at step %d", restored_step
                 )
                 self._adopt_checkpoint_accum(self._ckpt.last_extra)
+        if config.sdc_check_every > 0 and self.device.type == "cuda":
+            # The digest's first call in a process loads its kernels (CUDA
+            # loads a kernel's module at its first launch) and fills the
+            # fold's caches: tens of ms of host time, more than the host's
+            # lead over the device in a step, so it is paid here and not by
+            # the step that first checks.
+            state_digest.digest_state(self.state)
 
     # -- microbatch engine -----------------------------------------------------
 
@@ -529,9 +578,10 @@ class ElasticTrainer:
         new_world = max(1, int(new_world))
         if self.train.parallel.active:
             raise NotImplementedError(
-                "a live re-layout on a mesh with an fsdp or tensor axis: the "
-                "reference's virtual mesh folds the data (and expert) axes "
-                "only (ROADMAP Queue 1 item 5)")
+                "a live re-layout on a mesh with an fsdp, tensor or expert "
+                "axis: the port's virtual mesh folds the data axis only "
+                "(ROADMAP Queue 1 item 5; the expert fields, item 6's "
+                "remainder)")
         if new_world == self._world:
             return {
                 "ok": True, "noop": True, "fallback": False,
@@ -736,15 +786,22 @@ class ElasticTrainer:
         return metrics
 
     def _moe_stats_check(self, placed):
-        """The router-stats harvest is not ported (ROADMAP Queue 1 item
-        6): say so once and go on, as the reference does when its harvest
-        fails."""
+        """Dispatch the router-statistics harvest (entropy, load, drop
+        fraction) on the report cadence; the fetch and the telemetry ride
+        ``_report``, off the step's critical path.  Best effort, as in the
+        reference: a harvest that fails logs once and turns itself off."""
         if self._moe_stats_fn is False:
             return
-        logger.warning(
-            "moe stats harvest is off: the router statistics are a later "
-            "slice of the port (ROADMAP Queue 1 item 6)")
-        self._moe_stats_fn = False
+        try:
+            if self._moe_stats_fn is None or \
+                    self._moe_stats_train is not self.train:
+                self._moe_stats_fn = train_lib.build_moe_stats_fn(self.train)
+                self._moe_stats_train = self.train
+            self._pending_moe_stats.append(
+                (self.step, self._moe_stats_fn(self.state, placed)))
+        except Exception as e:  # noqa: BLE001 - observability must not kill
+            logger.warning("moe stats harvest failed (disabled): %s", e)
+            self._moe_stats_fn = False
 
     # -- silent data corruption ------------------------------------------------
 
@@ -795,21 +852,27 @@ class ElasticTrainer:
 
     # -- deferred metrics ------------------------------------------------------
 
-    def _flush_metrics(self):
-        """Materialize the deferred-metrics ring with ONE blocking sync.
+    def _flush_metrics(self, keep: int = 0):
+        """Materialize the deferred-metrics ring, all but its newest
+        ``keep`` entries, with ONE blocking wait.
 
-        Called every ``metrics_lag`` steps by the fit loop and forced at
-        the pipeline barriers — evaluate, checkpoint, end-of-fit — so no
-        step's metrics outlive the state that produced them.  Each entry
-        then flows through callbacks / reporting / numeric checks with its
-        own step attribution, exactly as the synchronous loop would have.
+        Called every ``metrics_lag`` steps by the fit loop with ``keep=1``
+        (the newest step still runs on the device, so only the older
+        entries' copies are waited for, and the device's queue stays
+        full), and forced whole at the pipeline barriers — evaluate,
+        checkpoint, end-of-fit — so no step's metrics outlive the state
+        that produced them.  Each entry then flows through callbacks /
+        reporting / numeric checks with its own step attribution, exactly
+        as the synchronous loop would have.
         """
-        if not self._metrics_ring:
+        cut = len(self._metrics_ring) - keep
+        if cut <= 0:
             return
-        ring, self._metrics_ring = self._metrics_ring, []
+        ring = self._metrics_ring[:cut]
+        self._metrics_ring = self._metrics_ring[cut:]
         steps = tuple(step for step, _ in ring)
         with pipeline_counters().host_block("metrics-flush", steps=steps):
-            fetched = _fetch([metrics for _, metrics in ring])
+            fetched = [entry.read() for _, entry in ring]
         for (step, _), host in zip(ring, fetched):
             self._last_metrics = host
             if self._on_step is not None:
@@ -949,13 +1012,14 @@ class ElasticTrainer:
                     break
                 metrics = self.train_step(batch)
                 if lag:
-                    # Pipelined: park the device metrics in the ring; they
-                    # materialize (and drive callbacks/reporting with their
-                    # own step attribution) ``lag`` steps later, in one
-                    # batched fetch.
-                    self._metrics_ring.append((self.step, metrics))
-                    if len(self._metrics_ring) >= lag:
-                        self._flush_metrics()
+                    # Pipelined: park the metrics in the ring, their copy
+                    # queued behind the step; every ``lag`` steps the older
+                    # entries materialize (and drive callbacks/reporting
+                    # with their own step attribution) in one wait, which
+                    # leaves the newest step running.
+                    self._metrics_ring.append((self.step, _InFlight(metrics)))
+                    if len(self._metrics_ring) > lag:
+                        self._flush_metrics(keep=1)
                 else:
                     if on_step is not None:
                         on_step(self.step, metrics)
@@ -1045,6 +1109,21 @@ class ElasticTrainer:
                 anomalies = tuple(a.encode() for a in found)
                 if any(a.kind == "nan" for a in found):
                     self._state_poisoned = True
+        if self._pending_moe_stats:
+            # The router statistics' fetch rides the report cadence,
+            # queued before the ring ships below: [entropy, drop_fraction,
+            # load_0..load_{E-1}] (models/moe.py).
+            pending, self._pending_moe_stats = self._pending_moe_stats, []
+            with pipeline_counters().host_block(
+                    "moe_stats", steps=tuple(s for s, _ in pending)):
+                pending = [(s, v.detach().double().cpu().numpy())
+                           for s, v in pending]
+            for mstep, vec in pending:
+                telemetry.event(
+                    "moe", step=mstep, entropy=float(vec[0]),
+                    drop_fraction=float(vec[1]), experts=int(vec.size - 2),
+                    top_k=int(getattr(self.model_config, "top_k", 0)),
+                    load=json.dumps([round(float(v), 6) for v in vec[2:]]))
         if self.client is not None:
             self.client.report_step(
                 step,

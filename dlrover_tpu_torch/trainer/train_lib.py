@@ -10,10 +10,9 @@ before clipping; the optimizer is a hand port of the optax chain
 ``make_optimizer`` builds (``optimizers/optax_ports.py``) applied to the
 JAX-shaped, layer-stacked parameter tree.  Metrics carry the JAX names:
 ``loss``, ``aux_loss``, ``tokens``, ``grad_norm``, ``step``.  MoE configs
-(``num_experts > 0``) train through the same step at one data rank:
-``aux_loss`` is the blocks' load-balancing loss times
-``moe_aux_weight``, and the expert kernels ``[E, ., .]`` stack to
-``[layers, E, ., .]`` leaves.
+(``num_experts > 0``) train through the same step: ``aux_loss`` is the
+blocks' load-balancing loss times ``moe_aux_weight``, and the expert
+kernels ``[E, ., .]`` stack to ``[layers, E, ., .]`` leaves.
 
 ``make_optimizer`` builds ``adamw``, ``adafactor``, ``sgd`` and the
 low-bit ``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf
@@ -56,8 +55,9 @@ The fsdp and tensor axes.  On a mesh with ``fsdp`` or ``tensor`` above
 whole leaves under the rules, the blocks gather their fsdp slices for
 their forward and reduce-scatter their gradients in the backward, and
 the tensor axis sums the row-parallel products.  The batch group is
-``data x fsdp``: each of its ranks takes its rows of the global batch,
-and the ranks of a tensor group take the same rows.  With the tensor
+``data x fsdp`` (and the expert axis, below): each of its ranks takes
+its rows of the global batch, and the ranks of a tensor group take the
+same rows.  With the tensor
 axis the cross entropy is vocab-parallel (:func:`cross_entropy_loss` and
 :func:`chunked_cross_entropy_loss` take the group: the max and the
 log-sum-exp are completed over it).  A leaf's gradient is completed
@@ -77,11 +77,28 @@ step passes it through with no copy; ``elastic_grad_accum`` is the
 elastic trainer's microbatch accounting and ``microbatch_phase_plan`` its
 modeled phase breakdown.
 
-Not ported yet, and refused when asked for: the ``seq``, ``pipe`` and
-``expert`` mesh axes (``runtime/mesh.check_axes``: ROADMAP Queue 1 items
-9 and 6), MoE at more than one rank (item 6), the overlap engine and the
-int8 wires beside an fsdp or tensor axis (they stay the data axis's, as
-PR 13 ported them), and the ``lion`` and ``agd`` optimizers (item 7).
+The expert axis.  On a mesh with ``expert`` above 1 the batch group is
+``data x expert`` (``parallel/rules.batch_group_axes``): the trunk's
+batch is split over the expert axis too, and each MoE layer exchanges
+its experts' rows over it (``models/moe.py``), so a rank holds its
+``E / ep`` experts of every layer.  A dense leaf's gradient (the trunk,
+the router) is its rank's share from its rows, summed over ``data x
+expert``; an expert leaf's gradient already holds every chunk routed to
+the rank's experts, so it is summed over ``data`` alone; both are divided
+by the same global token count.  The MoE layers' aux loss is computed
+from router means taken over the batch group, so it is the same on every
+rank, and each rank's gradient keeps its own share of it.  ZeRO-1 and
+``grad_accum`` compose with it; the global-norm clip and the optimizer's
+reductions over an expert leaf are completed over the expert axis.
+:func:`build_moe_stats_fn` is the router statistics' harvest, a forward
+of its own.
+
+Not ported yet, and refused when asked for: the ``seq`` and ``pipe`` mesh
+axes (``runtime/mesh.check_axes``: ROADMAP Queue 1 item 9), MoE on an
+fsdp or tensor axis (item 6's remainder), the overlap engine and the
+int8 wires beside an fsdp, tensor or expert axis (they stay the data
+axis's), and the ``lion`` and ``agd`` optimizers
+(item 7).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -104,6 +121,7 @@ from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    check_parallel,
     init_params,
     param_logical_axes,
     param_shapes,
@@ -343,7 +361,8 @@ class Train:
         self.wires = dict(self.wires or {})
         par = self.parallel
         sizes, coords = par.sizes, par.coords
-        #: The batch group (data x fsdp): its ranks split the batch.
+        #: The batch group (data x fsdp x expert): its ranks split the
+        #: batch.
         self.batch_axes = lr.batch_group_axes(self.mesh, self.rules)
         self.batch_ranks, self.batch_rank = 1, 0
         for axis in self.batch_axes:
@@ -754,25 +773,28 @@ class Train:
             self.wires[axis].all_reduce(values)
         return values
 
-    def _fsdp_sum(self, grads: Dict[str, torch.Tensor]) -> None:
-        """In place: the gradients of the leaves the fsdp axis does not
-        split (each fsdp rank's share from its rows) summed over the fsdp
-        group, one all-reduce for all; the split leaves were
-        reduce-scattered in the backward."""
-        if self.parallel.fsdp <= 1:
-            return
-        names = [n for n in self.leaf_names if n in grads
-                 and self.layouts[n].dim_of(mesh_lib.FSDP_AXIS) is None]
-        if not names:
-            return
-        flat = torch.cat([grads[n].reshape(-1) for n in names])
-        self.wires[mesh_lib.FSDP_AXIS].all_reduce(flat)
-        at = 0
-        for n in names:
-            k = grads[n].numel()
-            grads[n] = flat[at:at + k].view(grads[n].shape).to(
-                grads[n].dtype)
-            at += k
+    def _axis_sums(self, grads: Dict[str, torch.Tensor]) -> None:
+        """In place: over each batch axis that also splits leaves (fsdp,
+        expert), the gradients of the leaves it does not split (each
+        rank's share from its rows) summed over its group, one all-reduce
+        for all of them.  The leaves fsdp splits were reduce-scattered in
+        the backward; the leaves expert splits hold every chunk routed to
+        the rank's experts already."""
+        for axis in (mesh_lib.FSDP_AXIS, mesh_lib.EXPERT_AXIS):
+            if self.parallel.sizes.get(axis, 1) <= 1:
+                continue
+            names = [n for n in self.leaf_names if n in grads
+                     and self.layouts[n].dim_of(axis) is None]
+            if not names:
+                continue
+            flat = torch.cat([grads[n].reshape(-1) for n in names])
+            self.wires[axis].all_reduce(flat)
+            at = 0
+            for n in names:
+                k = grads[n].numel()
+                grads[n] = flat[at:at + k].view(grads[n].shape).to(
+                    grads[n].dtype)
+                at += k
 
     def step(self, state: TrainState, batch: Mapping[str, Any]
              ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -808,7 +830,11 @@ class Train:
                     p.wait()
             pending = []
             self._armed = self.overlap
-            (ce_sum / w_total + aux / (n_micro * self.batch_ranks)).backward()
+            # The aux loss is the same on every rank of the batch group
+            # (an MoE layer's router means are the group's), and its
+            # backward leaves each rank its own share: as the reference's,
+            # a per-microbatch mean.
+            (ce_sum / w_total + aux / n_micro).backward()
             self._armed = False
             with torch.no_grad():
                 if self.overlap:
@@ -858,7 +884,7 @@ class Train:
         out: Dict[str, torch.Tensor] = {}
         if self.overlap:
             return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
-        self._fsdp_sum(acc)
+        self._axis_sums(acc)
         if self.wire is None:
             return {n: acc[n].to(params[n].dtype) for n in self.leaf_names}
         if self.shards is None:
@@ -995,7 +1021,7 @@ def build_train(
     device: DeviceLike = None,
 ) -> Train:
     """The counterpart of ``build_sharded_train``: one rank's step on
-    ``mesh`` (its data, fsdp and tensor axes; :func:`runtime.mesh.
+    ``mesh`` (its data, fsdp, tensor and expert axes; :func:`runtime.mesh.
     single_device_mesh`, one rank, when None) under ``rules``
     (``parallel.rules.DEFAULT_RULES`` when None)."""
     if grad_accum < 1:
@@ -1015,16 +1041,19 @@ def build_train(
     sizes = mesh_lib.mesh_axis_sizes(mesh)
     mesh_lib.check_axes(sizes)
     batch_axes = lr.batch_group_axes(mesh, rules)
-    model_parallel = any(sizes.get(a, 1) > 1 for a in (
-        mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS))
+    model_axes = [a for a in (mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS,
+                              mesh_lib.EXPERT_AXIS) if sizes.get(a, 1) > 1]
+    if model_axes:
+        check_parallel(config, sizes)
+    if model_axes and (overlap or reduce_quant != "none"
+                       or allgather_quant != "none"):
+        raise NotImplementedError(
+            f"the overlap engine and the int8 wires ride the data axis "
+            f"alone; beside the {'/'.join(model_axes)} axis they are not "
+            f"ported (ROADMAP Queue 1 items 5 and 6)")
     world = 1
     for n in sizes.values():
         world *= n
-    if world > 1 and config.num_experts:
-        raise NotImplementedError(
-            "an MoE model at more than one rank is a later slice of the "
-            "port (ROADMAP Queue 1 item 6: the expert axis and the router "
-            "statistics over the group)")
     wires = mesh_lib.axis_wires(mesh) if world > 1 else {}
     wire = wires.get(mesh_lib.DATA_AXIS)
     dp = wire.size if wire is not None else 1
@@ -1037,11 +1066,6 @@ def build_train(
             f"dp*grad_accum = {batch_ranks}*{grad_accum} = "
             f"{batch_ranks * grad_accum}"
         )
-    if model_parallel and (overlap or reduce_quant != "none"
-                           or allgather_quant != "none"):
-        raise NotImplementedError(
-            "the overlap engine and the int8 wires ride the data axis "
-            "alone; beside an fsdp or tensor axis they are not ported")
     parallel = sharding.ModelParallel(
         mesh if mesh is not None else mesh_lib.single_device_mesh(), rules,
         wires)
@@ -1071,6 +1095,30 @@ def build_train(
             " [int8 reduce-scatter]" if reduce_quant == "int8" else "",
             " [int8 all-gather]" if allgather_quant == "int8" else "")
     return train
+
+
+def build_moe_stats_fn(train: Train):
+    """The router statistics' harvest (the reference's
+    ``build_moe_stats_fn``): ``fn(state, placed_batch) -> [2 + E]`` fp32
+    on the train's device, ``[entropy, drop_fraction, load_0..]`` of every
+    MoE layer (over the batch group) averaged over layers.  A forward of
+    its own with no gradient, apart from the step; every rank of the
+    batch group calls it on its own rows, together (its means are
+    collectives)."""
+    from dlrover_tpu_torch.models import moe
+
+    if not train.config.num_experts:
+        raise ValueError("build_moe_stats_fn needs an MoE config")
+
+    @torch.no_grad()
+    def run(state: TrainState, batch: Mapping[str, Any]) -> torch.Tensor:
+        inputs, _, _ = train._batch(batch)
+        model = state.model
+        with moe.collect_router_stats() as stats, model.gathered():
+            model.hidden(inputs)
+        return torch.stack(stats).mean(dim=0)
+
+    return run
 
 
 def elastic_grad_accum(
@@ -1199,16 +1247,28 @@ def _on_device(t: torch.Tensor, device: torch.device) -> bool:
 
 
 def _own_rows(value, train: Train):
-    """This batch-group rank's rows of ``value``: the contiguous block the
-    JAX batch sharding gives batch index ``batch_rank`` (data-major over
-    ``data x fsdp``; the ranks of a tensor group take the same rows) when
-    ``value`` holds the whole global batch, ``value`` itself when it holds
-    the rank's rows already (a rank's own loader)."""
+    """This batch-group rank's rows of ``value`` when ``value`` holds the
+    whole global batch (data-major over ``data x fsdp x expert``; the
+    ranks of a tensor group take the same rows), ``value`` itself when it
+    holds the rank's rows already (a rank's own loader).  The rows are
+    those the reference computes there: microbatch ``i`` of a step is the
+    global rows ``[i * B / N, (i + 1) * B / N)`` (its ``to_micro``), split
+    over the batch group, so rank ``r`` takes the ``r``-th ``1 / n`` of
+    each microbatch (with one microbatch, the block ``[r * B / n, (r + 1)
+    * B / n)``).  A dense step's sums do not depend on how the rows are
+    grouped; an MoE step's router means are taken per microbatch."""
     rows = int(value.shape[0]) if getattr(value, "shape", None) else 0
-    if train.batch_ranks > 1 and rows == train.global_batch_size:
-        b = train.local_batch
-        return value[train.batch_rank * b:(train.batch_rank + 1) * b]
-    return value
+    if train.batch_ranks <= 1 or rows != train.global_batch_size:
+        return value
+    accum, r = train.grad_accum, train.batch_rank
+    m = train.local_batch // accum
+    parts = [value[i * (rows // accum) + r * m:
+                   i * (rows // accum) + (r + 1) * m] for i in range(accum)]
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(value, torch.Tensor):
+        return torch.cat(parts)
+    return np.concatenate(parts)
 
 
 def shard_batch(batch: Mapping[str, Any], train: Train
@@ -1219,11 +1279,12 @@ def shard_batch(batch: Mapping[str, Any], train: Train
     its dtype passes through untouched (no copy, no "place" event), so
     the trainer hands prefetched batches back through this function.
 
-    Over a batch group of ``n`` ranks (``data x fsdp``) each rank takes
-    its own rows: of a whole global batch, the block ``[r * B / n, (r +
-    1) * B / n)`` for its batch index ``r`` (the rows the JAX batch
-    sharding puts there); a batch of the rank's rows (its own loader's)
-    passes as it is.
+    Over a batch group of ``n`` ranks (``data x fsdp x expert``) each rank
+    takes its own rows: of a whole global batch, the block ``[r * B / n,
+    (r + 1) * B / n)`` for its batch index ``r`` (the rows the JAX batch
+    sharding puts there; with ``grad_accum`` microbatches, its ``1 / n``
+    of each, :func:`_own_rows`); a batch of the rank's rows (its own
+    loader's) passes as it is.
 
     On the CPU this is a plain move.  On the card each host array is
     converted on the host, pinned and copied with ``non_blocking=True``

@@ -16,6 +16,7 @@ unported option refused with its ROADMAP queue item.
 """
 
 import dataclasses
+import json
 import os
 import types
 
@@ -220,6 +221,38 @@ def test_lagged_prefetched_fit_equals_the_synchronous_fit(tmp_path,
     assert lag_summary["place_count"] >= 6
 
 
+@pytest.mark.parametrize("lag", [1, 2, 3])
+def test_a_lagged_flush_leaves_the_newest_step_running(lag):
+    """Between barriers, every ``lag`` steps one wait materializes the
+    ring's entries but the newest, whose step is still running; the
+    end-of-fit barrier flushes the rest.  Each step's metrics reach
+    ``on_step`` after the next step was dispatched, equal to the
+    synchronous loop's."""
+    steps = 7
+    batches = _batches(steps, seed=11)
+
+    def run(**kw):
+        trainer = _trainer(**kw)
+        seen = []
+        pipeline_counters().reset()
+        trainer.fit(batches, max_steps=steps, on_step=lambda s, m: seen.append(
+            (s, trainer.step, float(m["loss"]), float(m["grad_norm"]))))
+        flushes = [b.steps for b in pipeline_counters().blocks(
+            "metrics-flush")]
+        trainer.close()
+        return seen, flushes
+
+    sync, _ = run()
+    lagged, flushes = run(metrics_lag=lag)
+    # 7 steps are 1 more than a multiple of each lag: the last flush is
+    # the end of fit's, of step 7 alone.
+    assert flushes == [tuple(range(at, at + lag))
+                       for at in range(1, steps, lag)] + [(steps,)]
+    for step, now, *_ in lagged:
+        assert now > step or now == steps
+    assert [(s, *m) for s, _, *m in lagged] == [(s, *m) for s, _, *m in sync]
+
+
 def test_evaluate_accumulates_on_device_with_one_fetch():
     trainer = _trainer()
     counters = pipeline_counters()
@@ -414,9 +447,32 @@ def test_embedding_booking_rides_extra_and_comes_back(tmp_path):
 
 
 def test_moe_config_trains_and_the_harvest_is_off(caplog):
+    """An MoE model trains through ``fit``, and (since the router
+    statistics were ported; the name is the test's first) the harvest is
+    on: one ``moe`` telemetry event a report, its vector the one
+    ``build_moe_stats_fn`` gives for the step's batch."""
+    from dlrover_tpu_torch.common import telemetry
+    from dlrover_tpu_torch.trainer import train_lib
+
+    telemetry.recorder().configure(enabled=True)
+    telemetry.recorder().drain()
     trainer = _trainer(cfg_kw=dict(num_experts=4, top_k=2), report_every=1)
     assert trainer.fit(_batches(3), max_steps=3) == 3
-    assert trainer._moe_stats_fn is False
+    assert callable(trainer._moe_stats_fn)
+    events = [attrs for name, _, _, _, attrs in telemetry.recorder().drain()
+              if name == "moe"]
+    assert [e["step"] for e in events] == [1, 2, 3]
+    vec = train_lib.build_moe_stats_fn(trainer.train)(
+        trainer.state, train_lib.shard_batch(_batches(3)[-1], trainer.train))
+    assert events[-1]["experts"] == 4 and events[-1]["top_k"] == 2
+    assert 0.0 <= events[-1]["drop_fraction"] < 1.0
+    load = json.loads(events[-1]["load"])
+    assert len(load) == 4 and abs(sum(load) - 1.0) < 1e-5
+    assert 0.0 < events[-1]["entropy"] <= np.log(4) + 1e-6
+    np.testing.assert_allclose(
+        [events[-1]["entropy"], events[-1]["drop_fraction"]] + load,
+        vec.double().numpy(), atol=1e-6)
+    trainer.close()
 
 
 # -- the SDC seam ------------------------------------------------------------------

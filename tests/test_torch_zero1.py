@@ -33,6 +33,13 @@ Tolerances, and why:
   the rounded reference's must be at most ``INT8_STEP1_SHARE`` of those
   a dropped update puts in another bin.  A run at learning rate 0 (a planted step that applies
   no update, through the same path) must fail it.
+* Adafactor's path bound: an update of an unfactored leaf moves each
+  value at most ``lr * max(rms(p), 1e-3) * t^0.4`` at step t, so a value
+  travels at most ``P`` (their sum) while the reference's net
+  displacement ``U`` may be smaller.  A zero-init leaf (a LayerNorm bias)
+  of an int8 run travels beyond the fp run's ``U`` and within ``P``, in
+  the port and in the reference alike: ``2 U`` is no bound for it,
+  ``U + P`` is (the check of ``chip_smoke.py``'s ``train_dp2``).
 """
 
 import jax
@@ -118,6 +125,17 @@ def port_runs(init, tmp_path_factory):
     return out
 
 
+_JAX_RUNS = {}
+
+
+def _jax_cached(init_params, opt, mode, n):
+    """``_jax_run`` once per (optimizer, mode, world) in the module."""
+    key = (opt, mode, n)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _jax_run(init_params, opt, mode, n)
+    return _JAX_RUNS[key]
+
+
 def _jax_run(init_params, opt, mode, n):
     kw = {k: v for k, v in MODES[mode].items()}
     cfg = jgpt2_config("124m", **TINY, dtype=jnp.float32)
@@ -171,7 +189,7 @@ def _assert_close(got, want, opt):
 def test_step_matches_jax_build_sharded_train(init, port_runs, opt, mode,
                                               n):
     jparams, _ = init
-    want = _jax_run(jparams, opt, mode, n)
+    want = _jax_cached(jparams, opt, mode, n)
     metrics, params, flags, _ = port_runs[n][0][f"{opt}/{mode}"]
     assert flags["dp"] == n
     assert flags["zero1"] == (mode != "replicated")
@@ -304,3 +322,96 @@ def test_zero1_shards_and_overlap_plan(port_runs, n):
 
     want = jov.plan_buckets(meta.unbox(abstract), 0.02).describe()
     assert plan == want
+
+
+# -- Adafactor's path bound (the int8 check's missing term) ----------------------
+
+ADAFACTOR_LR, MIN_SCALE = 1e-4, 1e-3
+
+
+def _path_bound(lr, steps, rms=MIN_SCALE):
+    """``P``: how far Adafactor moves a value of an unfactored leaf whose
+    rms stays below its 1e-3 floor in ``steps`` steps at most."""
+    return lr * max(rms, MIN_SCALE) * sum(t ** 0.4
+                                          for t in range(1, steps + 1))
+
+
+def test_adafactor_travel_exceeds_the_net_update_within_its_path_bound():
+    """A zero leaf [2, 256] (unfactored), every value's gradient steady at
+    +1 for 3 steps (the reference run: each value moves 3 lr-sized steps,
+    ``U``), against a run where one value's gradient grows from the
+    rounding level (-1e-3, -1, -1e3: what an int8 wire makes of a
+    gradient that sits at its rounding, rounded toward zero on one step)
+    while the others stay.  That value travels 3.87 steps the other way,
+    so the two runs differ by more than ``2 U`` there and by at most ``U
+    + P``.  The port's Adafactor and optax's give the same values."""
+    import optax
+
+    from dlrover_tpu_torch.optimizers import optax_ports as ox
+
+    steady = np.ones((2, 256), np.float32)
+    runs = {}
+    for name, grads in (("steady", [steady] * 3), ("growing", [
+            np.where(np.arange(512).reshape(2, 256) == 0, -g, steady)
+            .astype(np.float32) for g in (1e-3, 1.0, 1e3)])):
+        tx = ox.adafactor(ADAFACTOR_LR)
+        p = {"w": torch.zeros((2, 256))}
+        state = tx.init(p)
+        jtx = optax.adafactor(ADAFACTOR_LR)
+        jp = {"w": jnp.zeros((2, 256))}
+        jstate = jtx.init(jp)
+        for g in grads:
+            u, state = tx.update({"w": torch.from_numpy(g)}, state, p)
+            p = {"w": p["w"] + u["w"]}
+            ju, jstate = jtx.update({"w": jnp.asarray(g)}, jstate, jp)
+            jp = optax.apply_updates(jp, ju)
+        np.testing.assert_allclose(p["w"].numpy(), np.asarray(jp["w"]),
+                                   rtol=1e-5)
+        runs[name] = p["w"].numpy()
+    u_net = np.abs(runs["steady"]).max()
+    diff = np.abs(runs["growing"] - runs["steady"]).max()
+    path = _path_bound(ADAFACTOR_LR, 3)
+    assert u_net == pytest.approx(3 * ADAFACTOR_LR * MIN_SCALE, rel=1e-5)
+    assert np.abs(runs["growing"]).max() <= path * (1 + 1e-6)
+    assert diff > 1.1 * 2 * u_net, (diff, u_net)
+    assert diff <= (u_net + path) * (1 + 1e-6), (diff, u_net + path)
+
+
+def test_int8_zero_init_leaves_travel_alike_within_the_path_bound(
+        init, port_runs):
+    """The int8 wires' Adafactor run (world 2, lr 1e-2) on the leaves that
+    start at zero, in the port and in the reference's
+    ``build_sharded_train(reduce_quant="int8", allgather_quant="int8")``
+    at data 2, each against its own replicated fp run: every value within
+    ``P`` of the init (the fp runs too); each int8 run within ``U + P +
+    steps * B / 127`` of its fp run; both int8 runs travel as far as each
+    other (their largest travel over ``P`` within 0.05); and some value
+    travels beyond the fp run's largest net update ``U``, so ``2 U`` would
+    not bound the difference."""
+    jparams, init_sd = init
+    lr = OPTIMIZERS["adafactor"]
+    path = _path_bound(lr, STEPS)
+    runs = port_runs[2][0]
+    pairs = {"port": (runs["adafactor/int8"][1],
+                      runs["adafactor/replicated"][1]),
+             "jax": (_jax_cached(jparams, "adafactor", "int8", 2)[1],
+                     _jax_cached(jparams, "adafactor", "replicated", 2)[1])}
+    zero = [n for n, v in init_sd.items() if not v.any()]
+    assert any(n.endswith("ln_attn.bias") for n in zero)
+    travel = {}
+    for key, (q, fp) in pairs.items():
+        over_u, over_p = 0.0, 0.0
+        for name in zero:
+            u_net = np.abs(fp[name]).max()
+            moved = np.abs(q[name]).max()
+            assert moved <= path * (1 + 1e-5), (key, name, moved, path)
+            assert u_net <= path * (1 + 1e-5), (key, name, u_net, path)
+            b = max(np.abs(fp[name]).max(), path)
+            diff = np.abs(q[name] - fp[name]).max()
+            assert diff <= u_net + path + STEPS * b / 127, (key, name)
+            over_u = max(over_u, moved / u_net)
+            over_p = max(over_p, moved / path)
+        travel[key] = (over_u, over_p)
+    assert abs(travel["port"][1] - travel["jax"][1]) <= 0.05, travel
+    assert min(u for u, _ in travel.values()) > 0.99, travel
+    assert max(u for u, _ in travel.values()) > 1.0, travel

@@ -203,10 +203,10 @@ def run_train_cases(rank, n, payload):
 # -- sharded checkpoints and the live re-layout ---------------------------------------
 
 
-def trainer(ckpt_dir, job, parallel=None, **overrides):
-    """An ``ElasticTrainer`` on the tiny model (fp32, Adafactor, ZeRO-1),
-    its shm arena named by ``job``; ``parallel`` (a dict) its
-    ``ParallelConfig``."""
+def trainer(ckpt_dir, job, parallel=None, model=None, **overrides):
+    """An ``ElasticTrainer`` on the tiny model (fp32, Adafactor, ZeRO-1;
+    ``model``, a key of :func:`mp_config`, for another), its shm arena
+    named by ``job``; ``parallel`` (a dict) its ``ParallelConfig``."""
     from dlrover_tpu_torch.runtime.mesh import ParallelConfig
     from dlrover_tpu_torch.trainer.elastic_trainer import (
         ElasticTrainer,
@@ -219,7 +219,8 @@ def trainer(ckpt_dir, job, parallel=None, **overrides):
                ckpt_every=1000, report_every=1000, numeric_checks=False)
     cfg.update(overrides)
     return ElasticTrainer(
-        _port_cfg(), TrainerConfig(**cfg), device="cpu",
+        mp_config(model) if model else _port_cfg(), TrainerConfig(**cfg),
+        device="cpu",
         parallel=ParallelConfig(**parallel) if parallel else None)
 
 
@@ -263,7 +264,8 @@ def save_and_restore(rank, n, payload):
     out = {}
     if payload.get("save"):
         t = trainer(payload["save"], f"{payload['job']}_save{n}",
-                    parallel=payload.get("parallel"))
+                    parallel=payload.get("parallel"),
+                    model=payload.get("model"))
         t.fit([lm_batch(i) for i in range(2)], max_steps=2)
         assert t._ckpt.wait(timeout=120)
         out["saved"] = pieces(t)
@@ -275,7 +277,8 @@ def save_and_restore(rank, n, payload):
         out["world"] = (t._world, t.train.dp, t.train.zero1)
         t.close()
     for name, directory in payload.get("restore", {}).items():
-        r = trainer(directory, f"{payload['job']}_restore{n}{name}")
+        r = trainer(directory, f"{payload['job']}_restore{n}{name}",
+                    model=payload.get("model"))
         out[name] = (r.step, pieces(r))
         r.close()
     return out
@@ -338,9 +341,12 @@ WIDE = dict(num_layers=1, d_model=512, num_heads=4, vocab_size=128,
 
 def mp_config(model):
     """The port's config of a model key: ``gpt2`` (``TINY``), ``llama``
-    (``LLAMA``, GQA and an untied head) or ``wide`` (``WIDE``), fp32."""
+    (``LLAMA``, GQA and an untied head), ``wide`` (``WIDE``) or
+    ``moe_<dispatch>`` (``MOE``), fp32."""
     from dlrover_tpu_torch.models import gpt2_config, llama_config
 
+    if model.startswith("moe_"):
+        return moe_config(model[4:])
     if model == "llama":
         return llama_config("tiny", **LLAMA, dtype=torch.float32)
     return gpt2_config("124m", **(WIDE if model == "wide" else TINY),
@@ -371,12 +377,20 @@ def run_mp_cases(rank, n, payload):
                 mp_config(model), ttl.make_optimizer(opt, learning_rate=lr),
                 global_batch_size=BATCH, seq_len=SEQ, device="cpu",
                 mesh=mesh, **kw)
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             out[key] = {"refused": str(e)}
             continue
         init = {k: torch.from_numpy(v)
                 for k, v in payload["init"][model].items()}
         state = train.init(params=init)
+        stats = None
+        if train.config.num_experts:
+            from dlrover_tpu_torch.trainer.train_lib import (
+                build_moe_stats_fn,
+            )
+
+            stats = build_moe_stats_fn(train)(
+                state, ttl.shard_batch(lm_batch(0), train)).numpy()
         metrics = []
         for i in range(3):
             wire_lib.reset_counts()
@@ -392,7 +406,7 @@ def run_mp_cases(rank, n, payload):
         out[key] = {"metrics": metrics, "pieces": pieces,
                     "wire": dict(wire_lib.COUNTS["axes"]),
                     "batch": (train.batch_rank, train.batch_ranks),
-                    "zero1": train.zero1}
+                    "zero1": train.zero1, "stats": stats}
     if n in payload.get("saves", {}):
         out["save"] = save_and_restore(rank, n, payload["saves"][n])
     return out
@@ -409,3 +423,122 @@ def assemble_params(ranks, key):
             arr = whole.setdefault(name, np.zeros(shape, value.dtype))
             arr[tuple(slice(b, e) for b, e in index)] = value
     return whole
+
+
+# -- the expert axis ---------------------------------------------------------------
+
+#: A tiny GPT-2 MoE: 4 experts top-2 of d_ff 64 in each of its 2 layers.
+MOE = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=128,
+           max_seq_len=64, num_experts=4, top_k=2, d_ff=64)
+#: The MoE layer cases: d_model, experts, d_ff, batch, sequence.
+LAYER = dict(d=16, e=4, f=32, b=8, s=16)
+
+
+def moe_config(dispatch):
+    from dlrover_tpu_torch.models import gpt2_config
+
+    return gpt2_config("124m", **MOE, moe_dispatch=dispatch,
+                       dtype=torch.float32)
+
+
+def expert_group(n, data=1):
+    """The ``ExpertGroup`` of this rank on a ``data x expert`` mesh of
+    the world's ``n`` processes."""
+    from dlrover_tpu_torch.parallel import rules as lr
+    from dlrover_tpu_torch.parallel.sharding import ModelParallel
+    from dlrover_tpu_torch.runtime.mesh import (
+        ParallelConfig,
+        axis_wires,
+        build_mesh,
+    )
+
+    mesh = build_mesh(ParallelConfig(data=data, expert=n // data),
+                      device_type="cpu")
+    return ModelParallel(mesh, lr.DEFAULT_RULES,
+                         axis_wires(mesh)).expert_group()
+
+
+def a2a_case_inputs(case, n):
+    """A collective case's member inputs ``[n, *shape]`` and cotangents
+    (``[n, *output shape]``), fp32 numpy (bf16 cases rounded to bf16),
+    each member's at its own scale."""
+    cid, _, shape, dtype, split, concat = case
+    out_shape = list(shape)
+    out_shape[split] //= n
+    out_shape[concat] *= n
+    rng = np.random.default_rng(sum(map(ord, cid)) + n)
+    x, g = (rng.normal(size=(n,) + tuple(s)).astype(np.float32)
+            * np.exp(rng.uniform(-3, 2, size=(n,) + (1,) * len(s))
+                     ).astype(np.float32) for s in (shape, out_shape))
+    if dtype == "bfloat16":
+        x, g = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                for a in (x, g))
+    return x, g
+
+
+def run_ep_a2a(rank, n, cases):
+    """The all-to-all cases ``(id, quant, shape, dtype, split, concat)``:
+    each rank's output and its input's gradient for the cotangent."""
+    from dlrover_tpu_torch.parallel import quantized_collectives as qc
+    from dlrover_tpu_torch.parallel.wire import Wire
+
+    wire = Wire(axis="expert")
+    out = {}
+    for case in cases:
+        cid, quant, _, dtype, split, concat = case
+        xs, gs = a2a_case_inputs(case, n)
+        x = torch.from_numpy(xs[rank]).to(getattr(torch, dtype))
+        x.requires_grad_(True)
+        fn = qc.quantized_all_to_all if quant else qc.all_to_all
+        y = fn(x, wire, split_axis=split, concat_axis=concat)
+        (y.float() * torch.from_numpy(gs[rank])).sum().backward()
+        out[cid] = (str(y.dtype), y.detach().float().numpy(),
+                    x.grad.float().numpy())
+    return out
+
+
+def run_ep_layers(rank, n, payload):
+    """The MoE layer cases ``(key, dispatch, world)`` of this world: the
+    layer on this rank's rows with its experts, ``loss = sum(out * cot) +
+    aux``; returns its rows' output, the aux loss, the gradients of its
+    rows, the router and its experts, and the router statistics."""
+    from dlrover_tpu_torch.models import moe
+
+    c = LAYER
+    whole = {k: torch.from_numpy(v) for k, v in payload["params"].items()}
+    x_all = torch.from_numpy(payload["x"])
+    cot_all = torch.from_numpy(payload["cot"])
+    out = {}
+    for key, dispatch, world in payload["cases"]:
+        if world != n:
+            continue
+        group = expert_group(n)
+        layer = moe.MoEMlp(c["d"], c["e"], c["f"], top_k=2,
+                           activation="gelu", dtype=torch.float32,
+                           dispatch=dispatch, group=group, device="cpu")
+        local = c["e"] // n
+        experts = slice(rank * local, (rank + 1) * local)
+        layer.load_state_dict({"router.kernel": whole["router.kernel"],
+                               "wi": whole["wi"][experts].clone(),
+                               "wo": whole["wo"][experts].clone()})
+        rows = slice(rank * c["b"] // n, (rank + 1) * c["b"] // n)
+        x = x_all[rows].clone().requires_grad_(True)
+        y, aux = layer(x)
+        ((y * cot_all[rows]).sum() + aux).backward()
+        with torch.no_grad(), moe.collect_router_stats() as stats:
+            layer(x)
+        out[key] = {"out": y.detach().numpy(), "aux": aux.item(),
+                    "dx": x.grad.numpy(),
+                    "grads": {k: p.grad.numpy().copy()
+                              for k, p in layer.named_parameters()},
+                    "stats": stats[0].numpy()}
+    return out
+
+
+def run_ep_cases(rank, n, payload):
+    """One world for the expert axis's cases: the all-to-alls, the MoE
+    layers, then the train cases and saves of :func:`run_mp_cases`."""
+    out = {"a2a": run_ep_a2a(rank, n, payload["a2a"]),
+           "layers": run_ep_layers(rank, n, payload["layers"])}
+    out.update(run_mp_cases(rank, n, payload))
+    return out
