@@ -259,10 +259,15 @@ of the JAX package.  Phases, each one JSON line on stdout:
                flipping back restores it).  A new trainer on the directory
                resumes at step 6 with the state bit-equal (byte views) and
                the booked ``grad_accum_ref``, and ``fit`` to step 8 takes 2
-               finite steps.  Then the ported ``train_lm`` example
-               (``EXAMPLE_ARGV``) in a subprocess exits 17 at step 10 and a
-               restart (``DLROVER_TPU_RESTART_COUNT=1``) resumes at step 8,
-               from shm or storage (printed), and exits 0.  Printed: the
+               finite steps.  Once the step times and the digest's cost
+               are taken, the phase starts (``_after_fit_measured``) the
+               ported ``train_lm`` example's pair in a thread (phase
+               ``train_fit_example``, read after ``train_dp2``: the
+               example (``EXAMPLE_ARGV``) in a subprocess exits 17 at step
+               10 and a restart (``DLROVER_TPU_RESTART_COUNT=1``) resumes
+               at step 8, from shm or storage (printed), and exits 0) and
+               spawns the world of two with its warm-up (``_warm_rank``),
+               both beside the rest of this phase.  Printed: the
                device time between step starts (CUDA events) and its median
                beside tokens/s and MFU, each checkpoint call's blocking
                seconds and whether it saved, ``close()``'s wait, the restore's
@@ -285,7 +290,8 @@ of the JAX package.  Phases, each one JSON line on stdout:
                fold of per-leaf byte sums.
 9d. ``train_dp2``  two processes on ``cuda:0`` joined in a gloo group
                (every collective staged through host memory,
-               ``parallel/wire.py``; the copies counted): GPT-2 1.5B's
+               ``parallel/wire.py``; the copies counted; the world's
+               warm-up read and printed first): GPT-2 1.5B's
                width at ``DP2_LAYERS`` of 48 layers (printed), global
                batch 16 x 1024, 8 rows a rank.  For Adafactor and q8_adam
                (clip 1.0, lr 1e-4), ``DP2_STEPS`` steps each of the
@@ -356,6 +362,28 @@ of the JAX package.  Phases, each one JSON line on stdout:
                chunk back to its own rank, and the top-1 density left
                unreduced over the batch group.  ``--ep`` runs the build
                and this phase.
+9g. ``train_opts``  the training options at GPT-2 1.5B's width
+               (``OPTS_LAYERS`` of 48 layers, fp32 parameters, bf16,
+               flash, 16 x 1024), one model and one batch: every remat
+               policy of the registry, ``OPTS_OFFLOAD`` and its save-only
+               twin, one step each against ``none``'s: the loss bit for
+               bit, gradients within ``OPTS_GRAD_RTOL``, K1/K3 launches,
+               the bytes kept on the device by site name and the bytes
+               moved through pinned host memory, all equal to
+               ``_opts_predicted``, the offload run's device peak below
+               the twin's by ``OPTS_OFFLOAD_PEAK_SHARE`` of what it
+               moves; Lion, AGD and AdamW from ``make_optimizer`` (AdamW
+               then µP) stepped by ``build_train``'s step, and WSAM over
+               AdamW, 3 steps each, every update and the state after it
+               against a float64 shadow that starts from the same init
+               and advances by the float64 formula on the step's own
+               gradients; ``wo_transposed`` on the same weights against
+               the untransposed model.  Planted: a replay handing back
+               the other site's tensor, a Lion step with the sign taken
+               before the interpolation, a Lion moment decayed by b1 in
+               place of b2.  The local-SGD job runs at the end of
+               ``train_dp2``'s ranks (``LSGD_*``).  ``--opts`` runs the
+               build and this phase.
 10. ``train_split``  full width, 4 layers, ``flash_block_kv=512``, 1
                warm-up then 3 measured steps: every step launches
                ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times each and the
@@ -450,6 +478,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -511,9 +540,9 @@ PARITY_MIN_COSINE, PARITY_PARAM_RTOL = 0.99985, 0.03
 # diagonal tiles hit (``diagonal_tiles``), share of their contribution lost).
 PARITY_FAULTS = [("late_diagonal_dropped", TRAIN_SEQ // 2, 1.0),
                  ("every_diagonal_halved", 0, 0.5)]
-# A quarter of the 48 layers, cut for the script's time; the widths are
-# whole.
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 12, 3
+# An eighth of the 48 layers, cut for the script's time (24 until PR 16,
+# 12 until PR 17); the widths are whole.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 3
 # K8/K9 against their plain versions over one 4-layer MoE step (the flash
 # kernels in both legs, every leg routed as the kernel leg was).  Sound
 # kernels read (H100): loss gap 4.3e-5, grad-norm gap 7.7e-5, lowest
@@ -1843,10 +1872,11 @@ def _trees_bit_equal(got, want):
     return bad
 
 
-#: ``flash_ckpt``'s depth: 24 of GPT-2 1.5B's 48 layers, 1.68 GB of state
-#: (48 until PR 15, whose ``train_mp2`` needed the script's time; the
-#: phase took 79.7–90.9 s at 48).
-FLASH_CKPT_LAYERS = 24
+#: ``flash_ckpt``'s depth: 6 of GPT-2 1.5B's 48 layers (48 until PR 15,
+#: 24 until PR 17, each cut for the script's time: the phase took
+#: 79.7–90.9 s at 48 and 49.3 s at 24; PR 17 added ``train_opts`` and the
+#: local-SGD job).
+FLASH_CKPT_LAYERS = 6
 
 
 def flash_ckpt_and_check():
@@ -2230,8 +2260,18 @@ def _example_pair(scratch):
             if restarts is not None:
                 run_env["DLROVER_TPU_RESTART_COUNT"] = restarts
             t0 = time.perf_counter()
-            res = subprocess.run(argv, env=run_env, cwd=REPO, timeout=300,
-                                 capture_output=True, text=True)
+            proc = subprocess.Popen(argv, env=run_env, cwd=REPO,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            _EXAMPLE["proc"] = proc
+            try:
+                _, stderr = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            res = subprocess.CompletedProcess(argv, proc.returncode, "",
+                                              stderr)
             resumed = re.findall(r"resumed from checkpoint at step (\d+)",
                                  res.stderr)
             source = re.findall(r"restoring step \d+ from (shm)", res.stderr)
@@ -2257,13 +2297,71 @@ def _example_pair(scratch):
     return out
 
 
-def train_fit_and_check():
+#: The example pair's thread, its running process and its result
+#: (``example_start``, ``example_and_check``).
+_EXAMPLE = {}
+
+
+def example_start():
+    """Starts the ported example's crash-and-resume pair in a thread: its
+    two processes (tiny, host-bound) run while this process goes on with
+    the next phases, and ``example_and_check`` reads the result."""
+    import shutil
+    import threading
+
+    scratch = os.path.join(REPO, "build", "example")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+
+    def run():
+        try:
+            _EXAMPLE["out"] = _example_pair(scratch)
+        except BaseException as e:  # noqa: BLE001 - read by the check
+            _EXAMPLE["out"] = {"ok": False, "error": repr(e)}
+
+    thread = threading.Thread(target=run, daemon=True)
+    _EXAMPLE.update(thread=thread, scratch=scratch, t0=time.perf_counter())
+    thread.start()
+
+
+def example_and_check():
+    """Phase ``train_fit_example``: waits for the example pair (started
+    now when nothing started it) and holds it to the crash at step 10 and
+    the resume at step 8."""
+    if "thread" not in _EXAMPLE:
+        example_start()
+    _EXAMPLE["thread"].join(timeout=700)
+    out = {"phase": "train_fit_example",
+           **_EXAMPLE.get("out", {"ok": False, "error": "did not finish"}),
+           "wall_s": time.perf_counter() - _EXAMPLE["t0"]}
+    _example_stop()
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"example crash-and-resume: {out}")
+
+
+def _example_stop():
+    """Kills the example's process if one still runs."""
+    import shutil
+
+    proc = _EXAMPLE.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "scratch" in _EXAMPLE:
+        shutil.rmtree(_EXAMPLE["scratch"], ignore_errors=True)
+    _EXAMPLE.clear()
+
+
+def train_fit_and_check(on_measured=None):
     """``ElasticTrainer.fit`` on the ``train`` phase's GPT-2 1.5B at full
     width and depth: the data tier, the CUDA-stream prefetcher, the
     deferred metrics, the numeric monitor, the SDC digest, Flash
-    Checkpoint at the cadence and a restore on a new trainer; then the
-    ported example's crash-and-resume pair.  Returns the counted
-    launches of the fit."""
+    Checkpoint at the cadence and a restore on a new trainer.
+    ``on_measured()`` is called once the fit's step times and the
+    digest's cost are taken (before ``close()``): work started there runs
+    beside the rest of the phase without touching what it times.
+    Returns the counted launches of the fit."""
     import shutil
     import tempfile
 
@@ -2635,6 +2733,8 @@ def train_fit_and_check():
         if not (d1 == d2 == d3 and pending and pending[-1] ==
                 (FIT_STEPS, d1) and flipped != d1):
             raise AssertionError(f"digest checks failed: {out['digest']}")
+        if on_measured is not None:
+            on_measured()
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2683,7 +2783,6 @@ def train_fit_and_check():
         counts = {k: counts[k] + more_counts[k] for k in counts}
         del resumed
         torch.cuda.empty_cache()
-        out["example"] = _example_pair(scratch)
         out["launches"] = counts
     finally:
         emit(out)
@@ -2697,8 +2796,6 @@ def train_fit_and_check():
             else:
                 os.environ[k] = v
     shutil.rmtree(scratch, ignore_errors=True)
-    if not out["example"]["ok"]:
-        raise AssertionError(f"example crash-and-resume: {out['example']}")
     return counts
 
 
@@ -2809,6 +2906,414 @@ DP2_INT8_STEP1_SHARE = 0.25
 #: The resize run: 2 steps at world 2, ``apply_world_change(1)``, 1 step,
 #: ``apply_world_change(2)``, 1 step, against 4 unresized steps.
 DP2_RESIZE_STEPS = (2, 1, 1)
+
+
+#: The local-SGD job of ``train_dp2``'s two processes: each trains its own
+#: world-1 replica (``single_device_mesh()``) of GPT-2 1.5B's width at
+#: ``LSGD_LAYERS`` layers, fp32 parameters (the deltas travel in fp32),
+#: Adafactor, on its own batch of ``TRAIN_BATCH // 2`` rows, with an outer
+#: sync every ``LSGD_SYNC_EVERY`` steps on the world's wire: plain average
+#: with outer momentum on the fp transport, GTA on the int8 one (K5a a
+#: leaf, K5b a leaf and process).  Each sync is held against the
+#: reduction computed in the parent process from both ranks' dumped
+#: deltas, bit for bit (the int8 one through the plain quantize and
+#: dequantize; each rank also holds its K5a codes to the plain ones, at
+#: most ``LSGD_CODE_LEVELS`` off).  Planted: rank 1 sends its anchor in
+#: place of its delta; the check must fail.
+LSGD_LAYERS = 1
+LSGD_SYNC_EVERY = 2
+LSGD_STEPS = 4
+LSGD_CODE_LEVELS = 1
+LSGD_RUNS = (
+    ("average_fp", dict(method="average", outer_momentum=0.9)),
+    ("gta_int8", dict(method="gta", outer_momentum=0.0,
+                      quantized_comm=True)),
+    ("planted_anchor", dict(method="average", outer_momentum=0.9)),
+)
+
+
+def _lsgd_config():
+    return dataclasses.replace(_dp2_config(LSGD_LAYERS),
+                               param_dtype=torch.float32)
+
+
+def _lsgd_rank(rank, out_dir):
+    """The local-SGD job of one rank: per run and sync, its delta (dumped
+    to ``out_dir``), the digest of its parameters after the sync, the
+    sync's wire bytes and K5a/K5b launches."""
+    from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.parallel import local_sgd as ls
+    from dlrover_tpu_torch.parallel import quantized_collectives as qc
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import single_device_mesh
+    from dlrover_tpu_torch.trainer import state_digest, train_lib
+
+    cfg = _lsgd_config()
+    mesh = single_device_mesh()
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH // 2, seq_len=TRAIN_SEQ, mesh=mesh,
+        device="cuda")
+    rng = np.random.default_rng(100 + rank)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          size=(TRAIN_BATCH // 2, TRAIN_SEQ + 1))
+    batch = {"inputs": torch.as_tensor(tokens[:, :-1], device="cuda"),
+             "targets": torch.as_tensor(tokens[:, 1:], device="cuda")}
+    world = wire_lib.Wire()
+    codes = {"max_levels": 0, "scales_equal": True, "leaves": 0}
+    block_quant = qc._block_quant
+
+    def held(x, block):
+        q, s = block_quant(x, block)
+        qr, sr = tq.quantize_reference(x)
+        codes["max_levels"] = max(codes["max_levels"], int(
+            (q.int() - qr.reshape(-1).int()).abs().max()))
+        codes["scales_equal"] &= bool(torch.equal(s, sr))
+        codes["leaves"] += 1
+        return q, s
+
+    out = {"runs": {}, "world_of_train": train.dp}
+    for name, kw in LSGD_RUNS:
+        state = train.init(seed=0)
+        model = state.model
+        planted = name.startswith("planted")
+        outer = None
+
+        def send_anchor(delta):
+            return qc.process_allgather(
+                outer._anchor if rank == 1 else delta, world)
+
+        outer = ls.LocalSGD(ls.LocalSGDConfig(sync_every=LSGD_SYNC_EVERY,
+                                              **kw),
+                            allgather_fn=send_anchor if planted else None)
+        outer.init(dict(model.named_parameters()))
+        steps, syncs = [], []
+        for step in range(2 if planted else LSGD_STEPS):
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train.step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                          "launches": {k: v for k, v in _counts().items()
+                                       if v}})
+            params = {k: p.detach() for k, p in model.named_parameters()}
+            if (step + 1) % LSGD_SYNC_EVERY:
+                outer.maybe_sync(params)
+                continue
+            delta = {k: (p - outer._anchor[k]).cpu() for k, p in
+                     params.items()}
+            torch.save(delta, os.path.join(
+                out_dir, f"lsgd_{name}_{len(syncs)}_r{rank}.pt"))
+            del delta
+            _zero_counts()
+            wire_lib.reset_counts()
+            qc._block_quant = held
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                new, synced = outer.maybe_sync(params)
+            finally:
+                qc._block_quant = block_quant
+            torch.cuda.synchronize()
+            sync_s = time.perf_counter() - t0
+            assert synced
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(new[k])
+            launched = {k: v for k, v in _counts().items() if v}
+            digest = int(state_digest.digest_leaves(
+                [p.detach() for _, p in model.named_parameters()]))
+            syncs.append({"digest": digest, "sync_s": sync_s,
+                          "launches": launched,
+                          "wire_bytes": dict(wire_lib.COUNTS["bytes"])})
+            del new
+        out["runs"][name] = {"steps": steps, "syncs": syncs}
+        out["names"] = list(params)
+        del state, model, outer, params
+        torch.cuda.empty_cache()
+    out["codes"] = codes
+    return out
+
+
+def _lsgd_check(results, out_dir):
+    """The parent's reduction from both ranks' dumped deltas, sync by
+    sync, against both ranks' parameters (digests), and the counts."""
+    from dlrover_tpu_torch.models.transformer import init_params, param_shapes
+    from dlrover_tpu_torch.ops import quantization as tq
+    from dlrover_tpu_torch.parallel import local_sgd as ls
+    from dlrover_tpu_torch.parallel import quantized_collectives as qc
+    from dlrover_tpu_torch.trainer import state_digest
+
+    cfg = _lsgd_config()
+    names = results[0]["names"]
+    shapes = param_shapes(cfg)
+    numels = [int(np.prod(shapes[k])) for k in names]
+    step_launches = _per_step(flash_fwd=LSGD_LAYERS,
+                              flash_bwd_fused=LSGD_LAYERS)
+    step_launches = {k: v for k, v in step_launches.items() if v}
+
+    def plain_int8(delta):
+        out = {}
+        for k, d in delta.items():
+            flat = d.reshape(-1)
+            padded = -(-flat.numel() // tq.BLOCK) * tq.BLOCK
+            q, s = tq.quantize_reference(F.pad(flat, (0, padded
+                                                      - flat.numel())))
+            out[k] = tq.dequantize_reference(q, s, (padded,))[
+                :flat.numel()].reshape(d.shape)
+        return out
+
+    report, bad = {}, []
+    for name, kw in LSGD_RUNS:
+        anchor = init_params(cfg, seed=0, device="cuda")
+        anchor = {k: anchor[k] for k in names}
+        velocity = None
+        rows = []
+        syncs = [r["runs"][name]["syncs"] for r in results]
+        for i in range(len(syncs[0])):
+            deltas = [{k: v.to("cuda") for k, v in torch.load(os.path.join(
+                out_dir, f"lsgd_{name}_{i}_r{r}.pt")).items()}
+                for r in range(2)]
+            if kw.get("quantized_comm"):
+                deltas = [plain_int8(d) for d in deltas]
+            reduced = (ls.gta_reduce(deltas) if kw["method"] == "gta"
+                       else ls.average_reduce(deltas))
+            if kw["outer_momentum"]:
+                if velocity is None:
+                    velocity = {k: torch.zeros_like(d)
+                                for k, d in reduced.items()}
+                velocity = {k: kw["outer_momentum"] * velocity[k] + d
+                            for k, d in reduced.items()}
+                applied = velocity
+            else:
+                applied = reduced
+            anchor = {k: a + 1.0 * applied[k] for k, a in anchor.items()}
+            want = int(state_digest.digest_leaves([anchor[k]
+                                                   for k in names]))
+            got = [s[i]["digest"] for s in syncs]
+            quant = "int8" if kw.get("quantized_comm") else "none"
+            leaves = len(names)
+            launches_ok = all(
+                s[i]["launches"] == ({"quantize": leaves,
+                                      "dequantize": 2 * leaves}
+                                     if quant == "int8" else {})
+                for s in syncs)
+            bytes_ok = all(s[i]["wire_bytes"] == {
+                "all_gather": qc.process_allgather_bytes(numels, quant)}
+                for s in syncs)
+            rows.append({"ranks_equal": got[0] == got[1],
+                         "equals_reduction": got[0] == want == got[1],
+                         "launches": syncs[0][i]["launches"],
+                         "launches_ok": launches_ok,
+                         "wire_bytes": syncs[0][i]["wire_bytes"],
+                         "bytes_ok": bytes_ok,
+                         "sync_s": [s[i]["sync_s"] for s in syncs]})
+            del deltas, reduced
+        steps = results[0]["runs"][name]["steps"]
+        ok = (all(r["ranks_equal"] and r["equals_reduction"]
+                  and r["launches_ok"] and r["bytes_ok"] for r in rows)
+              and all(s["launches"] == step_launches for r in results
+                      for s in r["runs"][name]["steps"]))
+        report[name] = {"syncs": rows, "ok": ok,
+                        "losses": [[s["loss"] for s in r["runs"][name]
+                                    ["steps"]] for r in results],
+                        "step_s": [s["s"] for s in steps]}
+        if name.startswith("planted"):
+            report[name]["fails"] = not ok
+            if ok:
+                bad.append(name)
+        elif not ok or len(rows) < 2:
+            bad.append(name)
+        torch.cuda.empty_cache()
+    codes = [r["codes"] for r in results]
+    report["k5a_codes"] = codes
+    if not all(c["max_levels"] <= LSGD_CODE_LEVELS and c["scales_equal"]
+               and c["leaves"] > 0 for c in codes):
+        bad.append("k5a_codes")
+    return report, bad
+
+
+#: The script's world of two: two processes on ``cuda:0`` joined in one
+#: gloo group (``tcp://127.0.0.1``), started by the first phase that needs
+#: it and kept for the others (``train_dp2``, ``train_mp2``,
+#: ``train_ep2``), so their spawns, imports, CUDA contexts and first
+#: kernel loads are paid once (PR 17; each phase spawned its own until
+#: then).  A phase hands both ranks a task, the name of its rank function;
+#: each rank writes its result (or its traceback) to the task's file.
+_WORLD = {}
+#: The environment a task carries to the ranks (the job tag and socket
+#: directory of its Flash Checkpoint saves).
+_WORLD_ENV = ("DLROVER_TPU_JOB", "DLROVER_TPU_SOCKET_DIR")
+
+
+def _world_main(rank, port, tasks, done):
+    import traceback
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    while True:
+        task = tasks.get()
+        if task is None:
+            break
+        fn, out_dir, result_file, env = task
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        path = os.path.join(out_dir, result_file.format(rank=rank))
+        try:
+            result = globals()[fn](rank, out_dir)
+        except BaseException:  # noqa: BLE001 - reported, then the rank ends
+            torch.save({"error": traceback.format_exc()}, path)
+            done.put((rank, False))
+            raise
+        torch.save(result, path)
+        del result
+        torch.cuda.empty_cache()
+        dist.barrier()
+        done.put((rank, True))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _world_submit(fn, out_dir, result_file):
+    """Hands both ranks ``fn(rank, out_dir)`` (spawning the world when it
+    is not running); :func:`_world_collect` waits for it."""
+    import multiprocessing
+
+    if not _WORLD:
+        ctx = multiprocessing.get_context("spawn")
+        tasks = [ctx.Queue() for _ in range(2)]
+        done = ctx.Queue()
+        port = _free_port()
+        procs = [ctx.Process(target=_world_main,
+                             args=(r, port, tasks[r], done))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        _WORLD.update(procs=procs, tasks=tasks, done=done)
+    env = {k: os.environ.get(k) for k in _WORLD_ENV}
+    for q in _WORLD["tasks"]:
+        q.put((fn, out_dir, result_file, env))
+
+
+def _world_run(fn, out_dir, result_file, timeout):
+    """Both ranks of the world run ``fn(rank, out_dir)``; their results
+    (``{"error": ...}`` for a rank that failed or gave none) and exit
+    codes (None while a rank lives)."""
+    _world_submit(fn, out_dir, result_file)
+    return _world_collect(out_dir, result_file, timeout)
+
+
+def _world_collect(out_dir, result_file, timeout):
+    """The results and exit codes of the task handed to the ranks last
+    (the world is stopped when a rank failed or timed out)."""
+    import queue
+
+    finished, deadline = {}, time.perf_counter() + timeout
+    while len(finished) < 2:
+        try:
+            rank, ok = _WORLD["done"].get(timeout=5.0)
+            finished[rank] = ok
+        except queue.Empty:
+            if time.perf_counter() > deadline or any(
+                    not p.is_alive() for p in _WORLD["procs"]):
+                break
+        if not all(finished.values()):
+            break
+    paths = [os.path.join(out_dir, result_file.format(rank=r))
+             for r in range(2)]
+    results = [torch.load(p, weights_only=False) if os.path.exists(p)
+               and r in finished else {"error": "no result"}
+               for r, p in enumerate(paths)]
+    codes = [p.exitcode for p in _WORLD["procs"]]
+    if len(finished) < 2 or not all(finished.values()):
+        _world_stop()
+    return results, codes
+
+
+#: Where the world's warm-up task writes (``world_warm_start``).
+WORLD_WARM_DIR = os.path.join(REPO, "build", "world_warm")
+
+
+def _warm_rank(rank, out_dir):
+    """The world's warm-up: two replicated Adafactor steps of GPT-2 1.5B's
+    width at one layer on the data axis of both ranks, so that a fresh
+    process's first CUDA, cuBLAS, kernel-library and gloo calls are paid
+    before ``train_dp2`` times its steps (its first step took 10.9-12.1 s
+    against 1.1 s for the next without it; my chip runs, PR 17)."""
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    t0 = time.perf_counter()
+    cfg = _dp2_config(1)
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        mesh=build_mesh(ParallelConfig(data=-1), device_type="cuda"),
+        device="cuda")
+    state = train.init(seed=0)
+    placed = train_lib.shard_batch(_train_batch(cfg.vocab_size,
+                                                TRAIN_BATCH), train)
+    steps = []
+    for _ in range(2):
+        t = time.perf_counter()
+        state, m = train.step(state, placed)
+        steps.append({"loss": float(m["loss"]),
+                      "s": time.perf_counter() - t})
+    del train, state, placed
+    return {"s": time.perf_counter() - t0, "steps": steps}
+
+
+def world_warm_start():
+    """Spawns the world and hands it the warm-up (``_warm_rank``); the
+    first phase of the world reads it with :func:`_world_warm_result`."""
+    import shutil
+
+    shutil.rmtree(WORLD_WARM_DIR, ignore_errors=True)
+    os.makedirs(WORLD_WARM_DIR)
+    _world_submit("_warm_rank", WORLD_WARM_DIR, "warm{rank}.pt")
+    _WORLD["warm"] = time.perf_counter()
+
+
+def _world_warm_result():
+    """The warm-up's results (None when no warm-up is pending); raises if
+    a rank failed it."""
+    import shutil
+
+    t0 = _WORLD.pop("warm", None)
+    if t0 is None:
+        return None
+    results, codes = _world_collect(WORLD_WARM_DIR, "warm{rank}.pt", 600)
+    shutil.rmtree(WORLD_WARM_DIR, ignore_errors=True)
+    errors = [r.get("error") for r in results if "error" in r]
+    if errors or codes != [None, None]:
+        raise AssertionError(f"the world's warm-up failed (exit codes "
+                             f"{codes}): {errors}")
+    return {"ranks": results, "waited_from_start_s": time.perf_counter() - t0}
+
+
+def _world_stop():
+    """Ends the world's ranks (a rank stuck in a collective is killed)."""
+    if not _WORLD:
+        return
+    for q in _WORLD["tasks"]:
+        q.put(None)
+    for p in _WORLD["procs"]:
+        p.join(timeout=60)
+    for p in _WORLD["procs"]:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    _WORLD.clear()
 
 
 def _free_port() -> int:
@@ -2992,30 +3497,6 @@ def _dp2_reference(opt, out_dir):
                            else {})}
 
 
-def _dp2_worker(rank, port, out_dir, job):
-    """One of the two ranks of ``train_dp2``: a gloo group on ``cuda:0``
-    (every collective staged through the host, ``parallel/wire.py``)."""
-    import torch.distributed as dist
-
-    sys.path.insert(0, REPO)
-    os.environ["DLROVER_TPU_JOB"] = job
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
-    try:
-        result = _dp2_rank(rank, out_dir)
-    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
-        import traceback
-
-        torch.save({"error": traceback.format_exc()},
-                   os.path.join(out_dir, f"rank{rank}.pt"))
-        raise e
-    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
-
-
 def _dp2_rank(rank, out_dir):
     import torch.distributed as dist
 
@@ -3126,6 +3607,10 @@ def _dp2_rank(rank, out_dir):
             "codes_max_diff": int((q.int() - qr.int().to(q.device)).abs()
                                   .max())}
 
+    # -- Local SGD: each rank a world-1 replica, the outer sync on the world
+    out["local_sgd"] = _lsgd_rank(rank, out_dir)
+    torch.cuda.empty_cache()
+
     # -- live re-layout and the sharded save --------------------------------
     ckpt_dir = os.path.join(out_dir, "ckpt")
     base = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
@@ -3206,7 +3691,6 @@ def train_dp2_and_check():
     run; a live re-layout 2 -> 1 -> 2; a sharded save at world 2 and a
     restore into one process on the card.  Returns the counted launches
     of the main-path runs (both ranks)."""
-    import multiprocessing
     import shutil
     import tempfile
 
@@ -3249,25 +3733,13 @@ def train_dp2_and_check():
     try:
         out["reference"] = {opt: _dp2_reference(opt, out_dir)
                             for opt in DP2_OPTIMIZERS}
-        port = _free_port()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_dp2_worker,
-                             args=(r, port, out_dir, job)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=900)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        results = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                              weights_only=False)
-                   if os.path.exists(os.path.join(out_dir, f"rank{r}.pt"))
-                   else {"error": "no result"} for r in range(2)]
-        codes = [p.exitcode for p in procs]
+        out["reference_s"] = time.perf_counter() - t_start
+        out["world_warmup"] = _world_warm_result()
+        os.environ["DLROVER_TPU_JOB"] = job
+        results, codes = _world_run("_dp2_rank", out_dir, "rank{rank}.pt",
+                                    900)
         errors = [r.get("error") for r in results if "error" in r]
-        if errors or codes != [0, 0]:
+        if errors or codes != [None, None]:
             raise AssertionError(f"train_dp2 ranks failed (exit codes "
                                  f"{codes}): {errors}")
         out["workers_s"] = time.perf_counter() - t_start
@@ -3404,6 +3876,19 @@ def train_dp2_and_check():
         out["save"] = [r0["save"], r1["save"]]
         if not (r0["save"]["saved"] and r1["save"]["saved"]):
             bad.append("save")
+        t0 = time.perf_counter()
+        out["local_sgd"], failed = _lsgd_check(
+            [r0["local_sgd"], r1["local_sgd"]], out_dir)
+        out["local_sgd"]["check_s"] = time.perf_counter() - t0
+        out["local_sgd"]["world_of_train"] = r0["local_sgd"]["world_of_train"]
+        bad += failed
+        for r in (r0, r1):
+            for name, run in r["local_sgd"]["runs"].items():
+                if name.startswith("planted"):
+                    continue
+                for s in run["steps"] + run["syncs"]:
+                    for k, v in s["launches"].items():
+                        counts[k] += v
 
         # -- restore into one process on the card ----------------------
         dumps = [torch.load(os.path.join(out_dir, f"pieces_r{r}.pt"),
@@ -3454,15 +3939,625 @@ def train_dp2_and_check():
     return counts
 
 
+# -- the training options: remat policies, host offload, the optimizers -----------
+
+#: ``train_opts``: GPT-2 1.5B's width (d_model 1600, 25 heads of 64, vocab
+#: 50304, fp32 parameters, bf16 compute, flash) with its depth cut to
+#: this many of 48 layers, batch 16 x 1024, one init for every run.
+OPTS_LAYERS = 4
+OPTS_LR = 1e-4
+OPTS_WD = 0.1
+OPTS_OFFLOAD = "offload:attn_out,mlp_wo"
+#: µP's tuning width: the updates of matrix-like leaves divided by
+#: 1600 / 256.
+OPTS_MUP_BASE = 256
+OPTS_OPT_STEPS = 3
+# Limits (PERF.md §6, PR 17, has the readings).  A policy's gradients
+# against ``none``'s: each leaf's largest difference over its largest
+# value at most what two runs of K3 give (dq is summed by atomics, so two
+# runs differ: ``none`` run twice read 7.1e-3, on the embedding; every
+# policy 6.7e-3 to 7.3e-3), about 3x that; the loss bit for bit (the
+# forward is the same kernels on the same inputs).  The planted replay
+# fault read 1.84.
+OPTS_GRAD_RTOL = 0.02
+#: Offload lowers the step's device peak by at least this share of the
+#: bytes it moves, against the save-only twin that keeps the same sites.
+OPTS_OFFLOAD_PEAK_SHARE = 0.8
+#: An optimizer step against its float64 shadow (the same init, advanced
+#: by the float64 formula on the gradients the step handed the
+#: optimizer): per leaf, the largest difference over the largest update
+#: (values where Lion's sign flips excluded and counted instead), about
+#: 3x the card's readings: Lion 1.20e-7, AGD 5.8e-7, AdamW+µP 5.9e-7
+#: (WSAM's AdamW 5.6e-7).  The planted Lion faults read the same here and
+#: fail on the flips or the state.
+OPTS_UPDATE_RTOL = {"lion": 4e-7, "agd": 2e-6, "adamw_mup": 2e-6}
+#: The state after each step against the shadow's, per moment leaf the
+#: largest difference over its largest value, about 3x the readings:
+#: Lion's mu 1.6e-7, AGD's moments 3.9e-7-6.5e-7, Adam's 2.0e-7 (WSAM's
+#: 1.7e-7); a Lion moment decayed by b1 read 8.5-9.0.
+OPTS_STATE_RTOL = {"lion": 5e-7, "agd": 2e-6, "adamw_mup": 6e-7}
+#: Lion: the share of values whose sign differs from the float64 one
+#: (at most 9.4e-6 on the card, 0 against the shadow state; the planted
+#: faults 0.22-0.43).
+OPTS_LION_FLIP_SHARE = 3e-5
+#: WSAM over AdamW: the base update (recorded) against its float64
+#: formula at ``OPTS_UPDATE_RTOL["adamw_mup"]``, and the new parameters
+#: bit for bit against the reference's composition evaluated from the
+#: recorded gradients and update (``p + u``, then less ``lr * alpha *
+#: (g2 - g1)``, in fp32).
+#: ``wo_transposed`` against the untransposed model on the same weights
+#: (the loss read equal, the gradients 7.1e-3, K3's own noise; the
+#: transposed operand may take another GEMM algorithm).
+OPTS_WOT_LOSS_ATOL, OPTS_WOT_GRAD_RTOL = 1e-4, 0.02
+
+
+def _opts_config(**overrides):
+    from dlrover_tpu_torch.models import gpt2_config
+
+    return gpt2_config("1.5b", num_layers=OPTS_LAYERS,
+                       attention_impl="flash", **overrides)
+
+
+def _opts_batch(vocab, seed):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, size=(TRAIN_BATCH, TRAIN_SEQ + 1),
+                          dtype=np.int64)
+    return (torch.as_tensor(tokens[:, :-1], device="cuda"),
+            torch.as_tensor(tokens[:, 1:], device="cuda"))
+
+
+def _opts_site_bytes(cfg):
+    """Each remat site's bytes a layer at the phase's shapes (bf16
+    activations, the flash lse fp32)."""
+    t, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    return {"qkv_proj": t * 3 * d * 2, "attn_out": t * d * 2,
+            "mlp_wo": t * d * 2, "mlp_out": t * d * 2,
+            "flash_out": t * d * 2,
+            "flash_lse": TRAIN_BATCH * cfg.num_heads * TRAIN_SEQ * 4,
+            "dot": t * cfg.resolved_d_ff * 2}
+
+
+def _opts_predicted(cfg, name):
+    """From the shapes: the bytes a step keeps on the device by site name,
+    the bytes it moves to and from host memory, and its K1/K3 launches."""
+    from dlrover_tpu_torch.ops import remat_policy as rp
+
+    policy = rp.resolve(name)
+    site = _opts_site_bytes(cfg)
+    layers = cfg.num_layers
+    if policy.dots:
+        # Under flash every product left is a DenseGeneral: no batch dots.
+        kept = {"qkv_proj": site["qkv_proj"], "attn_out": site["attn_out"],
+                "dot": site["dot"], "mlp_wo": site["mlp_wo"]}
+    else:
+        kept = {n: site[n] for n in policy.saved_names}
+    moved = sum(site[n] for n in policy.offload_names) * layers
+    flash_kept = set(policy.saved_names + policy.offload_names) >= {
+        "flash_out", "flash_lse"}
+    return ({n: b * layers for n, b in kept.items()}, moved,
+            _per_step(flash_fwd=layers * (1 if name == "none" or flash_kept
+                                          else 2),
+                      flash_bwd_fused=layers))
+
+
+def _opts_step(model, cfg, name, tokens, targets):
+    """One forward and backward under ``name``: the loss, the gradients
+    (copies), launches, remat counts, device peak and seconds."""
+    from dlrover_tpu_torch.ops import remat_policy as rp
+    from dlrover_tpu_torch.trainer import train_lib
+
+    model.config = dataclasses.replace(cfg, remat=name)
+    for p in model.parameters():
+        p.grad = None
+    _zero_counts()
+    rp.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, aux = model.forward_aux(tokens)
+    loss, _ = train_lib.cross_entropy_loss(logits, targets)
+    del logits
+    (loss + aux).backward()
+    loss = float(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    counts = {k: (dict(v) if isinstance(v, dict) else v)
+              for k, v in rp.COUNTS.items()}
+    return {"loss": loss, "grads": grads, "launches": _counts(),
+            "remat": counts, "peak": peak, "s": seconds}
+
+
+def _opts_grad_gap(grads, ref):
+    """The worst leaf: its largest difference over its largest value."""
+    worst = (0.0, None)
+    for k, g in grads.items():
+        r = ref[k].float()
+        scale = float(r.abs().max())
+        gap = float((g.float() - r).abs().max()) / max(scale, 1e-30)
+        if worst[1] is None or gap > worst[0]:
+            worst = (gap, k)
+    return worst
+
+
+def _opts_policies(model, cfg, tokens, targets):
+    """Every registered policy and ``OPTS_OFFLOAD`` (and its save-only
+    twin), one step each against ``none``'s; the planted replay fault."""
+    from dlrover_tpu_torch.ops import remat_policy as rp
+
+    names = ["none"] + sorted(rp.available()) + [OPTS_OFFLOAD]
+    # The offload list's save-only twin: the same sites kept on the card.
+    listed = rp.resolve(OPTS_OFFLOAD).offload_names
+    twin = rp.register(rp.RematPolicy(name="save:" + ",".join(listed),
+                                      saved_names=listed))
+    launched = collections.Counter()
+    base = _opts_step(model, cfg, "none", tokens, targets)
+    launched.update(base["launches"])
+    again = _opts_step(model, cfg, "none", tokens, targets)
+    runs, bad = {}, []
+    runs["none_rerun"] = {"grad_gap": _opts_grad_gap(again["grads"],
+                                                      base["grads"]),
+                          "loss_equal": again["loss"] == base["loss"]}
+    del again
+    t_units = TRAIN_BATCH * TRAIN_SEQ * cfg.num_layers * cfg.d_model * 2
+    # "offload" twice: its first step also allocates the pinned buffers.
+    for name in ([n for n in names if n != "none"] + ["offload"]
+                 + [twin.name]):
+        r = _opts_step(model, cfg, name, tokens, targets)
+        launched.update(r["launches"])
+        kept, moved, want = _opts_predicted(cfg, name)
+        gap = _opts_grad_gap(r["grads"], base["grads"])
+        policy = rp.resolve(name)
+        rc = r["remat"]
+        row = {
+            "loss_equal": r["loss"] == base["loss"], "grad_gap": gap,
+            "launches": {k: v for k, v in r["launches"].items() if v},
+            "launches_ok": r["launches"] == want,
+            "kept_bytes": rc["kept"], "kept_predicted": kept,
+            "d2h": rc["d2h"], "h2d": rc["h2d"], "moved_predicted": moved,
+            "host_copies": rc["host"], "pinned": rc["pinned"],
+            "peak_bytes": r["peak"], "step_s": r["s"],
+            "hbm_act_per_token_layer": {
+                "registry": policy.hbm_act_per_token_layer,
+                "kept_reading": sum(rc["kept"].values()) / t_units}}
+        row["ok"] = (row["loss_equal"] and gap[0] <= OPTS_GRAD_RTOL
+                     and row["launches_ok"] and rc["kept"] == kept
+                     and rc["d2h"] == rc["h2d"] == moved
+                     and rc["pinned"] == rc["host"])
+        if name in runs:
+            row["first_step_s"] = runs[name]["step_s"]
+        runs[name] = row
+        if not row["ok"]:
+            bad.append(name)
+        del r
+    offload, saved = runs[OPTS_OFFLOAD], runs[twin.name]
+    lowered = saved["peak_bytes"] - offload["peak_bytes"]
+    runs["offload_peak"] = {
+        "moved": offload["d2h"], "peak_lowered": lowered,
+        "share": lowered / offload["d2h"]}
+    if lowered < OPTS_OFFLOAD_PEAK_SHARE * offload["d2h"]:
+        bad.append("offload_peak")
+    del rp._REGISTRY[twin.name]
+
+    # Planted: a replay that hands back the other site's tensor (under
+    # branch_out each layer keeps attn_out then mlp_out, of one shape).
+    replay = rp.KeptSites.replay
+
+    def swapped(self):
+        at = self.at
+        self.at = at ^ 1
+        out = replay(self)
+        self.at = at + 1
+        return out
+
+    rp.KeptSites.replay = swapped
+    try:
+        r = _opts_step(model, cfg, "branch_out", tokens, targets)
+    finally:
+        rp.KeptSites.replay = replay
+    gap = _opts_grad_gap(r["grads"], base["grads"])
+    runs["planted_swapped_replay"] = {"grad_gap": gap,
+                                      "fails": gap[0] > OPTS_GRAD_RTOL}
+    if not runs["planted_swapped_replay"]["fails"]:
+        bad.append("planted_swapped_replay")
+    return runs, base, bad, launched
+
+
+def _f64(tree):
+    return {k: v.double() for k, v in tree.items()}
+
+
+def _opts_clip64(g, max_norm=1.0):
+    """``make_optimizer``'s global-norm clip in float64."""
+    norm = math.sqrt(sum(float(x.square().sum()) for x in g.values()))
+    if norm < max_norm:
+        return g
+    return {k: x / norm * max_norm for k, x in g.items()}
+
+
+def _opts_zeros64(g):
+    return {k: torch.zeros_like(x) for k, x in g.items()}
+
+
+def _opts_lion64(g, p, s, b1=0.9, b2=0.99):
+    """One float64 Lion step (optax's b1, b2): the update and the new
+    shadow state ``{"count", "mu"}`` (None: the init)."""
+    s = s or {"count": 0, "mu": _opts_zeros64(g)}
+    u = {k: -OPTS_LR * (torch.sign((1 - b1) * g[k] + b1 * s["mu"][k])
+                        + OPTS_WD * p[k]) for k in g}
+    mu = {k: (1 - b2) * g[k] + b2 * s["mu"][k] for k in g}
+    return u, {"count": s["count"] + 1, "mu": mu}
+
+
+def _opts_agd64(g, p, s, b1=0.9, b2=0.95, delta=1e-5):
+    """One float64 AGD step (``amsgrad`` off, decoupled decay) and the new
+    shadow state ``{"count", "exp_avg", "exp_avg_sq"}``."""
+    s = s or {"count": 0, "exp_avg": _opts_zeros64(g),
+              "exp_avg_sq": _opts_zeros64(g)}
+    count = s["count"] + 1
+    bc1, bc1_old = 1 - b1 ** count, 1 - b1 ** (count - 1)
+    bc2 = 1 - b2 ** count
+    u, ms, vs = {}, {}, {}
+    for k in g:
+        m_old = s["exp_avg"][k]
+        m = b1 * m_old + (1 - b1) * g[k]
+        diff = m / bc1 if count == 1 else m / bc1 - m_old / bc1_old
+        v = b2 * s["exp_avg_sq"][k] + (1 - b2) * diff * diff
+        denom = torch.clamp(v.sqrt(), min=delta * bc2 ** 0.5)
+        u[k] = -(OPTS_LR * bc2 ** 0.5 / bc1 * (m / denom)
+                 + OPTS_LR * OPTS_WD * p[k])
+        ms[k], vs[k] = m, v
+    return u, {"count": count, "exp_avg": ms, "exp_avg_sq": vs}
+
+
+def _opts_adam64(g, p, s, b1=0.9, b2=0.95, eps=1e-8):
+    """One float64 AdamW step and the new shadow state ``{"count", "mu",
+    "nu"}``."""
+    s = s or {"count": 0, "mu": _opts_zeros64(g), "nu": _opts_zeros64(g)}
+    count = s["count"] + 1
+    c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+    mu = {k: (1 - b1) * g[k] + b1 * s["mu"][k] for k in g}
+    nu = {k: (1 - b2) * g[k] ** 2 + b2 * s["nu"][k] for k in g}
+    u = {k: -OPTS_LR * ((mu[k] / c1) / ((nu[k] / c2).sqrt() + eps)
+                        + OPTS_WD * p[k]) for k in g}
+    return u, {"count": count, "mu": mu, "nu": nu}
+
+
+def _opts_moments(state):
+    """The moments of a (chained) optimizer state: ``{moment: {leaf:
+    tensor}}``."""
+    from dlrover_tpu_torch.optimizers.agd import AGDState
+
+    if isinstance(state, AGDState):
+        return {"exp_avg": state.exp_avg, "exp_avg_sq": state.exp_avg_sq}
+    if isinstance(state, dict) and "mu" in state:
+        return {k: state[k] for k in ("mu", "nu") if k in state}
+    if isinstance(state, tuple):
+        for part in state:
+            found = _opts_moments(part)
+            if found:
+                return found
+    return {}
+
+
+def _opts_update_gap(u, u64, lion=False):
+    """The worst leaf's largest difference over its largest update.  For
+    Lion the values whose sign differs from the float64 one (an update
+    more than ``lr / 2`` away, a sign of 0 against +-1 included: rounding
+    moves it by about 1e-7 lr) are left out and their share returned."""
+    worst, flipped, total = (0.0, None), 0, 0
+    for k, ref in u64.items():
+        d = (u[k].double() - ref).abs()
+        if lion:
+            differ = d > OPTS_LR / 2
+            flipped += int(differ.sum())
+            total += differ.numel()
+            d = torch.where(differ, torch.zeros_like(d), d)
+        gap = float(d.max()) / max(float(ref.abs().max()), 1e-300)
+        if worst[1] is None or gap > worst[0]:
+            worst = (gap, k)
+    return worst, (flipped / max(total, 1) if lion else None)
+
+
+def _opts_state_gap(moments, s64):
+    """The worst moment leaf of the port's state against the float64
+    shadow state: its largest difference over its largest value."""
+    worst = (0.0, None)
+    for name, tree in moments.items():
+        for k, t in tree.items():
+            ref = s64[name][k]
+            gap = float((t.double() - ref).abs().max()) / max(
+                float(ref.abs().max()), 1e-300)
+            if worst[1] is None or gap > worst[0]:
+                worst = (gap, f"{name}/{k}")
+    if not moments or set(moments) != set(s64) - {"count"}:
+        worst = (math.inf, "moments missing")
+    return worst
+
+
+def _opts_train_run(cfg, tx, step64, lion=False, mup_width=None):
+    """``OPTS_OPT_STEPS`` steps of ``build_train(cfg, tx)`` on batches 1..,
+    each update and the state after it held against a float64 shadow that
+    starts from the same init and advances by ``step64`` on the gradients
+    the step handed the optimizer (clipped as ``make_optimizer`` clips);
+    the decay reads the step's own parameters."""
+    from dlrover_tpu_torch.optimizers import mup
+    from dlrover_tpu_torch.trainer import train_lib
+
+    seen = {}
+
+    def recording(grads, state, params):
+        seen["g"], seen["p"] = _f64(grads), _f64(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        updates, state = tx.update(grads, state, params)
+        torch.cuda.synchronize()
+        seen.update(u=updates, state=state, s=time.perf_counter() - t0)
+        return updates, state
+
+    train = train_lib.build_train(
+        cfg, tx._replace(update=recording), global_batch_size=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, device="cuda")
+    state = train.init(seed=0)
+    s64, steps = None, []
+    for step in range(OPTS_OPT_STEPS):
+        tokens, targets = _opts_batch(cfg.vocab_size, 1 + step)
+        state, m = train.step(state, {"inputs": tokens, "targets": targets})
+        loss = float(m["loss"])
+        u64, s64 = step64(_opts_clip64(seen.pop("g")), seen.pop("p"), s64)
+        if mup_width is not None:
+            u64 = {k: u / mup_width if mup.is_matrix_like(k, u.dim())
+                   else u for k, u in u64.items()}
+        gap, flipped = _opts_update_gap(seen["u"], u64, lion)
+        steps.append({"loss": loss, "update_gap": gap,
+                      "state_gap": _opts_state_gap(
+                          _opts_moments(seen["state"]), s64),
+                      "flip_share": flipped, "update_s": seen["s"]})
+        seen.clear()
+        del u64
+    del train, state, s64
+    torch.cuda.empty_cache()
+    return steps
+
+
+def _opts_optimizers(model, cfg):
+    """Lion and AGD from ``make_optimizer``, AdamW (``make_optimizer``)
+    then µP, each stepped by ``build_train``'s step, and WSAM over AdamW:
+    ``OPTS_OPT_STEPS`` steps each on batches 1.. (flash_only), every
+    update and state held against a float64 shadow; two planted Lion
+    faults."""
+    from dlrover_tpu_torch.optimizers import mup, wsam
+    from dlrover_tpu_torch.optimizers import optax_ports as ox
+    from dlrover_tpu_torch.trainer import train_lib
+
+    fcfg = dataclasses.replace(cfg, remat="flash_only")
+    model.config = fcfg
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    width = cfg.d_model / OPTS_MUP_BASE
+
+    def land(new):
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(new[k])
+
+    def sign_first(b1=0.9, b2=0.99):
+        # The sign taken before the interpolation.
+        def update(updates, state, params=None):
+            out = {k: torch.sign((1.0 - b1) * torch.sign(g)
+                                 + b1 * torch.sign(state["mu"][k]))
+                   for k, g in updates.items()}
+            mu = {k: (1 - b2) * g + b2 * state["mu"][k]
+                  for k, g in updates.items()}
+            return out, {"count": state["count"] + 1, "mu": mu}
+
+        return ox.GradientTransformation(lion_moment(b1, b2).init, update)
+
+    def mu_b1(b1=0.9, b2=0.99):
+        # The moment decays by b1 in place of b2.
+        return lion_moment(b1, b1)
+
+    def make(name, moment=None):
+        if moment is None:
+            return train_lib.make_optimizer(name, learning_rate=OPTS_LR,
+                                            weight_decay=OPTS_WD)
+        ox.scale_by_lion = moment
+        try:
+            return train_lib.make_optimizer(name, learning_rate=OPTS_LR,
+                                            weight_decay=OPTS_WD)
+        finally:
+            ox.scale_by_lion = lion_moment
+
+    lion_moment = ox.scale_by_lion
+    runs, bad = {}, []
+    for name, tx, step64, kw in (
+            ("lion", make("lion"), _opts_lion64, dict(lion=True)),
+            ("agd", make("agd"), _opts_agd64, {}),
+            ("adamw_mup", ox.chain(make("adamw"), mup.mup_scale(width)),
+             _opts_adam64, dict(mup_width=width)),
+            ("planted_lion_sign_first", make("lion", sign_first),
+             _opts_lion64, dict(lion=True)),
+            ("planted_lion_mu_b1", make("lion", mu_b1), _opts_lion64,
+             dict(lion=True))):
+        steps = _opts_train_run(fcfg, tx, step64, **kw)
+        limit = OPTS_UPDATE_RTOL["lion" if kw.get("lion") else name]
+        slimit = OPTS_STATE_RTOL["lion" if kw.get("lion") else name]
+
+        def sound(st):
+            return (st["update_gap"][0] <= limit
+                    and st["state_gap"][0] <= slimit
+                    and (st["flip_share"] is None
+                         or st["flip_share"] <= OPTS_LION_FLIP_SHARE))
+
+        if name.startswith("planted"):
+            fails = not all(sound(st) for st in steps)
+            runs[name] = {"steps": steps, "fails": fails}
+            if not fails:
+                bad.append(name)
+            continue
+        ok = all(sound(st) and np.isfinite(st["loss"]) for st in steps)
+        runs[name] = {"steps": steps, "ok": ok}
+        if not ok:
+            bad.append(name)
+
+    # WSAM over AdamW (the decoupled branch): both gradients recorded.
+    land(init)
+    recorded = []
+    grad_fn = wsam._grad
+
+    def recording(loss_fn, params, batch):
+        out = grad_fn(loss_fn, params, batch)
+        recorded.append(out[1])
+        return out
+
+    def loss_fn(params, tokens, targets):
+        logits = torch.func.functional_call(model, params, (tokens,))
+        loss, _ = train_lib.cross_entropy_loss(logits, targets)
+        return loss
+
+    wcfg = wsam.WSAMConfig(learning_rate=OPTS_LR)
+    adamw = ox.adamw(OPTS_LR, b1=0.9, b2=0.95, weight_decay=OPTS_WD)
+    applied = []
+
+    def recorded_update(updates, state, params):
+        u, state = adamw.update(updates, state, params)
+        applied.append(u)
+        return u, state
+
+    stepper = wsam.make_wsam_step(loss_fn, adamw._replace(
+        update=recorded_update), wcfg)
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state = adamw.init(params)
+    alpha = wcfg.gamma / (1 - wcfg.gamma)
+    s64, steps = None, []
+    wsam._grad = recording
+    try:
+        for step in range(OPTS_OPT_STEPS):
+            tokens, targets = _opts_batch(cfg.vocab_size, 1 + step)
+            recorded.clear()
+            applied.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, state, loss = stepper(params, state, tokens, targets)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            u64, s64 = _opts_adam64(_f64(recorded[0]), _f64(params), s64)
+            gap, _ = _opts_update_gap(applied[0], u64)
+            (u,) = applied
+            composed = all(torch.equal(new[k], (params[k] + u[k]).to(
+                params[k].dtype) - OPTS_LR * alpha * (recorded[1][k]
+                                                      - recorded[0][k]))
+                           for k in new)
+            steps.append({"loss": float(loss), "update_gap": gap,
+                          "state_gap": _opts_state_gap(
+                              _opts_moments(state), s64),
+                          "composed_bit_equal": composed,
+                          "step_s": step_s, "gradients": len(recorded)})
+            params = new
+            del u64, u
+    finally:
+        wsam._grad = grad_fn
+    ok = all(s["update_gap"][0] <= OPTS_UPDATE_RTOL["adamw_mup"]
+             and s["state_gap"][0] <= OPTS_STATE_RTOL["adamw_mup"]
+             and s["composed_bit_equal"] and s["gradients"] == 2
+             for s in steps)
+    runs["wsam_adamw"] = {"steps": steps, "ok": ok}
+    if not ok:
+        bad.append("wsam_adamw")
+    del s64, params, state
+    land(init)
+    return runs, bad
+
+
+def _opts_wo_transposed(model, cfg, tokens, targets, base):
+    """The same weights with ``wo`` stored transposed: the loss and the
+    gradients of ``none``, ``wo``'s transposed."""
+    from dlrover_tpu_torch.models.transformer import TransformerLM
+
+    wcfg = dataclasses.replace(cfg, wo_transposed=True, remat="none")
+    moved = TransformerLM(wcfg, device="cuda")
+    moved.load_state_dict({k: (v.t().contiguous()
+                               if k.endswith("mlp.wo.kernel") else v)
+                           for k, v in model.state_dict().items()})
+    r = _opts_step(moved, wcfg, "none", tokens, targets)
+    grads = {k: (g.t() if k.endswith("mlp.wo.kernel") else g)
+             for k, g in r["grads"].items()}
+    gap = _opts_grad_gap(grads, base["grads"])
+    out = {"loss_gap": abs(r["loss"] - base["loss"]), "grad_gap": gap,
+           "wo_kernel_shape": list(moved.blocks[0].mlp.wo.kernel.shape)}
+    out["ok"] = (out["loss_gap"] <= OPTS_WOT_LOSS_ATOL
+                 and gap[0] <= OPTS_WOT_GRAD_RTOL)
+    del moved, r
+    return out
+
+
+def train_opts_and_check():
+    """The training options at GPT-2 1.5B's width (``OPTS_LAYERS`` of 48
+    layers), one model and one batch: every remat policy and an offload
+    list against ``none`` (gradients, launches, kept and moved bytes,
+    pinned copies, the device peak against the save-only twin), Lion,
+    AGD, AdamW with µP and WSAM against their float64 formulas,
+    ``wo_transposed`` against the untransposed weights, and two planted
+    faults.  Returns the counted launches of the policy steps."""
+    from dlrover_tpu_torch.models.transformer import TransformerLM
+    from dlrover_tpu_torch.models.transformer import init_params
+
+    cfg = _opts_config()
+    out = {"phase": "train_opts",
+           "model": f"gpt2-1.5b width (d_model 1600, 25 heads x 64, vocab "
+                    f"50304, fp32 params, bf16 compute, flash), depth cut "
+                    f"to {OPTS_LAYERS} of 48 layers, random weights seed 0",
+           "batch": f"{TRAIN_BATCH} x {TRAIN_SEQ}",
+           "tolerance": {"grad_rtol": OPTS_GRAD_RTOL,
+                         "offload_peak_share": OPTS_OFFLOAD_PEAK_SHARE,
+                         "update_rtol": OPTS_UPDATE_RTOL,
+                         "state_rtol": OPTS_STATE_RTOL,
+                         "lion_flip_share": OPTS_LION_FLIP_SHARE,
+                         "wo_transposed": [OPTS_WOT_LOSS_ATOL,
+                                           OPTS_WOT_GRAD_RTOL]}}
+    t_start = time.perf_counter()
+    bad = []
+    counts = dict.fromkeys(_counts(), 0)
+    try:
+        model = TransformerLM(cfg, device="cuda")
+        model.load_state_dict(init_params(cfg, seed=0, device="cuda"))
+        model.train()
+        tokens, targets = _opts_batch(cfg.vocab_size, 0)
+        runs, base, failed, launched = _opts_policies(model, cfg, tokens,
+                                                      targets)
+        for k, v in launched.items():
+            counts[k] += v
+        out["policies"] = runs
+        bad += failed
+        out["wo_transposed"] = _opts_wo_transposed(model, cfg, tokens,
+                                                   targets, base)
+        if not out["wo_transposed"]["ok"]:
+            bad.append("wo_transposed")
+        del base
+        torch.cuda.empty_cache()
+        out["optimizers"], failed = _opts_optimizers(model, cfg)
+        bad += failed
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_opts checks failed: {bad}")
+    finally:
+        emit(out)
+        torch.cuda.empty_cache()
+    return counts
+
+
 # -- the fsdp and tensor axes ----------------------------------------------------
 
 #: ``train_mp2``: Llama-2 7B at full width (d_model 4096, 32 heads of 128
 #: and 32 KV heads, d_ff 11008 SwiGLU, vocab 32000, untied head; bf16
 #: parameters and compute, flash_only) with its depth cut to this many
-#: layers (666,914,816 parameters), trained on two processes of the one
-#: card at each mesh of ``MP2_RUNS``, each against the world-1 run of the
-#: same config, init and batch in one process.
-MP2_LAYERS = 2
+#: layers (2 until PR 17, 666,914,816 parameters; cut for the script's
+#: time: 95.6 s at 2), trained on two processes of the one card at each
+#: mesh of ``MP2_RUNS``, each against the world-1 run of the same config,
+#: init and batch in one process.
+MP2_LAYERS = 1
 # Cut from 3 to 2 steps: at 3 the phase took 153.9 s of its 120 (PR 15).
 MP2_STEPS = 2
 MP2_RUNS = (
@@ -3627,30 +4722,6 @@ def _mp2_reference(opt, out_dir):
     return out
 
 
-def _mp2_worker(rank, port, out_dir, job):
-    """One of the two ranks of ``train_mp2``: a gloo group on ``cuda:0``
-    (every collective staged through the host by the axes' wires)."""
-    import torch.distributed as dist
-
-    sys.path.insert(0, REPO)
-    os.environ["DLROVER_TPU_JOB"] = job
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
-    try:
-        result = _mp2_rank(rank, out_dir)
-    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
-        import traceback
-
-        torch.save({"error": traceback.format_exc()},
-                   os.path.join(out_dir, f"mp_rank{rank}.pt"))
-        raise e
-    torch.save(result, os.path.join(out_dir, f"mp_rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
-
-
 def _mp2_summed(names, sums):
     """The world's per-leaf sums (fp64 on the host, never a CUDA tensor
     handed to the group)."""
@@ -3810,7 +4881,6 @@ def train_mp2_and_check():
     tensor=2 mesh (Adafactor), each held against the world-1 run; three
     planted faults; a sharded save at fsdp=2 restored into one process.
     Returns the counted launches of the runs (both ranks)."""
-    import multiprocessing
     import shutil
     import tempfile
 
@@ -3846,24 +4916,11 @@ def train_mp2_and_check():
     try:
         out["reference"] = {opt: _mp2_reference(opt, out_dir)
                             for opt in ("adafactor", "q8_adam")}
-        port = _free_port()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_mp2_worker,
-                             args=(r, port, out_dir, job)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        paths = [os.path.join(out_dir, f"mp_rank{r}.pt") for r in range(2)]
-        results = [torch.load(p, weights_only=False) if os.path.exists(p)
-                   else {"error": "no result"} for p in paths]
-        codes = [p.exitcode for p in procs]
+        os.environ["DLROVER_TPU_JOB"] = job
+        results, codes = _world_run("_mp2_rank", out_dir,
+                                    "mp_rank{rank}.pt", 600)
         errors = [r.get("error") for r in results if "error" in r]
-        if errors or codes != [0, 0]:
+        if errors or codes != [None, None]:
             for e in errors:
                 print(e, flush=True)
             raise AssertionError(f"train_mp2 ranks failed (exit codes "
@@ -4484,30 +5541,6 @@ def _ep2_rank_aux(state, placed):
     return float(aux)
 
 
-def _ep2_worker(rank, port, out_dir, job):
-    """One of the two ranks of ``train_ep2``: a gloo group on ``cuda:0``
-    (every collective staged through the host by the axes' wires)."""
-    import torch.distributed as dist
-
-    sys.path.insert(0, REPO)
-    os.environ["DLROVER_TPU_JOB"] = job
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=2)
-    try:
-        result = _ep2_rank(rank, out_dir)
-    except BaseException as e:  # noqa: BLE001 - reported, then re-raised
-        import traceback
-
-        torch.save({"error": traceback.format_exc()},
-                   os.path.join(out_dir, f"ep_rank{rank}.pt"))
-        raise e
-    torch.save(result, os.path.join(out_dir, f"ep_rank{rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
-
-
 def _ep2_rank(rank, out_dir):
     import torch.distributed as dist
 
@@ -4631,7 +5664,6 @@ def train_ep2_and_check():
     each held against the world-1 run (einsum for the exchanges, grouped
     for grouped), with the router statistics; two planted faults.
     Returns the counted launches of the runs (both ranks)."""
-    import multiprocessing
     import shutil
     import tempfile
 
@@ -4677,24 +5709,11 @@ def train_ep2_and_check():
     try:
         out["reference"] = {d: _ep2_reference(d, out_dir)
                             for d in ("einsum", "grouped")}
-        port = _free_port()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_ep2_worker,
-                             args=(r, port, out_dir, job)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        paths = [os.path.join(out_dir, f"ep_rank{r}.pt") for r in range(2)]
-        results = [torch.load(p, weights_only=False) if os.path.exists(p)
-                   else {"error": "no result"} for p in paths]
-        codes = [p.exitcode for p in procs]
+        os.environ["DLROVER_TPU_JOB"] = job
+        results, codes = _world_run("_ep2_rank", out_dir,
+                                    "ep_rank{rank}.pt", 600)
         errors = [r.get("error") for r in results if "error" in r]
-        if errors or codes != [0, 0]:
+        if errors or codes != [None, None]:
             for e in errors:
                 print(e, flush=True)
             raise AssertionError(f"train_ep2 ranks failed (exit codes "
@@ -7067,6 +8086,15 @@ def _ptxas_report(kernel_lib):
     }
 
 
+def _after_fit_measured():
+    """Once ``train_fit`` has taken its timings: the example pair and the
+    world's spawn and warm-up start beside the rest of the phase and
+    ``train_dp2``'s reference (PR 17: the pair took 36-64 s and the
+    world's first step 10.9-12.1 s on the script's path)."""
+    example_start()
+    world_warm_start()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU",
@@ -7120,6 +8148,7 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--fit"]:
         train_fit_and_check()
+        example_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--fit-gate"]:
@@ -7133,12 +8162,14 @@ def main() -> int:
             except AssertionError as e:
                 failed.append((run, str(e)))
         emit({"phase": "fit_gate", "runs": FIT_GATE_RUNS, "failed": failed})
+        example_and_check()
         print(smi, flush=True)
         return 1 if failed else 0
     if sys.argv[1:] == ["--dp"]:
         train_and_check()
-        train_fit_and_check()
+        train_fit_and_check(on_measured=_after_fit_measured)
         train_dp2_and_check()
+        example_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--mp"]:
@@ -7147,6 +8178,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--ep"]:
         train_ep2_and_check()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--opts"]:
+        train_opts_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--digest"]:
@@ -7224,10 +8259,13 @@ def main() -> int:
     paths["serve"], paths["serve_faults"] = serve_and_check()
     paths["train"], adafactor_state_bytes = train_and_check()
     paths["flash_ckpt"] = flash_ckpt_and_check()
-    paths["train_fit"] = train_fit_and_check()
+    paths["train_fit"] = train_fit_and_check(on_measured=_after_fit_measured)
     paths["train_dp2"] = train_dp2_and_check()
+    example_and_check()
     paths["train_mp2"] = train_mp2_and_check()
     paths["train_ep2"] = train_ep2_and_check()
+    _world_stop()
+    paths["train_opts"] = train_opts_and_check()
     paths["train_split"] = train_split_and_check()
     train_parity()
     paths["train_moe"] = train_moe_and_check()
@@ -7393,4 +8431,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        _example_stop()
+        _world_stop()
+    sys.exit(code)

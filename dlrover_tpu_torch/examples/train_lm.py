@@ -46,13 +46,13 @@ def parse_args(argv=None):
                    help="test hook: slow steps down (chaos windows)")
     p.add_argument("--remat", default="none",
                    help="remat policy (ops/remat_policy.py): none, full, "
-                        "flash_only (the others are ROADMAP Queue 1 item 7)")
+                        "attn_out, branch_out, flash_only, flash_res, "
+                        "offload, offload:<name>[,<name>...]")
     p.add_argument("--auto-tune", action="store_true",
                    help="search the strategy before training (ROADMAP "
                         "Queue 1 item 10)")
     p.add_argument("--optimizer", default="adamw",
-                   help="adamw | adafactor | sgd | q8_adam | q4_adam (lion "
-                        "and agd are ROADMAP Queue 1 item 7)")
+                   help="adamw | adafactor | sgd | lion | q8_adam | agd")
     p.add_argument("--metrics-lag", type=int, default=0,
                    help="defer metrics materialization by N steps (one "
                         "batched device fetch per N steps; 0 = sync)")

@@ -32,6 +32,7 @@ from torch import nn
 
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
@@ -50,8 +51,9 @@ def _softmax_attend(q, k, v, mask) -> torch.Tensor:
     group = hq // hkv
     qg = q.reshape(b, sq, hkv, group, d)
     # fp32 scores from the working-dtype inputs: the JAX einsum's
-    # preferred_element_type=float32.
-    logits = torch.einsum(
+    # preferred_element_type=float32.  Both products are remat sites,
+    # dots with batch dimensions (ops/remat_policy.einsum).
+    logits = remat_policy.einsum(
         "bqhgd,bkhd->bhgqk", qg.float(), k.float()
     ) * d ** -0.5
     if mask is not None:
@@ -59,7 +61,7 @@ def _softmax_attend(q, k, v, mask) -> torch.Tensor:
             mask, logits, torch.full_like(logits, NEG_INF)
         )
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    out = remat_policy.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, hq, d)
 
 
@@ -118,7 +120,9 @@ class Attention(nn.Module):
     """Self-attention with fused or separate q/k/v projections, RoPE and
     GQA.  Parameter names follow the JAX module: ``qkv`` (``[d, H, 3*hd]``,
     per head ``[q | k | v]`` on the last axis) when ``fused_qkv`` and no
-    GQA, else ``query``/``key``/``value``; ``out`` is ``[H, hd, d]``."""
+    GQA, else ``query``/``key``/``value``; ``out`` is ``[H, hd, d]``.
+    The projections' outputs are the remat site ``qkv_proj``, the output
+    projection's ``attn_out``."""
 
     def __init__(
         self,
@@ -163,27 +167,25 @@ class Attention(nn.Module):
         dense = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype,
                      device=device)
         qkv_axes = (lr.EMBED, lr.HEADS, lr.KV)
+        # The remat sites: the projections "qkv_proj", the output
+        # projection "attn_out" (the reference names the block's branch
+        # output, which is this product).
+        proj = dict(kernel_axes=qkv_axes, save_name="qkv_proj", **dense)
         if self.fused:
             self.qkv = layers.DenseGeneral(
-                d_model, (num_heads, 3 * head_dim), kernel_axes=qkv_axes,
-                **dense
-            )
+                d_model, (num_heads, 3 * head_dim), **proj)
         else:
             self.query = layers.DenseGeneral(
-                d_model, (num_heads, head_dim), kernel_axes=qkv_axes, **dense
-            )
+                d_model, (num_heads, head_dim), **proj)
             self.key = layers.DenseGeneral(
-                d_model, (num_kv_heads, head_dim), kernel_axes=qkv_axes,
-                **dense
-            )
+                d_model, (num_kv_heads, head_dim), **proj)
             self.value = layers.DenseGeneral(
-                d_model, (num_kv_heads, head_dim), kernel_axes=qkv_axes,
-                **dense
-            )
+                d_model, (num_kv_heads, head_dim), **proj)
         self.out = layers.DenseGeneral(
             (num_heads, head_dim), d_model,
             kernel_axes=(lr.HEADS, lr.KV, lr.EMBED),
-            reduce=tp.exit if tp is not None else None, **dense
+            reduce=tp.exit if tp is not None else None,
+            save_name="attn_out", **dense
         )
 
     def forward(

@@ -3,10 +3,13 @@
 The input is the JAX model's unboxed parameter tree (``flax.linen.meta.
 unbox`` of ``init(...)["params"]``) as nested dicts of numpy arrays; this
 module needs neither JAX nor flax.  Kernel layouts are the same on both
-sides, so the mapping is renaming plus un-stacking the scan-stacked
-leading ``layers`` axis of ``blocks/...`` (``transformer.py:379-391``)
-into ``blocks.<i>....`` (an MoE block's ``moe/router/kernel`` ``[L, d,
-E]`` and ``moe/wi``, ``moe/wo``, ``moe/wg`` ``[L, E, ., .]`` included).
+sides (a ``wo_transposed`` MLP's ``wo`` is ``[d_model, d_ff]`` in both),
+so the mapping is renaming plus un-stacking the scan-stacked leading
+``layers`` axis of ``blocks/...`` (``transformer.py:379-391``) into
+``blocks.<i>....`` (an MoE block's ``moe/router/kernel`` ``[L, d, E]``
+and ``moe/wi``, ``moe/wo``, ``moe/wg`` ``[L, E, ., .]`` included); the
+unstacked ``block_<i>/...`` trees of ``scan_layers=False`` map onto the
+same names.
 An unknown or missing key, or a shape that does
 not match the config, raises: nothing is numbered by guesswork.  Floating
 leaves are cast to the config's ``param_dtype``, the dtype the port's model
@@ -24,6 +27,7 @@ across (the embedding plane's state needs no conversion: the port's
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -34,6 +38,8 @@ from dlrover_tpu_torch.models.transformer import (
     param_shapes,
 )
 from dlrover_tpu_torch.ops import quantization
+
+_BLOCK_I = re.compile(r"^block_(\d+)$")
 
 
 def _flatten(tree: Mapping[str, Any],
@@ -56,7 +62,12 @@ def state_dict_from_jax(
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params_np):
         arr = np.asarray(leaf)
-        if path[0] == "blocks":
+        unstacked = _BLOCK_I.match(path[0])
+        if unstacked:
+            # scan_layers=False: one tree a layer, named block_<i>.
+            items = [(".".join(("blocks", unstacked.group(1)) + path[1:]),
+                      arr)]
+        elif path[0] == "blocks":
             if arr.shape[:1] != (config.num_layers,):
                 raise ValueError(
                     f"{'/'.join(path)}: leading layers axis {arr.shape[:1]} "

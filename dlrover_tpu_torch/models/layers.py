@@ -31,7 +31,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from dlrover_tpu_torch.ops import fused_norm
+from dlrover_tpu_torch.ops import fused_norm, remat_policy
 from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
@@ -48,10 +48,19 @@ class DenseGeneral(nn.Module):
     ``kernel`` is ``[*in_shape, *features]`` and ``bias`` ``[*features]``,
     as in the JAX module, both in ``param_dtype``; the product is one 2-D
     matmul in ``dtype`` over the flattened contraction and feature axes.
-    ``kernel_axes`` names every kernel dimension (the bias takes the
+    ``transpose_kernel`` stores the kernel ``[*features, *in_shape]``
+    instead (the same product, the other operand orientation; a
+    checkpoint-format change, as in the reference).  ``kernel_axes``
+    names every kernel dimension in the stored order (the bias takes the
     feature dimensions' names); ``reduce``, when given, is applied to the
     product before the bias (a row-parallel layer's sum over the tensor
     group).
+
+    The product is a remat site (``ops/remat_policy.product``), a dot
+    without batch dimensions, named ``save_name`` (a name or a tuple of
+    names; the reference's ``checkpoint_name`` on the output after the
+    bias).  With ``reduce`` the site is the product before the sum, which
+    re-runs with the bias in a recompute.
     """
 
     def __init__(
@@ -64,21 +73,27 @@ class DenseGeneral(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         param_dtype: torch.dtype = torch.float32,
         reduce=None,
+        transpose_kernel: bool = False,
+        save_name: Union[None, str, Tuple[str, ...]] = None,
         device: DeviceLike = None,
     ):
         super().__init__()
         self.in_shape = _tuple(in_shape)
         self.features = _tuple(features)
-        if kernel_axes and len(kernel_axes) != len(self.in_shape) + len(
-                self.features):
+        self.transpose_kernel = transpose_kernel
+        stored = (self.features + self.in_shape if transpose_kernel
+                  else self.in_shape + self.features)
+        if kernel_axes and len(kernel_axes) != len(stored):
             raise ValueError(f"kernel_axes {kernel_axes} must name every "
-                             f"dim of {self.in_shape + self.features}")
+                             f"dim of {stored}")
         self.kernel_axes = tuple(kernel_axes)
         self.reduce = reduce
         self.dtype = dtype
+        self.save_names: Tuple[str, ...] = (
+            () if save_name is None else (save_name,)
+            if isinstance(save_name, str) else tuple(save_name))
         self.kernel = nn.Parameter(
-            torch.empty(self.in_shape + self.features, dtype=param_dtype,
-                        device=device)
+            torch.empty(stored, dtype=param_dtype, device=device)
         )
         self.bias = (
             nn.Parameter(
@@ -91,17 +106,31 @@ class DenseGeneral(nn.Module):
     def fan_in(self) -> int:
         return math.prod(self.in_shape)
 
+    @property
+    def bias_axes(self) -> Tuple[Optional[str], ...]:
+        """The feature dimensions' axis names (either stored order)."""
+        n_f = len(self.features)
+        return (self.kernel_axes[:n_f] if self.transpose_kernel
+                else self.kernel_axes[len(self.in_shape):])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
         batch = x.shape[: x.dim() - n_in]
         x2 = x.to(self.dtype).reshape(-1, self.fan_in)
-        out = x2 @ self.kernel.to(self.dtype).reshape(self.fan_in, -1)
-        out = out.reshape(*batch, *self.features)
+        kernel = self.kernel.to(self.dtype)
+        if self.transpose_kernel:
+            k2 = kernel.reshape(-1, self.fan_in).t()
+        else:
+            k2 = kernel.reshape(self.fan_in, -1)
+        shape = (*batch, *self.features)
+        bias = self.bias.to(self.dtype) if self.bias is not None else None
         if self.reduce is not None:
+            out = remat_policy.product(x2, k2, shape=shape,
+                                       names=self.save_names)
             out = self.reduce(out)
-        if self.bias is not None:
-            out = out + self.bias.to(self.dtype)
-        return out
+            return out + bias if bias is not None else out
+        return remat_policy.product(x2, k2, bias=bias, shape=shape,
+                                    names=self.save_names)
 
 
 class Embed(nn.Module):
@@ -229,7 +258,7 @@ def logical_axes(module: nn.Module) -> dict:
     if isinstance(module, DenseGeneral):
         out["kernel"] = module.kernel_axes
         if module.bias is not None:
-            out["bias"] = module.kernel_axes[len(module.in_shape):]
+            out["bias"] = module.bias_axes
     elif isinstance(module, (Embed, RMSNorm, LayerNorm)):
         for name, _ in module.named_parameters(recurse=False):
             out[name] = module.kernel_axes

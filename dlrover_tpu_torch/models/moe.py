@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dlrover_tpu_torch.models import layers
+from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.ops.grouped_matmul import grouped_matmul
 from dlrover_tpu_torch.parallel import quantized_collectives as qc
 from dlrover_tpu_torch.parallel import rules as lr
@@ -292,23 +293,26 @@ class MoEMlp(nn.Module):
             router_logits, self.top_k, capacity, self.group)
         self._stats(router_logits, dispatch.sum(dim=(0, 1, 3)),
                     b * self._batch_ranks() * s * self.top_k)
-        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(self.dtype),
-                                 x.to(self.dtype))
+        # Every einsum is a remat site, a dot with batch dimensions
+        # (ops/remat_policy.einsum); the combine is the block's mlp_out.
+        expert_in = remat_policy.einsum(
+            "bsec,bsd->ebcd", dispatch.to(self.dtype), x.to(self.dtype))
         if self.ep > 1:
             # Dispatch leg: expert-split, batch-concat; each rank keeps its
             # experts' rows of every batch chunk: [E / ep, b * ep, C, D].
             expert_in = _exchange(expert_in, self.group.wire, 0, 1,
                                   self.dispatch == "a2a_int8")
-        h = torch.einsum("ebcd,edf->ebcf", expert_in, wi)
-        g = (torch.einsum("ebcd,edf->ebcf", expert_in, wg)
+        h = remat_policy.einsum("ebcd,edf->ebcf", expert_in, wi)
+        g = (remat_policy.einsum("ebcd,edf->ebcf", expert_in, wg)
              if wg is not None else None)
-        expert_out = torch.einsum("ebcf,efd->ebcd", self._act(h, g), wo)
+        expert_out = remat_policy.einsum("ebcf,efd->ebcd", self._act(h, g),
+                                         wo)
         if self.ep > 1:
             # Combine leg home, the exact inverse exchange: [E, b, C, D].
             expert_out = _exchange(expert_out, self.group.wire, 1, 0,
                                    self.dispatch == "a2a_int8")
-        out = torch.einsum("bsec,ebcd->bsd", combine.to(self.dtype),
-                           expert_out)
+        out = remat_policy.einsum("bsec,ebcd->bsd", combine.to(self.dtype),
+                                  expert_out, names=("mlp_out",))
         return out, aux_loss.float()
 
     def route(self, x_flat: torch.Tensor, router_logits: torch.Tensor
@@ -360,6 +364,7 @@ class MoEMlp(nn.Module):
              if wg is not None else None)
         out_rows = grouped_matmul(self._act(h, g), wo, r.group_sizes, block)
         weighted = out_rows.index_select(0, r.dest) * r.gates[:, None]
-        out = x_flat.new_zeros((b * s, d)).index_add(0, r.src_token,
-                                                     weighted)
+        # The combine is the block's remat site mlp_out.
+        out = remat_policy.index_add_rows(b * s, r.src_token, weighted,
+                                          names=("mlp_out",))
         return out.reshape(b, s, d), r.aux_loss.float()

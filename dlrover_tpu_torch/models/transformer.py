@@ -7,8 +7,11 @@ over ``blocks``, and parameter names follow the JAX tree with the stacked
 ``layers`` axis unrolled into ``blocks.<i>`` (``models/from_jax.py``).
 
 Training: parameters are trainable and held in ``param_dtype`` (cast to
-``dtype`` at use), each block runs under its ``remat`` policy
-(``ops/remat_policy.py``: ``none``, ``full`` or ``flash_only``), and
+``dtype`` at use), each block runs under its ``remat`` policy (every
+name of ``ops/remat_policy.py``'s registry and ``offload:<names>``; the
+block emits the reference's sites ``qkv_proj``, ``attn_out``,
+``mlp_wo``, ``mlp_out`` and, under flash, ``flash_out``/``flash_lse``),
+and
 :meth:`TransformerLM.forward_aux` returns what the JAX model's
 ``__call__`` returns, ``(logits or hidden, aux_loss)``: the blocks' MoE
 aux losses summed and scaled by ``moe_aux_weight`` (0 for a dense model).
@@ -40,9 +43,13 @@ expert degree, and an MoE config on the fsdp or tensor axis (ROADMAP
 Queue 1 item 6's remainder).  :func:`param_logical_axes` gives every
 parameter's logical axes, the reference's ``kernel_axes``.
 
-Not ported yet (ROADMAP Queue 1 items 7 and 9): pipeline stages, ring
-attention and the remat policies other than those three; their config
-values raise ``NotImplementedError``.
+The config has every field of the reference's.  ``scan_layers`` only
+names the JAX tree ``models/from_jax.py`` reads (stacked, or
+``block_<i>``), ``scan_unroll`` is an XLA scheduling knob with nothing
+to do in eager PyTorch, and ``wo_transposed`` stores the MLP's ``wo``
+kernel ``[d_model, d_ff]`` with the axes ``(embed, mlp)``.  Not ported
+yet (ROADMAP Queue 1 item 9): pipeline stages and ring attention, which
+raise ``NotImplementedError`` after the reference's own validation.
 """
 
 from __future__ import annotations
@@ -104,13 +111,32 @@ class TransformerConfig:
     # One-pass LayerNorm/RMSNorm backward kernel for the blocks' norms
     # (ops/fused_norm.py).
     fused_ln: bool = False
-    remat: str = "none"            # ops/remat_policy.py name
+    # Store the MLP wo kernel transposed [d_model, d_ff] (a
+    # checkpoint-format change when True, as in the reference).
+    wo_transposed: bool = False
+    remat: str = "none"            # a registered ops/remat_policy.py name
+                                   # or a selective "offload:<names>" list
+    # The reference's layer stacking: True stacks the layers' parameters
+    # under nn.scan ("blocks", a leading layers axis), False names them
+    # "block_<i>".  Here the blocks are a Python loop either way; the
+    # field picks the JAX tree models/from_jax.py reads.
+    scan_layers: bool = True
+    # Layers per scan iteration: an XLA scheduling knob of the
+    # reference; eager PyTorch has no scan to unroll, so it changes
+    # nothing here.
+    scan_unroll: int = 1
     logits_dtype: torch.dtype = torch.float32
-    logit_scale: float = 1.0
+    logit_scale: float = 1.0       # the µP output multiplier
+                                   # (optimizers/mup.py)
     pipeline_stages: int = 1
+    num_microbatches: int = 0
     # Decode mode: attention reads and writes a KV cache that the caller
     # passes in ([B, max_seq_len, H_kv, hd] per layer); same parameters.
     decode: bool = False
+    # The circular pipeline schedule's layer chunks per stage (validated
+    # as the reference validates it; pipelines are ROADMAP Queue 1 item
+    # 9).
+    pipeline_interleave: int = 1
 
     @property
     def resolved_kv_heads(self) -> int:
@@ -129,22 +155,55 @@ class TransformerConfig:
         return 4 * self.d_model
 
     def __post_init__(self):
+        """The reference's validation, in its order, then the refusals of
+        what is not ported (ring attention and pipeline stages, ROADMAP
+        Queue 1 item 9)."""
+        if self.attention_impl not in ("xla", "flash", "ring"):
+            raise ValueError(
+                f"attention_impl must be 'xla', 'flash' or 'ring', got "
+                f"{self.attention_impl!r}"
+            )
+        remat_policy.validate(self.remat, self.attention_impl)
+        if self.decode:
+            if self.attention_impl == "ring":
+                raise ValueError(
+                    "decode=True requires attention_impl='xla' or 'flash' "
+                    "(got 'ring'); ring streams K/V over a sharded "
+                    "sequence axis a decode cache does not have"
+                )
+            if self.pipeline_stages > 1:
+                raise ValueError("decode=True requires pipeline_stages=1")
+        if self.pipeline_interleave < 1:
+            raise ValueError("pipeline_interleave must be >= 1")
+        if self.pipeline_interleave > 1:
+            if self.pipeline_stages <= 1:
+                raise ValueError(
+                    "pipeline_interleave > 1 requires pipeline_stages > 1"
+                )
+            chunks = self.pipeline_stages * self.pipeline_interleave
+            if self.num_layers % chunks:
+                raise ValueError(
+                    f"num_layers {self.num_layers} not divisible by "
+                    f"stages*interleave {chunks}"
+                )
+            micro = self.num_microbatches or self.pipeline_stages
+            if micro < self.pipeline_stages:
+                raise ValueError(
+                    f"circular schedule needs microbatches >= stages "
+                    f"(got {micro} < {self.pipeline_stages}): lap L of a "
+                    "microbatch re-enters stage 0 only after lap L-1 "
+                    "cleared the ring"
+                )
         if self.attention_impl == "ring":
             raise NotImplementedError(
                 "attention_impl='ring' (context parallelism) is a later "
                 "slice of the port (long context, ROADMAP Queue 1 item 9)"
-            )
-        if self.attention_impl not in ("xla", "flash"):
-            raise ValueError(
-                f"attention_impl must be 'xla' or 'flash', got "
-                f"{self.attention_impl!r}"
             )
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1 is a later slice of the port (pipeline, "
                 "ROADMAP Queue 1 item 9)"
             )
-        remat_policy.validate(self.remat, self.attention_impl)
 
     def check_device(self, device: torch.device) -> None:
         """Refuse what the card's flash kernels have no build for: under
@@ -190,10 +249,14 @@ def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
 
 
 class Mlp(nn.Module):
+    """The dense MLP; its ``wo`` product is the remat sites ``mlp_wo``
+    and ``mlp_out`` (one tensor, both names, as in the reference), its
+    kernel stored ``[d_model, d_ff]`` under ``wo_transposed``."""
+
     def __init__(self, d_model: int, d_ff: int, activation: str,
                  use_bias: bool, dtype: torch.dtype,
                  param_dtype: torch.dtype, device: DeviceLike = None,
-                 tp=None):
+                 tp=None, wo_transposed: bool = False):
         super().__init__()
         if activation not in ("gelu", "swiglu"):
             raise ValueError(f"unknown activation {activation!r}")
@@ -210,8 +273,12 @@ class Mlp(nn.Module):
             self.wg = layers.DenseGeneral(d_model, d_ff, kernel_axes=column,
                                           **dense)
         self.wo = layers.DenseGeneral(
-            d_ff, d_model, kernel_axes=(lr.MLP, lr.EMBED),
-            reduce=tp.exit if tp is not None else None, **dense)
+            d_ff, d_model,
+            kernel_axes=((lr.EMBED, lr.MLP) if wo_transposed
+                         else (lr.MLP, lr.EMBED)),
+            reduce=tp.exit if tp is not None else None,
+            transpose_kernel=wo_transposed,
+            save_name=("mlp_wo", "mlp_out"), **dense)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
@@ -265,6 +332,7 @@ class Block(nn.Module):
             self.mlp = Mlp(
                 cfg.d_model, cfg.resolved_d_ff, cfg.activation, cfg.use_bias,
                 cfg.dtype, cfg.param_dtype, device, tp=tp,
+                wo_transposed=cfg.wo_transposed,
             )
 
     def forward(self, x, positions, segment_ids=None, cache=None):

@@ -17,12 +17,13 @@ tests use and that ``chip_smoke.py`` holds the kernels against.
 Autograd: the forward is the custom op ``dlrover_tpu_torch::flash_fwd``
 returning ``(o, lse)``; its registered backward saves ``(q, k, v, o,
 lse)`` and computes ``(dq, dk, dv)`` from them, as the JAX
-``custom_vjp`` does.  Under the ``flash_only`` remat policy
-(``ops/remat_policy.py``) the checkpointed block's first run keeps the
-op's outputs (:class:`KeptOutputs`) and its recompute hands them back
-through ``_Replay``, which launches nothing and saves what the op saves,
-in its order, so the op's backward finds its tensors and the kernel runs
-once.
+``custom_vjp`` does.  The op's outputs are the remat sites
+``flash_out`` and ``flash_lse`` (``ops/remat_policy.py``): under a
+policy that keeps both (``flash_only``, ``flash_res``, or an offload
+list naming both) the checkpointed block's first run keeps them and its
+recompute hands them back through ``_Replay``, which launches nothing and
+saves what the op saves, in its order, so the op's backward finds its
+tensors and the forward kernel runs once.
 
 Which backward runs follows the JAX dispatch (``_flash_core_bwd``): the
 fused one-pass kernel when the clamped ``block_kv`` covers the whole kv
@@ -34,14 +35,13 @@ transpose to ``[B, H, S, D]`` and no padding to a block multiple.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dlrover_tpu_torch.ops import kernel_lib
+from dlrover_tpu_torch.ops import kernel_lib, remat_policy
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -740,48 +740,29 @@ class _Replay(torch.autograd.Function):
         return _backward(ctx, do, dlse) + (None, None)
 
 
-class KeptOutputs:
-    """The flash forward's ``(o, lse)`` of one checkpointed call
-    (``ops/remat_policy.py``'s ``flash_only``): its first run keeps them,
-    each later run (a recompute) hands them back, call by call."""
+_FLASH_SITE = ("flash_out", "flash_lse")
 
-    def __init__(self):
-        self.kept = []
-        self.runs = 0
-        self.at = 0
 
-    def begin(self) -> None:
-        self.runs += 1
-        self.at = 0
-
-    def attend(self, q, k, v, seg, causal, scale, fused_bwd):
-        if self.runs == 1:
-            o, lse = flash_fwd_op(q, k, v, seg, seg, causal, scale,
-                                  fused_bwd)
-            self.kept.append((o.detach(), lse.detach()))
-            return o
-        o, lse = self.kept[self.at]
-        self.at += 1
-        o, _ = _Replay.apply(q, k, v, o, lse, seg, seg, causal, scale,
-                             fused_bwd)
+def _kept_attend(store, q, k, v, seg, causal, scale, fused_bwd):
+    """The flash op as the remat sites ``flash_out`` and ``flash_lse`` of
+    the block call in progress (``store``): the first run keeps what the
+    policy keeps of ``(o, lse)``; a recompute replays them when it kept
+    both, and runs the op again otherwise."""
+    modes = tuple(store.mode((name,)) for name in _FLASH_SITE)
+    if not any(modes):
+        o, _ = flash_fwd_op(q, k, v, seg, seg, causal, scale, fused_bwd)
         return o
-
-
-#: The :class:`KeptOutputs` of the checkpointed call in progress, or None.
-_KEPT = None
-
-
-@contextlib.contextmanager
-def kept_outputs(store: KeptOutputs):
-    """Within the block, the grad path of :func:`mha` keeps (first run)
-    or replays (recompute) its outputs through ``store``."""
-    global _KEPT
-    prev, _KEPT = _KEPT, store
-    store.begin()
-    try:
-        yield
-    finally:
-        _KEPT = prev
+    if store.first:
+        o, lse = flash_fwd_op(q, k, v, seg, seg, causal, scale, fused_bwd)
+        store.keep((o, lse), _FLASH_SITE, modes)
+        return o
+    o, lse = store.replay()
+    if o is None or lse is None:
+        o, _ = flash_fwd_op(q, k, v, seg, seg, causal, scale, fused_bwd)
+        return o
+    o, _ = _Replay.apply(q, k, v, o, lse, seg, seg, causal, scale,
+                         fused_bwd)
+    return o
 
 
 def _clamp_block(block: int, s: int) -> int:
@@ -833,8 +814,10 @@ def mha(
                          seg_kv=segment_ids, scale=scale, return_lse=False)
         return o
     fused = uses_fused_backward(k.shape[1], block_kv)
-    if _KEPT is not None:
-        return _KEPT.attend(q, k, v, segment_ids, causal, scale, fused)
+    store = remat_policy.active()
+    if store is not None:
+        return _kept_attend(store, q, k, v, segment_ids, causal, scale,
+                            fused)
     o, _ = flash_fwd_op(q, k, v, segment_ids, segment_ids, causal, scale,
                         fused)
     return o

@@ -1,7 +1,7 @@
 """Hand ports of the optax pieces ``train_lib.make_optimizer`` composes.
 
 The JAX trainer builds its optimizer from optax 0.2.6 (``adafactor``,
-``adamw``, ``clip_by_global_norm``, ``linear_schedule``,
+``adamw``, ``lion``, ``clip_by_global_norm``, ``linear_schedule``,
 ``warmup_cosine_decay_schedule``); the port may not import optax, so this
 module carries its own copy of each, transformation by transformation, in
 the same order and with the same dtype rules (state in the parameter's
@@ -516,6 +516,23 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return GradientTransformation(init, update)
 
 
+def scale_by_lion(b1: float = 0.9, b2: float = 0.99
+                  ) -> GradientTransformation:
+    """``optax.scale_by_lion`` (no ``mu_dtype``): the sign of the
+    interpolation ``(1 - b1) g + b1 m``, then the moment ``(1 - b2) g +
+    b2 m``; state ``{"count", "mu"}``, ``mu`` in each param's dtype."""
+    def init(params):
+        return {"count": 0, "mu": _map(torch.zeros_like, params)}
+
+    def update(updates, state, params=None):
+        out = _map(lambda g, m: torch.sign((1.0 - b1) * g + b1 * m),
+                   updates, state["mu"])
+        mu = _map(lambda g, m: (1 - b2) * g + b2 * m, updates, state["mu"])
+        return out, {"count": state["count"] + 1, "mu": mu}
+
+    return GradientTransformation(init, update)
+
+
 def trace(decay: float) -> GradientTransformation:
     """``optax.trace`` (no Nesterov): ``t = g + decay * t``, state in each
     param's dtype."""
@@ -529,7 +546,7 @@ def trace(decay: float) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-# -- the optimizers -------------------------------------------------------------
+# -- the optimizers (AGD, µP and WSAM: optimizers/{agd,mup,wsam}.py) -----------
 
 
 def sgd(learning_rate: ScalarOrSchedule, momentum: Optional[float] = None
@@ -560,6 +577,18 @@ def adamw(learning_rate: ScalarOrSchedule, b1: float = 0.9,
     decay, then the negated learning rate."""
     return chain(
         scale_by_adam(b1, b2, eps, eps_root),
+        add_decayed_weights(weight_decay),
+        scale_by_learning_rate(learning_rate),
+    )
+
+
+def lion(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.99,
+         weight_decay: float = 1e-3) -> GradientTransformation:
+    """``optax.lion`` (no mask): the sign update, decoupled weight decay,
+    then the negated learning rate.  Elementwise, so a ZeRO-1 or fsdp
+    shard updates on its own."""
+    return chain(
+        scale_by_lion(b1, b2),
         add_decayed_weights(weight_decay),
         scale_by_learning_rate(learning_rate),
     )

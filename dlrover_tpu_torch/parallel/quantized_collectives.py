@@ -33,14 +33,19 @@ block-quantized once at its source, K5a, the int8 payload and fp32
 scales exchanged, what is received dequantized in one K5b launch), each
 differentiable with the inverse exchange as its backward (on the same
 wire: straight through the rounding, as the reference's ``_qa2a_bwd``);
-:func:`a2a_wire_bytes` prices one leg.  ``quantized_process_allgather``
-(Local SGD's transport) comes with ``parallel/local_sgd.py``, ROADMAP
-Queue 1 item 7.
+:func:`a2a_wire_bytes` prices one leg.
+
+Local SGD's transport (``parallel/local_sgd.py``):
+:func:`quantized_process_allgather` gathers every process's delta tree
+on the int8 wire format: each leaf block-quantized at its source (one
+K5a launch a leaf), every leaf's codes and scales in one all-gather,
+each process's payload dequantized leaf by leaf (one K5b launch a leaf
+and process); :func:`process_allgather_bytes` prices it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -389,3 +394,109 @@ def quantized_all_to_all(x: torch.Tensor, group: Wire, *,
     if group is None or group.size == 1:
         return x
     return _AllToAll.apply(x, group, split_axis, concat_axis, block)
+
+
+# -- Local SGD's process all-gather -------------------------------------------------
+
+
+def process_allgather_bytes(numels: List[int], quant: str = "none", *,
+                            block: int = 256, elem_bytes: int = 4) -> int:
+    """Bytes one process hands the all-gather of a tree of leaves of
+    ``numels`` values: ``elem_bytes`` a value on the plain wire; on the
+    int8 wire each leaf padded to whole blocks, a byte a value and a
+    4-byte fp32 scale a block."""
+    if quant == "int8":
+        blocks = sum(-(-n // block) for n in numels)
+        return blocks * block + blocks * 4
+    return sum(numels) * elem_bytes
+
+
+def quantized_process_allgather(local_tree: Dict[str, torch.Tensor],
+                                wire: Optional[Wire] = None,
+                                block: int = 256
+                                ) -> List[Dict[str, torch.Tensor]]:
+    """Every process's ``{name: tensor}`` tree, gathered on the int8 wire
+    (the reference's host-level quantized all-gather, Local SGD's outer
+    sync transport): each leaf, as fp32 and zero-padded to whole blocks,
+    block-quantized to int8 codes and one fp32 scale a block (K5a on a
+    CUDA tensor); the codes and scales of every leaf in one all-gather
+    over ``wire`` (the world's when None); each process's leaves
+    dequantized (K5b) and cast back to their dtype.  Returns ``[tree of
+    process 0, tree of process 1, ...]``.  At one process there is no
+    wire to compress: the tree itself, exact."""
+    n = wire.size if wire is not None else _world_size()
+    if n == 1:
+        return [local_tree]
+    if wire is None:
+        wire = Wire()
+    names = list(local_tree)
+    codes, scales, layout = [], [], []
+    for name in names:
+        flat = local_tree[name].detach().float().reshape(-1)
+        padded = -(-flat.numel() // block) * block
+        q, s = _block_quant(F.pad(flat, (0, padded - flat.numel())), block)
+        codes.append(q.view(torch.uint8))
+        scales.append(s.view(torch.uint8))
+        layout.append((padded, s.numel()))
+    # Every leaf's codes, then every leaf's scales: each leaf's codes
+    # start at a multiple of the block in the payload.
+    payload = torch.cat(codes + scales)
+    gathered = torch.empty((n, payload.numel()), dtype=torch.uint8,
+                           device=payload.device)
+    wire.all_gather(gathered, payload)
+    total = sum(padded for padded, _ in layout)
+    out = []
+    for r in range(n):
+        row = gathered[r]
+        if row.data_ptr() % 16:
+            row = row.clone()  # the kernel's vector loads want alignment
+        tree, at, at_s = {}, 0, total
+        for name, (padded, nblocks) in zip(names, layout):
+            leaf = local_tree[name]
+            q = row[at:at + padded].view(torch.int8)
+            s = row[at_s:at_s + 4 * nblocks].view(torch.float32)
+            at += padded
+            at_s += 4 * nblocks
+            deq = _block_dequant(q, s, block)
+            tree[name] = deq[:leaf.numel()].reshape(leaf.shape).to(
+                leaf.dtype)
+        out.append(tree)
+    return out
+
+
+def process_allgather(local_tree: Dict[str, torch.Tensor],
+                      wire: Optional[Wire] = None
+                      ) -> List[Dict[str, torch.Tensor]]:
+    """Every process's ``{name: tensor}`` tree on the plain wire (the
+    reference's ``multihost_utils.process_allgather``): the leaves of
+    one dtype flattened into one all-gather over ``wire`` (the world's
+    when None).  At one process, the tree itself."""
+    n = wire.size if wire is not None else _world_size()
+    if n == 1:
+        return [local_tree]
+    if wire is None:
+        wire = Wire()
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for name, leaf in local_tree.items():
+        by_dtype.setdefault(leaf.dtype, []).append(name)
+    for names in by_dtype.values():
+        flat = torch.cat([local_tree[k].detach().reshape(-1) for k in names])
+        gathered = torch.empty((n, flat.numel()), dtype=flat.dtype,
+                               device=flat.device)
+        wire.all_gather(gathered, flat)
+        for r in range(n):
+            at = 0
+            for k in names:
+                size = local_tree[k].numel()
+                out[r][k] = gathered[r, at:at + size].reshape(
+                    local_tree[k].shape)
+                at += size
+    return [{k: tree[k] for k in local_tree} for tree in out]
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1

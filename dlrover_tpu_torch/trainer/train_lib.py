@@ -14,9 +14,14 @@ JAX-shaped, layer-stacked parameter tree.  Metrics carry the JAX names:
 blocks' load-balancing loss times ``moe_aux_weight``, and the expert
 kernels ``[E, ., .]`` stack to ``[layers, E, ., .]`` leaves.
 
-``make_optimizer`` builds ``adamw``, ``adafactor``, ``sgd`` and the
-low-bit ``q8_adam``/``q4_adam`` (``ops/quantization.py``, whose per-leaf
-update is one CUDA kernel on the card).
+``make_optimizer`` builds ``adamw``, ``adafactor``, ``sgd``, ``lion``,
+``agd`` (``optimizers/agd.py``) and the low-bit ``q8_adam``/``q4_adam``
+(``ops/quantization.py``, whose per-leaf update is one CUDA kernel on the
+card).  Lion and AGD are elementwise: under ZeRO-1 and on fsdp boxes
+each shard updates on its own, and their states (``{"count", "mu"}``,
+``AGDState``) go into Flash Checkpoint records as the others do.
+``optimizers/mup.mup_scale`` chains after any of them and
+``optimizers/wsam.make_wsam_step`` wraps one.
 
 The data-parallel world.  ``mesh`` (``runtime/mesh.build_mesh``) with a
 ``data`` axis of ``dp`` > 1 makes each process one data rank: it holds a
@@ -95,10 +100,9 @@ of its own.
 
 Not ported yet, and refused when asked for: the ``seq`` and ``pipe`` mesh
 axes (``runtime/mesh.check_axes``: ROADMAP Queue 1 item 9), MoE on an
-fsdp or tensor axis (item 6's remainder), the overlap engine and the
+fsdp or tensor axis (item 6's remainder), and the overlap engine and the
 int8 wires beside an fsdp, tensor or expert axis (they stay the data
-axis's), and the ``lion`` and ``agd`` optimizers
-(item 7).
+axis's).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -175,9 +179,9 @@ def make_optimizer(
     decay_steps: int = 0,
     **kwargs,
 ) -> ox.GradientTransformation:
-    """``adamw``, ``adafactor``, ``sgd`` (momentum 0.9), ``q8_adam`` or
-    ``q4_adam`` behind an optional global-norm clip, as the JAX
-    ``make_optimizer`` composes them."""
+    """``adamw``, ``adafactor``, ``sgd`` (momentum 0.9), ``lion``,
+    ``agd``, ``q8_adam`` or ``q4_adam`` behind an optional global-norm
+    clip, as the JAX ``make_optimizer`` composes them."""
     schedule = make_schedule(learning_rate, warmup_steps, decay_steps)
     if name == "adamw":
         opt = ox.adamw(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
@@ -191,12 +195,15 @@ def make_optimizer(
                    else quantization.q4_adam)
         opt = low_bit(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
                       **kwargs)
-    elif name in ("lion", "agd"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item "
-            "7); the training slice has adamw, adafactor, sgd, q8_adam and "
-            "q4_adam"
-        )
+    elif name == "lion":
+        # optax.lion gets the schedule and the decay alone: it keeps its
+        # own b1=0.9, b2=0.99, as the reference's call does.
+        opt = ox.lion(schedule, weight_decay=weight_decay)
+    elif name == "agd":
+        from dlrover_tpu_torch.optimizers.agd import agd
+
+        opt = agd(schedule, b1=b1, b2=b2, weight_decay=weight_decay,
+                  **kwargs)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     if grad_clip:

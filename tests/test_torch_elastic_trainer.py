@@ -921,8 +921,8 @@ def test_example_takes_the_data_parallel_flags(flags, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--attention-impl", "ring"], 9), (["--auto-tune"], 10),
-    (["--profile-every", "2"], 10), (["--remat", "dots"], 7),
-    (["--optimizer", "lion"], 7),
+    (["--profile-every", "2"], 10), (["--warmup-compile"], 3),
+    (["--compile-cache-dir", "cache"], 3),
 ])
 def test_example_refuses_unported_flags(flags, item):
     from dlrover_tpu_torch.examples import train_lm

@@ -74,7 +74,16 @@ CASES = [
     ("llama", "tensor2", "adafactor", 1e-2, {}),
     ("llama", "fsdp2_tensor2", "adamw", 1e-3, {}),
     ("wide", "fsdp2", "q8_adam", 1e-3, {}),
+    # The training options: Lion and AGD on fsdp and tensor boxes, and a
+    # transposed MLP wo ([d_model, d_ff], axes (embed, mlp)) split by
+    # tensor on its dimension 1.
+    ("gpt2", "fsdp2", "lion", 1e-3, {}),
+    ("llama", "tensor2", "agd", 1e-3, {}),
+    ("gpt2_wot", "tensor2", "adafactor", 1e-2, {}),
 ]
+# Lion steps by a sign: a value whose interpolation lies within
+# reassociation noise of 0 may step the other way, 2 lr apart.
+LION_FLIP_SHARE = 1e-3
 REFUSED = [("gpt2", "fsdp2", "q8_adam", 1e-3, {})]
 #: Sharded saves (the world each runs in: its mesh), each restored into
 #: one process.
@@ -90,7 +99,8 @@ def _jcfg(model):
         return jllama_config("tiny", **torch_worlds.LLAMA, dtype=jnp.float32)
     return jgpt2_config("124m", **(torch_worlds.WIDE if model == "wide"
                                    else torch_worlds.TINY),
-                        dtype=jnp.float32)
+                        dtype=jnp.float32,
+                        wo_transposed=model == "gpt2_wot")
 
 
 def _jax_init(model):
@@ -106,7 +116,7 @@ def _jax_init(model):
 
 @pytest.fixture(scope="module")
 def inits():
-    return {m: _jax_init(m) for m in ("gpt2", "llama", "wide")}
+    return {m: _jax_init(m) for m in ("gpt2", "llama", "wide", "gpt2_wot")}
 
 
 @pytest.fixture(scope="module")
@@ -200,15 +210,21 @@ def test_step_matches_jax_build_sharded_train(inits, port_runs, model, mesh,
         rtol=LOW_BIT_METRIC_RTOL if low_bit else METRIC_RTOL)
     got = torch_worlds.assemble_params(ranks, key)
     assert set(got) == set(want)
+    flips = total = 0
     for name, w in want.items():
         diff = np.abs(_masked(name, got[name], model)
                       - _masked(name, w, model))
-        if low_bit:
+        if opt == "lion":
+            assert diff.max() <= 2 * lr * STEPS + PARAM_ATOL, name
+            flips += int((diff > PARAM_ATOL).sum())
+            total += diff.size
+        elif low_bit:
             assert diff.max() <= 10 * LOW_BIT_PARAM_ATOL, name
             assert (diff > LOW_BIT_PARAM_ATOL).mean() <= \
                 LOW_BIT_PARAM_SHARE, name
         else:
             assert diff.max() <= PARAM_ATOL, (name, diff.max())
+    assert flips <= LION_FLIP_SHARE * max(total, 1), (flips, total)
     wire = ranks[0][key]["wire"]
     for axis in ("fsdp", "tensor"):
         used = any(k.startswith(f"{axis}/") for k in wire)

@@ -174,8 +174,8 @@ def test_learned_positions_reject_overlong_input():
 
 @pytest.mark.parametrize(
     "field,value",
-    [("remat", "dots"), ("pipeline_stages", 2),
-     ("attention_impl", "ring"), ("remat", "offload")],
+    [("pipeline_stages", 4), ("pipeline_stages", 2),
+     ("attention_impl", "ring"), ("pipeline_stages", 8)],
 )
 def test_later_slice_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -203,3 +203,118 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         TModel(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg)
+
+
+# -- the training options' config fields ----------------------------------------
+
+FIELD_GRAD_RTOL = 1e-5  # tests/test_torch_remat.py's gradient tolerance
+
+
+def _loss_grads(kw, tokens, **extra):
+    """Loss ``mean(logits^2)`` and gradients of both packages from one
+    JAX init of ``JConfig(**kw, **extra)`` (fp32)."""
+    jcfg = JConfig(**kw, dtype=jnp.float32, **extra)
+    jm = JModel(jcfg)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+
+    def loss(p):
+        return jnp.mean(jm.apply(p, jnp.asarray(tokens))[0] ** 2)
+
+    jl, jg = jax.value_and_grad(loss)(params)
+    tcfg = TConfig(**kw, dtype=torch.float32, **extra)
+    tree = jax.tree.map(np.asarray, nn.meta.unbox(params)["params"])
+    model = TModel(tcfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(tree, tcfg))
+    tl = model(torch.as_tensor(tokens)).square().mean()
+    tl.backward()
+    grads = state_dict_from_jax(
+        jax.tree.map(np.asarray, nn.meta.unbox(jg)["params"]), tcfg)
+    return tcfg, tree, float(jl), tl.item(), grads, model
+
+
+@pytest.mark.parametrize("extra", [
+    dict(scan_layers=False), dict(wo_transposed=True),
+    dict(scan_layers=False, wo_transposed=True, scan_unroll=2)],
+    ids=["unscanned", "wo_transposed", "both"])
+def test_scan_layers_and_wo_transposed_trees_match_jax(extra):
+    tokens = np.random.default_rng(4).integers(0, 96, (2, 24))
+    cfg, tree, jl, tl, want, model = _loss_grads(GPT2, tokens, **extra)
+    if not extra.get("scan_layers", True):
+        assert "block_0" in tree and "blocks" not in tree
+    wo = model.blocks[0].mlp.wo
+    assert tuple(wo.kernel.shape) == ((64, 256) if cfg.wo_transposed
+                                      else (256, 64))
+    np.testing.assert_allclose(tl, jl, rtol=2e-6)
+    for name, w in want.items():
+        g = model.get_parameter(name).grad
+        assert (g - w).abs().max() <= FIELD_GRAD_RTOL * w.abs().max() + 1e-12, \
+            name
+
+
+def test_wo_transposed_equals_the_untransposed_model():
+    """The same weights, ``wo`` stored transposed: the loss and every
+    gradient as the untransposed model's, ``wo``'s transposed."""
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(0, 96,
+                                                               (2, 24)))
+    plain = TModel(TConfig(**GPT2, dtype=torch.float32), device="cpu")
+    plain.load_state_dict(init_params(plain.config, seed=2, device="cpu"))
+    moved = TModel(TConfig(**GPT2, dtype=torch.float32, wo_transposed=True),
+                   device="cpu")
+    state = {k: (v.t().contiguous() if k.endswith("mlp.wo.kernel") else v)
+             for k, v in plain.state_dict().items()}
+    moved.load_state_dict(state)
+    losses = []
+    for m in (plain, moved):
+        loss = m(tokens).square().mean()
+        loss.backward()
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    for name, p in plain.named_parameters():
+        g = moved.get_parameter(name).grad
+        if name.endswith("mlp.wo.kernel"):
+            g = g.t()
+        torch.testing.assert_close(g, p.grad, rtol=1e-5, atol=1e-7,
+                                   msg=name)
+    from dlrover_tpu_torch.models.transformer import param_logical_axes
+
+    axes = param_logical_axes(moved)
+    assert axes["blocks.0.mlp.wo.kernel"] == ("embed", "mlp")
+    assert axes["blocks.0.mlp.wo.bias"] == ("embed",)
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(pipeline_interleave=0),
+    dict(pipeline_interleave=2),
+    dict(pipeline_interleave=2, pipeline_stages=2, num_layers=3),
+    dict(pipeline_interleave=2, pipeline_stages=2, num_layers=4,
+         num_microbatches=1),
+    dict(decode=True, pipeline_stages=2),
+    dict(decode=True, attention_impl="ring"),
+    dict(attention_impl="bogus"),
+], ids=["interleave0", "no_stages", "indivisible", "few_micro",
+        "decode_pipe", "decode_ring", "impl"])
+def test_pipeline_fields_validate_as_the_reference(overrides):
+    kw = dict(GPT2, **overrides)
+    with pytest.raises(ValueError) as want:
+        JConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        TConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_valid_pipeline_fields_are_refused_for_item_9():
+    kw = dict(GPT2, num_layers=4, pipeline_stages=2, pipeline_interleave=2,
+              num_microbatches=2)
+    JConfig(**kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        TConfig(**kw)
+    # The other fields alone run.
+    cfg = TConfig(**GPT2, num_microbatches=4, scan_unroll=3,
+                  scan_layers=False)
+    model = TModel(cfg, device="cpu")
+    model.load_state_dict(init_params(cfg, device="cpu"))
+    base = TModel(TConfig(**GPT2), device="cpu")
+    base.load_state_dict(init_params(base.config, device="cpu"))
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    with torch.no_grad():
+        assert torch.equal(model(tokens), base(tokens))

@@ -77,13 +77,22 @@ MODES = {
     "int8": dict(zero1=True, overlap=True, reduce_quant="int8",
                  allgather_quant="int8", overlap_bucket_mb=0.02),
 }
+# Lion and AGD, elementwise: replicated and ZeRO-1 (their update needs no
+# reduction over a leaf, so a shard steps alone).
+ELEMENTWISE = {"lion": 1e-3, "agd": 1e-3}
+ELEMENTWISE_MODES = ("replicated", "zero1")
 WORLDS = (2, 4)
 # The JAX side's runs (each a compile): every optimizer replicated at
 # data 2; every flag for Adafactor (the optimizer whose reductions over a
 # leaf ZeRO-1 must keep global) at data 2, and the overlap case at 4.
 JAX_RUNS = ([(opt, "replicated", 2) for opt in OPTIMIZERS]
             + [("adafactor", m, 2) for m in MODES if m != "replicated"]
-            + [("adafactor", "overlap", 4)])
+            + [("adafactor", "overlap", 4)]
+            + [(opt, "replicated", 2) for opt in ELEMENTWISE])
+# Lion's update is a sign: where the interpolation lies within
+# reassociation noise of 0 the two sums step a value opposite ways, 2 lr
+# apart, so that share of values may differ by up to 2 lr a step.
+LION_FLIP_SHARE = 1e-3
 
 
 def _init():
@@ -116,6 +125,9 @@ def port_runs(init, tmp_path_factory):
               for mode, base, rate in (("int8", "int8", lr),
                                        ("replicated", "replicated", lr),
                                        ("int8_lr0", "int8", 0.0))]
+    cases += [(f"{opt}/{mode}", opt, lr, MODES[mode])
+              for opt, lr in ELEMENTWISE.items()
+              for mode in ELEMENTWISE_MODES]
     out = {}
     for n in WORLDS:
         out[n] = torch_worlds.run_world(
@@ -139,8 +151,9 @@ def _jax_cached(init_params, opt, mode, n):
 def _jax_run(init_params, opt, mode, n):
     kw = {k: v for k, v in MODES[mode].items()}
     cfg = jgpt2_config("124m", **TINY, dtype=jnp.float32)
+    lr = OPTIMIZERS[opt] if opt in OPTIMIZERS else ELEMENTWISE[opt]
     train = jtl.build_sharded_train(
-        JModel(cfg), jtl.make_optimizer(opt, learning_rate=OPTIMIZERS[opt]),
+        JModel(cfg), jtl.make_optimizer(opt, learning_rate=lr),
         build_mesh(ParallelConfig(data=n), devices=jax.devices()[:n]),
         jrules.DEFAULT_RULES, global_batch_size=BATCH, seq_len=SEQ, **kw)
     state = train.init(jax.random.PRNGKey(0))
@@ -175,14 +188,20 @@ def _assert_close(got, want, opt):
     low_bit = opt == "q8_adam"
     rtol = LOW_BIT_METRIC_RTOL if low_bit else METRIC_RTOL
     np.testing.assert_allclose(np.asarray(gm), np.asarray(wm), rtol=rtol)
+    flips = total = 0
     for name, w in wp.items():
         diff = np.abs(_masked(name, gp[name]) - _masked(name, w))
-        if low_bit:
+        if opt == "lion":
+            assert diff.max() <= 2 * ELEMENTWISE[opt] * STEPS + PARAM_ATOL
+            flips += int((diff > PARAM_ATOL).sum())
+            total += diff.size
+        elif low_bit:
             assert diff.max() <= 10 * LOW_BIT_PARAM_ATOL, name
             assert (diff > LOW_BIT_PARAM_ATOL).mean() <= \
                 LOW_BIT_PARAM_SHARE, name
         else:
             assert diff.max() <= PARAM_ATOL, (name, diff.max())
+    assert flips <= LION_FLIP_SHARE * max(total, 1), (flips, total)
 
 
 @pytest.mark.parametrize("opt,mode,n", JAX_RUNS)
@@ -415,3 +434,16 @@ def test_int8_zero_init_leaves_travel_alike_within_the_path_bound(
     assert abs(travel["port"][1] - travel["jax"][1]) <= 0.05, travel
     assert min(u for u, _ in travel.values()) > 0.99, travel
     assert max(u for u, _ in travel.values()) > 1.0, travel
+
+
+@pytest.mark.parametrize("opt", list(ELEMENTWISE))
+@pytest.mark.parametrize("n", WORLDS)
+def test_elementwise_zero1_step_equals_the_replicated_step(port_runs, opt,
+                                                          n):
+    """Lion and AGD under ZeRO-1 against their replicated step at world n
+    (fp to reassociation), every replica's parameters identical."""
+    runs = port_runs[n]
+    got = runs[0][f"{opt}/zero1"]
+    assert got[2]["zero1"] and got[2]["dp"] == n
+    assert len({r[f"{opt}/zero1"][3] for r in runs}) == 1
+    _assert_close(got[:2], runs[0][f"{opt}/replicated"][:2], opt)

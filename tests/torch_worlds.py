@@ -341,7 +341,8 @@ WIDE = dict(num_layers=1, d_model=512, num_heads=4, vocab_size=128,
 
 def mp_config(model):
     """The port's config of a model key: ``gpt2`` (``TINY``), ``llama``
-    (``LLAMA``, GQA and an untied head), ``wide`` (``WIDE``) or
+    (``LLAMA``, GQA and an untied head), ``wide`` (``WIDE``),
+    ``gpt2_wot`` (``TINY`` with the MLP's ``wo`` stored transposed) or
     ``moe_<dispatch>`` (``MOE``), fp32."""
     from dlrover_tpu_torch.models import gpt2_config, llama_config
 
@@ -350,7 +351,8 @@ def mp_config(model):
     if model == "llama":
         return llama_config("tiny", **LLAMA, dtype=torch.float32)
     return gpt2_config("124m", **(WIDE if model == "wide" else TINY),
-                       dtype=torch.float32)
+                       dtype=torch.float32,
+                       wo_transposed=model == "gpt2_wot")
 
 
 def run_mp_cases(rank, n, payload):
@@ -541,4 +543,75 @@ def run_ep_cases(rank, n, payload):
     out = {"a2a": run_ep_a2a(rank, n, payload["a2a"]),
            "layers": run_ep_layers(rank, n, payload["layers"])}
     out.update(run_mp_cases(rank, n, payload))
+    return out
+
+
+# -- Local SGD ------------------------------------------------------------------------
+
+LSGD_SHAPES = {"w": (8, 40), "b": (40,), "v": (3, 5, 7)}
+
+
+def lsgd_params():
+    """The replicas' common starting tree (fp32 numpy)."""
+    rng = np.random.default_rng(11)
+    return {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in LSGD_SHAPES.items()}
+
+
+def lsgd_step(rank, step):
+    """Replica ``rank``'s local move at ``step`` (fp32 numpy): a shared
+    drift plus its own noise, so signs agree on some values and not
+    others."""
+    shared = np.random.default_rng(1000 + step)
+    own = np.random.default_rng(2000 + 100 * rank + step)
+    return {k: (0.01 * shared.standard_normal(s)
+                + 0.02 * own.standard_normal(s)).astype(np.float32)
+            for k, s in LSGD_SHAPES.items()}
+
+
+def run_local_sgd(rank, n, payload):
+    """Each ``(key, config kwargs, steps)`` of ``payload["cases"]``: a
+    ``LocalSGD`` on the world's wire moves this replica by
+    :func:`lsgd_step` each step; per sync the parameters, this rank's
+    delta and the wire bytes.  Then the state round trip: a second
+    ``LocalSGD`` loaded from the first's ``state_dict`` mid-round must
+    continue identically."""
+    from dlrover_tpu_torch.parallel import local_sgd as ls
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+
+    out = {}
+    for key, kw, steps in payload["cases"]:
+        outer = ls.LocalSGD(ls.LocalSGDConfig(**kw))
+        params = {k: torch.from_numpy(v) for k, v in lsgd_params().items()}
+        outer.init(params)
+        syncs = []
+        saved = None
+        for step in range(steps):
+            move = lsgd_step(rank, step)
+            params = {k: p + torch.from_numpy(move[k])
+                      for k, p in params.items()}
+            delta = {k: (params[k] - outer._anchor[k]).numpy().copy()
+                     for k in params}
+            wire_lib.reset_counts()
+            params, synced = outer.maybe_sync(params)
+            if synced:
+                syncs.append({
+                    "params": {k: v.numpy().copy()
+                               for k, v in params.items()},
+                    "delta": delta,
+                    "bytes": dict(wire_lib.COUNTS["bytes"])})
+            if step == 0:
+                saved = (outer.state_dict(), {k: v.clone()
+                                              for k, v in params.items()})
+        # Continue a copy from the state after step 0.
+        state, p = saved
+        again = ls.LocalSGD(ls.LocalSGDConfig(**kw))
+        again.load_state_dict(state)
+        for step in range(1, steps):
+            move = lsgd_step(rank, step)
+            p = {k: v + torch.from_numpy(move[k]) for k, v in p.items()}
+            p, _ = again.maybe_sync(p)
+        out[key] = {"syncs": syncs, "resumed": {k: v.numpy().copy()
+                                                for k, v in p.items()},
+                    "final": {k: v.numpy().copy() for k, v in params.items()}}
     return out
