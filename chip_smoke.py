@@ -16,6 +16,9 @@
     python3 chip_smoke.py --mp          # build and the fsdp/tensor world
     python3 chip_smoke.py --ep          # build and the expert-axis world
     python3 chip_smoke.py --digest      # build and the digest kernel check
+    python3 chip_smoke.py --serve       # build and the serving phases (serve,
+                                        # serve_faults, serve_spec,
+                                        # serve_fleet, serve_moe)
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
                                         # K2a, K4, K6-K9 (and, asked for by
                                         # name, the train step) against
@@ -35,7 +38,9 @@ Llama-2 7B's width on the fsdp and tensor axes in a world of two
 processes with a sharded save, trains the MoE entry's width on the expert
 axis (the a2a and int8 a2a dispatch) and on the data axis (the grouped
 dispatch) in a world of two processes, serves
-under an injected admission fault plan, and holds
+under an injected admission fault plan, speculates with a draft, serves a
+replica fleet (failover, drain, disaggregated prefill, a live weight
+swap, the front door) and the MoE entry, and holds
 every CUDA kernel of those paths against its plain PyTorch version.  Imports nothing of JAX or
 of the JAX package.  Phases, each one JSON line on stdout:
 
@@ -190,6 +195,52 @@ of the JAX package.  Phases, each one JSON line on stdout:
                request finishes, the streams equal the plan-free run's
                token for token, the telemetry ring holds one fault event
                per fired hit.
+6c. ``serve_spec``  speculative decoding on GPT-2 1.5B (full depth and
+               width, bf16, flash) damped by ``make_draft(draft_layers=1,
+               damp=0.05)`` with its 1-layer draft, γ = 4, 8 slots: the
+               same ``SPEC_GREEDY`` and ``SPEC_SAMPLED`` requests through a
+               plain and a speculating engine on the damped target.  Every
+               request finishes with finite logprobs and tokens in the
+               vocab, sampled tokens in their top-k (within ``LOGIT_ATOL``
+               of the k-th logit of a no-cache forward); accepted > 0; K1
+               launched 48 times a prefill in the plain leg and 48 + 1 in
+               the speculating one, none inside propose or verify.  Greedy
+               streams equal the plain ones up to a near-tie: the plain
+               streams are teacher-forced through the target one token a
+               step and in chunks of γ+1 (the largest |verify - plain|
+               logit gap is printed), and where a spec stream first
+               differs the plain step's top-2 gap must be at most
+               ``SPEC_TIE_TOL``.  A planted verify accepting one proposal
+               past the first mismatch must fail that check.  Acceptance,
+               tokens a verify round, decode-step p50/p95 and tokens/s of
+               both legs.
+6d. ``serve_fleet``  replicas of GPT-2 1.5B's width at ``FLEET_LAYERS``
+               layers, 8 slots each: (a) two mixed replicas under a
+               ``replica.death`` plan killing one mid-run: zero lost,
+               greedy streams bit-equal to a single engine's, one death, no
+               step failure, breakers closed; (b) ``drain`` retires a
+               replica without loss, ``maybe_scale`` scales out through
+               ``spawn`` and back in; (c) a prefill and a decode replica
+               against a colocated one: streams bit-equal, one page a
+               request, page bytes as counted from the shapes, decode-step
+               p95 of both; (d) a seed-1 bf16 state saved through
+               ``CheckpointEngine`` swapped in between two steps with slots
+               live: one digest launch, the KV pool, slots and queue
+               untouched, no request lost, new streams bit-equal to a
+               fresh seed-1 engine's; a ``serve.swap`` plan rolls back; (e)
+               ``ServeFrontend``: submit/poll/cancel, ``queue_full``,
+               ``shed``, a ``serve.rpc`` fault failing exactly one RPC.
+               K1 ``FLEET_LAYERS`` times a prefill, the digest twice.
+6e. ``serve_moe``  ``bench.py``'s MoE entry (grouped) at
+               ``MOE_TRAIN_LAYERS`` layers, bf16, 8 slots, 8 requests: all
+               finish; K8 launched (2 gelu products) x layers x (prefills +
+               decode steps), K9 never; one decode step under
+               ``set_sync_debug_mode("error")``; prefill logits through K8
+               against the plain grouped matmul and a decode step against
+               a no-cache forward within ``LOGIT_ATOL``, argmax equal; K8
+               at the decode step's 1,152 rows against its plain version
+               (``gmm_errors``), and rows routed to the wrong expert must
+               fail that check.
 7. ``profile`` device time by kernel for one 512-token prefill and one
                decode step (``torch.profiler``).
 8. ``parity``  prefill logits through the kernel vs the same model with
@@ -461,9 +512,9 @@ process of its own, in turns: DIR, change, change, DIR for each DIR,
 twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
-runs of the serve, serve_faults, train, flash_ckpt, train_fit, train_dp2,
-train_mp2, train_ep2, train_split, train_moe, train_lowbit and train_rec
-paths,
+runs of the serve, serve_faults, serve_spec, serve_fleet, serve_moe,
+train, flash_ckpt, train_fit, train_dp2, train_mp2, train_ep2,
+train_split, train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -7880,7 +7931,7 @@ def serve_and_check():
     del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    warmup_s = engine.warmup()
+    warmup_s = engine.aot_compile()
     requests = _requests(cfg.vocab_size)
 
     # -- the main path, counted ----------------------------------------------
@@ -8074,6 +8125,779 @@ def serve_faults_and_check(engine, requests):
     return counts
 
 
+# -- serving, the rest: speculation, the fleet, MoE ---------------------------
+
+#: ``serve_spec``: γ, the draft's layers and the damping of the target's
+#: later blocks (``serving/draft.make_draft``).
+SPEC_GAMMA, SPEC_DRAFT_LAYERS, SPEC_DAMP = 4, 1, 0.05
+#: Greedy requests (prompt length, max_new_tokens): as many as the slots,
+#: one length of stream, so the teacher-forced replay covers every
+#: position a stream can split at; then the sampled ones.
+SPEC_GREEDY = [(5, 24), (16, 24), (20, 24), (40, 24), (64, 24), (100, 24),
+               (128, 24), (200, 24)]
+SPEC_SAMPLED = [(12, 16), (30, 16), (70, 16), (150, 16)]
+#: A greedy spec stream may leave the plain stream only at a near-tie the
+#: verify chunk's other GEMM shapes can flip: where the plain step's logit
+#: of the plain token exceeds its logit of the spec token by at most this
+#: (bf16 logits).  About 3x the largest |verify - plain| logit gap at the
+#: same positions, 0.046875 on an H100 (two streams of eight split, both
+#: at exact bf16 ties, gap 0); the planted fault's splits read 0.66-0.86.
+SPEC_TIE_TOL = 0.14
+#: ``serve_fleet``: GPT-2 1.5B's width at this many of its 48 layers (a
+#: cut for the script's time; the widths are whole), 8 slots an engine.
+FLEET_LAYERS = 4
+FLEET_REQUESTS = [(5, 16), (16, 12), (20, 16), (33, 12), (40, 16), (64, 12),
+                  (70, 16), (100, 12), (128, 16), (9, 12), (50, 16),
+                  (90, 12)]
+#: The ``replica.death`` hit that kills a replica: the fleet probes its
+#: two replicas in order every tick, so hit 6 is replica-1 in tick 3, with
+#: every one of its requests still decoding.
+FLEET_DEATH_HIT = 6
+#: ``serve_moe``: the MoE entry at ``MOE_TRAIN_LAYERS`` layers.
+MOE_SERVE_REQUESTS = [(5, 16), (16, 12), (40, 16), (64, 12), (100, 16),
+                      (128, 12), (200, 16), (300, 12)]
+
+
+def _request_list(vocab, shapes, seed, prefix, sampled_from=None):
+    """Requests of the given (prompt length, max_new_tokens) shapes,
+    prompts drawn from ``seed``; greedy, or from index ``sampled_from``
+    on temperature 0.8 / top-k 8."""
+    from dlrover_tpu_torch.rl.generation import SamplingParams
+    from dlrover_tpu_torch.serving import Request
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for i, (n, m) in enumerate(shapes):
+        prompt = torch.randint(1, vocab, (n,), generator=gen).numpy()
+        sampled = sampled_from is not None and i >= sampled_from
+        sampling = (SamplingParams(temperature=0.8, top_k=8,
+                                   max_new_tokens=m) if sampled
+                    else SamplingParams(temperature=0.0, max_new_tokens=m))
+        out.append(Request(f"{prefix}{i:02d}", prompt, sampling))
+    return out
+
+
+def _check_finished(results, requests, vocab):
+    for req in requests:
+        res = results.get(req.uid)
+        want = req.sampling.max_new_tokens
+        if res is None or len(res.tokens) != want or len(res.logprobs) != want:
+            raise AssertionError(f"{req.uid}: did not finish its {want} "
+                                 f"tokens")
+        if not np.isfinite(res.logprobs).all():
+            raise AssertionError(f"{req.uid}: non-finite logprobs")
+        if ((res.tokens < 0) | (res.tokens >= vocab)).any():
+            raise AssertionError(f"{req.uid}: token outside the vocab")
+
+
+def _in_top_k(model, requests, results, k):
+    """The sampled tokens outside the top ``k`` of a no-cache forward's
+    logits for their prefixes (one forward over a request's whole
+    stream): a token passes when its logit is within ``LOGIT_ATOL`` (the
+    decode-vs-full-forward limit) of the k-th largest."""
+    bad = []
+    with torch.no_grad():
+        for req in requests:
+            toks = torch.as_tensor(results[req.uid].tokens, device="cuda")
+            full = torch.cat([torch.as_tensor(req.prompt, device="cuda"),
+                              toks])[None]
+            logits = model(full)[0, len(req.prompt) - 1:-1].float()
+            kth = torch.topk(logits, k, dim=-1).values[:, -1]
+            mine = logits.gather(-1, toks[:, None])[:, 0]
+            bad += [(req.uid, int(j)) for j in torch.nonzero(
+                mine < kth - LOGIT_ATOL)[:, 0].tolist()]
+    return bad
+
+
+def _twin(cfg, model):
+    """The no-cache model over the same tensors."""
+    from dlrover_tpu_torch.models.transformer import TransformerLM
+
+    twin = TransformerLM(dataclasses.replace(cfg, decode=False),
+                         device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
+
+
+def _spec_replay(programs, model, requests, plain, gamma):
+    """The plain greedy streams teacher-forced through the target, one
+    slot a request, twice from the same prefilled rows: one token a step
+    (the plain path) and chunks of γ+1 (the verify path).  Returns both
+    logits ``[slots, K, V]`` (position k predicts token k+1) and the
+    largest |verify - plain| gap."""
+    from dlrover_tpu_torch.serving import pad_to_bucket
+
+    slots, steps = len(requests), len(plain[requests[0].uid].tokens) - 1
+    pool_a, pool_b = programs.init_cache(), programs.init_cache()
+    lens = []
+    for slot, req in enumerate(requests):
+        padded, n = pad_to_bucket(req.prompt, programs.buckets)
+        row, _ = programs.prefill_logits(
+            model, torch.as_tensor(padded[None], device="cuda"), n)
+        programs.insert(pool_a, row, slot)
+        programs.insert(pool_b, row, slot)
+        lens.append(n)
+    toks = torch.as_tensor(np.stack([plain[r.uid].tokens for r in requests]),
+                           device="cuda")
+    start = torch.as_tensor(lens, device="cuda")
+    plain_logits = torch.stack([
+        programs.decode_logits(model, pool_b, toks[:, k], start + k).float()
+        for k in range(steps)], dim=1)
+    chunks = []
+    for k in range(0, steps, gamma + 1):
+        width = min(gamma + 1, steps - k)
+        chunks.append(programs.chunk_logits(
+            model, pool_a, toks[:, k:k + width], start + k).float())
+    verify_logits = torch.cat(chunks, dim=1)
+    gap = float((verify_logits - plain_logits).abs().max())
+    replayed = bool((plain_logits.argmax(-1) == toks[:, 1:]).all())
+    return plain_logits, gap, replayed
+
+
+def _spec_stream_check(requests, plain, spec, plain_logits, tie_tol):
+    """Each greedy spec stream against the plain one: equal, or equal up
+    to the first differing token, where the plain step's logit of the
+    plain token may exceed its logit of the spec token by at most
+    ``tie_tol`` (a near-tie between the two; for a flip between the top
+    two, their gap); the stream's check stops there."""
+    out = []
+    for slot, req in enumerate(requests):
+        a, b = plain[req.uid].tokens, spec[req.uid].tokens
+        differ = np.nonzero(a[:len(b)] != b[:len(a)])[0]
+        row = {"uid": req.uid, "len": [int(len(a)), int(len(b))]}
+        if len(a) != len(b):
+            row.update(status="length", ok=False)
+        elif not len(differ):
+            row.update(status="equal", ok=True)
+        else:
+            j = int(differ[0])
+            row["first_diff"] = j
+            if j == 0 or j - 1 >= plain_logits.shape[1]:
+                row.update(status="outside the replay", ok=False)
+            else:
+                logits = plain_logits[slot, j - 1]
+                gap = float(logits[int(a[j])] - logits[int(b[j])])
+                row.update(status="near tie" if gap <= tie_tol else "split",
+                           logit_gap=gap, ok=gap <= tie_tol)
+        out.append(row)
+    return out
+
+
+def _accept_one_past(accept):
+    """The planted verify fault: a greedy row accepts one proposal past
+    its first mismatch."""
+
+    def faulty(logits, chunk, generator, temps, topks, max_top_k):
+        emitted, emit_len, logps, accepted = accept(
+            logits, chunk, generator, temps, topks, max_top_k)
+        gamma = chunk.shape[1] - 1
+        more = (temps <= 0.0) & (accepted < gamma)
+        accepted = torch.where(more, accepted + 1, accepted)
+        idx = torch.arange(chunk.shape[1], device=chunk.device)[None, :]
+        bonus = logits.float().argmax(-1).gather(1, accepted[:, None])
+        prop = torch.cat([chunk[:, 1:], chunk[:, :1]], dim=1)
+        emitted = torch.where(idx < accepted[:, None], prop, bonus)
+        logps = torch.log_softmax(logits.float(), -1).gather(
+            -1, emitted[..., None])[..., 0]
+        return emitted, accepted + 1, logps, accepted
+
+    return faulty
+
+
+def serve_spec_and_check():
+    """``serve_spec``: speculative decoding at GPT-2 1.5B (full depth and
+    width, bf16, flash) on a target damped by ``make_draft``, its
+    1-layer draft, γ = ``SPEC_GAMMA``, 8 slots.  Returns the counted
+    path's launches."""
+    from dlrover_tpu_torch.models import gpt2_config, init_params
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.serving import ServingEngine, decode, make_draft
+
+    cfg = gpt2_config("1.5b", attention_impl="flash",
+                      param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    draft_cfg, draft, damped = make_draft(cfg, params, SPEC_DRAFT_LAYERS,
+                                          SPEC_DAMP)
+    del params
+    plain_engine = ServingEngine(cfg, damped, slots=SLOTS, device="cuda")
+    spec_engine = ServingEngine(cfg, damped, slots=SLOTS, device="cuda",
+                                draft_config=draft_cfg, draft_params=draft,
+                                spec_tokens=SPEC_GAMMA)
+    del damped, draft
+    spec_engine.aot_compile()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    greedy = _request_list(cfg.vocab_size, SPEC_GREEDY, 3, "g")
+    sampled = _request_list(cfg.vocab_size, SPEC_SAMPLED, 4, "s",
+                            sampled_from=0)
+
+    def leg(engine):
+        _zero_counts()
+        t = time.perf_counter()
+        results = engine.run(greedy + sampled)
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t, _counts(), engine.stats()
+
+    plain, plain_s, plain_counts, plain_stats = leg(plain_engine)
+    # The counted path: K1 launches inside propose and verify are
+    # counted apart (none may happen there).
+    spec_programs = spec_engine.spec
+    inside = {"propose": 0, "verify": 0}
+
+    def counted(name, fn):
+        def run(*args, **kwargs):
+            before = fa.LAUNCHES["flash_fwd"]
+            out = fn(*args, **kwargs)
+            inside[name] += fa.LAUNCHES["flash_fwd"] - before
+            return out
+        return run
+
+    spec_programs.propose = counted("propose", spec_programs.propose)
+    spec_programs.verify = counted("verify", spec_programs.verify)
+    try:
+        spec, spec_s, counts, stats = leg(spec_engine)
+    finally:
+        del spec_programs.propose, spec_programs.verify
+    for results in (plain, spec):
+        _check_finished(results, greedy + sampled, cfg.vocab_size)
+    # The phase's path is both legs.
+    path_counts = {k: v + plain_counts[k] for k, v in counts.items()}
+    prefills, plain_prefills = int(stats["prefills"]), int(
+        plain_stats["prefills"])
+    want_k1 = prefills * (cfg.num_layers + draft_cfg.num_layers)
+    k1_ok = (counts["flash_fwd"] == want_k1
+             and plain_counts["flash_fwd"] == plain_prefills * cfg.num_layers
+             and inside == {"propose": 0, "verify": 0}
+             and not any(v for k, v in counts.items() if k != "flash_fwd"))
+    # Where greedy streams may split: the verify-vs-plain logit gap on the
+    # plain streams, teacher-forced.
+    t = time.perf_counter()
+    plain_logits, gap, replayed = _spec_replay(
+        spec_engine.programs, spec_engine.model, greedy, plain, SPEC_GAMMA)
+    rows = _spec_stream_check(greedy, plain, spec, plain_logits,
+                              SPEC_TIE_TOL)
+    replay_s = time.perf_counter() - t
+    top_k_bad = _in_top_k(_twin(cfg, spec_engine.model), sampled, spec, 8)
+    # The planted fault: one proposal past the first mismatch accepted.
+    kernel_accept = decode.accept_chunk
+    decode.accept_chunk = _accept_one_past(kernel_accept)
+    try:
+        planted = spec_engine.run([dataclasses.replace(r, uid=f"p_{r.uid}")
+                                   for r in greedy])
+    finally:
+        decode.accept_chunk = kernel_accept
+    planted = {r.uid: planted[f"p_{r.uid}"] for r in greedy}
+    planted_rows = _spec_stream_check(greedy, plain, planted, plain_logits,
+                                      SPEC_TIE_TOL)
+    greedy_rounds = stats["spec_proposed"] / SPEC_GAMMA
+    out = {
+        "phase": "serve_spec",
+        "model": "gpt2-1.5b target (48 layers, bf16, flash, random weights "
+                 f"seed 0) damped by make_draft(draft_layers="
+                 f"{SPEC_DRAFT_LAYERS}, damp={SPEC_DAMP}); draft "
+                 f"{draft_cfg.num_layers} layer",
+        "gamma": SPEC_GAMMA, "slots": SLOTS,
+        "requests": {"greedy": len(greedy), "sampled": len(sampled)},
+        "accept_rate": stats["spec_accept_rate"],
+        "accepted": stats["spec_accepted"],
+        "proposed": stats["spec_proposed"],
+        "verify_rounds": stats["spec_rounds"],
+        "tokens_per_greedy_row_round": (
+            1 + stats["spec_accepted"] / greedy_rounds
+            if greedy_rounds else None),
+        "tokens_per_round": (stats["tokens"] - prefills) / stats[
+            "spec_rounds"],
+        "plain": {"decode_step_p50_s": plain_stats["decode_step_p50_s"],
+                  "decode_step_p95_s": plain_stats["decode_step_p95_s"],
+                  "steps": plain_stats["decode_step_n"],
+                  "generated_tokens_per_s": plain_stats["tokens"] / plain_s,
+                  "run_s": plain_s},
+        "spec": {"decode_step_p50_s": stats["decode_step_p50_s"],
+                 "decode_step_p95_s": stats["decode_step_p95_s"],
+                 "steps": stats["decode_step_n"],
+                 "generated_tokens_per_s": stats["tokens"] / spec_s,
+                 "run_s": spec_s},
+        "verify_vs_plain_logit_gap": gap, "tie_tol": SPEC_TIE_TOL,
+        "replay_reproduces_plain": replayed, "replay_s": replay_s,
+        "streams": rows,
+        "flash_launches": counts["flash_fwd"], "flash_wanted": want_k1,
+        "plain_flash_launches": plain_counts["flash_fwd"],
+        "flash_in_propose_verify": inside,
+        "sampled_outside_top_k": top_k_bad,
+        "planted_one_past_mismatch": {
+            "caught": not all(r["ok"] for r in planted_rows),
+            "splits": sum(not r["ok"] for r in planted_rows),
+            "largest_logit_gap": max(
+                (r.get("logit_gap", 0.0) for r in planted_rows),
+                default=0.0),
+            "streams": [r for r in planted_rows if not r["ok"]][:3]},
+        "setup_s": setup_s,
+    }
+    emit(out)
+    if not (k1_ok and all(r["ok"] for r in rows) and stats[
+            "spec_accepted"] > 0 and not top_k_bad
+            and out["planted_one_past_mismatch"]["caught"]):
+        raise AssertionError(f"serve_spec failed: {out}")
+    del plain_engine, spec_engine
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def _fleet_run(fleet, budget=2000):
+    for _ in range(budget):
+        if fleet.pending() == 0:
+            return True
+        fleet.step()
+    return fleet.pending() == 0
+
+
+def _fleet_tokens(results, uids):
+    return {u: results[u].tokens for u in uids}
+
+
+def _same_streams(got, want):
+    return sorted(got) == sorted(want) and all(
+        np.array_equal(got[u], want[u]) for u in want)
+
+
+def _fleet_swap(cfg, engine_fn, requests, params_seed1):
+    """(d): a live swap to seed-1 weights between two steps, then one
+    under a ``serve.swap`` plan."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.trainer import state_digest as sd
+
+    ckpt_dir = os.path.join(REPO, "build", "serve_swap")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    saved_env = {k: os.environ.get(k) for k in ("DLROVER_TPU_JOB",
+                                                "DLROVER_TPU_SOCKET_DIR")}
+    sock_dir = tempfile.mkdtemp(prefix="swap_socks_")
+    os.environ["DLROVER_TPU_SOCKET_DIR"] = sock_dir
+    os.environ["DLROVER_TPU_JOB"] = f"swap{os.getpid()}"
+    saver = AsyncCheckpointSaver(ckpt_dir, host_index=0, num_hosts=1)
+    saver.start()
+    ckpt = CheckpointEngine(ckpt_dir, host_index=0, num_hosts=1,
+                            agree_step_fn=lambda c: c, device="cuda")
+    try:
+        if not (ckpt.save_to_storage(7, {"params": params_seed1})
+                and ckpt.wait_saver(timeout=300)):
+            raise AssertionError("serve_fleet: the seed-1 checkpoint was "
+                                 "not committed")
+        engine = engine_fn(0)
+        first, after, again = requests[:4], requests[4:8], requests[8:]
+        for r in first:
+            engine.submit(r)
+        engine.step()
+        engine.step()
+        live, queue = engine._live_slots(), list(engine._queue)
+        pool = [t.data_ptr() for t in engine.cache]
+        model = engine.model
+        before = sd.LAUNCHES["digest_sums"]
+        report = engine.swap_weights(ckpt_dir)
+        digests = sd.LAUNCHES["digest_sums"] - before
+        untouched = (engine._live_slots() == live
+                     and list(engine._queue) == queue
+                     and [t.data_ptr() for t in engine.cache] == pool
+                     and engine.model is model)
+        kept = engine.drain()
+        lost = [r.uid for r in first if r.uid not in kept]
+        fresh = engine_fn(0, params_seed1)
+        want = _fleet_tokens(fresh.run(after), [r.uid for r in after])
+        got = _fleet_tokens(engine.run(after), [r.uid for r in after])
+        faults.configure("serve.swap:error@1", seed=0)
+        try:
+            before = sd.LAUNCHES["digest_sums"]
+            rolled = engine.swap_weights(ckpt_dir)
+            rolled_digests = sd.LAUNCHES["digest_sums"] - before
+        finally:
+            faults.reset()
+        want2 = _fleet_tokens(fresh.run(again), [r.uid for r in again])
+        got2 = _fleet_tokens(engine.run(again), [r.uid for r in again])
+    finally:
+        ckpt._shm.close(unlink=True)
+        saver.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = {
+        "ok": report["ok"], "version": report["version"],
+        "step": report["step"], "swap_s": report["seconds"],
+        "digest_launches": digests, "untouched": untouched,
+        "lost": lost, "streams_equal_fresh_seed1": _same_streams(got, want),
+        "rollback": {"ok": rolled["ok"], "rolled_back":
+                     rolled["rolled_back"], "version": rolled["version"],
+                     "digest_launches": rolled_digests,
+                     "streams_equal_fresh_seed1": _same_streams(got2,
+                                                                want2)},
+    }
+    return out
+
+
+def _fleet_frontend(engine_fn, vocab):
+    """(e): the front door over a one-replica fleet."""
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.master import messages as msg
+    from dlrover_tpu_torch.serving import ReplicaFleet, ServeFrontend
+
+    fleet = ReplicaFleet()
+    engine = engine_fn(0)
+    fleet.add_replica(engine)
+    front = ServeFrontend(fleet, max_pending=4)
+    gen = torch.Generator().manual_seed(9)
+
+    def submit(uid, deadline_s=30.0):
+        prompt = tuple(int(t) for t in torch.randint(1, vocab, (12,),
+                                                     generator=gen))
+        t = front.submit(msg.ServeSubmit(uid=uid, prompt=prompt,
+                                         max_new_tokens=8,
+                                         deadline_s=deadline_s))
+        return t.accepted, t.reason
+
+    out = {"first": submit("f0")}
+    out["pending"] = front.poll(msg.ServePoll(uid="f0")).state
+    _fleet_run(fleet)
+    done = front.poll(msg.ServePoll(uid="f0"))
+    out["done"] = [done.state, len(done.tokens)]
+    out["fill"] = [submit(f"q{i}") for i in range(5)]
+    out["cancel_queued"] = front.cancel(msg.ServeCancel(uid="q3")).state
+    _fleet_run(fleet)
+    front.max_pending = 64
+    out["backlog"] = [submit(f"b{i}")[0] for i in range(10)]
+    out["tight"] = submit("tight", deadline_s=1e-9)
+    _fleet_run(fleet)
+    faults.configure("serve.rpc:error@2", seed=0)
+    try:
+        rpc = [submit("rpc0")]
+        try:
+            front.poll(msg.ServePoll(uid="rpc0"))
+            rpc.append("no fault")
+        except faults.FaultInjected:
+            rpc.append("fault")
+        rpc.append(front.poll(msg.ServePoll(uid="rpc0")).state)
+        fired = list(faults.active().fired)
+    finally:
+        faults.reset()
+    _fleet_run(fleet)
+    out["rpc"] = rpc
+    out["rpc_fired"] = [list(f) for f in fired]
+    out["counts"] = [front.submitted, front.shed_count, front.rejected_full]
+    out["ok"] = (out["first"] == (True, "") and out["pending"] == "pending"
+                 and out["done"] == ["done", 8]
+                 and out["fill"][:4] == [(True, "")] * 4
+                 and out["fill"][4] == (False, "queue_full")
+                 and out["cancel_queued"] == "cancelled"
+                 and all(out["backlog"])
+                 and out["tight"][0] is False and out["tight"][1] == "shed"
+                 and rpc == [(True, ""), "fault", "pending"]
+                 and out["rpc_fired"] == [["serve.rpc", "error", 2]])
+    return out
+
+
+def serve_fleet_and_check():
+    """``serve_fleet``: replicas of GPT-2 1.5B's width at
+    ``FLEET_LAYERS`` layers, 8 slots each: failover under a
+    ``replica.death`` plan, drain and scale, disaggregated prefill, a live
+    weight swap and the front door.  Returns the counted path's
+    launches."""
+    from dlrover_tpu_torch.common import faults
+    from dlrover_tpu_torch.master.auto_scaler import ServeScalePolicy
+    from dlrover_tpu_torch.models import gpt2_config, init_params
+    from dlrover_tpu_torch.serving import ReplicaFleet, ServingEngine
+
+    cfg = gpt2_config("1.5b", attention_impl="flash",
+                      param_dtype=torch.bfloat16, num_layers=FLEET_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    params1 = init_params(cfg, seed=1, device="cuda")
+    engines = []
+
+    def engine_fn(seed, weights=None, role="mixed"):
+        engine = ServingEngine(cfg, params if weights is None else weights,
+                               slots=SLOTS, seed=seed, role=role,
+                               device="cuda")
+        engines.append(engine)
+        return engine
+
+    requests = _request_list(cfg.vocab_size, FLEET_REQUESTS, 5, "f")
+    uids = [r.uid for r in requests]
+    t_phase = time.perf_counter()
+    _zero_counts()
+    single = _fleet_tokens(engine_fn(0).run(requests), uids)
+    # (a) failover: two mixed replicas, one killed mid-run.
+    fleet = ReplicaFleet()
+    fleet.add_replica(engine_fn(0))
+    fleet.add_replica(engine_fn(1))
+    assigned = [fleet.submit(r) for r in requests]
+    faults.configure(f"replica.death:error@{FLEET_DEATH_HIT}", seed=0)
+    try:
+        done = _fleet_run(fleet)
+        fired = list(faults.active().fired)
+    finally:
+        faults.reset()
+    failover = {
+        "assigned": collections.Counter(assigned), "done": done,
+        "deaths": fleet.deaths, "resubmitted": fleet.resubmitted,
+        "step_failures": fleet.step_failures,
+        "breakers": [r.breaker.state for r in fleet._replicas.values()],
+        "fired": [list(f) for f in fired],
+        "zero_lost": sorted(fleet.results) == sorted(uids),
+        "streams_equal_single": done and _same_streams(
+            _fleet_tokens(fleet.results, uids), single),
+    }
+    failover["ok"] = (failover["zero_lost"] and failover[
+        "streams_equal_single"] and fleet.deaths == 1
+        and fleet.step_failures == 0
+        and set(failover["breakers"]) == {"closed"}
+        and failover["fired"] == [["replica.death", "error",
+                                   FLEET_DEATH_HIT]])
+    # (b) drain, then scale out through spawn and back in.
+    fleet = ReplicaFleet(spawn=lambda: engine_fn(5))
+    fleet.add_replica(engine_fn(0))
+    fleet.add_replica(engine_fn(1))
+    for r in requests[:8]:
+        fleet.submit(r)
+    fleet.step()
+    fleet.step()
+    fleet.drain("replica-0")
+    drained = {"retired": fleet.retired, "replicas": fleet.replica_ids()}
+    drained["done"] = _fleet_run(fleet)
+    drained["streams_equal_single"] = _same_streams(
+        _fleet_tokens(fleet.results, uids[:8]),
+        {u: single[u] for u in uids[:8]})
+    drained["out"] = fleet.maybe_scale(ServeScalePolicy(
+        slo_p95_s=1e-9, min_samples=1))
+    drained["after_out"] = len(fleet.replica_ids())
+    for r in requests[8:]:
+        fleet.submit(r)
+    drained["done_after_out"] = _fleet_run(fleet)
+    drained["in"] = fleet.maybe_scale(ServeScalePolicy(
+        slo_p95_s=1e9, occupancy_high=2.0, occupancy_low=1.1,
+        min_samples=1))
+    drained["after_in"] = len(fleet.replica_ids())
+    drained["retired_total"] = fleet.retired
+    drained["zero_lost"] = sorted(fleet.results) == sorted(uids)
+    drained["ok"] = (drained["retired"] == 1 and drained["done"]
+                     and drained["streams_equal_single"]
+                     and drained["out"] == "out"
+                     and drained["after_out"] == 2
+                     and drained["in"] == "in" and drained["after_in"] == 1
+                     and drained["retired_total"] == 2
+                     and drained["zero_lost"])
+    # (c) disaggregated prefill against a colocated replica.
+    colocated = ReplicaFleet()
+    colocated.add_replica(engine_fn(0))
+    for r in requests:
+        colocated.submit(r)
+    _fleet_run(colocated)
+    disagg = ReplicaFleet()
+    disagg.add_replica(engine_fn(0, role="prefill"))
+    disagg.add_replica(engine_fn(0, role="decode"))
+    for r in requests:
+        disagg.submit(r)
+    disagg_done = _fleet_run(disagg)
+    page_bytes = 2 * cfg.num_layers * cfg.max_seq_len * cfg.num_heads * (
+        cfg.d_model // cfg.num_heads) * 2
+    d_stats, c_stats = disagg.stats(), colocated.stats()
+    pages = {
+        "done": disagg_done,
+        "streams_equal_colocated": _same_streams(
+            _fleet_tokens(disagg.results, uids),
+            _fleet_tokens(colocated.results, uids)),
+        "pages_streamed": d_stats["pages_streamed"],
+        "page_bytes_streamed": d_stats["page_bytes_streamed"],
+        "page_bytes_predicted": len(requests) * page_bytes,
+        "bytes_per_page_layer": page_bytes // cfg.num_layers,
+        "decode_step_p95_s": {"disaggregated": d_stats["decode_step_p95_s"],
+                              "colocated": c_stats["decode_step_p95_s"]},
+    }
+    pages["ok"] = (disagg_done and pages["streams_equal_colocated"]
+                   and pages["pages_streamed"] == len(requests)
+                   and pages["page_bytes_streamed"]
+                   == pages["page_bytes_predicted"])
+    swap = _fleet_swap(cfg, engine_fn, requests, params1)
+    swap["ok"] = (swap["ok"] and swap["version"] == 1
+                  and swap["digest_launches"] == 1 and swap["untouched"]
+                  and not swap["lost"] and swap["streams_equal_fresh_seed1"]
+                  and swap["rollback"]["rolled_back"]
+                  and not swap["rollback"]["ok"]
+                  and swap["rollback"]["version"] == 1
+                  and swap["rollback"]["digest_launches"] == 1
+                  and swap["rollback"]["streams_equal_fresh_seed1"])
+    front = _fleet_frontend(engine_fn, cfg.vocab_size)
+    torch.cuda.synchronize()
+    counts = _counts()
+    phase_s = time.perf_counter() - t_phase
+    prefills = sum(int(e.stats()["prefills"]) for e in engines)
+    want = _per_step(flash_fwd=prefills * cfg.num_layers, digest_sums=2)
+    out = {
+        "phase": "serve_fleet",
+        "model": f"gpt2-1.5b width at {cfg.num_layers} of 48 layers (bf16, "
+                 "flash, random weights seed 0; seed 1 for the swap)",
+        "slots": SLOTS, "requests": len(requests), "engines": len(engines),
+        "failover": failover, "drain_scale": drained, "pages": pages,
+        "swap": swap, "frontend": front,
+        "prefills": prefills, "launches": {k: v for k, v in counts.items()
+                                           if v},
+        "launches_wanted": {k: v for k, v in want.items() if v},
+        "seconds": phase_s,
+    }
+    emit(out)
+    if not (failover["ok"] and drained["ok"] and pages["ok"] and swap["ok"]
+            and front["ok"] and counts == want):
+        raise AssertionError(f"serve_fleet failed: {out}")
+    del engines, params, params1
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _moe_decode_routing(programs, model, pool, tokens, positions):
+    """Block 0's grouped dispatch at a decode step: ``(rows [n_pad, d],
+    group_sizes, counts)`` of the step's token choices (the layer's
+    ``route`` on the step's own input, captured by a hook)."""
+    seen = {}
+    moe = model.blocks[0].moe
+    hook = moe.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0].detach().clone()))
+    try:
+        programs.decode_logits(model, pool, tokens, positions)
+    finally:
+        hook.remove()
+    x = seen["x"]
+    x_flat = x.reshape(-1, x.shape[-1]).to(moe.dtype)
+    with torch.no_grad():
+        r = moe.route(x_flat, moe.router(x.float()).reshape(
+            x_flat.shape[0], -1))
+    return r
+
+
+def serve_moe_and_check():
+    """``serve_moe``: ``bench.py``'s MoE entry (grouped dispatch) at
+    ``MOE_TRAIN_LAYERS`` layers, bf16, 8 slots, serving
+    ``MOE_SERVE_REQUESTS``: K8 for every expert product of every prefill
+    and decode step.  Returns the counted path's launches."""
+    from dlrover_tpu_torch.models import init_params
+    from dlrover_tpu_torch.ops import grouped_matmul as gm
+    from dlrover_tpu_torch.serving import ServingEngine, pad_to_bucket
+
+    cfg = moe_config(num_layers=MOE_TRAIN_LAYERS)
+    products = 3 if cfg.activation == "swiglu" else 2
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    engine = ServingEngine(cfg, params, slots=SLOTS, device="cuda")
+    del params
+    engine.aot_compile()
+    requests = _request_list(cfg.vocab_size, MOE_SERVE_REQUESTS, 6, "m",
+                             sampled_from=len(MOE_SERVE_REQUESTS) // 2)
+    _zero_counts()
+    t = time.perf_counter()
+    results = engine.run(requests)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = _counts()
+    stats = engine.stats()
+    _check_finished(results, requests, cfg.vocab_size)
+    prefills, steps = int(stats["prefills"]), int(stats["decode_step_n"])
+    want = _per_step(flash_fwd=prefills * cfg.num_layers,
+                     gmm_fwd=products * cfg.num_layers * (prefills + steps))
+    programs, model = engine.programs, engine.model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    # One decode step under sync debug mode "error" (inputs made first).
+    pool = programs.init_cache()
+    step_tokens = torch.randint(1, cfg.vocab_size, (SLOTS,), generator=gen,
+                                device="cuda")
+    step_pos = torch.full((SLOTS,), 300, device="cuda")
+    programs.decode_logits(model, pool, step_tokens, step_pos)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        programs.decode_logits(model, pool, step_tokens, step_pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # Prefill through K8 against the plain grouped matmul swapped in.
+    prompt = requests[4].prompt
+    padded, n = pad_to_bucket(prompt, programs.buckets)
+    padded = torch.as_tensor(padded[None], device="cuda")
+    row, kernel_logits = programs.prefill_logits(model, padded, n)
+    with _gmm_swapped(fwd=_gmm_reference_fns()[0]):
+        _, ref_logits = programs.prefill_logits(model, padded, n)
+    prefill_err = float((kernel_logits - ref_logits).abs().max())
+    # A decode step against a no-cache forward of the same prefix.
+    first = kernel_logits.argmax(-1)
+    step_logits = programs.decode_logits(
+        model, row, first, torch.tensor([n], device="cuda"))
+    full = torch.cat([torch.as_tensor(prompt, device="cuda"), first])
+    with torch.no_grad():
+        full_logits = _twin(cfg, model)(full[None])[:, -1]
+    decode_err = float((step_logits - full_logits).abs().max())
+    # K8 at the decode step's shape: 8 slots x top-2 choices in
+    # (ceil(16 / 128) + 8) x 128 rows, most of them padding.
+    routing = _moe_decode_routing(programs, model, pool, step_tokens,
+                                  step_pos)
+    moe = model.blocks[0].moe
+    wi = moe.wi.detach().to(moe.dtype)
+    wo = moe.wo.detach().to(moe.dtype)
+    gs = routing.group_sizes
+    with torch.no_grad():
+        h = gm.gmm_fwd(routing.rows, wi, gs, GMM_BLOCK)
+        h_ref = gm.grouped_matmul_reference(routing.rows, wi, gs)
+        act = torch.nn.functional.gelu(h, approximate="tanh")
+        o = gm.gmm_fwd(act, wo, gs, GMM_BLOCK)
+        o_ref = gm.grouped_matmul_reference(act, wo, gs)
+        # Planted: the step's rows routed to the wrong expert (each block
+        # times the next expert's weights).
+        wrong = gm.gmm_fwd(routing.rows, wi.roll(1, dims=0).contiguous(),
+                           gs, GMM_BLOCK)
+    decode_gmm = {"fwd_wi": gmm_errors(h, h_ref),
+                  "fwd_wo": gmm_errors(o, o_ref)}
+    planted = gmm_errors(wrong, h_ref)
+    out = {
+        "phase": "serve_moe",
+        "model": f"bench.py moe entry (8 experts, top-2, d_ff 3200, gelu, "
+                 f"grouped) at {cfg.num_layers} of 48 layers, bf16, random "
+                 "weights seed 0",
+        "slots": SLOTS, "requests": len(requests), "prefills": prefills,
+        "decode_steps": steps, "run_s": run_s,
+        "generated_tokens_per_s": stats["tokens"] / run_s,
+        "decode_step_p50_s": stats["decode_step_p50_s"],
+        "decode_step_p95_s": stats["decode_step_p95_s"],
+        "launches": {k: v for k, v in counts.items() if v},
+        "launches_wanted": {k: v for k, v in want.items() if v},
+        "sync_debug_decode_step": "error mode, passed",
+        "prefill_kernel_vs_plain_gmm_max_abs": prefill_err,
+        "prefill_argmax_equal": bool(kernel_logits.argmax()
+                                     == ref_logits.argmax()),
+        "decode_vs_full_forward_max_abs": decode_err,
+        "decode_argmax_equal": bool(step_logits.argmax()
+                                    == full_logits.argmax()),
+        "atol": LOGIT_ATOL,
+        "decode_gmm": {"rows": int(routing.rows.shape[0]),
+                       "group_sizes": gs.tolist(),
+                       "choices": routing.counts.tolist(),
+                       **decode_gmm},
+        "planted_wrong_expert": {**planted, "caught": not gmm_ok(planted)},
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    if not (counts == want and prefill_err <= LOGIT_ATOL
+            and decode_err <= LOGIT_ATOL and out["prefill_argmax_equal"]
+            and out["decode_argmax_equal"]
+            and all(gmm_ok(e) for e in decode_gmm.values())
+            and out["planted_wrong_expert"]["caught"]):
+        raise AssertionError(f"serve_moe failed: {out}")
+    del engine, programs, model, pool, row
+    torch.cuda.empty_cache()
+    return counts, out["decode_gmm"]
+
+
 def _ptxas_report(kernel_lib):
     """Per kernel of each library built in this process (its mangled name,
     template arguments included): the registers, the stack frame and
@@ -8184,6 +9008,13 @@ def main() -> int:
         train_opts_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        serve_and_check()
+        serve_spec_and_check()
+        serve_fleet_and_check()
+        serve_moe_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--digest"]:
         digest_kernel_check(torch.Generator(device="cuda").manual_seed(0))
         print(smi, flush=True)
@@ -8257,6 +9088,9 @@ def main() -> int:
     mha_dispatch()
     paths = {}
     paths["serve"], paths["serve_faults"] = serve_and_check()
+    paths["serve_spec"] = serve_spec_and_check()
+    paths["serve_fleet"] = serve_fleet_and_check()
+    paths["serve_moe"], moe_decode_gmm = serve_moe_and_check()
     paths["train"], adafactor_state_bytes = train_and_check()
     paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_fit"] = train_fit_and_check(on_measured=_after_fit_measured)
@@ -8343,6 +9177,8 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms",
                 "library_eager_ms", "host_us")}
                 for p, v in gmm["timed"].items()},
+            **({"serve_decode_step": moe_decode_gmm} if name == "gmm_fwd"
+               else {}),
         ))
     norm = next(c for c in norm_cases if c["case"] == NORM_TRAIN_CASE)
     t = norm["timed"]

@@ -1,2 +1,3 @@
-"""Control-plane messages (the data-sharding pair only; the master itself
-is ROADMAP Queue 1 item 10)."""
+"""Control-plane messages (the data-sharding pair and the serving front
+door's) and the serving replica policy; the master itself is ROADMAP
+Queue 1 item 10."""

@@ -22,6 +22,8 @@ The forward is the custom op ``dlrover_tpu_torch::gmm`` with a registered
 backward (a bare ctypes launch into ``torch.empty`` would leave the output
 without a ``grad_fn``).  Selective checkpointing sees it as one op, so
 under the ``flash_only`` remat policy it is recomputed in the backward.
+When nothing needs a gradient (MoE serving) :func:`grouped_matmul` calls
+:func:`gmm_fwd` directly and skips the op's dispatch.
 Nothing on the kernel path reads a value back to the host: the group
 offsets stay on the device and each kernel block finds its expert itself.
 Any number of experts is taken: a one-block pre-pass of the same C call
@@ -346,4 +348,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.shape[0] % block_rows:
         raise ValueError(
             f"N={x.shape[0]} not a multiple of block_rows {block_rows}")
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        # Nothing to differentiate (serving): the kernel alone, without
+        # the op's dispatch (as ``flash_attention.mha`` does).
+        return gmm_fwd(x, w, group_sizes, block_rows)
     return gmm_op(x, w, group_sizes, block_rows)

@@ -123,6 +123,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def loaded(name: str) -> bool:
+    """Whether ``csrc/<name>.cu``'s library is loaded in this process."""
+    return name in _LIBS
+
+
 @functools.lru_cache(maxsize=None)
 def num_sms(index: int) -> int:
     """SMs of CUDA device ``index``."""

@@ -2,7 +2,10 @@
 
 The same parameters that train also serve, through the slotted KV cache
 in :mod:`dlrover_tpu_torch.serving.decode` and the host-side scheduler in
-:mod:`dlrover_tpu_torch.serving.engine`.
+:mod:`dlrover_tpu_torch.serving.engine`; speculative decoding and
+disaggregated prefill ride the engine, replicas form a
+:class:`ReplicaFleet` behind a :class:`ServeFrontend`, and
+:mod:`~dlrover_tpu_torch.serving.hotswap` swaps weights live.
 """
 
 from dlrover_tpu_torch.serving.bucketing import (  # noqa: F401
@@ -11,11 +14,24 @@ from dlrover_tpu_torch.serving.bucketing import (  # noqa: F401
     pick_bucket,
 )
 from dlrover_tpu_torch.serving.decode import (  # noqa: F401
+    MAX_SPEC_TOKENS,
     ServePrograms,
+    SpecPrograms,
+    clear_programs,
+    get_programs,
+    get_spec_programs,
     sample_tokens,
 )
+from dlrover_tpu_torch.serving.draft import make_draft  # noqa: F401
 from dlrover_tpu_torch.serving.engine import (  # noqa: F401
+    ROLES,
+    PrefilledPage,
     Request,
     RequestResult,
     ServingEngine,
 )
+from dlrover_tpu_torch.serving.fleet import (  # noqa: F401
+    NoReplicaError,
+    ReplicaFleet,
+)
+from dlrover_tpu_torch.serving.frontend import ServeFrontend  # noqa: F401

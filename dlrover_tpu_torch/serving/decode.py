@@ -19,17 +19,32 @@ of per-request cache *slots* and three operations —
   at its own position and sampling per slot.  Free slots compute garbage
   that the host ignores and the next ``insert`` overwrites.
 
-Not in this slice: the process-wide program memo and AOT (PyTorch runs
-eagerly; ``warmup`` builds and loads the kernel library instead), tensor
-parallelism, speculative decoding and MoE configs (``ServePrograms``
-refuses ``num_experts > 0``).
+An MoE config (``num_experts > 0``) serves through the same operations:
+each block's ``models/moe.MoEMlp`` routes the prompt's or the step's
+tokens, and under ``moe_dispatch="grouped"`` every expert product is one
+launch of the grouped-matmul kernel (K8 on the card).
+
+**Speculative decoding** (:class:`SpecPrograms`): a draft model proposes
+γ greedy tokens a slot (γ single-token draft steps) and the target scores
+the ``[S, γ+1]`` chunk in one decode-mode forward; each slot accepts the
+longest prefix where the draft matched the target's argmax, plus one
+bonus token from the target's own logits at the first divergence, so a
+greedy slot's stream is the plain decode path's.  Sampled rows (temp > 0)
+accept nothing and draw the bonus through :func:`sample_tokens`.
+
+Program sets are memoized process-wide (:func:`get_programs`,
+:func:`get_spec_programs`): fleet replicas of one configuration share
+one :class:`ServePrograms`.  PyTorch runs eagerly, so there is nothing to
+trace or compile ahead (the reference's ``aot_compile``); ``warmup``
+builds and loads the kernel libraries the path launches instead.  Not in
+this slice: tensor parallelism (ROADMAP Queue 1 item 8's remainder).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -42,6 +57,13 @@ from dlrover_tpu_torch.ops import kernel_lib
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 NEG_INF = -1e15
+
+#: Speculative proposal-length ceiling: the verify chunk is ``γ+1`` wide
+#: and must stay below ``models/attention.FLASH_PREFILL_MIN`` (16), so a
+#: verify step takes ``cached_attention`` over the whole cache and never
+#: the flash kernel, which attends over the fresh chunk alone (a prefill
+#: at position 0).
+MAX_SPEC_TOKENS = 14
 
 #: ``(k, v)``, each ``[layers, slots, max_seq_len, H_kv, head_dim]``.
 Pool = Tuple[torch.Tensor, torch.Tensor]
@@ -86,9 +108,27 @@ def sample_tokens(
     return tokens, logp.gather(-1, tokens[:, None])[:, 0]
 
 
+def _programs_key(config: TransformerConfig, slots: int,
+                  buckets: Sequence[int], max_top_k: int,
+                  device: torch.device) -> Tuple:
+    """The one spelling of a program set's memo key (used by both
+    :func:`get_programs` and ``ServePrograms.__init__``)."""
+    return ("serve", decode_config(config), int(slots),
+            tuple(sorted(int(b) for b in buckets)), int(max_top_k),
+            str(device))
+
+
+def _spec_key(target: "ServePrograms", draft: "ServePrograms",
+              spec_tokens: int) -> Tuple:
+    """The one spelling of a speculative pair's memo key (used by both
+    :func:`get_spec_programs` and ``SpecPrograms.__init__``)."""
+    return ("spec", target.cache_key, draft.cache_key, int(spec_tokens))
+
+
 class ServePrograms:
     """Prefill / insert / decode for one (config, slots, buckets,
-    max_top_k) on one device."""
+    max_top_k) on one device.  Obtain through :func:`get_programs` so
+    equal keys share one instance."""
 
     def __init__(
         self,
@@ -105,12 +145,6 @@ class ServePrograms:
         buckets = tuple(sorted(int(b) for b in buckets))
         if buckets[0] < 1:
             raise ValueError(f"bucket widths must be >= 1, got {buckets}")
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                "serving an MoE config (num_experts > 0) is a later slice "
-                "of the port (MoE serving, ROADMAP Queue 1 item 6's "
-                "remainder); this port trains MoE models only"
-            )
         self.device = resolve_device(device)
         self.config = decode_config(config)
         if buckets[-1] >= self.config.max_seq_len:
@@ -125,6 +159,8 @@ class ServePrograms:
         self.slots = slots
         self.buckets = buckets
         self.max_top_k = max_top_k
+        self.cache_key = _programs_key(config, slots, buckets, max_top_k,
+                                       self.device)
 
     def place_params(self, params) -> TransformerLM:
         """The decode-mode model on this device, loaded from a state dict
@@ -154,6 +190,16 @@ class ServePrograms:
     def _layer_caches(pool: Pool) -> List[KVCache]:
         k, v = pool
         return [(k[i], v[i]) for i in range(k.shape[0])]
+
+    def place_row(self, row: Pool) -> Pool:
+        """A prefilled row (a host page streamed from a prefill replica)
+        on this device; a row already here is returned as it is."""
+        return tuple(t.to(self.device, non_blocking=True) for t in row)
+
+    @staticmethod
+    def pool_device_bytes(pool: Pool) -> int:
+        """Bytes of ``pool`` on its device (the whole pool: one device)."""
+        return sum(t.numel() * t.element_size() for t in pool)
 
     # -- the three operations -------------------------------------------------
 
@@ -186,14 +232,20 @@ class ServePrograms:
             pool_t[:, slot].copy_(row_t[:, 0])
 
     @torch.no_grad()
+    def chunk_logits(self, model, pool, chunk, positions) -> torch.Tensor:
+        """Logits ``[S, W, V]`` of a ``[S, W]`` chunk a slot, token ``j``
+        of slot ``s`` at position ``positions[s] + j``; the chunk's K/V is
+        written into the pool in place."""
+        width = chunk.shape[1]
+        grid = positions[:, None] + torch.arange(width,
+                                                 device=positions.device)
+        return model(chunk, grid, caches=self._layer_caches(pool))
+
     def decode_logits(self, model, pool, tokens, positions) -> torch.Tensor:
         """Next-token logits ``[S, V]`` of one token per slot at its
         position; each slot's K/V is written into the pool in place."""
-        logits = model(
-            tokens[:, None], positions[:, None],
-            caches=self._layer_caches(pool),
-        )
-        return logits[:, 0]
+        return self.chunk_logits(model, pool, tokens[:, None],
+                                 positions)[:, 0]
 
     def decode_step(self, model, pool, tokens, positions, generator, temps,
                     topks):
@@ -205,12 +257,171 @@ class ServePrograms:
         )
 
     def warmup(self) -> float:
-        """Build and load the kernel library this config's path launches
-        (flash attention on a CUDA device).  Returns wall seconds: 0.0
-        when the path launches no kernel, near 0 once it is loaded."""
-        if self.device.type != "cuda" or self.config.attention_impl != (
-                "flash"):
+        """Build and load the kernel libraries this config's path launches
+        on a CUDA device (flash attention under ``attention_impl="flash"``,
+        the grouped matmul under ``moe_dispatch="grouped"``).  Returns wall
+        seconds: 0.0 when the path launches no kernel or every library is
+        already loaded."""
+        if self.device.type != "cuda":
+            return 0.0
+        cfg = self.config
+        names = []
+        if cfg.attention_impl == "flash":
+            names.append("flash_attention")
+        if cfg.num_experts and cfg.moe_dispatch == "grouped":
+            names.append("grouped_matmul")
+        if all(kernel_lib.loaded(n) for n in names):
             return 0.0
         t0 = time.perf_counter()
-        kernel_lib.load("flash_attention")
+        for name in names:
+            kernel_lib.load(name)
         return time.perf_counter() - t0
+
+
+def accept_chunk(
+    logits: torch.Tensor,
+    chunk: torch.Tensor,
+    generator: torch.Generator,
+    temps: torch.Tensor,
+    topks: torch.Tensor,
+    max_top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The verify rule over the target's chunk logits ``[S, γ+1, V]``:
+    ``(emitted [S, γ+1], emit_len [S], logps [S, γ+1], accepted [S])``.
+
+    ``accepted`` is the longest prefix of the proposals ``chunk[:, 1:]``
+    equal to the target's argmax at the positions before them (0 for a
+    sampled row); ``emitted[:, :n]`` are the accepted proposals and
+    ``emitted[:, n]`` the bonus token: the target's argmax after them for
+    a greedy row, a :func:`sample_tokens` draw from the first position's
+    logits for a sampled row.  Entries past ``emit_len = n + 1`` are
+    junk.  Logprobs are of the emitted tokens under the raw distribution.
+    """
+    logits32 = logits.float()
+    s, width = chunk.shape
+    target_greedy = logits32.argmax(dim=-1)                  # [S, γ+1]
+    proposals = chunk[:, 1:]
+    match = (proposals == target_greedy[:, :-1]).long()
+    # Longest matching prefix: the cumulative product is 0 from the first
+    # mismatch on.
+    accepted = torch.cumprod(match, dim=1).sum(dim=1)        # [S]
+    greedy_row = temps <= 0.0
+    accepted = torch.where(greedy_row, accepted, torch.zeros_like(accepted))
+    sampled0, _ = sample_tokens(logits32[:, 0], generator, temps, topks,
+                                max_top_k)
+    bonus = target_greedy.gather(1, accepted[:, None])[:, 0]
+    bonus = torch.where(greedy_row, bonus, sampled0)
+    idx = torch.arange(width, device=chunk.device)[None, :]
+    prop_pad = torch.cat([proposals, torch.zeros_like(proposals[:, :1])],
+                         dim=1)
+    emitted = torch.where(idx < accepted[:, None], prop_pad, bonus[:, None])
+    logps = torch.log_softmax(logits32, dim=-1).gather(
+        -1, emitted[..., None])[..., 0]
+    return emitted, accepted + 1, logps, accepted
+
+
+class SpecPrograms:
+    """Speculative-decoding pair over two :class:`ServePrograms`:
+
+    * ``propose(draft_model, draft_pool, tokens[S], positions[S])`` — the
+      draft greedily rolls γ tokens a slot (γ single-token steps, each a
+      decode step of the draft), writing the draft's own pool as it goes;
+      returns the proposals ``[S, γ]``.
+    * ``verify(model, pool, chunk[S, γ+1], positions[S], gen, temps,
+      topks)`` — the target scores the whole chunk (the current token and
+      the γ proposals) in one decode-mode forward and
+      :func:`accept_chunk` picks what each slot emits.
+
+    Cache hygiene: verify writes K/V at all γ+1 chunk positions, but
+    rejected positions are causally inert — ``cached_attention`` masks
+    positions past each query's, and the committed stream's next writes
+    land on (and overwrite) the stale rows, the argument that makes
+    prefill right-padding safe (``serving/bucketing.py``).  The engine's
+    admission keeps γ positions of headroom, so a verify write never
+    reaches past ``max_seq_len`` (where ``write_cache`` would clamp it
+    onto earlier rows).
+    """
+
+    def __init__(self, target: ServePrograms, draft: ServePrograms,
+                 spec_tokens: int):
+        if not 1 <= spec_tokens <= MAX_SPEC_TOKENS:
+            raise ValueError(
+                f"spec_tokens must be in [1, {MAX_SPEC_TOKENS}], got "
+                f"{spec_tokens} (the γ+1-wide verify chunk must stay "
+                "under the flash prefill threshold)"
+            )
+        if target.config.vocab_size != draft.config.vocab_size:
+            raise ValueError(
+                "draft and target must share a vocab: "
+                f"{draft.config.vocab_size} != {target.config.vocab_size}"
+            )
+        if target.slots != draft.slots:
+            raise ValueError(
+                f"draft slots {draft.slots} != target slots {target.slots}"
+            )
+        if target.device != draft.device:
+            raise ValueError(
+                f"draft device {draft.device} != target device "
+                f"{target.device}"
+            )
+        self.target = target
+        self.draft = draft
+        self.spec_tokens = spec_tokens
+        self.cache_key = _spec_key(target, draft, spec_tokens)
+
+    @torch.no_grad()
+    def propose(self, draft_model, draft_pool, tokens, positions
+                ) -> torch.Tensor:
+        tok, pos = tokens, positions
+        proposed = []
+        for _ in range(self.spec_tokens):
+            logits = self.draft.decode_logits(draft_model, draft_pool, tok,
+                                              pos)
+            tok = logits.float().argmax(dim=-1)
+            pos = pos + 1
+            proposed.append(tok)
+        return torch.stack(proposed, dim=1)
+
+    def verify(self, model, pool, chunk, positions, generator, temps,
+               topks):
+        """``(emitted, emit_len, logps, accepted)`` of
+        :func:`accept_chunk`; the pool holds the chunk's K/V after it."""
+        logits = self.target.chunk_logits(model, pool, chunk, positions)
+        return accept_chunk(logits, chunk, generator, temps, topks,
+                            self.target.max_top_k)
+
+
+# Process-wide program memo: equal keys share one program set, so fleet
+# replicas of one configuration (and a rebuilt engine) share it.
+_PROGRAMS: Dict[Any, Any] = {}
+
+
+def get_programs(
+    config: TransformerConfig,
+    slots: int,
+    buckets: Sequence[int],
+    max_top_k: int = 64,
+    device: DeviceLike = None,
+) -> ServePrograms:
+    device = resolve_device(device)
+    key = _programs_key(config, slots, buckets, max_top_k, device)
+    programs = _PROGRAMS.get(key)
+    if programs is None:
+        programs = ServePrograms(config, slots, buckets, max_top_k, device)
+        _PROGRAMS[key] = programs
+    return programs
+
+
+def get_spec_programs(target: ServePrograms, draft: ServePrograms,
+                      spec_tokens: int) -> SpecPrograms:
+    key = _spec_key(target, draft, spec_tokens)
+    programs = _PROGRAMS.get(key)
+    if programs is None:
+        programs = SpecPrograms(target, draft, spec_tokens)
+        _PROGRAMS[key] = programs
+    return programs
+
+
+def clear_programs() -> None:
+    """Test hook: drop the process-wide program memo."""
+    _PROGRAMS.clear()

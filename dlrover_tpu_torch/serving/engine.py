@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (port of
-``dlrover_tpu/serving/engine.py``, ``role="mixed"``).
+``dlrover_tpu/serving/engine.py``).
 
 The host side of the serving plane: an admission queue in front of the
 slotted decode operations (:mod:`dlrover_tpu_torch.serving.decode`).  Each
@@ -8,18 +8,31 @@ occupied slot one token, and a request that finishes frees its slot for
 the next queued request on the very next step.  ``static_batching=True``
 is the baseline: admission waits until the whole pool drains.
 
+Two optional planes compose on top of the base loop:
+
+* **Disaggregated prefill** (``role=``): a ``"prefill"`` engine turns
+  prompts into :class:`PrefilledPage` s — KV cache rows on the host — on
+  its ``outbox``; a ``"decode"`` engine accepts pages through
+  :meth:`ServingEngine.insert_page` and only runs the per-token step, so
+  its decode steps never absorb a long prefill.  ``"mixed"`` (the
+  default) is the colocated engine.
+* **Speculative decoding** (``draft_config``/``draft_params``): a small
+  draft model proposes γ greedy tokens a slot and the target verifies the
+  whole chunk in one forward (``decode.SpecPrograms``): ``n+1`` tokens a
+  round, the plain stream for greedy requests.
+
 Admission is the ``serve.admit`` fault seam (``common/faults.py``), retried
 under ``admit_policy`` (a :class:`~dlrover_tpu_torch.common.retry.
 RetryPolicy`): an injected admission fault is retried with backoff under a
 deadline instead of dropping the request.  The engine books a ``serve``
 telemetry event every ``telemetry_every`` steps and at the end of each
-drain, and a ``compile`` event for its warm-up.  With no fault plan the
-seam is a no-op.
+drain, a ``compile`` event for its warm-up and a ``serve.swap`` event for
+every live weight swap (:meth:`ServingEngine.swap_weights`, the
+``serve.swap`` seam).  With no fault plan the seams are no-ops.
 
-Not in this slice: tensor parallelism and re-folding, disaggregated
-prefill (``role="prefill"``/``"decode"``, pages), speculative decoding,
-the master client, the memory registry and weight hot-swap (and with it
-the ``serve.swap`` seam).
+Not in this slice: tensor parallelism and re-folding (``tp > 1``,
+``fold_tp``: ROADMAP Queue 1 item 8's remainder), the master client
+(``client=``) and the memory registry (item 10).
 """
 
 from __future__ import annotations
@@ -28,12 +41,13 @@ import dataclasses
 import math
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dlrover_tpu_torch.common import faults, telemetry
+from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.retry import RetryPolicy
 from dlrover_tpu_torch.models.transformer import TransformerConfig
 from dlrover_tpu_torch.rl.generation import SamplingParams
@@ -43,7 +57,15 @@ from dlrover_tpu_torch.serving.bucketing import (
     pad_to_bucket,
     pick_bucket,
 )
-from dlrover_tpu_torch.serving.decode import ServePrograms
+from dlrover_tpu_torch.serving import hotswap
+from dlrover_tpu_torch.serving.decode import (
+    Pool,
+    get_programs,
+    get_spec_programs,
+)
+from dlrover_tpu_torch.trainer.state_digest import format_digest
+
+ROLES = ("mixed", "prefill", "decode")
 
 
 @dataclasses.dataclass
@@ -79,6 +101,27 @@ class RequestResult:
     @property
     def queue_s(self) -> float:
         return self.admitted_t - self.submit_t
+
+
+@dataclasses.dataclass
+class PrefilledPage:
+    """One prefilled request in wire form: the batch-1 KV cache row as
+    host tensors (plus the draft model's row when the decode pool
+    speculates), the first sampled token, and what a decode engine needs
+    to resume the request where prefill left it.  ``nbytes`` is the rows'
+    exact byte count (``2 x L x max_seq_len x H_kv x head_dim x`` the
+    element size for each row).  On a CUDA engine the rows are pinned, so
+    the receiving engine's upload is one asynchronous copy."""
+
+    request: Request
+    submit_t: float
+    admitted_t: float
+    true_len: int
+    first_token: int
+    first_logp: float
+    row: Pool
+    draft_row: Optional[Pool] = None
+    nbytes: int = 0
 
 
 class _SlotState:
@@ -120,12 +163,29 @@ class ServingEngine:
         seed: int = 0,
         static_batching: bool = False,
         telemetry_every: int = 32,
+        client=None,
         admit_policy: Optional[RetryPolicy] = None,
+        tp: int = 0,
+        role: str = "mixed",
+        draft_config: Optional[TransformerConfig] = None,
+        draft_params=None,
+        spec_tokens: int = 4,
         device: DeviceLike = None,
     ):
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if tp and tp > 1:
+            raise NotImplementedError(
+                f"serving at tp={tp} is a later slice of the port (serving "
+                "TP, ROADMAP Queue 1 item 8's remainder); serve at tp <= 1")
+        if client is not None:
+            raise NotImplementedError(
+                "the master client (client=) is a later slice of the port "
+                "(the control plane, ROADMAP Queue 1 item 10)")
         if buckets is None:
             buckets = make_buckets(max(1, config.max_seq_len // 2))
-        self.programs = ServePrograms(
+        self.role = role
+        self.programs = get_programs(
             config, slots, tuple(buckets), max_top_k, device=device
         )
         self.device = self.programs.device
@@ -134,6 +194,29 @@ class ServingEngine:
         self.buckets = self.programs.buckets
         self.static_batching = static_batching
         self.cache = self.programs.init_cache()
+        # Speculative plane: the draft shares slots and buckets with the
+        # target so its pool rows line up slot for slot.  A prefill-role
+        # engine keeps the draft programs (to ship draft rows in its
+        # pages) but no draft pool and no SpecPrograms: it never decodes.
+        self.spec = None
+        self.draft_programs = None
+        self.draft_model = None
+        self.draft_cache: Optional[Pool] = None
+        self.spec_tokens = spec_tokens
+        if draft_config is not None:
+            if draft_params is None:
+                raise ValueError("draft_config requires draft_params")
+            self.draft_programs = get_programs(
+                draft_config, slots, tuple(buckets), max_top_k,
+                device=self.device,
+            )
+            self.draft_model = self.draft_programs.place_params(
+                draft_params)
+            if role != "prefill":
+                self.spec = get_spec_programs(
+                    self.programs, self.draft_programs, spec_tokens
+                )
+                self.draft_cache = self.draft_programs.init_cache()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._slot_state: List[Optional[_SlotState]] = [None] * slots
         self._tokens = np.zeros((slots,), np.int64)
@@ -141,6 +224,13 @@ class ServingEngine:
         self._temps = np.zeros((slots,), np.float32)
         self._topks = np.zeros((slots,), np.int64)
         self._queue: Deque[Tuple[Request, float]] = deque()
+        # Disaggregation mailboxes: a prefill engine fills ``outbox``; a
+        # decode-capable engine drains ``_page_queue`` into slots.
+        self.outbox: Deque[PrefilledPage] = deque()
+        self._page_queue: Deque[PrefilledPage] = deque()
+        self._pages_in = 0
+        self._pages_out = 0
+        self._page_bytes_out = 0
         self.results: Dict[str, RequestResult] = {}
         self.telemetry_every = max(1, telemetry_every)
         # Injected admission faults (serve.admit) are retried with backoff
@@ -153,17 +243,28 @@ class ServingEngine:
         self._step_i = 0
         self._completed: Deque[Tuple[float, float, int]] = deque(maxlen=512)
         self._occupancy: Deque[float] = deque(maxlen=256)
-        # Wall seconds of each step that decoded at least one live slot.
+        # Wall seconds of each step that decoded at least one live slot:
+        # the decode-interference signal disaggregation is judged by.
         self._step_lat: Deque[float] = deque(maxlen=512)
         self._requests_done = 0
         self._tokens_out = 0
         self._prefills = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_rounds = 0
+        # Weight provenance: bumped by every verified hot-swap.
+        self.weights_version = 0
 
     # -- admission ------------------------------------------------------------
 
     def submit(self, request: Request) -> str:
         """Queue a request; raises ``ValueError`` for one that can never
-        be admitted."""
+        be admitted (and a decode-role engine takes no prompts)."""
+        if self.role == "decode":
+            raise ValueError(
+                f"request {request.uid}: a decode-role engine admits "
+                "prefilled pages (insert_page), not prompts"
+            )
         prompt = np.asarray(request.prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError(f"request {request.uid}: empty prompt")
@@ -177,13 +278,7 @@ class ServingEngine:
             raise ValueError(
                 f"request {request.uid}: token ids must lie in [0, {vocab})"
             )
-        bucket = pick_bucket(prompt.size, self.buckets)
-        max_seq = self.programs.config.max_seq_len
-        if bucket + n_new > max_seq:
-            raise ValueError(
-                f"request {request.uid}: bucket {bucket} + max_new_tokens "
-                f"{n_new} exceeds max_seq_len {max_seq}"
-            )
+        self._check_fits(request.uid, prompt.size, n_new)
         if request.sampling.top_k > max(1, self.programs.max_top_k):
             raise ValueError(
                 f"request {request.uid}: top_k {request.sampling.top_k} "
@@ -198,6 +293,36 @@ class ServingEngine:
 
         self.admit_policy.call(admit)
         return request.uid
+
+    def _check_fits(self, uid: str, prompt_len: int, n_new: int):
+        """Refuse a request whose decode could write past its KV row.  A
+        speculating engine (and a prefill engine that ships draft rows to
+        one) reserves γ positions: a verify step writes K/V up to γ past
+        the committed position, and ``write_cache`` would clamp a write
+        that runs over back onto committed rows."""
+        bucket = pick_bucket(prompt_len, self.buckets)
+        max_seq = self.programs.config.max_seq_len
+        headroom = self.spec_tokens if self.draft_programs is not None \
+            else 0
+        if bucket + n_new + headroom > max_seq:
+            raise ValueError(
+                f"request {uid}: bucket {bucket} + max_new_tokens {n_new}"
+                + (f" + spec headroom {headroom}" if headroom else "")
+                + f" exceeds max_seq_len {max_seq}"
+            )
+
+    def insert_page(self, page: PrefilledPage) -> None:
+        """Accept a prefilled KV page from a prefill replica (the decode
+        half of the disaggregated path); it lands in a slot on the next
+        :meth:`step`.  Raises ``ValueError`` for a page this engine could
+        not decode to its end: a speculating engine holds a page from a
+        replica without a draft to its own γ headroom."""
+        if self.role == "prefill":
+            raise ValueError("a prefill-role engine cannot accept pages")
+        self._check_fits(page.request.uid, page.true_len,
+                         page.request.sampling.max_new_tokens)
+        self._page_queue.append(page)
+        self._pages_in += 1
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slot_state) if s is None]
@@ -215,11 +340,10 @@ class ServingEngine:
             return True
         return False
 
-    def _admit_one(self, slot: int, request: Request, submit_t: float):
+    def _prefill(self, request: Request):
+        """The target's prefill of one prompt: ``(padded, true_len, row,
+        first [1], logp [1])``."""
         padded, true_len = pad_to_bucket(request.prompt, self.buckets)
-        state = _SlotState(
-            request, submit_t=submit_t, admitted_t=time.perf_counter()
-        )
         s = request.sampling
         dev = self.device
         row, first, logp = self.programs.prefill(
@@ -230,17 +354,107 @@ class ServingEngine:
             torch.full((1,), s.temperature, dtype=torch.float32, device=dev),
             torch.full((1,), s.top_k, dtype=torch.int64, device=dev),
         )
-        self.programs.insert(self.cache, row, slot)
         self._prefills += 1
-        first_tok = int(first[0])
+        return padded, true_len, row, first, logp
+
+    def _draft_row(self, padded: np.ndarray, true_len: int) -> Pool:
+        """The draft's own prefill of a prompt (its row only: proposals
+        are argmax draws, so its first token is not needed)."""
+        row, _ = self.draft_programs.prefill_logits(
+            self.draft_model,
+            torch.as_tensor(padded[None, :], device=self.device),
+            true_len,
+        )
+        return row
+
+    def _admit_draft_row(self, slot: int, padded: np.ndarray,
+                         true_len: int, draft_row: Optional[Pool] = None):
+        """Seed the draft pool's slot row: land a streamed row, or run the
+        draft's own prefill."""
+        if draft_row is not None:
+            row = self.draft_programs.place_row(draft_row)
+        else:
+            row = self._draft_row(padded, true_len)
+        self.draft_programs.insert(self.draft_cache, row, slot)
+
+    def _occupy(self, slot: int, state: _SlotState, first_tok: int,
+                first_logp: float, true_len: int):
         state.generated.append(first_tok)
-        state.logps.append(float(logp[0]))
+        state.logps.append(first_logp)
         self._slot_state[slot] = state
         self._tokens[slot] = first_tok
         self._positions[slot] = true_len
-        self._temps[slot] = s.temperature
-        self._topks[slot] = s.top_k
+        self._temps[slot] = state.request.sampling.temperature
+        self._topks[slot] = state.request.sampling.top_k
+
+    def _admit_one(self, slot: int, request: Request, submit_t: float):
+        state = _SlotState(
+            request, submit_t=submit_t, admitted_t=time.perf_counter()
+        )
+        padded, true_len, row, first, logp = self._prefill(request)
+        self.programs.insert(self.cache, row, slot)
+        first_tok = int(first[0])
+        self._occupy(slot, state, first_tok, float(logp[0]), true_len)
+        if self.spec is not None:
+            self._admit_draft_row(slot, padded, true_len)
         self._maybe_finish(slot, first_tok)
+
+    def _admit_page(self, slot: int, page: PrefilledPage):
+        """Resume a remotely prefilled request: land its KV row in the slot
+        and pick up decoding after its (already sampled) first token; no
+        prefill runs here."""
+        request = page.request
+        state = _SlotState(
+            request, submit_t=page.submit_t, admitted_t=page.admitted_t
+        )
+        self.programs.insert(self.cache, self.programs.place_row(page.row),
+                             slot)
+        self._occupy(slot, state, page.first_token, page.first_logp,
+                     page.true_len)
+        if self.spec is not None:
+            padded, _ = pad_to_bucket(request.prompt, self.buckets)
+            self._admit_draft_row(slot, padded, page.true_len,
+                                  draft_row=page.draft_row)
+        self._maybe_finish(slot, page.first_token)
+
+    def _to_host(self, row: Pool) -> Pool:
+        """A device row as host tensors (pinned on a CUDA engine; the
+        copies are queued on the stream, and the caller's next host read
+        of a device value waits for them)."""
+        if self.device.type != "cuda":
+            return tuple(t.to("cpu") for t in row)
+        out = []
+        for t in row:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            out.append(host)
+        return tuple(out)
+
+    def _prefill_page(self, request: Request,
+                      submit_t: float) -> PrefilledPage:
+        """The prefill half of the disaggregated path: one prompt -> one
+        page on the host (the stream a fleet puts on the wire)."""
+        padded, true_len, row, first, logp = self._prefill(request)
+        host_row = self._to_host(row)
+        draft_row = None
+        if self.draft_programs is not None:
+            draft_row = self._to_host(self._draft_row(padded, true_len))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in host_row + (draft_row or ()))
+        first_tok, first_logp = int(first[0]), float(logp[0])
+        self._pages_out += 1
+        self._page_bytes_out += nbytes
+        return PrefilledPage(
+            request=request,
+            submit_t=submit_t,
+            admitted_t=time.perf_counter(),
+            true_len=int(true_len),
+            first_token=first_tok,
+            first_logp=first_logp,
+            row=host_row,
+            draft_row=draft_row,
+            nbytes=nbytes,
+        )
 
     def _finish(self, slot: int):
         state = self._slot_state[slot]
@@ -268,45 +482,110 @@ class ServingEngine:
 
     # -- the step loop --------------------------------------------------------
 
+    def _device_state(self):
+        dev = self.device
+        return (torch.as_tensor(self._tokens, device=dev),
+                torch.as_tensor(self._positions, device=dev),
+                torch.as_tensor(self._temps, device=dev),
+                torch.as_tensor(self._topks, device=dev))
+
     def step(self) -> int:
-        """One scheduler tick: admit queued prompts into free slots, then
-        advance every live slot one token.  Returns the number of live
+        """One scheduler tick.  Mixed and decode roles: admit pages, then
+        prompts, into free slots and advance every live slot (one token
+        plain, up to γ+1 speculating).  Prefill role: turn up to ``slots``
+        queued prompts into outbox pages.  Returns the number of live
         slots decoded."""
         self._step_i += 1
         t0 = time.perf_counter()
+        if self.role == "prefill":
+            lanes = 0
+            while self._queue and lanes < self.slots:
+                request, submit_t = self._queue.popleft()
+                self.outbox.append(self._prefill_page(request, submit_t))
+                lanes += 1
+            self._occupancy.append(0.0)
+            if self._step_i % self.telemetry_every == 0:
+                self._emit_telemetry()
+            return 0
         if not self.static_batching or not self._live_slots():
             for slot in self._free_slots():
-                if not self._queue:
+                if self._page_queue:
+                    self._admit_page(slot, self._page_queue.popleft())
+                elif self._queue:
+                    request, submit_t = self._queue.popleft()
+                    self._admit_one(slot, request, submit_t)
+                else:
                     break
-                request, submit_t = self._queue.popleft()
-                self._admit_one(slot, request, submit_t)
         live = self._live_slots()
         if live:
-            dev = self.device
-            next_tokens, logps = self.programs.decode_step(
-                self.model,
-                self.cache,
-                torch.as_tensor(self._tokens, device=dev),
-                torch.as_tensor(self._positions, device=dev),
-                self._gen,
-                torch.as_tensor(self._temps, device=dev),
-                torch.as_tensor(self._topks, device=dev),
-            )
-            next_np = next_tokens.cpu().numpy()
-            logp_np = logps.cpu().numpy()
-            for slot in live:
-                state = self._slot_state[slot]
-                tok = int(next_np[slot])
-                state.generated.append(tok)
-                state.logps.append(float(logp_np[slot]))
-                self._tokens[slot] = tok
-                self._positions[slot] += 1
-                self._maybe_finish(slot, tok)
+            if self.spec is not None:
+                self._spec_step(live)
+            else:
+                tokens, positions, temps, topks = self._device_state()
+                next_tokens, logps = self.programs.decode_step(
+                    self.model, self.cache, tokens, positions, self._gen,
+                    temps, topks,
+                )
+                next_np = next_tokens.cpu().numpy()
+                logp_np = logps.cpu().numpy()
+                for slot in live:
+                    state = self._slot_state[slot]
+                    tok = int(next_np[slot])
+                    state.generated.append(tok)
+                    state.logps.append(float(logp_np[slot]))
+                    self._tokens[slot] = tok
+                    self._positions[slot] += 1
+                    self._maybe_finish(slot, tok)
             self._step_lat.append(time.perf_counter() - t0)
         self._occupancy.append(len(live) / self.slots)
         if self._step_i % self.telemetry_every == 0:
             self._emit_telemetry()
         return len(live)
+
+    def _spec_step(self, live: List[int]):
+        """One speculative round for every live slot: the draft proposes
+        γ, the target verifies the γ+1 chunk, n+1 tokens commit a slot.
+        Free slots compute (and write) garbage the next insert
+        overwrites, as in the plain step."""
+        gamma = self.spec.spec_tokens
+        tokens, positions, temps, topks = self._device_state()
+        proposals = self.spec.propose(self.draft_model, self.draft_cache,
+                                      tokens, positions)
+        chunk = torch.cat([tokens[:, None], proposals], dim=1)
+        emitted, emit_len, logps, accepted = self.spec.verify(
+            self.model, self.cache, chunk, positions, self._gen, temps,
+            topks,
+        )
+        em = emitted.cpu().numpy()
+        lens = emit_len.cpu().numpy()
+        lp = logps.cpu().numpy()
+        acc = accepted.cpu().numpy()
+        self._spec_rounds += 1
+        for slot in live:
+            state = self._slot_state[slot]
+            if self._temps[slot] <= 0.0:
+                # Acceptance counts greedy rows only: sampled rows accept
+                # nothing by construction, not by the draft's quality.
+                self._spec_proposed += gamma
+                self._spec_accepted += int(acc[slot])
+            n_emit = int(lens[slot])
+            last_tok = int(em[slot, 0])
+            finished = False
+            for j in range(n_emit):
+                tok = int(em[slot, j])
+                state.generated.append(tok)
+                state.logps.append(float(lp[slot, j]))
+                last_tok = tok
+                if len(state.generated) >= state.target or (
+                    state.request.eos_id >= 0
+                    and tok == state.request.eos_id
+                ):
+                    finished = True
+                    break
+            self._tokens[slot] = last_tok
+            self._positions[slot] += n_emit
+            if finished:
+                self._finish(slot)
 
     def run(
         self,
@@ -321,16 +600,22 @@ class ServingEngine:
     def drain(
         self, max_steps: Optional[int] = None
     ) -> Dict[str, RequestResult]:
+        """Step until the queue, the pages and the live slots are empty;
+        returns every result so far."""
         if max_steps is None:
-            pending = len(self._queue) + len(self._live_slots())
+            pending = len(self._queue) + len(self._live_slots()) \
+                + len(self._page_queue)
             max_steps = 64 + 2 * sum(
                 s.request.sampling.max_new_tokens
                 for s in self._slot_state if s is not None
             ) + 2 * sum(
                 r.sampling.max_new_tokens for r, _ in self._queue
+            ) + 2 * sum(
+                p.request.sampling.max_new_tokens for p in self._page_queue
             ) + 4 * pending
         for _ in range(max_steps):
-            if not self._queue and not self._live_slots():
+            if not self._queue and not self._live_slots() \
+                    and not self._page_queue:
                 break
             self.step()
         else:
@@ -341,7 +626,20 @@ class ServingEngine:
         self._emit_telemetry()
         return self.results
 
-    # -- stats ----------------------------------------------------------------
+    # -- TP re-fold -----------------------------------------------------------
+
+    def fold_tp(self, physical_tp: int) -> None:
+        """Re-fold a TP engine onto another device count: refused, since
+        the port serves at tp <= 1 in this slice."""
+        raise NotImplementedError(
+            "fold_tp re-folds a tensor-parallel engine, a later slice of "
+            "the port (serving TP, ROADMAP Queue 1 item 8's remainder)")
+
+    def kv_device_bytes(self) -> int:
+        """Bytes of the target KV pool on its device."""
+        return self.programs.pool_device_bytes(self.cache)
+
+    # -- stats / telemetry ----------------------------------------------------
 
     def stats(self) -> Dict[str, float]:
         latencies = sorted(lat for _, lat, _ in self._completed)
@@ -359,6 +657,10 @@ class ServingEngine:
             if self._occupancy else 0.0
         )
         steps = sorted(self._step_lat)
+        spec_rate = (
+            self._spec_accepted / self._spec_proposed
+            if self._spec_proposed else 0.0
+        )
         return {
             "qps": qps,
             "p50_s": _nearest_rank(latencies, 0.50),
@@ -373,6 +675,13 @@ class ServingEngine:
             "tokens": float(self._tokens_out),
             "steps": float(self._step_i),
             "prefills": float(self._prefills),
+            "spec_accept_rate": spec_rate,
+            "spec_proposed": float(self._spec_proposed),
+            "spec_accepted": float(self._spec_accepted),
+            "spec_rounds": float(self._spec_rounds),
+            "pages_in": float(self._pages_in),
+            "pages_out": float(self._pages_out),
+            "page_bytes_out": float(self._page_bytes_out),
         }
 
     def _emit_telemetry(self):
@@ -383,14 +692,105 @@ class ServingEngine:
             p95_n=int(stats["p95_n"]),
             occupancy=stats["occupancy"], slots=int(stats["slots"]),
             requests=int(stats["requests"]), tokens=int(stats["tokens"]),
+            spec_accept_rate=stats["spec_accept_rate"],
+            spec_proposed=int(stats["spec_proposed"]),
+            spec_accepted=int(stats["spec_accepted"]),
             decode_step_p95_s=stats["decode_step_p95_s"],
         )
 
-    def warmup(self) -> float:
+    # -- live weight hot-swap -------------------------------------------------
+
+    def swap_weights(self, checkpoint_dir: str) -> Dict[str, Any]:
+        """Replace the target model's weights with the newest committed
+        checkpoint in ``checkpoint_dir``, live.
+
+        No drain and no rebuild: the weights land in fresh tensors on the
+        engine's device that are assigned into the model between two
+        steps; queued requests keep their places, live slots their KV rows,
+        and the KV pool its memory.  The integrity chain: the
+        :class:`~dlrover_tpu_torch.checkpoint.engine.StorageStepReader`
+        yields only bytes whose digest sidecar and shard crcs verify; the
+        records are folded into a host digest (``hotswap.host_digest``,
+        the reference's); after landing, the model's tensors are digested
+        where they lie (``hotswap.device_digest``: the byte-sum kernel on
+        the card) and must reproduce it.  A mismatch — the ``serve.swap``
+        seam injects one by flipping a landed mantissa bit — restores the
+        prior tensors, which are kept until the compare passes.  Every
+        outcome books a ``serve.swap`` telemetry event.
+
+        Returns a report (``ok``, ``rolled_back``, ``version``, ``step``,
+        ``digest``, ``seconds``); raises ``ValueError`` when the checkpoint
+        cannot map onto the model (a missing leaf, or a drifted shape or
+        dtype: an fp32 training checkpoint does not swap into bf16 serving
+        weights) and ``RuntimeError`` when no verifiable step exists.
+        """
+        from dlrover_tpu_torch.checkpoint.engine import StorageStepReader
+
+        t0 = time.perf_counter()
+        reader = StorageStepReader(checkpoint_dir, num_hosts=1,
+                                   device="cpu")
+        loaded_step, arrays = reader.load_from_storage()
+        if arrays is None:
+            raise RuntimeError(
+                f"no verifiable committed step in {checkpoint_dir}")
+        sources = hotswap.map_checkpoint_to_params(arrays, self.model)
+        reference = hotswap.host_digest(sources)
+        prior = self.model.state_dict()
+        landed = {name: torch.empty_like(t).copy_(sources[name],
+                                                  non_blocking=True)
+                  for name, t in prior.items()}
+        self.model.load_state_dict(landed, assign=True)
+        try:
+            faults.fire("serve.swap", step=loaded_step)
+        except faults.FaultInjected:
+            # The scripted corruption: one flipped bit in the landed
+            # tensors; the digest compare below must catch it.
+            hotswap.flip_param_bit(self.model)
+        device_digest = int(hotswap.device_digest(self.model))
+        ok = device_digest == reference
+        rolled_back = False
+        if not ok:
+            # Corrupted weights never answer a request.
+            self.model.load_state_dict(prior, assign=True)
+            rolled_back = True
+            logger.error(
+                "hot-swap REJECTED: swapped digest %s != checkpoint "
+                "reference %s; rolled back to version %d",
+                format_digest(device_digest), format_digest(reference),
+                self.weights_version,
+            )
+        else:
+            self.weights_version += 1
+            logger.info(
+                "hot-swap: step %d live as weights version %d (digest %s)",
+                loaded_step, self.weights_version,
+                format_digest(device_digest),
+            )
+        del prior, landed
+        seconds = time.perf_counter() - t0
+        telemetry.event(
+            "serve.swap", duration_s=seconds, ok=ok,
+            rolled_back=rolled_back, version=self.weights_version,
+            step=loaded_step, digest=format_digest(device_digest),
+        )
+        return {
+            "ok": ok, "rolled_back": rolled_back,
+            "version": self.weights_version, "step": loaded_step,
+            "digest": format_digest(device_digest),
+            "seconds": seconds,
+        }
+
+    # -- warm-up --------------------------------------------------------------
+
+    def aot_compile(self) -> float:
         """Build and load the kernels the serving path launches ahead of
-        the first request (the JAX engine's ``aot_compile``), booked as a
-        ``compile`` telemetry event.  Returns wall seconds."""
+        the first request (the target's and the draft's: the reference
+        compiles its programs here; eager PyTorch has nothing to compile),
+        booked as a ``compile`` telemetry event (``cached`` when nothing
+        was left to load).  Returns wall seconds."""
         seconds = self.programs.warmup()
+        if self.draft_programs is not None:
+            seconds += self.draft_programs.warmup()
         telemetry.event("compile", duration_s=seconds,
                         cached=seconds == 0.0, phase="serve_aot")
         return seconds

@@ -39,7 +39,7 @@ each.  The fold is vectorised: with ``p_i = M^(n-1-i)`` mod 2^32,
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -265,14 +265,31 @@ def _device_of(leaves: Sequence[Any]) -> torch.device:
     return devices.pop() if devices else torch.device("cpu")
 
 
-def digest_leaves(leaves: Sequence[Any]) -> torch.Tensor:
+def digest_leaves(leaves: Sequence[Any],
+                  groups: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Order-sensitive fold of ``leaves`` into one uint32, as a 0-d int64
     tensor on their device (the reference's ``_digest_tree`` of the same
-    leaves, bit for bit)."""
+    leaves, bit for bit).
+
+    ``groups`` (counts summing to ``len(leaves)``) folds each run of that
+    many consecutive leaves as one leaf: a byte sum is a sum over pieces,
+    so the layers of a layer-stacked reference leaf, given in layer order,
+    digest as the stacked leaf does.  One byte-sum launch either way."""
     device = _device_of(leaves)
     if not leaves:
         return torch.zeros((), dtype=torch.int64, device=device)
-    return _fold(byte_sums(leaves, device))
+    sums = byte_sums(leaves, device)
+    if groups is not None:
+        groups = [int(g) for g in groups]
+        if sum(groups) != len(leaves) or min(groups) < 1:
+            raise ValueError(f"groups {groups} do not partition "
+                             f"{len(leaves)} leaves")
+        if len(groups) != len(leaves):
+            seg = np.repeat(np.arange(len(groups)), groups).tolist()
+            sums = torch.zeros(len(groups), dtype=torch.int64,
+                               device=device).index_add_(
+                0, _upload(seg, device), sums)
+    return _fold(sums)
 
 
 def _fold(sums: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,8 @@ from dlrover_tpu_torch.models.transformer import TransformerConfig as TConfig
 from dlrover_tpu_torch.models.transformer import TransformerLM as TModel
 from dlrover_tpu_torch.models.transformer import init_params
 from dlrover_tpu_torch.ops import grouped_matmul as tgm
-from dlrover_tpu_torch.serving import ServePrograms
+from dlrover_tpu_torch.rl.generation import SamplingParams
+from dlrover_tpu_torch.serving import Request, ServePrograms, ServingEngine
 from dlrover_tpu_torch.trainer import train_lib as ttl
 
 # fp32 products of a few dozen terms summed in another order: 1e-5.
@@ -335,9 +336,35 @@ def test_moe_init_params_match_jax_scales():
 
 
 def test_serve_programs_refuse_moe_configs():
+    """What is left of the refusal: an MoE config is refused only
+    tensor-parallel (serving TP, ROADMAP Queue 1 item 8's remainder); at
+    tp <= 1 it serves (``test_moe_serves_at_tp1``)."""
     cfg = TConfig(**GPT2_MOE, moe_dispatch="grouped")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServePrograms(cfg, slots=2, buckets=[16], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8's remainder"):
+        ServingEngine(cfg, init_params(cfg, device="cpu"), slots=2,
+                      buckets=[16], tp=2, device="cpu")
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "grouped"])
+def test_moe_serves_at_tp1(dispatch):
+    """An MoE config serves through the decode-mode model at tp <= 1:
+    every request ends with its token count inside the vocab
+    (``tests/test_torch_serving.py`` holds the streams to the JAX
+    engine's)."""
+    cfg = TConfig(**GPT2_MOE, moe_dispatch=dispatch)
+    programs = ServePrograms(cfg, slots=2, buckets=[16], device="cpu")
+    assert programs.config.decode and programs.config.num_experts == 4
+    engine = ServingEngine(cfg, init_params(cfg, seed=1, device="cpu"),
+                           slots=2, buckets=[16], tp=1, device="cpu")
+    rng = np.random.default_rng(5)
+    requests = [Request(f"r{i}", rng.integers(1, 96, size=3 + 4 * i),
+                        SamplingParams(temperature=0.0, max_new_tokens=4))
+                for i in range(3)]
+    results = engine.run(requests)
+    for req in requests:
+        tokens = results[req.uid].tokens
+        assert len(tokens) == 4
+        assert ((tokens >= 0) & (tokens < 96)).all()
 
 
 # -- a 3-step train run against build_sharded_train ----------------------------------

@@ -24,6 +24,7 @@ from dlrover_tpu.models.transformer import TransformerLM as JModel
 from dlrover_tpu.rl.generation import SamplingParams as JSampling
 from dlrover_tpu.serving import Request as JRequest
 from dlrover_tpu.serving import ServingEngine as JEngine
+from dlrover_tpu_torch.models import init_params
 from dlrover_tpu_torch.models.from_jax import state_dict_from_jax
 from dlrover_tpu_torch.models.transformer import TransformerConfig
 from dlrover_tpu_torch.models.transformer import TransformerLM
@@ -49,6 +50,30 @@ GREEDY = [(5, 6), (20, 4), (12, 8), (30, 3), (17, 5)]  # (prompt, new)
 # a GQA 4/2 cache and separate q/k/v projections.
 LLAMA = dict(MODEL, num_kv_heads=2, position="rope", norm="rmsnorm",
              activation="swiglu", use_bias=False, tie_embeddings=False)
+# MoE: 4 experts, top-2, in every block (the JAX grouped matmul runs its
+# Pallas kernels in interpret mode; the port's CPU tensors take the plain
+# grouped matmul); xla attention and one bucket keep the JAX compiles few.
+MOE = dict(MODEL, num_experts=4, top_k=2, attention_impl="xla")
+
+
+def _jax_tree(state, layers):
+    """A port state dict as the JAX package's nested, layer-stacked
+    parameter tree (numpy leaves)."""
+    tree = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            if parts[1] != "0":
+                continue
+            parts = ["blocks"] + parts[2:]
+            rest = ".".join(parts[1:])
+            t = torch.stack([state[f"blocks.{i}.{rest}"]
+                             for i in range(layers)])
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = t.numpy()
+    return tree
 
 
 def _configs(kw):
@@ -107,6 +132,53 @@ def test_greedy_streams_equal_the_jax_engine(setup, family, requests):
         np.testing.assert_array_equal(r.tokens, w.tokens)
         np.testing.assert_allclose(r.logprobs, w.logprobs, atol=1e-5,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "grouped"])
+def test_moe_greedy_streams_equal_the_jax_engine(dispatch):
+    """An MoE config serves through the decode-mode model at world 1 with
+    the capacity (einsum) and the dropless (grouped) dispatch: greedy
+    streams equal the JAX engine's, logprobs within 1e-5; under grouped
+    dispatch a decode step's logits equal a full no-cache forward's
+    (dropless routing sees each token alone)."""
+    kw = dict(MOE, moe_dispatch=dispatch)
+    jcfg = JConfig(**kw, dtype=jnp.float32)
+    tcfg = TransformerConfig(**kw, dtype=torch.float32)
+    # The port's random weights, stacked into the JAX tree (a JAX init of
+    # an MoE model costs seconds of tracing).
+    state = init_params(tcfg, seed=3, device="cpu")
+    params = _jax_tree(state, tcfg.num_layers)
+    requests = [(5, 6), (12, 8), (16, 5)]
+    want = JEngine(jcfg, params, slots=2, buckets=(16,), seed=0).run([
+        JRequest(f"r{i}", _prompt(i, n),
+                 JSampling(temperature=0.0, max_new_tokens=m))
+        for i, (n, m) in enumerate(requests)
+    ])
+    engine = _engine(tcfg, state, slots=2, buckets=(16,))
+    got = engine.run(_greedy(requests))
+    for i, (_, m) in enumerate(requests):
+        r, w = got[f"r{i}"], want[f"r{i}"]
+        assert len(r.tokens) == m
+        np.testing.assert_array_equal(r.tokens, w.tokens)
+        np.testing.assert_allclose(r.logprobs, w.logprobs, atol=1e-5,
+                                   rtol=0)
+    if dispatch != "grouped":
+        return
+    programs, model = engine.programs, engine.model
+    pool = programs.init_cache()
+    prompt = _prompt(61, 13)
+    padded, n = pad_to_bucket(prompt, (16,))
+    row, last = programs.prefill_logits(model, torch.as_tensor(
+        padded[None]), n)
+    torch.testing.assert_close(last[0], _full_logits(tcfg, state, prompt),
+                               atol=1e-5, rtol=0)
+    programs.insert(pool, row, 0)
+    first = int(last.argmax())
+    logits = programs.decode_logits(model, pool, torch.tensor([first, 0]),
+                                    torch.tensor([n, 0]))[0]
+    torch.testing.assert_close(
+        logits, _full_logits(tcfg, state, list(prompt) + [first]),
+        atol=1e-5, rtol=0)
 
 
 def test_sampled_rows_stay_in_top_k_with_raw_logprobs(setup):
@@ -246,7 +318,7 @@ def test_stats_report_the_run(setup):
     assert 0.0 < stats["occupancy"] <= 1.0
     assert stats["decode_step_n"] >= 3.0
     assert 0.0 < stats["decode_step_p50_s"] <= stats["decode_step_p95_s"]
-    assert engine.warmup() == 0.0  # no kernel to build on the CPU
+    assert engine.aot_compile() == 0.0  # no kernel to build on the CPU
 
 
 def test_engine_without_device_needs_a_card(setup, monkeypatch):
