@@ -15,6 +15,10 @@
                                         # world 1 and the world of two
     python3 chip_smoke.py --mp          # build and the fsdp/tensor world
     python3 chip_smoke.py --ep          # build and the expert-axis world
+    python3 chip_smoke.py --sp          # build and the seq-axis world
+                                        # (train_sp2, Ulysses)
+    python3 chip_smoke.py --serve-tp    # build and tensor-parallel serving
+                                        # (serve_tp2)
     python3 chip_smoke.py --digest      # build and the digest kernel check
     python3 chip_smoke.py --serve       # build and the serving phases (serve,
                                         # serve_faults, serve_spec,
@@ -37,7 +41,9 @@ wires on K5a/K5b) with a live re-layout and a sharded save, trains
 Llama-2 7B's width on the fsdp and tensor axes in a world of two
 processes with a sharded save, trains the MoE entry's width on the expert
 axis (the a2a and int8 a2a dispatch) and on the data axis (the grouped
-dispatch) in a world of two processes, serves
+dispatch) in a world of two processes, trains Llama-2 7B's width on the
+seq axis (Ulysses) and serves it tensor-parallel, with a fold 2 -> 1 ->
+2 mid-serve, in the same world, serves
 under an injected admission fault plan, speculates with a draft, serves a
 replica fleet (failover, drain, disaggregated prefill, a live weight
 swap, the front door) and the MoE entry, and holds
@@ -50,8 +56,10 @@ of the JAX package.  Phases, each one JSON line on stdout:
 3. ``kernel_checks``  the flash-attention forward at the serving shapes
                (B=1, H=25, D=64, S in 16/128/512/1000, causal; q/k/v as
                strided views of one fused projection), at the training
-               shape (B=16, S=1024) and at GQA, segment, non-causal and
-               fully-masked-row shapes: error against ``mha_reference``
+               shape (B=16, S=1024), at Ulysses' shape in ``train_sp2``
+               (B=1, S=4096, H=16, D=128, causal) and at GQA, segment,
+               non-causal and fully-masked-row shapes: error against
+               ``mha_reference``
                computed in fp32 from the same bf16 inputs (TF32 off),
                tolerance |o - ref| <= 1e-2 + 1e-2 |ref| and
                |lse - ref| <= 1e-3; kernel, plain and
@@ -64,8 +72,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                split dq + dkv pair) at the training shape B=16, H=25,
                D=64, S=1024 (fused, and split as ``block_kv=512`` takes
                it), GQA 32/8 D=128 S=2048, segments with a pad segment,
-               non-causal S=512, fully masked rows, and ragged GQA S=900
-               (causal, D=64 and D=128) and S=1000 (non-causal, D=128);
+               non-causal S=512, fully masked rows, ragged GQA S=900
+               (causal, D=64 and D=128) and S=1000 (non-causal, D=128),
+               and Ulysses' B=1 S=4096 H=16 D=128 causal (fused);
                every case through both paths against
                ``mha_backward_reference`` in fp32 from the same bf16
                inputs and the kernel's own o and lse.  Each
@@ -413,6 +422,39 @@ of the JAX package.  Phases, each one JSON line on stdout:
                chunk back to its own rank, and the top-1 density left
                unreduced over the batch group.  ``--ep`` runs the build
                and this phase.
+9h. ``train_sp2``  two processes on ``cuda:0`` in a gloo group, the seq
+               axis (Ulysses' all-to-alls on its wire, staged through
+               the host): Llama-2 7B's width at ``SP2_LAYERS`` of 32
+               layers, bf16, ``flash_only``, flash blocks 4096 (the fused
+               backward), batch 1 x 4096, Adafactor lr 1e-4,
+               ``SP2_STEPS`` steps at ``seq=2`` against the world-1 run
+               of the same batch in this process: losses, grad norms and
+               every leaf within the larger of ``SP2_NOISE_FACTOR`` x the
+               world-1 run's own noise (run twice) and ``train_mp2``'s
+               limits; every step's K1/K3 launches (one each a layer and
+               rank, 16 heads at S 4096) and wire bytes and calls by axis
+               and leg equal to ``_sp2_predicted_wire``.  A planted
+               offset (every rank's tokens at positions from 0) must
+               fail.  ``--sp`` runs the build and this phase.
+9i. ``serve_tp2``  the same world serving Llama-2 7B's width at
+               ``SERVE_TP_LAYERS`` of 32 layers (``max_seq_len``
+               ``SERVE_TP_MAX_SEQ``), bf16, flash prefill, 8 slots, at
+               tp=2 against a tp=1 engine of the same weights in this
+               process: every request finishes; greedy streams equal the
+               tp=1 ones up to a near-tie judged by the tp=1 logits of a
+               teacher-forced replay (within ``SERVE_TP_TIE_TOL``); the
+               tp=2 decode of that replay within ``SERVE_TP_REPLAY_ATOL``
+               of tp=1's at every position; both ranks emit the same
+               streams; K1 ``SERVE_TP_LAYERS`` a prefill and rank; per
+               step 2 sums a layer, the lookup's sum and one logits
+               gather, bytes and calls as counted from the shapes; a
+               rank's KV pool at most ``SERVE_TP_KV_SHARE`` of tp=1's; a
+               fold 2 -> 1 -> 2 mid-serve (rank 1 parked at 1) keeps
+               every request and stream.  Planted, each must fail: the
+               first block's MLP ``wi`` slices swapped between the
+               ranks; rank 1's decode attention reading its KV heads
+               rolled by one (the prefill untouched: it must fail both
+               the replay and the streams, at a decode position).  ``--serve-tp`` runs the build and this phase.
 9g. ``train_opts``  the training options at GPT-2 1.5B's width
                (``OPTS_LAYERS`` of 48 layers, fp32 parameters, bf16,
                flash, 16 x 1024), one model and one batch: every remat
@@ -736,6 +778,10 @@ KERNEL_CASES = [
          fused=True),
     dict(case="masked_rows", b=1, s=256, hq=8, hkv=8, d=64, causal=True,
          seg="masked"),
+    # Ulysses' attention in ``train_sp2``: Llama-2 7B's 32 heads split
+    # over seq=2, the whole 4096-token sequence.
+    dict(case="ulysses_s4096", b=1, s=4096, hq=16, hkv=16, d=128,
+         causal=True),
 ]
 SERVE_CASE = "serve_s512"  # the largest serving bucket
 TRAIN_CASE = "train_b16_s1024"  # the training step's shape
@@ -868,6 +914,8 @@ BWD_CASES = [
          causal=False, kernel="split"),
     dict(case="ragged_gqa_s900_d128", b=2, s=900, hq=8, hkv=2, d=128,
          causal=True, kernel="split"),
+    dict(case="ulysses_s4096", b=1, s=4096, hq=16, hkv=16, d=128,
+         causal=True, kernel="fused", library=True),
 ]
 BWD_FUSED_CASE, BWD_SPLIT_CASE = "train_fused", "train_split"
 
@@ -1092,7 +1140,7 @@ def check_bwd_case(c, gen):
     # graph).  Its eager time, host gaps included, read 0.69 to 5.1 ms over
     # the runs of one day at this shape; it is kept beside.
     out["library_ms"] = None
-    if c.get("plant"):
+    if c.get("plant") or c.get("library"):
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         sdpa_mask = None if seg_q is None else live[:, None]
@@ -2854,8 +2902,12 @@ def train_fit_and_check(on_measured=None):
 
 #: ``train_dp2``: GPT-2 1.5B at full width (d_model 1600, 25 heads of 64,
 #: vocab 50304, bf16) with its depth cut to this many layers so that two
-#: processes on one card run every case within the script's time.
-DP2_LAYERS = 4
+#: processes on one card run every case within the script's time (it
+#: was 4; on an H100 at 700 W the workers took 112.9 s at 4 and 102.6 s
+#: at 2 on one slow host, 64.9-65.9 s at 2 on faster ones, and the whole
+#: script 542.4 s at 4 against 524.3 s at 2 there: the bounds are per
+#: leaf and step, so depth enters none of them).
+DP2_LAYERS = 2
 DP2_STEPS = 3
 #: The runs, each for Adafactor (clip 1.0) and q8_adam (clip 1.0), lr 1e-4.
 DP2_OPTIMIZERS = ("adafactor", "q8_adam")
@@ -8898,6 +8950,669 @@ def serve_moe_and_check():
     return counts, out["decode_gmm"]
 
 
+# -- the seq axis (Ulysses) ------------------------------------------------------
+
+#: ``train_sp2``: Llama-2 7B at full width (as ``train_mp2``) with its depth
+#: cut to this many of 32 layers, batch 1 x ``SP2_SEQ`` (its
+#: ``max_seq_len``), flash_only; ``flash_block_*`` at the whole sequence,
+#: so the backward is the fused kernel (K3) as the reference's dispatch
+#: picks it for one block.  Two processes at ``seq=2``: each rank runs 2048
+#: tokens, its attention 4096 tokens on 16 of the 32 heads.
+SP2_LAYERS = 2
+SP2_STEPS = 2
+SP2_SEQ = 4096
+#: Limits: the larger of ``SP2_NOISE_FACTOR`` x the world-1 run's own
+#: noise (two runs of the same batch from the same init; K3's atomics
+#: make them differ) and ``SP2_FLOOR``, about 3-4x the largest noise read
+#: in four runs on an H100 (PERF.md: loss 1.7e-5 to 2.44e-4, grad norm
+#: 4.2e-6 to 4.86e-5, leaves 4.88e-6 to 4.95e-6; the seq=2 run's own gaps
+#: to world 1 fell in the same ranges, its loss gap up to 2.6e-4, so the
+#: run is as near world 1 as world 1 is to itself); and every leaf nearer
+#: the reference than half its own update.  The loss moves 6.4e-3 a step,
+#: so a dropped step still fails.  The embedding's update is the smallest
+#: (1.94e-5 of its norm at B1 x 4096: 4,096 of 32,000 rows see a token),
+#: so the leaf-wise rule, not the smallest update, is what a dropped
+#: update of a leaf fails.
+SP2_NOISE_FACTOR = 3.0
+SP2_FLOOR = {"loss": 1e-3, "norm": 1.5e-4, "param": 2e-5}
+
+
+def _sp2_config():
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("7b", num_layers=SP2_LAYERS, attention_impl="flash",
+                        remat="flash_only", param_dtype=torch.bfloat16,
+                        flash_block_q=SP2_SEQ, flash_block_kv=SP2_SEQ)
+
+
+def _sp2_batch(vocab: int):
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, vocab, size=(1, SP2_SEQ + 1), dtype=np.int64)
+    return {"inputs": torch.as_tensor(tokens[:, :-1], device="cuda"),
+            "targets": torch.as_tensor(tokens[:, 1:], device="cuda")}
+
+
+def _sp2_predicted_wire(cfg, n_params):
+    """Bytes one step of one rank hands the seq axis's wire, by leg, and
+    the calls: Ulysses' four legs a layer (q, k and v in, the output back)
+    in the forward, again in flash_only's recompute (it replays the block
+    up to the MLP's input of ``wo``, the last tensor the backward saves;
+    the flash forward itself is kept, not replayed), and their four
+    inverse exchanges in the backward, each leg a rank's ``[1, S / 2, 32,
+    128]`` bf16 (half of it stays on the rank); then one all-reduce of
+    every gradient (bf16) and the token and loss sums (fp32 scalars, one
+    and two)."""
+    leg = 1 * (SP2_SEQ // 2) * cfg.num_heads * cfg.resolved_head_dim * 2
+    legs = 12 * cfg.num_layers
+    return ({"seq/all_to_all": legs * leg,
+             "seq/all_reduce": 2 * n_params + 4 + 8},
+            {"seq/all_to_all": legs, "seq/all_reduce": 3})
+
+
+def _sp2_run(cfg, batch, steps):
+    """The world-1 run: losses, grad norms, per-step launches, the
+    parameters after step 1 and after the last (copies on the card)."""
+    from dlrover_tpu_torch.trainer import train_lib
+
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=1, seq_len=SP2_SEQ, device="cuda")
+    state = train.init(seed=0)
+    out = {"losses": [], "grad_norms": [], "launches": [], "step_s": []}
+    for _ in range(steps):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.step(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({k: v for k, v in _counts().items() if v})
+        if "params1" not in out:
+            out["params1"] = {k: v.clone() for k, v in state.params().items()}
+    out["params"] = {k: v.clone() for k, v in state.params().items()}
+    del state, train
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp2_reference(out_dir):
+    """Two world-1 runs of the same batch from the same init: the first is
+    the reference (saved for the ranks), the gaps between the two are the
+    noise the limits are derived from."""
+    cfg = _sp2_config()
+    batch = _sp2_batch(cfg.vocab_size)
+    a = _sp2_run(cfg, batch, SP2_STEPS)
+    b = _sp2_run(cfg, batch, SP2_STEPS)
+    rel = 0.0
+    for name, w in a["params"].items():
+        w = w.double()
+        rel = max(rel, float((b["params"][name].double() - w).norm()
+                             / max(float(w.norm()), 1e-30)))
+    del b["params"], b["params1"]
+    torch.save({"losses": a["losses"], "grad_norms": a["grad_norms"],
+                "params": {k: v.cpu() for k, v in a["params"].items()},
+                "params1": {k: v.cpu() for k, v in a["params1"].items()}},
+               os.path.join(out_dir, "sp_ref.pt"))
+    noise = {"loss": max(abs(x - y) for x, y in zip(a["losses"],
+                                                      b["losses"])),
+             "norm": max(abs(x - y) / x for x, y in zip(a["grad_norms"],
+                                                          b["grad_norms"])),
+             "param": rel}
+    return {"losses": a["losses"], "grad_norms": a["grad_norms"],
+            "launches": a["launches"], "step_s": a["step_s"],
+            "second_losses": b["losses"], "noise": noise}
+
+
+def _sp2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = _sp2_config()
+    ref = torch.load(os.path.join(out_dir, "sp_ref.pt"), weights_only=False)
+    mesh = build_mesh(ParallelConfig(data=1, seq=2), device_type="cuda")
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=1, seq_len=SP2_SEQ, mesh=mesh, device="cuda")
+    state = train.init(seed=0)
+    init = {k: v.clone() for k, v in state.params().items()}
+    placed = train_lib.shard_batch(_sp2_batch(cfg.vocab_size), train)
+    out = {"rank": rank, "local_tokens": list(placed["inputs"].shape),
+           "steps": []}
+    for _ in range(SP2_STEPS):
+        _zero_counts()
+        wire_lib.reset_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.step(state, placed)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out["steps"].append({
+            "s": time.perf_counter() - t0, "loss": loss, "grad_norm": norm,
+            "tokens": float(m["tokens"]),
+            "launches": {k: v for k, v in _counts().items() if v},
+            "wire_bytes": dict(wire_lib.COUNTS["axes"]),
+            "wire_calls": dict(wire_lib.COUNTS["calls"])})
+    names, sums = _mp2_leaf_sums(train, state, ref["params"], init)
+    out["leaf_sums"] = _mp2_summed(names, sums)
+    out["n_params"] = sum(v.numel() for v in state.params().values())
+    # The planted fault: every rank's tokens at positions from 0.
+    offset = sharding.SeqGroup.offset
+    sharding.SeqGroup.offset = lambda self, local_len: 0
+    try:
+        state = train.init(seed=0)
+        state, m = train.step(state, placed)
+    finally:
+        sharding.SeqGroup.offset = offset
+    names, sums = _mp2_leaf_sums(train, state, ref["params1"], init)
+    out["planted"] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "leaf_sums": _mp2_summed(names, sums)}
+    del state, train, placed, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sp2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the dense Llama step
+    at Llama-2 7B's width on a ``seq=2`` mesh (Ulysses), held against the
+    world-1 run of the same batch; a planted wrong position offset.
+    Returns the counted launches of the runs (both ranks)."""
+    import shutil
+
+    out_dir = os.path.join(REPO, "build", "train_sp2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = _sp2_config()
+    out = {"phase": "train_sp2",
+           "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
+                    f"heads, d_ff 11008 swiglu, vocab 32000, untied head, "
+                    f"bf16 params and compute, flash_only, flash blocks "
+                    f"{SP2_SEQ}), depth cut to {SP2_LAYERS} of 32 layers, "
+                    f"random weights seed 0",
+           "world": "2 processes on cuda:0, gloo, seq=2 (Ulysses' "
+                    "all-to-alls staged through the host)",
+           "batch": f"1 x {SP2_SEQ}, one batch re-fed", "steps": SP2_STEPS}
+    t_start = time.perf_counter()
+    try:
+        ref = _sp2_reference(out_dir)
+        out["reference"] = ref
+        noise = ref["noise"]
+        limits = {k: max(SP2_FLOOR[k], SP2_NOISE_FACTOR * noise[k])
+                  for k in SP2_FLOOR}
+        out["limits"] = limits
+        results, codes = _world_run("_sp2_rank", out_dir, "sp_rank{rank}.pt",
+                                    600)
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [None, None]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"train_sp2 ranks failed (exit codes "
+                                 f"{codes})")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        bad = []
+        losses = [s["loss"] for s in r0["steps"]]
+        norms = [s["grad_norm"] for s in r0["steps"]]
+        gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
+        ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+        stats = _mp2_leaf_stats(r0["leaf_sums"])
+        worst = max((v[0], k) for k, v in stats.items())
+        smallest = min(((v[1], k) for k, v in stats.items() if v[1] > 0),
+                       default=(0.0, None))
+        # A leaf whose update was dropped sits at its update's distance
+        # from the reference: each leaf must be nearer than half of it.
+        dropped = [k for k, (err, upd) in stats.items()
+                   if upd > 0 and err >= 0.5 * upd]
+        wire, calls = _sp2_predicted_wire(cfg, r0["n_params"])
+        want = {"flash_fwd": SP2_LAYERS, "flash_bwd_fused": SP2_LAYERS}
+        launches = [s["launches"] for s in r0["steps"] + r1["steps"]]
+        checks = {
+            "loss": max(gaps) <= limits["loss"],
+            "grad_norm": max(ngaps) <= limits["norm"],
+            "params": worst[0] <= limits["param"] and not dropped,
+            "ranks_agree": all(a["loss"] == b["loss"] for a, b in zip(
+                r0["steps"], r1["steps"])),
+            "tokens": all(s["tokens"] == SP2_SEQ for s in r0["steps"]),
+            "local_tokens": r0["local_tokens"] == [1, SP2_SEQ // 2],
+            "launches": all(x == want for x in launches)
+            and all(x == want for x in ref["launches"]),
+            "wire_bytes": all(s["wire_bytes"] == wire and
+                              s["wire_calls"] == calls
+                              for s in r0["steps"] + r1["steps"]),
+        }
+        bad += [k for k, ok in checks.items() if not ok]
+        p = r0["planted"]
+        pstats = _mp2_leaf_stats(p["leaf_sums"])
+        pworst = max((v[0], k) for k, v in pstats.items())
+        planted = {"loss_gap": abs(p["loss"] - ref["losses"][0]),
+                   "grad_norm_rgap": abs(p["grad_norm"] - ref["grad_norms"][0])
+                   / ref["grad_norms"][0], "worst_leaf_rel": pworst}
+        planted["caught"] = (planted["loss_gap"] > limits["loss"]
+                             or planted["grad_norm_rgap"] > limits["norm"]
+                             or pworst[0] > limits["param"])
+        if not planted["caught"]:
+            bad.append("planted wrong offset passed")
+        counts = dict.fromkeys(_counts(), 0)
+        for x in launches:
+            for k, v in x.items():
+                counts[k] += v
+        out.update(
+            checks=checks, losses=losses, loss_gap=max(gaps),
+            grad_norms=norms, grad_norm_rgap=max(ngaps),
+            worst_leaf_rel=worst, smallest_update_rel=smallest,
+            leaves_nearer_init=dropped, leaf_stats=stats,
+            step_s=[[s["s"] for s in r["steps"]] for r in (r0, r1)],
+            launches_per_step_rank=r0["steps"][-1]["launches"],
+            wire_bytes_per_step=r0["steps"][-1]["wire_bytes"],
+            wire_calls_per_step=r0["steps"][-1]["wire_calls"],
+            wire_bytes_predicted=wire, wire_calls_predicted=calls,
+            params=r0["n_params"], planted=planted, launches=counts)
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_sp2 checks failed: {bad}")
+    finally:
+        emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
+# -- serving TP --------------------------------------------------------------------
+
+#: ``serve_tp2``: Llama-2 7B at full width, bf16 weights from seed 0,
+#: flash prefill, with its depth cut to this many of 32 layers and its
+#: ``max_seq_len`` to ``SERVE_TP_MAX_SEQ`` (the KV pool's rows, which the
+#: folds move through the host); 8 slots.
+SERVE_TP_LAYERS = 4
+SERVE_TP_MAX_SEQ = 1024
+#: Greedy requests, one length of stream (the teacher-forced replay
+#: covers every position a stream can split at), then sampled ones.
+SERVE_TP_GREEDY = [(5, 16), (16, 16), (20, 16), (40, 16), (64, 16),
+                   (100, 16), (128, 16), (200, 16)]
+SERVE_TP_SAMPLED = [(12, 12), (30, 12), (70, 12), (150, 12)]
+#: The tp=2 decode held to tp=1's: over the teacher-forced replay of the
+#: tp=1 greedy streams (every decode position of every stream), the
+#: largest |tp2 - tp1| logit (the row-parallel bf16 sums in another
+#: order) may be at most this: ``LOGIT_ATOL``, the decode-vs-full-forward
+#: limit (0.0645 read on an H100).
+SERVE_TP_REPLAY_ATOL = LOGIT_ATOL
+#: A tp=2 greedy stream may leave the tp=1 stream only at a near-tie:
+#: where the tp=1 step's logit of its token exceeds its logit of the tp=2
+#: token by at most this.  Twice the replay limit: with both steps'
+#: logits within ``SERVE_TP_REPLAY_ATOL`` of each other, no wider gap can
+#: flip (the splits read on an H100 were at 0.015625, one bf16 step).
+SERVE_TP_TIE_TOL = 2 * SERVE_TP_REPLAY_ATOL
+#: Per-rank KV-pool bytes against tp=1's, at most (the reference's test
+#: bound; the port's pool holds no replicated scalars, so 0.5 is
+#: expected).
+SERVE_TP_KV_SHARE = 0.5 * 1.15
+#: The planted shard fault: the first block's MLP wi kernel slice of each
+#: rank swapped for the other rank's.
+SERVE_TP_PLANTED = "blocks.0.mlp.wi.kernel"
+
+
+def _serve_tp_config():
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("7b", num_layers=SERVE_TP_LAYERS,
+                        max_seq_len=SERVE_TP_MAX_SEQ, attention_impl="flash",
+                        param_dtype=torch.bfloat16)
+
+
+def _serve_tp_requests(vocab):
+    greedy = _request_list(vocab, SERVE_TP_GREEDY, 11, "g")
+    sampled = _request_list(vocab, SERVE_TP_SAMPLED, 12, "s", sampled_from=0)
+    return greedy, sampled
+
+
+def _tp_replay(programs, model, requests, tokens):
+    """The given greedy streams teacher-forced one token a step through
+    ``programs`` (one slot a request, from their own prefill): the logits
+    ``[slots, K, V]`` (fp32, CPU), position k predicting token k+1."""
+    from dlrover_tpu_torch.serving import pad_to_bucket
+
+    pool = programs.init_cache()
+    lens = []
+    for slot, req in enumerate(requests):
+        padded, n = pad_to_bucket(req.prompt, programs.buckets)
+        row, _ = programs.prefill_logits(
+            model, torch.as_tensor(padded[None], device="cuda"), n)
+        programs.insert(pool, row, slot)
+        lens.append(n)
+    toks = torch.as_tensor(np.stack([tokens[r.uid] for r in requests]),
+                           device="cuda")
+    start = torch.as_tensor(lens, device="cuda")
+    steps = toks.shape[1] - 1
+    return torch.stack([
+        programs.decode_logits(model, pool, toks[:, k], start + k).float()
+        for k in range(steps)], dim=1).cpu()
+
+
+def _tokens_of(results, uids):
+    return {u: np.asarray(results[u].tokens) for u in uids}
+
+
+def _serve_tp_rank(rank, out_dir):
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import init_params
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.serving import ServingEngine, pick_bucket
+
+    cfg = _serve_tp_config()
+    plain = torch.load(os.path.join(out_dir, "plain_tokens.pt"),
+                       weights_only=False)
+    greedy, sampled = _serve_tp_requests(cfg.vocab_size)
+    params = init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, tp=2, slots=SLOTS, device="cuda")
+    engine.aot_compile()
+    torch.cuda.synchronize()
+    out = {"rank": rank, "setup_s": time.perf_counter() - t0,
+           "local_kv_heads": int(engine.cache[0].shape[-2])}
+
+    # -- the main path, counted -------------------------------------------
+    _zero_counts()
+    wire_lib.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    results = engine.run(greedy + sampled)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    stats = engine.stats()
+    out.update(
+        launches={k: v for k, v in _counts().items() if v},
+        wire_bytes=dict(wire_lib.COUNTS["axes"]),
+        wire_calls=dict(wire_lib.COUNTS["calls"]),
+        prefills=int(stats["prefills"]),
+        decode_steps=int(stats["decode_step_n"]),
+        decode_step_p50_s=stats["decode_step_p50_s"],
+        prefill_rows=sum(pick_bucket(len(r.prompt), engine.buckets)
+                         for r in greedy + sampled),
+        results={u: (r.tokens.tolist(), r.logprobs.tolist())
+                 for u, r in results.items()})
+    out["kv_bytes"] = engine.kv_device_bytes()
+    out["own_kv_bytes"] = sum(t.numel() * t.element_size()
+                              for t in engine.cache)
+    # The tp=1 greedy streams teacher-forced through this fold.
+    replay = _tp_replay(engine.programs, engine.model, greedy, plain)
+    if rank == 0:
+        torch.save(replay, os.path.join(out_dir, "tp2_replay.pt"))
+    del replay
+
+    # -- a fold 2 -> 1 -> 2 mid-serve --------------------------------------
+    fold_reqs = [dc.replace(r, uid="f" + r.uid[1:]) for r in greedy]
+    for r in fold_reqs:
+        engine.submit(r)
+    for _ in range(3):
+        engine.step()
+    wire_lib.reset_counts()
+    t0 = time.perf_counter()
+    engine.fold_tp(1)
+    torch.cuda.synchronize()
+    fold = {"down_s": time.perf_counter() - t0,
+            "down_wire_bytes": dict(wire_lib.COUNTS["axes"]),
+            "parked": engine.parked, "holds_model": engine.model is not None,
+            "kv_bytes": engine.kv_device_bytes(),
+            "live_at_fold": len(engine._live_slots())}
+    for _ in range(4):
+        engine.step()
+    wire_lib.reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    engine.fold_tp(2)
+    torch.cuda.synchronize()
+    fold.update(up_s=time.perf_counter() - t0,
+                up_wire_bytes=dict(wire_lib.COUNTS["axes"]),
+                physical=engine.tp.physical_tp,
+                local_kv_heads=int(engine.cache[0].shape[-2]))
+    done = engine.drain()
+    fold["results"] = {u: done[u].tokens.tolist() for u in done
+                       if u.startswith("f")}
+    out["fold"] = fold
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- the planted faults -------------------------------------------------
+    engine = ServingEngine(cfg, params, tp=2, slots=SLOTS, device="cuda")
+    out["planted"] = {"decode": _serve_tp_plant(
+        engine, rank, greedy, plain, "d", out_dir, _rolled_decode_heads)}
+    other = engine.tp.split_params(params, engine.programs.config,
+                                   rank=1 - rank)[SERVE_TP_PLANTED]
+    with torch.no_grad():
+        engine.model.get_parameter(SERVE_TP_PLANTED).copy_(other)
+    out["planted"]["shard"] = _serve_tp_plant(
+        engine, rank, greedy, plain, "p", out_dir, None)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rolled_decode_heads(rank, real):
+    """The planted decode fault: on rank 1, attention over the cache with
+    one query a slot (decode; the prefill runs K1) reads the rank's KV
+    heads rolled by one."""
+    if rank != 1:
+        return real
+
+    def rolled(q, k, v, q_positions):
+        if q.shape[1] == 1:
+            k, v = k.roll(1, dims=-2), v.roll(1, dims=-2)
+        return real(q, k, v, q_positions)
+
+    return rolled
+
+
+def _serve_tp_plant(engine, rank, greedy, plain, prefix, out_dir, plant):
+    """The greedy requests (uids under ``prefix``) served by the planted
+    ``engine`` and the tp=1 streams teacher-forced through it (rank 0
+    saves the replay as ``planted_<prefix>.pt``); ``plant(rank, real)``,
+    when given, stands in for ``models.attention.cached_attention``
+    meanwhile.  Returns this rank's streams."""
+    import dataclasses as dc
+
+    from dlrover_tpu_torch.models import attention as attn
+
+    real = attn.cached_attention
+    if plant is not None:
+        attn.cached_attention = plant(rank, real)
+    try:
+        results = engine.run([dc.replace(r, uid=prefix + r.uid[1:])
+                              for r in greedy])
+        replay = _tp_replay(engine.programs, engine.model, greedy, plain)
+    finally:
+        attn.cached_attention = real
+    if rank == 0:
+        torch.save(replay, os.path.join(out_dir, f"planted_{prefix}.pt"))
+    return {u: r.tokens.tolist() for u, r in results.items()
+            if u.startswith(prefix)}
+
+
+def serve_tp_and_check():
+    """``serve_tp2``: two processes on ``cuda:0`` over a gloo group serving
+    Llama-2 7B's width at tp=2 against a tp=1 engine of the same weights in
+    this process; a fold 2 -> 1 -> 2 mid-serve; two planted faults (a
+    swapped shard, a decode-only fault).  Returns the counted launches
+    (both ranks)."""
+    import shutil
+    from types import SimpleNamespace
+
+    from dlrover_tpu_torch.models import init_params
+    from dlrover_tpu_torch.serving import ServingEngine
+
+    out_dir = os.path.join(REPO, "build", "serve_tp2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = _serve_tp_config()
+    greedy, sampled = _serve_tp_requests(cfg.vocab_size)
+    out = {"phase": "serve_tp2",
+           "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
+                    f"heads, d_ff 11008, vocab 32000), depth cut to "
+                    f"{SERVE_TP_LAYERS} of 32 layers, max_seq_len "
+                    f"{SERVE_TP_MAX_SEQ}, bf16 weights seed 0, flash "
+                    f"prefill, {SLOTS} slots",
+           "world": "2 processes on cuda:0, gloo, tp=2 (the sums and the "
+                    "logits gather staged through the host)",
+           "requests": {"greedy": SERVE_TP_GREEDY,
+                        "sampled": SERVE_TP_SAMPLED}}
+    t_start = time.perf_counter()
+    try:
+        # -- tp=1 in this process -----------------------------------------
+        params = init_params(cfg, seed=0, device="cuda")
+        plain = ServingEngine(cfg, params, slots=SLOTS, device="cuda")
+        del params
+        t0 = time.perf_counter()
+        plain_res = plain.run(greedy + sampled)
+        torch.cuda.synchronize()
+        out["plain_run_s"] = time.perf_counter() - t0
+        plain_tokens = _tokens_of(plain_res, [r.uid for r in greedy])
+        torch.save(plain_tokens, os.path.join(out_dir, "plain_tokens.pt"))
+        plain_logits = _tp_replay(plain.programs, plain.model, greedy,
+                                  plain_tokens)
+        plain_kv = plain.kv_device_bytes()
+        del plain
+        torch.cuda.empty_cache()
+
+        results, codes = _world_run("_serve_tp_rank", out_dir,
+                                    "tp_rank{rank}.pt", 600)
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [None, None]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"serve_tp2 ranks failed (exit codes "
+                                 f"{codes})")
+        r0, r1 = results
+        bad = []
+
+        def as_results(toks):
+            return {u: SimpleNamespace(tokens=np.asarray(t))
+                    for u, t in toks.items()}
+
+        plain_g = as_results({u: t.tolist() for u, t in plain_tokens.items()})
+
+        def judged(replay_file, toks):
+            """A tp=2 run against tp=1: its replay's largest logit gap, its
+            greedy streams (uids under any prefix) judged at near-ties,
+            and whether both pass."""
+            logits = torch.load(os.path.join(out_dir, replay_file))
+            gap = float((logits - plain_logits).abs().max())
+            streams = _spec_stream_check(greedy, plain_g, as_results(
+                {"g" + u[1:]: t for u, t in toks.items()}), plain_logits,
+                SERVE_TP_TIE_TOL)
+            return gap, streams, (gap <= SERVE_TP_REPLAY_ATOL
+                                  and all(x["ok"] for x in streams))
+
+        gap, streams, _ = judged("tp2_replay.pt", {
+            u: r0["results"][u][0] for u in plain_tokens})
+        fold_streams = _spec_stream_check(greedy, plain_g, as_results(
+            {"g" + u[1:]: t for u, t in r0["fold"]["results"].items()}),
+            plain_logits, SERVE_TP_TIE_TOL)
+        planted = {}
+        for name, prefix in (("shard", "p"), ("decode", "d")):
+            p_gap, p_streams, p_ok = judged(f"planted_{prefix}.pt",
+                                            r0["planted"][name])
+            planted[name] = {"replay_max_logit_gap": p_gap,
+                             "streams": p_streams, "caught": not p_ok}
+        # The decode plant leaves the prefill whole: every first token
+        # is tp=1's, and both the replay and the streams must see it.
+        dec = planted["decode"]
+        dec.update(
+            prefill_kept=all(x.get("first_diff") != 0
+                             for x in dec["streams"]),
+            streams_split=any(x["status"] == "split"
+                              for x in dec["streams"]),
+            replay_over=dec["replay_max_logit_gap"] > SERVE_TP_REPLAY_ATOL)
+        dec["caught"] = (dec["prefill_kept"] and dec["streams_split"]
+                         and dec["replay_over"])
+        _check_finished({u: SimpleNamespace(tokens=np.asarray(t),
+                                            logprobs=np.asarray(lp))
+                         for u, (t, lp) in r0["results"].items()},
+                        greedy + sampled, cfg.vocab_size)
+        rows = r0["prefill_rows"]
+        steps, prefills = r0["decode_steps"], r0["prefills"]
+        act = cfg.d_model * 2
+        wire = {"tensor/all_reduce": (2 * cfg.num_layers + 1) * act
+                * (rows + SLOTS * steps),
+                "tensor/all_gather": cfg.vocab_size // 2 * 4
+                * (prefills + SLOTS * steps)}
+        calls = {"tensor/all_reduce": (2 * cfg.num_layers + 1)
+                 * (prefills + steps),
+                 "tensor/all_gather": prefills + steps}
+        kv_share = r0["kv_bytes"] / plain_kv
+        checks = {
+            "replay_gap": gap <= SERVE_TP_REPLAY_ATOL,
+            "greedy_streams": all(s["ok"] for s in streams),
+            "ranks_agree": r0["results"] == r1["results"]
+            and r0["fold"]["results"] == r1["fold"]["results"],
+            "prefills": prefills == len(greedy) + len(sampled),
+            "launches": all(r["launches"] == {"flash_fwd": cfg.num_layers
+                                              * prefills}
+                            for r in (r0, r1)),
+            "wire": all(r["wire_bytes"] == wire and r["wire_calls"] == calls
+                        for r in (r0, r1)),
+            "kv_share": kv_share <= SERVE_TP_KV_SHARE
+            and r0["kv_bytes"] == max(r0["own_kv_bytes"],
+                                      r1["own_kv_bytes"])
+            and r0["local_kv_heads"] == cfg.resolved_kv_heads // 2,
+            "fold_down": (r0["fold"]["parked"], r1["fold"]["parked"],
+                          r0["fold"]["holds_model"],
+                          r1["fold"]["holds_model"],
+                          r0["fold"]["kv_bytes"]) == (False, True, True,
+                                                      False, plain_kv)
+            and r0["fold"]["live_at_fold"] > 0,
+            "fold_up": all((r["fold"]["physical"],
+                            r["fold"]["local_kv_heads"]) == (
+                                2, cfg.resolved_kv_heads // 2)
+                           for r in (r0, r1)),
+            "fold_streams": len(r0["fold"]["results"]) == len(greedy)
+            and all(s["ok"] for s in fold_streams),
+        }
+        bad += [k for k, ok in checks.items() if not ok]
+        bad += [f"planted {name} fault passed"
+                for name, p in planted.items() if not p["caught"]]
+        counts = dict.fromkeys(_counts(), 0)
+        for r in (r0, r1):
+            for k, v in r["launches"].items():
+                counts[k] += v
+        out.update(
+            checks=checks, streams=streams, fold_streams=fold_streams,
+            planted=dict(planted, faults={
+                "shard": f"{SERVE_TP_PLANTED} slices swapped between the "
+                         f"ranks",
+                "decode": "rank 1's decode attention on its KV heads "
+                          "rolled by one"}),
+            replay_max_logit_gap=gap, replay_atol=SERVE_TP_REPLAY_ATOL,
+            tie_tol=SERVE_TP_TIE_TOL,
+            plain_run_s=out["plain_run_s"], tp2_run_s=[r0["run_s"],
+                                                       r1["run_s"]],
+            setup_s=[r0["setup_s"], r1["setup_s"]],
+            decode_steps=steps, prefills=prefills,
+            decode_step_p50_s=[r0["decode_step_p50_s"],
+                               r1["decode_step_p50_s"]],
+            wire_bytes=r0["wire_bytes"], wire_bytes_predicted=wire,
+            wire_calls=r0["wire_calls"], wire_calls_predicted=calls,
+            kv_bytes=[r0["own_kv_bytes"], r1["own_kv_bytes"]],
+            plain_kv_bytes=plain_kv, kv_share=kv_share,
+            fold={k: v for k, v in r0["fold"].items() if k != "results"},
+            fold_rank1={k: v for k, v in r1["fold"].items()
+                        if k != "results"},
+            launches=counts)
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"serve_tp2 checks failed: {bad}")
+    finally:
+        emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
 def _ptxas_report(kernel_lib):
     """Per kernel of each library built in this process (its mangled name,
     template arguments included): the registers, the stack frame and
@@ -9004,6 +9719,14 @@ def main() -> int:
         train_ep2_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--sp"]:
+        train_sp2_and_check()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--serve-tp"]:
+        serve_tp_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--opts"]:
         train_opts_and_check()
         print(smi, flush=True)
@@ -9098,6 +9821,8 @@ def main() -> int:
     example_and_check()
     paths["train_mp2"] = train_mp2_and_check()
     paths["train_ep2"] = train_ep2_and_check()
+    paths["train_sp2"] = train_sp2_and_check()
+    paths["serve_tp2"] = serve_tp_and_check()
     _world_stop()
     paths["train_opts"] = train_opts_and_check()
     paths["train_split"] = train_split_and_check()

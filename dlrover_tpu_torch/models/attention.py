@@ -19,13 +19,17 @@ module holds its rank's heads: ``num_heads / size`` query heads and
 degree), the q/k/v projections column-parallel behind ``tp.enter`` and
 ``out`` row-parallel, summed over the group before its bias.
 
-Sequence parallelism (Ulysses) and ring attention are later slices
-(ROADMAP Queue 1 item 9).
+Under a seq axis (``sp``, ``parallel/sharding.SeqGroup``) the module
+sees its rank's slice of the sequence, ``[B, S / sp, H, D]``, and
+:func:`ulysses_attention` runs the attention math on the whole sequence
+over ``H / sp`` of its heads (``H / (sp * tensor)`` with a tensor axis),
+swapping one split for the other with two all-to-alls.  Ring attention
+is a later slice (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +37,7 @@ from torch import nn
 from dlrover_tpu_torch.models import layers
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import remat_policy
+from dlrover_tpu_torch.parallel import quantized_collectives as qc
 from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
@@ -63,6 +68,32 @@ def _softmax_attend(q, k, v, mask) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = remat_policy.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, hq, d)
+
+
+def ulysses_attention(
+    attn_fn: Callable,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: Optional[torch.Tensor],
+    group,
+) -> torch.Tensor:
+    """``attn_fn(q, k, v, segment_ids)`` under Ulysses' all-to-alls over
+    the seq group ``group`` (``parallel/sharding.SeqGroup``).  The inputs
+    arrive sequence-split, ``[B, S / sp, H, D]``; an all-to-all each
+    (``quantized_collectives.all_to_all``: split the heads, concatenate
+    the sequence) makes them head-split ``[B, S, H / sp, D]`` for the
+    attention math, and the inverse exchange brings the output back to
+    ``[B, S / sp, H, D]``.  The backward is the inverse exchange of each
+    leg.  Segment ids ``[B, S / sp]`` are gathered whole (the reference's
+    ``P(batch, None)`` spec).  The heads split contiguously, so with GQA a
+    rank's query heads are the groups of its KV heads."""
+    def swap(t):
+        return qc.all_to_all(t, group.wire, split_axis=2, concat_axis=1)
+
+    seg = None if segment_ids is None else group.gather_tokens(segment_ids)
+    out = attn_fn(swap(q), swap(k), swap(v), seg)
+    return qc.all_to_all(out, group.wire, split_axis=1, concat_axis=2)
 
 
 def xla_attention(
@@ -141,12 +172,14 @@ class Attention(nn.Module):
         flash_block_q: int = 512,
         flash_block_kv: int = 512,
         tp=None,
+        sp=None,
         device: DeviceLike = None,
     ):
         super().__init__()
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         self.tp = tp
+        self.sp = sp
         self.fused = fused_qkv and num_kv_heads == num_heads
         if tp is not None:
             if num_heads % tp.size or num_kv_heads % tp.size:
@@ -220,11 +253,15 @@ class Attention(nn.Module):
                 )
             else:
                 out = cached_attention(q, cached_k, cached_v, q_positions)
-        elif self.attention_impl == "flash":
-            out = fa.mha(q, k, v, causal=True, segment_ids=segment_ids,
-                         **self.flash_blocks)
+        elif self.sp is not None:
+            out = ulysses_attention(self._attend, q, k, v, segment_ids,
+                                    self.sp)
         else:
-            out = xla_attention(
-                q, k, v, causal=True, segment_ids=segment_ids
-            )
+            out = self._attend(q, k, v, segment_ids)
         return self.out(out)
+
+    def _attend(self, q, k, v, segment_ids):
+        if self.attention_impl == "flash":
+            return fa.mha(q, k, v, causal=True, segment_ids=segment_ids,
+                          **self.flash_blocks)
+        return xla_attention(q, k, v, causal=True, segment_ids=segment_ids)

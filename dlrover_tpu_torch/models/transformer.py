@@ -36,12 +36,18 @@ block's slices are gathered for its forward (and again for a remat
 policy's recompute) and its gradients reduce-scattered in its backward;
 the leaves outside the blocks are gathered once a forward
 (:meth:`TransformerLM.gathered`, ``parallel/sharding.FsdpUnit``).
+Under ``seq`` (Ulysses) a rank runs its slice of every sequence, at
+the global positions ``offset + arange(S / sp)`` (RoPE and the learned
+positions read them), every parameter whole, and each block's attention
+through ``models/attention.ulysses_attention``.
 :func:`check_parallel` refuses a config whose heads, KV heads, ``d_ff``
-or vocabulary do not divide by the tensor degree, whose ``d_model``
+or vocabulary do not divide by the tensor degree, whose heads do not
+divide by ``seq x tensor`` or whose KV heads per tensor rank do not
+divide by the seq degree, whose ``d_model``
 does not divide by the fsdp degree or whose experts do not divide by the
-expert degree, and an MoE config on the fsdp or tensor axis (ROADMAP
-Queue 1 item 6's remainder).  :func:`param_logical_axes` gives every
-parameter's logical axes, the reference's ``kernel_axes``.
+expert degree, and an MoE config on the fsdp, tensor or seq axis
+(ROADMAP Queue 1 item 6's remainder).  :func:`param_logical_axes` gives
+every parameter's logical axes, the reference's ``kernel_axes``.
 
 The config has every field of the reference's.  ``scan_layers`` only
 names the JAX tree ``models/from_jax.py`` reads (stacked, or
@@ -223,14 +229,16 @@ class TransformerConfig:
 
 
 def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
-    """Refuse a config the fsdp, tensor and expert axes cannot split
-    evenly."""
-    if (sizes.get("tensor", 1) > 1 or sizes.get("fsdp", 1) > 1) \
-            and cfg.num_experts:
+    """Refuse a config the fsdp, tensor, seq and expert axes cannot split
+    evenly, naming the dimension (the sequence length is the step's:
+    ``train_lib.build_train`` checks it against the seq degree)."""
+    model_axes = [a for a in ("fsdp", "tensor", "seq")
+                  if sizes.get(a, 1) > 1]
+    if model_axes and cfg.num_experts:
         raise NotImplementedError(
-            "an MoE model on the fsdp or tensor axis is a later slice of "
-            "the port (ROADMAP Queue 1 item 6's remainder); MoE takes the "
-            "data and expert axes")
+            f"an MoE model on the {'/'.join(model_axes)} axis is a later "
+            f"slice of the port (ROADMAP Queue 1 item 6's remainder); MoE "
+            f"takes the data and expert axes")
     if sizes.get("expert", 1) > 1 and cfg.num_experts and \
             cfg.moe_dispatch == "grouped":
         raise ValueError(
@@ -246,6 +254,18 @@ def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
         if n % k:
             raise ValueError(
                 f"{what} {n} does not divide by the {axis} degree {k}")
+    sp, tp = sizes.get("seq", 1), sizes.get("tensor", 1)
+    if sp > 1:
+        # Ulysses splits each tensor rank's heads again over seq.
+        if cfg.num_heads % (sp * tp):
+            raise ValueError(
+                f"heads {cfg.num_heads} do not divide by the seq x tensor "
+                f"degree {sp} x {tp}")
+        if (cfg.resolved_kv_heads // tp) % sp:
+            raise ValueError(
+                f"KV heads per tensor rank {cfg.resolved_kv_heads // tp} "
+                f"do not divide by the seq degree {sp} (the all-to-all "
+                f"splits them)")
 
 
 class Mlp(nn.Module):
@@ -294,7 +314,7 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
-                 tp=None, moe_group=None):
+                 tp=None, moe_group=None, sp=None):
         super().__init__()
         self.pin_attn_layouts = cfg.pin_attn_layouts
         self.ln_attn = layers.make_norm(cfg.norm, cfg.d_model, device,
@@ -315,6 +335,7 @@ class Block(nn.Module):
             flash_block_q=cfg.flash_block_q,
             flash_block_kv=cfg.flash_block_kv,
             tp=tp,
+            sp=sp,
             device=device,
         )
         self.ln_mlp = layers.make_norm(cfg.norm, cfg.d_model, device,
@@ -373,9 +394,13 @@ class TransformerLM(nn.Module):
             parallel.active else None
         tp = self.parallel.tp if self.parallel is not None else None
         self.tp = tp
+        #: The seq axis (``parallel/sharding.SeqGroup``), None at 1.
+        self.sp = parallel.sp if parallel is not None else None
         fsdp = self.parallel is not None and self.parallel.fsdp > 1
-        if self.parallel is not None:
-            check_parallel(cfg, self.parallel.sizes)
+        if self.parallel is not None or self.sp is not None:
+            check_parallel(cfg, parallel.sizes)
+        if self.sp is not None and cfg.decode:
+            raise ValueError("a decode-mode model takes no seq axis")
         # Under fsdp the modules are built on the meta device and each
         # parameter is then allocated at its slice's shape.
         build = torch.device("meta") if fsdp else device
@@ -391,7 +416,7 @@ class TransformerLM(nn.Module):
         elif cfg.position != "rope":
             raise ValueError(f"unknown position {cfg.position!r}")
         self.blocks = nn.ModuleList(
-            Block(cfg, build, tp=tp, moe_group=moe_group)
+            Block(cfg, build, tp=tp, moe_group=moe_group, sp=self.sp)
             for _ in range(cfg.num_layers)
         )
         self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, build,
@@ -469,14 +494,18 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"{len(caches)} caches for {cfg.num_layers} layers"
             )
-        if cfg.position == "learned" and tokens.shape[1] > cfg.max_seq_len:
+        width = tokens.shape[1]
+        seq_len = width * (self.sp.size if self.sp is not None else 1)
+        if cfg.position == "learned" and seq_len > cfg.max_seq_len:
             raise ValueError(
-                f"sequence length {tokens.shape[1]} exceeds max_seq_len "
+                f"sequence length {seq_len} exceeds max_seq_len "
                 f"{cfg.max_seq_len} of the learned position table"
             )
         if positions is None:
+            # Under seq the rank's tokens sit at their global positions.
+            start = self.sp.offset(width) if self.sp is not None else 0
             positions = torch.arange(
-                tokens.shape[1], device=tokens.device
+                start, start + width, device=tokens.device
             )[None, :]
         with self.gathered():
             x = self.embed(tokens)

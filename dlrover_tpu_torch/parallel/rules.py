@@ -15,6 +15,19 @@ the ``(dim, axes)`` splits of :func:`leaf_splits`, which
 ``heads`` and ``vocab`` over ``tensor``, ``expert`` over ``expert``.  At ``fsdp = tensor = seq = 1`` the default table collapses
 to data parallelism: parameters replicated, the batch split over
 ``data``.
+
+The ``seq`` axis (Ulysses, :func:`sequence_axis`): ``act_seq -> seq``
+gives each rank of a seq group its slice of every sequence, and
+``act_heads -> (seq, tensor)`` its heads inside attention, where
+``models/attention.ulysses_attention`` swaps one split for the other with
+two all-to-alls.  The seq axis splits no parameter here
+(:func:`leaf_splits` leaves it out): the reference's GSPMD also splits
+the learned position table's rows over it (their logical name is
+``act_seq``), which the port keeps whole, since a rank's positions reach
+rows outside any box of it; the values are the same.  Parameters are
+replicated over ``seq``, so their gradients are summed over ``data x
+seq`` (:func:`grad_sum_axes`), as GSPMD sums them.  ``context="ring"``
+on a seq axis above 1 is refused (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -169,10 +182,46 @@ def leaf_splits(logical: Sequence[str], rules: Rules,
                                                 ...]:
     """A parameter's splits on a mesh of ``sizes``: ``(dim, axes)`` for
     each dimension whose logical name the rules map onto mesh axes above
-    1 (``axes`` outermost first); the other dimensions are whole."""
+    1 (``axes`` outermost first; never ``seq``, which splits
+    activations only); the other dimensions are whole."""
     out = []
     for dim, entry in enumerate(logical_to_mesh_axes(logical, rules)):
-        axes = tuple(a for a in _entry_names(entry) if sizes.get(a, 1) > 1)
+        axes = tuple(a for a in _entry_names(entry)
+                     if sizes.get(a, 1) > 1 and a != SEQ_AXIS)
         if axes:
             out.append((dim, axes))
     return tuple(out)
+
+
+def sequence_axis(mesh, rules: Rules) -> int:
+    """The seq degree the activations are split over on ``mesh`` (1 when
+    the seq axis is 1).  Above 1 the rules must split ``act_seq`` over
+    ``seq`` and, inside attention, ``act_heads`` over ``seq`` (Ulysses);
+    a table that keeps the heads off it (``context="ring"``) or the
+    sequence off it is refused."""
+    size = mesh_axis_sizes(mesh).get(SEQ_AXIS, 1)
+    if size <= 1:
+        return 1
+    act_seq, act_heads = (_entry_names(e) for e in logical_to_mesh_axes(
+        [ACT_SEQ, ACT_HEADS], rules))
+    if SEQ_AXIS not in act_seq:
+        raise NotImplementedError(
+            f"a seq axis of {size} under rules that map act_seq to "
+            f"{act_seq or None}: the port splits the sequence over it, as "
+            f"the default rules do")
+    if SEQ_AXIS not in act_heads:
+        raise NotImplementedError(
+            f"a seq axis of {size} under rules that keep act_heads off it "
+            f"(context='ring', ring attention) is a later slice of the port "
+            f"(ROADMAP Queue 1 item 9); use context='ulysses'")
+    return size
+
+
+def grad_sum_axes(mesh, rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes above 1 over which a replicated parameter's gradient
+    is summed: the batch group (:func:`batch_group_axes`) and the seq
+    axis, whose ranks hold other tokens of the same rows."""
+    out = batch_group_axes(mesh, rules)
+    if sequence_axis(mesh, rules) > 1:
+        out += (SEQ_AXIS,)
+    return out

@@ -33,6 +33,12 @@ and this module carries the table out:
   group (``data x expert``) its router means and statistics are taken
   over.
 
+* ``seq`` (Ulysses): a rank holds the tokens ``[r * S / sp, (r + 1) *
+  S / sp)`` of every sequence and every parameter whole.
+  :class:`SeqGroup` is what the model needs of it: the wire that
+  ``models/attention.ulysses_attention`` swaps sequence for heads over,
+  and the offset of the rank's tokens (their positions).
+
 Every collective goes through the axis's :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (a gloo group stages CUDA payloads through the host);
 nothing here hands a tensor to a process group directly, and neither
@@ -419,13 +425,40 @@ class ExpertGroup:
         return out
 
 
+# -- the seq axis ----------------------------------------------------------------
+
+
+class SeqGroup:
+    """The seq axis as a model sees it: its ``size``, this rank's ``rank``
+    on it and its ``wire``.  Each sequence is split into ``size``
+    contiguous slices, slice ``rank`` on this rank."""
+
+    def __init__(self, wire, size: int, rank: int):
+        self.wire, self.size, self.rank = wire, size, rank
+
+    def offset(self, local_len: int) -> int:
+        """The global position of this rank's first token, its slices
+        being ``local_len`` tokens long."""
+        return self.rank * local_len
+
+    def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """``[B, S / size, ...]`` slices of every rank -> the whole ``[B,
+        S, ...]`` on each (no gradient: segment ids)."""
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        self.wire.all_gather(out, t.contiguous())
+        out = out.movedim(0, 1)
+        return out.reshape((t.shape[0], self.size * t.shape[1])
+                           + tuple(t.shape[2:]))
+
+
 # -- the model's view of the mesh --------------------------------------------
 
 
 class ModelParallel:
-    """What a model and its step need of a mesh's fsdp, tensor and expert
-    axes: the axis sizes, this rank's coordinates, the axes' wires, the
-    rule table and the batch group."""
+    """What a model and its step need of a mesh's fsdp, tensor, expert and
+    seq axes: the axis sizes, this rank's coordinates, the axes' wires,
+    the rule table and the batch group."""
 
     def __init__(self, mesh, rules, wires: Optional[Dict[str, object]] = None,
                  rank: Optional[int] = None):
@@ -437,7 +470,12 @@ class ModelParallel:
         self.fsdp = self.sizes.get(mesh_lib.FSDP_AXIS, 1)
         self.tensor = self.sizes.get(mesh_lib.TENSOR_AXIS, 1)
         self.expert = self.sizes.get(mesh_lib.EXPERT_AXIS, 1)
+        self.seq = lr.sequence_axis(mesh, self.rules)
         self.batch_axes = lr.batch_group_axes(mesh, self.rules)
+        self.sp = None
+        if self.seq > 1:
+            self.sp = SeqGroup(self.wires.get(mesh_lib.SEQ_AXIS), self.seq,
+                               self.coords[mesh_lib.SEQ_AXIS])
         self.tp = None
         if self.tensor > 1:
             for name in (lr.HEADS, lr.MLP, lr.VOCAB):
@@ -458,7 +496,8 @@ class ModelParallel:
 
     @property
     def active(self) -> bool:
-        """Whether a rank holds boxes of some leaves (not whole ones)."""
+        """Whether a rank holds boxes of some leaves (not whole ones): the
+        seq axis splits none."""
         return self.fsdp > 1 or self.tensor > 1 or self.expert > 1
 
     def expert_group(self) -> Optional[ExpertGroup]:

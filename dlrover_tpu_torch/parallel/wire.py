@@ -7,10 +7,12 @@ interconnect.  Here a collective names a ``torch.distributed`` group.
 
 * ``bytes``: the payload handed to each kind of collective, by leg
   (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
-  ``send``), each tensor counted once per call as its element count times
-  its item size;
+  ``send``, ``broadcast``, ``gather``, ``scatter``), each tensor counted
+  once per call as its element count times its item size (a scatter's
+  on its source only);
 * ``axes``: the same bytes by axis and leg (``"fsdp/all_gather"``; the
   axis a :class:`Wire` was built for, ``"world"`` for one built without);
+* ``calls``: the collectives issued, by axis and leg;
 * ``staged``: host staging copies (and ``staged_axes``, by axis).  NCCL takes CUDA tensors; gloo, the
   CPU backend, takes host tensors.  A group whose backend is gloo gets a
   CUDA payload copied to the host before the collective and the result
@@ -28,7 +30,7 @@ one agreed order (``parallel/overlap.py``'s plan).
 from __future__ import annotations
 
 import collections
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,12 +38,14 @@ import torch.distributed as dist
 #: Bytes handed to collectives by leg, and host staging copies; a run sets
 #: them to 0 (:func:`reset_counts`) and reads them back.
 COUNTS = {"bytes": collections.Counter(), "axes": collections.Counter(),
-          "staged": 0, "staged_axes": collections.Counter()}
+          "calls": collections.Counter(), "staged": 0,
+          "staged_axes": collections.Counter()}
 
 
 def reset_counts() -> None:
     COUNTS["bytes"].clear()
     COUNTS["axes"].clear()
+    COUNTS["calls"].clear()
     COUNTS["staged"] = 0
     COUNTS["staged_axes"].clear()
 
@@ -105,6 +109,7 @@ class Wire:
     def _count(self, leg: str, t: torch.Tensor) -> None:
         COUNTS["bytes"][leg] += _nbytes(t)
         COUNTS["axes"][f"{self.axis}/{leg}"] += _nbytes(t)
+        COUNTS["calls"][f"{self.axis}/{leg}"] += 1
 
     def _staged(self) -> None:
         COUNTS["staged"] += 1
@@ -169,6 +174,39 @@ class Wire:
         work = dist.all_to_all_single(self._out(out, copies), self._in(inp),
                                       group=self.group, async_op=async_op)
         return self._finish(work, copies, async_op)
+
+    def gather(self, out: Optional[torch.Tensor],
+               inp: torch.Tensor) -> None:
+        """Every rank's ``inp`` to group rank 0: there ``out`` (``[n,
+        *inp.shape]``) becomes them in rank order; elsewhere ``out`` is
+        not read (None will do)."""
+        self._count("gather", inp)
+        copies: list = []
+        parts = None
+        if self.rank == 0:
+            parts = list(self._out(out, copies).unbind(0))
+        dist.gather(self._in(inp).contiguous(), gather_list=parts,
+                    dst=self._root(), group=self.group)
+        self._finish(None, copies, False)
+
+    def scatter(self, out: torch.Tensor,
+                inp: Optional[torch.Tensor]) -> None:
+        """Row ``j`` of group rank 0's ``inp`` (``[n, *out.shape]``) to
+        rank ``j``'s ``out``; ``inp`` is read on rank 0 only."""
+        copies: list = []
+        parts = None
+        if self.rank == 0:
+            self._count("scatter", inp)
+            parts = list(self._in(inp).contiguous().unbind(0))
+        dist.scatter(self._out(out, copies), scatter_list=parts,
+                     src=self._root(), group=self.group)
+        self._finish(None, copies, False)
+
+    def _root(self) -> int:
+        """The global rank of the group's rank 0."""
+        if self.group is None:
+            return 0
+        return dist.get_global_rank(self.group, 0)
 
     def shift(self, send: torch.Tensor, recv: torch.Tensor) -> None:
         """One ring hop: ``send`` goes to rank + 1, ``recv`` comes from

@@ -9,9 +9,10 @@ same six axis names in the same order (outermost first)::
 
     data > fsdp > pipe > expert > seq > tensor
 
-The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes may be above 1.
-``build_mesh`` refuses a ``seq`` or ``pipe`` degree above 1 (ROADMAP
-Queue 1 item 9: Ulysses, ring attention and the pipeline).  Each axis
+The ``data``, ``fsdp``, ``expert``, ``seq`` and ``tensor`` axes may be
+above 1 (``seq`` with Ulysses' all-to-alls, ``models/attention.
+ulysses_attention``).  ``build_mesh`` refuses a ``pipe`` degree above 1
+(ROADMAP Queue 1 item 9: ring attention and the pipeline).  Each axis
 above 1 has its process group (the
 ``DeviceMesh``'s ``get_group``) and its :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (:func:`axis_wires`), through which every collective
@@ -52,7 +53,7 @@ MESH_AXES: Tuple[str, ...] = (
 )
 
 #: The ROADMAP Queue 1 item that brings each model-parallel axis.
-_AXIS_ITEMS = {SEQ_AXIS: 9, PIPE_AXIS: 9}
+_AXIS_ITEMS = {PIPE_AXIS: 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,12 +130,12 @@ def process_index() -> int:
 def check_axes(sizes: Dict[str, int]) -> None:
     """Refuse an axis the port does not run yet above 1, naming its
     ROADMAP item."""
-    for axis in (SEQ_AXIS, PIPE_AXIS):
+    for axis in _AXIS_ITEMS:
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {sizes[axis]} is a later slice of the "
                 f"port (ROADMAP Queue 1 item {_AXIS_ITEMS[axis]}); the "
-                "mesh takes the data, fsdp, expert and tensor axes"
+                "mesh takes the data, fsdp, expert, seq and tensor axes"
             )
 
 

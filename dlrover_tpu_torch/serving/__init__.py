@@ -3,7 +3,9 @@
 The same parameters that train also serve, through the slotted KV cache
 in :mod:`dlrover_tpu_torch.serving.decode` and the host-side scheduler in
 :mod:`dlrover_tpu_torch.serving.engine`; speculative decoding and
-disaggregated prefill ride the engine, replicas form a
+disaggregated prefill ride the engine, a tensor-parallel fold
+(:mod:`~dlrover_tpu_torch.serving.tp`) splits one model over processes,
+replicas form a
 :class:`ReplicaFleet` behind a :class:`ServeFrontend`, and
 :mod:`~dlrover_tpu_torch.serving.hotswap` swaps weights live.
 """
@@ -35,3 +37,8 @@ from dlrover_tpu_torch.serving.fleet import (  # noqa: F401
     ReplicaFleet,
 )
 from dlrover_tpu_torch.serving.frontend import ServeFrontend  # noqa: F401
+from dlrover_tpu_torch.serving.tp import (  # noqa: F401
+    ServeTPMesh,
+    build_tp_mesh,
+    fold_width,
+)

@@ -32,19 +32,26 @@ bonus token from the target's own logits at the first divergence, so a
 greedy slot's stream is the plain decode path's.  Sampled rows (temp > 0)
 accept nothing and draw the bonus through :func:`sample_tokens`.
 
+**Tensor parallelism** (``tp=serving.tp.ServeTPMesh``): the model of a
+rank of the fold holds its heads, MLP columns and vocabulary rows, the
+pool its ``H_kv / tp`` KV heads (per-rank pool bytes fall as 1/tp), and
+the logits of every prefill and decode step are gathered whole over the
+fold before sampling; the program memo keys on ``(logical_tp,
+physical_tp)``.  Every rank of the fold runs the same operations in the
+same order.
+
 Program sets are memoized process-wide (:func:`get_programs`,
 :func:`get_spec_programs`): fleet replicas of one configuration share
 one :class:`ServePrograms`.  PyTorch runs eagerly, so there is nothing to
 trace or compile ahead (the reference's ``aot_compile``); ``warmup``
-builds and loads the kernel libraries the path launches instead.  Not in
-this slice: tensor parallelism (ROADMAP Queue 1 item 8's remainder).
+builds and loads the kernel libraries the path launches instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,6 +62,7 @@ from dlrover_tpu_torch.models.transformer import (
 )
 from dlrover_tpu_torch.ops import kernel_lib
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.serving.tp import ServeTPMesh, validate_tp_config
 
 NEG_INF = -1e15
 
@@ -108,14 +116,20 @@ def sample_tokens(
     return tokens, logp.gather(-1, tokens[:, None])[:, 0]
 
 
+def _tp_key(tp: Optional[ServeTPMesh]) -> Tuple:
+    return (tp.logical_tp, tp.physical_tp) if tp is not None else ()
+
+
 def _programs_key(config: TransformerConfig, slots: int,
                   buckets: Sequence[int], max_top_k: int,
-                  device: torch.device) -> Tuple:
+                  device: torch.device,
+                  tp: Optional[ServeTPMesh] = None) -> Tuple:
     """The one spelling of a program set's memo key (used by both
-    :func:`get_programs` and ``ServePrograms.__init__``)."""
+    :func:`get_programs` and ``ServePrograms.__init__``); ``tp`` carries
+    ``(logical, physical)``."""
     return ("serve", decode_config(config), int(slots),
             tuple(sorted(int(b) for b in buckets)), int(max_top_k),
-            str(device))
+            str(device), _tp_key(tp))
 
 
 def _spec_key(target: "ServePrograms", draft: "ServePrograms",
@@ -127,7 +141,7 @@ def _spec_key(target: "ServePrograms", draft: "ServePrograms",
 
 class ServePrograms:
     """Prefill / insert / decode for one (config, slots, buckets,
-    max_top_k) on one device.  Obtain through :func:`get_programs` so
+    max_top_k, tp) on one device.  Obtain through :func:`get_programs` so
     equal keys share one instance."""
 
     def __init__(
@@ -137,6 +151,7 @@ class ServePrograms:
         buckets: Sequence[int],
         max_top_k: int = 64,
         device: DeviceLike = None,
+        tp: Optional[ServeTPMesh] = None,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -159,14 +174,41 @@ class ServePrograms:
         self.slots = slots
         self.buckets = buckets
         self.max_top_k = max_top_k
+        self.tp = tp
+        if tp is not None:
+            validate_tp_config(self.config, tp.logical_tp)
+            if self.config.num_experts:
+                raise NotImplementedError(
+                    "an MoE model on the tensor axis is a later slice of the "
+                    "port (ROADMAP Queue 1 item 6's remainder); serve it at "
+                    "tp <= 1")
         self.cache_key = _programs_key(config, slots, buckets, max_top_k,
-                                       self.device)
+                                       self.device, tp)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a rank holds a slice of the model (a fold above 1)."""
+        return self.tp is not None and self.tp.physical_tp > 1
+
+    @property
+    def kv_heads(self) -> int:
+        """KV heads of this rank's pool."""
+        if self.tp is None:
+            return self.config.resolved_kv_heads
+        return self.tp.kv_heads(self.config)
 
     def place_params(self, params) -> TransformerLM:
         """The decode-mode model on this device, loaded from a state dict
         (``init_params`` or ``from_jax.state_dict_from_jax``); tensors are
-        cast to the model's dtypes."""
-        model = TransformerLM(self.config, self.device)
+        cast to the model's dtypes.  On a fold above 1 the model is this
+        rank's part of it and a whole state dict is cut to the rank's
+        slices (``ServeTPMesh.split_params``)."""
+        if not self.sharded:
+            model = TransformerLM(self.config, self.device)
+        else:
+            model = TransformerLM(self.config, self.device,
+                                  parallel=self.tp.parallel())
+            params = self.tp.split_params(params, self.config)
         model.load_state_dict(params)
         return model.eval()
 
@@ -174,8 +216,8 @@ class ServePrograms:
 
     def _zeros(self, batch: int) -> Pool:
         cfg = self.config
-        shape = (cfg.num_layers, batch, cfg.max_seq_len,
-                 cfg.resolved_kv_heads, cfg.resolved_head_dim)
+        shape = (cfg.num_layers, batch, cfg.max_seq_len, self.kv_heads,
+                 cfg.resolved_head_dim)
         return (
             torch.zeros(shape, dtype=cfg.dtype, device=self.device),
             torch.zeros(shape, dtype=cfg.dtype, device=self.device),
@@ -183,7 +225,7 @@ class ServePrograms:
 
     def init_cache(self) -> Pool:
         """A zeroed slot pool: K and V, ``[layers, slots, max_seq, H_kv,
-        hd]`` each."""
+        hd]`` each (``H_kv / tp`` heads on a fold)."""
         return self._zeros(self.slots)
 
     @staticmethod
@@ -193,13 +235,23 @@ class ServePrograms:
 
     def place_row(self, row: Pool) -> Pool:
         """A prefilled row (a host page streamed from a prefill replica)
-        on this device; a row already here is returned as it is."""
+        on this device; a row already here is returned as it is (on a
+        fold, a page of a prefill rank of the same fold: its heads)."""
         return tuple(t.to(self.device, non_blocking=True) for t in row)
 
-    @staticmethod
-    def pool_device_bytes(pool: Pool) -> int:
-        """Bytes of ``pool`` on its device (the whole pool: one device)."""
+    def pool_device_bytes(self, pool: Optional[Pool]) -> int:
+        """Bytes of ``pool`` on its device; on a fold, the largest per-rank
+        count of this program set's slot pool (``pool`` is None on a
+        parked rank)."""
+        if self.tp is not None:
+            return self.tp.pool_device_bytes(self.config, self.slots)
         return sum(t.numel() * t.element_size() for t in pool)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary (gathered over a fold)."""
+        if self.sharded:
+            return self.tp.gather_vocab(logits)
+        return logits
 
     # -- the three operations -------------------------------------------------
 
@@ -215,7 +267,7 @@ class ServePrograms:
         hidden = model.hidden(
             tokens, positions, caches=self._layer_caches(row)
         )
-        return row, model.logits(hidden[:, true_len - 1])
+        return row, self._whole(model.logits(hidden[:, true_len - 1]))
 
     def prefill(self, model, tokens, true_len, generator, temp, topk):
         """``(row, first [1], logp [1])``; ``row`` is a batch-1 pool."""
@@ -239,7 +291,8 @@ class ServePrograms:
         width = chunk.shape[1]
         grid = positions[:, None] + torch.arange(width,
                                                  device=positions.device)
-        return model(chunk, grid, caches=self._layer_caches(pool))
+        return self._whole(model(chunk, grid,
+                                 caches=self._layer_caches(pool)))
 
     def decode_logits(self, model, pool, tokens, positions) -> torch.Tensor:
         """Next-token logits ``[S, V]`` of one token per slot at its
@@ -364,6 +417,12 @@ class SpecPrograms:
                 f"draft device {draft.device} != target device "
                 f"{target.device}"
             )
+        t_tp, d_tp = _tp_key(target.tp), _tp_key(draft.tp)
+        if t_tp != d_tp:
+            raise ValueError(
+                f"draft tp {d_tp} != target tp {t_tp}: the draft shares "
+                "the TP decode path"
+            )
         self.target = target
         self.draft = draft
         self.spec_tokens = spec_tokens
@@ -402,12 +461,14 @@ def get_programs(
     buckets: Sequence[int],
     max_top_k: int = 64,
     device: DeviceLike = None,
+    tp: Optional[ServeTPMesh] = None,
 ) -> ServePrograms:
     device = resolve_device(device)
-    key = _programs_key(config, slots, buckets, max_top_k, device)
+    key = _programs_key(config, slots, buckets, max_top_k, device, tp)
     programs = _PROGRAMS.get(key)
     if programs is None:
-        programs = ServePrograms(config, slots, buckets, max_top_k, device)
+        programs = ServePrograms(config, slots, buckets, max_top_k, device,
+                                 tp)
         _PROGRAMS[key] = programs
     return programs
 

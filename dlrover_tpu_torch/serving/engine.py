@@ -8,7 +8,18 @@ occupied slot one token, and a request that finishes frees its slot for
 the next queued request on the very next step.  ``static_batching=True``
 is the baseline: admission waits until the whole pool drains.
 
-Two optional planes compose on top of the base loop:
+Three optional planes compose on top of the base loop:
+
+* **Tensor parallelism** (``tp=N``): one logical model of ``N`` shards
+  folded onto the first processes of the default ``torch.distributed``
+  group (``serving/tp.py``), every process running the same engine on
+  the same requests in lockstep: each holds its slice of the weights and
+  its ``H_kv / N`` heads of the KV pool, and every rank samples the same
+  tokens from the logits gathered whole.  :meth:`ServingEngine.fold_tp`
+  re-folds a live engine onto another number of ranks: the shards and KV
+  rows (and the draft's) move over the wire, queued and live requests
+  carry on, and a rank the fold leaves out is parked until a fold takes
+  it in again.
 
 * **Disaggregated prefill** (``role=``): a ``"prefill"`` engine turns
   prompts into :class:`PrefilledPage` s — KV cache rows on the host — on
@@ -30,9 +41,8 @@ drain, a ``compile`` event for its warm-up and a ``serve.swap`` event for
 every live weight swap (:meth:`ServingEngine.swap_weights`, the
 ``serve.swap`` seam).  With no fault plan the seams are no-ops.
 
-Not in this slice: tensor parallelism and re-folding (``tp > 1``,
-``fold_tp``: ROADMAP Queue 1 item 8's remainder), the master client
-(``client=``) and the memory registry (item 10).
+Not in this slice: the master client (``client=``) and the memory
+registry (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -49,7 +59,10 @@ import torch
 from dlrover_tpu_torch.common import faults, telemetry
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.retry import RetryPolicy
-from dlrover_tpu_torch.models.transformer import TransformerConfig
+from dlrover_tpu_torch.models.transformer import (
+    TransformerConfig,
+    param_shapes,
+)
 from dlrover_tpu_torch.rl.generation import SamplingParams
 from dlrover_tpu_torch.runtime.device import DeviceLike
 from dlrover_tpu_torch.serving.bucketing import (
@@ -63,6 +76,7 @@ from dlrover_tpu_torch.serving.decode import (
     get_programs,
     get_spec_programs,
 )
+from dlrover_tpu_torch.serving.tp import ServeTPMesh, build_tp_mesh
 from dlrover_tpu_torch.trainer.state_digest import format_digest
 
 ROLES = ("mixed", "prefill", "decode")
@@ -139,6 +153,112 @@ class _SlotState:
         self.target = request.sampling.max_new_tokens
 
 
+def _boxes(tp: ServeTPMesh, layouts) -> List[Dict[str, Any]]:
+    """Each rank of the fold's box of every leaf: ``[{name: slices}]``."""
+    par = [tp.parallel(r) for r in range(tp.physical_tp)]
+    return [{n: tuple(slice(b, e) for b, e in lay.index(p.coords, p.sizes))
+             for n, lay in layouts.items()} for p in par]
+
+
+def _gather_whole(programs, model, pool):
+    """The whole state dict and pool on rank 0 of ``programs``' fold (None
+    elsewhere): rank 0's own at a fold of 1, else every rank's slices
+    gathered over the fold's wire (one collective a leaf) and put in
+    place."""
+    tp = programs.tp
+    if tp.physical_tp == 1:
+        return (model.state_dict(), pool) if tp.rank == 0 else (None, None)
+    if not tp.member:
+        return None, None
+    root = tp.rank == 0
+    n = tp.physical_tp
+    layouts = tp.layouts(programs.config)
+    boxes = _boxes(tp, layouts) if root else None
+    params = {}
+    for name, t in model.state_dict().items():
+        got = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device) if root else None
+        tp.wire.gather(got, t.contiguous())
+        if root:
+            whole = torch.empty(layouts[name].shape, dtype=t.dtype,
+                                device=t.device)
+            for r in range(n):
+                whole[boxes[r][name]] = got[r]
+            params[name] = whole
+    whole_pool = None
+    if pool is not None:
+        whole_pool = []
+        for t in pool:
+            got = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                              device=t.device) if root else None
+            tp.wire.gather(got, t)
+            if root:
+                # [n, L, S, T, h, D] -> [L, S, T, n * h, D], rank-major.
+                whole_pool.append(got.movedim(0, -3).reshape(
+                    tuple(t.shape[:-2]) + (n * t.shape[-2], t.shape[-1])))
+        whole_pool = tuple(whole_pool) if root else None
+    return (params, whole_pool) if root else (None, None)
+
+
+def _scatter_fold(programs, params, pool, has_pool: bool):
+    """This rank's model and pool at ``programs``' fold from rank 0's
+    whole ``params`` and ``pool``: kept whole at a fold of 1, else cut to
+    every rank's slices and scattered over the fold's wire (one
+    collective a leaf).  ``(None, None)`` out of the fold."""
+    tp = programs.tp
+    if not tp.member:
+        return None, None
+    if tp.physical_tp == 1:
+        return programs.place_params(params), pool
+    root = tp.rank == 0
+    n = tp.physical_tp
+    layouts = tp.layouts(programs.config)
+    boxes = _boxes(tp, layouts) if root else None
+    sizes = tp.parallel().sizes
+    device = programs.device
+    local = {}
+    for name, lay in layouts.items():
+        # Every parameter is held in the config's param_dtype.
+        out = torch.empty(lay.local_shape(sizes),
+                          dtype=programs.config.param_dtype, device=device)
+        inp = torch.stack([params[name][boxes[r][name]] for r in range(n)]) \
+            if root else None
+        tp.wire.scatter(out, inp)
+        local[name] = out
+    model = programs.place_params(local)
+    if not has_pool:
+        return model, None
+    new_pool = programs.init_cache()
+    h = new_pool[0].shape[-2]
+    for i, out in enumerate(new_pool):
+        inp = torch.stack([pool[i].narrow(-2, r * h, h) for r in range(n)]) \
+            if root else None
+        tp.wire.scatter(out, inp)
+    return model, new_pool
+
+
+def _refold(old, new, model, pool, has_pool: bool):
+    """``(model, pool)`` of this rank at ``new``'s fold from its ``model``
+    and ``pool`` at ``old``'s (None where the rank holds none; a pool
+    moves when ``has_pool``): the old fold's slices are gathered whole on
+    rank 0, which cuts and scatters the new fold's."""
+    params, whole_pool = _gather_whole(old, model, pool)
+    del model, pool
+    return _scatter_fold(new, params, whole_pool, has_pool)
+
+
+def _broadcast_bytes(wire, data: Optional[bytes], device) -> bytes:
+    """``data`` of the wire's rank 0 on every rank of it."""
+    size = torch.tensor([len(data) if data is not None else 0],
+                        dtype=torch.int64, device=device)
+    wire.broadcast(size, src=0)
+    buf = torch.empty(int(size.item()), dtype=torch.uint8, device=device)
+    if data is not None:
+        buf.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+    wire.broadcast(buf, src=0)
+    return buf.cpu().numpy().tobytes()
+
+
 def _nearest_rank(sorted_values: Sequence[float], p: float) -> float:
     """The nearest-rank quantile (ceil(p*n)-th order statistic): an actual
     observed sample."""
@@ -148,9 +268,22 @@ def _nearest_rank(sorted_values: Sequence[float], p: float) -> float:
     return sorted_values[min(n - 1, max(0, math.ceil(p * n) - 1))]
 
 
+#: What a fold that takes a parked rank in does not copy to it from rank
+#: 0: the fold's device state, which each rank builds for itself, the
+#: sampler's generator (its state goes apart) and the admission policy
+#: (the same on every rank; it may hold callables).  Every other
+#: attribute is the host scheduler's, and is copied.
+_RANK_LOCAL_FIELDS = frozenset({
+    "tp", "device", "programs", "model", "cache", "draft_programs",
+    "draft_model", "draft_cache", "spec", "_gen", "admit_policy",
+})
+
+
 class ServingEngine:
     """Slot-pool scheduler bound to one (config, params) pair on one
-    device (``cuda`` unless ``device="cpu"`` is asked for)."""
+    device (``cuda`` unless ``device="cpu"`` is asked for); with ``tp`` >
+    1, this process's rank of a tensor-parallel fold onto as many of the
+    default group's processes as divide ``tp`` (``fold_tp`` changes it)."""
 
     def __init__(
         self,
@@ -174,30 +307,34 @@ class ServingEngine:
     ):
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
-        if tp and tp > 1:
-            raise NotImplementedError(
-                f"serving at tp={tp} is a later slice of the port (serving "
-                "TP, ROADMAP Queue 1 item 8's remainder); serve at tp <= 1")
         if client is not None:
             raise NotImplementedError(
                 "the master client (client=) is a later slice of the port "
                 "(the control plane, ROADMAP Queue 1 item 10)")
         if buckets is None:
             buckets = make_buckets(max(1, config.max_seq_len // 2))
+        self._base_config = config
         self.role = role
+        self.tp: Optional[ServeTPMesh] = (
+            build_tp_mesh(tp) if tp and tp > 1 else None
+        )
         self.programs = get_programs(
-            config, slots, tuple(buckets), max_top_k, device=device
+            config, slots, tuple(buckets), max_top_k, device=device,
+            tp=self.tp,
         )
         self.device = self.programs.device
-        self.model = self.programs.place_params(params)
         self.slots = slots
         self.buckets = self.programs.buckets
         self.static_batching = static_batching
-        self.cache = self.programs.init_cache()
+        self.model = self.cache = None
+        if not self.parked:
+            self.model = self.programs.place_params(params)
+            self.cache = self.programs.init_cache()
         # Speculative plane: the draft shares slots and buckets with the
         # target so its pool rows line up slot for slot.  A prefill-role
         # engine keeps the draft programs (to ship draft rows in its
         # pages) but no draft pool and no SpecPrograms: it never decodes.
+        self._draft_base_config = draft_config
         self.spec = None
         self.draft_programs = None
         self.draft_model = None
@@ -208,15 +345,17 @@ class ServingEngine:
                 raise ValueError("draft_config requires draft_params")
             self.draft_programs = get_programs(
                 draft_config, slots, tuple(buckets), max_top_k,
-                device=self.device,
+                device=self.device, tp=self.tp,
             )
-            self.draft_model = self.draft_programs.place_params(
-                draft_params)
+            if not self.parked:
+                self.draft_model = self.draft_programs.place_params(
+                    draft_params)
             if role != "prefill":
                 self.spec = get_spec_programs(
                     self.programs, self.draft_programs, spec_tokens
                 )
-                self.draft_cache = self.draft_programs.init_cache()
+                if not self.parked:
+                    self.draft_cache = self.draft_programs.init_cache()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._slot_state: List[Optional[_SlotState]] = [None] * slots
         self._tokens = np.zeros((slots,), np.int64)
@@ -254,6 +393,13 @@ class ServingEngine:
         self._spec_rounds = 0
         # Weight provenance: bumped by every verified hot-swap.
         self.weights_version = 0
+
+    @property
+    def parked(self) -> bool:
+        """Whether this rank is out of the current TP fold: it holds no
+        weights and no pool, and its steps do nothing until a fold takes
+        it in again."""
+        return self.tp is not None and not self.tp.member
 
     # -- admission ------------------------------------------------------------
 
@@ -495,6 +641,8 @@ class ServingEngine:
         plain, up to γ+1 speculating).  Prefill role: turn up to ``slots``
         queued prompts into outbox pages.  Returns the number of live
         slots decoded."""
+        if self.parked:
+            return 0
         self._step_i += 1
         t0 = time.perf_counter()
         if self.role == "prefill":
@@ -601,7 +749,10 @@ class ServingEngine:
         self, max_steps: Optional[int] = None
     ) -> Dict[str, RequestResult]:
         """Step until the queue, the pages and the live slots are empty;
-        returns every result so far."""
+        returns every result so far (at once on a parked rank, whose
+        requests the serving ranks carry)."""
+        if self.parked:
+            return self.results
         if max_steps is None:
             pending = len(self._queue) + len(self._live_slots()) \
                 + len(self._page_queue)
@@ -629,14 +780,67 @@ class ServingEngine:
     # -- TP re-fold -----------------------------------------------------------
 
     def fold_tp(self, physical_tp: int) -> None:
-        """Re-fold a TP engine onto another device count: refused, since
-        the port serves at tp <= 1 in this slice."""
-        raise NotImplementedError(
-            "fold_tp re-folds a tensor-parallel engine, a later slice of "
-            "the port (serving TP, ROADMAP Queue 1 item 8's remainder)")
+        """Re-fold a live TP engine onto ``physical_tp`` ranks (a resize):
+        the programs of the new fold swap in, and the weights and both KV
+        pools move to it over the wire: the old fold's shards are gathered
+        whole on rank 0 and cut into the new fold's, which rank 0 scatters
+        (a fold to 1 keeps the whole model on rank 0; ranks left out are
+        parked and drop theirs).  Queued and live requests carry on: a
+        fold that takes parked ranks in copies rank 0's scheduler state
+        and generator state to them.  Every rank of the logical width
+        calls it; a fold back to a width seen before reuses its programs
+        (the memo keys on ``(logical, physical)``)."""
+        if self.tp is None:
+            raise ValueError("fold_tp requires an engine built with tp > 1")
+        if physical_tp == self.tp.physical_tp:
+            return
+        old, new = self.tp, self.tp.fold_to(physical_tp)
+        programs = get_programs(
+            self._base_config, self.slots, self.buckets,
+            self.programs.max_top_k, device=self.device, tp=new,
+        )
+        self.model, self.cache = _refold(
+            self.programs, programs, self.model, self.cache, True)
+        if self.draft_programs is not None:
+            draft_programs = get_programs(
+                self._draft_base_config, self.slots, self.buckets,
+                self.programs.max_top_k, device=self.device, tp=new,
+            )
+            self.draft_model, self.draft_cache = _refold(
+                self.draft_programs, draft_programs, self.draft_model,
+                self.draft_cache, self.spec is not None)
+            self.draft_programs = draft_programs
+            if self.spec is not None:
+                self.spec = get_spec_programs(
+                    programs, draft_programs, self.spec_tokens)
+        self.programs = programs
+        self.tp = new
+        if new.physical_tp > old.physical_tp and new.member:
+            self._sync_scheduler(new)
+        logger.info("serve TP re-folded: logical=%d physical=%d (rank %d%s)",
+                    new.logical_tp, new.physical_tp, new.rank,
+                    ", parked" if self.parked else "")
+
+    def _sync_scheduler(self, tp: ServeTPMesh) -> None:
+        """Rank 0's scheduler and generator state onto every rank of the
+        fold (one broadcast of the pickled state)."""
+        import pickle
+
+        state = None
+        if tp.rank == 0:
+            state = pickle.dumps((
+                {k: v for k, v in vars(self).items()
+                 if k not in _RANK_LOCAL_FIELDS},
+                self._gen.get_state()))
+        state = _broadcast_bytes(tp.wire, state, self.device)
+        fields, gen_state = pickle.loads(state)
+        for k, v in fields.items():
+            setattr(self, k, v)
+        self._gen.set_state(gen_state)
 
     def kv_device_bytes(self) -> int:
-        """Bytes of the target KV pool on its device."""
+        """Bytes of the target KV pool on its device; on a TP fold the
+        largest per-rank count."""
         return self.programs.pool_device_bytes(self.cache)
 
     # -- stats / telemetry ----------------------------------------------------
@@ -718,6 +922,10 @@ class ServingEngine:
         prior tensors, which are kept until the compare passes.  Every
         outcome books a ``serve.swap`` telemetry event.
 
+        On a TP fold each rank swaps its own slices of the weights and
+        checks its digest against its own host copy of them; a parked rank
+        swaps nothing (``parked`` in its report).
+
         Returns a report (``ok``, ``rolled_back``, ``version``, ``step``,
         ``digest``, ``seconds``); raises ``ValueError`` when the checkpoint
         cannot map onto the model (a missing leaf, or a drifted shape or
@@ -726,6 +934,12 @@ class ServingEngine:
         """
         from dlrover_tpu_torch.checkpoint.engine import StorageStepReader
 
+        if self.parked:
+            # The fold that takes this rank in again brings rank 0's
+            # weights and version.
+            return {"ok": True, "rolled_back": False, "parked": True,
+                    "version": self.weights_version, "step": None,
+                    "digest": None, "seconds": 0.0}
         t0 = time.perf_counter()
         reader = StorageStepReader(checkpoint_dir, num_hosts=1,
                                    device="cpu")
@@ -733,7 +947,17 @@ class ServingEngine:
         if arrays is None:
             raise RuntimeError(
                 f"no verifiable committed step in {checkpoint_dir}")
-        sources = hotswap.map_checkpoint_to_params(arrays, self.model)
+        if self.programs.sharded:
+            # Each rank of a fold swaps its own slices, checked against
+            # its own host copy of them.
+            cfg = self.programs.config
+            whole = {n: torch.empty(shape, dtype=cfg.param_dtype,
+                                    device="meta")
+                     for n, shape in param_shapes(cfg).items()}
+            sources = self.tp.split_params(
+                hotswap.map_checkpoint_to_params(arrays, whole), cfg)
+        else:
+            sources = hotswap.map_checkpoint_to_params(arrays, self.model)
         reference = hotswap.host_digest(sources)
         prior = self.model.state_dict()
         landed = {name: torch.empty_like(t).copy_(sources[name],
@@ -748,6 +972,11 @@ class ServingEngine:
             hotswap.flip_param_bit(self.model)
         device_digest = int(hotswap.device_digest(self.model))
         ok = device_digest == reference
+        if self.programs.sharded:
+            # One rank's mismatch rolls every rank of the fold back.
+            vote = torch.tensor([int(ok)], dtype=torch.int64)
+            self.tp.wire.all_reduce(vote, op=torch.distributed.ReduceOp.MIN)
+            ok = bool(vote.item())
         rolled_back = False
         if not ok:
             # Corrupted weights never answer a request.

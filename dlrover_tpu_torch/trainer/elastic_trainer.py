@@ -41,12 +41,13 @@ another (into one process, for one).  The SDC digest completes each
 split leaf's byte sum over the world.  A live re-layout folds the data
 axis only; on a mesh with an fsdp or tensor axis above 1 it is refused
 (ROADMAP Queue 1 item 5), and with an expert axis above 1 too, until the
-virtual mesh has its expert fields (item 6's remainder).
+virtual mesh has its expert fields (item 6's remainder), and with a seq
+axis above 1 (item 9).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the ``seq`` and ``pipe`` mesh axes (``runtime/mesh.check_axes``;
-ROADMAP Queue 1 item 9); ``auto_tune``, device-time capture
+the ``pipe`` mesh axis (``runtime/mesh.check_axes``; ROADMAP Queue 1
+item 9); ``auto_tune``, device-time capture
 (``profile_every``), the memory report, OOM forensics and the agent's
 device metrics (item 10).  An MoE model's router statistics are
 harvested on the report cadence (``train_lib.build_moe_stats_fn``, a
@@ -582,6 +583,11 @@ class ElasticTrainer:
                 "axis: the port's virtual mesh folds the data axis only "
                 "(ROADMAP Queue 1 item 5; the expert fields, item 6's "
                 "remainder)")
+        if self.train.sp > 1:
+            raise NotImplementedError(
+                "a live re-layout on a mesh with a seq axis: the port's "
+                "virtual mesh folds the data axis only (ROADMAP Queue 1 "
+                "item 9)")
         if new_world == self._world:
             return {
                 "ok": True, "noop": True, "fallback": False,

@@ -98,11 +98,21 @@ reductions over an expert leaf are completed over the expert axis.
 :func:`build_moe_stats_fn` is the router statistics' harvest, a forward
 of its own.
 
-Not ported yet, and refused when asked for: the ``seq`` and ``pipe`` mesh
-axes (``runtime/mesh.check_axes``: ROADMAP Queue 1 item 9), MoE on an
-fsdp or tensor axis (item 6's remainder), and the overlap engine and the
-int8 wires beside an fsdp, tensor or expert axis (they stay the data
-axis's).
+The seq axis (Ulysses).  On a mesh with ``seq`` above 1 each rank of a
+seq group takes the same rows as the others and its ``S / sp`` slice of
+their columns (``inputs``, ``targets`` and ``weights`` alike: the batch
+carries its shifted targets, so no token crosses a slice's edge).  The
+model runs each block's attention on the whole sequence over its rank's
+heads (``models/attention.ulysses_attention``); the loss is normalised
+by the token weight summed over the batch group and the seq group, and
+every gradient is summed over ``seq`` (one all-reduce for all of them)
+before the data axis's reduction, ZeRO-1's included.
+
+Not ported yet, and refused when asked for: the ``pipe`` mesh axis
+(``runtime/mesh.check_axes``: ROADMAP Queue 1 item 9), MoE on an fsdp,
+tensor or seq axis (item 6's remainder), and the overlap engine and the
+int8 wires beside an fsdp, tensor, expert or seq axis (they stay the
+data axis's).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -371,6 +381,11 @@ class Train:
         #: The batch group (data x fsdp x expert): its ranks split the
         #: batch.
         self.batch_axes = lr.batch_group_axes(self.mesh, self.rules)
+        #: The seq axis: its degree, this rank's slice of the sequence and
+        #: the axes the token and loss sums run over.
+        self.sp = par.seq
+        self.sp_rank = coords.get(mesh_lib.SEQ_AXIS, 0)
+        self.sum_axes = lr.grad_sum_axes(self.mesh, self.rules)
         self.batch_ranks, self.batch_rank = 1, 0
         for axis in self.batch_axes:
             self.batch_ranks *= sizes[axis]
@@ -421,9 +436,9 @@ class Train:
     def state_wire(self) -> Optional[Wire]:
         """The group whose ranks hold the state between them (an SDC
         digest completes split leaves over it, a save's health vote runs
-        over it): the data wire, or the world's on a mesh with an fsdp or
-        tensor axis."""
-        if not self.parallel.active:
+        over it): the data wire, or the world's on a mesh with an fsdp,
+        tensor, expert or seq axis."""
+        if not self.parallel.active and self.sp <= 1:
             return self.wire
         if self._world_wire is None:
             self._world_wire = Wire(axis="world")
@@ -433,6 +448,11 @@ class Train:
     def local_batch(self) -> int:
         """This rank's rows of the global batch."""
         return self.global_batch_size // self.batch_ranks
+
+    @property
+    def local_seq(self) -> int:
+        """This rank's columns of each row (its seq slice)."""
+        return self.seq_len // self.sp
 
     def _check_blocks(self) -> None:
         """A block-quantized optimizer needs each fsdp/tensor box of a
@@ -633,10 +653,10 @@ class Train:
                                  device=self.device)
         else:
             weights = dev(batch["weights"], torch.float32)
-        if tuple(inputs.shape) != (self.local_batch, self.seq_len):
+        if tuple(inputs.shape) != (self.local_batch, self.local_seq):
             raise ValueError(
                 f"batch inputs {tuple(inputs.shape)} != (global_batch_size"
-                f" / dp, seq_len) = {(self.local_batch, self.seq_len)}"
+                f" / dp, seq_len / sp) = {(self.local_batch, self.local_seq)}"
             )
         return inputs, targets, weights
 
@@ -772,26 +792,30 @@ class Train:
         self._hooked = model
 
     def _global_sum(self, values: torch.Tensor) -> torch.Tensor:
-        """``values`` (fp32) summed over the batch group's ranks."""
-        if not self.batch_axes:
+        """``values`` (fp32) summed over the batch group's ranks and the
+        seq group's (the tokens of every rank)."""
+        if not self.sum_axes:
             return values
         values = values.clone()
-        for axis in reversed(self.batch_axes):
+        for axis in reversed(self.sum_axes):
             self.wires[axis].all_reduce(values)
         return values
 
     def _axis_sums(self, grads: Dict[str, torch.Tensor]) -> None:
-        """In place: over each batch axis that also splits leaves (fsdp,
-        expert), the gradients of the leaves it does not split (each
-        rank's share from its rows) summed over its group, one all-reduce
-        for all of them.  The leaves fsdp splits were reduce-scattered in
-        the backward; the leaves expert splits hold every chunk routed to
-        the rank's experts already."""
-        for axis in (mesh_lib.FSDP_AXIS, mesh_lib.EXPERT_AXIS):
+        """In place: over each axis that also splits leaves or tokens
+        (fsdp, expert, seq), the gradients of the leaves it does not split
+        (each rank's share from its rows or tokens) summed over its group,
+        one all-reduce for all of them.  The leaves fsdp splits were
+        reduce-scattered in the backward; the leaves expert splits hold
+        every chunk routed to the rank's experts already; seq splits no
+        leaf."""
+        for axis in (mesh_lib.FSDP_AXIS, mesh_lib.EXPERT_AXIS,
+                     mesh_lib.SEQ_AXIS):
             if self.parallel.sizes.get(axis, 1) <= 1:
                 continue
             names = [n for n in self.leaf_names if n in grads
-                     and self.layouts[n].dim_of(axis) is None]
+                     and (self.layouts is None
+                          or self.layouts[n].dim_of(axis) is None)]
             if not names:
                 continue
             flat = torch.cat([grads[n].reshape(-1) for n in names])
@@ -876,7 +900,7 @@ class Train:
         state.step += 1
         metrics = {
             "loss": sums[0] / w_total,
-            "aux_loss": sums[1] / (n_micro * self.batch_ranks),
+            "aux_loss": sums[1] / (n_micro * self.batch_ranks * self.sp),
             "tokens": w_total,
             "grad_norm": grad_norm,
             "step": state.step,
@@ -950,12 +974,12 @@ class Train:
         inputs, targets, weights = self._batch(batch)
         ce_sum, total_weight, aux = self._forward_sums(
             state.model, inputs, targets, weights)
-        if self.batch_ranks > 1:
+        if self.sum_axes:
             sums = self._global_sum(torch.stack([
                 ce_sum.float(), weights.float().sum(), aux.float()]))
             total_weight = torch.clamp(sums[1], min=1.0)
             return {"loss": sums[0] / total_weight,
-                    "aux_loss": sums[2] / self.batch_ranks,
+                    "aux_loss": sums[2] / (self.batch_ranks * self.sp),
                     "tokens": total_weight}
         return {"loss": ce_sum / total_weight, "aux_loss": aux,
                 "tokens": total_weight}
@@ -1028,7 +1052,7 @@ def build_train(
     device: DeviceLike = None,
 ) -> Train:
     """The counterpart of ``build_sharded_train``: one rank's step on
-    ``mesh`` (its data, fsdp, tensor and expert axes; :func:`runtime.mesh.
+    ``mesh`` (its data, fsdp, tensor, expert and seq axes; :func:`runtime.mesh.
     single_device_mesh`, one rank, when None) under ``rules``
     (``parallel.rules.DEFAULT_RULES`` when None)."""
     if grad_accum < 1:
@@ -1048,16 +1072,21 @@ def build_train(
     sizes = mesh_lib.mesh_axis_sizes(mesh)
     mesh_lib.check_axes(sizes)
     batch_axes = lr.batch_group_axes(mesh, rules)
+    sp = lr.sequence_axis(mesh, rules)
     model_axes = [a for a in (mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS,
-                              mesh_lib.EXPERT_AXIS) if sizes.get(a, 1) > 1]
+                              mesh_lib.EXPERT_AXIS, mesh_lib.SEQ_AXIS)
+                  if sizes.get(a, 1) > 1]
     if model_axes:
         check_parallel(config, sizes)
+    if seq_len % sp:
+        raise ValueError(
+            f"seq_len {seq_len} does not divide by the seq degree {sp}")
     if model_axes and (overlap or reduce_quant != "none"
                        or allgather_quant != "none"):
         raise NotImplementedError(
             f"the overlap engine and the int8 wires ride the data axis "
             f"alone; beside the {'/'.join(model_axes)} axis they are not "
-            f"ported (ROADMAP Queue 1 items 5 and 6)")
+            f"ported (ROADMAP Queue 1 items 5, 6 and 9)")
     world = 1
     for n in sizes.values():
         world *= n
@@ -1265,6 +1294,11 @@ def _own_rows(value, train: Train):
     * B / n)``).  A dense step's sums do not depend on how the rows are
     grouped; an MoE step's router means are taken per microbatch."""
     rows = int(value.shape[0]) if getattr(value, "shape", None) else 0
+    if train.sp > 1 and len(value.shape) >= 2 \
+            and value.shape[1] == train.seq_len:
+        # The rank's slice of every row's columns (its seq slice).
+        cols = train.local_seq
+        value = value[:, train.sp_rank * cols:(train.sp_rank + 1) * cols]
     if train.batch_ranks <= 1 or rows != train.global_batch_size:
         return value
     accum, r = train.grad_accum, train.batch_rank
@@ -1286,7 +1320,9 @@ def shard_batch(batch: Mapping[str, Any], train: Train
     its dtype passes through untouched (no copy, no "place" event), so
     the trainer hands prefetched batches back through this function.
 
-    Over a batch group of ``n`` ranks (``data x fsdp x expert``) each rank
+    Under a seq axis each rank takes its ``S / sp`` slice of the columns
+    of a whole-length batch.  Over a batch group of ``n`` ranks (``data x
+    fsdp x expert``) each rank
     takes its own rows: of a whole global batch, the block ``[r * B / n,
     (r + 1) * B / n)`` for its batch index ``r`` (the rows the JAX batch
     sharding puts there; with ``grad_accum`` microbatches, its ``1 / n``

@@ -337,10 +337,11 @@ def test_moe_init_params_match_jax_scales():
 
 def test_serve_programs_refuse_moe_configs():
     """What is left of the refusal: an MoE config is refused only
-    tensor-parallel (serving TP, ROADMAP Queue 1 item 8's remainder); at
-    tp <= 1 it serves (``test_moe_serves_at_tp1``)."""
+    tensor-parallel (an MoE model on the tensor axis, ROADMAP Queue 1 item
+    6's remainder), whatever the fold; at tp <= 1 it serves
+    (``test_moe_serves_at_tp1``)."""
     cfg = TConfig(**GPT2_MOE, moe_dispatch="grouped")
-    with pytest.raises(NotImplementedError, match="item 8's remainder"):
+    with pytest.raises(NotImplementedError, match="item 6's remainder"):
         ServingEngine(cfg, init_params(cfg, device="cpu"), slots=2,
                       buckets=[16], tp=2, device="cpu")
 

@@ -428,11 +428,12 @@ def test_role_guards(setup):
     with pytest.raises(ValueError, match="role"):
         ns.engine(role="router")
     _, _, tcfg, state = setup
-    with pytest.raises(NotImplementedError, match="item 8's remainder"):
-        ServingEngine(tcfg, state, tp=2, device="cpu")
+    # tp=2 in a world of one process: the logical 2 folded onto it.
+    folded = ServingEngine(tcfg, state, tp=2, device="cpu")
+    assert (folded.tp.logical_tp, folded.tp.physical_tp) == (2, 1)
     with pytest.raises(NotImplementedError, match="item 10"):
         ServingEngine(tcfg, state, client=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8's remainder"):
+    with pytest.raises(ValueError, match="tp > 1"):
         pre.fold_tp(2)
     assert pre.kv_device_bytes() == 2 * 2 * 2 * SEQ * 64 * 4
 

@@ -439,14 +439,16 @@ def test_build_train_refuses_later_slices():
         assert (train.zero1, train.overlap, train.dp, train.wire) == (
             False, False, 1, None)
 
-    class SeqMesh:
+    # The pipe axis is still a later slice (the seq axis runs since
+    # ROADMAP Queue 1 item 9's first part, tests/test_torch_seq_parallel.py).
+    class PipeMesh:
         mesh_dim_names = ("data", "fsdp", "pipe", "expert", "seq",
                           "tensor")
-        shape = (1, 1, 1, 1, 2, 1)
+        shape = (1, 1, 2, 1, 1, 1)
 
     with pytest.raises(NotImplementedError, match="later slice"):
         ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
-                        device="cpu", mesh=SeqMesh)
+                        device="cpu", mesh=PipeMesh)
     with pytest.raises(ValueError, match="reduce_quant"):
         ttl.build_train(cfg, opt, global_batch_size=8, seq_len=32,
                         device="cpu", reduce_quant="fp8")

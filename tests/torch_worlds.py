@@ -341,7 +341,8 @@ WIDE = dict(num_layers=1, d_model=512, num_heads=4, vocab_size=128,
 
 def mp_config(model):
     """The port's config of a model key: ``gpt2`` (``TINY``), ``llama``
-    (``LLAMA``, GQA and an untied head), ``wide`` (``WIDE``),
+    (``LLAMA``, GQA and an untied head), ``llama_mha`` (``LLAMA`` with
+    as many KV heads as heads), ``wide`` (``WIDE``),
     ``gpt2_wot`` (``TINY`` with the MLP's ``wo`` stored transposed) or
     ``moe_<dispatch>`` (``MOE``), fp32."""
     from dlrover_tpu_torch.models import gpt2_config, llama_config
@@ -350,6 +351,9 @@ def mp_config(model):
         return moe_config(model[4:])
     if model == "llama":
         return llama_config("tiny", **LLAMA, dtype=torch.float32)
+    if model == "llama_mha":
+        return llama_config("tiny", **{**LLAMA, "num_kv_heads": 4},
+                            dtype=torch.float32)
     return gpt2_config("124m", **(WIDE if model == "wide" else TINY),
                        dtype=torch.float32,
                        wo_transposed=model == "gpt2_wot")
@@ -425,6 +429,209 @@ def assemble_params(ranks, key):
             arr = whole.setdefault(name, np.zeros(shape, value.dtype))
             arr[tuple(slice(b, e) for b, e in index)] = value
     return whole
+
+
+# -- the seq axis -----------------------------------------------------------------
+
+#: ``ulysses_attention`` cases: (id, batch, sequence, heads, KV heads, head
+#: dim, packed segments).
+ULYSSES_CASES = [("mha", 2, 16, 4, 4, 8, False), ("gqa", 2, 16, 4, 2, 8,
+                                                   False),
+                 ("segments", 2, 16, 4, 4, 8, True)]
+
+
+def ulysses_inputs(case, seed=0):
+    """A case's whole ``q, k, v`` ``[B, S, H, D]``, the output cotangent
+    and the segment ids (None when unpacked), fp32 numpy."""
+    _, b, s, h, hkv, d, packed = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    dout = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    seg = (np.arange(s)[None, :] // 5).repeat(b, 0).astype(np.int32) \
+        if packed else None
+    return q, k, v, dout, seg
+
+
+def run_ulysses(rank, n, cases):
+    """Each case through ``ulysses_attention`` (the xla attention) over a
+    seq group of the world: this rank's slices of the output and of the
+    gradients of ``q``, ``k`` and ``v``."""
+    from dlrover_tpu_torch.models.attention import (
+        ulysses_attention,
+        xla_attention,
+    )
+    from dlrover_tpu_torch.parallel.sharding import SeqGroup
+    from dlrover_tpu_torch.parallel.wire import Wire
+
+    group = SeqGroup(Wire(axis="seq"), n, rank)
+    out = {}
+    for case in cases:
+        q, k, v, dout, seg = ulysses_inputs(case)
+        s = q.shape[1] // n
+        cut = slice(rank * s, (rank + 1) * s)
+        q, k, v = (torch.from_numpy(x[:, cut]).requires_grad_()
+                   for x in (q, k, v))
+        ids = None if seg is None else torch.from_numpy(seg[:, cut])
+
+        def attn(q, k, v, seg):
+            return xla_attention(q, k, v, causal=True, segment_ids=seg)
+
+        o = ulysses_attention(attn, q, k, v, ids, group)
+        o.backward(torch.from_numpy(dout[:, cut]))
+        out[case[0]] = tuple(t.detach().numpy().copy()
+                             for t in (o, q.grad, k.grad, v.grad))
+    return out
+
+
+def run_sp_cases(rank, n, payload):
+    """:func:`run_mp_cases` of ``payload``, then its ``"planted"`` cases
+    with every rank's position offset 0 (a wrong offset), and at world 2
+    the ``ulysses_attention`` cases (key ``"ulysses"``)."""
+    from dlrover_tpu_torch.parallel import sharding
+
+    out = run_mp_cases(rank, n, payload)
+    planted = [c for c in payload.get("planted", []) if c[3] == n]
+    if planted:
+        offset = sharding.SeqGroup.offset
+        sharding.SeqGroup.offset = lambda self, local_len: 0
+        try:
+            out.update(run_mp_cases(rank, n, {"init": payload["init"],
+                                              "cases": planted}))
+        finally:
+            sharding.SeqGroup.offset = offset
+    if n == 2:
+        out["ulysses"] = run_ulysses(rank, n, ULYSSES_CASES)
+    return out
+
+
+# -- serving TP ---------------------------------------------------------------------
+
+#: A small Llama with GQA (4 heads, 2 KV heads) for the serve TP cases.
+SERVE_LLAMA = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                   d_ff=128, vocab_size=128, max_seq_len=64)
+SERVE_BUCKETS = (16, 32)
+SERVE_SLOTS = 2
+#: (prompt length, new tokens) of the greedy requests.
+SERVE_GREEDY = [(5, 6), (20, 4), (12, 8), (30, 3), (17, 5)]
+
+
+def serve_config():
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("tiny", **SERVE_LLAMA, dtype=torch.float32)
+
+
+def serve_requests(shapes=SERVE_GREEDY, prefix="r", temp=0.0):
+    from dlrover_tpu_torch.rl.generation import SamplingParams
+    from dlrover_tpu_torch.serving import Request
+
+    return [Request(f"{prefix}{i}", np.random.default_rng(i).integers(
+        1, SERVE_LLAMA["vocab_size"], size=p), sampling=SamplingParams(
+            max_new_tokens=n, temperature=temp))
+        for i, (p, n) in enumerate(shapes)]
+
+
+def _streams(results):
+    return {u: (r.tokens.tolist(), r.logprobs.tolist())
+            for u, r in results.items()}
+
+
+def run_serve_tp(rank, n, payload):
+    """Serving at ``tp=n`` over the world: the greedy streams and the
+    per-rank KV bytes of one engine; then, on a fresh engine, a fold
+    ``n -> 1 -> n`` mid-serve (half the requests submitted and stepped
+    once before each fold) and every rank's streams after it, with what
+    each fold left the rank holding."""
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.serving import ServingEngine
+
+    cfg = serve_config()
+    state = {k: torch.from_numpy(v) for k, v in payload["state"].items()}
+
+    def engine():
+        return ServingEngine(cfg, state, tp=n, slots=SERVE_SLOTS,
+                             buckets=SERVE_BUCKETS, seed=0, device="cpu")
+
+    out = {}
+    e = engine()
+    wire_lib.reset_counts()
+    out["streams"] = _streams(e.run(serve_requests()))
+    out["wire"] = dict(wire_lib.COUNTS["axes"])
+    out["kv_bytes"] = e.kv_device_bytes()
+    out["own_kv_bytes"] = sum(t.numel() * t.element_size() for t in e.cache)
+    out["local_kv_heads"] = int(e.cache[0].shape[-2])
+    out["sampled"] = {u: v for u, v in _streams(e.run(serve_requests(
+        prefix="s", temp=0.8))).items() if u.startswith("s")}
+
+    e = engine()
+    reqs = serve_requests()
+    for r in reqs[:3]:
+        e.submit(r)
+    e.step()
+    e.fold_tp(1)
+    out["folded"] = {"parked": e.parked, "model": e.model is not None,
+                     "physical": e.tp.physical_tp,
+                     "kv_bytes": e.kv_device_bytes()}
+    e.drain()
+    for r in reqs[3:]:
+        e.submit(r)
+    e.step()
+    e.fold_tp(n)
+    out["unfolded"] = {"parked": e.parked, "physical": e.tp.physical_tp,
+                       "local_kv_heads": int(e.cache[0].shape[-2])}
+    out["fold_streams"] = _streams(e.drain())
+
+    # Disaggregated at tp=n: pages of a prefill engine's rank carry its
+    # KV heads into the same rank's decode engine.
+    pre = ServingEngine(cfg, state, tp=n, slots=SERVE_SLOTS,
+                        buckets=SERVE_BUCKETS, seed=0, device="cpu",
+                        role="prefill")
+    dec = ServingEngine(cfg, state, tp=n, slots=SERVE_SLOTS,
+                        buckets=SERVE_BUCKETS, seed=0, device="cpu",
+                        role="decode")
+    reqs = serve_requests(prefix="d")
+    for r in reqs:
+        pre.submit(r)
+    while pre._queue:
+        pre.step()
+    out["page_heads"] = sorted({int(p.row[0].shape[-2])
+                                for p in pre.outbox})
+    out["page_bytes"] = [p.nbytes for p in pre.outbox]
+    while pre.outbox:
+        dec.insert_page(pre.outbox.popleft())
+    out["page_streams"] = _streams(dec.drain())
+    if payload.get("swap_dir"):
+        out.update(serve_tp_swap(rank, engine(), payload["swap_dir"]))
+    return out
+
+
+def serve_tp_swap(rank, e, swap_dir):
+    """A live swap at tp=2 from the checkpoint in ``swap_dir``: the
+    report, the streams after it; then a swap under a ``serve.swap`` plan
+    on rank 1 alone (its landed slices flipped), which every rank rolls
+    back."""
+    from dlrover_tpu_torch.common import faults
+
+    out = {}
+    e.submit(serve_requests(prefix="v")[0])
+    e.step()
+    report = e.swap_weights(swap_dir)
+    keys = ("ok", "rolled_back", "version", "step", "digest")
+    out["swap"] = {k: report[k] for k in keys}
+    out["swap_streams"] = {u: v for u, v in _streams(e.run(serve_requests(
+        prefix="w"))).items() if u.startswith(("v", "w"))}
+    if rank == 1:
+        faults.configure("serve.swap:error@1", seed=0)
+    try:
+        report = e.swap_weights(swap_dir)
+    finally:
+        faults.reset()
+    out["swap_fault"] = {k: report[k] for k in keys}
+    out["params_after"] = {k: v.numpy().copy()
+                           for k, v in e.model.state_dict().items()}
+    return out
 
 
 # -- the expert axis ---------------------------------------------------------------
