@@ -19,6 +19,10 @@
                                         # (train_sp2, Ulysses)
     python3 chip_smoke.py --serve-tp    # build and tensor-parallel serving
                                         # (serve_tp2)
+    python3 chip_smoke.py --ring        # build and ring attention on the
+                                        # seq axis (train_ring2)
+    python3 chip_smoke.py --pp          # build and the pipeline on the
+                                        # pipe axis (train_pp2)
     python3 chip_smoke.py --digest      # build and the digest kernel check
     python3 chip_smoke.py --serve       # build and the serving phases (serve,
                                         # serve_faults, serve_spec,
@@ -42,7 +46,8 @@ Llama-2 7B's width on the fsdp and tensor axes in a world of two
 processes with a sharded save, trains the MoE entry's width on the expert
 axis (the a2a and int8 a2a dispatch) and on the data axis (the grouped
 dispatch) in a world of two processes, trains Llama-2 7B's width on the
-seq axis (Ulysses) and serves it tensor-parallel, with a fold 2 -> 1 ->
+seq axis (Ulysses, and ring attention), on the pipe axis (GPipe and the
+circular schedule) and serves it tensor-parallel, with a fold 2 -> 1 ->
 2 mid-serve, in the same world, serves
 under an injected admission fault plan, speculates with a draft, serves a
 replica fleet (failover, drain, disaggregated prefill, a live weight
@@ -345,9 +350,13 @@ of the JAX package.  Phases, each one JSON line on stdout:
                median in the same call.  Printed beside it: the loop's
                timeline (host and device time at each step's start and
                end of dispatch, around the digest, the metrics flush, the
-               eval and the save), and the digest's device time queued
-               behind a sleeping kernel; the digest must equal the plain
-               fold of per-leaf byte sums.
+               eval and the save), the host beside it (``host``: each
+               garbage collection in the loop and the longest once the
+               first step started, each thread's CPU seconds over the fit,
+               what a full collection costs after it), and the digest's
+               device time queued behind a sleeping kernel and its host
+               time by function (cProfile); the digest must equal the
+               plain fold of per-leaf byte sums.
 9d. ``train_dp2``  two processes on ``cuda:0`` joined in a gloo group
                (every collective staged through host memory,
                ``parallel/wire.py``; the copies counted; the world's
@@ -455,6 +464,39 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ranks; rank 1's decode attention reading its KV heads
                rolled by one (the prefill untouched: it must fail both
                the replay and the streams, at a decode position).  ``--serve-tp`` runs the build and this phase.
+9j. ``train_ring2``  the same world, ``train_sp2``'s model and batch
+               under ring attention (``RING_RULES``, ``full`` remat) at
+               ``seq=2``, against a world-1 ring of one within
+               ``SP2_FLOOR``; the ring of one itself within the same
+               floors of ``train_sp2``'s first world-1 run (flash, the
+               same function), and its attention at ``[1, 4096, 32,
+               128]`` within ``RING_OP_RTOL`` of plain fp32 attention
+               (output and q/k/v gradients); every step's seq-wire bytes
+               and calls equal to ``_ring2_predicted_wire``, no kernel
+               launched (the ring, not flash, computes the attention),
+               the backward keeping less than one chunk's scores and a
+               call's device peak under n of them.  Planted, each must
+               fail: every chunk's key positions from the next rank's
+               chunk (a forward at the init); every tile's scores scaled
+               1% too much in the ring of one (the plain-attention
+               check).
+               ``--ring`` runs the build and this phase.
+9k. ``train_pp2``  the same world, Llama-2 7B's width at ``PP2_LAYERS``
+               of 32 layers, batch ``PP2_BATCH`` x 4096 in
+               ``PP2_MICRO`` microbatches, ``flash_only``, at ``pipe=2``:
+               GPipe and the circular schedule (``pipeline_interleave``
+               2), each against the world-1 run of the same model (run
+               twice for its noise): ticks, useful ticks, handoff and
+               relayout bytes, the pipe wire's bytes and calls and K1/K3
+               a step and rank equal to ``_pp2_predicted``, each stage
+               holding its own layers and at most ``PP2_RESIDENT_SHARE``
+               of world 1's bytes.  Planted: the first stage's
+               microbatches rotated a slot (a forward at the init) must
+               fail.  ``--pp`` runs the build and this phase.  In the
+               whole script the world-1 runs of ``train_sp2``,
+               ``train_ring2`` and ``train_pp2`` run in this process
+               while ``train_dp2``'s ranks do
+               (``world1_references_start``).
 9g. ``train_opts``  the training options at GPT-2 1.5B's width
                (``OPTS_LAYERS`` of 48 layers, fp32 parameters, bf16,
                flash, 16 x 1024), one model and one batch: every remat
@@ -2452,6 +2494,37 @@ def _example_stop():
     _EXAMPLE.clear()
 
 
+def _thread_cpu_ticks():
+    """{native thread id: user + system clock ticks} of each thread of this
+    process, read from ``/proc`` (Linux)."""
+    base = f"/proc/{os.getpid()}/task"
+    out = {}
+    for tid in os.listdir(base):
+        try:
+            with open(f"{base}/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        out[int(tid)] = int(fields[11]) + int(fields[12])
+    return out
+
+
+def _thread_names():
+    """{native thread id: name}: Python's names, else the kernel's."""
+    import threading
+
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    base = f"/proc/{os.getpid()}/task"
+    for tid in os.listdir(base):
+        if int(tid) not in names:
+            try:
+                with open(f"{base}/{tid}/comm") as f:
+                    names[int(tid)] = f.read().strip()
+            except OSError:
+                pass
+    return names
+
+
 def train_fit_and_check(on_measured=None):
     """``ElasticTrainer.fit`` on the ``train`` phase's GPT-2 1.5B at full
     width and depth: the data tier, the CUDA-stream prefetcher, the
@@ -2461,8 +2534,10 @@ def train_fit_and_check(on_measured=None):
     digest's cost are taken (before ``close()``): work started there runs
     beside the rest of the phase without touching what it times.
     Returns the counted launches of the fit."""
+    import gc
     import shutil
     import tempfile
+    import threading
 
     from dlrover_tpu_torch.checkpoint import shm_handler as sh
     from dlrover_tpu_torch.common import faults
@@ -2549,6 +2624,19 @@ def train_fit_and_check(on_measured=None):
             ev.record()
             timeline.append((label, trainer.step, time.perf_counter(), ev))
             return ev
+
+        # The host beside the device: every collection of Python's garbage
+        # collector while the loop runs (start, seconds, generation, step).
+        main_tid = threading.get_native_id()
+        gc_log, gc_open = [], {}
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_open["t"] = time.perf_counter()
+            elif "t" in gc_open:
+                t = gc_open.pop("t")
+                gc_log.append((t, time.perf_counter() - t,
+                               info["generation"], trainer.step))
 
         def checked_step(batch):
             placed_log.append({k: batch[k].clone()
@@ -2640,18 +2728,54 @@ def train_fit_and_check(on_measured=None):
         calibration.record()
         torch.cuda.synchronize()
         calibration_host = time.perf_counter()
+        gc_before = {"counts": gc.get_count(), "frozen": gc.get_freeze_count(),
+                     "enabled": gc.isenabled()}
+        names = _thread_names()
+        ticks0 = _thread_cpu_ticks()
 
         # -- the main path, counted ----------------------------------------
         pipeline_counters().reset()
         _zero_counts()
+        gc.callbacks.append(on_gc)
         t0 = time.perf_counter()
-        final = trainer.fit(
-            train_loader, max_steps=FIT_STEPS,
-            on_step=lambda step, m: losses.append((step, m["loss"],
-                                                   m["grad_norm"])),
-            eval_loader=_fit_loader(cfg.vocab_size, 1))
+        try:
+            final = trainer.fit(
+                train_loader, max_steps=FIT_STEPS,
+                on_step=lambda step, m: losses.append((step, m["loss"],
+                                                       m["grad_norm"])),
+                eval_loader=_fit_loader(cfg.vocab_size, 1))
+        finally:
+            gc.callbacks.remove(on_gc)
         fit_s = time.perf_counter() - t0
+        ticks1 = _thread_cpu_ticks()
         counts = _counts()
+        names.update(_thread_names())
+        tick_s = 1.0 / os.sysconf("SC_CLK_TCK")
+        busy = sorted(((ticks1[t] - ticks0.get(t, 0)) * tick_s,
+                       names.get(t, str(t)), t == main_tid)
+                      for t in ticks1 if ticks1[t] - ticks0.get(t, 0) > 0)
+        out["host"] = {
+            "cpus": len(os.sched_getaffinity(0)),
+            "loadavg": os.getloadavg(),
+            "threads": len(ticks1),
+            "cpu_s_by_thread_over_fit": [[n, s, m] for s, n, m in
+                                         reversed(busy)],
+            "gc_before": gc_before,
+            # [host ms on the timeline's clock, ms, generation, step]
+            "gc_during_fit": [[(t - calibration_host) * 1e3, s * 1e3, g,
+                               step] for t, s, g, step in gc_log],
+        }
+        # The longest collection once the first step started (the fit's
+        # own full collection runs before it).
+        first = next(host for label, _, host, _ in timeline
+                     if label == "step")
+        out["host"]["gc_longest_in_steps_ms"] = max(
+            [s * 1e3 for t, s, _, _ in gc_log if t >= first], default=0.0)
+        # What one full collection costs in this process (after the fit).
+        t = time.perf_counter()
+        gc.collect()
+        out["host"]["full_gc_s"] = time.perf_counter() - t
+        out["host"]["gc_objects"] = len(gc.get_objects())
         summary = pipeline_counters().summary()
         blocks = pipeline_counters().blocks()
         torch.cuda.synchronize()
@@ -2793,6 +2917,23 @@ def train_fit_and_check(on_measured=None):
         queued_host_s = time.perf_counter() - t0
         queued[1].record()
         torch.cuda.synchronize()
+        # Where the digest's host time goes: one more digest under cProfile
+        # (its own overhead included; Python 3.12's cProfile also sees the
+        # other threads, here the saver's), the functions by their own
+        # time.
+        import cProfile
+        import pstats
+
+        profile = cProfile.Profile()
+        profile.enable()
+        state_digest.digest_state(trainer.state)
+        profile.disable()
+        torch.cuda.synchronize()
+        host_top = [[f"{os.path.basename(f)}:{line}:{fn}", calls,
+                     own * 1e3, cum * 1e3]
+                    for (f, line, fn), (_, calls, own, cum, _) in
+                    pstats.Stats(profile).stats.items()]
+        host_top.sort(key=lambda row: -row[2])
         state_bytes = _tree_nbytes(trainer.state.checkpoint_tree())
         leaves = [trainer.state.step] + [
             leaf for _, leaf in sh.tree_flatten_with_path(
@@ -2802,6 +2943,8 @@ def train_fit_and_check(on_measured=None):
             "ms": marks[0].elapsed_time(marks[1]), "host_ms": host_s * 1e3,
             "device_ms": queued[0].elapsed_time(queued[1]),
             "device_ms_host_ms": queued_host_s * 1e3,
+            # [file:line:function, calls, own ms, cumulative ms]
+            "host_profile_top": host_top[:12],
             "leaves": len(leaves), "temp_bytes": temp_bytes,
             "state_bytes": state_bytes,
             "bound_ms": state_bytes / PEAK_BYTES_PER_S * 1e3,
@@ -3246,6 +3389,9 @@ def _lsgd_check(results, out_dir):
 #: then).  A phase hands both ranks a task, the name of its rank function;
 #: each rank writes its result (or its traceback) to the task's file.
 _WORLD = {}
+#: What a phase keeps for a later one: ``train_sp2``'s first world-1 run
+#: (``sp2_world1``), ``train_ring2``'s flash twin.
+_SHARED = {}
 #: The environment a task carries to the ranks (the job tag and socket
 #: directory of its Flash Checkpoint saves).
 _WORLD_ENV = ("DLROVER_TPU_JOB", "DLROVER_TPU_SOCKET_DIR")
@@ -3444,16 +3590,16 @@ def _leaf_errors(got, want, init, head_dim=64):
     in exact arithmetic (a shift of every key leaves the softmax
     unchanged), so each run updates it from rounding noise that the
     optimizer's normalisation amplifies (``tests/test_torch_train.py``
-    leaves it out for the same reason)."""
+    leaves it out for the same reason).  Computed on the card (on the
+    host it held rank 0, and so both ranks, about a second a run)."""
     out = {}
     for name, w in want.items():
-        w32 = w.float()
-        g32 = got[name].float().to(w32.device)
-        i32 = init[name].float()
+        w32, g32, i32 = (t[name].to("cuda", torch.float32)
+                         for t in (want, got, init))
         if name.endswith("attn.qkv.bias"):
-            keep = torch.ones(w32.shape, dtype=torch.bool)
+            keep = torch.ones(w32.shape, dtype=torch.bool, device="cuda")
             keep[..., head_dim:2 * head_dim] = False
-            w32, g32, i32 = w32[keep], g32[keep.to(g32.device)], i32[keep]
+            w32, g32, i32 = w32[keep], g32[keep], i32[keep]
         norm = w32.norm().clamp_min(1e-30)
         out[name] = (
             float((g32 - w32).norm() / norm),
@@ -3787,12 +3933,14 @@ def _assemble_pieces(dumps):
     return whole
 
 
-def train_dp2_and_check():
+def train_dp2_and_check(world1_refs=False):
     """Two processes on ``cuda:0`` over a gloo group: the data-parallel
     step (replicated, ZeRO-1, the overlap engine with two microbatches,
     the int8 wires) at GPT-2 1.5B's width, each held against the world-1
     run; a live re-layout 2 -> 1 -> 2; a sharded save at world 2 and a
-    restore into one process on the card.  Returns the counted launches
+    restore into one process on the card.  With ``world1_refs`` the later
+    world phases' world-1 references run in this process while the ranks
+    do (:func:`world1_references_start`).  Returns the counted launches
     of the main-path runs (both ranks)."""
     import shutil
     import tempfile
@@ -3839,8 +3987,13 @@ def train_dp2_and_check():
         out["reference_s"] = time.perf_counter() - t_start
         out["world_warmup"] = _world_warm_result()
         os.environ["DLROVER_TPU_JOB"] = job
-        results, codes = _world_run("_dp2_rank", out_dir, "rank{rank}.pt",
-                                    900)
+        if world1_refs:
+            world1_references_start()
+        try:
+            results, codes = _world_run("_dp2_rank", out_dir,
+                                        "rank{rank}.pt", 900)
+        finally:
+            world1_references_join()
         errors = [r.get("error") for r in results if "error" in r]
         if errors or codes != [None, None]:
             raise AssertionError(f"train_dp2 ranks failed (exit codes "
@@ -4773,11 +4926,13 @@ def _mp2_leaf_sums(train, state, ref, init):
     4]`` to be summed over the world."""
     layout = train.param_layout()
     params = state.params()
-    names = sorted(params)
+    # Every leaf of the model, in one order on every rank (a pipe stage
+    # holds its own layers: the others' rows stay 0 here).
+    names = sorted(layout)
     out = torch.zeros((len(names), 4), dtype=torch.float64, device="cuda")
     for i, name in enumerate(names):
         spot = layout[name]
-        if spot.replica_id != 0:
+        if name not in params or spot.replica_id != 0:
             continue
         box = tuple(slice(b, e) for b, e in spot.index)
         w = ref[name][box].to("cuda").double()
@@ -9011,12 +9166,15 @@ def _sp2_predicted_wire(cfg, n_params):
 
 def _sp2_run(cfg, batch, steps):
     """The world-1 run: losses, grad norms, per-step launches, the
-    parameters after step 1 and after the last (copies on the card)."""
+    parameters after step 1 and after the last (copies on the card), the
+    bytes the state holds and the device peak."""
     from dlrover_tpu_torch.trainer import train_lib
 
     train = train_lib.build_train(
         cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
-        global_batch_size=1, seq_len=SP2_SEQ, device="cuda")
+        global_batch_size=int(batch["inputs"].shape[0]), seq_len=SP2_SEQ,
+        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     state = train.init(seed=0)
     out = {"losses": [], "grad_norms": [], "launches": [], "step_s": []}
     for _ in range(steps):
@@ -9031,29 +9189,36 @@ def _sp2_run(cfg, batch, steps):
         if "params1" not in out:
             out["params1"] = {k: v.clone() for k, v in state.params().items()}
     out["params"] = {k: v.clone() for k, v in state.params().items()}
+    out["resident_bytes"] = _resident_bytes(state)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del state, train
     torch.cuda.empty_cache()
     return out
 
 
-def _sp2_reference(out_dir):
+def _sp2_reference(out_dir, cfg=None, ref_file="sp_ref.pt", batch=None,
+                   twin=None):
     """Two world-1 runs of the same batch from the same init: the first is
-    the reference (saved for the ranks), the gaps between the two are the
-    noise the limits are derived from."""
-    cfg = _sp2_config()
-    batch = _sp2_batch(cfg.vocab_size)
+    the reference (saved for the ranks as ``ref_file``), the gaps between
+    the two are the noise the limits are derived from.  ``train_sp2``'s
+    model and batch unless given; the second run is ``twin`` when given
+    (the same function computed another way: a run's ``losses``,
+    ``grad_norms`` and ``params``).  Returns the summary and the saved
+    run (``losses``, ``grad_norms``, ``params`` and ``params1`` on the
+    host)."""
+    cfg = cfg or _sp2_config()
+    batch = batch or _sp2_batch(cfg.vocab_size)
     a = _sp2_run(cfg, batch, SP2_STEPS)
-    b = _sp2_run(cfg, batch, SP2_STEPS)
+    b = twin or _sp2_run(cfg, batch, SP2_STEPS)
     rel = 0.0
     for name, w in a["params"].items():
         w = w.double()
-        rel = max(rel, float((b["params"][name].double() - w).norm()
-                             / max(float(w.norm()), 1e-30)))
-    del b["params"], b["params1"]
-    torch.save({"losses": a["losses"], "grad_norms": a["grad_norms"],
-                "params": {k: v.cpu() for k, v in a["params"].items()},
-                "params1": {k: v.cpu() for k, v in a["params1"].items()}},
-               os.path.join(out_dir, "sp_ref.pt"))
+        rel = max(rel, float((b["params"][name].to(w.device).double() - w)
+                             .norm() / max(float(w.norm()), 1e-30)))
+    kept = {"losses": a["losses"], "grad_norms": a["grad_norms"],
+            "params": {k: v.cpu() for k, v in a["params"].items()},
+            "params1": {k: v.cpu() for k, v in a["params1"].items()}}
+    torch.save(kept, os.path.join(out_dir, ref_file))
     noise = {"loss": max(abs(x - y) for x, y in zip(a["losses"],
                                                       b["losses"])),
              "norm": max(abs(x - y) / x for x, y in zip(a["grad_norms"],
@@ -9061,7 +9226,9 @@ def _sp2_reference(out_dir):
              "param": rel}
     return {"losses": a["losses"], "grad_norms": a["grad_norms"],
             "launches": a["launches"], "step_s": a["step_s"],
-            "second_losses": b["losses"], "noise": noise}
+            "second_losses": b["losses"], "noise": noise,
+            "resident_bytes": a["resident_bytes"],
+            "peak_memory_bytes": a["peak_memory_bytes"]}, kept
 
 
 def _sp2_rank(rank, out_dir):
@@ -9118,6 +9285,89 @@ def _sp2_rank(rank, out_dir):
     return out
 
 
+def _fresh_dir(phase):
+    import shutil
+
+    out_dir = os.path.join(REPO, "build", phase)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    return out_dir
+
+
+def _sp2_world1():
+    ref, kept = _sp2_reference(_fresh_dir("train_sp2"))
+    # train_ring2's twin: the same model and batch under flash.
+    _SHARED["sp2_world1"] = kept
+    return ref
+
+
+def _ring2_world1():
+    # The second world-1 run computes the attention with the flash
+    # kernels (K1/K3): the ring of one must match it within the floors,
+    # a gap held to no limit taken from this run.  It is train_sp2's
+    # first world-1 run (the same model and batch; its remat changes no
+    # value), run here when train_sp2's reference did not run before.
+    cfg = _ring2_config()
+    twin = _SHARED.pop("sp2_world1", None) or _sp2_run(
+        _sp2_config(), _sp2_batch(cfg.vocab_size), SP2_STEPS)
+    ref, _ = _sp2_reference(_fresh_dir("train_ring2"), cfg, "ring_ref.pt",
+                            twin=twin)
+    ref["twin_gap"] = ref.pop("noise")
+    ref["ring_op"] = _ring_op_check(cfg)
+    return ref
+
+
+def _pp2_world1():
+    cfg = _pp2_config()
+    return _sp2_reference(_fresh_dir("train_pp2"), cfg, "pp_ref.pt",
+                          _pp2_batch(cfg.vocab_size))[0]
+
+
+#: Each world phase's world-1 reference: the runs it holds its world's
+#: against, into a fresh ``build/<phase>`` directory (the ranks read it
+#: there), in the order the phases run.
+_WORLD1 = {"train_sp2": _sp2_world1, "train_ring2": _ring2_world1,
+           "train_pp2": _pp2_world1}
+#: The references computed ahead (:func:`world1_references_start`).
+_REFS = {}
+
+
+def world1_references_start():
+    """Computes every ``_WORLD1`` reference in a thread of this process
+    while ``train_dp2``'s ranks run: the parent only waits on them there
+    (about 100 s, the card mostly idle: their steps are bound by the
+    host's staging) and launches no kernel, nor reads the launch
+    counters or the device peak, until it joins the thread
+    (:func:`world1_references_join`, as soon as the ranks are done)."""
+    import threading
+
+    def run():
+        try:
+            for phase, fn in _WORLD1.items():
+                _REFS[phase] = fn()
+        except BaseException as e:  # noqa: BLE001 - raised at the join
+            _REFS["error"] = e
+
+    _REFS["thread"] = threading.Thread(target=run, daemon=True)
+    _REFS["thread"].start()
+
+
+def world1_references_join():
+    thread = _REFS.pop("thread", None)
+    if thread is not None:
+        thread.join()
+    if "error" in _REFS:
+        raise _REFS.pop("error")
+
+
+def _world1_reference(phase):
+    """``phase``'s world-1 reference: computed ahead, or now."""
+    world1_references_join()
+    if phase in _REFS:
+        return _REFS.pop(phase)
+    return _WORLD1[phase]()
+
+
 def train_sp2_and_check():
     """Two processes on ``cuda:0`` over a gloo group: the dense Llama step
     at Llama-2 7B's width on a ``seq=2`` mesh (Ulysses), held against the
@@ -9126,8 +9376,6 @@ def train_sp2_and_check():
     import shutil
 
     out_dir = os.path.join(REPO, "build", "train_sp2")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     cfg = _sp2_config()
     out = {"phase": "train_sp2",
            "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
@@ -9140,7 +9388,7 @@ def train_sp2_and_check():
            "batch": f"1 x {SP2_SEQ}, one batch re-fed", "steps": SP2_STEPS}
     t_start = time.perf_counter()
     try:
-        ref = _sp2_reference(out_dir)
+        ref = _world1_reference("train_sp2")
         out["reference"] = ref
         noise = ref["noise"]
         limits = {k: max(SP2_FLOOR[k], SP2_NOISE_FACTOR * noise[k])
@@ -9157,25 +9405,18 @@ def train_sp2_and_check():
         out["workers_s"] = time.perf_counter() - t_start
         r0, r1 = results
         bad = []
-        losses = [s["loss"] for s in r0["steps"]]
-        norms = [s["grad_norm"] for s in r0["steps"]]
-        gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
-        ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+        run = _noise_checks(ref, r0, limits)
         stats = _mp2_leaf_stats(r0["leaf_sums"])
-        worst = max((v[0], k) for k, v in stats.items())
         smallest = min(((v[1], k) for k, v in stats.items() if v[1] > 0),
                        default=(0.0, None))
-        # A leaf whose update was dropped sits at its update's distance
-        # from the reference: each leaf must be nearer than half of it.
-        dropped = [k for k, (err, upd) in stats.items()
-                   if upd > 0 and err >= 0.5 * upd]
         wire, calls = _sp2_predicted_wire(cfg, r0["n_params"])
         want = {"flash_fwd": SP2_LAYERS, "flash_bwd_fused": SP2_LAYERS}
         launches = [s["launches"] for s in r0["steps"] + r1["steps"]]
         checks = {
-            "loss": max(gaps) <= limits["loss"],
-            "grad_norm": max(ngaps) <= limits["norm"],
-            "params": worst[0] <= limits["param"] and not dropped,
+            "loss": run["loss_gap"] <= limits["loss"],
+            "grad_norm": run["grad_norm_rgap"] <= limits["norm"],
+            "params": run["worst_leaf_rel"][0] <= limits["param"]
+            and not run["leaves_nearer_init"],
             "ranks_agree": all(a["loss"] == b["loss"] for a, b in zip(
                 r0["steps"], r1["steps"])),
             "tokens": all(s["tokens"] == SP2_SEQ for s in r0["steps"]),
@@ -9187,15 +9428,7 @@ def train_sp2_and_check():
                               for s in r0["steps"] + r1["steps"]),
         }
         bad += [k for k, ok in checks.items() if not ok]
-        p = r0["planted"]
-        pstats = _mp2_leaf_stats(p["leaf_sums"])
-        pworst = max((v[0], k) for k, v in pstats.items())
-        planted = {"loss_gap": abs(p["loss"] - ref["losses"][0]),
-                   "grad_norm_rgap": abs(p["grad_norm"] - ref["grad_norms"][0])
-                   / ref["grad_norms"][0], "worst_leaf_rel": pworst}
-        planted["caught"] = (planted["loss_gap"] > limits["loss"]
-                             or planted["grad_norm_rgap"] > limits["norm"]
-                             or pworst[0] > limits["param"])
+        planted = _planted_caught(ref, r0["planted"], limits)
         if not planted["caught"]:
             bad.append("planted wrong offset passed")
         counts = dict.fromkeys(_counts(), 0)
@@ -9203,10 +9436,8 @@ def train_sp2_and_check():
             for k, v in x.items():
                 counts[k] += v
         out.update(
-            checks=checks, losses=losses, loss_gap=max(gaps),
-            grad_norms=norms, grad_norm_rgap=max(ngaps),
-            worst_leaf_rel=worst, smallest_update_rel=smallest,
-            leaves_nearer_init=dropped, leaf_stats=stats,
+            checks=checks, **{k: v for k, v in run.items() if k != "ok"},
+            smallest_update_rel=smallest, leaf_stats=stats,
             step_s=[[s["s"] for s in r["steps"]] for r in (r0, r1)],
             launches_per_step_rank=r0["steps"][-1]["launches"],
             wire_bytes_per_step=r0["steps"][-1]["wire_bytes"],
@@ -9613,6 +9844,569 @@ def serve_tp_and_check():
     return counts
 
 
+# -- ring attention on the seq axis --------------------------------------------------
+
+#: ``train_ring2``: ``train_sp2``'s model and batch (Llama-2 7B's width at
+#: ``SP2_LAYERS`` of 32 layers, bf16, batch 1 x ``SP2_SEQ``) under ring
+#: attention (``RING_RULES``): each rank of ``seq=2`` holds 2048 tokens
+#: and its queries, and K, V and the segment ids ``[1, 2048, 32, 128]``
+#: hop to the other rank.  ``full`` remat (``flash_only`` keeps flash's
+#: names, which the ring has not): the block is replayed in the backward,
+#: the ring's hop with it.  Held against the world-1 run of the same
+#: config (a ring of one) within ``SP2_FLOOR``; that run is held within
+#: the same floors to its twin under flash attention (K1/K3), and its
+#: attention at the world-1 shape to plain fp32 attention
+#: (``RING_OP_RTOL``), so a fault of the chunk math that the ring of one
+#: shares with the seq=2 ring still fails.
+RING2_REMAT = "full"
+#: The ring of one against ``mha_reference`` / ``mha_backward_reference``
+#: in fp32 on the same bf16 inputs (``[1, 4096, 32, 128]``, causal): the
+#: output and the gradients of q, k and v, each within this share of the
+#: reference's norm.  On the CPU at ``[1, 1024, 4, 128]`` the ring reads
+#: 1.7e-3 to 2.0e-3 and the planted 1% scale 1.05e-2 (``tests/
+#: test_torch_ring_attention.py``, which holds both sides of this limit).
+RING_OP_RTOL = 4e-3
+
+
+def _ring2_config():
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("7b", num_layers=SP2_LAYERS, attention_impl="ring",
+                        remat=RING2_REMAT, param_dtype=torch.bfloat16)
+
+
+def _ring2_predicted_wire(cfg, n_params):
+    """Bytes and calls one step of one rank hands the seq axis's wire:
+    per layer one hop of K, V (bf16) and the segment ids (int32) in the
+    forward, one in the remat replay and one in the backward, and two
+    hops of the fp32 dK/dV accumulators in the backward (after the
+    other rank's chunk, and home); then the gradients' all-reduce (bf16)
+    and the token and loss sums, as ``train_sp2``'s."""
+    tokens = SP2_SEQ // 2
+    kv = 2 * tokens * cfg.num_heads * cfg.resolved_head_dim * 2 + tokens * 4
+    acc = 2 * tokens * cfg.num_heads * cfg.resolved_head_dim * 4
+    layers = cfg.num_layers
+    return ({"seq/send": layers * (3 * kv + 2 * acc),
+             "seq/all_reduce": 2 * n_params + 4 + 8},
+            {"seq/send": 5 * layers, "seq/all_reduce": 3})
+
+
+def _shifted_chunk(orig):
+    """The planted ring fault: each chunk's key positions taken from the
+    next rank's chunk (a wrong source for ``k_pos``)."""
+    def chunk(q, k_c, v_c, q_pos, k_pos, *rest):
+        return orig(q, k_c, v_c, q_pos, k_pos + k_pos.numel(), *rest)
+    return chunk
+
+
+def _scaled_scores(orig):
+    """The planted shared fault: every tile's scores scaled 1% too much,
+    in the forward and the backward, as a wrong scale would be on every
+    rank of a ring and in the ring of one alike."""
+    def scores(q, k_t, q_pos, k_pos, seg_q, seg_k, scale, causal):
+        return orig(q, k_t, q_pos, k_pos, seg_q, seg_k, scale * 1.01,
+                    causal)
+    return scores
+
+
+def _ring_op_check(cfg):
+    """A ring of one at the world-1 run's shape against plain fp32
+    attention on the same bf16 inputs: the norm-relative error of the
+    output and of the gradients of q, k and v, then the same with the
+    planted scale (``_scaled_scores``), which must fail."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import ring_attention as ra
+
+    shape = (1, SP2_SEQ, cfg.num_heads, cfg.resolved_head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    o32, lse = fa.mha_reference(q32, k32, v32, causal=True)
+    ref = (o32,) + tuple(fa.mha_backward_reference(
+        q32, k32, v32, o32, lse, do.float(), causal=True))
+    del q32, k32, v32, lse
+
+    def errors():
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = ra.ring_attention(*leaves, causal=True)
+        o.backward(do)
+        got = (o.detach(),) + tuple(x.grad for x in leaves)
+        return {name: float((g.float() - r).norm() / r.norm())
+                for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref)}
+
+    out = {"shape": list(shape), "rtol": RING_OP_RTOL, "errors": errors()}
+    scores = ra._scores
+    ra._scores = _scaled_scores(scores)
+    try:
+        out["planted_errors"] = errors()
+    finally:
+        ra._scores = scores
+    out["ok"] = max(out["errors"].values()) <= RING_OP_RTOL
+    out["planted_caught"] = max(out["planted_errors"].values()) > RING_OP_RTOL
+    del q, k, v, do, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring2_memory(group, cfg):
+    """One ring attention call at the main path's shapes on this rank,
+    outside remat: the bytes its backward keeps (held after the forward,
+    the output aside) and the transient peak of the forward and backward
+    over what the inputs take, against one chunk's fp32 scores."""
+    from dlrover_tpu_torch.parallel.ring_attention import ring_attention
+
+    shape = (1, SP2_SEQ // 2, cfg.num_heads, cfg.resolved_head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    o = ring_attention(q, k, v, causal=True, group=group)
+    held = torch.cuda.memory_allocated() - base - o.numel() * o.element_size()
+    o.backward(torch.ones_like(o))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    scores = 4 * shape[0] * shape[2] * shape[1] * shape[1]
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    return {"held_bytes": held, "peak_bytes": peak,
+            "chunk_scores_bytes": scores, "ring_size": group.size}
+
+
+def _ring2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import ring_attention as ra
+    from dlrover_tpu_torch.parallel import rules as lr
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    cfg = _ring2_config()
+    ref = torch.load(os.path.join(out_dir, "ring_ref.pt"), weights_only=False)
+    mesh = build_mesh(ParallelConfig(data=1, seq=2), device_type="cuda")
+    train = train_lib.build_train(
+        cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+        global_batch_size=1, seq_len=SP2_SEQ, mesh=mesh, rules=lr.RING_RULES,
+        device="cuda")
+    state = train.init(seed=0)
+    init = {k: v.clone() for k, v in state.params().items()}
+    placed = train_lib.shard_batch(_sp2_batch(cfg.vocab_size), train)
+    out = {"rank": rank, "local_tokens": list(placed["inputs"].shape),
+           "steps": []}
+    # The planted fault, in a forward at the init (step 1's loss): every
+    # chunk's key positions from the next rank's chunk.
+    chunk = ra._chunk_attention
+    ra._chunk_attention = _shifted_chunk(chunk)
+    try:
+        out["planted"] = {"loss": float(train.eval_step(state,
+                                                        placed)["loss"])}
+    finally:
+        ra._chunk_attention = chunk
+    for _ in range(SP2_STEPS):
+        _zero_counts()
+        wire_lib.reset_counts()
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = train.step(state, placed)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        out["steps"].append({
+            "s": time.perf_counter() - t0, "loss": loss, "grad_norm": norm,
+            "tokens": float(m["tokens"]),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in _counts().items() if v},
+            "wire_bytes": dict(wire_lib.COUNTS["axes"]),
+            "wire_calls": dict(wire_lib.COUNTS["calls"])})
+    out["resident_bytes"] = _resident_bytes(state)
+    names, sums = _mp2_leaf_sums(train, state, ref["params"], init)
+    out["leaf_sums"] = _mp2_summed(names, sums)
+    out["n_params"] = sum(v.numel() for v in state.params().values())
+    out["memory"] = _ring2_memory(train.parallel.sp, cfg)
+    del state, train, placed, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _noise_checks(ref, runs, limits):
+    """A world-2 run (rank 0's steps and leaf sums) against the world-1
+    reference: loss gaps, grad-norm gaps, the worst leaf, and the leaves
+    nearer their init than half their update (a leaf whose update was
+    dropped sits at its update's distance from the reference)."""
+    losses = [s["loss"] for s in runs["steps"]]
+    norms = [s["grad_norm"] for s in runs["steps"]]
+    gaps = [abs(x - r) for x, r in zip(losses, ref["losses"])]
+    ngaps = [abs(x - r) / r for x, r in zip(norms, ref["grad_norms"])]
+    stats = _mp2_leaf_stats(runs["leaf_sums"])
+    worst = max((v[0], k) for k, v in stats.items())
+    dropped = [k for k, (err, upd) in stats.items()
+               if upd > 0 and err >= 0.5 * upd]
+    return {"losses": losses, "grad_norms": norms, "loss_gap": max(gaps),
+            "grad_norm_rgap": max(ngaps), "worst_leaf_rel": worst,
+            "leaves_nearer_init": dropped,
+            "ok": (max(gaps) <= limits["loss"]
+                   and max(ngaps) <= limits["norm"]
+                   and worst[0] <= limits["param"] and not dropped)}
+
+
+def _planted_caught(ref, planted, limits):
+    """A planted run against the reference's first step: caught when its
+    loss (a forward at the init: step 1's loss) or, for a planted step,
+    its grad norm or a leaf after it is outside the limits."""
+    out = {"loss_gap": abs(planted["loss"] - ref["losses"][0])}
+    out["caught"] = out["loss_gap"] > limits["loss"]
+    if "leaf_sums" in planted:
+        pstats = _mp2_leaf_stats(planted["leaf_sums"])
+        out["worst_leaf_rel"] = max((v[0], k) for k, v in pstats.items())
+        out["grad_norm_rgap"] = abs(planted["grad_norm"]
+                                    - ref["grad_norms"][0]) \
+            / ref["grad_norms"][0]
+        out["caught"] = (out["caught"]
+                         or out["grad_norm_rgap"] > limits["norm"]
+                         or out["worst_leaf_rel"][0] > limits["param"])
+    return out
+
+
+def train_ring2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the Llama step at
+    Llama-2 7B's width on a ``seq=2`` mesh under ring attention, held
+    against the world-1 run of the same config, which is held to its
+    flash twin and its attention to plain fp32 attention; two planted
+    faults, a wrong source of the key positions and a wrong scale.
+    Returns the counted launches (none: the ring runs no kernel of the
+    port)."""
+    import shutil
+
+    out_dir = os.path.join(REPO, "build", "train_ring2")
+    cfg = _ring2_config()
+    out = {"phase": "train_ring2",
+           "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
+                    f"heads, d_ff 11008 swiglu, vocab 32000, untied head, "
+                    f"bf16 params and compute, ring attention, remat "
+                    f"{RING2_REMAT}), depth cut to {SP2_LAYERS} of 32 "
+                    f"layers, random weights seed 0",
+           "world": "2 processes on cuda:0, gloo, seq=2 (ring attention's "
+                    "hops staged through the host), RING_RULES",
+           "batch": f"1 x {SP2_SEQ}, one batch re-fed", "steps": SP2_STEPS}
+    t_start = time.perf_counter()
+    try:
+        ref = _world1_reference("train_ring2")
+        out["reference"] = ref
+        limits = dict(SP2_FLOOR)
+        out["limits"] = limits
+        results, codes = _world_run("_ring2_rank", out_dir,
+                                    "ring_rank{rank}.pt", 600)
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [None, None]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"train_ring2 ranks failed (exit codes "
+                                 f"{codes})")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        run = _noise_checks(ref, r0, limits)
+        wire, calls = _ring2_predicted_wire(cfg, r0["n_params"])
+        launches = [s["launches"] for s in r0["steps"] + r1["steps"]]
+        memory = [r["memory"] for r in (r0, r1)]
+        checks = {
+            # The ring of one against flash (K1/K3) and plain attention.
+            "world1_matches_flash": all(ref["twin_gap"][k] <= SP2_FLOOR[k]
+                                        for k in SP2_FLOOR),
+            "world1_matches_plain": ref["ring_op"]["ok"],
+            "matches_world1": run["ok"],
+            "ranks_agree": all(a["loss"] == b["loss"] for a, b in zip(
+                r0["steps"], r1["steps"])),
+            "tokens": all(s["tokens"] == SP2_SEQ for s in r0["steps"]),
+            "local_tokens": r0["local_tokens"] == [1, SP2_SEQ // 2],
+            # The ring, not flash, computed the attention: no K1, no K3.
+            "no_kernel_launched": all(x == {} for x in launches)
+            and all(x == {} for x in ref["launches"]),
+            "wire_bytes": all(s["wire_bytes"] == wire and
+                              s["wire_calls"] == calls
+                              for s in r0["steps"] + r1["steps"]),
+            # The backward keeps no chunk's scores, and the device peak
+            # of a call holds fewer than the ring's n of them.
+            "scores_not_kept": all(m["held_bytes"] < m["chunk_scores_bytes"]
+                                   for m in memory),
+            "peak_below_n_chunks": all(
+                m["peak_bytes"] < m["ring_size"] * m["chunk_scores_bytes"]
+                for m in memory),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        planted = _planted_caught(ref, r0["planted"], limits)
+        if not planted["caught"]:
+            bad.append("planted wrong key positions passed")
+        if not ref["ring_op"]["planted_caught"]:
+            bad.append("planted wrong scale passed")
+        out.update(
+            checks=checks, run=run, planted=planted,
+            step_s=[[s["s"] for s in r["steps"]] for r in (r0, r1)],
+            step_peak_memory_bytes=[[s["peak_memory_bytes"] for s in
+                                     r["steps"]] for r in (r0, r1)],
+            resident_bytes=[r0["resident_bytes"], r1["resident_bytes"]],
+            ring_memory=memory,
+            wire_bytes_per_step=r0["steps"][-1]["wire_bytes"],
+            wire_calls_per_step=r0["steps"][-1]["wire_calls"],
+            wire_bytes_predicted=wire, wire_calls_predicted=calls,
+            params=r0["n_params"])
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_ring2 checks failed: {bad}")
+    finally:
+        emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return dict.fromkeys(_counts(), 0)
+
+
+# -- the pipe axis and the pipeline ---------------------------------------------------
+
+#: ``train_pp2``: Llama-2 7B's width at ``PP2_LAYERS`` of 32 layers, bf16,
+#: ``flash_only``, flash blocks 4096 (K1 and the fused K3), batch
+#: ``PP2_BATCH`` x 4096 in ``PP2_MICRO`` microbatches of one row (M = 2S,
+#: the reference's best operating point, ``pipeline.py:45-48``), at
+#: ``pipe=2``: GPipe (2 layers a stage) and the circular schedule
+#: (``pipeline_interleave=2``, 1 layer a chunk), ``SP2_STEPS`` steps each,
+#: both held against one pair of world-1 runs of the same model (its
+#: stages all on one process).  Limits as ``train_sp2``'s.
+PP2_LAYERS = 4
+PP2_BATCH = 4
+PP2_MICRO = 4
+PP2_SCHEDULES = (("gpipe", 1), ("circular", 2))
+#: A stage's resident bytes against the world-1 run's: its parameters
+#: alone are 666,914,816 of 1,071,681,536 (0.6223: two of four layers,
+#: and the embedding, the head and the final norm whole); Adafactor's
+#: factored state adds about 0.0002 of either.
+PP2_RESIDENT_SHARE = 0.63
+
+
+def _pp2_config(interleave=1):
+    from dlrover_tpu_torch.models import llama_config
+
+    return llama_config("7b", num_layers=PP2_LAYERS, attention_impl="flash",
+                        remat="flash_only", param_dtype=torch.bfloat16,
+                        flash_block_q=SP2_SEQ, flash_block_kv=SP2_SEQ,
+                        pipeline_stages=2, num_microbatches=PP2_MICRO,
+                        pipeline_interleave=interleave)
+
+
+def _pp2_batch(vocab: int):
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, vocab, size=(PP2_BATCH, SP2_SEQ + 1),
+                          dtype=np.int64)
+    return {"inputs": torch.as_tensor(tokens[:, :-1], device="cuda"),
+            "targets": torch.as_tensor(tokens[:, 1:], device="cuda")}
+
+
+def _pp2_predicted(cfg, train, stage):
+    """What one step of stage ``stage`` does, from the shapes: ticks,
+    useful ticks, handoff bytes (a microbatch's ``[1, 4096, 4096]`` bf16
+    activation forward, its gradient backward), the circular relayout's
+    bytes (each stage lends the layer the other runs and gets its
+    gradient back), the pipe wire's bytes and calls (every hop and
+    exchange one send; the replicated leaves' gradients summed, the loss
+    sums, and the sums ``optax_ports.sharded_update`` completes over the
+    stages' leaves), and the K1/K3 launches (one each a layer and
+    microbatch: ``flash_only`` keeps flash's output)."""
+    stages, v, micro = cfg.pipeline_stages, cfg.pipeline_interleave, \
+        cfg.num_microbatches
+    act = (PP2_BATCH // micro) * SP2_SEQ * cfg.d_model * 2
+    last = stage == stages - 1
+    hops = (v - 1 if last else v) * micro + (v * micro if stage else
+                                             (v - 1) * micro)
+    from dlrover_tpu_torch.trainer import train_lib
+
+    shapes = train_lib._stacked_shapes(cfg)
+    layer = sum(int(np.prod(s[1:])) for n, s in shapes.items()
+                if n.startswith("blocks.")) * 2
+    relayout = 2 * layer if v > 1 else 0
+    replicated = sum(int(np.prod(s)) for n, s in shapes.items()
+                     if not n.startswith("blocks.")) * 2
+    wire = collections.Counter({"pipe/send": hops * act + relayout,
+                                "pipe/all_reduce": replicated + 8})
+    _optimizer_wire(train.layouts, train.parallel.sizes, "adafactor", wire)
+    per_stage = cfg.num_layers // stages
+    return {"ticks": v * micro + stages - 1, "useful_ticks": v * micro,
+            "handoff_bytes": hops * act, "relayout_bytes": relayout,
+            "wire_bytes": dict(wire),
+            "send_calls": hops + (2 if v > 1 else 0),
+            "launches": {"flash_fwd": per_stage * micro,
+                         "flash_bwd_fused": per_stage * micro}}
+
+
+def _rotated_microbatches(orig):
+    """The planted pipeline fault: the first stage hands its microbatches
+    on one tick late, each in the slot of the one before it (the last
+    wraps to the first), so stage 1 works on the wrong microbatch."""
+    def split(self, x, rows):
+        parts = list(orig(self, x, rows))
+        return parts[-1:] + parts[:-1]
+    return split
+
+
+def _pp2_rank(rank, out_dir):
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import pipeline
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+    from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_lib
+
+    ref = torch.load(os.path.join(out_dir, "pp_ref.pt"), weights_only=False)
+    mesh = build_mesh(ParallelConfig(data=1, pipe=2), device_type="cuda")
+    out = {"rank": rank, "runs": {}}
+
+    def build(cfg):
+        return train_lib.build_train(
+            cfg, train_lib.make_optimizer("adafactor", learning_rate=TRAIN_LR),
+            global_batch_size=PP2_BATCH, seq_len=SP2_SEQ, mesh=mesh,
+            device="cuda")
+
+    for name, interleave in PP2_SCHEDULES:
+        cfg = _pp2_config(interleave)
+        train = build(cfg)
+        state = train.init(seed=0)
+        init = {k: v.clone() for k, v in state.params().items()}
+        placed = train_lib.shard_batch(_pp2_batch(cfg.vocab_size), train)
+        run = {"steps": [], "predicted": _pp2_predicted(cfg, train, rank),
+               "held_layers": sorted(int(k) for k in state.model.blocks)}
+        if name == "gpipe":
+            # The planted fault, in a forward at the init (step 1's
+            # loss): the first stage's microbatches rotated by one slot.
+            split = pipeline.PipelinedBlocks._microbatches
+            pipeline.PipelinedBlocks._microbatches = _rotated_microbatches(
+                split)
+            try:
+                out["planted"] = {"loss": float(train.eval_step(
+                    state, placed)["loss"])}
+            finally:
+                pipeline.PipelinedBlocks._microbatches = split
+        for _ in range(SP2_STEPS):
+            _zero_counts()
+            wire_lib.reset_counts()
+            pipeline.reset_counts()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train.step(state, placed)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            run["steps"].append({
+                "s": time.perf_counter() - t0, "loss": loss,
+                "grad_norm": norm, "tokens": float(m["tokens"]),
+                "launches": {k: v for k, v in _counts().items() if v},
+                "pipeline": dict(pipeline.COUNTS),
+                "wire_bytes": dict(wire_lib.COUNTS["axes"]),
+                "wire_calls": dict(wire_lib.COUNTS["calls"])})
+        run["resident_bytes"] = _resident_bytes(state)
+        names, sums = _mp2_leaf_sums(train, state, ref["params"], init)
+        run["leaf_sums"] = _mp2_summed(names, sums)
+        out["runs"][name] = run
+        del state, placed, train, init
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_pp2_and_check():
+    """Two processes on ``cuda:0`` over a gloo group: the Llama step at
+    Llama-2 7B's width on a ``pipe=2`` mesh, GPipe and the circular
+    schedule, each held against the world-1 run of the same model; a
+    planted off-by-one handoff.  Returns the counted launches of the runs
+    (both ranks)."""
+    import shutil
+
+    out_dir = os.path.join(REPO, "build", "train_pp2")
+    cfg = _pp2_config()
+    out = {"phase": "train_pp2",
+           "model": f"llama-2 7b width (d_model 4096, 32 heads x 128, 32 KV "
+                    f"heads, d_ff 11008 swiglu, vocab 32000, untied head, "
+                    f"bf16 params and compute, flash_only, flash blocks "
+                    f"{SP2_SEQ}), depth cut to {PP2_LAYERS} of 32 layers, "
+                    f"2 stages, {PP2_MICRO} microbatches, random weights "
+                    f"seed 0",
+           "world": "2 processes on cuda:0, gloo, pipe=2 (the handoffs and "
+                    "the relayout staged through the host)",
+           "batch": f"{PP2_BATCH} x {SP2_SEQ}, one batch re-fed",
+           "steps": SP2_STEPS}
+    t_start = time.perf_counter()
+    try:
+        ref = _world1_reference("train_pp2")
+        out["reference"] = ref
+        limits = {k: max(SP2_FLOOR[k], SP2_NOISE_FACTOR * ref["noise"][k])
+                  for k in SP2_FLOOR}
+        out["limits"] = limits
+        results, codes = _world_run("_pp2_rank", out_dir, "pp_rank{rank}.pt",
+                                    600)
+        errors = [r.get("error") for r in results if "error" in r]
+        if errors or codes != [None, None]:
+            for e in errors:
+                print(e, flush=True)
+            raise AssertionError(f"train_pp2 ranks failed (exit codes "
+                                 f"{codes})")
+        out["workers_s"] = time.perf_counter() - t_start
+        r0, r1 = results
+        checks, runs = {}, {}
+        counts = dict.fromkeys(_counts(), 0)
+        world1 = {"flash_fwd": PP2_LAYERS * PP2_MICRO,
+                  "flash_bwd_fused": PP2_LAYERS * PP2_MICRO}
+        checks["world1_launches"] = all(x == world1
+                                        for x in ref["launches"])
+        for name, _ in PP2_SCHEDULES:
+            a, b = r0["runs"][name], r1["runs"][name]
+            run = _noise_checks(ref, {"steps": a["steps"],
+                                      "leaf_sums": a["leaf_sums"]}, limits)
+            share = [r["resident_bytes"] / ref["resident_bytes"]
+                     for r in (a, b)]
+            for x in (a, b):
+                for s in x["steps"]:
+                    for k, n in s["launches"].items():
+                        counts[k] += n
+            counted = all(
+                s["pipeline"] == dict(
+                    passes=1, **{k: x["predicted"][k] for k in (
+                        "ticks", "useful_ticks", "handoff_bytes",
+                        "relayout_bytes")})
+                and s["wire_bytes"] == x["predicted"]["wire_bytes"]
+                and s["wire_calls"].get("pipe/send")
+                == x["predicted"]["send_calls"]
+                and s["launches"] == x["predicted"]["launches"]
+                for x in (a, b) for s in x["steps"])
+            checks.update({
+                f"{name}.matches_world1": run["ok"],
+                f"{name}.ranks_agree": all(
+                    p["loss"] == q["loss"] for p, q in zip(a["steps"],
+                                                           b["steps"])),
+                f"{name}.stages_hold_their_layers": (
+                    a["held_layers"], b["held_layers"]) == ([0, 1], [2, 3]),
+                f"{name}.counts_as_predicted": counted,
+                f"{name}.resident_share": max(share) <= PP2_RESIDENT_SHARE,
+            })
+            runs[name] = dict(
+                run, step_s=[[s["s"] for s in x["steps"]] for x in (a, b)],
+                resident_share=share,
+                counts=[x["steps"][-1]["pipeline"] for x in (a, b)],
+                wire_bytes=[x["steps"][-1]["wire_bytes"] for x in (a, b)],
+                wire_calls=[x["steps"][-1]["wire_calls"] for x in (a, b)],
+                launches=[x["steps"][-1]["launches"] for x in (a, b)],
+                predicted=[x["predicted"] for x in (a, b)])
+        bad = [k for k, ok in checks.items() if not ok]
+        planted = _planted_caught(ref, r0["planted"], limits)
+        if not planted["caught"]:
+            bad.append("planted off-by-one handoff passed")
+        out.update(checks=checks, runs=runs, planted=planted)
+        out["phase_s"] = time.perf_counter() - t_start
+        if bad:
+            raise AssertionError(f"train_pp2 checks failed: {bad}")
+    finally:
+        emit(out)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return counts
+
+
 def _ptxas_report(kernel_lib):
     """Per kernel of each library built in this process (its mangled name,
     template arguments included): the registers, the stack frame and
@@ -9727,6 +10521,14 @@ def main() -> int:
         serve_tp_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--ring"]:
+        train_ring2_and_check()
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--pp"]:
+        train_pp2_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--opts"]:
         train_opts_and_check()
         print(smi, flush=True)
@@ -9817,12 +10619,14 @@ def main() -> int:
     paths["train"], adafactor_state_bytes = train_and_check()
     paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_fit"] = train_fit_and_check(on_measured=_after_fit_measured)
-    paths["train_dp2"] = train_dp2_and_check()
+    paths["train_dp2"] = train_dp2_and_check(world1_refs=True)
     example_and_check()
     paths["train_mp2"] = train_mp2_and_check()
     paths["train_ep2"] = train_ep2_and_check()
     paths["train_sp2"] = train_sp2_and_check()
     paths["serve_tp2"] = serve_tp_and_check()
+    paths["train_ring2"] = train_ring2_and_check()
+    paths["train_pp2"] = train_pp2_and_check()
     _world_stop()
     paths["train_opts"] = train_opts_and_check()
     paths["train_split"] = train_split_and_check()

@@ -111,7 +111,7 @@ def materialize_records(arrays: Dict[tuple, torch.Tensor],
     tensor on ``device``.  The storage restore and the live re-layout
     (``runtime/virtual_mesh.relayout_state``) both land through here."""
     if template is None:
-        return {t.path: arrays[t.path].to(device) for t in meta.tensors}
+        return {path: t.to(device) for path, t in arrays.items()}
     layout = layout or {}
     return tree_map_with_path(
         lambda path, like: _restore_leaf(path, arrays.get(path), like,
@@ -329,10 +329,13 @@ class StorageStepReader:
             if not self._verify_shards(step, host, metas[host], data):
                 return None
             datas[host] = data
-        # Merge shard records across hosts per tensor path.
+        # Merge shard records across hosts per tensor path (every host's
+        # paths: a pipe stage's meta lists its own layers only).
         merged: Dict[tuple, Any] = {}
         ref_meta = next(iter(metas.values()))
-        for path in [t.path for t in ref_meta.tensors]:
+        paths = dict.fromkeys(t.path for m in metas.values()
+                              for t in m.tensors)
+        for path in paths:
             per_host = []
             for host, m in metas.items():
                 for t in m.tensors:

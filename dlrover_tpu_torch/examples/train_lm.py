@@ -16,7 +16,9 @@ reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 versions of the kernels).  A flag whose feature is not ported raises
 ``NotImplementedError`` naming its ROADMAP queue item: a master (data
 sharding, reporting, the live-relayout poll's ledger) and the measurement
-flags are item 10, ring attention item 9.
+flags are item 10.  ``--attention-impl ring`` runs ring attention
+(``parallel/ring_attention.py``): a ring of one on the data-parallel
+world, the sequence kept whole on each rank.
 """
 
 from __future__ import annotations
@@ -95,8 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--attention-impl", default="xla",
                    choices=("xla", "flash", "ring"),
                    help="attention math: xla (plain softmax), flash (the "
-                        "CUDA flash kernels on the card), ring (ROADMAP "
-                        "Queue 1 item 9)")
+                        "CUDA flash kernels on the card), ring (blockwise "
+                        "ring attention with online-softmax merges)")
     p.add_argument("--flash-block-q", type=int, default=0,
                    help="flash attention query block size (0 = model "
                         "default)")
@@ -159,10 +161,6 @@ def main(argv=None):
         TrainerConfig,
     )
 
-    if args.attention_impl == "ring":
-        raise NotImplementedError(
-            "--attention-impl ring is a later slice of the port (ROADMAP "
-            "Queue 1 item 9)")
     renv.initialize(device=args.device)
     client = renv.master_client()
 

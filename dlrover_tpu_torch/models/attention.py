@@ -3,7 +3,10 @@
 ``attention_impl`` picks the math: ``"xla"`` is the plain einsum softmax
 (:func:`xla_attention`), ``"flash"`` flash attention
 (``ops/flash_attention.mha``: the CUDA kernels on the card, forward and
-backward, with ``flash_block_q/kv`` passed through as the JAX module does).
+backward, with ``flash_block_q/kv`` passed through as the JAX module does),
+``"ring"`` ring attention (``parallel/ring_attention.py``: the sequence
+stays split over the seq axis and K/V hop around its ring; a ring of one
+without a seq axis).
 
 Decode mode (``caches`` given) keeps K/V in explicit per-layer tensors
 ``[B, max_seq_len, H_kv, hd]`` that the caller owns; each row's chunk is
@@ -23,8 +26,10 @@ Under a seq axis (``sp``, ``parallel/sharding.SeqGroup``) the module
 sees its rank's slice of the sequence, ``[B, S / sp, H, D]``, and
 :func:`ulysses_attention` runs the attention math on the whole sequence
 over ``H / sp`` of its heads (``H / (sp * tensor)`` with a tensor axis),
-swapping one split for the other with two all-to-alls.  Ring attention
-is a later slice (ROADMAP Queue 1 item 9).
+swapping one split for the other with two all-to-alls; under
+``attention_impl="ring"`` the module runs
+``parallel/ring_attention.ring_attention`` on its slice instead.  Decode
+mode takes no ring (the config refuses it, as the reference's does).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.parallel import quantized_collectives as qc
 from dlrover_tpu_torch.parallel import rules as lr
+from dlrover_tpu_torch.parallel.ring_attention import ring_attention
 from dlrover_tpu_torch.runtime.device import DeviceLike
 
 NEG_INF = -1e15
@@ -176,7 +182,7 @@ class Attention(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        if attention_impl not in ("xla", "flash"):
+        if attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         self.tp = tp
         self.sp = sp
@@ -253,6 +259,10 @@ class Attention(nn.Module):
                 )
             else:
                 out = cached_attention(q, cached_k, cached_v, q_positions)
+        elif self.attention_impl == "ring":
+            # The sequence stays split; K/V stream around the seq ring.
+            out = ring_attention(q, k, v, causal=True,
+                                 segment_ids=segment_ids, group=self.sp)
         elif self.sp is not None:
             out = ulysses_attention(self._attend, q, k, v, segment_ids,
                                     self.sp)

@@ -9,14 +9,18 @@ so the mapping is renaming plus un-stacking the scan-stacked leading
 ``blocks.<i>....`` (an MoE block's ``moe/router/kernel`` ``[L, d, E]``
 and ``moe/wi``, ``moe/wo``, ``moe/wg`` ``[L, E, ., .]`` included); the
 unstacked ``block_<i>/...`` trees of ``scan_layers=False`` map onto the
-same names.
+same names, and so does the pipelined tree of ``pipeline_stages > 1``,
+``blocks/ticks/stages/layers/...`` ``[S, L / S, ...]`` (the reference's
+``parallel/pipeline.py``): stage ``s``'s layer ``j`` is ``blocks.<s L / S
++ j>``.
 An unknown or missing key, or a shape that does
 not match the config, raises: nothing is numbered by guesswork.  Floating
 leaves are cast to the config's ``param_dtype``, the dtype the port's model
 holds them in.
 
 :func:`shard_state_dict` cuts such a whole state dict to one rank's boxes
-under the fsdp and tensor axes (``parallel/sharding.py``).
+under the fsdp and tensor axes (``parallel/sharding.py``), and gives a
+pipe rank its stage's layers.
 
 :func:`low_bit_state_from_jax` carries a ``q8_adam``/``q4_adam`` optimizer
 state across the same way, dropping the TPU layout padding of its arrays.
@@ -40,6 +44,9 @@ from dlrover_tpu_torch.models.transformer import (
 from dlrover_tpu_torch.ops import quantization
 
 _BLOCK_I = re.compile(r"^block_(\d+)$")
+_LAYER = re.compile(r"^blocks\.(\d+)\.")
+#: The pipelined stack's path prefix.
+_STAGES = ("blocks", "ticks", "stages", "layers")
 
 
 def _flatten(tree: Mapping[str, Any],
@@ -67,6 +74,19 @@ def state_dict_from_jax(
             # scan_layers=False: one tree a layer, named block_<i>.
             items = [(".".join(("blocks", unstacked.group(1)) + path[1:]),
                       arr)]
+        elif path[:4] == _STAGES:
+            # [S, L / S, ...]: the stages' layers in order.
+            if arr.ndim < 2 or arr.shape[0] * arr.shape[1] != \
+                    config.num_layers:
+                raise ValueError(
+                    f"{'/'.join(path)}: stage and layer axes "
+                    f"{arr.shape[:2]} do not hold num_layers "
+                    f"{config.num_layers}")
+            arr = arr.reshape((config.num_layers,) + arr.shape[2:])
+            items = [
+                (".".join(("blocks", str(i)) + path[4:]), arr[i])
+                for i in range(config.num_layers)
+            ]
         elif path[0] == "blocks":
             if arr.shape[:1] != (config.num_layers,):
                 raise ValueError(
@@ -106,9 +126,19 @@ def shard_state_dict(state: Mapping[str, Any], layouts: Mapping[str, Any],
     cut to one rank's boxes: ``layouts`` is ``{name: parallel.sharding.
     LeafSplit}`` (a model's ``layouts``) and ``parallel`` the rank's
     ``ModelParallel`` (its axis sizes and coordinates).  Each box is a
-    contiguous tensor on the whole leaf's device."""
+    contiguous tensor on the whole leaf's device.  On a pipe axis the rank
+    takes the layers of its stage (``parallel.pipe``) and drops the
+    others'."""
     out: Dict[str, torch.Tensor] = {}
+    held = None
+    if parallel.pipe is not None:
+        layers = 1 + max((int(m.group(1)) for m in map(_LAYER.match, state)
+                          if m), default=-1)
+        held = parallel.pipe.layers(layers)
     for name, value in state.items():
+        m = _LAYER.match(name)
+        if held is not None and m and int(m.group(1)) not in held:
+            continue
         if name not in layouts:
             raise KeyError(f"{name!r} has no layout")
         t = value if isinstance(value, torch.Tensor) else torch.from_numpy(

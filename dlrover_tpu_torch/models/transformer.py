@@ -36,26 +36,38 @@ block's slices are gathered for its forward (and again for a remat
 policy's recompute) and its gradients reduce-scattered in its backward;
 the leaves outside the blocks are gathered once a forward
 (:meth:`TransformerLM.gathered`, ``parallel/sharding.FsdpUnit``).
-Under ``seq`` (Ulysses) a rank runs its slice of every sequence, at
-the global positions ``offset + arange(S / sp)`` (RoPE and the learned
-positions read them), every parameter whole, and each block's attention
-through ``models/attention.ulysses_attention``.
+Under ``seq`` a rank runs its slice of every sequence, at the global
+positions ``offset + arange(S / sp)`` (RoPE and the learned positions
+read them), every parameter whole, and each block's attention through
+``models/attention.ulysses_attention`` (or, under ``attention_impl=
+"ring"``, ``parallel/ring_attention.ring_attention``).
+
+With ``pipeline_stages > 1`` the blocks run as a pipeline of stages
+(``parallel/pipeline.PipelinedBlocks``, GPipe or, with a
+``pipeline_interleave``, the circular schedule), ``num_microbatches``
+microbatches a forward.  On a ``pipe`` axis (one stage a pipe rank) the
+model holds its stage's blocks (``blocks`` is then keyed by the global
+layer index, so the state dict's names are the whole model's) and every
+leaf outside them: the first stage embeds, the last stage runs the final
+norm and the head (:attr:`TransformerLM.last_stage`); on the other
+stages the forward returns a 0-d zero tied to the schedule.
+
 :func:`check_parallel` refuses a config whose heads, KV heads, ``d_ff``
 or vocabulary do not divide by the tensor degree, whose heads do not
 divide by ``seq x tensor`` or whose KV heads per tensor rank do not
-divide by the seq degree, whose ``d_model``
+divide by the seq degree (Ulysses), whose ``d_model``
 does not divide by the fsdp degree or whose experts do not divide by the
-expert degree, and an MoE config on the fsdp, tensor or seq axis
-(ROADMAP Queue 1 item 6's remainder).  :func:`param_logical_axes` gives
+expert degree, an MoE config on the fsdp, tensor or seq axis
+(ROADMAP Queue 1 item 6's remainder), and a pipe axis beside fsdp, seq
+or expert, or one whose degree is not the config's stage count (item 9's
+remainder).  :func:`param_logical_axes` gives
 every parameter's logical axes, the reference's ``kernel_axes``.
 
 The config has every field of the reference's.  ``scan_layers`` only
 names the JAX tree ``models/from_jax.py`` reads (stacked, or
 ``block_<i>``), ``scan_unroll`` is an XLA scheduling knob with nothing
 to do in eager PyTorch, and ``wo_transposed`` stores the MLP's ``wo``
-kernel ``[d_model, d_ff]`` with the axes ``(embed, mlp)``.  Not ported
-yet (ROADMAP Queue 1 item 9): pipeline stages and ring attention, which
-raise ``NotImplementedError`` after the reference's own validation.
+kernel ``[d_model, d_ff]`` with the axes ``(embed, mlp)``.
 """
 
 from __future__ import annotations
@@ -75,6 +87,7 @@ from dlrover_tpu_torch.models import moe as moe_lib
 from dlrover_tpu_torch.models.moe import MoEMlp
 from dlrover_tpu_torch.ops import remat_policy
 from dlrover_tpu_torch.ops.layout_pin import pin_layout
+from dlrover_tpu_torch.parallel import pipeline as pipeline_lib
 from dlrover_tpu_torch.parallel import rules as lr
 from dlrover_tpu_torch.runtime.device import DeviceLike, resolve_device
 
@@ -105,7 +118,7 @@ class TransformerConfig:
                                    # "grouped"
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "xla"    # "xla" | "flash"
+    attention_impl: str = "xla"    # "xla" | "flash" | "ring"
     fused_qkv: bool = True         # one [d, H, 3*hd] kernel when no GQA
     # JAX's Pallas blocks; here they choose the flash backward kernel
     # (fused when the kv sequence fits one clamped block_kv, else split).
@@ -134,14 +147,15 @@ class TransformerConfig:
     logits_dtype: torch.dtype = torch.float32
     logit_scale: float = 1.0       # the µP output multiplier
                                    # (optimizers/mup.py)
+    # The pipeline (parallel/pipeline.py): stages, and the microbatches a
+    # forward streams through them (0: as many as stages).
     pipeline_stages: int = 1
     num_microbatches: int = 0
     # Decode mode: attention reads and writes a KV cache that the caller
     # passes in ([B, max_seq_len, H_kv, hd] per layer); same parameters.
     decode: bool = False
-    # The circular pipeline schedule's layer chunks per stage (validated
-    # as the reference validates it; pipelines are ROADMAP Queue 1 item
-    # 9).
+    # The circular pipeline schedule's layer chunks per stage: v > 1
+    # sends each microbatch v laps around the stages (vM + S - 1 ticks).
     pipeline_interleave: int = 1
 
     @property
@@ -161,9 +175,7 @@ class TransformerConfig:
         return 4 * self.d_model
 
     def __post_init__(self):
-        """The reference's validation, in its order, then the refusals of
-        what is not ported (ring attention and pipeline stages, ROADMAP
-        Queue 1 item 9)."""
+        """The reference's validation, in its order."""
         if self.attention_impl not in ("xla", "flash", "ring"):
             raise ValueError(
                 f"attention_impl must be 'xla', 'flash' or 'ring', got "
@@ -200,16 +212,6 @@ class TransformerConfig:
                     "microbatch re-enters stage 0 only after lap L-1 "
                     "cleared the ring"
                 )
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' (context parallelism) is a later "
-                "slice of the port (long context, ROADMAP Queue 1 item 9)"
-            )
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1 is a later slice of the port (pipeline, "
-                "ROADMAP Queue 1 item 9)"
-            )
 
     def check_device(self, device: torch.device) -> None:
         """Refuse what the card's flash kernels have no build for: under
@@ -229,9 +231,23 @@ class TransformerConfig:
 
 
 def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
-    """Refuse a config the fsdp, tensor, seq and expert axes cannot split
-    evenly, naming the dimension (the sequence length is the step's:
+    """Refuse a config the fsdp, tensor, seq, expert and pipe axes cannot
+    split evenly, naming the dimension (the sequence length is the step's:
     ``train_lib.build_train`` checks it against the seq degree)."""
+    pipe = sizes.get("pipe", 1)
+    if pipe > 1:
+        beside = [a for a in ("fsdp", "seq", "expert") if sizes.get(a, 1) > 1]
+        if beside:
+            raise NotImplementedError(
+                f"a pipe axis beside the {'/'.join(beside)} axis is a later "
+                f"slice of the port (ROADMAP Queue 1 item 9's remainder); "
+                f"pipe composes with data and tensor")
+        if cfg.pipeline_stages != pipe:
+            raise NotImplementedError(
+                f"a pipe axis of {pipe} under pipeline_stages "
+                f"{cfg.pipeline_stages}: the port runs one stage a pipe "
+                f"rank; other foldings are a later slice of the port "
+                f"(ROADMAP Queue 1 item 9's remainder)")
     model_axes = [a for a in ("fsdp", "tensor", "seq")
                   if sizes.get(a, 1) > 1]
     if model_axes and cfg.num_experts:
@@ -255,7 +271,7 @@ def check_parallel(cfg: "TransformerConfig", sizes: Dict[str, int]) -> None:
             raise ValueError(
                 f"{what} {n} does not divide by the {axis} degree {k}")
     sp, tp = sizes.get("seq", 1), sizes.get("tensor", 1)
-    if sp > 1:
+    if sp > 1 and cfg.attention_impl != "ring":
         # Ulysses splits each tensor rank's heads again over seq.
         if cfg.num_heads % (sp * tp):
             raise ValueError(
@@ -415,10 +431,24 @@ class TransformerLM(nn.Module):
             )
         elif cfg.position != "rope":
             raise ValueError(f"unknown position {cfg.position!r}")
-        self.blocks = nn.ModuleList(
-            Block(cfg, build, tp=tp, moe_group=moe_group, sp=self.sp)
-            for _ in range(cfg.num_layers)
-        )
+        #: The pipe axis (``parallel/sharding.PipeGroup``), None at 1.
+        self.pipe = parallel.pipe if parallel is not None else None
+        self.pipeline = None
+        if cfg.pipeline_stages > 1:
+            pipeline_lib.validate(cfg)
+            self.pipeline = pipeline_lib.PipelinedBlocks(cfg, self.pipe)
+            held = (self.pipe.layers(cfg.num_layers) if self.pipe is not None
+                    else range(cfg.num_layers))
+            # Keyed by the global layer index: a stage's state dict names
+            # its layers as the whole model does.
+            self.blocks = nn.ModuleDict({
+                str(i): Block(cfg, build, tp=tp, moe_group=moe_group,
+                              sp=self.sp) for i in held})
+        else:
+            self.blocks = nn.ModuleList(
+                Block(cfg, build, tp=tp, moe_group=moe_group, sp=self.sp)
+                for _ in range(cfg.num_layers)
+            )
         self.ln_final = layers.make_norm(cfg.norm, cfg.d_model, build,
                                          cfg.param_dtype)
         if not cfg.tie_embeddings:
@@ -431,8 +461,10 @@ class TransformerLM(nn.Module):
         self._root_unit, self._block_units = None, []
         self._root_active = False
         if self.parallel is not None:
-            self.layouts = self.parallel.layouts(param_logical_axes(self),
-                                                 param_shapes(cfg))
+            logical = param_logical_axes(self)
+            self.layouts = self.parallel.layouts(
+                logical, {k: v for k, v in param_shapes(cfg).items()
+                          if k in logical})
             for name, p in list(self.named_parameters()):
                 local = self.layouts[name].local_shape(self.parallel.sizes)
                 if fsdp:
@@ -450,6 +482,12 @@ class TransformerLM(nn.Module):
             self._block_units = [
                 self.parallel.unit(self.layouts, f"blocks.{i}.")
                 for i in range(cfg.num_layers)]
+
+    @property
+    def last_stage(self) -> bool:
+        """Whether this rank runs the final norm and the head: every rank
+        but a pipe axis's stages before the last."""
+        return self.pipe is None or self.pipe.last
 
     @contextlib.contextmanager
     def gathered(self):
@@ -507,10 +545,19 @@ class TransformerLM(nn.Module):
             positions = torch.arange(
                 start, start + width, device=tokens.device
             )[None, :]
-        with self.gathered():
-            x = self.embed(tokens)
-            if cfg.position == "learned":
-                x = x + self.pos_embedding[positions].to(cfg.dtype)
+        if self.pipeline is not None:
+            x = None
+            if self.pipe is None or self.pipe.first:
+                x = self._embed(tokens, positions)
+            x = self.pipeline(
+                {int(k): b for k, b in self.blocks.items()}, x, positions,
+                segment_ids, (tokens.shape[0], width, cfg.d_model),
+                tokens.device)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            if not self.last_stage:
+                return x, aux
+            return self.ln_final(x), aux
+        x = self._embed(tokens, positions)
         aux = None
         for i, block in enumerate(self.blocks):
             if caches is not None:
@@ -531,6 +578,14 @@ class TransformerLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self.ln_final(x), aux
 
+    def _embed(self, tokens, positions) -> torch.Tensor:
+        cfg = self.config
+        with self.gathered():
+            x = self.embed(tokens)
+            if cfg.position == "learned":
+                x = x + self.pos_embedding[positions].to(cfg.dtype)
+        return x
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Head over hidden states, in ``logits_dtype`` (this rank's
         vocabulary columns under a tensor axis)."""
@@ -547,10 +602,11 @@ class TransformerLM(nn.Module):
         return out.to(cfg.logits_dtype)
 
     def forward(self, tokens, positions=None, segment_ids=None, caches=None):
+        """Logits ``[B, S, V]`` (a pipe stage before the last: its 0-d
+        zero)."""
         with self.gathered():
-            return self.logits(
-                self.hidden(tokens, positions, segment_ids, caches)
-            )
+            x = self.hidden(tokens, positions, segment_ids, caches)
+            return self.logits(x) if self.last_stage else x
 
     def forward_aux(
         self,
@@ -563,10 +619,14 @@ class TransformerLM(nn.Module):
         ``return_hidden`` ``(hidden * logit_scale, aux_loss)`` for a caller
         that computes the head itself (chunked cross entropy).  ``aux_loss``
         is the fp32 sum of the MoE blocks' aux losses times
-        ``moe_aux_weight``, 0 for a dense model."""
+        ``moe_aux_weight``, 0 for a dense model.  A pipe stage before the
+        last has no head: it returns the pipeline's 0-d zero in place of
+        the logits (its backward drives the stage's reverse schedule)."""
         with self.gathered():
             x, aux = self._hidden_aux(tokens, positions, segment_ids)
             aux = aux * self.config.moe_aux_weight
+            if not self.last_stage:
+                return x, aux
             if return_hidden:
                 scale = self.config.logit_scale
                 return (x * scale if scale != 1.0 else x), aux
@@ -621,14 +681,18 @@ def param_logical_axes(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     return out
 
 
-def stacked_logical_axes(axes: Dict[str, Sequence]) -> Dict[str, Tuple]:
+def stacked_logical_axes(axes: Dict[str, Sequence],
+                         stages: bool = False) -> Dict[str, Tuple]:
     """The per-layer names' axes -> the layer-stacked leaves' (a leading
-    ``layers`` axis, as the reference's ``nn.scan`` adds)."""
+    ``layers`` axis, as the reference's ``nn.scan`` adds; ``stages`` for
+    a pipelined model, whose leading dimension splits over ``pipe`` as
+    the reference's stage dim does)."""
+    lead = lr.STAGES if stages else lr.LAYERS
     out: Dict[str, Tuple] = {}
     for name, a in axes.items():
         m = re.match(r"^blocks\.(\d+)\.(.+)$", name)
         if m:
-            out[f"blocks.{m.group(2)}"] = (lr.LAYERS,) + tuple(a)
+            out[f"blocks.{m.group(2)}"] = (lead,) + tuple(a)
         else:
             out[name] = tuple(a)
     return out

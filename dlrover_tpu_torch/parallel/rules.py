@@ -16,18 +16,27 @@ the ``(dim, axes)`` splits of :func:`leaf_splits`, which
 to data parallelism: parameters replicated, the batch split over
 ``data``.
 
-The ``seq`` axis (Ulysses, :func:`sequence_axis`): ``act_seq -> seq``
-gives each rank of a seq group its slice of every sequence, and
-``act_heads -> (seq, tensor)`` its heads inside attention, where
-``models/attention.ulysses_attention`` swaps one split for the other with
-two all-to-alls.  The seq axis splits no parameter here
+The ``seq`` axis (:func:`sequence_axis`): ``act_seq -> seq`` gives each
+rank of a seq group its slice of every sequence.  Under Ulysses
+(``context="ulysses"``) ``act_heads -> (seq, tensor)`` gives it its heads
+inside attention, where ``models/attention.ulysses_attention`` swaps one
+split for the other with two all-to-alls; under ring attention
+(``context="ring"``, :data:`RING_RULES`, with ``attention_impl="ring"``)
+``act_heads -> tensor`` and the sequence stays split through the layer,
+K and V hopping around the seq ring (``parallel/ring_attention.py``).  The seq axis splits no parameter here
 (:func:`leaf_splits` leaves it out): the reference's GSPMD also splits
 the learned position table's rows over it (their logical name is
 ``act_seq``), which the port keeps whole, since a rank's positions reach
 rows outside any box of it; the values are the same.  Parameters are
 replicated over ``seq``, so their gradients are summed over ``data x
-seq`` (:func:`grad_sum_axes`), as GSPMD sums them.  ``context="ring"``
-on a seq axis above 1 is refused (ROADMAP Queue 1 item 9).
+seq`` (:func:`grad_sum_axes`), as GSPMD sums them, under either
+context.
+
+The ``pipe`` axis: ``stages -> pipe`` splits the layer-stacked leaves'
+leading dimension (the reference's ``[S, L / S, ...]`` stage dim; the
+port's ``[L, ...]`` leaves carry the name ``stages`` there when the model
+is pipelined), so a pipe rank holds its stage's layers
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -196,31 +205,29 @@ def leaf_splits(logical: Sequence[str], rules: Rules,
 def sequence_axis(mesh, rules: Rules) -> int:
     """The seq degree the activations are split over on ``mesh`` (1 when
     the seq axis is 1).  Above 1 the rules must split ``act_seq`` over
-    ``seq`` and, inside attention, ``act_heads`` over ``seq`` (Ulysses);
-    a table that keeps the heads off it (``context="ring"``) or the
-    sequence off it is refused."""
+    ``seq``; inside attention Ulysses splits the heads over it
+    (``act_heads -> (seq, tensor)``) and ring attention keeps them on
+    ``tensor`` (``context="ring"``): the model's ``attention_impl`` picks
+    which runs.  A table that keeps the sequence off it is refused."""
     size = mesh_axis_sizes(mesh).get(SEQ_AXIS, 1)
     if size <= 1:
         return 1
-    act_seq, act_heads = (_entry_names(e) for e in logical_to_mesh_axes(
-        [ACT_SEQ, ACT_HEADS], rules))
+    act_seq = _entry_names(logical_to_mesh_axes([ACT_SEQ], rules)[0])
     if SEQ_AXIS not in act_seq:
         raise NotImplementedError(
             f"a seq axis of {size} under rules that map act_seq to "
             f"{act_seq or None}: the port splits the sequence over it, as "
             f"the default rules do")
-    if SEQ_AXIS not in act_heads:
-        raise NotImplementedError(
-            f"a seq axis of {size} under rules that keep act_heads off it "
-            f"(context='ring', ring attention) is a later slice of the port "
-            f"(ROADMAP Queue 1 item 9); use context='ulysses'")
     return size
 
 
 def grad_sum_axes(mesh, rules: Rules) -> Tuple[str, ...]:
     """The mesh axes above 1 over which a replicated parameter's gradient
     is summed: the batch group (:func:`batch_group_axes`) and the seq
-    axis, whose ranks hold other tokens of the same rows."""
+    axis, whose ranks hold other tokens of the same rows (under Ulysses
+    and ring attention alike).  The pipe axis is not one: its ranks hold
+    other layers of the same tokens (``trainer/train_lib.py`` sums the
+    leaves outside the stages over it)."""
     out = batch_group_axes(mesh, rules)
     if sequence_axis(mesh, rules) > 1:
         out += (SEQ_AXIS,)

@@ -33,11 +33,18 @@ and this module carries the table out:
   group (``data x expert``) its router means and statistics are taken
   over.
 
-* ``seq`` (Ulysses): a rank holds the tokens ``[r * S / sp, (r + 1) *
-  S / sp)`` of every sequence and every parameter whole.
+* ``seq`` (Ulysses or ring attention): a rank holds the tokens ``[r * S
+  / sp, (r + 1) * S / sp)`` of every sequence and every parameter whole.
   :class:`SeqGroup` is what the model needs of it: the wire that
-  ``models/attention.ulysses_attention`` swaps sequence for heads over,
-  and the offset of the rank's tokens (their positions).
+  ``models/attention.ulysses_attention`` swaps sequence for heads over
+  (or that ``parallel/ring_attention.py`` hops K and V around), and the
+  offset of the rank's tokens (their positions).
+
+* ``pipe``: a rank holds one pipeline stage, the layers ``[s * L / S,
+  (s + 1) * L / S)`` (the layer-stacked leaves split on their leading
+  dimension), and every leaf outside the blocks whole.
+  :class:`PipeGroup` is what ``parallel/pipeline.py`` needs of it: the
+  stage, the stage count, the wire of the handoffs and the layer range.
 
 Every collective goes through the axis's :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (a gloo group stages CUDA payloads through the host);
@@ -452,13 +459,38 @@ class SeqGroup:
                            + tuple(t.shape[2:]))
 
 
+# -- the pipe axis ---------------------------------------------------------------
+
+
+class PipeGroup:
+    """The pipe axis as a model sees it: ``size`` stages over its
+    ``wire``, this rank's ``stage``.  Stage ``s`` holds the layers
+    ``[s * L / size, (s + 1) * L / size)`` (:meth:`layers`), whatever the
+    schedule: the circular one borrows the others it runs for a step."""
+
+    def __init__(self, wire, size: int, stage: int):
+        self.wire, self.size, self.stage = wire, size, stage
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.size - 1
+
+    def layers(self, num_layers: int) -> range:
+        per = num_layers // self.size
+        return range(self.stage * per, (self.stage + 1) * per)
+
+
 # -- the model's view of the mesh --------------------------------------------
 
 
 class ModelParallel:
-    """What a model and its step need of a mesh's fsdp, tensor, expert and
-    seq axes: the axis sizes, this rank's coordinates, the axes' wires,
-    the rule table and the batch group."""
+    """What a model and its step need of a mesh's fsdp, tensor, expert,
+    seq and pipe axes: the axis sizes, this rank's coordinates, the axes'
+    wires, the rule table and the batch group."""
 
     def __init__(self, mesh, rules, wires: Optional[Dict[str, object]] = None,
                  rank: Optional[int] = None):
@@ -470,12 +502,25 @@ class ModelParallel:
         self.fsdp = self.sizes.get(mesh_lib.FSDP_AXIS, 1)
         self.tensor = self.sizes.get(mesh_lib.TENSOR_AXIS, 1)
         self.expert = self.sizes.get(mesh_lib.EXPERT_AXIS, 1)
+        self.pipe_size = self.sizes.get(mesh_lib.PIPE_AXIS, 1)
         self.seq = lr.sequence_axis(mesh, self.rules)
         self.batch_axes = lr.batch_group_axes(mesh, self.rules)
         self.sp = None
         if self.seq > 1:
             self.sp = SeqGroup(self.wires.get(mesh_lib.SEQ_AXIS), self.seq,
                                self.coords[mesh_lib.SEQ_AXIS])
+        #: The pipe axis (:class:`PipeGroup`), None at 1.
+        self.pipe = None
+        if self.pipe_size > 1:
+            if lr.logical_to_mesh_axes([lr.STAGES], self.rules)[0] != \
+                    mesh_lib.PIPE_AXIS:
+                raise NotImplementedError(
+                    "under a pipe axis the port splits the stages over it, "
+                    "as the default rules do; the rules map 'stages' "
+                    "elsewhere")
+            self.pipe = PipeGroup(self.wires.get(mesh_lib.PIPE_AXIS),
+                                  self.pipe_size,
+                                  self.coords[mesh_lib.PIPE_AXIS])
         self.tp = None
         if self.tensor > 1:
             for name in (lr.HEADS, lr.MLP, lr.VOCAB):
@@ -496,9 +541,10 @@ class ModelParallel:
 
     @property
     def active(self) -> bool:
-        """Whether a rank holds boxes of some leaves (not whole ones): the
-        seq axis splits none."""
-        return self.fsdp > 1 or self.tensor > 1 or self.expert > 1
+        """Whether a rank holds boxes of some leaves (not whole ones; a
+        pipe rank holds its stage's layers): the seq axis splits none."""
+        return (self.fsdp > 1 or self.tensor > 1 or self.expert > 1
+                or self.pipe_size > 1)
 
     def expert_group(self) -> Optional[ExpertGroup]:
         """The MoE layers' :class:`ExpertGroup` (None at one batch rank

@@ -9,7 +9,9 @@ interconnect.  Here a collective names a ``torch.distributed`` group.
   (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
   ``send``, ``broadcast``, ``gather``, ``scatter``), each tensor counted
   once per call as its element count times its item size (a scatter's
-  on its source only);
+  on its source only, a neighbour hop's on its sender only: ``shift``,
+  ``send`` and the exchange of several tensors in one hop are one
+  ``send`` call);
 * ``axes``: the same bytes by axis and leg (``"fsdp/all_gather"``; the
   axis a :class:`Wire` was built for, ``"world"`` for one built without);
 * ``calls``: the collectives issued, by axis and leg;
@@ -208,21 +210,59 @@ class Wire:
             return 0
         return dist.get_global_rank(self.group, 0)
 
-    def shift(self, send: torch.Tensor, recv: torch.Tensor) -> None:
-        """One ring hop: ``send`` goes to rank + 1, ``recv`` comes from
-        rank - 1 (mod n)."""
-        self._count("send", send)
+    def _peer(self, step: int) -> int:
+        """The global rank of group rank ``rank + step`` (mod n)."""
+        r = (self.rank + step) % self.size
+        return dist.get_global_rank(self.group, r) \
+            if self.group is not None else r
+
+    def exchange(self, sends, recvs, async_op: bool = False) -> Pending:
+        """Neighbour sends and receives posted at once: each ``(tensor,
+        step)`` of ``sends`` goes to group rank ``rank + step``, each of
+        ``recvs`` (contiguous) comes from ``rank + step`` (mod n).  One
+        ``send`` call on the books, each sent tensor's bytes under it."""
+        if sends:
+            for t, _ in sends:
+                COUNTS["bytes"]["send"] += _nbytes(t)
+                COUNTS["axes"][f"{self.axis}/send"] += _nbytes(t)
+            COUNTS["calls"][f"{self.axis}/send"] += 1
         copies: list = []
-        src = self._in(send)
-        dst = self._out(recv, copies)
-        peer = dist.get_global_rank if self.group is not None else None
-        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
-        if peer is not None:
-            nxt, prv = peer(self.group, nxt), peer(self.group, prv)
-        ops = [dist.P2POp(dist.isend, src, nxt, self.group),
-               dist.P2POp(dist.irecv, dst, prv, self.group)]
-        works = dist.batch_isend_irecv(ops)
-        Pending(works, copies, self.axis).wait()
+        ops = [dist.P2POp(dist.isend, self._in(t).contiguous(),
+                          self._peer(step), self.group)
+               for t, step in sends]
+        ops += [dist.P2POp(dist.irecv, self._out(t, copies),
+                           self._peer(step), self.group)
+                for t, step in recvs]
+        works = dist.batch_isend_irecv(ops) if ops else []
+        pending = Pending(works, copies, self.axis)
+        if not async_op:
+            pending.wait()
+        return pending
+
+    def shift(self, send, recv, step: int = 1,
+              async_op: bool = False) -> Pending:
+        """One ring hop: ``send`` (a tensor, or a list of them) goes to
+        rank + ``step``, ``recv`` (as many, contiguous) comes from rank -
+        ``step`` (mod n); ``step=-1`` hops the other way.  With
+        ``async_op`` the hop is posted and the :class:`Pending` returned
+        at once (ring attention posts its next hop before the chunk
+        math)."""
+        sends = list(send) if isinstance(send, (list, tuple)) else [send]
+        recvs = list(recv) if isinstance(recv, (list, tuple)) else [recv]
+        return self.exchange([(t, step) for t in sends],
+                         [(t, -step) for t in recvs], async_op)
+
+    def send(self, t: torch.Tensor, step: int = 1) -> Pending:
+        """A neighbour send to rank + ``step`` (mod n), posted at once:
+        the pipeline's stage handoff (activations forward, gradients
+        backward).  The matching :meth:`recv` may come later."""
+        return self.exchange([(t, step)], [], True)
+
+    def recv(self, t: torch.Tensor, step: int = -1) -> None:
+        """In place: ``t`` (contiguous) becomes what rank + ``step`` (mod
+        n) sent it, in the order that rank's sends to this one were
+        posted."""
+        self.exchange([], [(t, step)], False)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> None:
         """In place, from group rank ``src``."""

@@ -9,10 +9,10 @@ same six axis names in the same order (outermost first)::
 
     data > fsdp > pipe > expert > seq > tensor
 
-The ``data``, ``fsdp``, ``expert``, ``seq`` and ``tensor`` axes may be
-above 1 (``seq`` with Ulysses' all-to-alls, ``models/attention.
-ulysses_attention``).  ``build_mesh`` refuses a ``pipe`` degree above 1
-(ROADMAP Queue 1 item 9: ring attention and the pipeline).  Each axis
+Every axis may be above 1: ``seq`` with Ulysses' all-to-alls
+(``models/attention.ulysses_attention``) or ring attention's hops
+(``parallel/ring_attention.py``), ``pipe`` with one pipeline stage a rank
+(``parallel/pipeline.py``).  Each axis
 above 1 has its process group (the
 ``DeviceMesh``'s ``get_group``) and its :class:`~dlrover_tpu_torch.
 parallel.wire.Wire` (:func:`axis_wires`), through which every collective
@@ -52,8 +52,9 @@ MESH_AXES: Tuple[str, ...] = (
     TENSOR_AXIS,
 )
 
-#: The ROADMAP Queue 1 item that brings each model-parallel axis.
-_AXIS_ITEMS = {PIPE_AXIS: 9}
+#: The ROADMAP Queue 1 item that brings each model-parallel axis the port
+#: does not run yet (none since item 9 brought ``pipe``).
+_AXIS_ITEMS: Dict[str, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,8 +135,7 @@ def check_axes(sizes: Dict[str, int]) -> None:
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {sizes[axis]} is a later slice of the "
-                f"port (ROADMAP Queue 1 item {_AXIS_ITEMS[axis]}); the "
-                "mesh takes the data, fsdp, expert, seq and tensor axes"
+                f"port (ROADMAP Queue 1 item {_AXIS_ITEMS[axis]})"
             )
 
 

@@ -42,12 +42,13 @@ split leaf's byte sum over the world.  A live re-layout folds the data
 axis only; on a mesh with an fsdp or tensor axis above 1 it is refused
 (ROADMAP Queue 1 item 5), and with an expert axis above 1 too, until the
 virtual mesh has its expert fields (item 6's remainder), and with a seq
-axis above 1 (item 9).
+or pipe axis above 1 (item 9's remainder).  ``fit`` runs on a seq mesh
+(Ulysses or ring attention) and on a pipe mesh (one pipeline stage a
+rank) as on the others.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the ``pipe`` mesh axis (``runtime/mesh.check_axes``; ROADMAP Queue 1
-item 9); ``auto_tune``, device-time capture
+``auto_tune``, device-time capture
 (``profile_every``), the memory report, OOM forensics and the agent's
 device metrics (item 10).  An MoE model's router statistics are
 harvested on the report cadence (``train_lib.build_moe_stats_fn``, a
@@ -56,11 +57,20 @@ report.  Eager PyTorch has nothing to compile ahead of time, so
 ``warmup_compile``, ``prewarm_worlds(aot=True)`` and a persistent
 ``compile_cache_dir`` are refused too, and ``reuse_compiled`` has no
 effect (item 3).
+
+The host's garbage collector: ``fit`` runs one full collection before its
+first step and freezes what survives (``gc.freeze``) until it returns, so
+a collection of the oldest generation during a step scans only what the
+loop made.  Unfrozen, such a collection walks every object of the
+process at a step boundary, where the device's launch queue holds tens
+of milliseconds of work; on an H100 under GPT-2 1.5B it took 264-290 ms
+inside a step (PERF.md, PR 20).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -577,17 +587,17 @@ class ElasticTrainer:
         grad_accum, relayout seconds.
         """
         new_world = max(1, int(new_world))
+        if self.train.sp > 1 or self.train.pipe is not None:
+            raise NotImplementedError(
+                "a live re-layout on a mesh with a seq or pipe axis: the "
+                "port's virtual mesh folds the data axis only (ROADMAP "
+                "Queue 1 item 9's remainder)")
         if self.train.parallel.active:
             raise NotImplementedError(
                 "a live re-layout on a mesh with an fsdp, tensor or expert "
                 "axis: the port's virtual mesh folds the data axis only "
                 "(ROADMAP Queue 1 item 5; the expert fields, item 6's "
                 "remainder)")
-        if self.train.sp > 1:
-            raise NotImplementedError(
-                "a live re-layout on a mesh with a seq axis: the port's "
-                "virtual mesh folds the data axis only (ROADMAP Queue 1 "
-                "item 9)")
         if new_world == self._world:
             return {
                 "ok": True, "noop": True, "fallback": False,
@@ -976,8 +986,18 @@ class ElasticTrainer:
         (resume-aware: a restored trainer continues counting from its
         restored step, and for a SIZED loader the epoch counter resumes at
         ``step // len(loader)``; an unsized generator cannot imply an
-        epoch, so its counter restarts at 0).
+        epoch, so its counter restarts at 0).  What is alive when it
+        starts is frozen out of the garbage collector until it returns
+        (the module docstring).
         """
+        gc.collect()
+        gc.freeze()
+        try:
+            return self._fit(loader, max_steps, on_step, eval_loader, epochs)
+        finally:
+            gc.unfreeze()
+
+    def _fit(self, loader, max_steps, on_step, eval_loader, epochs) -> int:
         cfg = self.config
         if epochs:
             # Single-use iterators (generators, list_iterator,

@@ -66,6 +66,9 @@ DIRECT_ROWS = 1 << 13
 
 _POWERS: Dict[Tuple[int, str], torch.Tensor] = {}
 _SPANS: Dict[Tuple[Any, ...], torch.Tensor] = {}
+#: Per CUDA device: the pinned buffer the kernel's chunk table is staged
+#: in, and the event after the copy that last read it.
+_STAGING: Dict[str, Tuple[torch.Tensor, Any]] = {}
 
 
 def _int_sum(value: int) -> int:
@@ -127,24 +130,61 @@ def _lib_fn():
     return fn
 
 
-def leaf_sums_kernel(flats: Sequence[torch.Tensor],
+def _staged_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``table``'s bytes on ``device``, copied without a host sync from a
+    pinned buffer kept for the device (a fresh ``pin_memory`` took 2 to 39
+    ms of host time on an H100's host).  The buffer is rewritten only once
+    the copy that last read it has run; until then a new one is pinned."""
+    raw = table.view(np.uint8).reshape(-1)
+    held = _STAGING.get(str(device))
+    if held is None or held[0].numel() < raw.size or not held[1].query():
+        buf = torch.empty(2 * raw.size, dtype=torch.uint8, pin_memory=True)
+    else:
+        buf = held[0]
+    buf[:raw.size].numpy()[:] = raw
+    rows = torch.empty(raw.size, dtype=torch.uint8, device=device)
+    rows.copy_(buf[:raw.size], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    _STAGING[str(device)] = (buf, done)
+    return rows
+
+
+def leaf_sums_kernel(leaves: Sequence[Any],
                      device: torch.device) -> torch.Tensor:
-    """Each flat uint8 CUDA tensor's byte sum, int64 ``[len(flats)]`` on
-    ``device``: one launch of ``byte_sums.cu`` (counted in
-    :data:`LAUNCHES`), or an error.  No host sync."""
-    if flats:
-        device = flats[0].device
-    if device.type != "cuda" or any(f.device != device or f.dtype !=
-                                    torch.uint8 for f in flats):
-        raise ValueError(f"the byte-sum kernel takes uint8 tensors on one "
-                         f"CUDA device, got {device}")
-    sums = torch.zeros(len(flats), dtype=torch.int64, device=device)
-    table = chunk_table([f.data_ptr() for f in flats],
-                        [f.numel() for f in flats])
+    """Each leaf's raw-byte sum, int64 ``[len(leaves)]`` on ``device``:
+    the tensor leaves (on that CUDA device) by one launch of
+    ``byte_sums.cu`` (counted in :data:`LAUNCHES`), read where they lie
+    (a leaf that is not contiguous is copied first), and a Python int's
+    sum written in its place; or an error.  No host sync."""
+    device = next((leaf.device for leaf in leaves
+                   if isinstance(leaf, torch.Tensor)), device)
+    if device.type != "cuda":
+        raise ValueError(f"the byte-sum kernel runs on a CUDA device, got "
+                         f"{device}")
+    sums = torch.zeros(len(leaves), dtype=torch.int64, device=device)
+    # ``copies`` keeps the contiguous copies alive until the launch.
+    addrs, nbytes, where, copies = [], [], [], []
+    for i, leaf in enumerate(leaves):
+        if not isinstance(leaf, torch.Tensor):
+            value = _int_sum(_checked_int(leaf))
+            if value:
+                sums[i].fill_(value)
+            continue
+        if leaf.device != device:
+            raise ValueError(f"the byte-sum kernel takes tensors on one "
+                             f"CUDA device, got {device} and {leaf.device}")
+        if not leaf.is_contiguous():
+            leaf = _bytes(leaf)
+            copies.append(leaf)
+        addrs.append(leaf.data_ptr())
+        nbytes.append(leaf.numel() * leaf.element_size())
+        where.append(i)
+    table = chunk_table(addrs, nbytes)
     if not len(table):
         return sums
-    rows = torch.from_numpy(table.view(np.uint8)).pin_memory().to(
-        device, non_blocking=True)
+    table["leaf"] = np.asarray(where, np.int64)[table["leaf"]]
+    rows = _staged_table(table, device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         err = _lib_fn()(rows.data_ptr(), len(table), sums.data_ptr(),
@@ -156,14 +196,24 @@ def leaf_sums_kernel(flats: Sequence[torch.Tensor],
     return sums
 
 
+def _checked_int(leaf: Any) -> int:
+    """A Python int leaf (the JAX package's int32 step counter); anything
+    else that is not a tensor is refused."""
+    if not isinstance(leaf, int):
+        raise TypeError(f"cannot digest a {type(leaf).__name__} leaf")
+    return leaf
+
+
 def _flats(leaves: Sequence[Any]) -> List[torch.Tensor]:
     """The tensor leaves' raw bytes (a Python int is the JAX package's
     int32 step counter; anything else is refused)."""
+    flats = []
     for leaf in leaves:
-        if not isinstance(leaf, (torch.Tensor, int)):
-            raise TypeError(f"cannot digest a {type(leaf).__name__} leaf")
-    return [_bytes(leaf) for leaf in leaves
-            if isinstance(leaf, torch.Tensor)]
+        if isinstance(leaf, torch.Tensor):
+            flats.append(_bytes(leaf))
+        else:
+            _checked_int(leaf)
+    return flats
 
 
 def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
@@ -172,8 +222,7 @@ def byte_sums(leaves: Sequence[Any], device: torch.device) -> torch.Tensor:
     sums every tensor leaf (:func:`leaf_sums_kernel`); on the CPU the
     plain version does (:func:`byte_sums_reference`)."""
     if device.type == "cuda":
-        return _with_ints(leaves, leaf_sums_kernel(_flats(leaves), device),
-                          device)
+        return leaf_sums_kernel(leaves, device)
     return byte_sums_reference(leaves, device)
 
 

@@ -98,21 +98,37 @@ reductions over an expert leaf are completed over the expert axis.
 :func:`build_moe_stats_fn` is the router statistics' harvest, a forward
 of its own.
 
-The seq axis (Ulysses).  On a mesh with ``seq`` above 1 each rank of a
-seq group takes the same rows as the others and its ``S / sp`` slice of
-their columns (``inputs``, ``targets`` and ``weights`` alike: the batch
-carries its shifted targets, so no token crosses a slice's edge).  The
-model runs each block's attention on the whole sequence over its rank's
-heads (``models/attention.ulysses_attention``); the loss is normalised
-by the token weight summed over the batch group and the seq group, and
-every gradient is summed over ``seq`` (one all-reduce for all of them)
-before the data axis's reduction, ZeRO-1's included.
+The seq axis.  On a mesh with ``seq`` above 1 each rank of a seq group
+takes the same rows as the others and its ``S / sp`` slice of their
+columns (``inputs``, ``targets`` and ``weights`` alike: the batch carries
+its shifted targets, so no token crosses a slice's edge).  The model runs
+each block's attention on the whole sequence over its rank's heads
+(Ulysses, ``models/attention.ulysses_attention``) or, under
+``attention_impl="ring"`` (with ``RING_RULES``), on its slice with K and
+V hopping around the seq ring (``parallel/ring_attention.py``); the loss
+is normalised by the token weight summed over the batch group and the
+seq group, and every gradient is summed over ``seq`` (one all-reduce for
+all of them) before the data axis's reduction, ZeRO-1's included.
 
-Not ported yet, and refused when asked for: the ``pipe`` mesh axis
-(``runtime/mesh.check_axes``: ROADMAP Queue 1 item 9), MoE on an fsdp,
-tensor or seq axis (item 6's remainder), and the overlap engine and the
-int8 wires beside an fsdp, tensor, expert or seq axis (they stay the
-data axis's).
+The pipe axis.  A config with ``pipeline_stages`` S on a mesh with a
+``pipe`` axis of S runs one stage a pipe rank (``parallel/pipeline.py``):
+the layer-stacked leaves are split over ``pipe`` on their layers
+dimension (a rank holds its stage's layers), and every pipe rank holds
+the leaves outside the blocks (the embedding, the positions, the final
+norm and the head) and takes the same rows.  The first stage embeds, the
+last computes the head and the loss; the loss and the token count reach
+every rank (the metrics' sums run over ``pipe`` too).  A leaf outside the
+blocks gets its gradient from the stages that use it (the embedding from
+the first stage's lookup and, tied, from the last stage's head) and is
+summed over ``pipe``, so every pipe rank updates it alike; the global
+norm counts it once and completes the stages' sums over ``pipe``.
+``pipe`` composes with ``data`` (ZeRO-1 included) and ``tensor``.
+
+Not ported yet, and refused when asked for: MoE on an fsdp, tensor or
+seq axis (item 6's remainder), MoE under pipelining and a pipe axis
+beside fsdp, seq or expert (item 9's remainder), and the overlap engine
+and the int8 wires beside an fsdp, tensor, expert, seq or pipe axis
+(they stay the data axis's).
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless
@@ -317,7 +333,8 @@ class TrainState:
     opt_state: Any
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return {k: v.detach() for k, v in self.model.state_dict().items()}
+        # ``state_dict`` detaches each tensor already.
+        return dict(self.model.state_dict())
 
     def checkpoint_tree(self) -> Dict[str, Any]:
         """What Flash Checkpoint saves of the state (``checkpoint/``; the
@@ -384,6 +401,8 @@ class Train:
         #: The seq axis: its degree, this rank's slice of the sequence and
         #: the axes the token and loss sums run over.
         self.sp = par.seq
+        #: The pipe axis (``parallel/sharding.PipeGroup``), None at 1.
+        self.pipe = par.pipe
         self.sp_rank = coords.get(mesh_lib.SEQ_AXIS, 0)
         self.sum_axes = lr.grad_sum_axes(self.mesh, self.rules)
         self.batch_ranks, self.batch_rank = 1, 0
@@ -400,7 +419,9 @@ class Train:
         if par.active:
             meta = TransformerLM(self.config, device="meta")
             self.layouts = par.layouts(
-                stacked_logical_axes(param_logical_axes(meta)), shapes)
+                stacked_logical_axes(param_logical_axes(meta),
+                                     stages=self.config.pipeline_stages > 1),
+                shapes)
             self._check_blocks()
         self.shards: Optional[zero1_lib.ShardPlan] = None
         if self.zero1:
@@ -568,20 +589,26 @@ class Train:
                      ) -> Dict[str, shm_handler.LeafLayout]:
         """Where each parameter of the model's state dict lies on process
         ``rank`` (default: this one): its fsdp/tensor box, replicated over
-        the data axis (data rank 0 writes it)."""
+        the data axis (data rank 0 writes it).  A block's leaf under
+        ``pipe`` is whole on the stage that holds the layer, which alone
+        writes it (its box's other replicas, over data, write nothing)."""
         coords, sizes = self._coords(rank), self.parallel.sizes
         out = {}
         for name, shape in param_shapes(self.config).items():
             lay = sharding.LeafSplit(tuple(shape))
+            on = sizes
             if self.layouts is not None:
                 stacked = self.layouts[_block_leaf(name)]
-                # The layers dimension of a block's leaf is never split.
+                # The layers dimension of a block's leaf: pipe's split.
                 shift = len(stacked.shape) - len(shape)
                 lay = sharding.LeafSplit(lay.shape, tuple(
-                    (d - shift, a) for d, a in stacked.splits))
+                    (d - shift, a) for d, a in stacked.splits
+                    if d >= shift))
+                if shift and stacked.dim_axes(0):
+                    on = dict(sizes, **{mesh_lib.PIPE_AXIS: 1})
             out[name] = shm_handler.LeafLayout(
-                lay.shape, lay.index(coords, sizes),
-                lay.replica_id(coords, sizes))
+                lay.shape, lay.index(coords, on),
+                lay.replica_id(coords, on))
         return out
 
     def _state_splits(self) -> Dict[Tuple[str, ...], sharding.LeafSplit]:
@@ -661,8 +688,14 @@ class Train:
         return inputs, targets, weights
 
     def _forward_sums(self, model, inputs, targets, weights):
-        """One forward pass -> (weighted CE sum, token count, aux loss)."""
+        """One forward pass -> (weighted CE sum, token count, aux loss).
+        A pipe stage before the last has no head: its CE sum is the
+        pipeline's 0-d zero (its backward runs the stage's reverse
+        schedule)."""
         tp = model.tp
+        if not model.last_stage:
+            anchor, aux = model.forward_aux(inputs)
+            return anchor, weights.float().sum(), aux
         with model.gathered():
             if self.ce_chunks:
                 hidden, aux = model.forward_aux(inputs, return_hidden=True)
@@ -801,6 +834,15 @@ class Train:
             self.wires[axis].all_reduce(values)
         return values
 
+    def _pipe_sum(self, values: torch.Tensor) -> torch.Tensor:
+        """Loss sums (fp32) summed over ``pipe``, where the last stage
+        alone holds them (as they are without a pipe axis)."""
+        if self.pipe is None:
+            return values
+        values = values.clone()
+        self.pipe.wire.all_reduce(values)
+        return values
+
     def _axis_sums(self, grads: Dict[str, torch.Tensor]) -> None:
         """In place: over each axis that also splits leaves or tokens
         (fsdp, expert, seq), the gradients of the leaves it does not split
@@ -808,9 +850,10 @@ class Train:
         one all-reduce for all of them.  The leaves fsdp splits were
         reduce-scattered in the backward; the leaves expert splits hold
         every chunk routed to the rank's experts already; seq splits no
-        leaf."""
+        leaf; pipe splits the stages' leaves, and each stage's share of
+        the others (the embedding's, the head's) is summed."""
         for axis in (mesh_lib.FSDP_AXIS, mesh_lib.EXPERT_AXIS,
-                     mesh_lib.SEQ_AXIS):
+                     mesh_lib.SEQ_AXIS, mesh_lib.PIPE_AXIS):
             if self.parallel.sizes.get(axis, 1) <= 1:
                 continue
             names = [n for n in self.leaf_names if n in grads
@@ -881,7 +924,8 @@ class Train:
             if p is not None:
                 p.wait()
         with torch.no_grad():
-            sums = self._global_sum(torch.stack([ce_acc, aux_acc]))
+            sums = self._pipe_sum(self._global_sum(
+                torch.stack([ce_acc, aux_acc])))
             params = _param_tree(model)
             grads = self._reduce(self._acc.tree, params)
             self._acc = None
@@ -974,9 +1018,11 @@ class Train:
         inputs, targets, weights = self._batch(batch)
         ce_sum, total_weight, aux = self._forward_sums(
             state.model, inputs, targets, weights)
-        if self.sum_axes:
+        if self.sum_axes or self.pipe is not None:
             sums = self._global_sum(torch.stack([
                 ce_sum.float(), weights.float().sum(), aux.float()]))
+            # The CE sum is the last stage's alone.
+            sums[0] = self._pipe_sum(sums[:1])[0]
             total_weight = torch.clamp(sums[1], min=1.0)
             return {"loss": sums[0] / total_weight,
                     "aux_loss": sums[2] / (self.batch_ranks * self.sp),
@@ -1001,7 +1047,8 @@ def _local_params(model: TransformerLM, params: Mapping[str, torch.Tensor]
 
     local = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     if all(tuple(params[k].shape) == s for k, s in local.items()):
-        return dict(params)
+        # Whole leaves, or boxes already (a pipe stage keeps its layers).
+        return {k: params[k] for k in local}
     return shard_state_dict(params, model.layouts, model.parallel)
 
 
@@ -1052,7 +1099,7 @@ def build_train(
     device: DeviceLike = None,
 ) -> Train:
     """The counterpart of ``build_sharded_train``: one rank's step on
-    ``mesh`` (its data, fsdp, tensor, expert and seq axes; :func:`runtime.mesh.
+    ``mesh`` (its data, fsdp, tensor, expert, seq and pipe axes; :func:`runtime.mesh.
     single_device_mesh`, one rank, when None) under ``rules``
     (``parallel.rules.DEFAULT_RULES`` when None)."""
     if grad_accum < 1:
@@ -1074,19 +1121,20 @@ def build_train(
     batch_axes = lr.batch_group_axes(mesh, rules)
     sp = lr.sequence_axis(mesh, rules)
     model_axes = [a for a in (mesh_lib.FSDP_AXIS, mesh_lib.TENSOR_AXIS,
-                              mesh_lib.EXPERT_AXIS, mesh_lib.SEQ_AXIS)
+                              mesh_lib.EXPERT_AXIS, mesh_lib.SEQ_AXIS,
+                              mesh_lib.PIPE_AXIS)
                   if sizes.get(a, 1) > 1]
-    if model_axes:
-        check_parallel(config, sizes)
-    if seq_len % sp:
-        raise ValueError(
-            f"seq_len {seq_len} does not divide by the seq degree {sp}")
     if model_axes and (overlap or reduce_quant != "none"
                        or allgather_quant != "none"):
         raise NotImplementedError(
             f"the overlap engine and the int8 wires ride the data axis "
             f"alone; beside the {'/'.join(model_axes)} axis they are not "
-            f"ported (ROADMAP Queue 1 items 5, 6 and 9)")
+            f"ported (ROADMAP Queue 1 items 5, 6 and 9's remainder)")
+    if model_axes:
+        check_parallel(config, sizes)
+    if seq_len % sp:
+        raise ValueError(
+            f"seq_len {seq_len} does not divide by the seq degree {sp}")
     world = 1
     for n in sizes.values():
         world *= n

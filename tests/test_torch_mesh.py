@@ -110,10 +110,9 @@ def test_batch_rule_resolves_to_the_data_group(kw):
 @pytest.mark.parametrize("axis,item", [("seq", 9), ("pipe", 9),
                                        ("expert", 6)])
 def test_model_parallel_axes_are_refused_with_their_item(axis, item):
-    """``pipe`` is refused by the mesh and the step.  The seq axis (ROADMAP
-    Queue 1 item 9) and the expert axis (item 6) are taken; what is still
-    refused beside them, with their items, is the overlap engine and the
-    int8 wires."""
+    """The seq and pipe axes (ROADMAP Queue 1 item 9) and the expert axis
+    (item 6) are taken by the mesh; what is still refused beside them,
+    with their items, is the overlap engine and the int8 wires."""
 
     class Mesh:  # what build_mesh would give on two devices
         mesh_dim_names = tmesh.MESH_AXES
@@ -123,14 +122,8 @@ def test_model_parallel_axes_are_refused_with_their_item(axis, item):
 
     cfg = gpt2_config("124m", num_layers=1, d_model=32, num_heads=2,
                       vocab_size=64, max_seq_len=16)
-    options = {}
-    if axis in ("expert", "seq"):
-        tmesh.check_axes({"data": 1, axis: 2})
-        options = dict(zero1=True, overlap=True)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}"):
-            tmesh.check_axes({"data": 1, axis: 2})
+    tmesh.check_axes({"data": 1, axis: 2})
+    options = dict(zero1=True, overlap=True)
     with pytest.raises(NotImplementedError, match=f"item.* {item}"):
         ttl.build_train(cfg, ttl.make_optimizer("sgd"), global_batch_size=4,
                         seq_len=8, mesh=Mesh, device="cpu", **options)

@@ -328,9 +328,11 @@ def test_step_refusals_on_a_seq_mesh():
                         seq_len=30, mesh=_Mesh(seq=4), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6's remainder"):
         check_parallel(moe_llama_config("tiny", num_experts=4), {"seq": 2})
-    # Ring attention keeps the heads off the seq axis: item 9.
-    with pytest.raises(NotImplementedError, match="item 9"):
-        trules.sequence_axis(_Mesh(seq=2), trules.RING_RULES)
+    # Ring attention keeps the heads off the seq axis (ROADMAP Queue 1
+    # item 9, tests/test_torch_ring_attention.py): the sequence is split.
+    assert trules.sequence_axis(_Mesh(seq=2), trules.RING_RULES) == 2
+    assert trules.grad_sum_axes(_Mesh(data=2, seq=2),
+                                trules.RING_RULES) == ("data", "seq")
     assert trules.sequence_axis(_Mesh(seq=2), trules.DEFAULT_RULES) == 2
     assert trules.grad_sum_axes(_Mesh(data=2, seq=2),
                                 trules.DEFAULT_RULES) == ("data", "seq")
@@ -340,6 +342,11 @@ def test_step_refusals_on_a_seq_mesh():
 
 
 def test_check_axes_takes_seq_and_still_refuses_pipe():
+    """The mesh takes seq and pipe (ROADMAP Queue 1 item 9); a pipe axis
+    beside a seq axis is still refused, as item 9's remainder."""
+    from dlrover_tpu_torch.models.transformer import check_parallel
+
     tmesh.check_axes({"data": 1, "seq": 2, "tensor": 2})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmesh.check_axes({"data": 1, "seq": 2, "pipe": 2})
+    tmesh.check_axes({"data": 1, "seq": 2, "pipe": 2})
+    with pytest.raises(NotImplementedError, match="item 9's remainder"):
+        check_parallel(torch_worlds.mp_config("gpt2"), {"seq": 2, "pipe": 2})

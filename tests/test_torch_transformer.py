@@ -178,8 +178,13 @@ def test_learned_positions_reject_overlong_input():
      ("attention_impl", "ring"), ("pipeline_stages", 8)],
 )
 def test_later_slice_features_raise(field, value):
+    """Pipeline stages and ring attention build since ROADMAP Queue 1 item
+    9; a pipe axis beside a seq axis is a later slice (its remainder)."""
+    from dlrover_tpu_torch.models.transformer import check_parallel
+
+    cfg = TConfig(**GPT2, **{field: value})
     with pytest.raises(NotImplementedError, match="later slice"):
-        TConfig(**GPT2, **{field: value})
+        check_parallel(cfg, {"pipe": 2, "seq": 2})
 
 
 def test_presets_match_the_reference_shapes():
@@ -303,11 +308,24 @@ def test_pipeline_fields_validate_as_the_reference(overrides):
 
 
 def test_valid_pipeline_fields_are_refused_for_item_9():
+    """Valid pipeline fields build on both sides since ROADMAP Queue 1
+    item 9 (no longer refused); at one process the circular schedule's
+    microbatches run through every layer in turn: the plain model's
+    logits."""
     kw = dict(GPT2, num_layers=4, pipeline_stages=2, pipeline_interleave=2,
               num_microbatches=2)
     JConfig(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TConfig(**kw)
+    piped = TConfig(**kw, dtype=torch.float32)
+    plain = dataclasses.replace(piped, pipeline_stages=1,
+                                pipeline_interleave=1, num_microbatches=0)
+    state = init_params(plain, device="cpu")
+    logits = []
+    for cfg in (piped, plain):
+        model = TModel(cfg, device="cpu")
+        model.load_state_dict(state)
+        with torch.no_grad():
+            logits.append(model(torch.arange(32).reshape(4, 8)))
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=1e-6)
     # The other fields alone run.
     cfg = TConfig(**GPT2, num_microbatches=4, scan_unroll=3,
                   scan_layers=False)

@@ -258,7 +258,8 @@ def assemble(ranks):
 
 def save_and_restore(rank, n, payload):
     """Train 2 steps at world ``n`` and save (sharded) into
-    ``payload["save"]``; then restore every directory of
+    ``payload["save"]`` (then, with ``payload["relayout"]``, ask for a
+    live re-layout to that world); then restore every directory of
     ``payload["restore"]`` on a new trainer.  Returns the saved state's
     pieces and each restore's step and pieces."""
     out = {}
@@ -275,6 +276,12 @@ def save_and_restore(rank, n, payload):
             out["digest"] = int(state_digest.digest_state(
                 t.state, t._layout(), t.train.state_wire))
         out["world"] = (t._world, t.train.dp, t.train.zero1)
+        if payload.get("relayout"):
+            # A live re-layout of this mesh: refused, or its detail.
+            try:
+                out["relayout"] = t.apply_world_change(payload["relayout"])
+            except NotImplementedError as e:
+                out["relayout"] = str(e)
         t.close()
     for name, directory in payload.get("restore", {}).items():
         r = trainer(directory, f"{payload['job']}_restore{n}{name}",
@@ -339,12 +346,32 @@ WIDE = dict(num_layers=1, d_model=512, num_heads=4, vocab_size=128,
             max_seq_len=64)
 
 
+#: Config overrides of a model key's variant (``"gpt2/pp"``): ring
+#: attention; the pipeline at 2 stages of 4 layers with 4 microbatches
+#: (GPipe), and its circular schedule of 2 laps.
+VARIANTS = {
+    "ring": dict(attention_impl="ring"),
+    "pp": dict(num_layers=4, pipeline_stages=2, num_microbatches=4),
+    "pp_v2": dict(num_layers=4, pipeline_stages=2, num_microbatches=4,
+                  pipeline_interleave=2),
+}
+
+
 def mp_config(model):
     """The port's config of a model key: ``gpt2`` (``TINY``), ``llama``
     (``LLAMA``, GQA and an untied head), ``llama_mha`` (``LLAMA`` with
     as many KV heads as heads), ``wide`` (``WIDE``),
     ``gpt2_wot`` (``TINY`` with the MLP's ``wo`` stored transposed) or
-    ``moe_<dispatch>`` (``MOE``), fp32."""
+    ``moe_<dispatch>`` (``MOE``), fp32; a ``/<variant>`` suffix applies
+    :data:`VARIANTS`."""
+    import dataclasses
+
+    model, _, variant = model.partition("/")
+    cfg = _base_config(model)
+    return dataclasses.replace(cfg, **VARIANTS[variant]) if variant else cfg
+
+
+def _base_config(model):
     from dlrover_tpu_torch.models import gpt2_config, llama_config
 
     if model.startswith("moe_"):
@@ -365,10 +392,13 @@ def run_mp_cases(rank, n, payload):
     ``payload["init"][model]`` (whole state dicts, cut to this rank's
     boxes by ``train.init``).  Returns per case the metrics, this rank's
     parameter pieces ``{name: (whole shape, index, replica_id, value)}``,
-    the wire
-    bytes of the last step by axis and leg, and the batch group; or, for
+    the wire bytes of the last step by axis and leg, the pipeline's
+    counts of the last step, and the batch group (ring attention's model
+    variants build under ``RING_RULES``); or, for
     a case the step refuses, the refusal's message.  Then, under
     ``"save"``, :func:`save_and_restore` of ``payload["saves"][n]``."""
+    from dlrover_tpu_torch.parallel import pipeline
+    from dlrover_tpu_torch.parallel import rules as lr_lib
     from dlrover_tpu_torch.parallel import wire as wire_lib
     from dlrover_tpu_torch.runtime.mesh import ParallelConfig, build_mesh
     from dlrover_tpu_torch.trainer import train_lib as ttl
@@ -378,11 +408,13 @@ def run_mp_cases(rank, n, payload):
         if world != n:
             continue
         mesh = build_mesh(ParallelConfig(**mesh_kw), device_type="cpu")
+        cfg = mp_config(model)
+        rules = lr_lib.RING_RULES if cfg.attention_impl == "ring" else None
         try:
             train = ttl.build_train(
-                mp_config(model), ttl.make_optimizer(opt, learning_rate=lr),
+                cfg, ttl.make_optimizer(opt, learning_rate=lr),
                 global_batch_size=BATCH, seq_len=SEQ, device="cpu",
-                mesh=mesh, **kw)
+                mesh=mesh, rules=rules, **kw)
         except (NotImplementedError, ValueError) as e:
             out[key] = {"refused": str(e)}
             continue
@@ -400,6 +432,7 @@ def run_mp_cases(rank, n, payload):
         metrics = []
         for i in range(3):
             wire_lib.reset_counts()
+            pipeline.reset_counts()
             state, m = train.step(state, ttl.shard_batch(lm_batch(i), train))
             metrics.append((m["loss"].item(), m["grad_norm"].item(),
                             m["tokens"].item()))
@@ -411,6 +444,7 @@ def run_mp_cases(rank, n, payload):
                             v.numpy().copy())
         out[key] = {"metrics": metrics, "pieces": pieces,
                     "wire": dict(wire_lib.COUNTS["axes"]),
+                    "pipeline": dict(pipeline.COUNTS),
                     "batch": (train.batch_rank, train.batch_ranks),
                     "zero1": train.zero1, "stats": stats}
     if n in payload.get("saves", {}):
@@ -503,6 +537,48 @@ def run_sp_cases(rank, n, payload):
             sharding.SeqGroup.offset = offset
     if n == 2:
         out["ulysses"] = run_ulysses(rank, n, ULYSSES_CASES)
+    return out
+
+
+# -- ring attention and the pipeline ---------------------------------------------
+
+#: ``ring_attention`` cases: (id, batch, sequence, heads, KV heads, head
+#: dim, packed segments, causal).
+RING_CASES = [("causal", 2, 32, 4, 4, 8, False, True),
+              ("full", 2, 32, 4, 4, 8, False, False),
+              ("segments_gqa", 2, 32, 4, 2, 8, True, True)]
+
+
+def run_ring(rank, n, cases):
+    """Each case through ``ring_attention`` over a seq group of the world
+    (inputs as :func:`ulysses_inputs` makes them): this rank's slices of
+    the output and of the gradients of ``q``, ``k`` and ``v``."""
+    from dlrover_tpu_torch.parallel.ring_attention import ring_attention
+    from dlrover_tpu_torch.parallel.sharding import SeqGroup
+    from dlrover_tpu_torch.parallel.wire import Wire
+
+    group = SeqGroup(Wire(axis="seq"), n, rank)
+    out = {}
+    for case in cases:
+        q, k, v, dout, seg = ulysses_inputs(case[:7])
+        s = q.shape[1] // n
+        cut = slice(rank * s, (rank + 1) * s)
+        q, k, v = (torch.from_numpy(x[:, cut]).requires_grad_()
+                   for x in (q, k, v))
+        ids = None if seg is None else torch.from_numpy(seg[:, cut])
+        o = ring_attention(q, k, v, causal=case[7], segment_ids=ids,
+                           group=group)
+        o.backward(torch.from_numpy(dout[:, cut]))
+        out[case[0]] = tuple(t.detach().numpy().copy()
+                             for t in (o, q.grad, k.grad, v.grad))
+    return out
+
+
+def run_ring_cases(rank, n, payload):
+    """:func:`run_mp_cases` of ``payload``, then the ``ring_attention``
+    cases (key ``"ring"``)."""
+    out = run_mp_cases(rank, n, payload)
+    out["ring"] = run_ring(rank, n, RING_CASES)
     return out
 
 
