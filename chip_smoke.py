@@ -27,6 +27,9 @@
     python3 chip_smoke.py --serve       # build and the serving phases (serve,
                                         # serve_faults, serve_spec,
                                         # serve_fleet, serve_moe)
+    python3 chip_smoke.py --measure     # build and the measurement planes'
+                                        # phases (serve, train, train_fit,
+                                        # train_dp2, then ``measure``)
     python3 chip_smoke.py --ab DIR ... [--only NAME,...]
                                         # K2a, K4, K6-K9 (and, asked for by
                                         # name, the train step) against
@@ -272,7 +275,8 @@ of the JAX package.  Phases, each one JSON line on stdout:
                48 times and the split kernels never.  Step time, tokens/s,
                MFU and HFU against 989 TFLOP/s (``bench.py``'s FLOP
                formulas), peak memory, and one profiled step's device-busy
-               share and top kernels.
+               share and top kernels: the step is captured by the port's
+               ``utils.profiler.capture`` (``measure`` (a)).
 9b. ``flash_ckpt``  the ``train`` phase's model and step at
                ``FLASH_CKPT_LAYERS`` of 48 layers (cut further if
                ``/dev/shm`` cannot hold the arena: the cut is printed), 1 + 2 steps, then ``Checkpointer.save_checkpoint``
@@ -378,8 +382,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                re-layout: 2 steps at world 2, ``apply_world_change(1)``,
                1 step, back to 2, 1 step: never rewound, tokens/step
                unchanged, losses within the fp limit of 4 unresized
-               steps.  Then a sharded save at world 2 and a restore into
-               this one process, bit-equal to the state the ranks held.
+               steps (the Adafactor ZeRO-1 run, carried on).  Then a
+               sharded save at world 2 and a restore into this one
+               process, bit-equal to the state the ranks held.
                Printed: launches, wire bytes and host staging copies per
                step and leg beside the model's count, the overlap plan's
                buckets, step seconds (gloo over loopback: for the record,
@@ -594,6 +599,32 @@ parent commit under ``build/``, or a copy of this tree with one constant
 changed; named by its directory) and of this one, each reading in a
 process of its own, in turns: DIR, change, change, DIR for each DIR,
 twice.
+
+17. ``measure``  the measurement planes' checks, each made in the phase
+               named: (a) ``train``'s profiled step through
+               ``utils.profiler.capture``: the parsed device total within
+               ``MEASURE_TOTAL_RTOL`` of ``key_averages()``' device self
+               time, exactly 48 launches each of K1 and K3 in the trace,
+               all of them given ``blocks/attn`` (K3 by the backward rule),
+               4 GEMM launches a layer under each of ``qkv``, ``out``
+               and ``wi`` (forward, recompute, dgrad, wgrad) and 3 under
+               ``wo`` (the recompute stops before it), the
+               modules summing to the device total (the top modules
+               and the unattributed share printed); (b) ``train_fit``'s
+               resumed fit (steps 7-8) with ``profile_every=2`` and
+               ``memory_report=True``: one window, at step 8, its measured
+               rows, calibration event and ``profile-sync`` block, a
+               ``memory`` event whose ``params`` and ``opt_state`` pools
+               are the state's tensor bytes and whose allocator bytes are
+               at least their sum, the agent's metrics file; (c) a tensor
+               larger than the card: the allocator's
+               ``torch.OutOfMemoryError`` and its postmortem's pools equal
+               to (b)'s; (d) ``serve``'s ``kv_pool`` and ``params`` pools
+               against the pool's shapes and the weights; (e)
+               ``train_dp2``'s ``MEASURE_DP2`` run, its last step captured
+               on rank 0: the window's collective legs are the legs the
+               wire booked for the step, with collective time above 0
+               (gloo through the host; the overlap fraction printed).
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, serve_faults, serve_spec, serve_fleet, serve_moe,
@@ -1884,7 +1915,9 @@ def train_and_check():
     tokens_per_s = tokens / step_s
     ftok = flops_per_token(cfg, TRAIN_SEQ)
     ftok_hw = ftok + recompute_flops_per_token(cfg, "flash_only", TRAIN_SEQ)
-    prof = _profile(lambda: train.step(state, batch), top=16)
+    # One step in the port's own capture (the profile the phase printed
+    # before, and ``measure`` (a): the step by module).
+    prof, MEASURE["a"] = _step_by_module(train, state, batch, cfg)
     busy = prof.get("device_busy_ms")
     emit({
         "phase": "train",
@@ -1908,6 +1941,136 @@ def train_and_check():
     del state, train, batch
     torch.cuda.empty_cache()
     return counts, state_bytes
+
+
+# -- the measurement planes (``measure``) -----------------------------------------
+
+#: ``measure``: what each of its checks found, (a) to (e), read by
+#: :func:`measure_report`.
+MEASURE = {}
+#: (a): the parsed device total of the captured step against the sum of
+#: ``key_averages()``' device self time for the same window.  Both read the
+#: same CUPTI records; the parse counts each kernel, copy and set once by
+#: its trace row, so they differ only by rounding of the trace's
+#: microsecond timestamps.
+MEASURE_TOTAL_RTOL = 0.01
+#: (a): the kernels of K1 and K3 as the trace names them (K3's pre-pass
+#: and its dq cast are launches of their own, not counted).
+MEASURE_K1, MEASURE_K3 = "flash_fwd_kernel", "flash_bwd_kv_tile_kernel"
+#: (a): the module K1 and K3 must be given (K3 runs on autograd's thread,
+#: so this holds the backward rule: a kernel takes its forward op's module).
+MEASURE_ATTN = "blocks/attn"
+#: (a): the GEMM launches a layer under each of a block's linear layers.
+#: Each has its forward and its backward's two (dgrad and wgrad); under
+#: ``flash_only`` the backward recomputes the block's forward, and the
+#: recompute stops once the block's last saved tensors are saved again:
+#: ``wo``'s operands, before ``wo``'s own GEMM (torch's checkpoint stops
+#: early), so ``wo`` has no recompute.
+MEASURE_GEMMS_PER_LAYER = {"blocks/attn/qkv": 4, "blocks/attn/out": 4,
+                           "blocks/mlp/wi": 4, "blocks/mlp/wo": 3}
+#: (b): the resumed fit's capture cadence: steps 7 and 8 run, 8 captured.
+MEASURE_PROFILE_EVERY = 2
+#: (e): the ``train_dp2`` run whose last step rank 0 captures (the overlap
+#: engine: its legs are asynchronous, so the overlap fraction can be read).
+MEASURE_DP2 = ("adafactor", "zero1_overlap_accum2")
+
+
+def _step_by_module(train, state, batch, cfg):
+    """``measure`` (a): one train step in ``utils.profiler.capture``; its
+    kernels by module, held against ``key_averages()`` of the same
+    window, with K1's and K3's launches counted from the trace.  Returns
+    the ``train`` phase's profile summary and the part's record."""
+    from dlrover_tpu_torch.utils import profiler as step_profiler
+
+    seen = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = step_profiler.capture(
+        train.step, (state, batch), steps=1, warmup=0, module=state.model,
+        on_profile=lambda p: seen.update(p=p))
+    capture_s = time.perf_counter() - t0
+    summary = _profile_summary(seen.pop("p"), step.wall_s * 1e3, top=16)
+    busy = summary.get("device_busy_ms")
+    if not isinstance(busy, float):
+        raise AssertionError(f"measure (a): key_averages() shows no device "
+                             f"time: {summary}")
+    total_ms = step.device_total_s * 1e3
+    by_module = step.by_module()
+    module_ms = sum(by_module.values()) * 1e3
+    launches = {name: sum(op.count for op in step.ops if name in op.name)
+                for name in (MEASURE_K1, MEASURE_K3)}
+    # Each module's kernels by class of name (GEMM, flash, elementwise,
+    # reduce, copy): where the step's elementwise time sits; and the
+    # modules K1's and K3's launches were given.
+    classes = collections.defaultdict(lambda: collections.defaultdict(float))
+    class_launches = collections.defaultdict(collections.Counter)
+    flash_modules = {name: collections.Counter()
+                     for name in (MEASURE_K1, MEASURE_K3)}
+    for op in step.ops:
+        kind = step_profiler._classify(op.name)
+        classes[op.module][kind] += op.time_s * 1e3
+        class_launches[op.module][kind] += op.count
+        for name, where in flash_modules.items():
+            if name in op.name:
+                where[op.module if op.module_path else "unattributed"] += \
+                    op.count
+    gemms = {m: class_launches[m]["matmul"] for m in MEASURE_GEMMS_PER_LAYER}
+    gemms_want = {m: n * cfg.num_layers
+                  for m, n in MEASURE_GEMMS_PER_LAYER.items()}
+    out = {
+        "device_ms": total_ms, "key_averages_device_ms": busy,
+        "gap": abs(total_ms - busy) / busy, "gap_limit": MEASURE_TOTAL_RTOL,
+        "k1_launches": launches[MEASURE_K1],
+        "k3_launches": launches[MEASURE_K3],
+        "k1_modules": dict(flash_modules[MEASURE_K1]),
+        "k3_modules": dict(flash_modules[MEASURE_K3]),
+        "gemm_launches": gemms,
+        "gemm_launches_want": gemms_want,
+        "module_sum_ms": module_ms,
+        "unattributed_share": step.unattributed_s() / step.device_total_s,
+        "by_module_ms": {m: t * 1e3 for m, t in by_module.items()},
+        "by_module_class_ms": {m: dict(c) for m, c in classes.items()},
+        "top_ops": [{"ms": op.time_s * 1e3, "count": op.count,
+                     "module": op.module, "name": op.name[:70]}
+                    for op in sorted(step.ops, key=lambda o: -o.time_s)[:12]],
+        "wall_ms": step.wall_s * 1e3, "capture_s": capture_s}
+    print("measure (a) the dense step by module, ms: " + ", ".join(
+        f"{m} {t * 1e3:.3f}" for m, t in list(by_module.items())[:10])
+        + f"; unattributed share {out['unattributed_share']:.4f}; parsed "
+        f"{total_ms:.3f} ms against key_averages {busy:.3f} ms (gap "
+        f"{out['gap']:.5f}); K1 by module {out['k1_modules']}, K3 by module "
+        f"{out['k3_modules']}; GEMM launches {gemms} (want {gemms_want})",
+        flush=True)
+    if out["gap"] > MEASURE_TOTAL_RTOL:
+        raise AssertionError(f"measure (a): parsed device total {total_ms} "
+                             f"ms against key_averages {busy} ms")
+    if (out["k1_launches"], out["k3_launches"]) != (cfg.num_layers,
+                                                    cfg.num_layers):
+        raise AssertionError(f"measure (a): {launches} launches of K1/K3 in "
+                             f"the step, want {cfg.num_layers} each")
+    if abs(module_ms - total_ms) > 1e-9 * total_ms:
+        raise AssertionError(f"measure (a): modules sum to {module_ms} ms, "
+                             f"the device total is {total_ms} ms")
+    for name, where in flash_modules.items():
+        if dict(where) != {MEASURE_ATTN: cfg.num_layers}:
+            raise AssertionError(f"measure (a): {name} launches by module "
+                                 f"{dict(where)}, want all {cfg.num_layers} "
+                                 f"under {MEASURE_ATTN}")
+    if gemms != gemms_want:
+        raise AssertionError(f"measure (a): GEMM launches by module {gemms}, "
+                             f"want {gemms_want}")
+    return summary, out
+
+
+def measure_report():
+    """The ``measure`` phase: (a) the dense step by module, (b) ``fit``
+    with both planes on, (c) a real OOM's postmortem, (d) serving's KV
+    pool, (e) the wire's legs in a captured ``train_dp2`` step."""
+    missing = [k for k in "abcde" if k not in MEASURE]
+    emit({"phase": "measure", **{k: MEASURE.get(k) for k in "abcde"},
+          "missing": missing})
+    if missing:
+        raise AssertionError(f"measure: parts {missing} did not run")
 
 
 # -- Flash Checkpoint on the training state --------------------------------------
@@ -2993,8 +3156,12 @@ def train_fit_and_check(on_measured=None):
         del trainer
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        # ``measure`` (b): the resumed trainer runs with both planes on
+        # (the gate's fit above keeps them off).
+        planes = dataclasses.replace(
+            tcfg, profile_every=MEASURE_PROFILE_EVERY, memory_report=True)
         with _captured_log(r"from shm|resumed from") as restore_log:
-            resumed = ElasticTrainer(cfg, tcfg,
+            resumed = ElasticTrainer(cfg, planes,
                                      parallel=ParallelConfig(data=-1),
                                      device="cuda")
         torch.cuda.synchronize()
@@ -3013,9 +3180,14 @@ def train_fit_and_check(on_measured=None):
             raise AssertionError(f"restore: {out['restore']}")
         more = []
         _zero_counts()
-        resumed.fit(_fit_loader(cfg.vocab_size, 0), max_steps=FIT_MORE_STEPS,
-                    on_step=lambda step, m: more.append((step, m["loss"])))
+        with _planes_recorded(resumed, scratch) as planes_seen:
+            resumed.fit(_fit_loader(cfg.vocab_size, 0),
+                        max_steps=FIT_MORE_STEPS,
+                        on_step=lambda step, m: more.append((step,
+                                                             m["loss"])))
         more_counts = _counts()
+        MEASURE["b"] = _fit_planes_check(resumed, planes_seen)
+        MEASURE["c"] = _oom_check(resumed, scratch, MEASURE["b"])
         resumed.close()
         out["resumed_losses"] = more
         if [s for s, _ in more] != list(range(FIT_STEPS + 1,
@@ -3039,6 +3211,128 @@ def train_fit_and_check(on_measured=None):
                 os.environ[k] = v
     shutil.rmtree(scratch, ignore_errors=True)
     return counts
+
+
+@contextlib.contextmanager
+def _planes_recorded(trainer, scratch):
+    """``measure`` (b): around the resumed fit, the telemetry recorder on,
+    the agent's metrics file set, and the profiler window's own host time
+    (arm and finish) taken."""
+    from dlrover_tpu_torch.common import telemetry
+    from dlrover_tpu_torch.utils.profiler import pipeline_counters
+
+    rec = telemetry.recorder()
+    was = rec.enabled
+    rec.configure(enabled=True)
+    rec.drain()
+    metrics_file = os.path.join(scratch, "device_metrics.json")
+    saved = os.environ.get("DLROVER_TPU_METRICS_FILE")
+    os.environ["DLROVER_TPU_METRICS_FILE"] = metrics_file
+    prof = trainer._device_profiler
+    seen = {"window_host_s": 0.0, "metrics_file": metrics_file,
+            "syncs_before": len(pipeline_counters().blocks("profile-sync"))}
+
+    def timed(fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                seen["window_host_s"] += time.perf_counter() - t
+        return run
+
+    prof.arm, prof.finish = timed(prof.arm), timed(prof.finish)
+    t0 = time.perf_counter()
+    try:
+        yield seen
+    finally:
+        seen["fit_s"] = time.perf_counter() - t0
+        seen["events"] = rec.drain()
+        rec.configure(enabled=was)
+        if saved is None:
+            os.environ.pop("DLROVER_TPU_METRICS_FILE", None)
+        else:
+            os.environ["DLROVER_TPU_METRICS_FILE"] = saved
+
+
+def _fit_planes_check(trainer, seen):
+    """``measure`` (b): one window at the last step, its measured rows and
+    calibration event, its ``profile-sync`` block, a memory event whose
+    pools are the state's own bytes, and the agent's metrics file."""
+    from dlrover_tpu_torch.utils.profiler import pipeline_counters
+
+    step = FIT_MORE_STEPS
+    events = seen["events"]
+    prof = trainer._device_profiler
+    measured = [(e[0], e[4]["step"], e[3]) for e in events
+                if e[4].get("source") == "measured"]
+    calib = [e[4] for e in events if e[0] == "calibration"]
+    memory = [e[4] for e in events if e[0] == "memory"]
+    syncs = [(b.steps, b.duration_s) for b in
+             pipeline_counters().blocks("profile-sync")[seen["syncs_before"]:]]
+    params_b = _state_bytes(trainer.state.params())
+    opt_b = _state_bytes(trainer.state.opt_state)
+    with open(seen["metrics_file"]) as f:
+        metrics = json.load(f)
+    mem = memory[-1] if memory else {}
+    out = {
+        "windows": prof.windows, "failed_windows": prof.failed_windows,
+        "measured_rows": measured, "calibration": calib,
+        "profile_sync": syncs, "memory_events": len(memory),
+        "memory": {k: mem.get(k) for k in (
+            "step", "bytes_in_use", "peak_bytes", "limit_bytes",
+            "reserved_bytes", "headroom_frac", "source", "pool_params_b",
+            "pool_opt_state_b", "pool_prefetch_b", "pool_kv_pool_b",
+            "pool_embed_cache_b", "pool_other_b")},
+        "state_params_b": params_b, "state_opt_state_b": opt_b,
+        "metrics_file": metrics, "fit_s": seen["fit_s"],
+        "window_host_s": seen["window_host_s"]}
+    ok = (prof.windows == 1 and prof.failed_windows == 0
+          and measured and all(s == step for _, s, _ in measured)
+          and [c["step"] for c in calib] == [step]
+          and [st for st, _ in syncs] == [(step,)]
+          and mem.get("step") == step and mem.get("source") == "allocator"
+          and mem.get("pool_params_b") == params_b
+          and mem.get("pool_opt_state_b") == opt_b
+          and mem.get("bytes_in_use", 0) >= params_b + opt_b
+          and metrics.get("device_mem_gb", 0.0) > 0.0)
+    if not ok:
+        raise AssertionError(f"measure (b): fit with both planes: {out}")
+    return out
+
+
+def _oom_check(trainer, scratch, planes):
+    """``measure`` (c): a tensor larger than the card, while the resumed
+    trainer's state is registered: the allocator's own
+    ``torch.OutOfMemoryError``, and its postmortem's pools against (b)'s
+    memory event."""
+    from dlrover_tpu_torch.utils import memory_profile
+
+    _, total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    try:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+    except torch.OutOfMemoryError as e:
+        error = e
+    else:
+        raise AssertionError("measure (c): a tensor larger than the card "
+                             "was allocated")
+    path = memory_profile.dump_oom_postmortem(
+        os.path.join(scratch, "oom"), error=error)
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        report = json.load(f)
+    out = {"is_oom_error": memory_profile.is_oom_error(error),
+           "error": report["error"][:160], "pools_b": report["pools_b"],
+           "unclassified_live_b": report["unclassified_live_b"],
+           "device": report["device"], "rows_total": report["rows_total"],
+           "top": report["top"][:3], "seconds": seconds}
+    mem = planes["memory"]
+    if not (out["is_oom_error"]
+            and report["pools_b"]["params"] == mem["pool_params_b"]
+            and report["pools_b"]["opt_state"] == mem["pool_opt_state_b"]):
+        raise AssertionError(f"measure (c): the OOM postmortem: {out}")
+    return out
 
 
 # -- the data-parallel world ----------------------------------------------------
@@ -3150,8 +3444,11 @@ DP2_FP_ZERO_INIT_RTOL = 0.25
 DP2_INT8_LOSS_ATOL, DP2_INT8_NORM_RTOL = 0.05, 0.05
 DP2_INT8_STEP1_SHARE = 0.25
 #: The resize run: 2 steps at world 2, ``apply_world_change(1)``, 1 step,
-#: ``apply_world_change(2)``, 1 step, against 4 unresized steps.
+#: ``apply_world_change(2)``, 1 step, against 4 unresized steps: the run
+#: ``DP2_UNRESIZED`` (the re-layout's own config: Adafactor, ZeRO-1, the
+#: same batch and seed) carried on after its checks to 4 steps.
 DP2_RESIZE_STEPS = (2, 1, 1)
+DP2_UNRESIZED = ("adafactor", "zero1")
 
 
 #: The local-SGD job of ``train_dp2``'s two processes: each trains its own
@@ -3758,6 +4055,7 @@ def _dp2_rank(rank, out_dir):
         ElasticTrainer,
         TrainerConfig,
     )
+    from dlrover_tpu_torch.utils.device_profile import DeviceProfiler
 
     mesh = build_mesh(ParallelConfig(data=-1), device_type="cuda")
     cfg = _dp2_config()
@@ -3770,6 +4068,7 @@ def _dp2_rank(rank, out_dir):
         ref = torch.load(os.path.join(out_dir, f"ref_{opt}.pt"),
                          weights_only=False)
         for mode, kw in DP2_MODES:
+            t_run = time.perf_counter()
             train = train_lib.build_train(
                 cfg, train_lib.make_optimizer(opt, learning_rate=TRAIN_LR),
                 global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
@@ -3802,12 +4101,25 @@ def _dp2_rank(rank, out_dir):
                     wire_lib.reset_counts()
                     dist.barrier()
                     torch.cuda.synchronize()
+                    # ``measure`` (e): rank 0 captures the run's last step.
+                    prof = None
+                    if (rank == 0 and (opt, mode) == MEASURE_DP2
+                            and len(steps) == DP2_STEPS - 1):
+                        prof = DeviceProfiler(1, device=torch.device("cuda"))
+                        if not prof.arm(0):
+                            raise AssertionError("measure (e): the window "
+                                                 "did not open")
                     t0 = time.perf_counter()
                     state, m = train.step(state, placed)
                     loss, norm = float(m["loss"]), float(m["grad_norm"])
                     torch.cuda.synchronize()
+                    step_s = time.perf_counter() - t0
+                    if prof is not None:
+                        window = prof.finish()
+                        out["wire_window"] = _wire_window(
+                            window, step_s, time.perf_counter() - t0)
                     steps.append({
-                        "s": time.perf_counter() - t0, "loss": loss,
+                        "s": step_s, "loss": loss,
                         "grad_norm": norm, "tokens": float(m["tokens"]),
                         "launches": {k: v for k, v in _counts().items()
                                      if v},
@@ -3839,6 +4151,16 @@ def _dp2_rank(rank, out_dir):
             if rank == 0:
                 run["leaf_stats"] = _leaf_errors(params, ref["params"],
                                                  captured["init"])
+            if (opt, mode) == DP2_UNRESIZED:
+                # The re-layout's reference: this run (the re-layout's
+                # config) carried on to its step count.
+                out["unresized_losses"] = [st["loss"] for st in steps]
+                t_more = time.perf_counter()
+                for _ in range(sum(DP2_RESIZE_STEPS) - len(steps)):
+                    state, m = train.step(state, placed)
+                    out["unresized_losses"].append(float(m["loss"]))
+                out["unresized_more_s"] = time.perf_counter() - t_more
+            run["seconds"] = time.perf_counter() - t_run
             out["runs"].append(run)
             del state, train, placed, params
             torch.cuda.empty_cache()
@@ -3857,20 +4179,18 @@ def _dp2_rank(rank, out_dir):
                                   .max())}
 
     # -- Local SGD: each rank a world-1 replica, the outer sync on the world
+    t_part = time.perf_counter()
     out["local_sgd"] = _lsgd_rank(rank, out_dir)
     torch.cuda.empty_cache()
+    out["local_sgd_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
 
     # -- live re-layout and the sharded save --------------------------------
     ckpt_dir = os.path.join(out_dir, "ckpt")
     base = dict(global_batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                 optimizer="adafactor", learning_rate=TRAIN_LR, zero1=True,
                 report_every=1000, ckpt_every=1000)
-    plain = ElasticTrainer(cfg, TrainerConfig(**base),
-                           parallel=ParallelConfig(data=-1), device="cuda")
-    unresized = [float(plain.train_step(batch)["loss"])
-                 for _ in range(sum(DP2_RESIZE_STEPS))]
-    del plain
-    torch.cuda.empty_cache()
+    unresized = out.pop("unresized_losses")
     trainer = ElasticTrainer(cfg, TrainerConfig(checkpoint_dir=ckpt_dir,
                                                 **base),
                              parallel=ParallelConfig(data=-1), device="cuda")
@@ -3905,6 +4225,46 @@ def _dp2_rank(rank, out_dir):
     t0 = time.perf_counter()
     trainer.close()
     out["save"]["close_s"] = time.perf_counter() - t0
+    out["resize_and_save_s"] = time.perf_counter() - t_part
+    return out
+
+
+def _wire_window(window, step_s, with_parse_s):
+    """``measure`` (e), in rank 0: the captured step's window beside the
+    legs the wire's own counters booked for that step."""
+    from dlrover_tpu_torch.parallel import wire as wire_lib
+
+    calls = {k: v for k, v in wire_lib.COUNTS["calls"].items() if v}
+    return {
+        "parsed": window is not None,
+        "legs": ({leg: list(v) for leg, v in window.legs.items()}
+                 if window else {}),
+        "compute_s": window.seconds("compute") if window else 0.0,
+        "collective_s": window.seconds("collective") if window else 0.0,
+        "overlap_fraction": window.overlap_fraction if window else 0.0,
+        "device_total_s": window.device_total_s if window else 0.0,
+        "op_count": window.op_count if window else 0,
+        "wire_calls": calls,
+        "wire_legs": sorted({k.split("/", 1)[1] for k in calls}),
+        "step_s": step_s, "with_export_and_parse_s": with_parse_s}
+
+
+def _wire_legs_check(r0):
+    """``measure`` (e), in the parent: the window's collective legs are
+    the legs the wire booked for the step, with collective time."""
+    got = r0.get("wire_window")
+    out = dict(got or {}, run=list(MEASURE_DP2),
+               transport="gloo through the host (two processes on one "
+                         "card): the overlap is of host ranges with the "
+                         "card's kernels, not of a link")
+    if not (got and got["parsed"] and got["collective_s"] > 0.0
+            and sorted(got["legs"]) == got["wire_legs"]
+            and got["wire_legs"]):
+        raise AssertionError(f"measure (e): the wire's legs: {out}")
+    print(f"measure (e): legs {got['wire_legs']}, collective "
+          f"{got['collective_s'] * 1e3:.3f} ms, overlap fraction "
+          f"{got['overlap_fraction']:.4f} (gloo through the host)",
+          flush=True)
     return out
 
 
@@ -4001,6 +4361,9 @@ def train_dp2_and_check(world1_refs=False):
         out["workers_s"] = time.perf_counter() - t_start
         r0, r1 = results
         out["backend"], out["worker_torch"] = r0["backend"], r0["torch"]
+        out["rank_parts_s"] = {k: [r0[k], r1[k]] for k in (
+            "local_sgd_s", "resize_and_save_s", "unresized_more_s")}
+        MEASURE["e"] = _wire_legs_check(r0)
         cfg = _dp2_config()
         elements = sum(int(np.prod(v)) for v in
                        train_lib._stacked_shapes(cfg).values())
@@ -4087,6 +4450,7 @@ def train_dp2_and_check(world1_refs=False):
                 "wire_bytes_per_step": step["wire_bytes"],
                 "staged_copies_per_step": step["staged"],
                 "step_s": [s["s"] for s in a["steps"]],
+                "run_s": [a["seconds"], b["seconds"]],
                 "zero1_stats": a["zero1_stats"],
                 "overlap_buckets": (a["overlap_plan"] or {}).get(
                     "num_buckets"),
@@ -8075,8 +8439,11 @@ def _profile_summary(prof, wall_ms: float, top: int = 8, match=()):
     rows = []
     for evt in prof.key_averages():
         # Kernels and copies only: a CPU op's row repeats its kernels'
-        # device time.
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+        # device time, and so does a host range's mirror on the device's
+        # timeline (as torch's own table leaves it out).
+        if getattr(evt, "device_type", None) != DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False) or \
+                evt.key.startswith(("module:", "wire:", "dlrover.")):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -8172,6 +8539,7 @@ def serve_and_check():
     if any(counts[k] for k in counts if k != "flash_fwd"):
         raise AssertionError(f"serving launched a backward kernel: {counts}")
     tokens = int(stats["tokens"])
+    MEASURE["d"] = _kv_pool_check(engine, cfg)
 
     # -- prefill time per bucket (after the counted run) ---------------------
     programs, model = engine.programs, engine.model
@@ -8269,6 +8637,26 @@ def serve_and_check():
     del engine
     torch.cuda.empty_cache()
     return counts, fault_counts
+
+
+def _kv_pool_check(engine, cfg):
+    """``measure`` (d): after the requests, the registry's ``kv_pool``
+    bytes against the pool's shapes (K and V, ``[layers, slots, max_seq,
+    kv heads, head dim]`` each, in the config's dtype)."""
+    from dlrover_tpu_torch.utils import memory_profile
+
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    want = (2 * cfg.num_layers * SLOTS * cfg.max_seq_len
+            * cfg.resolved_kv_heads * cfg.resolved_head_dim * itemsize)
+    pools = memory_profile.registry().pool_bytes()
+    out = {"kv_pool_b": pools["kv_pool"], "kv_from_shapes_b": want,
+           "engine_kv_device_bytes": engine.kv_device_bytes(),
+           "params_pool_b": pools["params"],
+           "params_b": _state_bytes(dict(engine.model.state_dict()))}
+    if not (pools["kv_pool"] == want == out["engine_kv_device_bytes"]
+            and pools["params"] == out["params_b"]):
+        raise AssertionError(f"measure (d): serving's pools: {out}")
+    return out
 
 
 def serve_faults_and_check(engine, requests):
@@ -10505,6 +10893,15 @@ def main() -> int:
         example_and_check()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--measure"]:
+        serve_and_check()
+        train_and_check()
+        train_fit_and_check(on_measured=_after_fit_measured)
+        train_dp2_and_check()
+        example_and_check()
+        measure_report()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--mp"]:
         train_mp2_and_check()
         print(smi, flush=True)
@@ -10636,6 +11033,7 @@ def main() -> int:
     paths.update(train_lowbit_and_check(adafactor_state_bytes))
     train_lowbit_parity()
     paths["train_rec"] = train_rec_and_check()
+    measure_report()
 
     def launches(name):
         return sum(p[name] for p in paths.values())

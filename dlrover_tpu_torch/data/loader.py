@@ -395,9 +395,15 @@ class DevicePrefetcher:
         # drain() bumps it; the active pass re-places on the mismatch.
         self._generation = 0
         self._buf = None  # the active pass's buffer, for drain() to size
-        # The reference registers device_buffers as the memory registry's
-        # "prefetch" pool (utils/memory_profile); that registry is part of
-        # the measurement planes, ROADMAP Queue 1 item 10.
+        # Classified device-memory accounting: the device-resident
+        # batches are the "prefetch" pool.  Registered under its own name
+        # as a bound method, which the registry holds via WeakMethod: a
+        # dropped prefetcher unregisters itself.
+        from dlrover_tpu_torch.utils import memory_profile
+
+        memory_profile.registry().register(
+            "prefetch", f"prefetch.{id(self)}", self.device_buffers
+        )
 
     def device_buffers(self):
         """Device-placed batches currently buffered (empty outside an

@@ -76,9 +76,18 @@ class DeviceHotRowCache:
         self.gathers = 0
         self.scatters = 0
         self.fetches = 0
+        # Classified device-memory accounting: the hot-row pool registers
+        # as a bound method (WeakMethod inside the registry — a dropped
+        # cache unregisters itself).  The provider reads ``self._cache``
+        # at call time, so a rebinding stays accounted.
+        from dlrover_tpu_torch.utils import memory_profile
+
+        memory_profile.registry().register(
+            "embed_cache", f"embed_cache.{id(self)}", self.memory_buffers
+        )
 
     def memory_buffers(self):
-        """The device-resident hot-row pool."""
+        """Registry provider: the device-resident hot-row pool."""
         return [self._cache]
 
     # -- residency -------------------------------------------------------------

@@ -15,8 +15,9 @@ node ledger and re-folds the world in place.  The flags are the
 reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 versions of the kernels).  A flag whose feature is not ported raises
 ``NotImplementedError`` naming its ROADMAP queue item: a master (data
-sharding, reporting, the live-relayout poll's ledger) and the measurement
-flags are item 10.  ``--attention-impl ring`` runs ring attention
+sharding, reporting, the live-relayout poll's ledger) and ``--auto-tune``
+are item 10.  ``--profile-every`` captures one step in a ``torch.profiler``
+window every N steps.  ``--attention-impl ring`` runs ring attention
 (``parallel/ring_attention.py``): a ring of one on the data-parallel
 world, the sequence kept whole on each rank.
 """
@@ -138,8 +139,8 @@ def parse_args(argv=None):
                    help="write this process's telemetry (step/checkpoint "
                         "spans) as a Chrome-trace JSON at exit")
     p.add_argument("--profile-every", type=int, default=0,
-                   help="device-time capture every N steps (ROADMAP Queue 1 "
-                        "item 10)")
+                   help="device-time capture every N steps (one step in a "
+                        "torch.profiler window; utils/device_profile)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")

@@ -1,3 +1,4 @@
 """Control-plane messages (the data-sharding pair and the serving front
-door's) and the serving replica policy; the master itself is ROADMAP
-Queue 1 item 10."""
+door's), the serving replica policy, and the measurement planes' two
+ledgers (``calibration``, ``memory_ledger``); the master itself is
+ROADMAP Queue 1 item 10b."""

@@ -60,7 +60,9 @@ does not divide by the fsdp degree or whose experts do not divide by the
 expert degree, an MoE config on the fsdp, tensor or seq axis
 (ROADMAP Queue 1 item 6's remainder), and a pipe axis beside fsdp, seq
 or expert, or one whose degree is not the config's stage count (item 9's
-remainder).  :func:`param_logical_axes` gives
+remainder).  An MoE config under pipelining is refused as the reference
+refuses it (``parallel/pipeline.validate``).  :func:`param_logical_axes`
+gives
 every parameter's logical axes, the reference's ``kernel_axes``.
 
 The config has every field of the reference's.  ``scan_layers`` only

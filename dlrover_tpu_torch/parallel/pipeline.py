@@ -76,8 +76,8 @@ def validate(config) -> None:
     if config.num_experts:
         raise NotImplementedError(
             "MoE aux loss accounting inside bubble ticks is not defined; "
-            "pipeline_stages>1 requires num_experts=0 (ROADMAP Queue 1 item "
-            "9's remainder)")
+            "pipeline_stages>1 requires num_experts=0 (the reference "
+            "refuses it too: not a remainder of the port)")
 
 
 class _Borrowed:

@@ -25,7 +25,11 @@ interconnect.  Here a collective names a ``torch.distributed`` group.
 
 Every call may be asynchronous (``async_op=True``): it returns a
 :class:`Pending` whose ``wait()`` completes the collective and the copy
-back.  Issue order is the match order across ranks, so callers issue in
+back.  While a capture window is armed (``utils/device_profile.armed``)
+each call opens a host range ``wire:<axis>/<leg>`` at its issue and
+closes it at its completion, which the window's parser books as the
+collective's interval and leg: gloo's collectives never reach the card's
+trace.  Issue order is the match order across ranks, so callers issue in
 one agreed order (``parallel/overlap.py``'s plan).
 """
 
@@ -36,6 +40,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from dlrover_tpu_torch.utils import device_profile as _dp
 
 #: Bytes handed to collectives by leg, and host staging copies; a run sets
 #: them to 0 (:func:`reset_counts`) and reads them back.
@@ -61,10 +67,11 @@ class Pending:
     results back to the card and runs the callbacks of ``then``."""
 
     def __init__(self, works, copies: List[Tuple[torch.Tensor, torch.Tensor]],
-                 axis: str = "world"):
+                 axis: str = "world", leg_range=None):
         self._works = [w for w in works if w is not None]
         self._copies = copies
         self._axis = axis
+        self._range = leg_range
         self._thens: List[Callable[[], None]] = []
         self.done = False
 
@@ -86,6 +93,7 @@ class Pending:
             COUNTS["staged"] += 1
             COUNTS["staged_axes"][self._axis] += 1
         self.done = True
+        _dp.close_range(self._range)
         for fn in self._thens:
             fn()
 
@@ -108,10 +116,13 @@ class Wire:
     def _stage(self, t: torch.Tensor) -> bool:
         return t.is_cuda and self.backend == "gloo"
 
-    def _count(self, leg: str, t: torch.Tensor) -> None:
+    def _count(self, leg: str, t: torch.Tensor):
+        """Book one call of ``leg``; returns its open host range, if a
+        capture is armed."""
         COUNTS["bytes"][leg] += _nbytes(t)
         COUNTS["axes"][f"{self.axis}/{leg}"] += _nbytes(t)
         COUNTS["calls"][f"{self.axis}/{leg}"] += 1
+        return _dp.leg_range(self.axis, leg)
 
     def _staged(self) -> None:
         COUNTS["staged"] += 1
@@ -133,7 +144,7 @@ class Wire:
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
                    async_op: bool = False) -> Pending:
         """In place: ``t`` becomes the reduction over the group."""
-        self._count("all_reduce", t)
+        rng = self._count("all_reduce", t)
         copies: list = []
         if self._stage(t):
             self._staged()
@@ -143,53 +154,53 @@ class Wire:
             host = t
         work = dist.all_reduce(host, op=op, group=self.group,
                                async_op=async_op)
-        return self._finish(work, copies, async_op)
+        return self._finish(work, copies, async_op, rng)
 
     def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor,
                        async_op: bool = False) -> Pending:
         """``out`` (contiguous, 1/n of ``inp``'s elements) becomes this
         rank's block of the flattened sum over the group."""
-        self._count("reduce_scatter", inp)
+        rng = self._count("reduce_scatter", inp)
         copies: list = []
         work = dist.reduce_scatter_tensor(
             self._out(out, copies).view(-1), self._in(inp).reshape(-1),
             group=self.group, async_op=async_op)
-        return self._finish(work, copies, async_op)
+        return self._finish(work, copies, async_op, rng)
 
     def all_gather(self, out: torch.Tensor, inp: torch.Tensor,
                    async_op: bool = False) -> Pending:
         """``out`` (contiguous, n times ``inp``'s elements) becomes every
         rank's ``inp``, flattened, in rank order."""
-        self._count("all_gather", inp)
+        rng = self._count("all_gather", inp)
         copies: list = []
         work = dist.all_gather_into_tensor(
             self._out(out, copies).view(-1), self._in(inp).reshape(-1),
             group=self.group, async_op=async_op)
-        return self._finish(work, copies, async_op)
+        return self._finish(work, copies, async_op, rng)
 
     def all_to_all(self, out: torch.Tensor, inp: torch.Tensor,
                    async_op: bool = False) -> Pending:
         """Block ``j`` of ``inp`` (dim 0 in n equal blocks) goes to rank
         ``j``; block ``j`` of ``out`` comes from rank ``j``."""
-        self._count("all_to_all", inp)
+        rng = self._count("all_to_all", inp)
         copies: list = []
         work = dist.all_to_all_single(self._out(out, copies), self._in(inp),
                                       group=self.group, async_op=async_op)
-        return self._finish(work, copies, async_op)
+        return self._finish(work, copies, async_op, rng)
 
     def gather(self, out: Optional[torch.Tensor],
                inp: torch.Tensor) -> None:
         """Every rank's ``inp`` to group rank 0: there ``out`` (``[n,
         *inp.shape]``) becomes them in rank order; elsewhere ``out`` is
         not read (None will do)."""
-        self._count("gather", inp)
+        rng = self._count("gather", inp)
         copies: list = []
         parts = None
         if self.rank == 0:
             parts = list(self._out(out, copies).unbind(0))
         dist.gather(self._in(inp).contiguous(), gather_list=parts,
                     dst=self._root(), group=self.group)
-        self._finish(None, copies, False)
+        self._finish(None, copies, False, rng)
 
     def scatter(self, out: torch.Tensor,
                 inp: Optional[torch.Tensor]) -> None:
@@ -197,12 +208,13 @@ class Wire:
         rank ``j``'s ``out``; ``inp`` is read on rank 0 only."""
         copies: list = []
         parts = None
+        rng = None
         if self.rank == 0:
-            self._count("scatter", inp)
+            rng = self._count("scatter", inp)
             parts = list(self._in(inp).contiguous().unbind(0))
         dist.scatter(self._out(out, copies), scatter_list=parts,
                      src=self._root(), group=self.group)
-        self._finish(None, copies, False)
+        self._finish(None, copies, False, rng)
 
     def _root(self) -> int:
         """The global rank of the group's rank 0."""
@@ -221,11 +233,13 @@ class Wire:
         step)`` of ``sends`` goes to group rank ``rank + step``, each of
         ``recvs`` (contiguous) comes from ``rank + step`` (mod n).  One
         ``send`` call on the books, each sent tensor's bytes under it."""
+        rng = None
         if sends:
             for t, _ in sends:
                 COUNTS["bytes"]["send"] += _nbytes(t)
                 COUNTS["axes"][f"{self.axis}/send"] += _nbytes(t)
             COUNTS["calls"][f"{self.axis}/send"] += 1
+            rng = _dp.leg_range(self.axis, "send")
         copies: list = []
         ops = [dist.P2POp(dist.isend, self._in(t).contiguous(),
                           self._peer(step), self.group)
@@ -234,7 +248,7 @@ class Wire:
                            self._peer(step), self.group)
                 for t, step in recvs]
         works = dist.batch_isend_irecv(ops) if ops else []
-        pending = Pending(works, copies, self.axis)
+        pending = Pending(works, copies, self.axis, rng)
         if not async_op:
             pending.wait()
         return pending
@@ -266,7 +280,7 @@ class Wire:
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> None:
         """In place, from group rank ``src``."""
-        self._count("broadcast", t)
+        rng = self._count("broadcast", t)
         copies: list = []
         if self._stage(t):
             self._staged()
@@ -277,10 +291,10 @@ class Wire:
         root = (dist.get_global_rank(self.group, src)
                 if self.group is not None else src)
         work = dist.broadcast(host, src=root, group=self.group)
-        self._finish(work, copies, False)
+        self._finish(work, copies, False, rng)
 
-    def _finish(self, work, copies, async_op) -> Pending:
-        pending = Pending([work] if async_op else [], copies, self.axis)
+    def _finish(self, work, copies, async_op, rng=None) -> Pending:
+        pending = Pending([work] if async_op else [], copies, self.axis, rng)
         if not async_op:
             pending.wait()
         return pending

@@ -41,8 +41,10 @@ drain, a ``compile`` event for its warm-up and a ``serve.swap`` event for
 every live weight swap (:meth:`ServingEngine.swap_weights`, the
 ``serve.swap`` seam).  With no fault plan the seams are no-ops.
 
-Not in this slice: the master client (``client=``) and the memory
-registry (ROADMAP Queue 1 item 10).
+The engine registers its weights (target and draft) as the memory
+registry's ``params`` pool and its KV pools as ``kv_pool``
+(``utils/memory_profile``).  Not in this slice: the master client
+(``client=``, ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -393,6 +395,28 @@ class ServingEngine:
         self._spec_rounds = 0
         # Weight provenance: bumped by every verified hot-swap.
         self.weights_version = 0
+        # Classified device-memory accounting: serving params + the paged
+        # KV pool (target and draft) register as bound methods, which the
+        # registry holds via WeakMethod — a torn-down engine (fleet
+        # replica kill, bench teardown) unregisters itself on collection.
+        from dlrover_tpu_torch.utils import memory_profile
+
+        memory_profile.registry().register(
+            "params", f"serve.{id(self)}.params", self.memory_params
+        )
+        memory_profile.registry().register(
+            "kv_pool", f"serve.{id(self)}.kv", self.memory_kv_pool
+        )
+
+    def memory_params(self):
+        """Registry provider: this rank's weights (target + draft; none
+        on a parked rank)."""
+        return [dict(m.state_dict()) for m in (self.model, self.draft_model)
+                if m is not None]
+
+    def memory_kv_pool(self):
+        """Registry provider: the paged KV pool (target + draft)."""
+        return [p for p in (self.cache, self.draft_cache) if p is not None]
 
     @property
     def parked(self) -> bool:

@@ -48,9 +48,16 @@ rank) as on the others.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-``auto_tune``, device-time capture
-(``profile_every``), the memory report, OOM forensics and the agent's
-device metrics (item 10).  An MoE model's router statistics are
+``auto_tune`` (item 10c).  The measurement planes are here: every
+``profile_every`` steps one step runs in a ``torch.profiler`` window
+(``utils/device_profile``) and books measured phase rows and a
+calibration event; ``memory_report`` registers the state's tensors as
+the ``params`` and ``opt_state`` pools (``utils/memory_profile``) and
+ships a ``memory`` event on the report cadence; a step that dies of an
+allocator failure writes ``oom_postmortem.json`` next to
+``checkpoint_dir`` before the error propagates; and every report writes
+the agent's device-metrics file (``agent/monitor.write_device_metrics``)
+where one is configured.  An MoE model's router statistics are
 harvested on the report cadence (``train_lib.build_moe_stats_fn``, a
 forward of its own) and shipped as ``moe`` telemetry events with the
 report.  Eager PyTorch has nothing to compile ahead of time, so
@@ -161,9 +168,20 @@ class TrainerConfig:
     # (trainer/state_digest.py) and queue it for the master's cross-replica
     # vote.  0 disables: nothing is built or allocated.
     sdc_check_every: int = 0
-    # -- device-time capture (item 10): refused when > 0 --------------------
+    # -- device-time capture ---------------------------------------------------
+    # Every N steps, run ONE step in a ``torch.profiler`` window and emit
+    # the parsed per-phase device seconds as ``source="measured"`` timeline
+    # rows + a calibration event (utils/device_profile.py).  The captured
+    # step pays one host-device sync plus the trace export and parse; 0
+    # disables — no profiler object is built and the step path allocates
+    # nothing.
     profile_every: int = 0
-    # -- classified device-memory accounting (item 10): refused -------------
+    # -- classified device-memory accounting ----------------------------------
+    # Register the trainer's tensors (params / optimizer state) in the
+    # utils/memory_profile registry and ship one flat-attr ``memory``
+    # telemetry event per report tick: allocator bytes, per-pool classified
+    # bytes and the measured-vs-modeled pairing.  Off (default): the step
+    # path pays one attribute read and nothing else.
     memory_report: bool = False
     # World size ``grad_accum`` was chosen for; 0 = the world at first
     # construction.  Booked in checkpoint `extra` so a restore into a
@@ -188,10 +206,6 @@ def _refuse_unported(config: TrainerConfig) -> None:
             raise ValueError(f"{name} {value!r} must be 'none' or 'int8'")
     if config.auto_tune:
         later("TrainerConfig.auto_tune", 10)
-    if config.profile_every > 0:
-        later("TrainerConfig.profile_every (device-time capture)", 10)
-    if config.memory_report:
-        later("TrainerConfig.memory_report", 10)
     if config.warmup_compile:
         raise NotImplementedError(
             "TrainerConfig.warmup_compile: eager PyTorch has nothing to "
@@ -366,6 +380,14 @@ class ElasticTrainer:
         # one: its booking rides the checkpoint ``extra``.
         self._embed_plane = None
         self._embed_dir = None
+        # Device-time capture: None when off, so the step path pays one
+        # attribute read and nothing else.
+        self._device_profiler = None
+        if config.profile_every > 0:
+            from dlrover_tpu_torch.utils.device_profile import DeviceProfiler
+
+            self._device_profiler = DeviceProfiler(config.profile_every,
+                                                   device=self.device)
         self.grad_accum = self._resolve_grad_accum()
         if self.grad_accum != self._ref_accum:
             logger.info(
@@ -378,6 +400,18 @@ class ElasticTrainer:
         self.train = self._build_train()
         self._layout_of = None  # (train, layout) of the live state
         self.state = self.train.init(seed=0)
+        # Classified device-memory accounting: None when off, so _report
+        # pays one attribute read and nothing else.  Bound methods: the
+        # registry holds them weakly, so a dropped trainer drops out.
+        self._memory_registry = None
+        if config.memory_report:
+            from dlrover_tpu_torch.utils import memory_profile
+
+            self._memory_registry = memory_profile.registry()
+            self._memory_registry.register(
+                "params", "trainer.params", self.memory_params)
+            self._memory_registry.register(
+                "opt_state", "trainer.opt_state", self.memory_opt_state)
         self.step = 0
         self._last_saved = 0
         self._ckpt = None
@@ -757,9 +791,24 @@ class ElasticTrainer:
     def train_step(self, batch: Dict[str, Any]):
         # The span times what the host observes of this step: H2D place +
         # dispatch, plus any backpressure when the device falls behind.
+        prof = self._device_profiler
+        capturing = prof is not None and prof.arm(self.step + 1)
         t_span = time.monotonic()
         with telemetry.span("step", step=self.step + 1):
-            metrics = self._dispatch_step(batch)
+            if capturing:
+                # A host-side marker row around the step in the trace.
+                # A step that raises closes the window: no profiler may
+                # keep recording (or hold the wire's ranges open) after.
+                try:
+                    with prof.annotation("step"):
+                        metrics = self._dispatch_step(batch)
+                except BaseException:
+                    prof.abort()
+                    raise
+            else:
+                metrics = self._dispatch_step(batch)
+        if capturing:
+            self._finish_capture(t_span)
         if (
             self.train.grad_accum > 1 or self.train.zero1
         ) and telemetry.recorder().enabled:
@@ -782,9 +831,19 @@ class ElasticTrainer:
     def _dispatch_step(self, batch: Dict[str, Any]):
         placed = train_lib.shard_batch(batch, self.train)
         t0 = time.perf_counter()
-        # The reference writes an OOM postmortem before re-raising; that
-        # forensics is the measurement planes' (ROADMAP Queue 1 item 10).
-        self.state, metrics = self.train.step(self.state, placed)
+        try:
+            self.state, metrics = self.train.step(self.state, placed)
+        except Exception as e:
+            # OOM forensics: before the process dies, write the classified
+            # buffer table (who held the device memory) next to the
+            # checkpoint dir.  Best-effort, then re-raise — the postmortem
+            # must never mask the original error.
+            from dlrover_tpu_torch.utils import memory_profile
+
+            if memory_profile.is_oom_error(e) and self.config.checkpoint_dir:
+                memory_profile.dump_oom_postmortem(
+                    self.config.checkpoint_dir, error=e)
+            raise
         self.step += 1
         pipeline_counters().record_dispatch(
             self.step, time.perf_counter() - t0
@@ -818,6 +877,60 @@ class ElasticTrainer:
         except Exception as e:  # noqa: BLE001 - observability must not kill
             logger.warning("moe stats harvest failed (disabled): %s", e)
             self._moe_stats_fn = False
+
+    # -- device-time capture ---------------------------------------------------
+
+    def _finish_capture(self, t_span: float):
+        """Close the armed profiler window: wait for the step's device
+        work so it lands inside the trace, then parse it and book the
+        measured rows + calibration event.  A window that fails to stop
+        or parse books nothing and never takes the step down with it.
+        The port has no compile cache (ROADMAP Queue 1 item 3), so every
+        window is booked under the ledger's ``uncacheable`` key."""
+        from dlrover_tpu_torch.utils import device_profile
+
+        # The capture sync is a deliberate host stall (the window must
+        # close after the device finished) — book it as a host block so
+        # the pipeline counters price what profiling costs the step loop.
+        with pipeline_counters().host_block("profile-sync",
+                                            steps=(self.step,)):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        wall = time.monotonic() - t_span
+        window = self._device_profiler.finish()
+        if window is None:
+            return
+        # The modeled baseline for the SAME wall the window measured —
+        # the calibration ratio compares like with like.
+        rows = train_lib.microbatch_phase_plan(
+            self.train.grad_accum, self.train.reduce_quant, wall,
+            zero1=self.train.zero1, overlap=self.train.overlap,
+        )
+        device_profile.emit_measured_phases(
+            window, step=self.step, t_span=t_span, wall_s=wall,
+            modeled_rows=rows,
+        )
+
+    # -- classified device memory ----------------------------------------------
+
+    def memory_params(self):
+        """Registry provider: this rank's parameters."""
+        return self.state.params()
+
+    def memory_opt_state(self):
+        """Registry provider: this rank's optimizer state."""
+        return self.state.opt_state
+
+    def _emit_memory_event(self, step: int):
+        """One flat-attr ``memory`` event: allocator truth + classified
+        pool bytes.  ``modeled_b`` is the params + optimizer-state bytes,
+        so the master's ratio measures what the state model misses
+        (activations, temporaries, allocator slack)."""
+        from dlrover_tpu_torch.utils import memory_profile
+
+        pools = self._memory_registry.pool_bytes()
+        memory_profile.emit_memory_event(
+            step=step, modeled_b=pools["params"] + pools["opt_state"])
 
     # -- silent data corruption ------------------------------------------------
 
@@ -1102,9 +1215,8 @@ class ElasticTrainer:
     def _report(self, metrics: Dict[str, Any], step: Optional[int] = None):
         """Report ``metrics`` under ``step`` (default: the current step —
         the synchronous path; the deferred-metrics flush passes the ring
-        entry's own step so lagged values keep correct attribution).  The
-        reference also writes the agent's device metrics here
-        (``write_device_metrics``, ROADMAP Queue 1 item 10)."""
+        entry's own step so lagged values keep correct attribution), and
+        write the agent's device-metrics file."""
         cfg = self.config
         step = self.step if step is None else step
         loss = metrics["loss"]
@@ -1135,6 +1247,10 @@ class ElasticTrainer:
                 anomalies = tuple(a.encode() for a in found)
                 if any(a.kind == "nan" for a in found):
                     self._state_poisoned = True
+        if self._memory_registry is not None:
+            # Classified memory snapshot on the report cadence, queued
+            # BEFORE the ring ships below so it rides this report's drain.
+            self._emit_memory_event(step)
         if self._pending_moe_stats:
             # The router statistics' fetch rides the report cadence,
             # queued before the ring ships below: [entropy, drop_fraction,
@@ -1173,6 +1289,9 @@ class ElasticTrainer:
                         state_digest.format_digest(value),
                         check_every=cfg.sdc_check_every,
                     )
+        from dlrover_tpu_torch.agent.monitor import write_device_metrics
+
+        write_device_metrics()
 
     # -- checkpoint -----------------------------------------------------------
 

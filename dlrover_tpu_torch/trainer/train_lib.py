@@ -125,10 +125,10 @@ norm counts it once and completes the stages' sums over ``pipe``.
 ``pipe`` composes with ``data`` (ZeRO-1 included) and ``tensor``.
 
 Not ported yet, and refused when asked for: MoE on an fsdp, tensor or
-seq axis (item 6's remainder), MoE under pipelining and a pipe axis
-beside fsdp, seq or expert (item 9's remainder), and the overlap engine
-and the int8 wires beside an fsdp, tensor, expert, seq or pipe axis
-(they stay the data axis's).
+seq axis (item 6's remainder), a pipe axis beside fsdp, seq or expert
+(item 9's remainder), and the overlap engine and the int8 wires beside
+an fsdp, tensor, expert, seq or pipe axis (they stay the data axis's).
+MoE under pipelining is refused as the reference refuses it.
 
 PyTorch updates in place: ``step`` mutates the state it is given (the
 JAX step donated it) and returns it.  Entry points run on ``cuda`` unless

@@ -33,7 +33,7 @@ from dlrover_tpu.trainer import state_digest as jsd
 from dlrover_tpu.trainer import train_lib as jtl
 from dlrover_tpu.trainer.elastic_trainer import ElasticTrainer as JTrainer
 from dlrover_tpu.trainer.elastic_trainer import TrainerConfig as JConfig
-from dlrover_tpu_torch.common import faults
+from dlrover_tpu_torch.common import faults, telemetry
 from dlrover_tpu_torch.embedding.sharded import ShardedEmbeddingTable
 from dlrover_tpu_torch.models import gpt2_config
 from dlrover_tpu_torch.models.from_jax import state_dict_from_jax
@@ -549,14 +549,131 @@ def test_sdc_digests_without_a_master_keep_only_the_newest(every):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("auto_tune", True, 10), ("profile_every", 1, 10),
-    ("memory_report", True, 10),
+    ("auto_tune", True, 10),
     ("warmup_compile", True, 3), ("compile_cache_dir", "/tmp/cc", 3),
 ])
 def test_unported_config_fields_are_refused(field, value, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
         _trainer(**{field: value})
+
+
+# -- the measurement planes -------------------------------------------------------
+
+
+@pytest.mark.parametrize("lag", [0, 2])
+def test_profile_every_books_measured_rows(lag):
+    """Every ``profile_every`` steps one step runs in a profiler window:
+    a ``profile-sync`` host block, the measured compute row and one
+    calibration event for that step, nothing for the others."""
+    rec = telemetry.recorder()
+    was = rec.enabled
+    rec.configure(enabled=True)
+    rec.drain()
+    pipeline_counters().reset()
+    try:
+        trainer = _trainer(profile_every=2, metrics_lag=lag)
+        trainer.fit(_batches(5), max_steps=5)
+        events = rec.drain()
+    finally:
+        rec.configure(enabled=was)
+    prof = trainer._device_profiler
+    assert (prof.windows, prof.failed_windows) == (2, 0)
+    measured = [e for e in events if e[4].get("source") == "measured"]
+    assert [(e[0], e[4]["step"]) for e in measured] == [("compute", 2),
+                                                        ("compute", 4)]
+    calib = [e[4] for e in events if e[0] == "calibration"]
+    assert [a["step"] for a in calib] == [2, 4]
+    assert all(a["measured_compute"] > 0 and a["modeled_compute"] > 0
+               and a["cache_key"] == "uncacheable" for a in calib)
+    syncs = pipeline_counters().blocks("profile-sync")
+    assert [e.steps for e in syncs] == [(2,), (4,)]
+    trainer.close()
+
+
+def test_both_planes_off_construct_nothing():
+    pipeline_counters().reset()
+    trainer = _trainer()
+    assert trainer._device_profiler is None
+    assert trainer._memory_registry is None
+    trainer.fit(_batches(2), max_steps=2)
+    assert not pipeline_counters().blocks("profile-sync")
+    trainer.close()
+
+
+def test_an_oom_writes_the_postmortem_and_propagates(tmp_path, monkeypatch):
+    from dlrover_tpu_torch.utils import memory_profile
+
+    memory_profile.registry().clear()
+    ckpt = tmp_path / "ckpt"
+    trainer = _trainer(checkpoint_dir=str(ckpt), memory_report=True)
+
+    def oom(state, batch):
+        raise torch.OutOfMemoryError("CUDA out of memory. (planted)")
+
+    monkeypatch.setattr(trainer.train, "step", oom)
+    with pytest.raises(torch.OutOfMemoryError, match="planted"):
+        trainer.train_step(_batches(1)[0])
+    with open(ckpt / "oom_postmortem.json") as f:
+        report = json.load(f)
+    assert report["error"].startswith("OutOfMemoryError: CUDA out of")
+    params = sum(t.numel() * t.element_size()
+                 for t in trainer.state.params().values())
+    assert report["pools_b"]["params"] == params
+    assert report["pools_b"]["opt_state"] > 0
+    assert {r["pool"] for r in report["top"]} == {"params", "opt_state"}
+    assert trainer.step == 0
+    # Another error passes through without a postmortem.
+    os.remove(ckpt / "oom_postmortem.json")
+    monkeypatch.setattr(trainer.train, "step",
+                        lambda s, b: (_ for _ in ()).throw(KeyError("x")))
+    with pytest.raises(KeyError):
+        trainer.train_step(_batches(1)[0])
+    assert not (ckpt / "oom_postmortem.json").exists()
+    trainer.close()
+    memory_profile.registry().clear()
+
+
+def test_a_captured_step_that_raises_closes_its_window(tmp_path,
+                                                        monkeypatch):
+    """An OOM inside a profiled step stops the profiler and closes the
+    armed window before the error propagates; the next window opens."""
+    from dlrover_tpu_torch.utils import device_profile as tdp
+
+    trainer = _trainer(profile_every=1, checkpoint_dir=str(tmp_path))
+    step = trainer.train.step
+    window_dirs = []
+
+    def oom(state, batch):
+        assert tdp.armed() and torch.autograd._profiler_enabled()
+        window_dirs.append(trainer._device_profiler._window_dir)
+        raise torch.OutOfMemoryError("CUDA out of memory. (planted)")
+
+    monkeypatch.setattr(trainer.train, "step", oom)
+    with pytest.raises(torch.OutOfMemoryError, match="planted"):
+        trainer.train_step(_batches(1)[0])
+    prof = trainer._device_profiler
+    assert not tdp.armed() and not torch.autograd._profiler_enabled()
+    assert (prof.windows, prof.failed_windows) == (0, 1)
+    assert prof._prof is None and prof._window_dir is None
+    assert window_dirs[0] and not os.path.exists(window_dirs[0])
+    assert (tmp_path / "oom_postmortem.json").exists()
+    monkeypatch.setattr(trainer.train, "step", step)
+    trainer.train_step(_batches(1)[0])
+    assert (prof.windows, prof.failed_windows) == (1, 1)
+    assert not tdp.armed() and not torch.autograd._profiler_enabled()
+    trainer.close()
+
+
+def test_reports_write_the_agents_device_metrics(tmp_path, monkeypatch):
+    path = tmp_path / "metrics.json"
+    monkeypatch.setenv("DLROVER_TPU_METRICS_FILE", str(path))
+    trainer = _trainer()
+    trainer.fit(_batches(2), max_steps=2)
+    with open(path) as f:
+        assert set(json.load(f)) >= {"device_mem_gb", "device_util",
+                                     "timestamp"}
+    trainer.close()
 
 
 @pytest.mark.parametrize("field,value", [
@@ -940,9 +1057,22 @@ def test_example_takes_the_data_parallel_flags(flags, monkeypatch):
                          + flags) == 0
 
 
+def test_example_captures_device_time(monkeypatch):
+    """``--profile-every`` runs the trainer's capture windows."""
+    from dlrover_tpu_torch.examples import train_lm
+
+    monkeypatch.delenv("DLROVER_TPU_MASTER_ADDR", raising=False)
+    pipeline_counters().reset()
+    assert train_lm.main(["--device", "cpu", "--steps", "2", "--layers",
+                          "1", "--d-model", "32", "--heads", "2", "--vocab",
+                          "64", "--seq-len", "16", "--batch-size", "4",
+                          "--profile-every", "2"]) == 0
+    assert [e.steps for e in pipeline_counters().blocks("profile-sync")] \
+        == [(2,)]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--auto-tune"], 10),
-    (["--profile-every", "2"], 10), (["--warmup-compile"], 3),
+    (["--auto-tune"], 10), (["--warmup-compile"], 3),
     (["--compile-cache-dir", "cache"], 3),
 ])
 def test_example_refuses_unported_flags(flags, item):

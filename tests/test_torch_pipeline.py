@@ -273,7 +273,7 @@ def _raises(fn):
 ], ids=["layers", "moe", "batch"])
 def test_pipeline_validates_as_the_reference(overrides, batch):
     """The reference's ``PipelinedBlocks`` checks, with its messages (the
-    MoE refusal adds the ROADMAP item)."""
+    MoE refusal adds that the reference refuses it too)."""
     from dlrover_tpu_torch.models import gpt2_config
     from dlrover_tpu_torch.models.transformer import (
         TransformerLM,

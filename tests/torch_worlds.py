@@ -5,75 +5,28 @@
 ``tmp`` (no fixed port, so parallel test workers never collide), runs
 ``fn(rank, n, payload)`` on each rank with one intra-op thread, and
 returns every rank's result; a rank that fails or outlives ``timeout``
-fails the call.  Each world runs many cases, so each spawn pays for
-itself.  This module imports torch and the port only (no JAX): a spawned
+fails the call.  The launcher is the package's own
+(``dlrover_tpu_torch.utils.scaling.spawn_world``).  Each world runs many
+cases, so each spawn pays for itself.  This module imports torch and the port only (no JAX): a spawned
 rank starts in a second or two.
 """
 
 from __future__ import annotations
 
 import os
-import pickle
-import traceback
 
 import numpy as np
 import torch
+
+from dlrover_tpu_torch.utils.scaling import spawn_world
 
 TINY = dict(num_layers=2, d_model=64, num_heads=4, vocab_size=128,
             max_seq_len=64)
 BATCH, SEQ = 8, 32
 
 
-def _child(rank, n, store, fn, payload, out):
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=n)
-    try:
-        result = {"ok": fn(rank, n, payload)}
-    except BaseException:  # noqa: BLE001 - reported to the parent
-        result = {"error": traceback.format_exc()}
-    with open(out, "wb") as f:
-        pickle.dump(result, f)
-    dist.destroy_process_group()
-
-
 def run_world(n, fn, payload, tmp, timeout=300.0):
-    import multiprocessing
-
-    tmp = str(tmp)
-    os.makedirs(tmp, exist_ok=True)
-    store = os.path.join(tmp, f"store_{fn.__name__}_{n}")
-    if os.path.exists(store):
-        os.remove(store)
-    outs = [os.path.join(tmp, f"{fn.__name__}_{n}_rank{r}.pkl")
-            for r in range(n)]
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_child,
-                         args=(r, n, store, fn, payload, outs[r]))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.kill()
-        p.join()
-    results = []
-    for path in outs:
-        if not os.path.exists(path):
-            results.append({"error": "no result"})
-            continue
-        with open(path, "rb") as f:
-            results.append(pickle.load(f))
-    errors = [r["error"] for r in results if "error" in r]
-    if alive or errors:
-        raise AssertionError(
-            f"world of {n}: {len(alive)} rank(s) timed out; errors: "
-            + "\n".join(errors))
-    return [r["ok"] for r in results]
+    return spawn_world(n, fn, payload, timeout, directory=str(tmp))
 
 
 def lm_batch(seed=0, batch=BATCH, seq=SEQ, vocab=TINY["vocab_size"]):
