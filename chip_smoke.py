@@ -11,6 +11,8 @@
     python3 chip_smoke.py --repairs     # build, the grouped-matmul checks
                                         # and the padded-head-dim flash checks
     python3 chip_smoke.py --fit         # build and the elastic loop
+    python3 chip_smoke.py --elastic     # build and the launcher's crash,
+                                        # restart and resume (elastic_run)
     python3 chip_smoke.py --dp          # build, train, the elastic loop at
                                         # world 1 and the world of two
     python3 chip_smoke.py --mp          # build and the fsdp/tensor world
@@ -330,13 +332,9 @@ of the JAX package.  Phases, each one JSON line on stdout:
                the booked ``grad_accum_ref``, and ``fit`` to step 8 takes 2
                finite steps.  Once the step times and the digest's cost
                are taken, the phase starts (``_after_fit_measured``) the
-               ported ``train_lm`` example's pair in a thread (phase
-               ``train_fit_example``, read after ``train_dp2``: the
-               example (``EXAMPLE_ARGV``) in a subprocess exits 17 at step
-               10 and a restart (``DLROVER_TPU_RESTART_COUNT=1``) resumes
-               at step 8, from shm or storage (printed), and exits 0) and
-               spawns the world of two with its warm-up (``_warm_rank``),
-               both beside the rest of this phase.  Printed: the
+               elastic run in a thread (phase ``elastic_run``, read after
+               ``train_dp2``) and spawns the world of two with its warm-up
+               (``_warm_rank``), both beside the rest of this phase.  Printed: the
                device time between step starts (CUDA events) and its median
                beside tokens/s and MFU, each checkpoint call's blocking
                seconds and whether it saved, ``close()``'s wait, the restore's
@@ -502,6 +500,33 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``train_ring2`` and ``train_pp2`` run in this process
                while ``train_dp2``'s ranks do
                (``world1_references_start``).
+9l. ``elastic_run``  the control plane's main path: a ``JobMaster(port=0,
+               num_nodes=1)`` in this process and ``python -m
+               dlrover_tpu_torch.run --master localhost:P --nnodes 1
+               --max-restarts 1 --monitor-interval 1`` running ``python -m
+               dlrover_tpu_torch.examples.train_lm`` with
+               ``ELASTIC_TRAINER_ARGV`` (GPT-2 1.5B's width at 2 layers,
+               flash attention, Adafactor, 12 steps, saves every 4, a crash
+               at step 10, a profiled step every 4, the memory report).
+               Nothing here sets the restart count or relaunches: the
+               agent does.  Held: the launcher exits 0; the master saw one
+               failure of node 0, exit code 17, its log tail holding
+               "crashing at step 10"; one restart (2 worker starts) and
+               rendezvous round 2; the restarted trainer restored step 8
+               from shm; storage's committed step and the speed monitor's
+               last step are 12 and ``job_phase()`` is ``succeeded``; the
+               shards the crashed trainer held head the queue after the
+               recovery; the calibration ledger holds the profiled windows
+               (routed through the servicer), the memory ledger the
+               ``params`` pool, and the windows count K1 and K3 launches
+               (and no K2a).  Printed: the goodput split as the master
+               holds it (productive seconds, the restart from the crash's
+               ``process_exit`` to the next first step span, the
+               rendezvous, restore and checkpoint spans, the compile
+               ledger) and the wall times.  Started by
+               ``_after_fit_measured`` beside ``train_fit``'s end and
+               ``train_dp2``; ``--fit``, ``--fit-gate``, ``--dp`` and
+               ``--measure`` run it too.
 9g. ``train_opts``  the training options at GPT-2 1.5B's width
                (``OPTS_LAYERS`` of 48 layers, fp32 parameters, bf16,
                flash, 16 x 1024), one model and one batch: every remat
@@ -628,7 +653,8 @@ twice.
 
 Then the ``{"kernels": [...]}`` line (launches summed over the counted
 runs of the serve, serve_faults, serve_spec, serve_fleet, serve_moe,
-train, flash_ckpt, train_fit, train_dp2, train_mp2, train_ep2,
+train, flash_ckpt, train_fit, train_dp2, elastic_run (the launches its
+profiled windows saw), train_mp2, train_ep2,
 train_split, train_moe, train_lowbit and train_rec paths,
 each driven with the counts set to 0 just before it and read just after),
 the
@@ -2455,12 +2481,26 @@ FIT_GATE_RUNS = 3
 FIT_DP_OPTIONS = dict(zero1=True, overlap=True, reduce_quant="int8")
 #: The sampler's dataset (indices; each sample is made from its index).
 FIT_DATASET = 100_000
-#: The ported example's crash-and-resume pair: its default model size,
-#: flash attention (the config computes in bf16), saves at 4 and 8, a
-#: crash at 10 on the first run.
-EXAMPLE_ARGV = ["--steps", "12", "--ckpt-every", "4", "--fail-at-step",
-                "10", "--attention-impl", "flash", "--device", "cuda"]
-EXAMPLE_CRASH_RC, EXAMPLE_RESUME_STEP = 17, 8
+#: ``elastic_run``: the trainer the launcher runs, GPT-2 1.5B's width at 2
+#: of its 48 layers (``--vocab 50257``: the published vocabulary), flash
+#: attention, Adafactor (its state stays near the parameters' 0.57 GB in
+#: fp32), saves at 4, 8 and 12, a crash at 10 on the first run, a profiled
+#: step every 4 and the classified memory snapshot on the report cadence.
+#: ``--step-sleep`` (the example's test hook) spaces the saves: a step takes
+#: about 40 ms, and without it step 8's save finds the saver still
+#: persisting step 4 and is skipped, so the restart resumes at 4.
+ELASTIC_TRAINER_ARGV = [
+    "--device", "cuda", "--attention-impl", "flash", "--layers", "2",
+    "--d-model", "1600", "--heads", "25", "--vocab", "50257",
+    "--seq-len", "1024", "--batch-size", "4", "--optimizer", "adafactor",
+    "--steps", "12", "--ckpt-every", "4", "--fail-at-step", "10",
+    "--profile-every", "4", "--memory-report", "--step-sleep", "1.5"]
+ELASTIC_CRASH_RC, ELASTIC_RESUME_STEP, ELASTIC_STEPS = 17, 8, 12
+#: The launcher's limit (both trainer runs, the restart and the agent's
+#: exit).
+ELASTIC_TIMEOUT_S = 420
+#: The launcher's niceness (its agent and trainers inherit it).
+ELASTIC_NICE = 10
 
 
 #: About 0.1 s of the card's clock: the host dispatches the digest while
@@ -2540,121 +2580,299 @@ def _captured_log(pattern):
         default_logger.removeHandler(handler)
 
 
-def _example_pair(scratch):
-    """The ported example crashes (exit 17) and a restarted run resumes
-    from its last save, each a process of its own on the card."""
+def _elastic_spies(master):
+    """Wraps four of ``master``'s entry points to keep what they saw:
+    each failure report (node, exit code, error), for each recovery the
+    shards the node held (task ids) and the queue's head after it, and a
+    node's timeline and memory snapshot as they were when the master
+    evicted them (a node that succeeds leaves the job's observability
+    series, as in the reference)."""
+    seen = {"failures": [], "recoveries": [], "evicted_events": {},
+            "evicted_memory": {}}
+    report_failure = master.node_manager.report_failure
+    recover = master.task_manager.recover_tasks
+    evict_node = master.timeline.evict_node
+    evict_memory = master.memory_ledger.evict
+
+    def timeline_evict(node_id):
+        seen["evicted_events"].setdefault(node_id, []).extend(
+            master.timeline.events(node_id).get(node_id, []))
+        evict_node(node_id)
+
+    def memory_evict(node_id):
+        snap = master.memory_ledger.per_node().get(node_id)
+        if snap is not None:
+            seen["evicted_memory"][node_id] = snap
+        evict_memory(node_id)
+
+    def failure(node_id, error, exit_code, level):
+        seen["failures"].append({"node": node_id, "exit_code": exit_code,
+                                 "level": level, "error": error})
+        return report_failure(node_id, error, exit_code, level)
+
+    def recover_tasks(node_id):
+        tm = master.task_manager
+        with tm._lock:
+            held = {name: [tid for tid, (owner, _, _) in dm.doing.items()
+                           if owner == node_id]
+                    for name, dm in tm._datasets.items()}
+        recover(node_id)
+        with tm._lock:
+            head = {name: [t.task_id for t in list(dm.pending)[:len(
+                held.get(name, ()))]] for name, dm in tm._datasets.items()}
+        seen["recoveries"].append({"node": node_id, "held": held,
+                                   "queue_head": head})
+
+    master.node_manager.report_failure = failure
+    master.task_manager.recover_tasks = recover_tasks
+    master.timeline.evict_node = timeline_evict
+    master.memory_ledger.evict = memory_evict
+    return seen
+
+
+def _node_events(master, seen, node_id=0):
+    """Node ``node_id``'s timeline events: those the master evicted when
+    the node finished, then those it holds now."""
+    return seen["evicted_events"].get(node_id, []) + \
+        master.timeline.events(node_id).get(node_id, [])
+
+
+def _goodput_split(master, events):
+    """The goodput ledger's split as the master holds it: productive
+    seconds (the speed monitor's), the restart (the agent's
+    ``process_exit`` of the crash to the next trainer's first step span
+    on the merged timeline), the rendezvous spans, the restore spans and
+    the checkpoint spans, over one node's timeline ``events``."""
+
+    def spans(name):
+        return [(t, d, a) for n, _, t, d, a in events if n == name]
+
+    exits = [t for t, _, a in spans("process_exit") if a.get("code")]
+    steps = sorted(t for t, _, _ in spans("step"))
+    restart_s = None
+    if exits:
+        after = [t for t in steps if t > exits[0]]
+        restart_s = after[0] - exits[0] if after else None
+    sm = master.speed_monitor
+    return {
+        "productive_s": sm._productive_s,
+        "goodput": sm.goodput(),
+        "restart_s": restart_s,
+        "rendezvous_s": [d for _, d, _ in spans("rendezvous")],
+        "restore_s": [d for _, d, _ in spans("restore")],
+        "checkpoint_s": sum(d for _, d, _ in spans("checkpoint")),
+        "checkpoint_spans": len(spans("checkpoint")),
+        "compile": sm.compile_ledger(),
+    }
+
+
+def elastic_run(scratch, trainer_argv=None, on_card=True):
+    """``python -m dlrover_tpu_torch.run`` against a ``JobMaster`` in this
+    process: the agent rendezvouses, runs ``train_lm`` (a subprocess of a
+    subprocess), reports its crash, restarts it; the master's ledgers are
+    read after the launcher exits.  ``on_card=False`` (a CPU rehearsal)
+    skips the profiled window's kernel counts."""
     from dlrover_tpu_torch.common.storage import (
         CheckpointDirLayout,
         PosixDiskStorage,
     )
+    from dlrover_tpu_torch.master.job_master import JobMaster
 
-    ckpt_dir = os.path.join(scratch, "example_ckpt")
+    trainer_argv = ELASTIC_TRAINER_ARGV if trainer_argv is None \
+        else trainer_argv
+
+    def flag(name):
+        return int(trainer_argv[trainer_argv.index(name) + 1])
+
+    steps, crash_step = flag("--steps"), flag("--fail-at-step")
+    resume_step = crash_step - crash_step % flag("--ckpt-every")
+    ckpt_dir = os.path.join(scratch, "ckpt")
+    job = f"elastic{os.getpid()}"
     env = dict(os.environ,
-               DLROVER_TPU_JOB=f"fitex{os.getpid()}",
-               DLROVER_TPU_SOCKET_DIR=os.path.join(scratch, "example_socks"),
+               DLROVER_TPU_JOB=job,
+               DLROVER_TPU_SOCKET_DIR=os.path.join(scratch, "socks"),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    env.pop("DLROVER_TPU_RESTART_COUNT", None)
-    argv = [sys.executable, "-m", "dlrover_tpu_torch.examples.train_lm",
-            "--checkpoint-dir", ckpt_dir] + EXAMPLE_ARGV
-    out = {"argv": argv[3:]}
+    for key in ("DLROVER_TPU_RESTART_COUNT", "DLROVER_TPU_MASTER_ADDR",
+                "DLROVER_TPU_COORDINATOR"):
+        env.pop(key, None)
+    t0 = time.perf_counter()
+    master = JobMaster(port=0, num_nodes=1)
+    seen = _elastic_spies(master)
+    port = master.start()
+    argv = [sys.executable, "-m", "dlrover_tpu_torch.run",
+            "--master", f"localhost:{port}", "--nnodes", "1",
+            "--node-id", "0", "--max-restarts", "1",
+            "--monitor-interval", "1", "--checkpoint-dir", ckpt_dir, "--",
+            sys.executable, "-m", "dlrover_tpu_torch.examples.train_lm",
+            *trainer_argv, "--checkpoint-dir", ckpt_dir]
+    out = {"argv": argv[2:]}
     try:
-        for label, restarts in (("first", None), ("restart", "1")):
-            run_env = dict(env)
-            if restarts is not None:
-                run_env["DLROVER_TPU_RESTART_COUNT"] = restarts
-            t0 = time.perf_counter()
-            proc = subprocess.Popen(argv, env=run_env, cwd=REPO,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-            _EXAMPLE["proc"] = proc
-            try:
-                _, stderr = proc.communicate(timeout=300)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-            res = subprocess.CompletedProcess(argv, proc.returncode, "",
-                                              stderr)
-            resumed = re.findall(r"resumed from checkpoint at step (\d+)",
-                                 res.stderr)
-            source = re.findall(r"restoring step \d+ from (shm)", res.stderr)
-            out[label] = {
-                "rc": res.returncode, "seconds": time.perf_counter() - t0,
-                "resumed_at": int(resumed[-1]) if resumed else None,
-                "restored_from": (source[-1] if source else "storage")
-                if resumed else None,
-                "stderr_tail": res.stderr[-1500:] if res.returncode not in (
-                    0, EXAMPLE_CRASH_RC) else "",
-            }
+        proc = subprocess.Popen(argv, env=env, cwd=REPO,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        _ELASTIC["proc"] = proc
+        # Niced (the agent's trainers inherit it): the run has slack
+        # beside ``train_fit``'s end and ``train_dp2``, whose host-bound
+        # steps it must not slow.
+        os.setpriority(os.PRIO_PROCESS, proc.pid, ELASTIC_NICE)
+        try:
+            log, _ = proc.communicate(timeout=ELASTIC_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        out["launcher_rc"] = proc.returncode
+        out["launcher_s"] = time.perf_counter() - t0
+        with open(os.path.join(REPO, "build", "elastic_run.log"), "w") as f:
+            f.write(log)
+        out["saves_s"] = [[int(st), float(x)] for st, x in re.findall(
+            r"step (\d+): saved to shm in ([\d.]+)s", log)]
+        out["persists_s"] = [[int(st), float(x)] for st, x in re.findall(
+            r"persisted step (\d+) in ([\d.]+)s", log)]
+        out["skipped_saves"] = [int(st) for st in re.findall(
+            r"step (\d+): checkpoint skipped", log)]
+        resumed = re.findall(r"resumed from checkpoint at step (\d+)", log)
+        source = re.findall(r"restoring step (\d+) from (shm)", log)
+        out["resumed_at"] = [int(r) for r in resumed]
+        out["restored_from_shm"] = [int(r) for r, _ in source]
         out["committed_step"] = CheckpointDirLayout(ckpt_dir).latest_step(
             PosixDiskStorage())
+        rdzv = master.rdzv_managers["elastic-training"]
+        out["rdzv_round"] = rdzv._rdzv_round
+        out["job_phase"] = master.job_phase()
+        out["last_step"] = master.speed_monitor.global_step
+        out["failures"] = [
+            {**f, "error": f["error"][-400:],
+             "tail_has_crash": f"crashing at step {crash_step}" in f["error"]}
+            for f in seen["failures"]]
+        out["recoveries"] = seen["recoveries"]
+        events = _node_events(master, seen)
+        out["restarts"] = sum(1 for e in events if e[0] == "restart")
+        out["worker_starts"] = master.timeline.counter("worker_starts")
+        windows = [a for n, _, _, _, a in events if n == "calibration"]
+        out["windows"] = [
+            {k: v for k, v in a.items()
+             if k in ("step", "wall_s", "device_total_s", "measured_compute")
+             or k.startswith("kernel_")} for a in windows]
+        out["calibration"] = master.calibration.state()
+        out["memory_pools"] = {
+            str(node): {k: v for k, v in snap.items()
+                        if k.startswith("pool_") or k in ("step",
+                                                          "bytes_in_use")}
+            for node, snap in {**seen["evicted_memory"],
+                               **master.memory_ledger.per_node()}.items()}
+        out["goodput_split"] = _goodput_split(master, events)
+        if out["launcher_rc"] != 0:
+            out["log_tail"] = log[-3000:]
     finally:
-        arena = f"/dev/shm/dlrover_tpu_ckpt_fitex{os.getpid()}_h0"
+        master.stop()
+        arena = f"/dev/shm/dlrover_tpu_ckpt_{job}_h0"
         if os.path.exists(arena):
             os.unlink(arena)
-    out["ok"] = (out["first"]["rc"] == EXAMPLE_CRASH_RC
-                 and out["first"]["resumed_at"] is None
-                 and out["restart"]["rc"] == 0
-                 and out["restart"]["resumed_at"] == EXAMPLE_RESUME_STEP
-                 and out["committed_step"] == int(EXAMPLE_ARGV[1]))
+    out["wall_s"] = time.perf_counter() - t0
+    held = [tid for r in out["recoveries"] if r["node"] == 0
+            for tids in r["held"].values() for tid in tids]
+    requeued = all(r["queue_head"].get(name) == tids
+                   for r in out["recoveries"]
+                   for name, tids in r["held"].items() if tids)
+    kernels = {}
+    for w in out["windows"]:
+        for k, v in w.items():
+            if k.startswith("kernel_"):
+                kernels[k[len("kernel_"):]] = kernels.get(
+                    k[len("kernel_"):], 0) + v
+    out["window_launches"] = kernels
+    pools = next(iter(out["memory_pools"].values()), {})
+    checks = {
+        "launcher_exit_0": out["launcher_rc"] == 0,
+        "one_failure_exit_17": [
+            (f["node"], f["exit_code"], f["tail_has_crash"])
+            for f in out["failures"]] == [(0, ELASTIC_CRASH_RC, True)],
+        "restarted_once": out["restarts"] == 1
+        and out["worker_starts"] == 2,
+        "rdzv_round_2": out["rdzv_round"] == 2,
+        "resumed_from_shm": out["resumed_at"] == [resume_step]
+        and out["restored_from_shm"] == [resume_step],
+        "committed_last_step": out["committed_step"] == steps,
+        "job_succeeded": out["job_phase"] == "succeeded",
+        "speed_monitor_last_step": out["last_step"] == steps,
+        "shards_requeued": bool(held) and requeued,
+        "calibration_windows": bool(out["windows"])
+        and bool(out["calibration"]["counts"]),
+        "memory_params_pool": pools.get("pool_params_b", 0) > 0,
+    }
+    if on_card:
+        # The profiled steps' kernels: K1 forward and K3 (the kv-tile
+        # kernel without K2a's dq kernel beside it is the fused backward).
+        checks["window_k1_k3"] = (
+            kernels.get("flash_fwd_kernel", 0) > 0
+            and kernels.get("flash_bwd_kv_tile_kernel", 0) > 0
+            and kernels.get("flash_bwd_dq_kernel", 0) == 0)
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
     return out
 
 
-#: The example pair's thread, its running process and its result
-#: (``example_start``, ``example_and_check``).
-_EXAMPLE = {}
+#: The elastic run's thread, its launcher process and its result
+#: (``elastic_start``, ``elastic_run_and_check``).
+_ELASTIC = {}
 
 
-def example_start():
-    """Starts the ported example's crash-and-resume pair in a thread: its
-    two processes (tiny, host-bound) run while this process goes on with
-    the next phases, and ``example_and_check`` reads the result."""
+def elastic_start():
+    """Starts the elastic run in a thread: its processes (the agent and
+    the trainer, host-bound but for the trainer's steps) run while this
+    process goes on with the next phases, and ``elastic_run_and_check``
+    reads the result."""
     import shutil
     import threading
 
-    scratch = os.path.join(REPO, "build", "example")
+    scratch = os.path.join(REPO, "build", "elastic_run")
     shutil.rmtree(scratch, ignore_errors=True)
     os.makedirs(scratch)
 
     def run():
         try:
-            _EXAMPLE["out"] = _example_pair(scratch)
+            _ELASTIC["out"] = elastic_run(scratch)
         except BaseException as e:  # noqa: BLE001 - read by the check
-            _EXAMPLE["out"] = {"ok": False, "error": repr(e)}
+            _ELASTIC["out"] = {"ok": False, "error": repr(e)}
 
     thread = threading.Thread(target=run, daemon=True)
-    _EXAMPLE.update(thread=thread, scratch=scratch, t0=time.perf_counter())
+    _ELASTIC.update(thread=thread, scratch=scratch, t0=time.perf_counter())
     thread.start()
 
 
-def example_and_check():
-    """Phase ``train_fit_example``: waits for the example pair (started
-    now when nothing started it) and holds it to the crash at step 10 and
-    the resume at step 8."""
-    if "thread" not in _EXAMPLE:
-        example_start()
-    _EXAMPLE["thread"].join(timeout=700)
-    out = {"phase": "train_fit_example",
-           **_EXAMPLE.get("out", {"ok": False, "error": "did not finish"}),
-           "wall_s": time.perf_counter() - _EXAMPLE["t0"]}
-    _example_stop()
+def elastic_run_and_check():
+    """Phase ``elastic_run``: waits for the elastic run (started now when
+    nothing started it) and holds it to its checks; returns the launches
+    of the flash kernels seen in its profiled windows."""
+    if "thread" not in _ELASTIC:
+        elastic_start()
+    _ELASTIC["thread"].join(timeout=ELASTIC_TIMEOUT_S + 60)
+    out = {"phase": "elastic_run",
+           **_ELASTIC.get("out", {"ok": False, "error": "did not finish"}),
+           "phase_wall_s": time.perf_counter() - _ELASTIC["t0"]}
+    _elastic_stop()
     emit(out)
     if not out["ok"]:
-        raise AssertionError(f"example crash-and-resume: {out}")
+        raise AssertionError(f"elastic_run: {out.get('checks', out)}")
+    seen = out["window_launches"]
+    return _per_step(flash_fwd=seen.get("flash_fwd_kernel", 0),
+                     flash_bwd_fused=seen.get("flash_bwd_kv_tile_kernel", 0))
 
 
-def _example_stop():
-    """Kills the example's process if one still runs."""
+def _elastic_stop():
+    """Kills the launcher's process group if it still runs."""
     import shutil
 
-    proc = _EXAMPLE.get("proc")
+    proc = _ELASTIC.get("proc")
     if proc is not None and proc.poll() is None:
-        proc.kill()
+        os.killpg(proc.pid, 9)
         proc.wait()
-    if "scratch" in _EXAMPLE:
-        shutil.rmtree(_EXAMPLE["scratch"], ignore_errors=True)
-    _EXAMPLE.clear()
+    if "scratch" in _ELASTIC:
+        shutil.rmtree(_ELASTIC["scratch"], ignore_errors=True)
+    _ELASTIC.clear()
 
 
 def _thread_cpu_ticks():
@@ -10808,11 +11026,11 @@ def _ptxas_report(kernel_lib):
 
 
 def _after_fit_measured():
-    """Once ``train_fit`` has taken its timings: the example pair and the
+    """Once ``train_fit`` has taken its timings: the elastic run and the
     world's spawn and warm-up start beside the rest of the phase and
-    ``train_dp2``'s reference (PR 17: the pair took 36-64 s and the
-    world's first step 10.9-12.1 s on the script's path)."""
-    example_start()
+    ``train_dp2``'s reference (the world's first step took 10.9-12.1 s on
+    the script's path)."""
+    elastic_start()
     world_warm_start()
 
 
@@ -10867,9 +11085,13 @@ def main() -> int:
         gmm_only()
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--elastic"]:
+        elastic_run_and_check()
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--fit"]:
         train_fit_and_check()
-        example_and_check()
+        elastic_run_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--fit-gate"]:
@@ -10883,14 +11105,14 @@ def main() -> int:
             except AssertionError as e:
                 failed.append((run, str(e)))
         emit({"phase": "fit_gate", "runs": FIT_GATE_RUNS, "failed": failed})
-        example_and_check()
+        elastic_run_and_check()
         print(smi, flush=True)
         return 1 if failed else 0
     if sys.argv[1:] == ["--dp"]:
         train_and_check()
         train_fit_and_check(on_measured=_after_fit_measured)
         train_dp2_and_check()
-        example_and_check()
+        elastic_run_and_check()
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--measure"]:
@@ -10898,7 +11120,7 @@ def main() -> int:
         train_and_check()
         train_fit_and_check(on_measured=_after_fit_measured)
         train_dp2_and_check()
-        example_and_check()
+        elastic_run_and_check()
         measure_report()
         print(smi, flush=True)
         return 0
@@ -11017,7 +11239,7 @@ def main() -> int:
     paths["flash_ckpt"] = flash_ckpt_and_check()
     paths["train_fit"] = train_fit_and_check(on_measured=_after_fit_measured)
     paths["train_dp2"] = train_dp2_and_check(world1_refs=True)
-    example_and_check()
+    paths["elastic_run"] = elastic_run_and_check()
     paths["train_mp2"] = train_mp2_and_check()
     paths["train_ep2"] = train_ep2_and_check()
     paths["train_sp2"] = train_sp2_and_check()
@@ -11197,6 +11419,6 @@ if __name__ == "__main__":
     try:
         code = main()
     finally:
-        _example_stop()
+        _elastic_stop()
         _world_stop()
     sys.exit(code)

@@ -1,3 +1,3 @@
-"""The node agent's side of the measurement planes: ``monitor`` (host
-and device resource sampling, the trainer's device-metrics file).  The
-agent's master client and training agent are ROADMAP Queue 1 item 10b."""
+"""The node agent: the elastic agent that supervises the trainer
+(``training_agent``), its master client (``master_client``), the trainer's
+stack dump (``stack_collector``) and resource sampling (``monitor``)."""

@@ -5,9 +5,9 @@ Capability ref: ``dlrover/python/elastic_agent/monitor/resource.py:86-180``
 (``ResourceMonitor`` sampling cpu/mem/gpu and reporting to the master) and
 ``monitor/training.py`` (metrics handed over through a file the trainer
 writes: only the trainer process can read its own CUDA allocator, so the
-same file seam carries its device numbers out).  The master client the
-monitor reports to is ROADMAP Queue 1 item 10b; ``client`` is duck-typed
-(``report_resource``).
+same file seam carries its device numbers out).  ``client`` is the
+agent's ``agent/master_client.MasterClient`` (duck-typed:
+``report_resource``).
 """
 
 from __future__ import annotations

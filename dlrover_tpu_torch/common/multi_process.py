@@ -141,9 +141,9 @@ class LocalSocketComm:
             sock.connect(self._path)
             data = pickle.dumps((method, args, kwargs))
             sock.sendall(struct.pack("<Q", len(data)) + data)
-            header = _recv_exact(sock, 8)
+            header = recv_exact(sock, 8)
             (length,) = struct.unpack("<Q", header)
-            ok, result = pickle.loads(_recv_exact(sock, length))
+            ok, result = pickle.loads(recv_exact(sock, length))
         if not ok:
             raise result
         return result
@@ -172,7 +172,7 @@ def _pid_alive(owner: str) -> bool:
         return True
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
+def recv_exact(sock: socket.socket, n: int) -> bytes:
     buf = b""
     while len(buf) < n:
         chunk = sock.recv(n - len(buf))

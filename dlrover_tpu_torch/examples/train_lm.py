@@ -11,13 +11,17 @@ Under the agent's world (``runtime/env.initialize``: one process a
 device, NCCL on ``cuda``, gloo on ``cpu``) the step is data-parallel, with
 ``--zero1``, ``--overlap``, ``--reduce-quant int8`` and
 ``--allgather-quant int8``, and ``--live-relayout`` polls the master's
-node ledger and re-folds the world in place.  The flags are the
-reference's, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions of the kernels).  A flag whose feature is not ported raises
-``NotImplementedError`` naming its ROADMAP queue item: a master (data
-sharding, reporting, the live-relayout poll's ledger) and ``--auto-tune``
-are item 10.  ``--profile-every`` captures one step in a ``torch.profiler``
-window every N steps.  ``--attention-impl ring`` runs ring attention
+node ledger and re-folds the world in place.  Under a master (the agent's
+``DLROVER_TPU_MASTER_ADDR``) the loader takes its shards from the
+master's task manager, the trainer reports its steps, events and
+telemetry, and ``--timeline`` writes the master's merged timeline.  The
+flags are the reference's, plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain versions of the kernels) and ``--memory-report`` (the
+classified device-memory snapshot on the report cadence).  A flag whose
+feature is not ported raises ``NotImplementedError`` naming its ROADMAP
+queue item: ``--auto-tune`` is item 10c.  ``--profile-every`` captures
+one step in a ``torch.profiler`` window every N steps.
+``--attention-impl ring`` runs ring attention
 (``parallel/ring_attention.py``): a ring of one on the data-parallel
 world, the sequence kept whole on each rank.
 """
@@ -53,7 +57,7 @@ def parse_args(argv=None):
                         "offload, offload:<name>[,<name>...]")
     p.add_argument("--auto-tune", action="store_true",
                    help="search the strategy before training (ROADMAP "
-                        "Queue 1 item 10)")
+                        "Queue 1 item 10c)")
     p.add_argument("--optimizer", default="adamw",
                    help="adamw | adafactor | sgd | lion | q8_adam | agd")
     p.add_argument("--metrics-lag", type=int, default=0,
@@ -133,14 +137,17 @@ def parse_args(argv=None):
     p.add_argument("--live-relayout", action="store_true",
                    help="poll the master's node ledger every 2 steps and "
                         "fold the virtual mesh in place when the live "
-                        "member count changes (the ledger is the master "
-                        "client's, ROADMAP Queue 1 item 10)")
+                        "member count changes")
     p.add_argument("--timeline", default="",
                    help="write this process's telemetry (step/checkpoint "
                         "spans) as a Chrome-trace JSON at exit")
     p.add_argument("--profile-every", type=int, default=0,
                    help="device-time capture every N steps (one step in a "
                         "torch.profiler window; utils/device_profile)")
+    p.add_argument("--memory-report", action="store_true",
+                   help="register the state as the params/opt_state pools "
+                        "and ship a classified memory event on the report "
+                        "cadence (utils/memory_profile)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
@@ -209,6 +216,7 @@ def main(argv=None):
             allgather_quant=args.allgather_quant,
             sdc_check_every=args.sdc_check_every,
             profile_every=args.profile_every,
+            memory_report=args.memory_report,
             world=args.ref_world,
             grad_accum_ref_world=args.ref_world,
         ),
@@ -216,8 +224,13 @@ def main(argv=None):
         device=args.device,
     )
 
-    # Each process's loader produces its local slice of the global batch.
-    n_proc = max(1, renv.num_processes())
+    # Each process's loader produces its local slice of the global batch,
+    # split over the processes of the torch world (the reference's
+    # ``jax.process_count()``): under the agent's control-plane-only
+    # switch each trainer is a world of one.
+    import torch.distributed as dist
+
+    n_proc = dist.get_world_size() if dist.is_initialized() else 1
     if args.batch_size % n_proc:
         raise ValueError(
             f"--batch-size {args.batch_size} must be divisible by the "

@@ -6,10 +6,10 @@ capture window, ``utils/device_profile.emit_measured_phases``) carries per
 phase *kind* (compute/collective) the measured device seconds next to the
 modeled seconds the cost model apportioned for the same step.  This ledger
 folds those pairs into per-cache-key EWMA ratios — ``measured / modeled``
-per kind.  In the reference the master's timeline renders them as
-gauges, its state store persists :meth:`CalibrationLedger.state`, and
-``auto/tune.py`` reads them to correct its ranking; in the port those
-consumers are ROADMAP Queue 1 items 10b and 10c.
+per kind.  The master's servicer routes the events here, its timeline
+renders the ratios as gauges and its state store persists
+:meth:`CalibrationLedger.state`; ``auto/tune.py``, which reads them to
+correct its ranking in the reference, is ROADMAP Queue 1 item 10c.
 
 A ratio of 1.0 means the model priced that kind perfectly; >1 the model is
 optimistic (reality slower), <1 pessimistic.  Keys are the step program's

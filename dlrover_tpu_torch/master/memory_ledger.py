@@ -4,9 +4,10 @@
 Receives the flat-attr ``memory`` telemetry events that
 ``utils/memory_profile.emit_memory_event`` ships on the report cadence
 and keeps one newest-wins snapshot per node, the same shape the speed
-monitor keeps for serve stats.  In the reference the master renders it
-as gauges, serves it at ``/memory``, feeds its diagnosis chain and
-persists it; in the port those consumers are ROADMAP Queue 1 item 10b.
+monitor keeps for serve stats.  The master's servicer routes the events
+here, its timeline renders it as gauges and its state store persists it;
+serving it at ``/memory`` and feeding a diagnosis chain are ROADMAP Queue
+1 item 10b's remainder.
 
 ``headroom_frac`` uses ``-1`` as the "unknown" sentinel (a node
 without a card — the CPU fallback path — cannot price headroom);

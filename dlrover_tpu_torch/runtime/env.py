@@ -1,13 +1,13 @@
 """Trainer-side runtime bootstrap (port of ``dlrover_tpu/runtime/env.py``:
 the agent's environment contract).
 
-The agent (ROADMAP Queue 1 item 10) rendezvouses with the master and
+The agent (``agent/training_agent.py``) rendezvouses with the master and
 exports the world and restart variables named below; the trainer reads
-them here.  The names are this module's own copies of the agent's
-(``dlrover_tpu/agent/training_agent.py``), so a trainer of either package
-reads the same environment.  ``initialize`` joins the agent's world with
-``torch.distributed.init_process_group``; a master client waits for the
-control plane (item 10).
+them here.  The names are this module's own copies of the agent's, so a
+trainer of either package reads the same environment.  ``initialize``
+joins the agent's world with ``torch.distributed.init_process_group``
+(and, under an agent, installs the SIGUSR1 stack dump the agent collects);
+``master_client`` is the trainer's ``agent/master_client.MasterClient``.
 """
 
 from __future__ import annotations
@@ -80,6 +80,13 @@ def initialize(force: bool = False, device=None, backend: str = None):
     if not under_agent():
         logger.info("no agent environment; single-process torch")
         return
+    # Hang-diagnosis seam: the agent can SIGUSR1 this process for an
+    # all-thread Python stack dump (agent/stack_collector.py).
+    from dlrover_tpu_torch.agent.stack_collector import (
+        install_stack_dump_handler,
+    )
+
+    install_stack_dump_handler()
     n = num_processes()
     if n <= 1 and not force:
         return
@@ -107,13 +114,10 @@ def initialize(force: bool = False, device=None, backend: str = None):
 
 
 def master_client(node_type: str = "worker"):
-    """The trainer's master client, or None when the environment names no
-    master."""
+    """The trainer's MasterClient, or None when running without a master."""
     addr = os.environ.get(ENV_MASTER_ADDR, "")
     if not addr:
         return None
-    raise NotImplementedError(
-        f"{ENV_MASTER_ADDR}={addr!r} names a master, but the master client "
-        f"({node_type}) is a later slice of the port (ROADMAP Queue 1 item "
-        "10)"
-    )
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+
+    return MasterClient(addr, node_id=node_id(), node_type=node_type)

@@ -43,13 +43,15 @@ every live weight swap (:meth:`ServingEngine.swap_weights`, the
 
 The engine registers its weights (target and draft) as the memory
 registry's ``params`` pool and its KV pools as ``kv_pool``
-(``utils/memory_profile``).  Not in this slice: the master client
-(``client=``, ROADMAP Queue 1 item 10b).
+(``utils/memory_profile``).  With a master client (``client=``,
+``agent/master_client.MasterClient``) the engine also reports its
+``serve.swap`` and ``compile`` events to the master as node events.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import time
 from collections import deque
@@ -277,7 +279,7 @@ def _nearest_rank(sorted_values: Sequence[float], p: float) -> float:
 #: attribute is the host scheduler's, and is copied.
 _RANK_LOCAL_FIELDS = frozenset({
     "tp", "device", "programs", "model", "cache", "draft_programs",
-    "draft_model", "draft_cache", "spec", "_gen", "admit_policy",
+    "draft_model", "draft_cache", "spec", "_gen", "admit_policy", "client",
 })
 
 
@@ -309,10 +311,6 @@ class ServingEngine:
     ):
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
-        if client is not None:
-            raise NotImplementedError(
-                "the master client (client=) is a later slice of the port "
-                "(the control plane, ROADMAP Queue 1 item 10)")
         if buckets is None:
             buckets = make_buckets(max(1, config.max_seq_len // 2))
         self._base_config = config
@@ -328,6 +326,7 @@ class ServingEngine:
         self.slots = slots
         self.buckets = self.programs.buckets
         self.static_batching = static_batching
+        self.client = client
         self.model = self.cache = None
         if not self.parked:
             self.model = self.programs.place_params(params)
@@ -1026,6 +1025,11 @@ class ServingEngine:
             rolled_back=rolled_back, version=self.weights_version,
             step=loaded_step, digest=format_digest(device_digest),
         )
+        if self.client is not None:
+            self.client.report_event("serve.swap", json.dumps({
+                "ok": ok, "rolled_back": rolled_back,
+                "version": self.weights_version, "step": loaded_step,
+            }))
         return {
             "ok": ok, "rolled_back": rolled_back,
             "version": self.weights_version, "step": loaded_step,
@@ -1046,4 +1050,9 @@ class ServingEngine:
             seconds += self.draft_programs.warmup()
         telemetry.event("compile", duration_s=seconds,
                         cached=seconds == 0.0, phase="serve_aot")
+        if self.client is not None:
+            self.client.report_event("compile", json.dumps({
+                "seconds": round(seconds, 6), "restart": False,
+                "cached": seconds == 0.0, "phase": "serve_aot",
+            }))
         return seconds

@@ -3,10 +3,9 @@ of ``dlrover_tpu/serving/frontend.py``).
 
 The transport-facing half of the serving survivability layer.  It speaks
 the typed messages of ``master/messages.py`` and is transport-agnostic:
-callers drive it directly.  Wiring it into the master's servicer (the
-reference routes ``ServeSubmit``/``ServeCancel`` through ``report`` and
-``ServePoll`` through ``get``) comes with the control plane (ROADMAP
-Queue 1 item 10).
+callers drive it directly, or through the master's servicer
+(``JobMaster.attach_serve_frontend``: ``ServeSubmit``/``ServeCancel``
+ride ``report`` and ``ServePoll`` rides ``get``, as in the reference).
 
 Admission control is *fail fast or not at all*:
 

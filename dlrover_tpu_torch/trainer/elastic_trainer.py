@@ -115,7 +115,7 @@ class TrainerConfig:
     # Evaluation cadence: 0 disables periodic eval during fit().
     eval_every: int = 0
     eval_batches: int = 10
-    # Strategy search (ROADMAP Queue 1 item 10): refused.
+    # Strategy search (ROADMAP Queue 1 item 10c): refused.
     auto_tune: bool = False
     ce_chunks: int = 0
     # Numeric health (trainer/numeric_health.py): anomalies ship to the
@@ -195,7 +195,7 @@ class TrainerConfig:
 
 def _refuse_unported(config: TrainerConfig) -> None:
     """Raise for every option whose feature the port does not have yet."""
-    def later(what: str, item: int):
+    def later(what: str, item: str):
         raise NotImplementedError(
             f"{what} is a later slice of the port (ROADMAP Queue 1 item "
             f"{item})")
@@ -205,7 +205,7 @@ def _refuse_unported(config: TrainerConfig) -> None:
         if value not in ("none", "int8"):
             raise ValueError(f"{name} {value!r} must be 'none' or 'int8'")
     if config.auto_tune:
-        later("TrainerConfig.auto_tune", 10)
+        later("TrainerConfig.auto_tune", "10c")
     if config.warmup_compile:
         raise NotImplementedError(
             "TrainerConfig.warmup_compile: eager PyTorch has nothing to "

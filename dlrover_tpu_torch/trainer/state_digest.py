@@ -3,9 +3,9 @@
 
 Every replica of one train state holds the same bits, so one uint32 per
 replica turns that invariant into a vote (the master's digest ledger,
-ROADMAP Queue 1 item 10).  Construction, as in the reference: each leaf's
-raw bytes are summed (mod 2^32), then folded into a running accumulator
-with an odd multiplier, ``acc = acc * 1000003 + leaf_sum`` (mod 2^32).
+``master/speed_monitor.SpeedMonitor.record_digest``).  Construction, as
+in the reference: each leaf's raw bytes are summed (mod 2^32), then
+folded into a running accumulator with an odd multiplier, ``acc = acc * 1000003 + leaf_sum`` (mod 2^32).
 The multiplier is invertible mod 2^32, so one flipped bit anywhere
 changes the digest.  This is a corruption detector, not a hash.
 

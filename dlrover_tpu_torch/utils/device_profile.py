@@ -31,6 +31,12 @@ The traces.  A kineto trace (what ``torch.profiler`` exports) is read so:
   ops inside a ``wire:`` range on their thread are the collective's own
   host work, not compute.
 
+On a card the window also counts the launches of the port's own kernels
+(``PORT_KERNELS``, the ``__global__`` functions of ``ops/csrc``) by
+name, and the calibration event carries each count as a flat
+``kernel_<name>`` attribute, so the master's timeline shows which
+hand-written kernels ran in a profiled step.
+
 A trace in the reference's format (``process_name`` metadata naming a
 ``TPU``/``GPU``/``/device:`` plane, HLO-shaped op rows) is parsed exactly
 as the reference parses it.
@@ -104,6 +110,17 @@ MODULE_PREFIX = "module:"
 
 #: Kineto categories of the events that ran on the card.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The port's hand-written CUDA kernels (the ``__global__`` functions of
+#: ``ops/csrc``): a window on a card counts the launches of each by name.
+PORT_KERNELS = (
+    "flash_fwd_kernel", "flash_bwd_prep_kernel", "flash_bwd_kv_tile_kernel",
+    "flash_bwd_dq_kernel", "norm_bwd_kernel", "norm_param_reduce_kernel",
+    "expert_tables_kernel", "gmm_kernel", "copy_vec_kernel",
+    "copy_strided_kernel", "quantize_kernel", "dequantize_kernel",
+    "q8_adam_kernel", "q4_adam_kernel", "q4_code_check_kernel",
+    "copy_rows_kernel", "byte_sums_kernel",
+)
+_PORT_KERNEL_RE = re.compile(r"\b(" + "|".join(PORT_KERNELS) + r")\b")
 #: Kineto categories of host rows.
 _HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 
@@ -191,6 +208,9 @@ class DeviceWindow:
     legs: Dict[str, Tuple[float, float]] = dataclasses.field(
         default_factory=dict
     )
+    #: Launches of each of ``PORT_KERNELS`` in the window (a card's trace
+    #: only; names never launched are absent).
+    kernels: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def seconds(self, kind: str) -> float:
         return self.phases.get(kind, 0.0)
@@ -406,10 +426,15 @@ def _kineto_window(trace: KinetoTrace) -> Optional[DeviceWindow]:
     compute = 0.0
     compute_iv: List[Tuple[float, float]] = []
     leg_iv: Dict[str, List[Tuple[float, float]]] = {}
+    kernels: Dict[str, int] = {}
     count = 0
     for op in trace.ops:
         if op.collective and not trace.on_device:
             continue  # host work of a wire leg: its range books it
+        if trace.on_device:
+            found = _PORT_KERNEL_RE.search(op.name)
+            if found:
+                kernels[found.group(1)] = kernels.get(found.group(1), 0) + 1
         if op.collective:
             leg = _collective_leg(op.name) or "collective"
             leg_iv.setdefault(leg, []).append((op.t0, op.end))
@@ -430,8 +455,10 @@ def _kineto_window(trace: KinetoTrace) -> Optional[DeviceWindow]:
     if collective > 0.0:
         phases["collective"] = collective
     leg_s = {leg: _union_s(ivs) for leg, ivs in leg_iv.items()}
-    return _window(phases, compute_iv, collective_iv, leg_iv, leg_s,
-                   compute + collective, count)
+    window = _window(phases, compute_iv, collective_iv, leg_iv, leg_s,
+                     compute + collective, count)
+    window.kernels = kernels
+    return window
 
 
 def _window(phases, compute_iv, collective_iv, leg_iv, leg_s, total,
@@ -745,5 +772,7 @@ def emit_measured_phases(
     for leg, (seconds, frac) in sorted(window.legs.items()):
         attrs[f"leg_{leg}_s"] = round(seconds, 6)
         attrs[f"leg_{leg}_overlap"] = round(frac, 4)
+    for name, launches in sorted(window.kernels.items()):
+        attrs[f"kernel_{name}"] = launches
     telemetry.event("calibration", **attrs)
     return rows

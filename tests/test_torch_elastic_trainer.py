@@ -767,8 +767,12 @@ def test_runtime_env_contract(monkeypatch):
     finally:
         torch.distributed.destroy_process_group()
     monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "localhost:2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tenv.master_client()
+    monkeypatch.setenv("DLROVER_TPU_NODE_ID", "3")
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+
+    client = tenv.master_client()  # no connection until the first call
+    assert isinstance(client, MasterClient)
+    assert (client._addr, client.node_id) == ("localhost:2", 3)
     from dlrover_tpu.agent import training_agent as agent
 
     for name in ("ENV_MASTER_ADDR", "ENV_NODE_ID", "ENV_COORDINATOR",

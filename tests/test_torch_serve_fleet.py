@@ -17,6 +17,7 @@ back.  Every test seeds its own generators.
 """
 
 import glob
+import json
 import os
 import types
 
@@ -431,8 +432,19 @@ def test_role_guards(setup):
     # tp=2 in a world of one process: the logical 2 folded onto it.
     folded = ServingEngine(tcfg, state, tp=2, device="cpu")
     assert (folded.tp.logical_tp, folded.tp.physical_tp) == (2, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(tcfg, state, client=object(), device="cpu")
+    class Reports:
+        def __init__(self):
+            self.events = []
+
+        def report_event(self, event, detail=""):
+            self.events.append((event, json.loads(detail)))
+
+    reports = Reports()
+    reporting = ServingEngine(tcfg, state, client=reports, device="cpu")
+    seconds = reporting.aot_compile()
+    assert reports.events == [("compile", {
+        "seconds": round(seconds, 6), "restart": False,
+        "cached": seconds == 0.0, "phase": "serve_aot"})]
     with pytest.raises(ValueError, match="tp > 1"):
         pre.fold_tp(2)
     assert pre.kv_device_bytes() == 2 * 2 * 2 * SEQ * 64 * 4
