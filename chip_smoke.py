@@ -500,11 +500,17 @@ of the JAX package.  Phases, each one JSON line on stdout:
                ``train_ring2`` and ``train_pp2`` run in this process
                while ``train_dp2``'s ranks do
                (``world1_references_start``).
-9l. ``elastic_run``  the control plane's main path: a ``JobMaster(port=0,
-               num_nodes=1)`` in this process and ``python -m
-               dlrover_tpu_torch.run --master localhost:P --nnodes 1
-               --max-restarts 1 --monitor-interval 1`` running ``python -m
-               dlrover_tpu_torch.examples.train_lm`` with
+9l. ``elastic_run``  the control plane's main path: a job spec
+               (``ELASTIC_SPEC``, TOML: one node, ``hang_threshold``
+               ``ELASTIC_HANG_THRESHOLD``, the network check, one restart,
+               a monitor interval of 1 s, the checkpoint directory), a
+               ``JobMaster`` in this process built from it by
+               ``run._master_kwargs_from_spec`` with its HTTP plane
+               (``metrics_port``, ``healthz_hbm_floor``
+               ``ELASTIC_HBM_FLOOR``), and ``python -m
+               dlrover_tpu_torch.run --master localhost:P --job-spec``
+               running ``python -m dlrover_tpu_torch.examples.train_lm``
+               with
                ``ELASTIC_TRAINER_ARGV`` (GPT-2 1.5B's width at 2 layers,
                flash attention, Adafactor, 12 steps, saves every 4, a crash
                at step 10, a profiled step every 4, the memory report).
@@ -519,11 +525,30 @@ of the JAX package.  Phases, each one JSON line on stdout:
                recovery; the calibration ledger holds the profiled windows
                (routed through the servicer), the memory ledger the
                ``params`` pool, and the windows count K1 and K3 launches
-               (and no K2a).  Printed: the goodput split as the master
-               holds it (productive seconds, the restart from the crash's
-               ``process_exit`` to the next first step span, the
+               (and no K2a).  The node check on the card: the agent's
+               ``node_check`` span (ok), two check rounds, the master's
+               verdict ``done`` with no fault node, the golden digest in
+               the KV store equal to ``node_check.probe_result_digest``
+               replayed on ``cuda:0`` in this process after the launcher
+               exits, each probe reading between 0 and the card's bf16
+               peak.  The HTTP plane, scraped every ``ELASTIC_SCRAPE_S``
+               by a thread until the launcher exits (the master evicts a
+               finished node's snapshot): ``/healthz`` at headroom -1 and
+               ``hbm_ok`` before the first memory report, then headroom in
+               [0, floor) with ``hbm_ok`` and ``ok`` false and nothing
+               quarantined; ``/memory`` node 0's ``params`` pool;
+               ``/metrics`` the HBM pool gauges and goodput; ``/timeline``
+               the step spans.  The diagnosis chain: its passes counted
+               (about one a control-loop tick), no remediation executed;
+               any report is printed.  Printed: the goodput split as the
+               master holds it (productive seconds, the restart from the
+               crash's ``process_exit`` to the next first step span, the
                rendezvous, restore and checkpoint spans, the compile
-               ledger) and the wall times.  Started by
+               ledger), the probes' TFLOP/s and seconds beside the card,
+               the scrapes' seconds, the card's used MiB after the check
+               (its least reading, in ``--elastic``, the agent's context
+               while its trainer restarts), and the wall times.
+               Started by
                ``_after_fit_measured`` beside ``train_fit``'s end and
                ``train_dp2``; ``--fit``, ``--fit-gate``, ``--dp`` and
                ``--measure`` run it too.
@@ -2501,6 +2526,36 @@ ELASTIC_CRASH_RC, ELASTIC_RESUME_STEP, ELASTIC_STEPS = 17, 8, 12
 ELASTIC_TIMEOUT_S = 420
 #: The launcher's niceness (its agent and trainers inherit it).
 ELASTIC_NICE = 10
+#: The slowest restart gap (the crash's ``process_exit`` to the next
+#: trainer's first step) measured on the card (PERF.md §6), and the
+#: spec's ``hang_threshold``, about 2.5 times it: the diagnosis chain
+#: must not restart the world in the middle of the agent's own restart
+#: (``tests/test_torch_diagnosis.py`` pins at least twice the gap).
+ELASTIC_SLOWEST_RESTART_S = 24.12
+ELASTIC_HANG_THRESHOLD = 60
+#: ``/healthz``'s HBM floor: above any headroom the trainer leaves, so the
+#: ``hbm_ok`` branch flips once the first memory report lands.
+ELASTIC_HBM_FLOOR = 0.999
+#: Seconds between two scrapes of the master's HTTP plane.
+ELASTIC_SCRAPE_S = 2.0
+ELASTIC_SPEC = """api_version = "dlrover-tpu/v1"
+job_name = "elastic"
+
+[nodes]
+min = 1
+max = 1
+
+[master]
+hang_threshold = {hang_threshold}
+
+[trainer]
+network_check = true
+max_restarts = 1
+monitor_interval = 1
+
+[checkpoint]
+dir = "{ckpt_dir}"
+"""
 
 
 #: About 0.1 s of the card's clock: the host dispatches the digest while
@@ -2581,15 +2636,27 @@ def _captured_log(pattern):
 
 
 def _elastic_spies(master):
-    """Wraps four of ``master``'s entry points to keep what they saw:
-    each failure report (node, exit code, error), for each recovery the
+    """Wraps five of ``master``'s entry points to keep what they saw:
+    each failure report (node, exit code, error), each pass of the
+    diagnosis chain and what it gave the master to execute, for each
+    recovery the
     shards the node held (task ids) and the queue's head after it, and a
     node's timeline and memory snapshot as they were when the master
     evicted them (a node that succeeds leaves the job's observability
     series, as in the reference)."""
     seen = {"failures": [], "recoveries": [], "evicted_events": {},
-            "evicted_memory": {}}
+            "evicted_memory": {}, "diagnosis_passes": 0, "remediations": []}
     report_failure = master.node_manager.report_failure
+    run_diagnosis = master.diagnosis.run
+
+    def diagnosis(ctx):
+        actions = run_diagnosis(ctx)
+        seen["diagnosis_passes"] += 1
+        seen["remediations"].extend(
+            {"action": a.action, "reason": a.reason, "node": a.node_id}
+            for a in actions)
+        return actions
+
     recover = master.task_manager.recover_tasks
     evict_node = master.timeline.evict_node
     evict_memory = master.memory_ledger.evict
@@ -2624,6 +2691,7 @@ def _elastic_spies(master):
                                    "queue_head": head})
 
     master.node_manager.report_failure = failure
+    master.diagnosis.run = diagnosis
     master.task_manager.recover_tasks = recover_tasks
     master.timeline.evict_node = timeline_evict
     master.memory_ledger.evict = memory_evict
@@ -2666,17 +2734,144 @@ def _goodput_split(master, events):
     }
 
 
+def _device_used_mib():
+    """The card's used MiB as ``nvidia-smi`` reads it (every process), or
+    None without it."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits", "--id=0"],
+            capture_output=True, text=True, timeout=30).stdout
+        return int(out.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def _scrape_plane(port, stop, scrapes, card=False):
+    """Scrapes the master's HTTP plane every ``ELASTIC_SCRAPE_S`` until
+    ``stop`` is set: ``/healthz``'s document, node 0's ``params`` pool on
+    ``/memory``, the HBM pool and goodput gauges on ``/metrics``, the step
+    spans on ``/timeline``, each request's seconds, and (``card``) the
+    card's used MiB."""
+    import urllib.request
+
+    def get(path):
+        t = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=10) as resp:
+            body = resp.read()
+        return body, time.perf_counter() - t
+
+    while True:
+        rec = {}
+        try:
+            body, rec["healthz_s"] = get("/healthz")
+            rec["healthz"] = json.loads(body)
+            body, rec["memory_s"] = get("/memory")
+            rec["params_b"] = json.loads(body)["nodes"].get(
+                "0", {}).get("pool_params_b", 0)
+            body, rec["metrics_s"] = get("/metrics")
+            text = body.decode()
+            rec["hbm_pools"] = sorted(set(re.findall(
+                r'^dlrover_hbm_pool_bytes\{pool="(\w+)"\}', text, re.M)))
+            rec["goodput_gauge"] = bool(
+                re.search(r"^dlrover_goodput ", text, re.M))
+            body, rec["timeline_s"] = get("/timeline")
+            rec["timeline_steps"] = sum(
+                1 for e in json.loads(body).get("traceEvents", [])
+                if e.get("name") == "step")
+        except (OSError, ValueError) as e:
+            rec["error"] = repr(e)
+        if card:
+            rec["used_mib"] = _device_used_mib()
+        scrapes.append(rec)
+        if stop.wait(ELASTIC_SCRAPE_S):
+            return
+
+
+def _scrapes_summary(scrapes):
+    """What the checks read of the scrapes, and their costs."""
+    health = [r["healthz"] for r in scrapes if "healthz" in r]
+    under = [h for h in health if 0.0 <= h["hbm_headroom_frac"]
+             < ELASTIC_HBM_FLOOR]
+    times = {k: [r[k] for r in scrapes if k in r] for k in
+             ("healthz_s", "memory_s", "metrics_s", "timeline_s")}
+    # After the check's two rounds the agent holds its CUDA context for
+    # the rest of the run; while its trainer is down (the restart) it is
+    # the only holder in ``--elastic``, so the least reading then is the
+    # context's bytes (the whole script's other phases share the card).
+    after_check = [r["used_mib"] for r in scrapes
+                   if r.get("used_mib") is not None and r.get("healthz", {})
+                   .get("rdzv_rounds", {}).get("network-check") == 2]
+    return {
+        "scrapes": len(scrapes),
+        "errors": [r["error"] for r in scrapes if "error" in r][:3],
+        "first_healthz": health[0] if health else None,
+        "first_under_floor": under[0] if under else None,
+        "headroom_range": [min(h["hbm_headroom_frac"] for h in under),
+                           max(h["hbm_headroom_frac"] for h in under)]
+        if under else None,
+        "params_b": max((r.get("params_b", 0) for r in scrapes), default=0),
+        "hbm_pools": sorted({p for r in scrapes for p in r.get("hbm_pools",
+                                                               ())}),
+        "goodput_gauge": any(r.get("goodput_gauge") for r in scrapes),
+        "timeline_steps": max((r.get("timeline_steps", 0) for r in scrapes),
+                              default=0),
+        "max_s": {k: max(v, default=None) for k, v in times.items()},
+        "median_s": {k: statistics.median(v) if v else None
+                     for k, v in times.items()},
+        "card_used_mib": {
+            "first": next((r["used_mib"] for r in scrapes
+                           if r.get("used_mib") is not None), None),
+            "least_after_check": min(after_check, default=None),
+            "most": max(after_check, default=None)},
+    }
+
+
+#: ``node_check``'s log line: the TFLOP/s of each local card, the
+#: all-reduce's GB/s and the round's seconds.
+_PROBE_LINE = re.compile(
+    r"node check: matmul \[([^\]]*)\] TFLOPs, allreduce ([\d.]+) GB/s, "
+    r"([\d.]+)s")
+
+
+def _golden_replay(out, device):
+    """Replays ``node_check.probe_result_digest`` in this process on
+    ``device`` and holds it equal to the golden digest the agent recorded
+    (called outside the run's thread: the probe pins a process-wide
+    matmul flag for its duration)."""
+    from dlrover_tpu_torch.agent.node_check import probe_result_digest
+
+    check = out.get("node_check")
+    if check is None:
+        return out
+    check["replayed"] = probe_result_digest(device=device)
+    out["checks"]["golden_replayed_equal"] = (
+        check["replayed"] == check["golden"])
+    out["ok"] = all(out["checks"].values())
+    return out
+
+
 def elastic_run(scratch, trainer_argv=None, on_card=True):
-    """``python -m dlrover_tpu_torch.run`` against a ``JobMaster`` in this
-    process: the agent rendezvouses, runs ``train_lm`` (a subprocess of a
-    subprocess), reports its crash, restarts it; the master's ledgers are
-    read after the launcher exits.  ``on_card=False`` (a CPU rehearsal)
-    skips the profiled window's kernel counts."""
+    """``python -m dlrover_tpu_torch.run --job-spec`` against a
+    ``JobMaster`` in this process built from the same spec: the agent
+    checks the node, rendezvouses, runs ``train_lm`` (a subprocess of a
+    subprocess), reports its crash, restarts it; a thread scrapes the
+    master's HTTP plane meanwhile; the master's ledgers are read after the
+    launcher exits.  ``on_card=False`` (a CPU rehearsal) runs the node
+    check on the CPU and skips the profiled window's kernel counts and the
+    ``/healthz`` floor (the CPU prices no headroom).  The golden digest's
+    replay is ``_golden_replay``'s."""
+    import threading
+
+    from dlrover_tpu_torch import run as launcher_cli
+    from dlrover_tpu_torch.common.job_spec import load_job_spec
     from dlrover_tpu_torch.common.storage import (
         CheckpointDirLayout,
         PosixDiskStorage,
     )
     from dlrover_tpu_torch.master.job_master import JobMaster
+    from dlrover_tpu_torch.master.messages import free_port
 
     trainer_argv = ELASTIC_TRAINER_ARGV if trainer_argv is None \
         else trainer_argv
@@ -2697,22 +2892,44 @@ def elastic_run(scratch, trainer_argv=None, on_card=True):
                 "DLROVER_TPU_COORDINATOR"):
         env.pop(key, None)
     t0 = time.perf_counter()
-    master = JobMaster(port=0, num_nodes=1)
+    spec_path = os.path.join(scratch, "job.toml")
+    with open(spec_path, "w") as f:
+        f.write(ELASTIC_SPEC.format(hang_threshold=ELASTIC_HANG_THRESHOLD,
+                                    ckpt_dir=ckpt_dir))
+    spec = load_job_spec(spec_path)
+    master = JobMaster(port=0, num_nodes=spec.nodes.max,
+                       min_nodes=spec.nodes.min, metrics_port=free_port(),
+                       healthz_hbm_floor=ELASTIC_HBM_FLOOR,
+                       **launcher_cli._master_kwargs_from_spec(spec))
     seen = _elastic_spies(master)
     port = master.start()
     argv = [sys.executable, "-m", "dlrover_tpu_torch.run",
-            "--master", f"localhost:{port}", "--nnodes", "1",
-            "--node-id", "0", "--max-restarts", "1",
-            "--monitor-interval", "1", "--checkpoint-dir", ckpt_dir, "--",
+            "--master", f"localhost:{port}", "--node-id", "0",
+            "--job-spec", spec_path, "--node-check-device",
+            "cuda" if on_card else "cpu", "--",
             sys.executable, "-m", "dlrover_tpu_torch.examples.train_lm",
             *trainer_argv, "--checkpoint-dir", ckpt_dir]
-    out = {"argv": argv[2:]}
+    out = {"argv": argv[2:],
+           "spec_master": {"hang_threshold": master.hang_threshold,
+                           "cooldown_s": master.diagnosis.cooldown_s,
+                           "metrics_port": master.metrics_port,
+                           "healthz_hbm_floor": ELASTIC_HBM_FLOOR,
+                           "heartbeat_timeout":
+                               master.node_manager.HEARTBEAT_TIMEOUT}}
+    scrapes, stop_scrapes = [], threading.Event()
+    scraper = None
     try:
         proc = subprocess.Popen(argv, env=env, cwd=REPO,
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True,
                                 start_new_session=True)
         _ELASTIC["proc"] = proc
+        # The first scrape lands before the agent starts: no memory
+        # report has reached the master yet.
+        scraper = threading.Thread(
+            target=_scrape_plane, name="elastic-scraper", daemon=True,
+            args=(master.metrics_port, stop_scrapes, scrapes, on_card))
+        scraper.start()
         # Niced (the agent's trainers inherit it): the run has slack
         # beside ``train_fit``'s end and ``train_dp2``, whose host-bound
         # steps it must not slow.
@@ -2723,6 +2940,8 @@ def elastic_run(scratch, trainer_argv=None, on_card=True):
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
+            stop_scrapes.set()
+            scraper.join(timeout=30)
         out["launcher_rc"] = proc.returncode
         out["launcher_s"] = time.perf_counter() - t0
         with open(os.path.join(REPO, "build", "elastic_run.log"), "w") as f:
@@ -2764,9 +2983,30 @@ def elastic_run(scratch, trainer_argv=None, on_card=True):
             for node, snap in {**seen["evicted_memory"],
                                **master.memory_ledger.per_node()}.items()}
         out["goodput_split"] = _goodput_split(master, events)
+        netcheck = master.rdzv_managers["network-check"]
+        golden = master.kv_store.get("node_check_golden/0") or b""
+        out["node_check"] = {
+            "spans": [{"s": d, **a} for n, _, _, d, a in events
+                      if n == "node_check"],
+            "rounds": netcheck._rdzv_round,
+            "verdict": list(netcheck.check_fault_node()),
+            "golden": golden.decode(),
+            "probes": [{"tflops": [float(t.strip(" '")) for t in
+                                   tf.split(",") if t.strip()],
+                        "allreduce_gbps": float(bw), "round_s": float(sec)}
+                       for tf, bw, sec in _PROBE_LINE.findall(log)],
+        }
+        out["diagnosis"] = {
+            "passes": seen["diagnosis_passes"],
+            "remediations": seen["remediations"],
+            "reports": [{"action": a.action, "reason": a.reason,
+                         "node": a.node_id}
+                        for a in master.diagnosis.reports],
+        }
         if out["launcher_rc"] != 0:
             out["log_tail"] = log[-3000:]
     finally:
+        stop_scrapes.set()
         master.stop()
         arena = f"/dev/shm/dlrover_tpu_ckpt_{job}_h0"
         if os.path.exists(arena):
@@ -2785,6 +3025,11 @@ def elastic_run(scratch, trainer_argv=None, on_card=True):
                     k[len("kernel_"):], 0) + v
     out["window_launches"] = kernels
     pools = next(iter(out["memory_pools"].values()), {})
+    http = out["http"] = _scrapes_summary(scrapes)
+    first, under = http["first_healthz"] or {}, http["first_under_floor"]
+    check = out["node_check"]
+    readings = [t for p in check["probes"] for t in p["tflops"]]
+    spec_master = out["spec_master"]
     checks = {
         "launcher_exit_0": out["launcher_rc"] == 0,
         "one_failure_exit_17": [
@@ -2802,8 +3047,33 @@ def elastic_run(scratch, trainer_argv=None, on_card=True):
         "calibration_windows": bool(out["windows"])
         and bool(out["calibration"]["counts"]),
         "memory_params_pool": pools.get("pool_params_b", 0) > 0,
+        "spec_master": spec_master["hang_threshold"] == ELASTIC_HANG_THRESHOLD
+        and spec_master["cooldown_s"] == ELASTIC_HANG_THRESHOLD
+        and spec_master["metrics_port"] > 0,
+        "node_check_span_ok": [s.get("ok") for s in check["spans"]]
+        == [True],
+        "network_check_two_rounds": check["rounds"] == 2,
+        "network_check_verdict_done": check["verdict"] == [[], "done"],
+        "golden_recorded": re.fullmatch(r"[0-9a-f]{8}", check["golden"])
+        is not None,
+        "probe_readings_below_peak": len(check["probes"]) == 2
+        and bool(readings)
+        and all(0 < t < PEAK_BF16_FLOPS / 1e12 for t in readings),
+        "healthz_unknown_first": first.get("hbm_headroom_frac") == -1.0
+        and first.get("hbm_ok") is True,
+        "memory_params_pool_http": http["params_b"] > 0,
+        "metrics_hbm_pools_goodput": "params" in http["hbm_pools"]
+        and http["goodput_gauge"],
+        "timeline_step_spans": http["timeline_steps"] > 0,
+        "diagnosis_passes": out["diagnosis"]["passes"] >= 1,
+        "no_remediation": out["diagnosis"]["remediations"] == [],
     }
     if on_card:
+        # The card prices headroom: under the planted floor the health
+        # document flips, with nothing quarantined.
+        checks["healthz_under_floor"] = under is not None and (
+            under["hbm_ok"] is False and under["ok"] is False
+            and under["quarantined"] == [])
         # The profiled steps' kernels: K1 forward and K3 (the kv-tile
         # kernel without K2a's dq kernel beside it is the fused backward).
         checks["window_k1_k3"] = (
@@ -2851,7 +3121,10 @@ def elastic_run_and_check():
         elastic_start()
     _ELASTIC["thread"].join(timeout=ELASTIC_TIMEOUT_S + 60)
     out = {"phase": "elastic_run",
-           **_ELASTIC.get("out", {"ok": False, "error": "did not finish"}),
+           **_golden_replay(
+               _ELASTIC.get("out", {"ok": False, "error": "did not finish"}),
+               "cuda:0"),
+           "card": nvidia_smi(),
            "phase_wall_s": time.perf_counter() - _ELASTIC["t0"]}
     _elastic_stop()
     emit(out)

@@ -12,8 +12,8 @@ reaches the trainer through the environment (coordinator ``host:port``,
 process count, process id, restart count), which
 ``runtime/env.initialize`` turns into ``torch.distributed.
 init_process_group``.  The pre-flight network check (``--network-check``,
-``agent/node_check.py``) is ROADMAP Queue 1 item 10b's remainder and is
-refused.
+``agent/node_check.py``) probes the local cards in the agent's own process
+(``node_check_device``, ``cuda`` unless the caller asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -86,6 +86,10 @@ class ElasticLaunchConfig:
     max_restarts: int = 3
     monitor_interval: float = 5.0
     network_check: bool = False
+    # Where the network check's probes run: ``cuda`` (the local cards)
+    # unless the caller asks for ``cpu``; a failed probe is never rerun on
+    # another device.
+    node_check_device: str = "cuda"
     save_at_breakpoint: bool = False
     checkpoint_dir: str = ""
     rdzv_timeout: float = 600.0
@@ -202,11 +206,6 @@ class ElasticAgent:
         master_addr: str,
         node_id: int = 0,
     ):
-        if config.network_check:
-            raise NotImplementedError(
-                "the pre-flight network check (agent/node_check.py) is not "
-                "ported yet (ROADMAP Queue 1 item 10b's remainder)"
-            )
         self.config = config
         self.entrypoint = entrypoint
         self.master_addr = master_addr
@@ -581,6 +580,20 @@ class ElasticAgent:
     # -- main loop ------------------------------------------------------------
 
     def run(self) -> RunResult:
+        if self.config.network_check:
+            from dlrover_tpu_torch.agent.node_check import run_network_check
+
+            with self.telemetry.span("node_check") as sp:
+                ok = run_network_check(
+                    self.client, self.node_id,
+                    device=self.config.node_check_device)
+                if sp is not None:
+                    sp.attrs["ok"] = bool(ok)
+            if not ok:
+                self.client.report_failure(
+                    "network check failed", level="node"
+                )
+                return RunResult.FAILED
         self.start_async_saver(num_hosts=self.config.max_nodes)
         self._heartbeat_thread = threading.Thread(
             target=self._heartbeat_loop, name="agent-heartbeat", daemon=True

@@ -13,13 +13,12 @@ The schedulable unit is a host, so a ScalePlan is just a desired host count
   is relaunched through the launcher while relaunch budget remains;
 * **target tracking** — a manual/planned target (``set_target``) is
   converged on by launching or deleting hosts;
+* **observation-driven sizing** — with an ``optimizer``
+  (``master/brain.RunningJobOptimizer``) the target moves from the
+  observed throughput history, on a timer, with no operator input;
 * **serving** — ``ServeScalePolicy`` moves the target from the serve
   ledger; ``serving/fleet.ReplicaFleet.maybe_scale`` evaluates the same
   policy over the fleet's own statistics.
-
-The observation-driven sizing of the reference (its ``RunningJobOptimizer``,
-``master/brain.py``) is ROADMAP Queue 1 item 10b's remainder: ``optimizer``
-is refused.
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from collections import deque
 from typing import Callable, List, Optional
 
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.master.brain import Observation, RunningJobOptimizer
 from dlrover_tpu_torch.master.metrics import MetricsCollector
 from dlrover_tpu_torch.master.node_manager import NodeManager, NodeStatus
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
@@ -84,7 +84,8 @@ class JobAutoScaler:
         node_unit: int = 1,
         cooldown_s: float = 30.0,
         retire_hook: Optional[Callable[[int], None]] = None,
-        optimizer=None,
+        optimizer: Optional[RunningJobOptimizer] = None,
+        optimize_interval_s: float = 300.0,
         serve_policy: Optional[ServeScalePolicy] = None,
     ):
         self.node_manager = node_manager
@@ -98,17 +99,18 @@ class JobAutoScaler:
         # rendezvous eviction + shard requeue here so survivors see the
         # broken world and re-form instead of hanging in dead collectives.
         self.retire_hook = retire_hook
-        if optimizer is not None:
-            raise NotImplementedError(
-                "observation-driven sizing (master/brain.py) is not ported "
-                "yet (ROADMAP Queue 1 item 10b's remainder)"
-            )
+        # Observation-driven sizing (ref _periodic_optimize_running_resource):
+        # None disables; the repair/target-tracking loop still runs.
+        self.optimizer = optimizer
+        self.optimize_interval_s = optimize_interval_s
         # Latency/occupancy-driven serving replica policy: None disables.
         self.serve_policy = serve_policy
         self._target = max_nodes
         self._last_scale = 0.0
         self._lock = threading.Lock()
         self.plans: deque = deque(maxlen=256)
+        # First optimize only after a full interval of observations.
+        self._last_optimize = time.monotonic()
 
     def set_target(self, target_nodes: int, reason: str = "manual"):
         """Request a new world size (node_unit-aligned, clamped to range)."""
@@ -224,8 +226,53 @@ class JobAutoScaler:
             plan.reason = f"live {len(live)} > target {target}"
         return plan
 
+    def observe_and_optimize(self) -> None:
+        """Feed the running-job optimizer and move the target from its
+        recommendation — the observation-driven half of the scaler (ref
+        ``job_auto_scaler.py:161`` periodic optimize; no ``set_target``
+        call from any operator involved)."""
+        if self.optimizer is None:
+            return
+        now = time.monotonic()
+        statuses = self.node_manager.statuses(pool="worker")
+        live = sum(
+            1 for s in statuses.values() if s == NodeStatus.RUNNING.value
+        )
+        speed = self.speed_monitor.running_speed()
+        # Observations are recorded only for a STEADY world (live == target):
+        # right after a death/resize the speed window can still span the old
+        # world, and attributing its throughput to the new size poisons the
+        # per-size history (retreat would then permanently shrink the job).
+        if live > 0 and speed > 0 and live == self.target:
+            self.optimizer.observe(
+                Observation(
+                    num_nodes=live, speed=speed,
+                    goodput=self.speed_monitor.goodput(),
+                )
+            )
+        if now - self._last_optimize < self.optimize_interval_s:
+            return
+        self._last_optimize = now
+        if live == 0 or live != self.target:
+            # A repair or an in-flight resize is converging: sizing off a
+            # transiently-shrunk world would cancel the repair.
+            return
+        plan = self.optimizer.recommend(
+            current_nodes=live, min_nodes=self.min_nodes,
+            max_nodes=self.max_nodes, node_unit=self.node_unit,
+        )
+        if plan.num_nodes != self.target:
+            self.set_target(plan.num_nodes, reason=f"brain: {plan.reason}")
+        elif "degraded" in plan.reason:
+            # Same-size degradation is a world-HEALTH problem, not a sizing
+            # problem: surface it loudly so the operator (or the diagnosis
+            # chain reading the log/metrics) can act — silence here would
+            # let the job limp at a fraction of its proven speed forever.
+            logger.warning("brain health: %s", plan.reason)
+
     def observe_serving(self) -> None:
-        """Move the target from the serving ledger: p95-SLO breach or hot slot pools
+        """Move the target from the serving ledger (the serving analogue
+        of ``observe_and_optimize``): p95-SLO breach or hot slot pools
         scale out one node_unit; cold pools under half the SLO scale in.
         ``set_target`` clamps/aligns; the ``decide`` loop actuates under
         the usual cooldown."""
@@ -271,6 +318,7 @@ class JobAutoScaler:
 
     def step(self) -> Optional[ScalePlan]:
         """One control-loop tick: decide and actuate (cooldown-limited)."""
+        self.observe_and_optimize()
         self.observe_serving()
         now = time.monotonic()
         if now - self._last_scale < self.cooldown_s:

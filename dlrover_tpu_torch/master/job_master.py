@@ -5,15 +5,6 @@ Capability ref: ``dlrover/python/master/dist_master.py:86-304``
 (``prepare()``, 30s ``run()`` loop) and ``local_master.py`` (the standalone
 variant ``dlrover-run`` spawns when no cluster control plane exists).
 One class covers both here: the platform seam is the NodeLauncher.
-
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
-Queue 1 item 10b's remainder when asked for: ``hang_threshold`` (the
-diagnosis chain, ``master/diagnosis.py``: the control loop runs no
-inference chain until it lands), an elastic range ``min_nodes <
-num_nodes`` and ``brain_overrides`` (the running-job optimizer,
-``master/brain.py``; fixed-size jobs and the repair loop run),
-``metrics_port`` and ``healthz_hbm_floor`` (the HTTP plane), a launcher
-that reconciles cloud VMs (the cloud launcher) and the ``coworker`` pool.
 """
 
 from __future__ import annotations
@@ -36,16 +27,14 @@ from dlrover_tpu_torch.master.servicer import MasterServicer, start_master_serve
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.task_manager import TaskManager
 
-#: What every refusal of this module names.
-REMAINDER = "ROADMAP Queue 1 item 10b's remainder"
-
-
-def _refuse(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({REMAINDER})")
-
 
 class JobMaster:
     CONTROL_LOOP_INTERVAL = 10.0
+    # Consecutive reconcile ticks a PENDING node's current-generation VM
+    # must read dead before it is failed: one tick of grace absorbs cloud
+    # list() caches that serve the pre-delete record briefly after a
+    # replacement create lands.
+    PENDING_DEAD_TICKS = 2
 
     def __init__(
         self,
@@ -59,26 +48,13 @@ class JobMaster:
         heartbeat_timeout: float = 0.0,
         hang_threshold: float = 0.0,
         auto_scale: bool = True,
+        optimize_interval_s: float = 300.0,
         state_path: str = "",
         brain_overrides: Optional[Dict[str, float]] = None,
         pools: Optional[Dict[str, int]] = None,
         metrics_port: int = 0,
         healthz_hbm_floor: float = 0.0,
     ):
-        if hang_threshold > 0:
-            _refuse("hang_threshold (the diagnosis chain, master/diagnosis.py)")
-        if (min_nodes and min_nodes < num_nodes) or brain_overrides:
-            _refuse("an elastic node range (the running-job optimizer, "
-                    "master/brain.py)")
-        if metrics_port > 0 or healthz_hbm_floor > 0:
-            _refuse("metrics_port / healthz_hbm_floor (the HTTP plane, "
-                    "master/http_plane.py)")
-        if "coworker" in (pools or {}):
-            _refuse("the coworker pool (data/coworker.py, "
-                    "data/coworker_service.py)")
-        if hasattr(launcher, "reconcile"):
-            _refuse("a cloud launcher (master/cloud_launcher.py, "
-                    "master/tpu_api.py)")
         from dlrover_tpu_torch.master.calibration import CalibrationLedger
         from dlrover_tpu_torch.master.memory_ledger import MemoryLedger
         from dlrover_tpu_torch.master.timeline import JobTimeline
@@ -91,6 +67,7 @@ class JobMaster:
         self.metrics = MetricsCollector()
         self.timeline = JobTimeline()
         self._launcher = launcher
+        self._pending_dead_ticks: Dict[int, int] = {}
         self.node_manager = NodeManager(
             num_nodes=num_nodes,
             launcher=launcher,
@@ -111,8 +88,8 @@ class JobMaster:
                 self.memory_ledger.evict(node_id)
 
         self.node_manager.add_callback(_evict_observability)
-        # A fixed-size job gets the repair loop alone (the observation-
-        # driven sizing of an elastic range is refused above).
+        from dlrover_tpu_torch.master.brain import RunningJobOptimizer
+
         self.auto_scaler = JobAutoScaler(
             self.node_manager,
             self.speed_monitor,
@@ -121,7 +98,25 @@ class JobMaster:
             max_nodes=num_nodes,
             node_unit=node_unit,
             retire_hook=self._handle_node_retired,
+            # Observation-driven sizing only makes sense with an elastic
+            # range; a fixed-size job gets the repair loop alone.
+            # brain_overrides: the job spec's [brain] thresholds
+            # (common/job_spec.py BrainSpec).
+            optimizer=RunningJobOptimizer(**(brain_overrides or {}))
+            if (min_nodes and min_nodes < num_nodes) else None,
+            optimize_interval_s=optimize_interval_s,
         ) if auto_scale else None
+        # Hang remediation (ref CheckTrainingHangOperator +
+        # atorch HangingDetector): 0 disables.
+        self.hang_threshold = hang_threshold
+        from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
+
+        # Remediation re-fire gate keeps the pre-diagnosis semantics: wait
+        # at least hang_threshold between world restarts (a restore slower
+        # than a short fixed cooldown must not be re-broken mid-restore).
+        self.diagnosis = DiagnosisManager(
+            cooldown_s=hang_threshold or 120.0
+        )
         # Master-restart persistence (ref util/state/store_mananger.py).
         self._state_store = None
         if state_path:
@@ -160,6 +155,10 @@ class JobMaster:
         )
         self._server = None
         self.port = port
+        # Live scrape surface (master/http_plane.py); 0 = off.
+        self.metrics_port = metrics_port
+        self.healthz_hbm_floor = healthz_hbm_floor
+        self.http_plane = None
         self._stop = threading.Event()
         self._loop_thread: Optional[threading.Thread] = None
 
@@ -188,6 +187,14 @@ class JobMaster:
 
     def prepare(self):
         self._server, self.port = start_master_server(self.servicer, self.port)
+        if self.metrics_port > 0 and self.http_plane is None:
+            from dlrover_tpu_torch.master.http_plane import MetricsHTTPServer
+
+            self.http_plane = MetricsHTTPServer(
+                self.servicer, port=self.metrics_port,
+                healthz_hbm_floor=self.healthz_hbm_floor,
+            )
+            self.metrics_port = self.http_plane.start()
 
     def start(self):
         # Restore BEFORE the server opens: a reconnecting agent racing
@@ -209,9 +216,11 @@ class JobMaster:
                 newly_dead = self.node_manager.check_heartbeats()
                 for node_id in newly_dead:
                     self._handle_node_death(node_id)
+                self._reconcile_cloud()
                 self.task_manager.reassign_timeout_tasks()
                 if self.auto_scaler is not None:
                     self.auto_scaler.step()
+                self._run_diagnosis()
                 if self._state_store is not None:
                     self._state_store.save(self)
             except Exception as e:
@@ -272,6 +281,114 @@ class JobMaster:
         for node_id in sorted(self.node_manager.statuses()):
             self.node_manager.launch_node(node_id, bootstrap=True)
 
+    def _reconcile_cloud(self):
+        """Map cloud VM states onto the inventory (the reference's pod
+        Watcher role, as a poll — ``pod_watcher.py`` equivalent): a
+        PREEMPTED/TERMINATED VM behind a node the master still thinks is
+        alive gets the node-death treatment without waiting out the
+        heartbeat timeout."""
+        reconcile = getattr(self._launcher, "reconcile", None)
+        if reconcile is None:
+            return
+        from dlrover_tpu_torch.master.cloud_launcher import TpuVmState
+        from dlrover_tpu_torch.master.node_manager import NodeStatus
+
+        statuses = self.node_manager.statuses()
+        vm_is_current = getattr(self._launcher, "vm_is_current", None)
+        pending_dead_seen = set()
+        for node_id, vm_state in reconcile().items():
+            if vm_state in (TpuVmState.PREEMPTED, TpuVmState.TERMINATED):
+                status = statuses.get(node_id)
+                if status == NodeStatus.RUNNING.value:
+                    logger.warning(
+                        "cloud reconcile: node %d VM is %s", node_id, vm_state
+                    )
+                    self.node_manager.report_event(
+                        node_id, "failed", f"vm {vm_state}"
+                    )
+                    self._handle_node_death(node_id)
+                elif status == NodeStatus.PENDING.value and (
+                    vm_is_current is not None and vm_is_current(node_id)
+                ):
+                    # A VM preempted after its create landed but before the
+                    # agent's first heartbeat: without this the node stays
+                    # PENDING forever and wedges the rendezvous.  The
+                    # generation check keeps the old behavior for the stale
+                    # VM a relaunch is still replacing, and the
+                    # consecutive-tick debounce covers laggy cloud list()
+                    # caches that keep serving the pre-delete record for a
+                    # few ticks after the replacement create landed.
+                    pending_dead_seen.add(node_id)
+                    ticks = self._pending_dead_ticks.get(node_id, 0) + 1
+                    self._pending_dead_ticks[node_id] = ticks
+                    if ticks < self.PENDING_DEAD_TICKS:
+                        continue
+                    self._pending_dead_ticks.pop(node_id, None)
+                    logger.warning(
+                        "cloud reconcile: PENDING node %d's current VM "
+                        "died before first heartbeat (%s)",
+                        node_id, vm_state,
+                    )
+                    self.node_manager.report_event(
+                        node_id, "failed", f"vm {vm_state} before startup"
+                    )
+        # A healthy observation resets the debounce.
+        for node_id in list(self._pending_dead_ticks):
+            if node_id not in pending_dead_seen:
+                del self._pending_dead_ticks[node_id]
+
+    def _run_diagnosis(self):
+        """One inference-chain pass; execute what it prescribes (ref
+        ``inference_chain.py:28-62`` + ``check_training_hang_operator``)."""
+        from dlrover_tpu_torch.master.diagnosis import (
+            ActionType,
+            DiagnosisContext,
+        )
+
+        ctx = DiagnosisContext(
+            speed_monitor=self.speed_monitor,
+            metrics=self.metrics,
+            node_manager=self.node_manager,
+            hang_threshold=self.hang_threshold,
+            timeline=self.timeline,
+            memory=self.memory_ledger,
+        )
+        for action in self.diagnosis.run(ctx):
+            logger.error("diagnosis remediation: %s (%s)",
+                         action.action, action.reason)
+            if action.action == ActionType.RESTART_WORLD:
+                for manager in self.rdzv_managers.values():
+                    manager.invalidate_world()
+                self.speed_monitor.reset_running_speed()
+            elif action.action == ActionType.RELAUNCH_NODE:
+                # The target still heartbeats (it is wedged, not dead):
+                # force teardown + relaunch, not the repair-path launch that
+                # no-ops on RUNNING nodes.
+                self.node_manager.force_relaunch(action.node_id)
+            elif action.action == ActionType.QUARANTINE:
+                self._quarantine_node(action.node_id, action.reason)
+
+    def _quarantine_node(self, node_id: int, reason: str):
+        """Eject a silently-corrupting host: blacklist it, ban it from every
+        rendezvous, request a replacement, and restart the world onto the
+        last verified checkpoint (the survivors' re-join goes through the
+        cross-world restore path, which drops the poisoned in-memory
+        state)."""
+        self.node_manager.quarantine(node_id, reason)
+        for manager in self.rdzv_managers.values():
+            manager.ban_node(node_id)
+            manager.invalidate_world()
+        self.servicer.sync_service.remove_node(node_id)
+        self.task_manager.recover_tasks(node_id)
+        self.speed_monitor.record_sdc_quarantine(node_id)
+        # A quarantined host's memory snapshot must not keep weighing on
+        # the fleet headroom aggregates (same contract as retirement).
+        self.memory_ledger.evict(node_id)
+        self.speed_monitor.begin_resize(reason=f"quarantine:{node_id}")
+        self.speed_monitor.reset_running_speed()
+        if self.auto_scaler is not None:
+            self.auto_scaler.note_quarantine(node_id)
+
     def _handle_node_death(self, node_id: int):
         """Silent host death (heartbeat timeout) gets the same recovery as a
         reported failure (ref ``dist_job_manager.py:355-400``): evict it from
@@ -308,6 +425,9 @@ class JobMaster:
         self._stop.set()
         if self._loop_thread:
             self._loop_thread.join(timeout=5)
+        if self.http_plane is not None:
+            self.http_plane.stop()
+            self.http_plane = None
         if self._server:
             self._server.stop()
             self._server = None
@@ -340,11 +460,12 @@ def main():  # python -m dlrover_tpu_torch.master.job_master --port N --nodes N
     parser.add_argument("--node-unit", type=int, default=1)
     parser.add_argument("--heartbeat-timeout", type=float, default=0.0)
     parser.add_argument("--metrics-port", type=int, default=0,
-                        help="HTTP scrape port (refused: ROADMAP Queue 1 "
-                             "item 10b's remainder)")
+                        help="HTTP scrape port for /metrics /timeline "
+                             "/healthz /memory (0 = off)")
     parser.add_argument("--healthz-hbm-floor", type=float, default=0.0,
-                        help="/healthz memory floor (refused with "
-                             "--metrics-port)")
+                        help="flip /healthz not-ok when measured HBM "
+                             "headroom drops below this fraction "
+                             "(0 = off)")
     args = parser.parse_args()
     master = JobMaster(
         port=args.port, num_nodes=args.nodes, node_unit=args.node_unit,

@@ -334,8 +334,8 @@ class ParalConfig:
 @dataclasses.dataclass
 class BatchFetch:
     """Cross-host coworker data service: one batch, please (ref
-    ``protos/coworker.proto`` GetBatchData).  The service itself is ROADMAP
-    Queue 1 item 10b's remainder; the message keeps the wire's set whole."""
+    ``protos/coworker.proto`` GetBatchData; served by
+    ``data/coworker_service.CoworkerDataServer``)."""
 
     consumer: str = ""
     timeout_s: float = 10.0

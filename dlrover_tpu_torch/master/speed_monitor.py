@@ -26,6 +26,10 @@ class SpeedMonitor:
         self._global_step = 0
         self._tokens_cum = 0
         self._start_time = time.time()
+        # When the hang clock last restarted: the job's start, then each
+        # reset of the running speed (a restart's downtime is measured
+        # from the restart, not from the job's start).
+        self._stalled_since = self._start_time
         self._productive_s = 0.0
         self._last_step_time: Optional[float] = None
         self._first_step_time: Optional[float] = None
@@ -652,6 +656,7 @@ class SpeedMonitor:
         with self._lock:
             self._samples.clear()
             self._last_step_time = None
+            self._stalled_since = time.time()
 
     @property
     def global_step(self) -> int:
@@ -685,8 +690,12 @@ class SpeedMonitor:
             return min(1.0, self._productive_s / total)
 
     def no_progress_for(self) -> float:
-        """Seconds since the last step advance (hang detection input)."""
+        """Seconds since the last step advance (hang detection input), or
+        since the last reset of the running speed when no step advanced
+        after it.  The reference counts from the job's start there, so a
+        hang threshold shorter than the job's age restarts the world in
+        the middle of every restart (ROADMAP Queue 3 item 18)."""
         with self._lock:
             if self._last_step_time is None:
-                return time.time() - self._start_time
+                return time.time() - self._stalled_since
             return time.time() - self._last_step_time

@@ -1,12 +1,11 @@
 """The port's master and agent client over its standard-library transport:
 ``tests/test_control_plane.py``'s cases against ``dlrover_tpu_torch``,
-the restricted unpickler, the grpc-free imports and the refusals of what
-ROADMAP Queue 1 item 10b's remainder holds.
+the restricted unpickler, the grpc-free imports, and the options of the
+master, the launcher, the agent and the scaler that the port once refused
+(each case now holds the option accepted and wired).
 
 The cases mirror the reference's one for one (the same names, inputs and
-assertions); the only change is the master-restart case's node range,
-fixed at 2 (the port refuses an elastic range until the running-job
-optimizer lands), which seals the same world at the same round.
+assertions).
 """
 
 import os
@@ -29,7 +28,6 @@ from dlrover_tpu_torch.master.servicer import GET, recv_frame, send_frame
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REMAINDER = "item 10b's remainder"
 
 
 @pytest.fixture(scope="module")
@@ -252,7 +250,7 @@ def test_master_kill_restart_agents_rejoin_monotonic_round(tmp_path):
     wire — the re-formed world's rendezvous round must be strictly
     greater than any round the dead master sealed."""
     path = str(tmp_path / "master_state.json")
-    first = JobMaster(port=0, num_nodes=2, min_nodes=2, state_path=path)
+    first = JobMaster(port=0, num_nodes=2, min_nodes=1, state_path=path)
     first.start()
     try:
         a0 = MasterClient(f"localhost:{first.port}", node_id=0)
@@ -267,7 +265,7 @@ def test_master_kill_restart_agents_rejoin_monotonic_round(tmp_path):
     finally:
         first.stop()  # the kill: all in-memory state gone
 
-    fresh = JobMaster(port=0, num_nodes=2, min_nodes=2, state_path=path)
+    fresh = JobMaster(port=0, num_nodes=2, min_nodes=1, state_path=path)
     fresh.start()
     try:
         # Restore alone already keeps the counter monotonic...
@@ -413,10 +411,16 @@ def test_control_plane_imports_without_grpc():
     assert result.returncode == 0, result.stderr[-2000:]
 
 
-# -- refusals ----------------------------------------------------------------
+# -- the options once refused ------------------------------------------------
+#
+# The three tests keep the names of the refusals they replace, with the
+# same ids; each case now holds its option accepted and wired.
 
 
 class _CloudLauncher:
+    def __init__(self):
+        self.reconciles = 0
+
     def launch(self, node_id):
         pass
 
@@ -424,50 +428,113 @@ class _CloudLauncher:
         pass
 
     def reconcile(self):
+        self.reconciles += 1
         return {}
+
+
+def _http_json(port, path):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as resp:
+        return json.loads(resp.read())
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(hang_threshold=30.0),
     dict(num_nodes=4, min_nodes=2),
-    dict(brain_overrides={"degrade_ratio": 0.5}),
-    dict(metrics_port=9100),
-    dict(healthz_hbm_floor=0.1),
+    dict(num_nodes=4, min_nodes=2, brain_overrides={"degrade_threshold": 0.5}),
+    dict(metrics_port=-1),
+    dict(metrics_port=-1, healthz_hbm_floor=0.1),
     dict(pools={"coworker": 2}),
     dict(launcher=_CloudLauncher()),
 ], ids=["hang_threshold", "elastic_range", "brain", "metrics_port",
         "healthz", "coworker", "cloud"])
 def test_job_master_refuses_the_remainder(kwargs):
-    with pytest.raises(NotImplementedError, match=REMAINDER):
-        JobMaster(port=0, **kwargs)
+    """Each option the port's master once refused is accepted and wired:
+    the diagnosis chain's cooldown, the running-job optimizer over an
+    elastic range (with the spec's thresholds), the HTTP plane on its port
+    (and its ``/healthz`` floor), the coworker pool, and a launcher whose
+    ``reconcile`` the control loop's tick calls."""
+    from dlrover_tpu_torch.master.brain import RunningJobOptimizer
+
+    if kwargs.get("metrics_port") == -1:
+        kwargs = dict(kwargs, metrics_port=msg.free_port())
+    m = JobMaster(port=0, **kwargs)
+    m.start()
+    try:
+        if "hang_threshold" in kwargs:
+            assert m.hang_threshold == 30.0
+            assert m.diagnosis.cooldown_s == 30.0
+        if "min_nodes" in kwargs:
+            opt = m.auto_scaler.optimizer
+            assert isinstance(opt, RunningJobOptimizer)
+            assert opt.degrade_threshold == kwargs.get(
+                "brain_overrides", {}).get("degrade_threshold", 0.7)
+            rdzv = m.rdzv_managers["elastic-training"]._params
+            assert (rdzv.min_nodes, rdzv.max_nodes) == (2, 4)
+        if "metrics_port" in kwargs:
+            health = _http_json(m.metrics_port, "/healthz")
+            assert health["ok"] is True and health["hbm_headroom_frac"] == -1
+            assert m.http_plane.healthz_hbm_floor == kwargs.get(
+                "healthz_hbm_floor", 0.0)
+        if "pools" in kwargs:
+            assert sorted(m.node_manager.statuses(pool="coworker")) == [
+                10_000, 10_001]
+        if "launcher" in kwargs:
+            m._reconcile_cloud()
+            assert kwargs["launcher"].reconciles >= 1
+    finally:
+        m.stop()
+    assert m.http_plane is None
 
 
 @pytest.mark.parametrize("argv", [
     ["--job-spec", "job.toml", "--", "true"],
-    ["--master-only", "--cloud"],
+    ["--master-only", "--cloud", "--job-spec", "job.toml"],
     ["--network-check", "--", "true"],
     ["--nnodes", "1:2", "--", "true"],
 ], ids=["job_spec", "cloud", "network_check", "elastic_range"])
-def test_run_refuses_the_remainder(argv):
+def test_run_refuses_the_remainder(argv, tmp_path):
+    """Each launcher flag the port once refused parses and reaches the
+    place that uses it."""
     from dlrover_tpu_torch import run
 
-    with pytest.raises(NotImplementedError, match=REMAINDER):
-        run._parse_args(argv)
+    spec = tmp_path / "job.toml"
+    spec.write_text('job_name = "j"\n[nodes]\nmin = 1\nmax = 2\n'
+                    '[trainer]\nmax_restarts = 7\n')
+    args = run._parse_args([str(spec) if a == "job.toml" else a
+                            for a in argv])
+    if "--job-spec" in argv:
+        assert args.spec.job_name == "j" and args.nnodes == "1:2"
+        assert args.max_restarts == 7
+    if "--cloud" in argv:
+        assert args.cloud and args.master_only
+    if "--network-check" in argv:
+        assert args.network_check and args.node_check_device == "cuda"
+    if "--nnodes" in argv:
+        assert run._parse_nnodes(args.nnodes) == (1, 2)
 
 
 def test_agent_and_scaler_refuse_the_remainder():
+    """The agent takes ``network_check`` (its probes on the cards unless
+    the config asks for the CPU) and the scaler an ``optimizer``."""
     from dlrover_tpu_torch.agent.training_agent import (
         ElasticAgent,
         ElasticLaunchConfig,
     )
     from dlrover_tpu_torch.master.auto_scaler import JobAutoScaler
+    from dlrover_tpu_torch.master.brain import RunningJobOptimizer
     from dlrover_tpu_torch.master.node_manager import NodeManager
 
-    with pytest.raises(NotImplementedError, match=REMAINDER):
-        ElasticAgent(ElasticLaunchConfig(network_check=True), ["true"],
-                     "localhost:1")
-    with pytest.raises(NotImplementedError, match=REMAINDER):
-        JobAutoScaler(NodeManager(), SpeedMonitor(), optimizer=object())
+    agent = ElasticAgent(ElasticLaunchConfig(network_check=True), ["true"],
+                         "localhost:1")
+    assert agent.config.network_check
+    assert agent.config.node_check_device == "cuda"
+    opt = RunningJobOptimizer()
+    scaler = JobAutoScaler(NodeManager(), SpeedMonitor(), optimizer=opt)
+    assert scaler.optimizer is opt and scaler.optimize_interval_s == 300.0
     # Pools other than the coworker's are the node manager's own.
     m = JobMaster(port=0, num_nodes=1, pools={"embed": 1})
     assert m.node_manager.pool_of(10_000) == "embed"

@@ -1,5 +1,7 @@
 """The port stands alone: no JAX, flax or optax, and nothing of the JAX
-package, anywhere in ``dlrover_tpu_torch/`` or ``chip_smoke.py``.
+package, anywhere in ``dlrover_tpu_torch/`` or ``chip_smoke.py``; no
+``grpc`` (the card has no grpcio), and ``yaml`` only in the job spec's
+guarded ``.yaml`` load (the card has no pyyaml).
 
 An AST scan of every import statement (including those inside
 functions), so a lazy import cannot slip past.
@@ -13,6 +15,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "dlrover_tpu_torch")
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "dlrover_tpu"}
+#: Packages the card lacks, and the one module allowed to import each
+#: (behind a guard that names the package when it is missing).
+ABSENT_ON_CARD = {"grpc": (), "yaml": ("dlrover_tpu_torch/common/job_spec.py",)}
 
 
 def _port_files():
@@ -56,6 +61,15 @@ def test_port_has_the_expected_files():
         "dlrover_tpu_torch/runtime/mesh.py",
         "dlrover_tpu_torch/parallel/quantized_collectives.py",
         "dlrover_tpu_torch/optimizers/zero1.py",
+        "dlrover_tpu_torch/master/diagnosis.py",
+        "dlrover_tpu_torch/master/brain.py",
+        "dlrover_tpu_torch/master/http_plane.py",
+        "dlrover_tpu_torch/common/job_spec.py",
+        "dlrover_tpu_torch/agent/node_check.py",
+        "dlrover_tpu_torch/master/cloud_launcher.py",
+        "dlrover_tpu_torch/master/tpu_api.py",
+        "dlrover_tpu_torch/data/coworker.py",
+        "dlrover_tpu_torch/data/coworker_service.py",
     ):
         assert need in rel
 
@@ -70,3 +84,33 @@ def test_no_jax_or_reference_package_imports(path):
         if mod.split(".")[0] in FORBIDDEN_ROOTS
     ]
     assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_import_of_a_package_the_card_lacks(path):
+    rel = os.path.relpath(path, REPO)
+    bad = [
+        f"{rel}:{line} imports {mod}"
+        for line, mod in _imported_modules(path)
+        if mod.split(".")[0] in ABSENT_ON_CARD
+        and rel not in ABSENT_ON_CARD[mod.split(".")[0]]
+    ]
+    assert not bad, "\n".join(bad)
+
+
+def test_the_yaml_import_is_guarded():
+    """The one ``yaml`` import sits in a ``try`` that turns its absence
+    into a ``JobSpecError``."""
+    path = os.path.join(REPO, "dlrover_tpu_torch", "common", "job_spec.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    guarded = [
+        node for node in ast.walk(tree) if isinstance(node, ast.Try)
+        and any(isinstance(s, ast.Import) and s.names[0].name == "yaml"
+                for s in node.body)
+        and any(getattr(h.type, "id", "") == "ModuleNotFoundError"
+                for h in node.handlers)
+    ]
+    assert len(guarded) == 1
